@@ -1,0 +1,218 @@
+"""GemmSpec / EpilogueSpec and the epilogue registry (port of
+``repro.core.gemm_spec``).
+
+:class:`GemmSpec` names one GEMM shape family (2-D vs grouped, dense vs
+pre-packed or tile-sparse B, transposition flags, output dtype).
+:class:`EpilogueSpec` names what happens to the f32 accumulator after the K
+loop: scalar dequant, alpha, bias, a registry-selected tail (activation,
+gated activation, residual add) and beta·C.
+
+:func:`apply_epilogue` is the single implementation of the epilogue
+semantics on tensors; the plain GEMM (``kernels/mpgemm.py``) calls it, and
+the CUDA kernel's epilogue repeats it in the same order.  This slice
+registers the forward tails of ``linear``, ``gated`` and ``residual``; the
+``quant_in`` families and the backward rules come with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+ACTIVATIONS = {
+    None: lambda x: x,
+    "none": lambda x: x,
+    "relu": torch.relu,
+    # jax.nn.gelu defaults to the tanh approximation; torch's to the exact
+    # erf form -- the port must ask for tanh explicitly.
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+}
+
+
+# --- the fused-epilogue registry ---------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EpilogueDef:
+    """One registered epilogue family: ``tail(ep, acc, extras)`` maps the
+    post-bias f32 accumulator to the output block; ``extras`` is a dict of
+    the entry's named (M, N) operands."""
+
+    kind: str
+    extra_operands: Tuple[str, ...]
+    tail: Callable
+
+
+_EPILOGUES: Dict[str, EpilogueDef] = {}
+
+
+def register_epilogue(kind: str, *, extra_operands: Tuple[str, ...] = ()):
+    """Register a fused-epilogue family under ``kind`` (decorator)."""
+    def deco(tail: Callable) -> Callable:
+        if kind in _EPILOGUES:
+            raise ValueError(f"epilogue {kind!r} already registered")
+        _EPILOGUES[kind] = EpilogueDef(kind, tuple(extra_operands), tail)
+        return tail
+    return deco
+
+
+def get_epilogue(kind: str) -> EpilogueDef:
+    try:
+        return _EPILOGUES[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown epilogue kind {kind!r}; registered: "
+            f"{sorted(_EPILOGUES)}") from None
+
+
+# --- specs -------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EpilogueSpec:
+    """Everything applied to the accumulator before it is stored.
+
+    Order of operations (``apply_epilogue``)::
+
+        acc = acc(f32) * scale        # scalar dequant, when a scale is fed
+        acc = alpha * acc
+        acc = acc + bias
+        acc = tail(acc)               # registry: act(acc) | act(acc)·g | ...
+        acc = acc + beta * c
+    """
+
+    kind: str = "linear"
+    activation: Optional[str] = None
+    alpha: float = 1.0
+    beta: float = 0.0
+
+    def __post_init__(self):
+        get_epilogue(self.kind)  # raises on unknown kinds
+        if self.activation not in ACTIVATIONS:
+            raise ValueError(
+                f"unknown activation {self.activation!r}; valid: "
+                f"{sorted(k for k in ACTIVATIONS if k)}")
+
+    @property
+    def extra_operands(self) -> Tuple[str, ...]:
+        return get_epilogue(self.kind).extra_operands
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmSpec:
+    """Static description of one GEMM instance family (same fields as the
+    reference; the port's kernel takes the dense 2-D subset so far)."""
+
+    grouped: bool = False
+    packed: bool = False
+    sparse: bool = False
+    trans_a: bool = False
+    trans_b: bool = False
+    out_dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self):
+        if self.packed and self.sparse:
+            raise ValueError("packed and sparse B are mutually exclusive")
+        if (self.packed or self.sparse) and self.trans_b:
+            raise ValueError(
+                "packed/sparse B has its transpose resolved at pack time")
+
+
+# --- the one epilogue implementation -----------------------------------------
+
+def apply_epilogue(ep: EpilogueSpec, acc, *, bias=None, scale=None, c=None,
+                   extras=()):
+    """Apply ``ep`` to an f32 accumulator tensor.
+
+    ``extras`` is a tuple in the registry entry's ``extra_operands`` order;
+    ``bias``/``c`` must broadcast against ``acc``; ``scale`` is a scalar.
+    """
+    ed = get_epilogue(ep.kind)
+    if scale is not None:
+        acc = acc.float() * scale
+    if ep.alpha != 1.0:
+        acc = acc * ep.alpha
+    if bias is not None:
+        acc = acc + bias.to(acc.dtype)
+    acc = ed.tail(ep, acc, dict(zip(ed.extra_operands, extras)))
+    if ep.beta != 0.0:
+        if c is None:
+            raise ValueError("beta != 0 requires c")
+        acc = acc + ep.beta * c.to(acc.dtype)
+    return acc
+
+
+# --- operand -> spec resolution ----------------------------------------------
+
+def infer_epilogue_kind(named: dict) -> str:
+    """The registry kind whose ``extra_operands`` exactly match the non-None
+    ``named`` operands (``{}`` / all-None -> ``linear``)."""
+    present = frozenset(k for k, v in named.items() if v is not None)
+    if not present:
+        return "linear"
+    for kind, ed in _EPILOGUES.items():
+        if present == frozenset(ed.extra_operands):
+            return kind
+    raise ValueError(
+        f"operands {sorted(present)} are not consumed together by any "
+        f"registered epilogue; registered: "
+        f"{ {k: v.extra_operands for k, v in _EPILOGUES.items()} }")
+
+
+def collect_extras(ep: EpilogueSpec, named: dict) -> tuple:
+    """``named`` operands ordered per the registry entry, with presence and
+    leftover validation."""
+    wanted = get_epilogue(ep.kind).extra_operands
+    extras = []
+    for nm in wanted:
+        if named.get(nm) is None:
+            raise ValueError(f"epilogue {ep.kind!r} requires operand {nm!r}")
+        extras.append(named[nm])
+    for nm, v in named.items():
+        if v is not None and nm not in wanted:
+            raise ValueError(
+                f"operand {nm!r} is not consumed by epilogue {ep.kind!r}")
+    return tuple(extras)
+
+
+def resolve_epilogue(named: dict, *, epilogue: Optional[EpilogueSpec] = None,
+                     activation=None, alpha: float = 1.0, beta: float = 0.0):
+    """(EpilogueSpec, ordered extras) from named fusion operands: an
+    explicit ``epilogue`` wins; otherwise the kind is inferred from which
+    operands are present."""
+    if epilogue is None:
+        epilogue = EpilogueSpec(kind=infer_epilogue_kind(named),
+                                activation=activation, alpha=float(alpha),
+                                beta=float(beta))
+    elif activation is not None:
+        raise ValueError(
+            "pass the activation inside the EpilogueSpec OR as the "
+            "activation kwarg, not both")
+    return epilogue, collect_extras(epilogue, named)
+
+
+# --- built-in epilogue families ----------------------------------------------
+
+@register_epilogue("linear")
+def _linear_tail(ep, acc, extras):
+    """act(acc) — the classic BLAS-plus-activation epilogue."""
+    return ACTIVATIONS[ep.activation](acc)
+
+
+@register_epilogue("gated", extra_operands=("gate",))
+def _gated_tail(ep, acc, extras):
+    """act(acc) · g — SwiGLU/GeGLU gating fused into the gate GEMM's store;
+    the gate (the bf16 output of the up projection under bf16) is widened
+    to f32 first."""
+    return ACTIVATIONS[ep.activation](acc) * extras["gate"].to(acc.dtype)
+
+
+@register_epilogue("residual", extra_operands=("residual",))
+def _residual_tail(ep, acc, extras):
+    """act(acc) + r — the transformer residual add riding the GEMM's store,
+    with the residual widened to f32."""
+    return ACTIVATIONS[ep.activation](acc) + extras["residual"].to(acc.dtype)
+
+
+LINEAR = EpilogueSpec()

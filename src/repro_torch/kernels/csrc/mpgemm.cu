@@ -1,0 +1,223 @@
+// K1: the dense 2-D mixed-precision GEMM with a fused epilogue, for sm_90a.
+//
+// Replaces the TPU kernel src/repro/kernels/mpgemm.py::make_gemm_kernel
+// (dense body `kernel`), launched by mpgemm_pallas_spec.  Computes
+//
+//     out = tail(alpha * A @ op(B) + bias)        (f32 accumulate)
+//     tail = act(acc) | act(acc) * gate | act(acc) + residual
+//
+// with A (M, K) row-major, B (K, N) row-major or (N, K) under trans_b,
+// bf16 or f32 inputs, f32 bias (N,), gate/residual (M, N) in the output
+// dtype, and a bf16 or f32 output.  The epilogue runs in f32 in the order
+// of repro_torch/core/gemm_spec.py::apply_epilogue (alpha, bias, tail).
+//
+// What bounds it on an H100: the served shapes are decode (M = 2) and
+// chunked prefill (M <= 32) against 3072..32128-wide weights, so every call
+// is a pass over a weight matrix -- bytes of B over the 3.35 TB/s of HBM.
+//
+// What this first design does about it: little, on purpose (a right and
+// simple kernel first).  One thread block per (BM, BN) output tile; a K
+// loop that stages an A tile and a B tile in shared memory as f32, then
+// accumulates with FMAs in registers (no tensor cores; the sum is f32
+// either way); M, N and K edges masked at the loads and the store; the
+// epilogue once after the loop.  Small M uses a narrow tile (16 x 32) so
+// that more blocks stream the weight.  Known gaps, for later work: no
+// vectorised or asynchronous loads (cp.async / TMA), no split-K for decode
+// (N / 32 blocks cannot fill 132 SMs when N = 3072), no wgmma.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <cstddef>
+
+namespace {
+
+enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { KIND_LINEAR = 0, KIND_GATED = 1, KIND_RESIDUAL = 2 };
+enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU_TANH = 3 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float activate(float x, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return fmaxf(x, 0.f);
+    case ACT_SILU:
+      return x / (1.f + expf(-x));
+    case ACT_GELU_TANH: {
+      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+    }
+    default:
+      return x;
+  }
+}
+
+// Thread (ty, tx) owns rows ty + i * TY and columns tx + j * TX of the tile:
+// strided ownership keeps the shared-memory reads of a warp on distinct
+// banks and its global stores coalesced.
+template <typename T, typename OutT, int BM, int BN, int BK, int TM, int TN,
+          bool TRANS_B>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+mpgemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
+              OutT* __restrict__ C, const float* __restrict__ bias,
+              const OutT* __restrict__ extra, int M, int N, int K, int kind,
+              int act, float alpha) {
+  constexpr int TX = BN / TN;
+  constexpr int TY = BM / TM;
+  constexpr int NT = TX * TY;
+  __shared__ float As[BK][BM + 1];
+  __shared__ float Bs[BK][BN + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // A tile (BM x BK): consecutive threads walk K, the contiguous axis.
+    for (int e = tid; e < BM * BK; e += NT) {
+      const int mm = e / BK, kk = e % BK;
+      const int gm = m0 + mm, gk = k0 + kk;
+      As[kk][mm] = (gm < M && gk < K) ? to_f32(A[(size_t)gm * K + gk]) : 0.f;
+    }
+    // B tile (BK x BN): consecutive threads walk the contiguous axis.
+    if (!TRANS_B) {
+      for (int e = tid; e < BK * BN; e += NT) {
+        const int kk = e / BN, nn = e % BN;
+        const int gk = k0 + kk, gn = n0 + nn;
+        Bs[kk][nn] =
+            (gk < K && gn < N) ? to_f32(B[(size_t)gk * N + gn]) : 0.f;
+      }
+    } else {
+      for (int e = tid; e < BK * BN; e += NT) {
+        const int nn = e / BK, kk = e % BK;
+        const int gk = k0 + kk, gn = n0 + nn;
+        Bs[kk][nn] =
+            (gk < K && gn < N) ? to_f32(B[(size_t)gn * K + gk]) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * TX];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty + i * TY;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx + j * TX;
+      if (gn >= N) continue;
+      const size_t o = (size_t)gm * N + gn;
+      float v = acc[i][j];
+      if (alpha != 1.f) v *= alpha;
+      if (bias != nullptr) v += bias[gn];
+      v = activate(v, act);
+      if (kind == KIND_GATED) v *= to_f32(extra[o]);
+      else if (kind == KIND_RESIDUAL) v += to_f32(extra[o]);
+      C[o] = from_f32<OutT>(v);
+    }
+  }
+}
+
+template <typename T, typename OutT, bool TRANS_B>
+cudaError_t launch_typed(const void* a, const void* b, void* out,
+                         const void* bias, const void* extra, int m, int n,
+                         int k, int kind, int act, float alpha,
+                         cudaStream_t stream) {
+  const T* A = static_cast<const T*>(a);
+  const T* B = static_cast<const T*>(b);
+  OutT* C = static_cast<OutT*>(out);
+  const float* bi = static_cast<const float*>(bias);
+  const OutT* ex = static_cast<const OutT*>(extra);
+  if (m <= 16) {
+    constexpr int BM = 16, BN = 32, BK = 64, TM = 2, TN = 2;
+    dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+    mpgemm_kernel<T, OutT, BM, BN, BK, TM, TN, TRANS_B>
+        <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(A, B, C, bi, ex, m, n, k,
+                                                    kind, act, alpha);
+  } else {
+    constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
+    dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+    mpgemm_kernel<T, OutT, BM, BN, BK, TM, TN, TRANS_B>
+        <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(A, B, C, bi, ex, m, n, k,
+                                                    kind, act, alpha);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, typename OutT>
+cudaError_t launch_trans(int trans_b, const void* a, const void* b, void* out,
+                         const void* bias, const void* extra, int m, int n,
+                         int k, int kind, int act, float alpha,
+                         cudaStream_t stream) {
+  if (trans_b)
+    return launch_typed<T, OutT, true>(a, b, out, bias, extra, m, n, k, kind,
+                                       act, alpha, stream);
+  return launch_typed<T, OutT, false>(a, b, out, bias, extra, m, n, k, kind,
+                                      act, alpha, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K1 on `stream`; returns the cudaError_t of the launch (0 = ok).
+// `bias` and `extra` may be null; `extra` is read for kind 1 (gated) and
+// kind 2 (residual) and has the output's dtype.
+int mpgemm_launch(const void* a, const void* b, void* out, const void* bias,
+                  const void* extra, int m, int n, int k, int in_dtype,
+                  int out_dtype, int trans_b, int kind, int act, float alpha,
+                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
+    return launch_trans<__nv_bfloat16, __nv_bfloat16>(
+        trans_b, a, b, out, bias, extra, m, n, k, kind, act, alpha, s);
+  if (in_dtype == DT_BF16 && out_dtype == DT_F32)
+    return launch_trans<__nv_bfloat16, float>(
+        trans_b, a, b, out, bias, extra, m, n, k, kind, act, alpha, s);
+  if (in_dtype == DT_F32 && out_dtype == DT_F32)
+    return launch_trans<float, float>(trans_b, a, b, out, bias, extra, m, n,
+                                      k, kind, act, alpha, s);
+  if (in_dtype == DT_F32 && out_dtype == DT_BF16)
+    return launch_trans<float, __nv_bfloat16>(
+        trans_b, a, b, out, bias, extra, m, n, k, kind, act, alpha, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* mpgemm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,98 @@
+"""Paged attention for continuous-batching serving (port of the paged part
+of ``repro.models.attention``).
+
+KV lives in a pooled page array (P, Hkv, page_size, D) per layer; each
+request's logical KV stream is the concatenation of the pages its
+block-table row names.  Positions are LOGICAL (page j, offset o -> j*ps +
+o); which physical page backs them is irrelevant to masking.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import (
+    NEG_INF, paged_flash_attention,
+)
+
+
+def paged_kv_write(k_pages, v_pages, k_new, v_new, block_tables, q_start,
+                   n_valid):
+    """Scatter a (B, C) chunk of fresh K/V rows into the page pool IN PLACE.
+
+    The reference returns new pools; the port updates ``k_pages`` and
+    ``v_pages`` with ``index_put_`` (a copy of every layer's pool per step
+    would cost more than the step at full width) and returns them.
+
+    ``k_new``/``v_new``: (B, Hkv, C, D); token i of request b lands at
+    logical position ``q_start[b] + i`` -> physical page
+    ``block_tables[b, pos // ps]``, offset ``pos % ps``.  Rows with
+    ``i >= n_valid[b]`` are dead: they go to the reserved scratch page 0 at
+    offset ``(b*C + i) % ps``.  Those offsets collide, and on CUDA
+    ``index_put_`` picks an arbitrary winner among duplicates -- harmless,
+    because no live query ever reads the scratch page as valid.
+    """
+    b, hkv, c, d = k_new.shape
+    ps = k_pages.shape[2]
+    w = block_tables.shape[1]
+    dev = k_pages.device
+    col = torch.arange(c, device=dev)
+    pos = q_start.long()[:, None] + col[None, :]                  # (B, C)
+    page = torch.gather(block_tables.long(), 1,
+                        (pos // ps).clamp(0, w - 1))               # (B, C)
+    offset = pos % ps
+    valid = col[None, :] < n_valid.long()[:, None]
+    scratch_off = (col[None, :] + torch.arange(b, device=dev)[:, None] * c) \
+        % ps
+    page = torch.where(valid, page, 0).reshape(-1, 1)
+    offset = torch.where(valid, offset, scratch_off).reshape(-1, 1)
+    heads = torch.arange(hkv, device=dev)[None, :]
+    k_rows = k_new.transpose(1, 2).reshape(b * c, hkv, d)
+    v_rows = v_new.transpose(1, 2).reshape(b * c, hkv, d)
+    k_pages.index_put_((page, heads, offset), k_rows.to(k_pages.dtype))
+    v_pages.index_put_((page, heads, offset), v_rows.to(v_pages.dtype))
+    return k_pages, v_pages
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, q_start, lengths,
+                        *, causal=True, window: Optional[int] = None,
+                        scale=None):
+    """The reference's gather oracle, as it computes: masked softmax with
+    ``p`` cast to V's dtype before P·V and V NOT zeroed past the length
+    (so idle rows differ from the kernel, which zeroes V)."""
+    b, h, tq, d = q.shape
+    _, hkv, ps, _ = k_pages.shape
+    w = block_tables.shape[1]
+    g = h // hkv
+    s_max = w * ps
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    bt = block_tables.long()
+    k = k_pages[bt].transpose(1, 2).reshape(b, hkv, s_max, d)
+    v = v_pages[bt].transpose(1, 2).reshape(b, hkv, s_max, d)
+    qg = q.reshape(b, hkv, g, tq, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    qi = q_start.long()[:, None] + torch.arange(tq, device=q.device)[None, :]
+    ki = torch.arange(s_max, device=q.device)
+    mask = (ki[None, None, :] < lengths.long()[:, None, None]).expand(
+        b, tq, s_max)
+    if causal:
+        mask = mask & (ki[None, None, :] <= qi[:, :, None])
+    if window is not None:
+        mask = mask & (ki[None, None, :] > qi[:, :, None] - window)
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
+    o = o / l.clamp_min(1e-30)
+    return o.reshape(b, h, tq, d).to(q.dtype)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, q_start, lengths, *,
+                    causal=True, window: Optional[int] = None, scale=None):
+    """Serving attention over paged KV: the K5 wrapper (CUDA kernel for
+    CUDA tensors, its plain version for CPU tensors)."""
+    return paged_flash_attention(
+        q.contiguous(), k_pages, v_pages, block_tables, q_start, lengths,
+        causal=causal, window=window, scale=scale)

@@ -1,0 +1,249 @@
+"""Model assembly for the paged serving path (port of the dense part of
+``repro.models.transformer``): :class:`LM` with ``init``,
+``init_paged_caches`` and ``paged_step``, and :func:`params_from_jax`, which
+carries a reference parameter tree across so both packages compute the
+same function.
+
+Parameters are a plain dict: ``embed`` (Vp, d), ``final_norm``, ``head``
+(d, Vp) when untied, and ``layers``, a list of per-layer block dicts in
+layer order (the reference stacks them per unit kind for ``lax.scan``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.policy import get_policy
+from repro_torch.models import blocks as B
+from repro_torch.models.layers import (
+    embed_init, logits_from_hidden, rmsnorm, rope_frequencies,
+)
+
+# Block kinds the port's paged-KV serving path runs.
+PAGED_KINDS = ("dense", "attn_local")
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing a CUDA device when no card is
+    present: the port never quietly runs a CUDA request on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) "
+            "to run the port's plain PyTorch path on the CPU")
+    return dev
+
+
+def segment_pattern(pattern):
+    """-> (unit, n_units, remainder): smallest unit P<=8 such that the
+    pattern is unit-periodic with a unit-prefix remainder (the reference's
+    layer stacking, needed to unstack its parameters)."""
+    L = len(pattern)
+    for p in range(1, min(8, L) + 1):
+        n_units = L // p
+        if n_units == 0:
+            continue
+        if all(pattern[i] == pattern[i % p] for i in range(n_units * p)):
+            rem = pattern[n_units * p:]
+            if all(rem[i] == pattern[i] for i in range(len(rem))):
+                return pattern[:p], n_units, rem
+    return pattern, 1, ()
+
+
+def _window(cfg, kind):
+    return cfg.local_attn_window if kind == "attn_local" else cfg.window
+
+
+# The GEMM weights of a layer: cast once to the compute dtype at load time
+# (mp_dot would cast them on every call; a cast done once gives the same
+# bits).  Norm scales stay f32.
+_GEMM_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
+                 "mlp": ("w_gate", "w_up", "w_down")}
+
+
+@dataclasses.dataclass
+class LM:
+    """Decoder LM over paged KV; ``device`` defaults to the card."""
+
+    cfg: ArchConfig
+    policy: str = "bf16"
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        bad = sorted({k for k in self.cfg.pattern if k not in PAGED_KINDS})
+        if bad:
+            raise NotImplementedError(
+                f"block kinds {bad} are not ported yet (ported: "
+                f"{PAGED_KINDS})")
+        if self.cfg.pos_embed != "rope":
+            raise NotImplementedError("only RoPE position embeddings are "
+                                      "ported")
+        self.device = resolve_device(self.device)
+        pol = get_policy(self.policy)
+        self.compute_dtype = pol.compute
+        self.act_dtype = pol.out
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab rounded up to 128; the padded logits are masked."""
+        return ((self.cfg.vocab + 127) // 128) * 128
+
+    # ------------------------------ init ------------------------------------
+
+    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+        """Random parameters drawn on the model's device from ``generator``
+        (which must live on that device), with the reference's
+        distributions, then cast for the policy (:meth:`load_params`)."""
+        cfg, dev = self.cfg, self.device
+        kw = dict(generator=generator, device=dev)
+        params: Dict[str, Any] = {
+            "embed": embed_init(self.vocab_padded, cfg.d_model, **kw),
+            "final_norm": B.init_norm(cfg, device=dev),
+        }
+        if not cfg.tie_embeddings:
+            params["head"] = torch.randn(cfg.d_model, self.vocab_padded,
+                                         **kw) * 0.02
+        layers = []
+        for _ in cfg.pattern:
+            # Cast each layer as it is drawn: the f32 draft of a full-width
+            # model would not have to fit beside the cast copy.
+            layers.append(self._cast_layer(B.init_dense(cfg, **kw)))
+        params["layers"] = layers
+        return self.load_params(params)
+
+    def _cast_layer(self, layer):
+        out = dict(layer)
+        for sub, names in _GEMM_WEIGHTS.items():
+            out[sub] = {k: (v.to(self.compute_dtype) if k in names else v)
+                        for k, v in layer[sub].items()}
+        return out
+
+    def load_params(self, params) -> Dict[str, Any]:
+        """Move ``params`` to the model's device and cast the GEMM weights
+        and the head to the compute dtype and the embedding table to the
+        activation dtype (both what the reference casts them to per use)."""
+        dev = self.device
+
+        def to(t, dtype=None):
+            return t.to(device=dev, dtype=dtype or t.dtype)
+
+        out = {
+            "embed": to(params["embed"], self.act_dtype),
+            "final_norm": {k: to(v) for k, v in params["final_norm"].items()},
+            "layers": [
+                {sub: {k: to(v) for k, v in d.items()}
+                 for sub, d in self._cast_layer(layer).items()}
+                for layer in params["layers"]],
+        }
+        if "head" in params:
+            out["head"] = to(params["head"], self.compute_dtype)
+        return out
+
+    # ------------------------- paged serving --------------------------------
+
+    @torch.inference_mode()
+    def init_paged_caches(self, num_pages: int,
+                          page_size: int) -> List[Dict[str, torch.Tensor]]:
+        """One (num_pages, Hkv, page_size, hd) K/V pool pair per layer, in
+        the activation dtype; the block tables are shared across layers."""
+        return [B.attn_paged_init_cache(self.cfg, num_pages, page_size,
+                                        self.act_dtype, device=self.device)
+                for _ in self.cfg.pattern]
+
+    def _mask_logits(self, logits):
+        vp = self.vocab_padded
+        if vp == self.cfg.vocab:
+            return logits
+        valid = torch.arange(vp, device=logits.device) < self.cfg.vocab
+        return torch.where(valid, logits,
+                           torch.tensor(-1e30, dtype=logits.dtype,
+                                        device=logits.device))
+
+    @torch.inference_mode()
+    def paged_step(self, params, tokens, caches, block_tables, q_start,
+                   n_valid):
+        """One continuous-batching step over paged KV.
+
+        tokens: (B, C) int — C == 1 is a pure decode step, C > 1 a
+        chunked-prefill step (decode rows use one valid column);
+        block_tables: (B, W) int32 physical page ids (0 = scratch);
+        q_start: (B,) position of each row's first token; n_valid: (B,)
+        valid tokens per row (0 = idle slot).  All on the model's device.
+        -> (logits (B, Vp) at each row's LAST valid token, caches); the
+        caches' pages are updated in place.
+        """
+        cfg = self.cfg
+        b, c = tokens.shape
+        dev = self.device
+        ps = caches[0]["k_pages"].shape[-2]
+        w = block_tables.shape[1]
+        max_pos = w * ps
+        q_start = q_start.to(torch.int32)
+        n_valid = n_valid.to(torch.int32)
+        positions = (q_start.long()[:, None]
+                     + torch.arange(c, device=dev)[None, :]
+                     ).clamp(0, max_pos - 1)
+        x = params["embed"][tokens.long()].to(self.act_dtype)
+        ctx = {
+            "cfg": cfg, "policy": self.policy,
+            "rope": rope_frequencies(cfg.head_dim, max_pos, cfg.rope_theta,
+                                     device=dev),
+            "positions": positions,
+            "paged": {
+                "block_tables": block_tables.to(torch.int32).contiguous(),
+                "q_start": q_start.contiguous(),
+                "n_valid": n_valid.contiguous(),
+                "lengths": (q_start + n_valid).contiguous(),
+            },
+        }
+        for kind, layer, cache in zip(cfg.pattern, params["layers"], caches):
+            x = B.dense_paged_step(layer, x, cache, ctx,
+                                   window=_window(cfg, kind))
+        # Each row's next-token logits live at its LAST valid position
+        # (idle rows clamp to column 0 — the engine ignores them).
+        idx = (n_valid.long() - 1).clamp(0, c - 1)
+        x = x[torch.arange(b, device=dev), idx][:, None]          # (B, 1, d)
+        x = rmsnorm(x, params["final_norm"]["scale"])
+        tied = cfg.tie_embeddings
+        head = params["embed"] if tied else params["head"]
+        logits = self._mask_logits(
+            logits_from_hidden(x, head, tied=tied, policy=self.policy))
+        return logits[:, 0], caches
+
+
+def build_model(cfg: ArchConfig, policy: str = "bf16",
+                device="cuda") -> LM:
+    return LM(cfg, policy=policy, device=device)
+
+
+def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
+    """The port's parameter dict from a reference pytree with numpy leaves
+    (``jax.tree_util.tree_map(np.asarray, params)``), as f32 CPU tensors.
+
+    The reference keeps ``stack``, one dict per unit kind with a leading
+    ``n_units`` axis, and ``tail``, a list; layer ``u * len(unit) + p`` is
+    ``stack[p]`` at index ``u``, followed by the tail layers.  Pass the
+    result to :meth:`LM.load_params` for the device and the policy's casts.
+    """
+    def t(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
+
+    def tree(d, idx=None):
+        return {k: (tree(v, idx) if isinstance(v, dict)
+                    else t(v if idx is None else np.asarray(v)[idx]))
+                for k, v in d.items()}
+
+    unit, n_units, rem = segment_pattern(cfg.pattern)
+    layers = [tree(np_params["stack"][p], u)
+              for u in range(n_units) for p in range(len(unit))]
+    layers += [tree(layer) for layer in np_params["tail"][:len(rem)]]
+    out = {"embed": t(np_params["embed"]),
+           "final_norm": tree(np_params["final_norm"]),
+           "layers": layers}
+    if "head" in np_params:
+        out["head"] = t(np_params["head"])
+    return out

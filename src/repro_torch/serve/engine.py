@@ -1,0 +1,337 @@
+"""Serving engine: continuous batching over a paged KV cache (port of the
+continuous engine of ``repro.serve.engine``).
+
+  * ``add_request()`` queues work; ``step()`` runs ONE forward — a pure
+    decode step (chunk width 1) or, when a prompt is still being
+    prefilled, a mixed chunked-prefill step where decode rows ride along
+    with one valid column — and returns the requests that finished;
+  * ``generate()`` adds everything and steps until drained, returning
+    ``{uid: tokens}``.
+
+KV lives in fixed-size pages (``serve/kv_cache.py``): admission allocates
+pages for the prompt (reusing prefix-shared pages), decode grows one page
+at a time, and when the pool runs dry the most recently admitted request
+is preempted (pages freed, request requeued for recompute).  Sampling is
+greedy: ``np.argmax`` of the logits, which takes the first index among
+ties.  Every step runs under ``torch.inference_mode()`` and emits a
+:class:`StepTelemetry` record.  The wave engine is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.serve.kv_cache import PagedKVCache, cdiv
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray           # (T,) int32
+    max_new_tokens: int = 16
+    out_tokens: Optional[List[int]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StepTelemetry:
+    """Observability record for ONE engine step.
+
+    ``kv_bytes`` is the KV footprint actually held (allocated pages x page
+    bytes across layers); ``kv_bytes_dense`` is what a per-slot max-length
+    allocation would hold for the same batch width.  ``wall_s`` is host
+    time around the step, which ends when the logits reach the host.
+    """
+
+    step: int                # 0-based step index within this run
+    phase: str               # "prefill" | "mixed" | "decode"
+    live: int                # occupied slots doing useful work this step
+    queue_depth: int         # requests waiting for a slot after this step
+    tokens: int              # tokens emitted (sampled) this step
+    preemptions: int         # requests preempted (requeued) this step
+    pages_in_use: int        # KV pages held after this step
+    page_occupancy: float    # pages_in_use / allocatable pages
+    kv_bytes: int            # bytes held in KV pages (all layers)
+    kv_bytes_dense: int      # bytes a dense max-len batch would hold
+    prefix_hit_tokens: int   # cumulative prompt tokens skipped via sharing
+    wall_s: float            # step wall time (host clock)
+    tokens_per_s: float      # tokens / wall_s
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request
+    length: int                  # tokens written into the KV pages
+    pending: np.ndarray          # prompt tokens not yet prefilled
+    next_token: Optional[int]    # sampled, not yet written (decode input)
+    out: List[int]
+    admitted: int                # admission order (preemption picks max)
+
+
+def _kv_token_bytes(model) -> int:
+    """KV bytes ONE token holds across all attention layers."""
+    cfg = model.cfg
+    itemsize = torch.empty((), dtype=model.act_dtype).element_size()
+    return 2 * cfg.n_kv_heads * cfg.head_dim * itemsize * len(cfg.pattern)
+
+
+class ServeEngine:
+    """Continuous-batching engine over paged KV, on the model's device."""
+
+    def __init__(self, model, params, *, max_len: int,
+                 max_batch: Optional[int] = None, page_size: int = 16,
+                 max_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 eos_id: int = 1):
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.step_telemetry: List[StepTelemetry] = []
+        self._token_bytes = _kv_token_bytes(model)
+        self.max_batch = max_batch if max_batch is not None else 8
+        self.page_size = page_size
+        self.bt_width = cdiv(max_len, page_size)
+        # Default pool: dense-equivalent capacity (+ the scratch page), so
+        # preemption only kicks in when the caller shrinks max_pages.
+        self.max_pages = (max_pages if max_pages is not None
+                          else self.max_batch * self.bt_width + 1)
+        self.kv = PagedKVCache(self.max_pages, page_size)
+        self.prefill_chunk = (prefill_chunk if prefill_chunk is not None
+                              else max(page_size, 8))
+        self.caches = model.init_paged_caches(self.max_pages, page_size)
+        self._slots: List[Optional[_Slot]] = [None] * self.max_batch
+        self._queue: deque = deque()
+        self._admit_counter = 0
+        self._step_counter = 0
+        self._uid_counter = 0
+        self._preempted_now = 0
+
+    def add_request(self, prompt, max_new_tokens: int = 16,
+                    uid: Optional[int] = None) -> int:
+        """Queue a request; returns its uid.  Also accepts a Request."""
+        if isinstance(prompt, Request):
+            req = prompt
+        else:
+            if uid is None:
+                uid = self._uid_counter
+                self._uid_counter += 1
+            req = Request(uid=uid, prompt=np.asarray(prompt, np.int32),
+                          max_new_tokens=max_new_tokens)
+        self._uid_counter = max(self._uid_counter, req.uid + 1)
+        if len(req.prompt) >= self.max_len:
+            raise ValueError(f"prompt length {len(req.prompt)} >= max_len "
+                             f"{self.max_len}")
+        worst = cdiv(min(len(req.prompt) + req.max_new_tokens, self.max_len),
+                     self.page_size)
+        if worst > self.max_pages - 1:
+            raise ValueError(
+                f"request {req.uid} needs up to {worst} pages, pool has "
+                f"{self.max_pages - 1} allocatable — raise max_pages")
+        self._queue.append(req)
+        return req.uid
+
+    def _admit(self) -> None:
+        """FIFO admission into free slots while prompt pages fit."""
+        for i in range(self.max_batch):
+            if not self._queue or self._slots[i] is not None:
+                continue
+            req = self._queue[0]
+            shared_pages, shared_tokens = self.kv.match_prefix(req.prompt)
+            self.kv.allocate(req.uid, shared_pages, shared_tokens)
+            if not self.kv.ensure(req.uid, len(req.prompt)):
+                self.kv.free_seq(req.uid)     # head doesn't fit; wait
+                self.kv.rollback_prefix_hits(len(shared_pages), shared_tokens)
+                break
+            self._queue.popleft()
+            self._slots[i] = _Slot(
+                req=req, length=shared_tokens,
+                pending=np.asarray(req.prompt[shared_tokens:], np.int32),
+                next_token=None, out=[], admitted=self._admit_counter)
+            self._admit_counter += 1
+
+    def _evict_slot(self, i: int) -> None:
+        """Preempt slot i: free its pages, requeue its request at the head
+        (recompute semantics — generated tokens are discarded)."""
+        s = self._slots[i]
+        self.kv.free_seq(s.req.uid)
+        self._queue.appendleft(s.req)
+        self._slots[i] = None
+        self._preempted_now += 1
+
+    def _reserve(self, slot: _Slot, n_new: int) -> bool:
+        """Grow slot's table for n_new tokens, preempting newer requests
+        under page pressure.  False if the slot itself got preempted (or
+        already was, by an earlier _reserve() this step)."""
+        if not any(s is slot for s in self._slots):
+            return False
+        while not self.kv.ensure(slot.req.uid, slot.length + n_new):
+            others = [i for i, s in enumerate(self._slots)
+                      if s is not None and s is not slot]
+            if others:
+                j = max(others, key=lambda i: self._slots[i].admitted)
+                if self._slots[j].admitted > slot.admitted:
+                    self._evict_slot(j)
+                    continue
+            # slot is itself the newest — preempt it instead
+            self._evict_slot(
+                next(i for i, s in enumerate(self._slots) if s is slot))
+            return False
+        return True
+
+    def step(self) -> List[Request]:
+        """Run one engine step; returns the requests that finished."""
+        t0 = time.perf_counter()
+        self._preempted_now = 0
+        self._admit()
+        live = [s for s in self._slots if s is not None]
+        if not live:
+            if self._queue:
+                raise RuntimeError(
+                    "queued requests but nothing admitted — pool cannot "
+                    "hold any queued prompt")
+            return []
+        # Chunk width: mixed prefill step if any prompt is still pending.
+        chunk = max((min(self.prefill_chunk, len(s.pending))
+                     for s in live if len(s.pending)), default=0)
+        c = max(chunk, 1)
+        phase = ("prefill" if chunk and all(s.next_token is None
+                                            for s in live)
+                 else "mixed" if chunk else "decode")
+        # Reserve pages for this step's writes (may preempt).  _reserve()
+        # can evict any NEWER slot, so re-read liveness from self._slots.
+        for i in range(self.max_batch):
+            s = self._slots[i]
+            if s is None:
+                continue
+            n_new = min(c, len(s.pending)) if len(s.pending) else 1
+            self._reserve(s, n_new)
+        live = [s for s in self._slots if s is not None]
+        if not live:
+            raise RuntimeError("every live request was preempted — pool "
+                               "cannot make progress")
+        b = self.max_batch
+        tokens = np.zeros((b, c), np.int32)
+        q_start = np.zeros((b,), np.int32)
+        n_valid = np.zeros((b,), np.int32)
+        bt = np.zeros((b, self.bt_width), np.int32)
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            if len(s.pending):
+                n = min(c, len(s.pending))
+                tokens[i, :n] = s.pending[:n]
+            else:
+                n = 1
+                tokens[i, 0] = s.next_token
+            q_start[i] = s.length
+            n_valid[i] = n
+            bt[i] = self.kv.block_table_row(s.req.uid, self.bt_width)
+        dev = self.model.device
+        with torch.inference_mode():
+            logits, self.caches = self.model.paged_step(
+                self.params, torch.from_numpy(tokens).to(dev), self.caches,
+                torch.from_numpy(bt).to(dev),
+                torch.from_numpy(q_start).to(dev),
+                torch.from_numpy(n_valid).to(dev))
+            # The copy to the host waits for the device.
+            sampled = np.argmax(logits.float().cpu().numpy(), axis=-1)
+        finished: List[Request] = []
+        emitted = 0
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            n = int(n_valid[i])
+            s.length += n
+            if len(s.pending):
+                s.pending = s.pending[n:]
+                if len(s.pending):
+                    continue              # mid-prefill: logits unused
+                self.kv.register_prefix(s.req.uid, s.req.prompt)
+            tok = int(sampled[i])
+            s.out.append(tok)
+            emitted += 1
+            done = (tok == self.eos_id
+                    or len(s.out) >= s.req.max_new_tokens
+                    or s.length >= self.max_len - 1)
+            if done:
+                s.req.out_tokens = list(s.out)
+                finished.append(s.req)
+                self.kv.free_seq(s.req.uid)
+                self._slots[i] = None
+            else:
+                s.next_token = tok
+        wall = time.perf_counter() - t0
+        pages = self.kv.pages_in_use
+        rec = StepTelemetry(
+            step=self._step_counter, phase=phase, live=len(live),
+            queue_depth=len(self._queue), tokens=emitted,
+            preemptions=self._preempted_now, pages_in_use=pages,
+            page_occupancy=self.kv.occupancy,
+            kv_bytes=pages * self.page_size * self._token_bytes,
+            kv_bytes_dense=self.max_batch * self.max_len * self._token_bytes,
+            prefix_hit_tokens=self.kv.stats.prefix_hit_tokens,
+            wall_s=wall, tokens_per_s=emitted / wall if wall > 0 else 0.0)
+        self.step_telemetry.append(rec)
+        self._step_counter += 1
+        return finished
+
+    @property
+    def pending(self) -> int:
+        """Requests not yet finished (queued + occupying a slot)."""
+        return len(self._queue) + sum(s is not None for s in self._slots)
+
+    def warm_prefixes(self, prompts,
+                      *, max_tokens_each: Optional[int] = None) -> int:
+        """Pre-populate the prefix-sharing index with system prompts.
+
+        Runs each prompt through a throwaway 1-token request so its full
+        prompt pages land in the refcounted prefix index before real
+        traffic arrives.  Prompts shorter than one page are skipped; longer
+        ones are truncated to ``max_tokens_each`` and to what ``max_len``
+        admits.  Resets the telemetry stream afterwards.  Returns the
+        number of newly indexed prefix pages.
+        """
+        before = self.kv.prefix_entries
+        budget = 0
+        for prompt in prompts:
+            toks = np.asarray(prompt, np.int32).reshape(-1)
+            if max_tokens_each is not None:
+                toks = toks[:max_tokens_each]
+            toks = toks[: self.max_len - 2]
+            if len(toks) < self.page_size:
+                continue              # sharing covers full pages only
+            self.add_request(toks, max_new_tokens=1)
+            budget += 4 * (len(toks) + 1) + 64
+        for _ in range(budget):
+            if not self.pending:
+                break
+            self.step()
+        if self.pending:
+            raise RuntimeError(
+                f"prefix warm-up failed to drain: {self.pending} warm "
+                f"requests unfinished")
+        self.step_telemetry = []
+        self._step_counter = 0
+        return self.kv.prefix_entries - before
+
+    def generate(self, requests: List[Request]) -> Dict[int, List[int]]:
+        """Run every request to completion; resets the telemetry stream."""
+        self.step_telemetry = []
+        self._step_counter = 0
+        for r in requests:
+            self.add_request(r)
+        results: Dict[int, List[int]] = {}
+        budget = sum(len(r.prompt) + r.max_new_tokens for r in requests)
+        budget = 4 * budget + 64          # preemption/chunking slack
+        for _ in range(budget):
+            for req in self.step():
+                results[req.uid] = list(req.out_tokens)
+            if not self.pending:
+                return results
+        raise RuntimeError(f"generate() exceeded its step budget with "
+                           f"{self.pending} requests unfinished")
