@@ -1,16 +1,27 @@
 """``mp_dot`` — the mixed-precision GEMM op every projection goes through
 (port of the forward of ``repro.core.gemm.mp_dot``).
 
-It applies a :class:`PrecisionPolicy` (cast both operands to the compute
-dtype, accumulate in f32, run the epilogue in f32, cast to the policy's
-output dtype), resolves the fusion epilogue from named operands, and hands
-one 2-D GEMM to the K1 wrapper, which runs the CUDA kernel for CUDA tensors
-and the plain version for CPU tensors.
+It applies a :class:`PrecisionPolicy`, resolves the fusion epilogue from
+named operands, and hands one 2-D GEMM to the kernel wrappers, which run
+the CUDA kernels for CUDA tensors and the plain versions for CPU tensors:
+
+* dense ``b`` under fp32 / bf16: both operands cast to the compute dtype,
+  f32 sum (K1);
+* dense ``b`` under int8: both operands quantized per tensor, int32 sum,
+  ``sx · sw`` in the epilogue's scale slot (K1's int8 variant);
+* packed ``b`` (:class:`~repro_torch.packing.layout.PackedOperand`): the
+  payload is read as it is (K2) -- a float payload takes ``x`` in the
+  compute dtype, a codec payload under a float policy takes bf16 ``x``,
+  an int8/int4 payload under int8 takes per-tensor-quantized ``x`` with
+  ``sx`` in the scale slot, and an fp8 payload under int8 takes bf16 ``x``
+  (there is no int8 x fp8 product).  A float payload under int8 is
+  unpacked and re-quantized like a dense weight, which on the card would
+  need K7 (the training slice), so it raises there.
 
 Serving needs no backward pass, so this is a plain function; the custom
 ``torch.autograd.Function`` with fused-transpose backward GEMMs comes with
-the training slice.  Packed and tile-sparse ``b`` operands and ``quant_in``
-raise until their slices.
+the training slice.  Tile-sparse ``b`` and ``quant_in`` raise until their
+slices.
 """
 from __future__ import annotations
 
@@ -20,8 +31,11 @@ import torch
 
 from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
     resolve_epilogue
-from repro_torch.core.policy import get_policy
+from repro_torch.core.policy import PrecisionPolicy, get_policy, \
+    quantize_per_tensor
 from repro_torch.kernels.mpgemm import mpgemm
+from repro_torch.packing.layout import PackedOperand
+from repro_torch.packing.pack import unpack_operand
 
 
 def _build_epilogue(epilogue, activation, gate, residual, epilogue_operands):
@@ -38,9 +52,42 @@ def _build_epilogue(epilogue, activation, gate, residual, epilogue_operands):
     return epilogue, extras
 
 
+def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
+                policy: PrecisionPolicy, out_dtype) -> torch.Tensor:
+    """One 2-D GEMM under a policy -- the dispatch point (the reference's
+    ``_apply_gemm`` on its kernel backends)."""
+    kw = dict(bias=bias, extras=extras, epilogue=epilogue,
+              out_dtype=out_dtype)
+    if isinstance(w, PackedOperand):
+        layout = w.layout
+        if layout.per_tile_scales or not policy.quantized:
+            spec = GemmSpec(packed=True, out_dtype=out_dtype)
+            if policy.quantized:
+                if not layout.codec.integer:
+                    return mpgemm(x.to(torch.bfloat16).contiguous(), w,
+                                  spec=spec, **kw)
+                xq, sx = quantize_per_tensor(x)
+                return mpgemm(xq, w, scale=sx, spec=spec, **kw)
+            if not layout.per_tile_scales:
+                w = w.astype(policy.compute)   # no-op when packed right
+            return mpgemm(x.to(policy.compute).contiguous(), w, spec=spec,
+                          **kw)
+        # A float payload under the dynamic-int8 policy: per-tensor weight
+        # quantization needs the dense weight back.
+        w = unpack_operand(w)
+        trans_w = False
+    spec = GemmSpec(trans_b=trans_w, out_dtype=out_dtype)
+    if policy.quantized:
+        xq, sx = quantize_per_tensor(x)
+        wq, sw = quantize_per_tensor(w)
+        return mpgemm(xq, wq.contiguous(), scale=sx * sw, spec=spec, **kw)
+    return mpgemm(x.to(policy.compute).contiguous(),
+                  w.to(policy.compute).contiguous(), spec=spec, **kw)
+
+
 def mp_dot(
     x: torch.Tensor,
-    b: torch.Tensor,
+    b,
     bias: Optional[torch.Tensor] = None,
     *,
     policy="bf16",
@@ -55,30 +102,41 @@ def mp_dot(
 ) -> torch.Tensor:
     """y[..., n] = tail(x[..., k] @ (b[n, k]ᵀ if trans_w else b[k, n]) + bias).
 
-    ``activation`` fuses an activation into the GEMM's store; ``gate``
-    fuses ``act(·) · gate`` and ``residual`` fuses ``act(·) + residual``
-    (both shaped like the output).  A weight already in the compute dtype
-    (cast once at load time) is used as it is.
+    ``b`` is a dense tensor or a :class:`PackedOperand`, whose ``trans_w``
+    must match the one it was packed with (the transpose is resolved at
+    pack time).  ``activation`` fuses an activation into the GEMM's store;
+    ``gate`` fuses ``act(·) · gate`` and ``residual`` fuses
+    ``act(·) + residual`` (both shaped like the output).  A dense weight
+    already in the compute dtype (cast once at load time) is used as it is.
     """
     if quant_in:
         raise NotImplementedError("quant_in (per-token activation "
                                   "quantization) is not ported yet")
-    if not isinstance(b, torch.Tensor):
+    if isinstance(b, PackedOperand):
+        if b.layout.g != 1:
+            raise NotImplementedError("grouped packed operands (MoE) are "
+                                      "not ported yet")
+        if trans_w != b.layout.trans_w:
+            raise ValueError(
+                f"trans_w={trans_w} but the operand was packed with "
+                f"trans_w={b.layout.trans_w} (transposition is resolved at "
+                "pack time)")
+        n = b.layout.n
+    elif isinstance(b, torch.Tensor):
+        n = b.shape[0] if trans_w else b.shape[-1]
+    else:
         raise NotImplementedError(
-            f"mp_dot: {type(b).__name__} operands (packed / tile-sparse) are "
-            "not ported yet")
+            f"mp_dot: {type(b).__name__} operands (tile-sparse) are not "
+            "ported yet")
     policy = get_policy(policy)
     lead = x.shape[:-1]
-    x2d = x.reshape(-1, x.shape[-1]).to(policy.compute).contiguous()
-    w = b.to(policy.compute).contiguous()
+    x2d = x.reshape(-1, x.shape[-1])
     if bias is not None:
         bias = bias.reshape(-1)
     epilogue, extras = _build_epilogue(epilogue, activation, gate, residual,
                                        epilogue_operands)
     extras = tuple(e.reshape(-1, e.shape[-1]).contiguous() for e in extras)
-    n = w.shape[0] if trans_w else w.shape[-1]
     out_dtype = out_dtype or policy.out
-    y2d = mpgemm(x2d, w, bias=bias, extras=extras,
-                 spec=GemmSpec(trans_b=trans_w, out_dtype=out_dtype),
-                 epilogue=epilogue, out_dtype=out_dtype)
+    y2d = _apply_gemm(x2d, b, bias, extras, trans_w, epilogue, policy,
+                      out_dtype)
     return y2d.reshape(*lead, n)

@@ -1,9 +1,9 @@
 """Precision policies (own copy of ``repro.core.policy``).
 
 A policy names the dtype GEMM operands are cast to, the accumulator, how
-parameters are stored and the activation dtype between layers.  The port
-takes fp32, bf16 and bf16_serve; the dynamic-int8 policy exists as a name so
-that asking for it fails clearly until its kernel variant is ported.
+parameters are stored and the activation dtype between layers: fp32, bf16,
+bf16_serve and the dynamic int8 policy, whose GEMMs quantize both operands
+per tensor (:func:`quantize_per_tensor`) and sum in int32.
 """
 from __future__ import annotations
 
@@ -48,12 +48,20 @@ POLICIES = {p.name: p for p in (FP32, BF16, BF16_SERVE, INT8)}
 
 
 def get_policy(name_or_policy) -> PrecisionPolicy:
-    """The named policy; raises ``NotImplementedError`` for int8, whose
-    quantized GEMM variant is not ported yet."""
-    policy = (name_or_policy if isinstance(name_or_policy, PrecisionPolicy)
-              else POLICIES[name_or_policy])
-    if policy.quantized:
-        raise NotImplementedError(
-            f"policy {policy.name!r} needs the int8 GEMM variant, which is "
-            "not ported yet; use fp32, bf16 or bf16_serve")
-    return policy
+    if isinstance(name_or_policy, PrecisionPolicy):
+        return name_or_policy
+    return POLICIES[name_or_policy]
+
+
+def quantize_per_tensor(x: torch.Tensor):
+    """Dynamic symmetric per-tensor quantization (the int8 policy):
+    ``scale = max(amax, 1e-8) / 127`` and ``q = clip(round(x / scale),
+    -127, 127)`` in f32, rounding half to even.  -> (int8 q, 0-d f32 scale
+    on x's device).  Both divisions are IEEE divisions by tensors: a
+    Python-scalar divisor on a CUDA tensor would make PyTorch multiply by
+    its reciprocal, which rounds differently."""
+    x32 = x.float()
+    amax = x32.abs().amax()
+    scale = amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+    q = torch.round(x32 / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale

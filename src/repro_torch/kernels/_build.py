@@ -17,12 +17,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("mpgemm", "paged_flash")
+KERNELS = ("mpgemm", "mpgemm_packed", "pack", "paged_flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -54,18 +55,19 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_all(names: Sequence[str] = KERNELS) -> List[str]:
+def build_all(names: Sequence[str] = KERNELS) -> Dict[str, float]:
     """Compile every kernel in ``names`` that has no current library, with
-    one nvcc per source running in parallel, and return the names built
-    (an up-to-date kernel is left out).  The compiler's output
-    (``-Xptxas=-v`` register and shared-memory report) is kept beside each
-    library as ``.log``."""
+    one nvcc per source running in parallel, and return the wall seconds
+    each build took, by name (an up-to-date kernel is left out).  The
+    compiler's output (``-Xptxas=-v`` register and shared-memory report) is
+    kept beside each library as ``.log``."""
     todo = [n for n in names if not _library_path(n).exists()]
     if not todo:
-        return []
+        return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in todo:
         out = _library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -74,16 +76,22 @@ def build_all(names: Sequence[str] = KERNELS) -> List[str]:
             procs[name] = (subprocess.Popen(cmd, stdout=log,
                                             stderr=subprocess.STDOUT),
                            tmp, out)
+    seconds = {}
+    while len(seconds) < len(procs):
+        for name, (proc, _, _) in procs.items():
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        time.sleep(0.1)
     failed = []
     for name, (proc, tmp, out) in procs.items():
-        if proc.wait() != 0:
+        if proc.returncode != 0:
             log = out.with_suffix(".log").read_text()
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)   # atomic: a concurrent loader never sees half
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return todo
+    return seconds
 
 
 def build_log(name: str) -> Optional[str]:

@@ -3,13 +3,17 @@
 // Replaces the TPU kernel src/repro/kernels/mpgemm.py::make_gemm_kernel
 // (dense body `kernel`), launched by mpgemm_pallas_spec.  Computes
 //
-//     out = tail(alpha * A @ op(B) + bias)        (f32 accumulate)
+//     out = tail(alpha * (A @ op(B)) * scale + bias)
 //     tail = act(acc) | act(acc) * gate | act(acc) + residual
 //
 // with A (M, K) row-major, B (K, N) row-major or (N, K) under trans_b,
-// bf16 or f32 inputs, f32 bias (N,), gate/residual (M, N) in the output
-// dtype, and a bf16 or f32 output.  The epilogue runs in f32 in the order
-// of repro_torch/core/gemm_spec.py::apply_epilogue (alpha, bias, tail).
+// bf16 or f32 inputs summed in f32, or int8 inputs summed exactly in int32
+// over the whole K (the int8 policy), f32 bias (N,), gate/residual (M, N)
+// in the output dtype, and a bf16 or f32 output.  `scale` is an optional
+// f32 scalar in device memory (the int8 policy's sx * sw), read by the
+// kernel so that the host never waits for it.  The epilogue runs in f32 in
+// the order of repro_torch/core/gemm_spec.py::apply_epilogue
+// (float(acc) * scale, alpha, bias, tail).
 //
 // What bounds it on an H100: the served shapes are decode (M = 2) and
 // chunked prefill (M <= 32) against 3072..32128-wide weights, so every call
@@ -21,17 +25,22 @@
 // accumulates with FMAs in registers (no tensor cores; the sum is f32
 // either way); M, N and K edges masked at the loads and the store; the
 // epilogue once after the loop.  Small M uses a narrow tile (16 x 32) so
-// that more blocks stream the weight.  Known gaps, for later work: no
-// vectorised or asynchronous loads (cp.async / TMA), no split-K for decode
-// (N / 32 blocks cannot fill 132 SMs when N = 3072), no wgmma.
+// that more blocks stream the weight.  The int8 kernel is the same loop
+// over int32 staging and integer multiply-adds; it is a kernel of its own
+// because one template for both compiled the float loop into code about
+// 30 % slower on an H100 at M = 2 (with bit-equal outputs).  Known gaps,
+// for later work: no vectorised or asynchronous loads (cp.async / TMA), no
+// split-K for decode (N / 32 blocks cannot fill 132 SMs when N = 3072), no
+// wgmma.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2 };
 enum { KIND_LINEAR = 0, KIND_GATED = 1, KIND_RESIDUAL = 2 };
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU_TANH = 3 };
 
@@ -73,7 +82,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 mpgemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
               OutT* __restrict__ C, const float* __restrict__ bias,
               const OutT* __restrict__ extra, int M, int N, int K, int kind,
-              int act, float alpha) {
+              int act, float alpha, const float* __restrict__ scale) {
   constexpr int TX = BN / TN;
   constexpr int TY = BM / TM;
   constexpr int NT = TX * TY;
@@ -141,6 +150,7 @@ mpgemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
       if (gn >= N) continue;
       const size_t o = (size_t)gm * N + gn;
       float v = acc[i][j];
+      if (scale != nullptr) v *= *scale;
       if (alpha != 1.f) v *= alpha;
       if (bias != nullptr) v += bias[gn];
       v = activate(v, act);
@@ -153,9 +163,9 @@ mpgemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
 
 template <typename T, typename OutT, bool TRANS_B>
 cudaError_t launch_typed(const void* a, const void* b, void* out,
-                         const void* bias, const void* extra, int m, int n,
-                         int k, int kind, int act, float alpha,
-                         cudaStream_t stream) {
+                         const void* bias, const void* extra,
+                         const float* scale, int m, int n, int k, int kind,
+                         int act, float alpha, cudaStream_t stream) {
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
   OutT* C = static_cast<OutT*>(out);
@@ -166,27 +176,139 @@ cudaError_t launch_typed(const void* a, const void* b, void* out,
     dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
     mpgemm_kernel<T, OutT, BM, BN, BK, TM, TN, TRANS_B>
         <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(A, B, C, bi, ex, m, n, k,
-                                                    kind, act, alpha);
+                                                    kind, act, alpha, scale);
   } else {
     constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
     dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
     mpgemm_kernel<T, OutT, BM, BN, BK, TM, TN, TRANS_B>
         <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(A, B, C, bi, ex, m, n, k,
-                                                    kind, act, alpha);
+                                                    kind, act, alpha, scale);
   }
   return cudaGetLastError();
 }
 
 template <typename T, typename OutT>
 cudaError_t launch_trans(int trans_b, const void* a, const void* b, void* out,
-                         const void* bias, const void* extra, int m, int n,
-                         int k, int kind, int act, float alpha,
-                         cudaStream_t stream) {
+                         const void* bias, const void* extra,
+                         const float* scale, int m, int n, int k, int kind,
+                         int act, float alpha, cudaStream_t stream) {
   if (trans_b)
-    return launch_typed<T, OutT, true>(a, b, out, bias, extra, m, n, k, kind,
-                                       act, alpha, stream);
-  return launch_typed<T, OutT, false>(a, b, out, bias, extra, m, n, k, kind,
-                                      act, alpha, stream);
+    return launch_typed<T, OutT, true>(a, b, out, bias, extra, scale, m, n, k,
+                                       kind, act, alpha, stream);
+  return launch_typed<T, OutT, false>(a, b, out, bias, extra, scale, m, n, k,
+                                      kind, act, alpha, stream);
+}
+
+// The int8 variant: the loop above over int32 staging and an exact int32
+// sum; the output (and the gate / residual operand, of the output's dtype)
+// is f32 or bf16, chosen at run time.
+__device__ __forceinline__ float load_out(const void* p, size_t i, int dt) {
+  return dt == DT_BF16
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+             : static_cast<const float*>(p)[i];
+}
+
+template <int BM, int BN, int BK, int TM, int TN, bool TRANS_B>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+mpgemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
+                   void* __restrict__ C, const float* __restrict__ bias,
+                   const void* __restrict__ extra,
+                   const float* __restrict__ scale, int M, int N, int K,
+                   int out_dt, int kind, int act, float alpha) {
+  constexpr int TX = BN / TN;
+  constexpr int TY = BM / TM;
+  constexpr int NT = TX * TY;
+  __shared__ int As[BK][BM + 1];
+  __shared__ int Bs[BK][BN + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+
+  int acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int e = tid; e < BM * BK; e += NT) {
+      const int mm = e / BK, kk = e % BK;
+      const int gm = m0 + mm, gk = k0 + kk;
+      As[kk][mm] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0;
+    }
+    for (int e = tid; e < BK * BN; e += NT) {
+      int kk, nn;
+      if (TRANS_B) { nn = e / BK; kk = e % BK; }
+      else { kk = e / BN; nn = e % BN; }
+      const int gk = k0 + kk, gn = n0 + nn;
+      Bs[kk][nn] = (gk < K && gn < N)
+                       ? B[TRANS_B ? (size_t)gn * K + gk : (size_t)gk * N + gn]
+                       : 0;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      int a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * TX];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * b[j];
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty + i * TY;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx + j * TX;
+      if (gn >= N) continue;
+      const size_t o = (size_t)gm * N + gn;
+      float v = static_cast<float>(acc[i][j]);
+      if (scale != nullptr) v *= *scale;
+      if (alpha != 1.f) v *= alpha;
+      if (bias != nullptr) v += bias[gn];
+      v = activate(v, act);
+      if (kind == KIND_GATED) v *= load_out(extra, o, out_dt);
+      else if (kind == KIND_RESIDUAL) v += load_out(extra, o, out_dt);
+      if (out_dt == DT_BF16)
+        static_cast<__nv_bfloat16*>(C)[o] = __float2bfloat16_rn(v);
+      else
+        static_cast<float*>(C)[o] = v;
+    }
+  }
+}
+
+template <bool TRANS_B>
+cudaError_t launch_int8(const void* a, const void* b, void* out,
+                        const float* bias, const void* extra,
+                        const float* scale, int m, int n, int k, int out_dt,
+                        int kind, int act, float alpha, cudaStream_t stream) {
+  const int8_t* A = static_cast<const int8_t*>(a);
+  const int8_t* B = static_cast<const int8_t*>(b);
+  if (m <= 16) {
+    constexpr int BM = 16, BN = 32, BK = 64, TM = 2, TN = 2;
+    dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+    mpgemm_int8_kernel<BM, BN, BK, TM, TN, TRANS_B>
+        <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+            A, B, out, bias, extra, scale, m, n, k, out_dt, kind, act, alpha);
+  } else {
+    constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
+    dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+    mpgemm_int8_kernel<BM, BN, BK, TM, TN, TRANS_B>
+        <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+            A, B, out, bias, extra, scale, m, n, k, out_dt, kind, act, alpha);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -194,25 +316,38 @@ cudaError_t launch_trans(int trans_b, const void* a, const void* b, void* out,
 extern "C" {
 
 // Launches K1 on `stream`; returns the cudaError_t of the launch (0 = ok).
-// `bias` and `extra` may be null; `extra` is read for kind 1 (gated) and
-// kind 2 (residual) and has the output's dtype.
+// in_dtype: 0 f32, 1 bf16, 2 int8 (both operands); out_dtype: 0 f32,
+// 1 bf16.  `bias`, `extra` and `scale` may be null; `extra` is read for
+// kind 1 (gated) and kind 2 (residual) and has the output's dtype; `scale`
+// is one f32 in device memory.
 int mpgemm_launch(const void* a, const void* b, void* out, const void* bias,
-                  const void* extra, int m, int n, int k, int in_dtype,
-                  int out_dtype, int trans_b, int kind, int act, float alpha,
-                  void* stream) {
+                  const void* extra, const void* scale, int m, int n, int k,
+                  int in_dtype, int out_dtype, int trans_b, int kind, int act,
+                  float alpha, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  if (out_dtype != DT_F32 && out_dtype != DT_BF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (in_dtype == DT_INT8) {
+    const float* bi = static_cast<const float*>(bias);
+    if (trans_b)
+      return launch_int8<true>(a, b, out, bi, extra, sc, m, n, k, out_dtype,
+                               kind, act, alpha, s);
+    return launch_int8<false>(a, b, out, bi, extra, sc, m, n, k, out_dtype,
+                              kind, act, alpha, s);
+  }
   if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
     return launch_trans<__nv_bfloat16, __nv_bfloat16>(
-        trans_b, a, b, out, bias, extra, m, n, k, kind, act, alpha, s);
+        trans_b, a, b, out, bias, extra, sc, m, n, k, kind, act, alpha, s);
   if (in_dtype == DT_BF16 && out_dtype == DT_F32)
     return launch_trans<__nv_bfloat16, float>(
-        trans_b, a, b, out, bias, extra, m, n, k, kind, act, alpha, s);
+        trans_b, a, b, out, bias, extra, sc, m, n, k, kind, act, alpha, s);
   if (in_dtype == DT_F32 && out_dtype == DT_F32)
-    return launch_trans<float, float>(trans_b, a, b, out, bias, extra, m, n,
-                                      k, kind, act, alpha, s);
+    return launch_trans<float, float>(trans_b, a, b, out, bias, extra, sc, m,
+                                      n, k, kind, act, alpha, s);
   if (in_dtype == DT_F32 && out_dtype == DT_BF16)
     return launch_trans<float, __nv_bfloat16>(
-        trans_b, a, b, out, bias, extra, m, n, k, kind, act, alpha, s);
+        trans_b, a, b, out, bias, extra, sc, m, n, k, kind, act, alpha, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,296 @@
+// K2: the packed-B mixed-precision GEMM with a fused epilogue, for sm_90a.
+//
+// Replaces the packed-B branch of the TPU kernel
+// src/repro/kernels/mpgemm.py::make_gemm_kernel (`kernel` reading B through
+// an identity tile index map, the int4 decode `unpack_nibbles`, and the
+// per-tile scale of `_accumulate`), launched by mpgemm_pallas_spec.
+// Computes
+//
+//     out = tail(alpha * (sum_kk A[:, kk] @ dequant(B[kk, j])) * scale + bias)
+//
+// with A (M, K) row-major and B a payload of zero-padded tiles
+// payload[nkb][nnb][tk][bn] (repro_torch/packing/layout.py), one f32 scale
+// per tile for the codec payloads:
+//
+//   float A (f32 / bf16) x codec tile (int8, int4, fp8e4m3): each element is
+//       decoded, multiplied by the tile's scale in f32 and rounded to A's
+//       dtype (bf16) before the product -- the reference's
+//       `bf.astype(a.dtype)`; the sum is f32;
+//   int8 A x int8 / int4 tile: an exact int32 partial over the tile's bk
+//       rows, then acc += float(partial) * tile_scale, so the f32 sum sees
+//       the same tile boundaries as the reference;
+//   float A x float tile of the same dtype: no scale.
+//
+// int4 bytes hold row 2r in the low nibble and row 2r + 1 in the high one,
+// sign-extended with arithmetic shifts.  The payload is zero-padded, so only
+// A's K edge needs a mask: rows past K are never visited.  `scale` (the int8
+// policy's per-tensor sx) is one f32 in device memory; the epilogue runs in
+// f32 in apply_epilogue's order (scale, alpha, bias, activation, gate or
+// residual).
+//
+// What bounds it on an H100: decode (M = 2) and chunked prefill (M <= 32)
+// read every payload byte once per call, so bytes over the 3.35 TB/s of
+// HBM -- a quarter of the bf16 bytes for int4.  Design, simple first: one
+// block per 32 output columns and BM rows; each of its 8 warps takes every
+// 8th K tile of those columns, one column per lane, so that a warp's loads
+// of a payload row are 32 consecutive elements and its A loads are
+// broadcasts; the 8 partial sums meet in shared memory once, in warp order.
+// Known gaps, for later work: one payload element per lane and load (no
+// 16-byte vector loads), no tensor cores, and N / 32 blocks for N = 3072.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+
+#include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+enum { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2 };
+enum { P_F32 = 0, P_BF16 = 1, P_INT8 = 2, P_INT4 = 3, P_FP8 = 4 };
+enum { KIND_LINEAR = 0, KIND_GATED = 1, KIND_RESIDUAL = 2 };
+enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU_TANH = 3 };
+
+constexpr int kCols = 32;   // output columns per block, one per lane
+constexpr int kWarps = 8;   // K-tile groups per block
+constexpr int kThreads = kCols * kWarps;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+
+__device__ __forceinline__ float activate(float x, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return fmaxf(x, 0.f);
+    case ACT_SILU:
+      return x / (1.f + expf(-x));
+    case ACT_GELU_TANH: {
+      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+    }
+    default:
+      return x;
+  }
+}
+
+// Integer element (r, c) of an int8 or int4 payload tile.
+template <int P>
+__device__ __forceinline__ int decode_int(const void* tile, int r, int c,
+                                          int bn) {
+  const int8_t* t = static_cast<const int8_t*>(tile);
+  if constexpr (P == P_INT4) {
+    const int8_t b = t[(size_t)(r >> 1) * bn + c];
+    // Low nibble: shift it to the top, then back (arithmetic, sign-extends).
+    return (r & 1) ? (b >> 4) : (static_cast<int8_t>(b << 4) >> 4);
+  } else {
+    return t[(size_t)r * bn + c];
+  }
+}
+
+// Element (r, c) of one payload tile, before its scale.
+template <int P>
+__device__ __forceinline__ float decode(const void* tile, int r, int c,
+                                        int bn) {
+  if constexpr (P == P_F32) {
+    return static_cast<const float*>(tile)[(size_t)r * bn + c];
+  } else if constexpr (P == P_BF16) {
+    return __bfloat162float(
+        static_cast<const __nv_bfloat16*>(tile)[(size_t)r * bn + c]);
+  } else if constexpr (P == P_FP8) {
+    const __nv_fp8_storage_t b =
+        static_cast<const __nv_fp8_storage_t*>(tile)[(size_t)r * bn + c];
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
+  } else {
+    return static_cast<float>(decode_int<P>(tile, r, c, bn));
+  }
+}
+
+template <typename AT>
+__device__ __forceinline__ float round_to(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename AT, int P, int BM>
+__global__ void __launch_bounds__(kThreads)
+mpgemm_packed_kernel(const AT* __restrict__ A,
+                     const void* __restrict__ payload,
+                     const float* __restrict__ tile_scales,
+                     void* __restrict__ out, const float* __restrict__ bias,
+                     const void* __restrict__ extra,
+                     const float* __restrict__ scale, int M, int N, int K,
+                     int bk, int bn, int out_dt, int kind, int act,
+                     float alpha) {
+  constexpr bool kIntDot = std::is_same<AT, int8_t>::value;
+  constexpr bool kCodec = P >= P_INT8;
+  constexpr int kElemBytes = P == P_F32 ? 4 : P == P_BF16 ? 2 : 1;
+  // Unroll the row loop (several payload loads in flight) only for the
+  // decode shape: at BM = 32 each row already carries 32 products.
+  constexpr int kUnroll = BM <= 4 ? 4 : 1;
+  const int lane = threadIdx.x % kCols;
+  const int warp = threadIdx.x / kCols;
+  const int gn = blockIdx.x * kCols + lane;
+  const int m0 = blockIdx.y * BM;
+  const int mrows = min(BM, M - m0);
+  const int nkb = (K + bk - 1) / bk;
+  const int nnb = (N + bn - 1) / bn;
+  const int tk = P == P_INT4 ? (bk + 1) / 2 : bk;
+  const size_t tile_bytes = (size_t)tk * bn * kElemBytes;
+
+  float acc[BM];
+#pragma unroll
+  for (int i = 0; i < BM; ++i) acc[i] = 0.f;
+
+  if (gn < N) {
+    const int j = gn / bn, c = gn % bn;
+    for (int kk = warp; kk < nkb; kk += kWarps) {
+      const void* tile = static_cast<const char*>(payload) +
+                         ((size_t)kk * nnb + j) * tile_bytes;
+      const int k0 = kk * bk;
+      const int rows = min(bk, K - k0);
+      const AT* a0 = A + (size_t)m0 * K + k0;
+      if constexpr (kIntDot) {
+        const float ts = tile_scales[(size_t)kk * nnb + j];
+        int part[BM];
+#pragma unroll
+        for (int i = 0; i < BM; ++i) part[i] = 0;
+#pragma unroll(kUnroll)
+        for (int r = 0; r < rows; ++r) {
+          const int q = decode_int<P>(tile, r, c, bn);
+#pragma unroll
+          for (int i = 0; i < BM; ++i)
+            if (i < mrows)
+              part[i] += static_cast<int>(a0[(size_t)i * K + r]) * q;
+        }
+#pragma unroll
+        for (int i = 0; i < BM; ++i)
+          acc[i] = __fadd_rn(acc[i],
+                             __fmul_rn(static_cast<float>(part[i]), ts));
+      } else {
+        const float ts = kCodec ? tile_scales[(size_t)kk * nnb + j] : 1.f;
+#pragma unroll(kUnroll)
+        for (int r = 0; r < rows; ++r) {
+          float w = decode<P>(tile, r, c, bn);
+          if (kCodec) w = round_to<AT>(__fmul_rn(w, ts));
+#pragma unroll
+          for (int i = 0; i < BM; ++i)
+            if (i < mrows)
+              acc[i] = fmaf(to_f32(a0[(size_t)i * K + r]), w, acc[i]);
+        }
+      }
+    }
+  }
+
+  // The kWarps partial sums of each output meet here, added in warp order.
+  __shared__ float red[kWarps][BM][kCols];
+#pragma unroll
+  for (int i = 0; i < BM; ++i) red[warp][i][lane] = acc[i];
+  __syncthreads();
+  for (int o = threadIdx.x; o < BM * kCols; o += kThreads) {
+    const int i = o / kCols, cc = o % kCols;
+    const int gm = m0 + i, col = blockIdx.x * kCols + cc;
+    if (gm >= M || col >= N) continue;
+    float v = red[0][i][cc];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += red[w][i][cc];
+    const size_t idx = (size_t)gm * N + col;
+    if (scale != nullptr) v *= *scale;
+    if (alpha != 1.f) v *= alpha;
+    if (bias != nullptr) v += bias[col];
+    v = activate(v, act);
+    if (kind != KIND_LINEAR) {
+      const float e =
+          out_dt == DT_BF16
+              ? __bfloat162float(static_cast<const __nv_bfloat16*>(extra)[idx])
+              : static_cast<const float*>(extra)[idx];
+      v = kind == KIND_GATED ? v * e : v + e;
+    }
+    if (out_dt == DT_BF16)
+      static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(out)[idx] = v;
+  }
+}
+
+template <typename AT, int P>
+cudaError_t launch_rows(const void* a, const void* payload, const float* ts,
+                        void* out, const float* bias, const void* extra,
+                        const float* scale, int m, int n, int k, int bk,
+                        int bn, int out_dt, int kind, int act, float alpha,
+                        cudaStream_t stream) {
+  const AT* A = static_cast<const AT*>(a);
+  if (m <= 4) {
+    constexpr int BM = 4;
+    const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM);
+    mpgemm_packed_kernel<AT, P, BM><<<grid, kThreads, 0, stream>>>(
+        A, payload, ts, out, bias, extra, scale, m, n, k, bk, bn, out_dt,
+        kind, act, alpha);
+  } else {
+    constexpr int BM = 32;
+    const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM);
+    mpgemm_packed_kernel<AT, P, BM><<<grid, kThreads, 0, stream>>>(
+        A, payload, ts, out, bias, extra, scale, m, n, k, bk, bn, out_dt,
+        kind, act, alpha);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K2 on `stream`; returns the cudaError_t of the launch (0 = ok).
+// a_dt: 0 f32, 1 bf16, 2 int8.  pcode: 0 f32, 1 bf16, 2 int8, 3 int4,
+// 4 fp8e4m3.  Taken pairs: f32 A x {f32, int8, int4, fp8}, bf16 A x
+// {bf16, int8, int4, fp8}, int8 A x {int8, int4}.  `tile_scales` is
+// (nkb, nnb) f32 for the codec payloads; `bias`, `extra` and `scale` may be
+// null; `extra` has the output's dtype.
+int mpgemm_packed_launch(const void* a, const void* payload,
+                         const void* tile_scales, void* out, const void* bias,
+                         const void* extra, const void* scale, int m, int n,
+                         int k, int bk, int bn, int a_dt, int pcode,
+                         int out_dt, int kind, int act, float alpha,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ts = static_cast<const float*>(tile_scales);
+  const float* bi = static_cast<const float*>(bias);
+  const float* sc = static_cast<const float*>(scale);
+  if (out_dt != DT_F32 && out_dt != DT_BF16) return cudaErrorInvalidValue;
+  if (pcode >= P_INT8 && ts == nullptr) return cudaErrorInvalidValue;
+  if (kind != KIND_LINEAR && extra == nullptr) return cudaErrorInvalidValue;
+  if (m <= 0 || n <= 0 || k <= 0 || bk <= 0 || bn <= 0)
+    return cudaErrorInvalidValue;
+#define K2_LAUNCH(AT, P)                                                   \
+  return launch_rows<AT, P>(a, payload, ts, out, bi, extra, sc, m, n, k, \
+                            bk, bn, out_dt, kind, act, alpha, s)
+  if (a_dt == DT_BF16) {
+    if (pcode == P_BF16) K2_LAUNCH(__nv_bfloat16, P_BF16);
+    if (pcode == P_INT8) K2_LAUNCH(__nv_bfloat16, P_INT8);
+    if (pcode == P_INT4) K2_LAUNCH(__nv_bfloat16, P_INT4);
+    if (pcode == P_FP8) K2_LAUNCH(__nv_bfloat16, P_FP8);
+  } else if (a_dt == DT_F32) {
+    if (pcode == P_F32) K2_LAUNCH(float, P_F32);
+    if (pcode == P_INT8) K2_LAUNCH(float, P_INT8);
+    if (pcode == P_INT4) K2_LAUNCH(float, P_INT4);
+    if (pcode == P_FP8) K2_LAUNCH(float, P_FP8);
+  } else if (a_dt == DT_INT8) {
+    if (pcode == P_INT8) K2_LAUNCH(int8_t, P_INT8);
+    if (pcode == P_INT4) K2_LAUNCH(int8_t, P_INT4);
+  }
+#undef K2_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* mpgemm_packed_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

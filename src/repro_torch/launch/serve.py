@@ -2,10 +2,14 @@
 ServeEngine, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
+        --pack --pack-format int4 [--policy int8]
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Weights are random (drawn from a seeded ``torch.Generator`` on the target
-device).  Without a card, leave ``--device cuda`` (the default) and the
+device).  ``--pack`` packs them from their f32 draw; under bf16 a packed
+bf16 payload is a change of layout only, so it gives the same tokens as no
+``--pack``.  Without a card, leave ``--device cuda`` (the default) and the
 command exits non-zero; ``--device cpu`` runs the plain PyTorch path.
 """
 import argparse
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.configs import base as cb
 from repro_torch.models.transformer import build_model, resolve_device
+from repro_torch.packing.params import packed_param_bytes
 from repro_torch.serve.engine import Request, ServeEngine
 
 
@@ -25,7 +30,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="phi3-mini-3.8b", choices=cb.ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced SMOKE config")
-    ap.add_argument("--policy", default="bf16", choices=["bf16", "bf16_serve"])
+    ap.add_argument("--policy", default="bf16",
+                    choices=["bf16", "bf16_serve", "int8"])
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-batch", type=int, default=2,
                     help="concurrent sequence slots")
@@ -44,11 +50,22 @@ def main(argv=None):
                     help="pre-populate the prefix index with an N-token "
                          "synthetic system prompt that every request then "
                          "prepends")
+    ap.add_argument("--pack", action="store_true",
+                    help="pack the GEMM weights into 128 x 128 tiles at load "
+                         "time (repro_torch.packing); the packed GEMM kernel "
+                         "reads them")
+    ap.add_argument("--pack-format", default=None,
+                    choices=["int8", "int4", "fp8"],
+                    help="payload codec for --pack: int8 per-tile quantized, "
+                         "int4 nibble-packed (half the int8 bytes), fp8 e4m3 "
+                         "scaled.  Default: the policy's payload dtype")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default: the card; cpu runs the "
                          "plain PyTorch path)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.pack_format is not None and not args.pack:
+        raise SystemExit("--pack-format requires --pack")
 
     try:
         device = resolve_device(args.device)
@@ -63,7 +80,11 @@ def main(argv=None):
     cfg = cb.get(args.arch, smoke=args.smoke)
     model = build_model(cfg, policy=args.policy, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen)
+    params = model.init(gen, pack=args.pack, pack_format=args.pack_format)
+    if args.pack:
+        fmt = f", format={args.pack_format}" if args.pack_format else ""
+        print(f"[serve] packed static weights: "
+              f"{packed_param_bytes(params) / 2**20:.1f} MiB payload{fmt}")
     eng = ServeEngine(model, params, max_len=args.max_len,
                       max_batch=args.max_batch, page_size=args.page_size,
                       max_pages=args.max_pages,

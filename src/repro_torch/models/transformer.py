@@ -7,6 +7,9 @@ same function.
 Parameters are a plain dict: ``embed`` (Vp, d), ``final_norm``, ``head``
 (d, Vp) when untied, and ``layers``, a list of per-layer block dicts in
 layer order (the reference stacks them per unit kind for ``lax.scan``).
+A GEMM weight is a dense tensor or, once packed (``LM.init(pack=True)`` or
+``packing.params.pack_params``), a
+:class:`~repro_torch.packing.layout.PackedOperand`.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import (
     embed_init, logits_from_hidden, rmsnorm, rope_frequencies,
 )
+from repro_torch.packing.layout import PackedLayout, PackedOperand
+from repro_torch.packing.params import pack_params
 
 # Block kinds the port's paged-KV serving path runs.
 PAGED_KINDS = ("dense", "attn_local")
@@ -60,7 +65,9 @@ def _window(cfg, kind):
 
 # The GEMM weights of a layer: cast once to the compute dtype at load time
 # (mp_dot would cast them on every call; a cast done once gives the same
-# bits).  Norm scales stay f32.
+# bits).  Under the int8 policy they stay f32, as in the reference, and
+# mp_dot quantizes them per call.  Packed weights and norm scales are left
+# as they are.
 _GEMM_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
                  "mlp": ("w_gate", "w_up", "w_down")}
 
@@ -86,6 +93,9 @@ class LM:
         pol = get_policy(self.policy)
         self.compute_dtype = pol.compute
         self.act_dtype = pol.out
+        # The dtype dense GEMM weights are stored in: the compute dtype, or
+        # f32 under the int8 policy (quantized per call).
+        self.weight_dtype = torch.float32 if pol.quantized else pol.compute
 
     @property
     def vocab_padded(self) -> int:
@@ -94,41 +104,59 @@ class LM:
 
     # ------------------------------ init ------------------------------------
 
-    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init(self, generator: torch.Generator, *, pack: bool = False,
+             pack_format: Optional[str] = None) -> Dict[str, Any]:
         """Random parameters drawn on the model's device from ``generator``
         (which must live on that device), with the reference's
-        distributions, then cast for the policy (:meth:`load_params`)."""
+        distributions, then cast for the policy (:meth:`load_params`).
+
+        ``pack=True`` packs every GEMM weight (``packing.params``) from its
+        f32 draw, before any cast, with the payload ``pack_format`` (None:
+        the policy's) in the port's 128 x 128 blocks.
+        """
         cfg, dev = self.cfg, self.device
         kw = dict(generator=generator, device=dev)
+
+        def prepare(tree):
+            # Pack or cast each part as it is drawn: the f32 draft of a
+            # full-width model would not have to fit beside the result.
+            if pack:
+                return pack_params(tree, policy=self.policy,
+                                   pack_format=pack_format)
+            return self._cast_layer(tree)
+
         params: Dict[str, Any] = {
             "embed": embed_init(self.vocab_padded, cfg.d_model, **kw),
             "final_norm": B.init_norm(cfg, device=dev),
         }
         if not cfg.tie_embeddings:
-            params["head"] = torch.randn(cfg.d_model, self.vocab_padded,
-                                         **kw) * 0.02
-        layers = []
-        for _ in cfg.pattern:
-            # Cast each layer as it is drawn: the f32 draft of a full-width
-            # model would not have to fit beside the cast copy.
-            layers.append(self._cast_layer(B.init_dense(cfg, **kw)))
-        params["layers"] = layers
+            head = torch.randn(cfg.d_model, self.vocab_padded, **kw) * 0.02
+            params["head"] = (pack_params({"head": head}, policy=self.policy,
+                                          pack_format=pack_format)["head"]
+                              if pack else head.to(self.weight_dtype))
+        params["layers"] = [prepare(B.init_dense(cfg, **kw))
+                            for _ in cfg.pattern]
         return self.load_params(params)
 
     def _cast_layer(self, layer):
         out = dict(layer)
         for sub, names in _GEMM_WEIGHTS.items():
-            out[sub] = {k: (v.to(self.compute_dtype) if k in names else v)
+            out[sub] = {k: (v.to(self.weight_dtype)
+                            if k in names and isinstance(v, torch.Tensor)
+                            else v)
                         for k, v in layer[sub].items()}
         return out
 
     def load_params(self, params) -> Dict[str, Any]:
-        """Move ``params`` to the model's device and cast the GEMM weights
-        and the head to the compute dtype and the embedding table to the
-        activation dtype (both what the reference casts them to per use)."""
+        """Move ``params`` to the model's device and cast the dense GEMM
+        weights and head to :attr:`weight_dtype` and the embedding table to
+        the activation dtype (both what the reference casts them to per
+        use).  Packed weights move as they are."""
         dev = self.device
 
         def to(t, dtype=None):
+            if isinstance(t, PackedOperand):
+                return t.to(dev)
             return t.to(device=dev, dtype=dtype or t.dtype)
 
         out = {
@@ -140,7 +168,7 @@ class LM:
                 for layer in params["layers"]],
         }
         if "head" in params:
-            out["head"] = to(params["head"], self.compute_dtype)
+            out["head"] = to(params["head"], self.weight_dtype)
         return out
 
     # ------------------------- paged serving --------------------------------
@@ -220,21 +248,52 @@ def build_model(cfg: ArchConfig, policy: str = "bf16",
     return LM(cfg, policy=policy, device=device)
 
 
+def _packed_from_jax(p, idx=None) -> PackedOperand:
+    """A reference ``PackedOperand`` with numpy leaves (a stacked one is
+    sliced at layer ``idx``) as the port's, on the CPU.  ``torch.from_numpy``
+    refuses ml_dtypes' bfloat16 and float8_e4m3fn, so their bytes cross as
+    uint16 / uint8 and are viewed back."""
+    lay = p.layout
+    layout = PackedLayout(k=lay.k, n=lay.n, bk=lay.bk, bn=lay.bn,
+                          dtype=lay.dtype, orig_dtype=lay.orig_dtype,
+                          trans_w=lay.trans_w)
+    payload = np.asarray(p.payload if idx is None else p.payload[idx])
+    want = layout.storage_dtype
+    if want in (torch.bfloat16, torch.float8_e4m3fn):
+        raw = np.uint16 if want == torch.bfloat16 else np.uint8
+        tensor = torch.from_numpy(payload.view(raw).copy()).view(want)
+    else:
+        tensor = torch.from_numpy(payload.copy())
+    if tensor.dtype != want or tuple(tensor.shape) != layout.payload_shape:
+        raise ValueError(f"packed leaf {layout.describe()}: payload "
+                         f"{tensor.dtype} {tuple(tensor.shape)}")
+    scales = None
+    if p.scales is not None:
+        scales = torch.from_numpy(np.asarray(
+            p.scales if idx is None else p.scales[idx],
+            dtype=np.float32).copy())
+    return PackedOperand(tensor, scales, layout)
+
+
 def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
     """The port's parameter dict from a reference pytree with numpy leaves
-    (``jax.tree_util.tree_map(np.asarray, params)``), as f32 CPU tensors.
+    (``jax.tree_util.tree_map(np.asarray, params)``), as CPU tensors: f32
+    for dense leaves, and the port's ``PackedOperand`` for the reference's
+    packed ones (``repro.packing.pack_params``), payload bytes unchanged.
 
     The reference keeps ``stack``, one dict per unit kind with a leading
     ``n_units`` axis, and ``tail``, a list; layer ``u * len(unit) + p`` is
     ``stack[p]`` at index ``u``, followed by the tail layers.  Pass the
     result to :meth:`LM.load_params` for the device and the policy's casts.
     """
-    def t(a):
+    def t(a, idx=None):
+        if hasattr(a, "payload") and hasattr(a, "layout"):
+            return _packed_from_jax(a, idx)
+        a = np.asarray(a) if idx is None else np.asarray(a)[idx]
         return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
 
     def tree(d, idx=None):
-        return {k: (tree(v, idx) if isinstance(v, dict)
-                    else t(v if idx is None else np.asarray(v)[idx]))
+        return {k: (tree(v, idx) if isinstance(v, dict) else t(v, idx))
                 for k, v in d.items()}
 
     unit, n_units, rem = segment_pattern(cfg.pattern)

@@ -1,0 +1,219 @@
+"""Tile packing with on-the-fly transposition (port of
+``repro.packing.pack``): the paper's packing pass, run once at load time.
+
+``pack_operand`` reorders a (k, n) weight -- or an (n, k) one under
+``trans_w``, transposed during the pack -- into zero-padded (bk, bn) tiles
+(:class:`~repro_torch.packing.layout.PackedLayout`).  A codec payload
+quantizes each tile symmetrically with its own f32 scale
+``max(amax, 1e-8) / qmax``: int8 and int4 round half to even and clip
+(int4 nibble-packs two K-adjacent values per byte, low nibble = even k),
+fp8e4m3 clips to +-448 and casts.
+
+Dispatch is by the source tensor's device: a CPU tensor runs
+:func:`pack_reference`, the plain version; a CUDA tensor launches K6
+(``csrc/pack.cu``), whose payload and scales are byte-identical to the
+plain version's.  :func:`unpack_operand` has only its plain version: on the
+card it would need K7, which comes with the training slice, so it raises
+there.
+
+``pack_operand.launches`` counts K6 launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.codecs import (
+    FP8_E4M3_MAX, canonical_payload_dtype, dtype_name, torch_dtype,
+)
+from repro_torch.kernels import _build
+from repro_torch.packing.layout import PackedLayout, PackedOperand
+
+
+def _layout_for(w: torch.Tensor, bk: int, bn: int, *, trans_w: bool,
+                dtype) -> PackedLayout:
+    if w.dim() != 2:
+        raise NotImplementedError(
+            f"pack_operand takes a 2-D operand, got {tuple(w.shape)} "
+            "(grouped MoE packing is not ported)")
+    k, n = (w.shape[1], w.shape[0]) if trans_w else w.shape
+    # Clamp blocks to the extent: a tiny operand packs as one exact tile.
+    return PackedLayout(
+        k=k, n=n, bk=min(int(bk), k), bn=min(int(bn), n),
+        dtype=canonical_payload_dtype(dtype if dtype is not None
+                                      else w.dtype),
+        orig_dtype=dtype_name(w.dtype), trans_w=trans_w)
+
+
+# --- the plain version -------------------------------------------------------
+
+def _tiles(w2d: torch.Tensor, layout: PackedLayout) -> torch.Tensor:
+    """(k, n) / (n, k) source -> zero-padded (nkb, nnb, bk, bn) tiles."""
+    if layout.trans_w:
+        w2d = w2d.t()
+    k, n, bk, bn = layout.k, layout.n, layout.bk, layout.bn
+    wp = F.pad(w2d, (0, layout.nnb * bn - n, 0, layout.nkb * bk - k))
+    return wp.reshape(layout.nkb, bk, layout.nnb, bn).permute(0, 2, 1, 3)
+
+
+def pack_nibbles(q: torch.Tensor) -> torch.Tensor:
+    """(..., bk, bn) int8 values in [-7, 7] -> (..., ceil(bk/2), bn) int8
+    bytes: low nibble = even k, high nibble = odd k (an odd bk pads the
+    last high nibble with zero)."""
+    if q.shape[-2] % 2:
+        q = F.pad(q, (0, 0, 0, 1))
+    lo = q[..., 0::2, :].to(torch.int32)
+    hi = q[..., 1::2, :].to(torch.int32)
+    byte = ((hi << 4) | (lo & 0xF)) & 0xFF
+    return byte.to(torch.uint8).view(torch.int8)
+
+
+def unpack_nibbles(b: torch.Tensor, rows: int) -> torch.Tensor:
+    """Inverse of :func:`pack_nibbles`: sign-extend each nibble and
+    interleave back to ``rows`` logical K rows (int8)."""
+    bi = b.to(torch.int32)
+    lo = ((bi & 0xF) ^ 8) - 8            # sign-extend the low nibble
+    hi = bi >> 4                          # arithmetic shift of the byte
+    pair = torch.stack((lo, hi), dim=-2)  # (..., hk, 2, bn)
+    full = pair.reshape(*b.shape[:-2], 2 * b.shape[-2], b.shape[-1])
+    return full[..., :rows, :].to(torch.int8)
+
+
+def _encode(tiles: torch.Tensor, layout: PackedLayout):
+    """Per-tile symmetric quantization: (nkb, nnb, bk, bn) ->
+    (payload in the codec's storage dtype, f32 scales)."""
+    codec = layout.codec
+    t32 = tiles.float()
+    amax = t32.abs().amax(dim=(-2, -1))
+    # A tensor divisor: a Python scalar on a CUDA tensor makes PyTorch
+    # multiply by its reciprocal, which rounds differently from K6's and the
+    # reference's division.
+    scales = amax.clamp_min(1e-8) / torch.full_like(amax, codec.qmax)
+    scaled = t32 / scales[..., None, None]
+    if codec.integer:
+        q = torch.round(scaled).clamp(-codec.qmax, codec.qmax).to(torch.int8)
+        if codec.elems_per_byte > 1:
+            q = pack_nibbles(q)
+        return q.contiguous(), scales
+    q = scaled.clamp(-FP8_E4M3_MAX, FP8_E4M3_MAX)
+    return q.to(layout.storage_dtype).contiguous(), scales
+
+
+def pack_reference(w: torch.Tensor, layout: PackedLayout):
+    """K6's plain version: (payload, scales | None)."""
+    tiles = _tiles(w, layout)
+    if layout.per_tile_scales:
+        return _encode(tiles, layout)
+    return tiles.to(layout.storage_dtype).contiguous(), None
+
+
+def decode_payload_tiles(payload: torch.Tensor,
+                         layout: PackedLayout) -> torch.Tensor:
+    """Payload tiles -> per-element values before the scale (int4 nibbles
+    sign-extended and interleaved back to bk rows)."""
+    codec = layout.codec
+    if codec is not None and codec.elems_per_byte > 1:
+        return unpack_nibbles(payload, layout.bk)
+    return payload
+
+
+def unpack_reference(payload, scales, layout: PackedLayout, dtype):
+    """K7's plain version: the dense (k, n) operand in ``dtype``."""
+    tiles = decode_payload_tiles(payload, layout)
+    if scales is not None:
+        tiles = tiles.float() * scales[..., None, None]
+    full = tiles.permute(0, 2, 1, 3).reshape(layout.nkb * layout.bk,
+                                             layout.nnb * layout.bn)
+    return full[:layout.k, :layout.n].to(torch_dtype(dtype))
+
+
+# --- public API --------------------------------------------------------------
+
+def pack_operand(w: torch.Tensor, blocks: Tuple[int, int], *,
+                 trans_w: bool = False, dtype=None) -> PackedOperand:
+    """Pack a (k, n) / (n, k) weight into ``blocks = (bk, bn)`` tiles.
+
+    ``dtype`` selects the payload: a float dtype stores cast tiles; a codec
+    name (``"int8"`` / ``"int4"`` / ``"fp8e4m3"``, aliases such as
+    ``"fp8"`` accepted) stores per-tile quantized tiles plus f32 scales.
+    Defaults to the source dtype.
+    """
+    bk, bn = blocks
+    layout = _layout_for(w, bk, bn, trans_w=trans_w, dtype=dtype)
+    if w.device.type == "cpu":
+        payload, scales = pack_reference(w, layout)
+    elif w.device.type == "cuda":
+        payload, scales = _launch(w, layout)
+    else:
+        raise ValueError(f"pack_operand: unsupported device {w.device}")
+    return PackedOperand(payload, scales, layout)
+
+
+def unpack_operand(p: PackedOperand, *, dtype=None) -> torch.Tensor:
+    """Inverse of :func:`pack_operand`: the dense (k, n) operand.  Codec
+    payloads dequantize per tile; float payloads round-trip exactly.
+    ``dtype`` defaults to the payload dtype (codecs: the source dtype).
+    Plain version only: a payload off the CPU would need K7."""
+    layout = p.layout
+    if p.payload.device.type != "cpu":
+        raise NotImplementedError(
+            "unpack_operand on the card needs the unpack kernel (K7), which "
+            "comes with the training slice")
+    if dtype is None:
+        dtype = layout.orig_dtype if layout.per_tile_scales else layout.dtype
+    return unpack_reference(p.payload, p.scales, layout, dtype)
+
+
+# --- K6 launch ---------------------------------------------------------------
+
+_SRC_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Payload codes of csrc/pack.cu: float payloads by dtype, then the codecs.
+_PAYLOAD_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3,
+                  "fp8e4m3": 4}
+
+
+def _launch(w: torch.Tensor, layout: PackedLayout):
+    if w.dtype not in _SRC_CODES:
+        raise NotImplementedError(f"pack kernel source dtype {w.dtype} "
+                                  "(takes float32 or bfloat16)")
+    if layout.dtype not in _PAYLOAD_CODES:
+        raise NotImplementedError(f"pack kernel payload {layout.dtype!r}")
+    if not w.is_contiguous():
+        raise ValueError("pack_operand: the source must be contiguous")
+    payload = torch.empty(layout.payload_shape, dtype=layout.storage_dtype,
+                          device=w.device)
+    scales = (torch.empty(layout.scales_shape, dtype=torch.float32,
+                          device=w.device)
+              if layout.per_tile_scales else None)
+    if payload.numel() == 0:
+        return payload, scales
+    lib = _lib()
+    rc = lib.pack_launch(
+        w.data_ptr(), payload.data_ptr(),
+        scales.data_ptr() if scales is not None else None,
+        _SRC_CODES[w.dtype], _PAYLOAD_CODES[layout.dtype],
+        layout.k, layout.n, layout.bk, layout.bn, int(layout.trans_w),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pack kernel launch failed: CUDA error {rc} "
+                           f"({lib.pack_error_string(rc).decode()})")
+    pack_operand.launches += 1
+    return payload, scales
+
+
+pack_operand.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("pack")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pack_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.pack_launch.restype = i
+    lib.pack_error_string.argtypes = [i]
+    lib.pack_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,97 @@
+"""Pack a model's parameter dict at load time (port of
+``repro.packing.params``, 2-D leaves only: there is no stacked-layer axis in
+the port's per-layer dict, and grouped MoE packing is not ported).
+
+``pack_params`` replaces every eligible GEMM weight (``QUANT_LEAVES``: the
+projections and the untied head; embeddings and norms stay dense) with its
+:class:`~repro_torch.packing.layout.PackedOperand`:
+
+    policy fp32 / bf16 / bf16_serve  ->  float payload in the compute dtype
+    policy int8                      ->  int8 payload + per-tile scales
+    pack_format int8 / int4 / fp8    ->  that codec, under any policy
+
+**Blocks.**  The reference takes (bk, bn) from its TPU block planner, which
+gives 2048 x 2048 at every phi3-mini shape: K = 3072 would pad to 4096 and
+waste a third of the weight bytes.  Until the Hopper planner is ported
+(ROADMAP A6), the port's rule is ``bk = min(128, k)``, ``bn = min(128, n)``
+(:func:`default_blocks`).  ``blocks=`` overrides it, so that a parity test
+can hand both packages the same blocks.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.codecs import (
+    CODECS, canonical_payload_dtype, get_codec,
+)
+from repro_torch.core.policy import get_policy
+from repro_torch.core.quantization import QUANT_LEAVES
+from repro_torch.packing.layout import PackedOperand
+from repro_torch.packing.pack import pack_operand
+
+# Leaves that would be grouped (expert-batched) when 3-D.
+MOE_GROUPED_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
+
+BLOCK = 128
+
+
+def default_blocks(k: int, n: int) -> Tuple[int, int]:
+    """The port's packing blocks: 128 x 128 tiles, clamped to the extent."""
+    return min(BLOCK, k), min(BLOCK, n)
+
+
+def payload_dtype(policy, pack_format: Optional[str] = None) -> str:
+    """The payload dtype ``pack_params`` stores for ``policy``."""
+    if pack_format is not None:
+        dtype = canonical_payload_dtype(pack_format)
+        if get_codec(dtype) is None:
+            raise ValueError(
+                f"pack_format {pack_format!r} is not a quantized payload "
+                f"codec; valid: {sorted(CODECS)} (or their aliases)")
+        return dtype
+    policy = get_policy(policy)
+    return "int8" if policy.quantized else policy.compute_dtype
+
+
+def pack_params(params, *, policy="bf16", pack_format: Optional[str] = None,
+                leaves: Optional[Sequence[str]] = None,
+                blocks: Optional[Callable[[int, int],
+                                          Tuple[int, int]]] = None):
+    """A copy of the (nested dict / list) ``params`` with eligible 2-D float
+    GEMM weights packed; ``blocks(k, n) -> (bk, bn)`` defaults to
+    :func:`default_blocks`.  Run it on the f32 draw: per-tile amax over
+    bf16-rounded values gives other payload bytes."""
+    dtype = payload_dtype(policy, pack_format)
+    eligible = frozenset(leaves) if leaves is not None else QUANT_LEAVES
+    blocks = blocks or default_blocks
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        if (name not in eligible or not isinstance(node, torch.Tensor)
+                or not node.is_floating_point()):
+            return node
+        if node.dim() == 3 and name in MOE_GROUPED_LEAVES:
+            raise NotImplementedError(
+                f"grouped (MoE) packing of {name!r} is not ported yet")
+        if node.dim() != 2:
+            return node
+        k, n = node.shape
+        return pack_operand(node, blocks(k, n), dtype=dtype)
+
+    return walk(params)
+
+
+def packed_param_bytes(params) -> int:
+    """Total bytes of packed payloads and scales in a parameter tree."""
+    if isinstance(params, PackedOperand):
+        return params.nbytes
+    if isinstance(params, dict):
+        return sum(packed_param_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(packed_param_bytes(v) for v in params)
+    return 0

@@ -7,7 +7,8 @@ skips without a card.  On a machine with an H100 and nvcc:
 
 Tolerances: f32 outputs atol = rtol = 1e-4 (summation order); bf16 outputs
 atol = rtol = 1.6e-2 (one bf16 rounding of the f32 result may land on
-either side).
+either side).  The packer (K6) has none: its payload and scales must be
+byte-identical to its plain version's.
 """
 import pytest
 
@@ -105,3 +106,125 @@ def test_paged_flash_kernel_matches_plain(gen, dtype, h, hkv, d, tq, window):
     torch.testing.assert_close(got.float()[live], want.float()[live],
                                **TOL[dtype])
     assert (got[2] == 0).all()                          # idle request
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,kind,act,trans_b,bias", [
+    (2, 96, 136, "linear", None, False, False),
+    (37, 129, 100, "gated", "silu", True, True),
+    (32, 3072, 64, "residual", None, False, False),
+])
+def test_mpgemm_int8_kernel_matches_plain(gen, out_dtype, m, k, n, kind, act,
+                                          trans_b, bias):
+    """K1's int8 variant: an exact int32 sum, then the device scale."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_plain
+
+    def q(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    a, b = q(m, k), q(*((n, k) if trans_b else (k, n)))
+    scale = torch.rand((), generator=gen, device="cuda") * 1e-4
+    bi = torch.randn(n, generator=gen, device="cuda") if bias else None
+    extras = () if kind == "linear" else (
+        torch.randn(m, n, generator=gen, device="cuda").to(out_dtype),)
+    ep = EpilogueSpec(kind=kind, activation=act)
+    before = mpgemm.launches
+    got = mpgemm(a, b, bias=bi, scale=scale, extras=extras,
+                 spec=GemmSpec(trans_b=trans_b), epilogue=ep,
+                 out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert mpgemm.launches == before + 1
+    want = mpgemm_plain(a, b, bias=bi, scale=scale, extras=extras,
+                        trans_b=trans_b, epilogue=ep, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+
+
+PACK_SHAPES = [  # (source shape, blocks, trans_w)
+    ((100, 70), (32, 32), False),
+    ((48, 101), (17, 16), True),
+    ((300, 260), (128, 128), False),
+    ((129, 33), (33, 128), False),
+]
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8", "int4",
+                                   "fp8e4m3"])
+@pytest.mark.parametrize("shape,blocks,trans_w", PACK_SHAPES)
+def test_pack_kernel_is_byte_identical_to_plain(gen, src_dtype, dtype, shape,
+                                                blocks, trans_w):
+    """K6 against its plain version on the card and on the CPU: payload and
+    scales byte for byte (no tolerance)."""
+    from repro_torch.packing.pack import pack_operand, pack_reference
+
+    w = (torch.randn(*shape, generator=gen, device="cuda") * 0.05).to(
+        src_dtype)
+    w[-1, -1] = 0.37
+    before = pack_operand.launches
+    got = pack_operand(w, blocks, trans_w=trans_w, dtype=dtype)
+    torch.cuda.synchronize()
+    assert pack_operand.launches == before + 1
+    for want in (pack_reference(w, got.layout),
+                 pack_reference(w.cpu(), got.layout)):
+        assert got.payload.dtype == want[0].dtype
+        assert torch.equal(_bytes(got.payload), _bytes(want[0]))
+        if want[1] is None:
+            assert got.scales is None
+        else:
+            assert torch.equal(_bytes(got.scales), _bytes(want[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("a_dtype,payload", [
+    (torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
+    (torch.bfloat16, "int4"), (torch.bfloat16, "fp8e4m3"),
+    (torch.float32, "float32"), (torch.float32, "int4"),
+    (torch.int8, "int8"), (torch.int8, "int4"),
+])
+@pytest.mark.parametrize("kind,act,blocks", [
+    ("linear", None, (128, 64)), ("gated", "silu", (33, 16)),
+    ("residual", "gelu", (64, 128)),
+])
+def test_mpgemm_packed_kernel_matches_plain(gen, m, a_dtype, payload, kind,
+                                            act, blocks):
+    """K2 against its plain version: K = 300 (a K tail), N = 200 (ragged
+    column tiles), an odd bk for int4's dangling nibble."""
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import mpgemm_packed, \
+        mpgemm_packed_plain
+    from repro_torch.packing.pack import pack_operand
+
+    k, n = 300, 200
+    out_dtype = torch.float32 if a_dtype == torch.float32 else torch.bfloat16
+    w = torch.randn(k, n, generator=gen, device="cuda") * 0.05
+    b = pack_operand(w, blocks, dtype=payload)
+    scale = None
+    if a_dtype == torch.int8:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        scale = torch.full((), 0.01, device="cuda")
+    else:
+        a = torch.randn(m, k, generator=gen, device="cuda").to(a_dtype)
+    bi = torch.randn(n, generator=gen, device="cuda")
+    extras = () if kind == "linear" else (
+        torch.randn(m, n, generator=gen, device="cuda").to(out_dtype),)
+    ep = EpilogueSpec(kind=kind, activation=act)
+    kw = dict(bias=bi, scale=scale, extras=extras, epilogue=ep,
+              out_dtype=out_dtype)
+    before = mpgemm_packed.launches
+    got = mpgemm_packed(a, b, **kw)
+    torch.cuda.synchronize()
+    assert mpgemm_packed.launches == before + 1
+    want = mpgemm_packed_plain(a, b, **kw)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])

@@ -12,6 +12,8 @@ f32 epilogue result to a bf16 output, and a different summation order can
 put the two results on either side of a rounding boundary (one bf16 ulp is
 2**-8 relative).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -120,20 +122,41 @@ def test_gelu_is_the_tanh_approximation():
     assert np.abs(erf - want).max() > 1e-4
 
 
-@pytest.mark.parametrize("variant", ["trans_a", "beta_c", "scale", "packed",
+@pytest.mark.parametrize("variant", ["trans_a", "beta_c", "packed",
                                      "quant_in", "int8_policy"])
 def test_unported_variants_raise(variant):
-    """Variants K1 does not take yet raise on every device, so the CPU path
-    never offers what the card cannot run."""
+    """Variants the kernels do not take yet raise on every device, so the
+    CPU path never offers what the card cannot run: ``packed`` is a grouped
+    (MoE) packed operand, ``int8_policy`` a float payload under the int8
+    policy off the CPU, which would need the unpack kernel (K7)."""
+    from repro_torch.packing.layout import PackedOperand
+    from repro_torch.packing.pack import pack_operand
+
     a, b = torch.ones(4, 8), torch.ones(8, 16)
+    p = pack_operand(b, (8, 8), dtype="float32")
+    grouped = PackedOperand(p.payload, None,
+                            dataclasses.replace(p.layout, g=2))
     calls = {
         "trans_a": lambda: mpgemm(a, b, spec=tspec.GemmSpec(trans_a=True)),
         "beta_c": lambda: mpgemm(a, b, c=torch.ones(4, 16),
                                  epilogue=tspec.EpilogueSpec(beta=1.0)),
-        "scale": lambda: mpgemm(a, b, scale=torch.tensor(2.0)),
-        "packed": lambda: mpgemm(a, b, spec=tspec.GemmSpec(packed=True)),
+        "packed": lambda: mpgemm(a, grouped),
         "quant_in": lambda: mp_dot(a, b, quant_in=True),
-        "int8_policy": lambda: get_policy("int8"),
+        "int8_policy": lambda: mp_dot(a.to("meta"), p.to("meta"),
+                                      policy="int8"),
     }
     with pytest.raises(NotImplementedError):
         calls[variant]()
+
+
+def test_scale_rides_the_epilogue_before_alpha():
+    """The scalar dequant scale (the int8 policy's sx · sw) multiplies the
+    accumulator first, as in the reference's apply_epilogue."""
+    a = torch.randint(-5, 6, (3, 8), dtype=torch.int8)
+    b = torch.randint(-5, 6, (8, 4), dtype=torch.int8)
+    ep = tspec.EpilogueSpec(alpha=0.5, activation="relu")
+    got = mpgemm(a, b, scale=torch.tensor(0.25), bias=torch.ones(4),
+                 epilogue=ep, out_dtype=torch.float32)
+    want = torch.relu((a.int() @ b.int()).float() * 0.25 * 0.5 + 1.0)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert get_policy("int8").quantized

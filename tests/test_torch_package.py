@@ -115,13 +115,21 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     version: meta tensors are refused outright, and the launch counters
     stay at zero on the CPU path."""
     from repro_torch.kernels.flash_attention import paged_flash_attention
-    from repro_torch.kernels.mpgemm import mpgemm
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_packed
+    from repro_torch.packing.pack import pack_operand
 
     k1, k5 = mpgemm.launches, paged_flash_attention.launches
+    k2, k6 = mpgemm_packed.launches, pack_operand.launches
     a = torch.ones(2, 8)
     assert mpgemm(a, torch.ones(8, 4)).shape == (2, 4)
     with pytest.raises(ValueError, match="device"):
         mpgemm(a.to("meta"), torch.ones(8, 4, device="meta"))
+    packed = pack_operand(torch.ones(8, 4), (8, 4), dtype="int4")
+    assert mpgemm(a, packed).shape == (2, 4)
+    with pytest.raises(ValueError, match="device"):
+        mpgemm(a.to("meta"), packed.to("meta"))
+    with pytest.raises(ValueError, match="device"):
+        pack_operand(torch.ones(8, 4, device="meta"), (8, 4), dtype="int4")
     q = torch.ones(1, 2, 1, 8)
     pages = torch.ones(2, 2, 4, 8)
     i32 = dict(dtype=torch.int32)
@@ -132,12 +140,14 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
         paged_flash_attention(q.to("meta"), pages.to("meta"),
                               pages.to("meta"), *(t.to("meta") for t in args))
     assert (mpgemm.launches, paged_flash_attention.launches) == (k1, k5)
+    assert (mpgemm_packed.launches, pack_operand.launches) == (k2, k6)
 
 
 def test_importing_the_kernels_builds_nothing():
     """Kernels build at their first launch, never at import."""
     r = _run(["-c", "import repro_torch.kernels.mpgemm, "
               "repro_torch.kernels.flash_attention, "
+              "repro_torch.packing.params, "
               "repro_torch.kernels._build as b; "
               "print(b.BUILD_DIR, b._loaded)"])
     assert r.returncode == 0, r.stderr
