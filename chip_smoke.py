@@ -10,37 +10,56 @@ printing a result:
 1. the card's name and power limit; build every kernel from ``csrc/`` with
    nvcc (one process per source, in parallel) and print the build seconds;
 2. K1 (``kernels/csrc/mpgemm.cu``) against its plain version at the
-   full-width phi3-mini GEMM shapes (decode M = 2 and chunked prefill
-   M = 32), a ragged edge case and an f32 case; then K1's int8 variant
-   (int8 operands, exact int32 sum, device scale) at the same shapes;
+   full-width phi3-mini and granite-moe-1b-a400m 2-D GEMM shapes (decode
+   M = 2 and chunked prefill M = 32; granite's attention projections, its
+   f32 router and its tied head read as B^T), a ragged edge case and an
+   f32 case; then K1's int8 variant (int8 operands, exact int32 sum,
+   device scale) at the same shapes but the router;
 3. K5 (``kernels/csrc/paged_flash.cu``) against its plain version at
-   phi3-mini's attention shapes (decode and 16-token chunked prefill) and
-   at a GQA + sliding-window shape, with ragged lengths, dead block-table
-   slots over a NaN-filled scratch page and one idle row;
+   phi3-mini's and granite's attention shapes (decode and 16-token chunked
+   prefill) and at a GQA + sliding-window shape, with ragged lengths, dead
+   block-table slots over a NaN-filled scratch page and one idle row;
 4. K6 (``kernels/csrc/pack.cu``) packing every full-width phi3-mini weight
    shape and a ragged ``trans_w`` one into bf16, int8, int4 and fp8
    payloads: payload and scales byte-equal to its plain version;
-5. K2 (``kernels/csrc/mpgemm_packed.cu``) at the same shapes, M = 2 and 32,
-   for every payload under the bf16 policy (bf16 A) and the int8 and int4
-   payloads under the int8 policy (int8 A and its scale), against its plain
-   version;
-6. full-width phi3-mini-3.8b (random weights from a seed) serving 4
-   requests through ``repro_torch.serve.engine.ServeEngine``, first dense
-   bf16 (225 K1 and 32 K5 launches per ``paged_step``), then packed from
-   the f32 draw by K6, with int4 payloads under bf16 and with int8 payloads
-   under the int8 policy (225 K2, 32 K5 and 0 K1 launches per step), then
-   dense under the int8 policy with the depth cut to 4 layers (29 int8 K1
-   launches per step).  Every logit is finite, and for each full-depth path
-   one full-width step through the kernels agrees with the same step
-   through the plain versions;
-7. one JSON line with every ported kernel's launches, error and times;
-8. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
+5. K2 (``kernels/csrc/mpgemm_packed.cu``) at phi3-mini's shapes, M = 2
+   and 32, for every payload under the bf16 policy (bf16 A) and the int8
+   and int4 payloads under the int8 policy (int8 A and its scale), and at
+   granite's attention projections for the two served payloads (int4
+   under bf16, int8 under int8), against its plain version;
+6. the grouped variants at granite-moe-1b-a400m's expert shapes (32
+   experts, K/N 1024 <-> 512, M = 2 and 32 rows per expert): grouped K1
+   with bf16 A and with int8 A (f32 outputs, the SwiGLU gate fused into
+   the gate GEMM), grouped K2 with int4 and bf16 payloads under bf16 A and
+   int8 payloads under int8 A, each against its plain version; grouped K6
+   packing every weight shape of the model (byte-equal), then all 72
+   expert stacks of a full-width model into int4, byte-equal;
+7. serving 4 requests through ``repro_torch.serve.engine.ServeEngine``:
+   full-width phi3-mini-3.8b (random weights from a seed), dense bf16 (225
+   K1 and 32 K5 launches per ``paged_step``), packed from the f32 draw by
+   K6 with int4 payloads under bf16 and with int8 payloads under the int8
+   policy (225 K2, 32 K5 and 0 K1 launches per step), and dense under the
+   int8 policy at 4 layers (29 int8 K1 launches per step); then full-width
+   granite-moe-1b-a400m over the same traffic, dense bf16 (121 K1, 72
+   grouped K1, 24 K5 per step), packed int4 under bf16 and packed int8
+   under int8 (96 K2, 72 grouped K2, 25 K1 -- routers and the tied head --
+   and 24 K5 per step; 168 K6 launches at load), and dense int8 at 4
+   layers (21 K1 and 12 grouped K1 per step).  Every launch count of each
+   run is asserted, every logit is finite, and for each path one
+   full-width mixed step through the kernels agrees with the same step
+   through the plain versions; one two-row decode step of each path is
+   timed on the host clock and traced with ``torch.profiler`` (the
+   device's busy time and idle share, its ops by kind);
+8. one JSON line with every ported kernel's launches, error and times;
+9. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Times come from CUDA events around single launches, each after a 256 MiB
 write that evicts the 50 MB L2 (serving reads every weight cold once per
-step).  ``bound_ms`` is the larger of bytes / 3.35 TB/s and operations /
-peak (989 TFLOP/s bf16, 67 TFLOP/s f32, 1979 TOP/s int8), counting each
-input read once and each output written once.  ``library_ms`` times one
+step).  A kernel's decode-step time is the sum over one full-width decode
+step's launches at M = 2, each timed alone.  ``bound_ms`` is the larger of
+bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16, 67 TFLOP/s f32,
+1979 TOP/s int8), counting each input read once and each output written
+once.  ``library_ms`` times one
 PyTorch call of the same function as a yardstick; the port never calls it.
 """
 import gc
@@ -132,6 +151,19 @@ MAIN_SHAPES = [
     ("down", 8192, 3072, "residual", None, 32),
     ("head", 3072, 32128, "linear", None, 1),
 ]
+# granite-moe-1b-a400m's 2-D GEMMs: (name, K, N, dtype, trans_b, launches
+# per full-width decode step).  wq/wo are 1024 x 1024 and wk/wv 1024 -> 512
+# (8 KV heads of 64); the router runs under the fp32 policy (f32 operands
+# and output); the tied head is the (49280, 1024) embedding read as B^T.
+# 2 * 24 + 2 * 24 + 24 + 1 = 121 in a dense bf16 step; under the int8
+# policy the router stays f32 and the other 97 are int8.
+GRANITE_LAYERS = 24
+GRANITE_2D_SHAPES = [
+    ("wq/wo", 1024, 1024, "bfloat16", False, 2 * GRANITE_LAYERS),
+    ("wk/wv", 1024, 512, "bfloat16", False, 2 * GRANITE_LAYERS),
+    ("router", 1024, 32, "float32", False, GRANITE_LAYERS),
+    ("head", 1024, 49280, "bfloat16", True, 1),
+]
 
 
 class StepSum:
@@ -184,18 +216,23 @@ def phase_k1(torch, timer):
         for name, k, n, kind, act, per_step in MAIN_SHAPES:
             cases.append(dict(name=f"{name}", m=m, k=k, n=n, kind=kind,
                               act=act, dtype=bf16, trans_b=False,
-                              bias=False, per_step=per_step))
+                              bias=False, per_step=per_step, model="phi3"))
+        for name, k, n, dt, trans_b, per_step in GRANITE_2D_SHAPES:
+            cases.append(dict(name=f"g-{name}", m=m, k=k, n=n, kind="linear",
+                              act=None, dtype=getattr(torch, dt),
+                              trans_b=trans_b, bias=False, per_step=per_step,
+                              model="granite"))
     cases.append(dict(name="edge", m=37, k=129, n=100, kind="linear",
                       act="relu", dtype=bf16, trans_b=True, bias=True,
-                      per_step=0))
+                      per_step=0, model=None))
     cases.append(dict(name="edge-small", m=5, k=200, n=77, kind="residual",
                       act="gelu", dtype=bf16, trans_b=False, bias=True,
-                      per_step=0))
+                      per_step=0, model=None))
     cases.append(dict(name="f32", m=32, k=3072, n=3072, kind="gated",
                       act="silu", dtype=f32, trans_b=False, bias=True,
-                      per_step=0))
+                      per_step=0, model=None))
 
-    step = StepSum()
+    steps = {"phi3": StepSum(), "granite": StepSum()}
     for c in cases:
         m, k, n, dt = c["m"], c["k"], c["n"], c["dtype"]
         a = torch.randn(m, k, generator=gen, device="cuda").to(dt)
@@ -231,7 +268,8 @@ def phase_k1(torch, timer):
         tol = TOL[_dtype_name(dt)]
         err = _check_close(torch, f"K1 {c['name']} m={m} k={k} n={n}", got,
                            ref, tol)
-        step.max_abs_err = max(step.max_abs_err, err)
+        for model in ([c["model"]] if c["model"] else steps):
+            steps[model].max_abs_err = max(steps[model].max_abs_err, err)
         esz = a.element_size()
         n_bytes = (m * k + k * n + m * n) * esz + m * n * esz * len(extras) \
             + (4 * n if bias is not None else 0)
@@ -239,19 +277,22 @@ def phase_k1(torch, timer):
         bound, bound_by = _bound_ms(n_bytes, n_ops, _dtype_name(dt))
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
         print(f"[k1] {c['name']:>10} {_dtype_name(dt):>8} m={m:<3} k={k:<5} "
-              f"n={n:<6} {c['kind']:>8}/{c['act']}: err {err:.2e} "
-              f"(rtol {tol['rtol']}, atol {tol['atol']})  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
-              f"bound {bound:.4f} ({bound_by})  {n_bytes / ms / 1e6:.1f} GB/s")
+              f"n={n:<6} trans_b={c['trans_b']:d} {c['kind']:>8}/{c['act']}: "
+              f"err {err:.2e} (rtol {tol['rtol']}, atol {tol['atol']})  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
+              f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
+              f"{n_bytes / ms / 1e6:.1f} GB/s")
         if m == 2 and c["per_step"]:
-            step.add(c["per_step"], ms, plain_ms, lib_ms, bound, n_bytes,
-                     n_ops)
-    row = step.row("bfloat16")
-    print(f"[k1] one full-width decode step (M=2, {step.launches} "
-          f"launches): kernel {row['ms']:.3f} ms, plain "
-          f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, "
-          f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
-    return row
+            steps[c["model"]].add(c["per_step"], ms, plain_ms, lib_ms, bound,
+                                  n_bytes, n_ops)
+    rows = {}
+    for model, step in steps.items():
+        row = rows[model] = step.row("bfloat16")
+        print(f"[k1] one full-width {model} decode step (M=2, "
+              f"{step.launches} launches): kernel {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} "
+              f"ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return rows
 
 
 def phase_k1_int8(torch, timer):
@@ -260,15 +301,25 @@ def phase_k1_int8(torch, timer):
     from repro_torch.core.gemm_spec import EpilogueSpec, apply_epilogue
     from repro_torch.kernels.mpgemm import mpgemm, mpgemm_plain
 
+    from repro_torch.core.gemm_spec import GemmSpec
+
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, tol = torch.bfloat16, TOL["bfloat16"]
-    step = StepSum()
+    # Granite's int8 GEMMs: every 2-D one but the f32 router.
+    shapes = [("phi3", name, k, n, kind, act, False, per_step)
+              for name, k, n, kind, act, per_step in MAIN_SHAPES]
+    shapes += [("granite", f"g-{name}", k, n, "linear", None, trans_b,
+                per_step)
+               for name, k, n, dt, trans_b, per_step in GRANITE_2D_SHAPES
+               if dt != "float32"]
+    steps = {"phi3": StepSum(), "granite": StepSum()}
     for m in (2, 32):
-        for name, k, n, kind, act, per_step in MAIN_SHAPES:
+        for model, name, k, n, kind, act, trans_b, per_step in shapes:
+            step = steps[model]
             a = torch.randint(-127, 128, (m, k), generator=gen,
                               device="cuda", dtype=torch.int8)
-            w = torch.randint(-127, 128, (k, n), generator=gen,
-                              device="cuda", dtype=torch.int8)
+            w = torch.randint(-127, 128, (n, k) if trans_b else (k, n),
+                              generator=gen, device="cuda", dtype=torch.int8)
             # sx * sw of unit-variance data: outputs of order 1.
             scale = torch.full((), 3.0 / (127.0 * 127.0 * k ** 0.5),
                                device="cuda")
@@ -279,14 +330,15 @@ def phase_k1_int8(torch, timer):
 
             def kern():
                 return mpgemm(a, w, scale=scale, extras=extras, epilogue=ep,
-                              out_dtype=bf16)
+                              spec=GemmSpec(trans_b=trans_b), out_dtype=bf16)
 
             def plain():
                 return mpgemm_plain(a, w, scale=scale, extras=extras,
-                                    epilogue=ep, out_dtype=bf16)
+                                    trans_b=trans_b, epilogue=ep,
+                                    out_dtype=bf16)
 
             def library():
-                acc = torch.matmul(a_lib, w_lib)
+                acc = torch.matmul(a_lib, w_lib.t() if trans_b else w_lib)
                 return apply_epilogue(ep, acc.float(), scale=scale,
                                       extras=extras).to(bf16)
 
@@ -298,20 +350,23 @@ def phase_k1_int8(torch, timer):
             n_ops = 2 * m * n * k
             bound, bound_by = _bound_ms(n_bytes, n_ops, "int8")
             ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
-            print(f"[k1-int8] {name:>5} m={m:<3} k={k:<5} n={n:<6} "
-                  f"{kind:>8}/{act}: err {err:.2e}  kernel {ms:.4f} ms  "
-                  f"plain {plain_ms:.4f}  library {lib_ms:.4f}  bound "
-                  f"{bound:.4f} ({bound_by})  {n_bytes / ms / 1e6:.1f} GB/s")
+            print(f"[k1-int8] {name:>7} m={m:<3} k={k:<5} n={n:<6} "
+                  f"trans_b={trans_b:d} {kind:>8}/{act}: err {err:.2e}  "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
+                  f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
+                  f"{n_bytes / ms / 1e6:.1f} GB/s")
             if m == 2:
                 step.add(per_step, ms, plain_ms, lib_ms, bound, n_bytes,
                          n_ops)
-    row = step.row("int8")
-    print(f"[k1-int8] one full-width decode step (M=2, {step.launches} "
-          f"launches): kernel {row['ms']:.3f} ms, plain "
-          f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
-          f"(bf16 matmul of the int8 values), bound {row['bound_ms']:.3f} "
-          f"ms ({row['bound_by']})")
-    return row
+    rows = {}
+    for model, step in steps.items():
+        row = rows[model] = step.row("int8")
+        print(f"[k1-int8] one full-width {model} decode step (M=2, "
+              f"{step.launches} int8 launches): kernel {row['ms']:.3f} ms, "
+              f"plain {row['plain_ms']:.3f} ms, library "
+              f"{row['library_ms']:.3f} ms (bf16 matmul of the int8 values), "
+              f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return rows
 
 
 # ------------------------------------------------------------------ phase 3
@@ -362,25 +417,31 @@ def phase_k5(torch, timer):
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
     cases = [
-        # phi3-mini attention as phase 4 serves it: MHA, D = 96, page 16,
+        # phi3-mini attention as phase 7 serves it: MHA, D = 96, page 16,
         # a block table 4 pages wide (max_len 64); request 2 is idle, and
         # in the prefill chunk request 1 has 7 dead rows past its length.
         dict(name="phi3-decode", h=32, hkv=32, d=96, ps=16, w=4, tq=1,
-             lengths=[45, 30, 0], window=None, dtype=bf16, main=True),
+             lengths=[45, 30, 0], window=None, dtype=bf16, main="phi3"),
         dict(name="phi3-prefill16", h=32, hkv=32, d=96, ps=16, w=4, tq=16,
-             lengths=[48, 9, 0], window=None, dtype=bf16, main=False),
+             lengths=[48, 9, 0], window=None, dtype=bf16, main=None),
+        # granite-moe-1b-a400m's attention as phase 7 serves it: GQA 2:1
+        # (16 heads, 8 KV heads), D = 64, the same pages and lengths.
+        dict(name="granite-decode", h=16, hkv=8, d=64, ps=16, w=4, tq=1,
+             lengths=[45, 30, 0], window=None, dtype=bf16, main="granite"),
+        dict(name="granite-prefill16", h=16, hkv=8, d=64, ps=16, w=4,
+             tq=16, lengths=[48, 9, 0], window=None, dtype=bf16, main=None),
         # GQA 4:1, D = 120 (not a multiple of 16), window 64, ~200 context
         dict(name="gqa-window-decode", h=32, hkv=8, d=120, ps=16, w=16,
              tq=1, lengths=[201, 64, 0, 9], window=64, dtype=bf16,
-             main=False),
+             main=None),
         dict(name="gqa-window-prefill16", h=32, hkv=8, d=120, ps=16, w=16,
              tq=16, lengths=[200, 70, 0, 16], window=64, dtype=bf16,
-             main=False),
+             main=None),
         dict(name="f32-gqa-prefill16", h=8, hkv=2, d=64, ps=16, w=8, tq=16,
              lengths=[40, 100, 0, 3], window=None, dtype=torch.float32,
-             main=False),
+             main=None),
     ]
-    rows, main, max_err = [], None, 0.0
+    rows, main, max_err = [], {}, 0.0
     for c in cases:
         b, tq = len(c["lengths"]), c["tq"]
         # Every live request's last tq tokens are this chunk (a chunk
@@ -443,22 +504,24 @@ def phase_k5(torch, timer):
                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
         rows.append(row)
         if c["main"]:
-            main = row
+            main[c["main"]] = row
         print(f"[k5] {c['name']:>20} H={c['h']} Hkv={c['hkv']} D={c['d']} "
               f"tq={tq} lengths={c['lengths']} window={c['window']}: err "
               f"{err:.2e} (rtol {tol['rtol']}, atol {tol['atol']})  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
               f"bound {bound:.5f} ({bound_by})")
-    # Per full-width decode step: 32 launches (one per layer) of the decode
-    # case, as the K1 numbers are one decode step's 225 launches.
-    step = {k: 32 * main[k] for k in ("ms", "plain_ms", "library_ms",
-                                      "bound_ms")}
-    step.update(bound_by=main["bound_by"], max_abs_err=max_err)
-    print(f"[k5] one full-width decode step (32 launches of phi3-decode): "
-          f"kernel {step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, "
-          f"library {step['library_ms']:.3f} ms, bound "
-          f"{step['bound_ms']:.4f} ms ({step['bound_by']})")
-    return step, rows
+    # Per full-width decode step: one launch per layer of the model's decode
+    # case, as the K1 numbers are one decode step's GEMM launches.
+    steps = {}
+    for model, layers in (("phi3", 32), ("granite", GRANITE_LAYERS)):
+        step = steps[model] = {k: layers * main[model][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")}
+        step.update(bound_by=main[model]["bound_by"], max_abs_err=max_err)
+        print(f"[k5] one full-width {model} decode step ({layers} launches "
+              f"of {model}-decode): kernel {step['ms']:.3f} ms, plain "
+              f"{step['plain_ms']:.3f} ms, library {step['library_ms']:.3f} "
+              f"ms, bound {step['bound_ms']:.4f} ms ({step['bound_by']})")
+    return steps, rows
 
 
 # ------------------------------------------------------------------ phase 4
@@ -530,6 +593,9 @@ def phase_k6(torch, timer):
 # payload is not a K2 path (it is unpacked and re-quantized per tensor).
 K2_COMBOS = [("bf16", "bfloat16"), ("bf16", "int8"), ("bf16", "int4"),
              ("bf16", "fp8e4m3"), ("int8", "int8"), ("int8", "int4")]
+# The two packed paths that chip_smoke serves: int4 under bf16, int8 under
+# int8.
+SERVED_K2_COMBOS = [("bf16", "int4"), ("int8", "int8")]
 
 
 def phase_k2(torch, timer):
@@ -542,12 +608,22 @@ def phase_k2(torch, timer):
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     bf16, tol = torch.bfloat16, TOL["bfloat16"]
-    steps = {c: StepSum() for c in K2_COMBOS}
-    for name, k, n, kind, act, per_step in MAIN_SHAPES:
+    # phi3's GEMMs under every combination; granite's packed attention
+    # projections (its only 2-D K2 launches: 96 per step) under the two
+    # served ones.
+    shapes = [("phi3", name, k, n, kind, act, per_step, K2_COMBOS)
+              for name, k, n, kind, act, per_step in MAIN_SHAPES]
+    shapes += [("granite", f"g-{name}", k, n, "linear", None, per_step,
+                SERVED_K2_COMBOS)
+               for name, k, n, dt, _, per_step in GRANITE_2D_SHAPES
+               if name in ("wq/wo", "wk/wv")]
+    steps = {(model, c): StepSum() for model, *_, combos in shapes
+             for c in combos}
+    for model, name, k, n, kind, act, per_step, combos in shapes:
         w = torch.randn(k, n, generator=gen, device="cuda") * \
             (2.0 / (k + n)) ** 0.5
         packed = {fmt: pack_operand(w, default_blocks(k, n), dtype=fmt)
-                  for fmt in PAYLOADS}
+                  for fmt in {fmt for _, fmt in combos}}
         # The library yardstick's weight, dequantized beforehand.
         w_lib = {fmt: unpack_reference(p.payload, p.scales, p.layout,
                                        "bfloat16")
@@ -558,7 +634,7 @@ def phase_k2(torch, timer):
             xq, sx = quantize_per_tensor(x)
             extras = () if kind == "linear" else (
                 torch.randn(m, n, generator=gen, device="cuda").to(bf16),)
-            for policy, fmt in K2_COMBOS:
+            for policy, fmt in combos:
                 b = packed[fmt]
                 a, scale = (xq, sx) if policy == "int8" else (x, None)
                 kw = dict(scale=scale, extras=extras, epilogue=ep,
@@ -579,7 +655,7 @@ def phase_k2(torch, timer):
                 torch.cuda.synchronize()
                 err = _check_close(torch, f"K2 {name} m={m} {policy}/{fmt}",
                                    got, ref, tol)
-                st = steps[(policy, fmt)]
+                st = steps[(model, (policy, fmt))]
                 st.max_abs_err = max(st.max_abs_err, err)
                 n_bytes = (b.nbytes + a.numel() * a.element_size()
                            + 2 * m * n * (1 + len(extras)))
@@ -608,28 +684,304 @@ def phase_k2(torch, timer):
           f"policy's per-GEMM prologue: {q_ms:.4f} ms on the device, "
           f"{host_ms:.4f} ms of host time to enqueue")
     rows = {}
-    for (policy, fmt), st in steps.items():
-        row = rows[(policy, fmt)] = st.row(
+    for (model, (policy, fmt)), st in steps.items():
+        row = rows[(model, (policy, fmt))] = st.row(
             "int8" if policy == "int8" else "bfloat16")
-        print(f"[k2] one full-width decode step, {policy} A x {fmt} (M=2, "
-              f"{st.launches} launches): kernel {row['ms']:.3f} ms, plain "
-              f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} "
-              f"ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+        print(f"[k2] one full-width {model} decode step, {policy} A x {fmt} "
+              f"(M=2, {st.launches} launches): kernel {row['ms']:.3f} ms, "
+              f"plain {row['plain_ms']:.3f} ms, library "
+              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']})")
     return rows
 
 
 # ------------------------------------------------------------------ phase 6
 
+# granite-moe-1b-a400m's expert GEMMs, one grouped launch over its 32
+# experts each: (name, K, N, epilogue kind, activation, launches per
+# full-width decode step).  Decode gives each expert M = 2 rows (capacity 1
+# per sequence, 2 sequences); a 16-token prefill chunk gives M = 32.
+GRANITE_EXPERTS = 32
+GROUPED_SHAPES = [
+    ("up", 1024, 512, "linear", None, 24),
+    ("gate", 1024, 512, "gated", "silu", 24),
+    ("down", 512, 1024, "linear", None, 24),
+]
+
+
+def phase_k1_grouped(torch, timer):
+    """Grouped K1 at granite's expert shapes: bf16 A (the bf16 policy) and
+    int8 A (the int8 policy: one scale for the whole buffer and stack), f32
+    outputs, the SwiGLU gate fused into the gate GEMM's store."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
+        apply_epilogue
+    from repro_torch.kernels.mpgemm import mpgemm_grouped, \
+        mpgemm_grouped_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = GRANITE_EXPERTS
+    steps = {"bfloat16": StepSum(), "int8": StepSum()}
+    for dt_name, step in steps.items():
+        for name, k, n, kind, act, per_step in GROUPED_SHAPES:
+            for m in (2, 32):
+                if dt_name == "int8":
+                    a = torch.randint(-127, 128, (g, m, k), generator=gen,
+                                      device="cuda", dtype=torch.int8)
+                    w = torch.randint(-127, 128, (g, k, n), generator=gen,
+                                      device="cuda", dtype=torch.int8)
+                    scale = torch.full((), 3.0 / (127.0 * 127.0 * k ** 0.5),
+                                       device="cuda")
+                else:
+                    a = torch.randn(g, m, k, generator=gen,
+                                    device="cuda").to(bf16)
+                    w = (torch.randn(g, k, n, generator=gen, device="cuda")
+                         * (2.0 / (k + n)) ** 0.5).to(bf16)
+                    scale = None
+                extras = () if kind == "linear" else (
+                    torch.randn(g, m, n, generator=gen, device="cuda"),)
+                ep = EpilogueSpec(kind=kind, activation=act)
+                a_lib, w_lib = a.to(bf16), w.to(bf16)  # exact for |q| <= 127
+                kw = dict(scale=scale, extras=extras, epilogue=ep,
+                          out_dtype=f32)
+
+                def kern():
+                    return mpgemm_grouped(a, w, spec=GemmSpec(grouped=True),
+                                          **kw)
+
+                def plain():
+                    return mpgemm_grouped_plain(a, w, **kw)
+
+                def library():
+                    acc = torch.bmm(a_lib, w_lib)
+                    return apply_epilogue(ep, acc.float(), scale=scale,
+                                          extras=extras)
+
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                err = _check_close(torch, f"grouped K1 {dt_name} {name} "
+                                   f"m={m}", got, ref, TOL["float32"])
+                step.max_abs_err = max(step.max_abs_err, err)
+                n_bytes = (g * (m * k + k * n) * a.element_size()
+                           + 4 * g * m * n * (1 + len(extras)) + 4)
+                n_ops = 2 * g * m * n * k
+                bound, bound_by = _bound_ms(n_bytes, n_ops, dt_name)
+                ms, plain_ms, lib_ms = timer(kern), timer(plain), \
+                    timer(library)
+                print(f"[k1-grouped] {dt_name:>8} {name:>4} G={g} m={m:<3} "
+                      f"k={k:<5} n={n:<5} {kind:>6}/{act}: err {err:.2e}  "
+                      f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
+                      f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
+                      f"{n_bytes / ms / 1e6:.1f} GB/s")
+                if m == 2:
+                    step.add(per_step, ms, plain_ms, lib_ms, bound, n_bytes,
+                             n_ops)
+    rows = {}
+    for dt_name, step in steps.items():
+        row = rows[dt_name] = step.row(dt_name)
+        print(f"[k1-grouped] one full-width granite decode step, {dt_name} "
+              f"(M=2 per expert, {step.launches} launches): kernel "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+              f"{row['library_ms']:.3f} ms (torch.bmm + epilogue), bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return rows
+
+
+# (policy, payload) pairs of grouped K2: the served int4 (bf16 policy) and
+# int8 (int8 policy) payloads, and a bf16 payload.
+K2G_COMBOS = [("bf16", "int4"), ("bf16", "bfloat16"), ("int8", "int8")]
+
+
+def phase_k2_grouped(torch, timer):
+    from repro_torch.core.gemm_spec import EpilogueSpec, apply_epilogue
+    from repro_torch.core.policy import quantize_per_tensor
+    from repro_torch.kernels.mpgemm import mpgemm_packed_grouped, \
+        mpgemm_packed_grouped_plain
+    from repro_torch.packing.pack import pack_operand, unpack_reference
+    from repro_torch.packing.params import default_blocks
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    f32, bf16, tol = torch.float32, torch.bfloat16, TOL["float32"]
+    g = GRANITE_EXPERTS
+    steps = {c: StepSum() for c in K2G_COMBOS}
+    for name, k, n, kind, act, per_step in GROUPED_SHAPES:
+        w = torch.randn(g, k, n, generator=gen, device="cuda") * \
+            (2.0 / (k + n)) ** 0.5
+        ep = EpilogueSpec(kind=kind, activation=act)
+        for policy, fmt in K2G_COMBOS:
+            b = pack_operand(w, default_blocks(k, n), dtype=fmt)
+            # The library yardstick's weight, dequantized beforehand.
+            w_lib = unpack_reference(b.payload, b.scales, b.layout,
+                                     "bfloat16")
+            for m in (2, 32):
+                x = torch.randn(g, m, k, generator=gen,
+                                device="cuda").to(bf16)
+                xq, sx = quantize_per_tensor(x)
+                a, scale = (xq, sx) if policy == "int8" else (x, None)
+                extras = () if kind == "linear" else (
+                    torch.randn(g, m, n, generator=gen, device="cuda"),)
+                kw = dict(scale=scale, extras=extras, epilogue=ep,
+                          out_dtype=f32)
+
+                def kern():
+                    return mpgemm_packed_grouped(a, b, **kw)
+
+                def plain():
+                    return mpgemm_packed_grouped_plain(a, b, **kw)
+
+                def library():
+                    acc = torch.bmm(x, w_lib)
+                    return apply_epilogue(ep, acc.float(), extras=extras)
+
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                err = _check_close(torch, f"grouped K2 {name} m={m} "
+                                   f"{policy}/{fmt}", got, ref, tol)
+                st = steps[(policy, fmt)]
+                st.max_abs_err = max(st.max_abs_err, err)
+                n_bytes = (b.nbytes + a.numel() * a.element_size()
+                           + 4 * g * m * n * (1 + len(extras)))
+                n_ops = 2 * g * m * n * k
+                peak = "int8" if policy == "int8" else "bfloat16"
+                bound, bound_by = _bound_ms(n_bytes, n_ops, peak)
+                ms, plain_ms, lib_ms = (timer(kern), timer(plain),
+                                        timer(library))
+                print(f"[k2-grouped] {name:>4} G={g} m={m:<3} {policy:>4} A x "
+                      f"{fmt:>8}: err {err:.2e}  kernel {ms:.4f} ms  plain "
+                      f"{plain_ms:.4f}  library {lib_ms:.4f}  bound "
+                      f"{bound:.4f} ({bound_by})  "
+                      f"{n_bytes / ms / 1e6:.1f} GB/s")
+                if m == 2:
+                    st.add(per_step, ms, plain_ms, lib_ms, bound, n_bytes,
+                           n_ops)
+    rows = {}
+    for (policy, fmt), st in steps.items():
+        row = rows[(policy, fmt)] = st.row(
+            "int8" if policy == "int8" else "bfloat16")
+        print(f"[k2-grouped] one full-width granite decode step, {policy} A "
+              f"x {fmt} (M=2 per expert, {st.launches} launches): kernel "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']})")
+    return rows
+
+
+def phase_k6_grouped(torch, timer):
+    """K6 packing granite at full width: each weight shape (attention
+    projections 2-D, expert stacks grouped in one launch) timed and
+    byte-equal to its plain version, summed over the model; then every one
+    of the model's 72 expert stacks, freshly drawn, packed into int4 and
+    checked byte for byte."""
+    from repro_torch.packing.pack import pack_operand, pack_reference
+    from repro_torch.packing.params import default_blocks
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    g, layers = GRANITE_EXPERTS, 24
+    # (name, source shape, packs per full-width model)
+    shapes = [("wq/wo", (1024, 1024), 2 * layers),
+              ("wk/wv", (1024, 512), 2 * layers),
+              ("experts up/gate", (g, 1024, 512), 2 * layers),
+              ("experts down", (g, 512, 1024), layers)]
+    model = {fmt: StepSum() for fmt in PAYLOADS}
+
+    def same(got, want):
+        payload, scales = want
+        ok = torch.equal(got.payload.contiguous().view(torch.uint8),
+                         payload.contiguous().view(torch.uint8))
+        if scales is not None:
+            ok = ok and torch.equal(got.scales.view(torch.int32),
+                                    scales.view(torch.int32))
+        return ok
+
+    for name, shape, per_model in shapes:
+        w = torch.randn(*shape, generator=gen, device="cuda") * \
+            (2.0 / sum(shape[-2:])) ** 0.5
+        k, n = shape[-2:]
+        for fmt in PAYLOADS:
+            def kern():
+                return pack_operand(w, default_blocks(k, n), dtype=fmt)
+
+            got = kern()
+            layout = got.layout
+
+            def plain():
+                return pack_reference(w, layout)
+
+            want = plain()
+            torch.cuda.synchronize()
+            if not same(got, want):
+                raise AssertionError(f"K6 granite {name} {fmt}: payload or "
+                                     "scales differ from the plain version")
+            n_bytes = w.numel() * w.element_size() + got.nbytes
+            bound, bound_by = _bound_ms(n_bytes, 0, "float32")
+            ms, plain_ms = timer(kern), timer(plain)
+            print(f"[k6-grouped] {name:>15} {str(shape):>16} -> {fmt:>8} "
+                  f"{tuple(layout.payload_shape)}: byte-equal  kernel "
+                  f"{ms:.4f} ms  plain {plain_ms:.4f}  bound {bound:.4f} "
+                  f"({bound_by})  {n_bytes / ms / 1e6:.1f} GB/s")
+            model[fmt].add(per_model, ms, plain_ms, 0.0, bound, n_bytes, 0)
+    t0 = time.perf_counter()
+    for i in range(3 * layers):
+        k, n = (512, 1024) if i % 3 == 2 else (1024, 512)
+        w = torch.randn(g, k, n, generator=gen, device="cuda") * \
+            (2.0 / (k + n)) ** 0.5
+        got = pack_operand(w, default_blocks(k, n), dtype="int4")
+        if not same(got, pack_reference(w, got.layout)):
+            raise AssertionError(f"K6 granite expert stack {i} int4: payload "
+                                 "or scales differ from the plain version")
+    torch.cuda.synchronize()
+    print(f"[k6-grouped] all {3 * layers} expert stacks of a full-width "
+          f"granite packed into int4, byte-equal to the plain version "
+          f"({time.perf_counter() - t0:.2f} s with the draws and checks)")
+    rows = {}
+    for fmt, acc in model.items():
+        rows[fmt] = acc.row("float32")
+        print(f"[k6-grouped] packing a full-width granite-moe ({acc.launches} "
+              f"launches) into {fmt}: kernel {acc.ms:.3f} ms, plain "
+              f"{acc.plain_ms:.3f} ms, bound {acc.bound_ms:.3f} ms")
+    return rows
+
+
+# ------------------------------------------------------------------ phase 7
+
 def _counters():
     from repro_torch.kernels.flash_attention import paged_flash_attention
-    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_packed
+    from repro_torch.kernels.mpgemm import (
+        mpgemm, mpgemm_grouped, mpgemm_packed, mpgemm_packed_grouped,
+    )
     from repro_torch.packing.pack import pack_operand
-    return dict(k1=mpgemm, k2=mpgemm_packed, k5=paged_flash_attention,
+    return dict(k1=mpgemm, k1g=mpgemm_grouped, k2=mpgemm_packed,
+                k2g=mpgemm_packed_grouped, k5=paged_flash_attention,
                 k6=pack_operand)
 
 
-def phase_serve(torch, *, label, policy="bf16", pack=False,
-                pack_format=None, n_layers=None):
+def _want_launches(cfg, pack, n_steps):
+    """Every launch count of a serve run: per ``paged_step`` each layer has
+    4 attention projections, then 3 dense MLP GEMMs or (MoE) 1 f32 router
+    GEMM and 3 grouped expert GEMMs, plus the head; packing packs every
+    projection, MLP weight and expert stack (one launch each) and an
+    untied head, but never the router or a tied head (the embedding)."""
+    n_layers, moe = cfg.n_layers, cfg.family == "moe"
+    dense_2d = 1 if moe else 3            # router | gate, up, down
+    grouped = 3 if moe else 0             # expert gate, up, down
+    head_packed = pack and not cfg.tie_embeddings
+    if pack:
+        per_step = dict(
+            k1=n_layers * (1 if moe else 0) + (0 if head_packed else 1),
+            k2=n_layers * (4 if moe else 4 + dense_2d) + int(head_packed),
+            k1g=0, k2g=n_layers * grouped)
+    else:
+        per_step = dict(k1=n_layers * (4 + dense_2d) + 1, k2=0,
+                        k1g=n_layers * grouped, k2g=0)
+    want = {k: v * n_steps for k, v in per_step.items()}
+    want["k5"] = n_layers * n_steps
+    want["k6"] = (n_layers * (4 + (3 if moe else dense_2d)) + int(head_packed)
+                  if pack else 0)
+    return want, per_step
+
+
+def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
+                pack=False, pack_format=None, n_layers=None):
     """Serve 4 requests through the engine; every launch count of the run
     (packing at load included) must be what the path needs."""
     import dataclasses
@@ -639,11 +991,10 @@ def phase_serve(torch, *, label, policy="bf16", pack=False,
     from repro_torch.packing.params import packed_param_bytes
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = cb.get("phi3-mini-3.8b")
+    cfg = cb.get(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     n_layers = cfg.n_layers
-    gemms = 7 * n_layers + 1
     model = build_model(cfg, policy=policy, device="cuda")
     counters = _counters()
     for fn in counters.values():
@@ -687,6 +1038,7 @@ def phase_serve(torch, *, label, policy="bf16", pack=False,
     counts = {name: fn.launches for name, fn in counters.items()}
     del model.paged_step
     n_steps = len(step_calls)
+    want, per_step = _want_launches(cfg, pack, n_steps)
     n_tok = sum(len(v) for v in out.values())
     decode = [s.wall_s for s in eng.step_telemetry if s.phase == "decode"]
     prefill = [s.wall_s for s in eng.step_telemetry if s.phase != "decode"]
@@ -696,15 +1048,13 @@ def phase_serve(torch, *, label, policy="bf16", pack=False,
           f"({len(prefill)} with prefill, median "
           f"{1e3 * np.median(prefill):.2f} ms); median decode step "
           f"{1e3 * np.median(decode):.2f} ms")
-    print(f"[serve:{label}] launches: K1 {counts['k1']}, K2 {counts['k2']}, "
-          f"K5 {counts['k5']} ({n_steps} steps x {gemms} GEMMs and "
+    print(f"[serve:{label}] launches: K1 {counts['k1']}, grouped K1 "
+          f"{counts['k1g']}, K2 {counts['k2']}, grouped K2 {counts['k2g']}, "
+          f"K5 {counts['k5']} ({n_steps} steps x {per_step} and "
           f"{n_layers} attention layers), K6 {counts['k6']} at load")
     # eos (id 1) may end a request early; every request must finish.
     if sorted(out) != [0, 1, 2, 3] or not all(out.values()):
         raise AssertionError(f"served {sorted(out)} of 4 requests")
-    want = dict(k1=0 if pack else gemms * n_steps,
-                k2=gemms * n_steps if pack else 0,
-                k5=n_layers * n_steps, k6=gemms if pack else 0)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
     if not all(finite):
@@ -718,6 +1068,7 @@ def phase_serve(torch, *, label, policy="bf16", pack=False,
     print(f"[serve:{label}] one two-row decode step: the host enqueues it "
           f"in {serve['enqueue_ms']:.2f} ms, the device is done after "
           f"{serve['step_ms']:.2f} ms")
+    _profile_decode_step(torch, model, params, label, serve["step_ms"])
     return serve
 
 
@@ -774,13 +1125,17 @@ def _kernel_vs_plain_step(torch, model, params, label):
         return mpgemm_plain(a, b, trans_b=spec.trans_b, out_dtype=out_dtype,
                             **kw)
 
-    saved = (gemm_mod.mpgemm, attn_mod.paged_flash_attention)
-    gemm_mod.mpgemm = plain_gemm
+    # The plain versions are rank-generic: they stand in for the 2-D and
+    # the grouped wrappers alike.
+    saved = (gemm_mod.mpgemm, gemm_mod.mpgemm_grouped,
+             attn_mod.paged_flash_attention)
+    gemm_mod.mpgemm = gemm_mod.mpgemm_grouped = plain_gemm
     attn_mod.paged_flash_attention = paged_flash_attention_plain
     try:
         lp, _ = model.paged_step(params, tokens, pools_p, bt, qs, nv)
     finally:
-        gemm_mod.mpgemm, attn_mod.paged_flash_attention = saved
+        (gemm_mod.mpgemm, gemm_mod.mpgemm_grouped,
+         attn_mod.paged_flash_attention) = saved
     lk, lp = lk.float()[:, :vocab], lp.float()[:, :vocab]
     diff = (lk - lp).abs()
     err, scale = diff.max().item(), lp.abs().max().item()
@@ -795,16 +1150,23 @@ def _kernel_vs_plain_step(torch, model, params, label):
     return err
 
 
-def _decode_step_times(torch, model, params, steps=5):
-    """Median host time to enqueue one two-row decode step, and the same
-    step's time until the device is done: equal when the host bounds it."""
+def _decode_args(torch, model):
+    """The inputs of one two-row decode step (contexts of 40 and 20)."""
     ps, w = 16, 4
     caches = model.init_paged_caches(1 + 2 * w, ps)
     i32 = dict(dtype=torch.int32, device="cuda")
     bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], **i32)
     tokens = torch.tensor([[5], [7]], **i32)
-    args = (tokens, caches, bt, torch.tensor([40, 20], **i32),
+    return (tokens, caches, bt, torch.tensor([40, 20], **i32),
             torch.tensor([1, 1], **i32))
+
+
+def _decode_step_times(torch, model, params, steps=5):
+    """Median host time to enqueue one two-row decode step, and the same
+    step's time until the device is done.  Equal times alone do not say
+    which side bounds the step (a full launch queue also blocks the host):
+    :func:`_profile_decode_step` measures the device's busy time."""
+    args = _decode_args(torch, model)
     enqueue, total = [], []
     for _ in range(steps + 1):
         torch.cuda.synchronize()
@@ -816,6 +1178,96 @@ def _decode_step_times(torch, model, params, steps=5):
         total.append(time.perf_counter() - t0)
     return 1e3 * float(np.median(enqueue[1:])), \
         1e3 * float(np.median(total[1:]))
+
+
+# Device kernels by name, as the profiler reports them (demangled).
+TRACE_KERNELS = (("mpgemm_packed_kernel", "K2"), ("mpgemm_int8_kernel", "K1"),
+                 ("mpgemm_kernel", "K1"), ("paged_flash_kernel", "K5"),
+                 ("pack_kernel", "K6"))
+
+
+def _profile_decode_step(torch, model, params, label, step_ms):
+    """One two-row decode step under ``torch.profiler``: the device's busy
+    time (the union of its kernels' and copies' spans) against the traced
+    step's span (from the step's first host op to its last device op) and
+    against ``step_ms``, the same step's time untraced (tracing slows the
+    host, not the kernels); the device's ops by kind, and the host calls in
+    the step that copy or wait."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    args = _decode_args(torch, model)
+    model.paged_step(params, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("decode_step"):
+            model.paged_step(params, *args)
+        torch.cuda.synchronize()
+    events = prof.events()
+    step = next(e for e in events if e.name == "decode_step"
+                and e.device_type == DeviceType.CPU)
+    t0, t_host = step.time_range.start, step.time_range.end
+    # Kernels, copies and sets; the trace also mirrors the "decode_step"
+    # annotation on the device, which is no work of the device.
+    dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                  and e.name != "decode_step" and e.time_range.end >= t0),
+                 key=lambda e: e.time_range.start)
+    if not dev:
+        print(f"[profile:{label}] the profiler saw no device activity: "
+              f"device busy time not measured")
+        return
+    busy, lo, hi = 0.0, None, None
+    for e in dev:                      # union of the device spans
+        s0, s1 = e.time_range.start, e.time_range.end
+        if hi is None or s0 > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = s0, s1
+        else:
+            hi = max(hi, s1)
+    busy += hi - lo
+    span = max(hi, t_host) - t0
+    kinds, names = {}, {}
+    for e in dev:
+        kind = next((k for key, k in TRACE_KERNELS if key in e.name),
+                    "copy/set" if e.name.startswith(("Memcpy", "Memset"))
+                    else "torch")
+        n, ms = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (n + 1, ms + (e.time_range.end - e.time_range.start)
+                       / 1e3)
+        n, ms = names.get(e.name, (0, 0.0))
+        names[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start)
+                         / 1e3)
+    waits = {}
+    for e in events:
+        if (e.device_type == DeviceType.CPU and t0 <= e.time_range.start
+                and e.time_range.end <= t_host
+                and ("Synchronize" in e.name or "Memcpy" in e.name)):
+            chain, p = [e.name], e.cpu_parent
+            while p is not None and len(chain) < 6:
+                chain.append(p.name)
+                p = p.cpu_parent
+            key = " < ".join(chain)
+            waits[key] = waits.get(key, 0) + 1
+    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and "LaunchKernel" in e.name
+                   and t0 <= e.time_range.start <= t_host)
+    busy_ms, span_ms = busy / 1e3, span / 1e3
+    print(f"[profile:{label}] one two-row decode step under torch.profiler: "
+          f"{len(dev)} device ops ({launches} kernel-launch calls traced on "
+          f"the host); device busy {busy_ms:.3f} ms of a {span_ms:.3f} ms "
+          f"traced span (idle share {1 - busy_ms / span_ms:.3f}) and of the "
+          f"{step_ms:.3f} ms untraced step (idle share "
+          f"{max(0.0, 1 - busy_ms / step_ms):.3f}); the host's last op ends "
+          f"at {(t_host - t0) / 1e3:.3f} ms, the device's at "
+          f"{(hi - t0) / 1e3:.3f} ms")
+    print(f"[profile:{label}] device ops by kind (count, ms): " + ", ".join(
+        f"{k} {n} {ms:.3f}" for k, (n, ms) in sorted(kinds.items())))
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"[profile:{label}] the device's longest ops (count, ms): " +
+          "; ".join(f"{name[:90]} {n} {ms:.3f}" for name, (n, ms) in top))
+    print(f"[profile:{label}] host calls in the step that copy or wait "
+          f"(with their callers): {waits or 'none'}")
 
 
 # ------------------------------------------------------------------ main
@@ -862,13 +1314,23 @@ def main():
     k5, _ = phase_k5(torch, timer)
     k6 = phase_k6(torch, timer)
     k2 = phase_k2(torch, timer)
+    k1g = phase_k1_grouped(torch, timer)
+    k2g = phase_k2_grouped(torch, timer)
+    k6g = phase_k6_grouped(torch, timer)
     del timer
     serves = {}
+    granite = "granite-moe-1b-a400m"
     for label, kw in (
             ("bf16", dict()),
             ("int4", dict(pack=True, pack_format="int4")),
             ("int8", dict(policy="int8", pack=True)),
-            ("int8-dense", dict(policy="int8", n_layers=4))):
+            ("int8-dense", dict(policy="int8", n_layers=4)),
+            ("granite-bf16", dict(arch=granite)),
+            ("granite-int4", dict(arch=granite, pack=True,
+                                  pack_format="int4")),
+            ("granite-int8", dict(arch=granite, policy="int8", pack=True)),
+            ("granite-int8-dense", dict(arch=granite, policy="int8",
+                                        n_layers=4))):
         serves[label] = phase_serve(torch, label=label, **kw)
         gc.collect()              # free each path's weights before the next
         torch.cuda.empty_cache()
@@ -883,21 +1345,53 @@ def main():
                     library_ms=numbers.get("library_ms"))
 
     mp = "src/repro/kernels/mpgemm.py"
+    fa = "src/repro/kernels/flash_attention.py:154"
     kernels = [
         row("K1 mpgemm (dense 2-D MPGEMM, bf16, fused epilogue)",
-            "mpgemm.cu", f"{mp}:232", serves["bf16"]["k1"], k1),
+            "mpgemm.cu", f"{mp}:232", serves["bf16"]["k1"], k1["phi3"]),
         row("K1 mpgemm int8 (dense int8 policy, int32 sum, device scale)",
-            "mpgemm.cu", f"{mp}:232", serves["int8-dense"]["k1"], k1_int8),
+            "mpgemm.cu", f"{mp}:232", serves["int8-dense"]["k1"],
+            k1_int8["phi3"]),
         row("K2 mpgemm_packed (int4 payload, bf16 A)", "mpgemm_packed.cu",
-            f"{mp}:106", serves["int4"]["k2"], k2[("bf16", "int4")]),
+            f"{mp}:106", serves["int4"]["k2"], k2[("phi3", ("bf16", "int4"))]),
         row("K2 mpgemm_packed (int8 payload, int8 A)", "mpgemm_packed.cu",
-            f"{mp}:106", serves["int8"]["k2"], k2[("int8", "int8")]),
-        row("K5 paged_flash (paged flash attention)", "paged_flash.cu",
-            "src/repro/kernels/flash_attention.py:154", serves["bf16"]["k5"],
-            k5),
+            f"{mp}:106", serves["int8"]["k2"], k2[("phi3", ("int8", "int8"))]),
+        row("K5 paged_flash (paged flash attention)", "paged_flash.cu", fa,
+            serves["bf16"]["k5"], k5["phi3"]),
+        row("K1 mpgemm at granite's 2-D shapes (bf16 attention, f32 router, "
+            "tied head as B^T)", "mpgemm.cu", f"{mp}:232",
+            serves["granite-bf16"]["k1"], k1["granite"]),
+        row("K1 mpgemm int8 at granite's 2-D shapes (attention, tied head; "
+            "the launches include the f32 routers)", "mpgemm.cu", f"{mp}:232",
+            serves["granite-int8-dense"]["k1"], k1_int8["granite"]),
+        row("K2 mpgemm_packed at granite's attention (int4 payload, bf16 A)",
+            "mpgemm_packed.cu", f"{mp}:106", serves["granite-int4"]["k2"],
+            k2[("granite", ("bf16", "int4"))]),
+        row("K2 mpgemm_packed at granite's attention (int8 payload, int8 A)",
+            "mpgemm_packed.cu", f"{mp}:106", serves["granite-int8"]["k2"],
+            k2[("granite", ("int8", "int8"))]),
+        row("K5 paged_flash at granite's attention (GQA 16:8, D 64)",
+            "paged_flash.cu", fa, serves["granite-bf16"]["k5"],
+            k5["granite"]),
         row("K6 pack (tile packing, int4 payload, whole model)", "pack.cu",
             "src/repro/packing/pack.py:221", serves["int4"]["k6"],
             dict(k6["int4"], library_ms=None)),
+        row("K1 mpgemm_grouped (granite expert GEMMs, bf16 A, f32 out, "
+            "fused SwiGLU gate)", "mpgemm.cu", f"{mp}:812",
+            serves["granite-bf16"]["k1g"], k1g["bfloat16"]),
+        row("K1 mpgemm_grouped int8 (granite expert GEMMs, int32 sum, "
+            "device scale)", "mpgemm.cu", f"{mp}:812",
+            serves["granite-int8-dense"]["k1g"], k1g["int8"]),
+        row("K2 mpgemm_packed_grouped (granite experts, int4 payload, bf16 "
+            "A)", "mpgemm_packed.cu", f"{mp}:250",
+            serves["granite-int4"]["k2g"], k2g[("bf16", "int4")]),
+        row("K2 mpgemm_packed_grouped (granite experts, int8 payload, int8 "
+            "A)", "mpgemm_packed.cu", f"{mp}:250",
+            serves["granite-int8"]["k2g"], k2g[("int8", "int8")]),
+        row("K6 pack (granite: 96 2-D weights and 72 grouped expert stacks, "
+            "int4 payload)", "pack.cu", "src/repro/packing/pack.py:280",
+            serves["granite-int4"]["k6"],
+            dict(k6g["int4"], library_ms=None)),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")

@@ -1,14 +1,19 @@
-"""``mp_dot`` — the mixed-precision GEMM op every projection goes through
-(port of the forward of ``repro.core.gemm.mp_dot``).
+"""``mp_dot`` / ``mp_dot_grouped`` — the mixed-precision GEMM ops every
+projection and every MoE expert GEMM go through (port of the forward of
+``repro.core.gemm.mp_dot`` and ``mp_dot_grouped``).
 
-It applies a :class:`PrecisionPolicy`, resolves the fusion epilogue from
-named operands, and hands one 2-D GEMM to the kernel wrappers, which run
-the CUDA kernels for CUDA tensors and the plain versions for CPU tensors:
+Each applies a :class:`PrecisionPolicy`, resolves the fusion epilogue from
+named operands, and hands one 2-D GEMM (``mp_dot``) or one grouped GEMM of
+G independent products (``mp_dot_grouped``, one launch) to the kernel
+wrappers, which run the CUDA kernels for CUDA tensors and the plain
+versions for CPU tensors:
 
 * dense ``b`` under fp32 / bf16: both operands cast to the compute dtype,
   f32 sum (K1);
 * dense ``b`` under int8: both operands quantized per tensor, int32 sum,
-  ``sx · sw`` in the epilogue's scale slot (K1's int8 variant);
+  ``sx · sw`` in the epilogue's scale slot (K1's int8 variant); a grouped
+  call quantizes the whole (G, M, K) activation buffer and the whole
+  (G, K, N) expert stack, one scale each, as the reference does;
 * packed ``b`` (:class:`~repro_torch.packing.layout.PackedOperand`): the
   payload is read as it is (K2) -- a float payload takes ``x`` in the
   compute dtype, a codec payload under a float policy takes bf16 ``x``,
@@ -33,7 +38,7 @@ from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
     resolve_epilogue
 from repro_torch.core.policy import PrecisionPolicy, get_policy, \
     quantize_per_tensor
-from repro_torch.kernels.mpgemm import mpgemm
+from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
 from repro_torch.packing.layout import PackedOperand
 from repro_torch.packing.pack import unpack_operand
 
@@ -53,36 +58,40 @@ def _build_epilogue(epilogue, activation, gate, residual, epilogue_operands):
 
 
 def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
-                policy: PrecisionPolicy, out_dtype) -> torch.Tensor:
-    """One 2-D GEMM under a policy -- the dispatch point (the reference's
-    ``_apply_gemm`` on its kernel backends)."""
+                policy: PrecisionPolicy, out_dtype,
+                grouped: bool = False) -> torch.Tensor:
+    """One 2-D or grouped GEMM under a policy -- the dispatch point (the
+    reference's ``_apply_gemm`` on its kernel backends)."""
+    gemm = mpgemm_grouped if grouped else mpgemm
     kw = dict(bias=bias, extras=extras, epilogue=epilogue,
               out_dtype=out_dtype)
     if isinstance(w, PackedOperand):
         layout = w.layout
         if layout.per_tile_scales or not policy.quantized:
-            spec = GemmSpec(packed=True, out_dtype=out_dtype)
+            spec = GemmSpec(grouped=grouped, packed=True,
+                            out_dtype=out_dtype)
             if policy.quantized:
                 if not layout.codec.integer:
-                    return mpgemm(x.to(torch.bfloat16).contiguous(), w,
-                                  spec=spec, **kw)
+                    return gemm(x.to(torch.bfloat16).contiguous(), w,
+                                spec=spec, **kw)
                 xq, sx = quantize_per_tensor(x)
-                return mpgemm(xq, w, scale=sx, spec=spec, **kw)
+                return gemm(xq.contiguous(), w, scale=sx, spec=spec, **kw)
             if not layout.per_tile_scales:
                 w = w.astype(policy.compute)   # no-op when packed right
-            return mpgemm(x.to(policy.compute).contiguous(), w, spec=spec,
-                          **kw)
+            return gemm(x.to(policy.compute).contiguous(), w, spec=spec,
+                        **kw)
         # A float payload under the dynamic-int8 policy: per-tensor weight
         # quantization needs the dense weight back.
         w = unpack_operand(w)
         trans_w = False
-    spec = GemmSpec(trans_b=trans_w, out_dtype=out_dtype)
+    spec = GemmSpec(grouped=grouped, trans_b=trans_w, out_dtype=out_dtype)
     if policy.quantized:
         xq, sx = quantize_per_tensor(x)
         wq, sw = quantize_per_tensor(w)
-        return mpgemm(xq, wq.contiguous(), scale=sx * sw, spec=spec, **kw)
-    return mpgemm(x.to(policy.compute).contiguous(),
-                  w.to(policy.compute).contiguous(), spec=spec, **kw)
+        return gemm(xq.contiguous(), wq.contiguous(), scale=sx * sw,
+                    spec=spec, **kw)
+    return gemm(x.to(policy.compute).contiguous(),
+                w.to(policy.compute).contiguous(), spec=spec, **kw)
 
 
 def mp_dot(
@@ -114,8 +123,7 @@ def mp_dot(
                                   "quantization) is not ported yet")
     if isinstance(b, PackedOperand):
         if b.layout.g != 1:
-            raise NotImplementedError("grouped packed operands (MoE) are "
-                                      "not ported yet")
+            raise ValueError("grouped PackedOperand: use mp_dot_grouped")
         if trans_w != b.layout.trans_w:
             raise ValueError(
                 f"trans_w={trans_w} but the operand was packed with "
@@ -140,3 +148,64 @@ def mp_dot(
     y2d = _apply_gemm(x2d, b, bias, extras, trans_w, epilogue, policy,
                       out_dtype)
     return y2d.reshape(*lead, n)
+
+
+def mp_dot_grouped(
+    x: torch.Tensor,
+    b,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    policy="bf16",
+    trans_w: bool = False,
+    group_sizes: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    activation: Optional[str] = None,
+    gate: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    epilogue: Optional[EpilogueSpec] = None,
+    epilogue_operands: Optional[dict] = None,
+) -> torch.Tensor:
+    """y[g, m, n] = tail(x[g, m, k] @ (b[g, n, k]ᵀ if trans_w else
+    b[g, k, n]) + bias[g, n]): G independent GEMMs in one launch.
+
+    ``b`` is a dense (G, K, N) tensor or a grouped :class:`PackedOperand`
+    (``layout.g == G``, ``trans_w`` as packed).  ``bias`` is (G, N), or
+    one (N,) row that every group adds (the reference broadcasts it to
+    (G, N); the kernels read it with a group stride of 0).  ``gate`` and
+    ``residual`` are (G, M, N).  ``group_sizes`` (G,) marks ragged groups:
+    rows ``>= group_sizes[g]`` of each output group are zero.
+    ``out_dtype`` overrides the policy's output dtype (MoE keeps the
+    expert GEMMs' outputs in f32).
+    """
+    if x.dim() != 3:
+        raise ValueError(f"mp_dot_grouped expects x of rank 3, got "
+                         f"{tuple(x.shape)}")
+    g = x.shape[0]
+    if isinstance(b, PackedOperand):
+        if b.layout.g != g:
+            raise ValueError(f"group mismatch: x has {g}, payload "
+                             f"{b.layout.g}")
+        if trans_w != b.layout.trans_w:
+            raise ValueError(
+                f"trans_w={trans_w} but the operand was packed with "
+                f"trans_w={b.layout.trans_w}")
+    elif isinstance(b, torch.Tensor):
+        if b.dim() != 3 or b.shape[0] != g:
+            raise ValueError(f"mp_dot_grouped: b must be ({g}, ., .), got "
+                             f"{tuple(b.shape)}")
+    else:
+        raise NotImplementedError(
+            f"mp_dot_grouped: {type(b).__name__} operands (tile-sparse) are "
+            "not ported yet")
+    policy = get_policy(policy)
+    epilogue, extras = _build_epilogue(epilogue, activation, gate, residual,
+                                       epilogue_operands)
+    extras = tuple(e.contiguous() for e in extras)
+    y = _apply_gemm(x, b, bias, extras, trans_w, epilogue, policy,
+                    out_dtype or policy.out, grouped=True)
+    if group_sizes is not None:
+        rows = torch.arange(y.shape[1], device=y.device)[None, :, None]
+        sizes = group_sizes.to(device=y.device).reshape(-1, 1, 1)
+        y = torch.where(rows < sizes, y, torch.zeros((), dtype=y.dtype,
+                                                     device=y.device))
+    return y

@@ -123,10 +123,14 @@ class GemmSpec:
 
 def apply_epilogue(ep: EpilogueSpec, acc, *, bias=None, scale=None, c=None,
                    extras=()):
-    """Apply ``ep`` to an f32 accumulator tensor.
+    """Apply ``ep`` to an f32 accumulator tensor, 2-D (M, N) or grouped
+    (G, M, N).
 
-    ``extras`` is a tuple in the registry entry's ``extra_operands`` order;
-    ``bias``/``c`` must broadcast against ``acc``; ``scale`` is a scalar.
+    ``extras`` is a tuple in the registry entry's ``extra_operands`` order,
+    each shaped like ``acc``; ``c`` must broadcast against ``acc``;
+    ``scale`` is a scalar.  ``bias`` is one row per group: (N,) against a
+    2-D ``acc``, (G, N) against a grouped one (or anything that
+    broadcasts, such as a shared (N,)).
     """
     ed = get_epilogue(ep.kind)
     if scale is not None:
@@ -134,6 +138,8 @@ def apply_epilogue(ep: EpilogueSpec, acc, *, bias=None, scale=None, c=None,
     if ep.alpha != 1.0:
         acc = acc * ep.alpha
     if bias is not None:
+        if bias.dim() == acc.dim() - 1:
+            bias = bias.unsqueeze(-2)      # a row per group, over M
         acc = acc + bias.to(acc.dtype)
     acc = ed.tail(ep, acc, dict(zip(ed.extra_operands, extras)))
     if ep.beta != 0.0:

@@ -1,16 +1,19 @@
-// K2: the packed-B mixed-precision GEMM with a fused epilogue, for sm_90a.
+// K2: the packed-B mixed-precision GEMM with a fused epilogue, 2-D or
+// grouped, for sm_90a.
 //
 // Replaces the packed-B branch of the TPU kernel
 // src/repro/kernels/mpgemm.py::make_gemm_kernel (`kernel` reading B through
 // an identity tile index map, the int4 decode `unpack_nibbles`, and the
-// per-tile scale of `_accumulate`), launched by mpgemm_pallas_spec.
-// Computes
+// per-tile scale of `_accumulate`), launched by mpgemm_pallas_spec, and by
+// mpgemm_grouped_pallas for a grouped payload (the MoE experts).
+// Computes, for every group g < G,
 //
-//     out = tail(alpha * (sum_kk A[:, kk] @ dequant(B[kk, j])) * scale + bias)
+//     out[g] = tail(alpha * (sum_kk A[g][:, kk] @ dequant(B[g][kk, j]))
+//                   * scale + bias[g])
 //
-// with A (M, K) row-major and B a payload of zero-padded tiles
-// payload[nkb][nnb][tk][bn] (repro_torch/packing/layout.py), one f32 scale
-// per tile for the codec payloads:
+// with A (G, M, K) row-major and B a payload of zero-padded tiles
+// payload[G][nkb][nnb][tk][bn] (repro_torch/packing/layout.py), one f32
+// scale per tile for the codec payloads, scales[G][nkb][nnb]:
 //
 //   float A (f32 / bf16) x codec tile (int8, int4, fp8e4m3): each element is
 //       decoded, multiplied by the tile's scale in f32 and rounded to A's
@@ -26,7 +29,9 @@
 // A's K edge needs a mask: rows past K are never visited.  `scale` (the int8
 // policy's per-tensor sx) is one f32 in device memory; the epilogue runs in
 // f32 in apply_epilogue's order (scale, alpha, bias, activation, gate or
-// residual).
+// residual).  The group is blockIdx.z (G = 1 for a 2-D GEMM): each block
+// moves its pointers by g times the group's extent before the loop, and the
+// bias by g * bias_stride (N, or 0 for one bias shared by every group).
 //
 // What bounds it on an H100: decode (M = 2) and chunked prefill (M <= 32)
 // read every payload byte once per call, so bytes over the 3.35 TB/s of
@@ -127,8 +132,8 @@ mpgemm_packed_kernel(const AT* __restrict__ A,
                      void* __restrict__ out, const float* __restrict__ bias,
                      const void* __restrict__ extra,
                      const float* __restrict__ scale, int M, int N, int K,
-                     int bk, int bn, int out_dt, int kind, int act,
-                     float alpha) {
+                     int bk, int bn, int bias_stride, int out_dt, int kind,
+                     int act, float alpha) {
   constexpr bool kIntDot = std::is_same<AT, int8_t>::value;
   constexpr bool kCodec = P >= P_INT8;
   constexpr int kElemBytes = P == P_F32 ? 4 : P == P_BF16 ? 2 : 1;
@@ -144,6 +149,16 @@ mpgemm_packed_kernel(const AT* __restrict__ A,
   const int nnb = (N + bn - 1) / bn;
   const int tk = P == P_INT4 ? (bk + 1) / 2 : bk;
   const size_t tile_bytes = (size_t)tk * bn * kElemBytes;
+
+  const size_t g = blockIdx.z;
+  const size_t out_bytes = out_dt == DT_BF16 ? 2 : 4;
+  A += g * M * K;
+  payload = static_cast<const char*>(payload) + g * nkb * nnb * tile_bytes;
+  if (tile_scales != nullptr) tile_scales += g * nkb * nnb;
+  out = static_cast<char*>(out) + g * M * N * out_bytes;
+  if (extra != nullptr)
+    extra = static_cast<const char*>(extra) + g * M * N * out_bytes;
+  if (bias != nullptr) bias += g * bias_stride;
 
   float acc[BM];
 #pragma unroll
@@ -223,22 +238,22 @@ mpgemm_packed_kernel(const AT* __restrict__ A,
 template <typename AT, int P>
 cudaError_t launch_rows(const void* a, const void* payload, const float* ts,
                         void* out, const float* bias, const void* extra,
-                        const float* scale, int m, int n, int k, int bk,
-                        int bn, int out_dt, int kind, int act, float alpha,
-                        cudaStream_t stream) {
+                        const float* scale, int g, int m, int n, int k,
+                        int bk, int bn, int bias_stride, int out_dt, int kind,
+                        int act, float alpha, cudaStream_t stream) {
   const AT* A = static_cast<const AT*>(a);
   if (m <= 4) {
     constexpr int BM = 4;
-    const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM);
+    const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM, g);
     mpgemm_packed_kernel<AT, P, BM><<<grid, kThreads, 0, stream>>>(
-        A, payload, ts, out, bias, extra, scale, m, n, k, bk, bn, out_dt,
-        kind, act, alpha);
+        A, payload, ts, out, bias, extra, scale, m, n, k, bk, bn, bias_stride,
+        out_dt, kind, act, alpha);
   } else {
     constexpr int BM = 32;
-    const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM);
+    const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM, g);
     mpgemm_packed_kernel<AT, P, BM><<<grid, kThreads, 0, stream>>>(
-        A, payload, ts, out, bias, extra, scale, m, n, k, bk, bn, out_dt,
-        kind, act, alpha);
+        A, payload, ts, out, bias, extra, scale, m, n, k, bk, bn, bias_stride,
+        out_dt, kind, act, alpha);
   }
   return cudaGetLastError();
 }
@@ -247,18 +262,19 @@ cudaError_t launch_rows(const void* a, const void* payload, const float* ts,
 
 extern "C" {
 
-// Launches K2 on `stream`; returns the cudaError_t of the launch (0 = ok).
-// a_dt: 0 f32, 1 bf16, 2 int8.  pcode: 0 f32, 1 bf16, 2 int8, 3 int4,
-// 4 fp8e4m3.  Taken pairs: f32 A x {f32, int8, int4, fp8}, bf16 A x
-// {bf16, int8, int4, fp8}, int8 A x {int8, int4}.  `tile_scales` is
-// (nkb, nnb) f32 for the codec payloads; `bias`, `extra` and `scale` may be
-// null; `extra` has the output's dtype.
+// Launches K2 on `stream` over `g` groups (1 for a 2-D GEMM); returns the
+// cudaError_t of the launch (0 = ok).  a_dt: 0 f32, 1 bf16, 2 int8.
+// pcode: 0 f32, 1 bf16, 2 int8, 3 int4, 4 fp8e4m3.  Taken pairs: f32 A x
+// {f32, int8, int4, fp8}, bf16 A x {bf16, int8, int4, fp8}, int8 A x
+// {int8, int4}.  `tile_scales` is (G, nkb, nnb) f32 for the codec payloads;
+// `bias`, `extra` and `scale` may be null; `bias_stride` is N for a (G, N)
+// bias and 0 for a shared (N,) one; `extra` has the output's dtype.
 int mpgemm_packed_launch(const void* a, const void* payload,
                          const void* tile_scales, void* out, const void* bias,
-                         const void* extra, const void* scale, int m, int n,
-                         int k, int bk, int bn, int a_dt, int pcode,
-                         int out_dt, int kind, int act, float alpha,
-                         void* stream) {
+                         const void* extra, const void* scale, int g, int m,
+                         int n, int k, int bk, int bn, int bias_stride,
+                         int a_dt, int pcode, int out_dt, int kind, int act,
+                         float alpha, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ts = static_cast<const float*>(tile_scales);
   const float* bi = static_cast<const float*>(bias);
@@ -266,11 +282,12 @@ int mpgemm_packed_launch(const void* a, const void* payload,
   if (out_dt != DT_F32 && out_dt != DT_BF16) return cudaErrorInvalidValue;
   if (pcode >= P_INT8 && ts == nullptr) return cudaErrorInvalidValue;
   if (kind != KIND_LINEAR && extra == nullptr) return cudaErrorInvalidValue;
-  if (m <= 0 || n <= 0 || k <= 0 || bk <= 0 || bn <= 0)
+  if (m <= 0 || n <= 0 || k <= 0 || bk <= 0 || bn <= 0 || g <= 0 ||
+      g > 65535 || bias_stride < 0)
     return cudaErrorInvalidValue;
-#define K2_LAUNCH(AT, P)                                                   \
-  return launch_rows<AT, P>(a, payload, ts, out, bi, extra, sc, m, n, k, \
-                            bk, bn, out_dt, kind, act, alpha, s)
+#define K2_LAUNCH(AT, P)                                                  \
+  return launch_rows<AT, P>(a, payload, ts, out, bi, extra, sc, g, m, n, k, \
+                            bk, bn, bias_stride, out_dt, kind, act, alpha, s)
   if (a_dt == DT_BF16) {
     if (pcode == P_BF16) K2_LAUNCH(__nv_bfloat16, P_BF16);
     if (pcode == P_INT8) K2_LAUNCH(__nv_bfloat16, P_INT8);

@@ -2,10 +2,13 @@
 // for sm_90a.
 //
 // Replaces the TPU kernels src/repro/packing/pack.py::_pack_kernel and
-// ::_pack_quant_kernel (launched by _pack_pallas).  Packs a row-major
-// (k, n) source -- or an (n, k) one under trans_w, transposed during the
-// pack -- into a payload of zero-padded (bk, bn) tiles, tile (i, j) at
-// payload[i][j] (nkb x nnb tiles).  Lanes past k or n read as 0.
+// ::_pack_quant_kernel (launched by _pack_pallas, 2-D or with the group
+// grid axis of a (G, ., .) expert stack).  Packs a row-major (k, n) source
+// -- or an (n, k) one under trans_w, transposed during the pack -- into a
+// payload of zero-padded (bk, bn) tiles, tile (i, j) at payload[i][j]
+// (nkb x nnb tiles); a stack of G such sources, one after the other, packs
+// into payload[g][i][j] with scales[g][i][j], the group on blockIdx.z.
+// Lanes past k or n read as 0.
 //
 //   float payload (f32 / bf16): the source value cast (round to nearest
 //       even for bf16);
@@ -47,7 +50,7 @@ __device__ __forceinline__ float load_src(const void* src, int dt,
 }
 
 // Logical element (r, c) of tile (i, j): source (i*bk + r, j*bn + c),
-// zero outside the (k, n) extent.
+// zero outside the (k, n) extent.  `src` points at this group's source.
 __device__ __forceinline__ float tile_value(const void* src, int dt, int k,
                                             int n, int bk, int bn,
                                             int trans_w, int i, int j, int r,
@@ -71,8 +74,13 @@ pack_kernel(const void* __restrict__ src, void* __restrict__ payload,
             float* __restrict__ scales, int src_dt, int pcode, int k, int n,
             int bk, int bn, int trans_w) {
   const int j = blockIdx.x, i = blockIdx.y;
-  const int nnb = gridDim.x;
+  const int nnb = gridDim.x, nkb = gridDim.y;
   const int tile = bk * bn;
+  // This tile's index in the (G, nkb, nnb) grid: it places the tile's
+  // payload and its scale.
+  const size_t t = ((size_t)blockIdx.z * nkb + i) * nnb + j;
+  src = static_cast<const char*>(src) +
+        (size_t)blockIdx.z * k * n * (src_dt == SRC_BF16 ? 2 : 4);
   // Walk the tile so that consecutive threads read consecutive source
   // addresses: along c for a (k, n) source, along r for an (n, k) one.
   auto coords = [&](int e, int& r, int& c) {
@@ -81,7 +89,7 @@ pack_kernel(const void* __restrict__ src, void* __restrict__ payload,
   };
 
   if (pcode == P_F32 || pcode == P_BF16) {
-    const size_t base = ((size_t)i * nnb + j) * tile;
+    const size_t base = t * tile;
     for (int e = threadIdx.x; e < tile; e += kThreads) {
       int r, c;
       coords(e, r, c);
@@ -118,7 +126,7 @@ pack_kernel(const void* __restrict__ src, void* __restrict__ payload,
     for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, warp_max[w]);
     const float s = __fdiv_rn(fmaxf(m, 1e-8f), qmax);
     tile_scale = s;
-    scales[(size_t)i * nnb + j] = s;
+    scales[t] = s;
   }
   __syncthreads();
   const float scale = tile_scale;
@@ -126,8 +134,7 @@ pack_kernel(const void* __restrict__ src, void* __restrict__ payload,
   if (pcode == P_INT4) {
     // One thread per payload byte: rows 2r (low nibble) and 2r + 1 (high).
     const int rows = (bk + 1) / 2;
-    int8_t* out =
-        static_cast<int8_t*>(payload) + ((size_t)i * nnb + j) * rows * bn;
+    int8_t* out = static_cast<int8_t*>(payload) + t * rows * bn;
     for (int e = threadIdx.x; e < rows * bn; e += kThreads) {
       const int r = e / bn, c = e % bn;
       const int lo = (int)quantize_int(
@@ -142,7 +149,7 @@ pack_kernel(const void* __restrict__ src, void* __restrict__ payload,
     return;
   }
 
-  const size_t base = ((size_t)i * nnb + j) * tile;
+  const size_t base = t * tile;
   for (int e = threadIdx.x; e < tile; e += kThreads) {
     int r, c;
     coords(e, r, c);
@@ -164,17 +171,18 @@ pack_kernel(const void* __restrict__ src, void* __restrict__ payload,
 
 extern "C" {
 
-// Launches K6 on `stream`; returns the cudaError_t of the launch (0 = ok).
-// `scales` is written for the codec payloads (int8, int4, fp8) and may be
-// null for the float ones.
+// Launches K6 on `stream` over a stack of `g` sources (1 for a 2-D weight);
+// returns the cudaError_t of the launch (0 = ok).  `scales` is written for
+// the codec payloads (int8, int4, fp8) and may be null for the float ones.
 int pack_launch(const void* src, void* payload, float* scales, int src_dt,
-                int pcode, int k, int n, int bk, int bn, int trans_w,
+                int pcode, int g, int k, int n, int bk, int bn, int trans_w,
                 void* stream) {
   if (src_dt != SRC_F32 && src_dt != SRC_BF16) return cudaErrorInvalidValue;
   if (pcode < P_F32 || pcode > P_FP8) return cudaErrorInvalidValue;
   if (pcode >= P_INT8 && scales == nullptr) return cudaErrorInvalidValue;
-  if (k <= 0 || n <= 0 || bk <= 0 || bn <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((n + bn - 1) / bn, (k + bk - 1) / bk);
+  if (k <= 0 || n <= 0 || bk <= 0 || bn <= 0 || g <= 0 || g > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((n + bn - 1) / bn, (k + bk - 1) / bk, g);
   pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       src, payload, scales, src_dt, pcode, k, n, bk, bn, trans_w);
   return static_cast<int>(cudaGetLastError());

@@ -1,24 +1,29 @@
-"""K1 and K2 wrappers: the 2-D MPGEMM with a fused epilogue (port of
-``repro.kernels.mpgemm.mpgemm_pallas_spec``), dense B (K1) or pre-packed B
-(K2).
+"""K1 and K2 wrappers: the MPGEMM with a fused epilogue (port of
+``repro.kernels.mpgemm.mpgemm_pallas_spec`` and ``mpgemm_grouped_pallas``),
+2-D or grouped, with dense B (K1) or pre-packed B (K2).
 
-:func:`mpgemm` is polymorphic in ``b``, as the reference is: a dense tensor
-goes to K1, a :class:`~repro_torch.packing.layout.PackedOperand` to
-:func:`mpgemm_packed` (K2).  Each dispatches by the device of its operands:
-a CPU tensor runs the plain version, a CUDA tensor launches the
-hand-written kernel (``csrc/mpgemm.cu``, ``csrc/mpgemm_packed.cu``, built
-on first use by ``_build.py``).  Variants the kernels do not take yet --
-``trans_a``, ``beta·C``, grouped and tile-sparse B -- raise
-``NotImplementedError`` on every device, so the CPU path never offers what
-the card cannot run.
+:func:`mpgemm` runs one GEMM, :func:`mpgemm_grouped` G of them in one
+launch (the MoE expert GEMMs: A (G, M, K) against B (G, K, N)).  Both are
+polymorphic in ``b``, as the reference is: a dense tensor goes to K1, a
+:class:`~repro_torch.packing.layout.PackedOperand` to K2
+(:func:`mpgemm_packed`, :func:`mpgemm_packed_grouped`).  Each dispatches by
+the device of its operands: a CPU tensor runs the plain version, a CUDA
+tensor launches the hand-written kernel (``csrc/mpgemm.cu``,
+``csrc/mpgemm_packed.cu``, built on first use by ``_build.py``; the group
+is the kernels' third grid axis).  Variants the kernels do not take yet --
+``trans_a``, ``beta·C`` and tile-sparse B -- raise ``NotImplementedError``
+on every device, so the CPU path never offers what the card cannot run.
 
 K1 takes bf16 or f32 operands summed in f32, or int8 operands summed
 exactly in int32 (the int8 policy).  ``scale`` is a one-element f32 tensor
 on the operands' device (the int8 policy's ``sx · sw``); the kernels read
-it in their epilogue, so no GEMM waits on the host.
+it in their epilogue, so no GEMM waits on the host.  A grouped call takes
+a bias of shape (G, N), or one (N,) bias shared by every group, and
+gate / residual operands of the output's shape (G, M, N).
 
-``mpgemm.launches`` and ``mpgemm_packed.launches`` count kernel launches
-(never plain-version calls).
+``mpgemm.launches``, ``mpgemm_grouped.launches``,
+``mpgemm_packed.launches`` and ``mpgemm_packed_grouped.launches`` count
+kernel launches (never plain-version calls).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.gemm_spec import (
     LINEAR, EpilogueSpec, GemmSpec, apply_epilogue, get_epilogue,
@@ -45,9 +51,8 @@ _PAYLOAD_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3,
 
 
 def _check_supported(spec: GemmSpec, epilogue: EpilogueSpec, c):
-    if spec.grouped or spec.sparse:
-        raise NotImplementedError(
-            "grouped and tile-sparse GEMMs are not ported yet")
+    if spec.sparse:
+        raise NotImplementedError("tile-sparse GEMMs are not ported yet")
     if spec.trans_a:
         raise NotImplementedError("trans_a is not ported yet")
     if epilogue.beta != 0.0 or c is not None:
@@ -58,9 +63,8 @@ def _check_supported(spec: GemmSpec, epilogue: EpilogueSpec, c):
 
 
 def _epilogue_plain(epilogue, acc, bias, scale, extras, out_dtype):
-    out = apply_epilogue(epilogue, acc,
-                         bias=None if bias is None else bias.reshape(1, -1),
-                         scale=scale, extras=tuple(extras))
+    out = apply_epilogue(epilogue, acc, bias=bias, scale=scale,
+                         extras=tuple(extras))
     return out.to(out_dtype)
 
 
@@ -70,15 +74,20 @@ def mpgemm_plain(a: torch.Tensor, b: torch.Tensor, *,
                  extras: Sequence[torch.Tensor] = (),
                  trans_b: bool = False, epilogue: EpilogueSpec = LINEAR,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """K1's plain version: the matmul of the (already compute-dtype)
+    """K1's plain version, 2-D or grouped (a leading G axis on ``a``,
+    ``b`` and the extras): the matmul of the (already compute-dtype)
     operands -- f32, or exact for int8 (f64 holds every int8 dot product
     sum of these sizes exactly) -- then :func:`apply_epilogue` in f32, then
     the output cast."""
     wide = torch.float64 if a.dtype == torch.int8 else torch.float32
     bw = b.to(wide)
-    acc = (a.to(wide) @ (bw.t() if trans_b else bw)).float()
+    acc = (a.to(wide) @ (bw.transpose(-1, -2) if trans_b else bw)).float()
     return _epilogue_plain(epilogue, acc, bias, scale, extras,
                            out_dtype or a.dtype)
+
+
+# The plain version is rank-generic: the grouped one is the same function.
+mpgemm_grouped_plain = mpgemm_plain
 
 
 def _check_extras(epilogue, extras):
@@ -101,14 +110,39 @@ def mpgemm(a: torch.Tensor, b, *,
     ``extras`` are the epilogue's (M, N) operands in registry order.
     Output dtype: ``out_dtype``, else ``spec.out_dtype``, else
     ``a.dtype``."""
+    if spec.grouped:
+        raise ValueError("a grouped GemmSpec goes to mpgemm_grouped")
+    return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
+                   grouped=False)
+
+
+def mpgemm_grouped(a: torch.Tensor, b, *,
+                   c: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None,
+                   scale: Optional[torch.Tensor] = None,
+                   extras: Sequence[torch.Tensor] = (),
+                   spec: GemmSpec = GemmSpec(grouped=True),
+                   epilogue: EpilogueSpec = LINEAR,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """G GEMMs in one launch: ``out[g] = tail(alpha · (a[g] @ op(b[g])) ·
+    scale + bias[g])`` for a (G, M, K) and b (G, K, N), or (G, N, K) under
+    ``spec.trans_b``, or a grouped packed operand (K2).  ``bias`` is
+    (G, N) or a shared (N,); ``extras`` are (G, M, N); ``scale`` is one
+    value for every group."""
+    return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
+                   grouped=True)
+
+
+def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
+            grouped):
     if isinstance(b, PackedOperand):
         if spec.trans_b:
             raise ValueError("packed B has its transpose resolved at pack "
                              "time")
         _check_supported(spec, epilogue, c)
-        return mpgemm_packed(a, b, bias=bias, scale=scale, extras=extras,
-                             epilogue=epilogue,
-                             out_dtype=out_dtype or spec.out_dtype)
+        packed = mpgemm_packed_grouped if grouped else mpgemm_packed
+        return packed(a, b, bias=bias, scale=scale, extras=extras,
+                      epilogue=epilogue, out_dtype=out_dtype or spec.out_dtype)
     if spec.packed:
         raise ValueError("spec.packed needs a PackedOperand b")
     _check_supported(spec, epilogue, c)
@@ -122,30 +156,39 @@ def mpgemm(a: torch.Tensor, b, *,
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm: unsupported device {a.device}")
     return _launch(a, b, bias, scale, extras, spec.trans_b, epilogue,
-                   out_dtype)
+                   out_dtype, grouped)
 
 
 # --- shared argument checks --------------------------------------------------
 
-def _check_a(a, k):
-    if a.dim() != 2:
-        raise ValueError(f"mpgemm: 2-D A only, got {tuple(a.shape)}")
-    if a.shape[1] != k:
+def _check_a(a, k, grouped):
+    rank = 3 if grouped else 2
+    if a.dim() != rank:
+        raise ValueError(f"{'grouped' if grouped else '2-D'} mpgemm: A must "
+                         f"have rank {rank}, got {tuple(a.shape)}")
+    if a.shape[-1] != k:
         raise ValueError(f"contraction mismatch: A {tuple(a.shape)} against "
                          f"K = {k}")
     if not a.is_contiguous():
         raise ValueError("mpgemm: a must be contiguous")
 
 
-def _epilogue_args(a, m, n, bias, scale, extras, epilogue, out_dtype):
-    """(bias, scale, extra) checked and made kernel-ready."""
+def _epilogue_args(a, out_shape, bias, scale, extras, epilogue, out_dtype):
+    """(bias, bias_stride, scale, extra) checked and made kernel-ready; the
+    bias is N values shared by every group (stride 0) or (G, N) (stride
+    N)."""
     if out_dtype not in _OUT_CODES:
         raise NotImplementedError(f"mpgemm kernel output dtype {out_dtype}")
+    g, n = (out_shape[0] if len(out_shape) == 3 else 1), out_shape[-1]
+    bias_stride = 0
     if bias is not None:
-        if bias.numel() != n or bias.device != a.device:
-            raise ValueError(f"mpgemm: bias must hold {n} values on "
-                             f"{a.device}")
-        bias = bias.reshape(-1).to(torch.float32).contiguous()
+        if bias.device != a.device or bias.numel() not in (n, g * n) or (
+                bias.numel() != n and tuple(bias.shape) != (g, n)):
+            raise ValueError(f"mpgemm: bias must hold {n} values, or be "
+                             f"({g}, {n}), on {a.device}; got "
+                             f"{tuple(bias.shape)} on {bias.device}")
+        bias_stride = 0 if bias.numel() == n else n
+        bias = bias.to(torch.float32).contiguous()
     if scale is not None:
         if scale.numel() != 1 or scale.device != a.device:
             raise ValueError(f"mpgemm: scale must be one value on "
@@ -154,13 +197,13 @@ def _epilogue_args(a, m, n, bias, scale, extras, epilogue, out_dtype):
     extra = None
     if extras:
         (extra,) = extras
-        if (tuple(extra.shape) != (m, n) or extra.dtype != out_dtype
+        if (tuple(extra.shape) != tuple(out_shape) or extra.dtype != out_dtype
                 or extra.device != a.device or not extra.is_contiguous()):
             raise ValueError(
                 f"mpgemm: the {epilogue.kind} operand must be a contiguous "
-                f"({m}, {n}) {out_dtype} tensor on {a.device}, got "
+                f"{tuple(out_shape)} {out_dtype} tensor on {a.device}, got "
                 f"{tuple(extra.shape)} {extra.dtype} on {extra.device}")
-    return bias, scale, extra
+    return bias, bias_stride, scale, extra
 
 
 def _ptr(t):
@@ -169,41 +212,48 @@ def _ptr(t):
 
 # --- K1 launch ---------------------------------------------------------------
 
-def _launch(a, b, bias, scale, extras, trans_b, epilogue, out_dtype):
-    if b.dim() != 2:
-        raise ValueError(f"mpgemm: 2-D operands only, got {tuple(a.shape)} x "
-                         f"{tuple(b.shape)}")
+def _launch(a, b, bias, scale, extras, trans_b, epilogue, out_dtype,
+            grouped):
+    rank = 3 if grouped else 2
+    if b.dim() != rank:
+        raise ValueError(f"mpgemm: B must have rank {rank}, got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
     if a.dtype not in _DTYPE_CODES or b.dtype != a.dtype:
         raise NotImplementedError(
             f"mpgemm kernel takes bf16, f32 or int8 operands of one dtype, "
             f"got {a.dtype} x {b.dtype}")
-    n, k = (b.shape if trans_b else b.shape[::-1])
-    _check_a(a, k)
+    n, k = (b.shape[-2:] if trans_b else b.shape[-2:][::-1])
+    _check_a(a, k, grouped)
+    g = a.shape[0] if grouped else 1
+    if grouped and b.shape[0] != g:
+        raise ValueError(f"group mismatch: A has {g}, B {b.shape[0]}")
     if b.device != a.device:
         raise ValueError(f"mpgemm: b on {b.device}, a on {a.device}")
     if not b.is_contiguous():
         raise ValueError("mpgemm: b must be contiguous")
-    m = a.shape[0]
-    bias, scale, extra = _epilogue_args(a, m, n, bias, scale, extras,
-                                        epilogue, out_dtype)
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    if m == 0 or n == 0:
+    m = a.shape[-2]
+    out_shape = (*a.shape[:-2], m, n)
+    bias, bias_stride, scale, extra = _epilogue_args(
+        a, out_shape, bias, scale, extras, epilogue, out_dtype)
+    out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
         return out
     lib = _lib()
     rc = lib.mpgemm_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(extra),
-        _ptr(scale), m, n, k, _DTYPE_CODES[a.dtype], _OUT_CODES[out_dtype],
-        int(trans_b), _KIND_CODES[epilogue.kind],
+        _ptr(scale), g, m, n, k, bias_stride, _DTYPE_CODES[a.dtype],
+        _OUT_CODES[out_dtype], int(trans_b), _KIND_CODES[epilogue.kind],
         _ACT_CODES[epilogue.activation], float(epilogue.alpha),
         torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mpgemm kernel launch failed: CUDA error {rc} "
                            f"({lib.mpgemm_error_string(rc).decode()})")
-    mpgemm.launches += 1
+    (mpgemm_grouped if grouped else mpgemm).launches += 1
     return out
 
 
 mpgemm.launches = 0
+mpgemm_grouped.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -212,7 +262,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mpgemm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mpgemm_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                  ctypes.c_float, p]
+                                  i, i, ctypes.c_float, p]
     lib.mpgemm_launch.restype = i
     lib.mpgemm_error_string.argtypes = [i]
     lib.mpgemm_error_string.restype = ctypes.c_char_p
@@ -221,12 +271,16 @@ def _lib() -> ctypes.CDLL:
 
 # --- K2: packed B ------------------------------------------------------------
 
-def _check_packed_pair(a: torch.Tensor, b: PackedOperand):
-    """The (A dtype, payload) pairs K2 and its plain version take."""
+def _check_packed_pair(a: torch.Tensor, b: PackedOperand, grouped: bool):
+    """The (A dtype, payload) pairs K2 and its plain version take, and the
+    group count."""
     layout = b.layout
-    if layout.g != 1:
-        raise NotImplementedError("grouped packed operands (MoE) are not "
-                                  "ported yet")
+    g = a.shape[0] if grouped and a.dim() == 3 else 1
+    if layout.g != g:
+        raise ValueError(
+            f"group mismatch: A has {g} group(s), the packed operand "
+            f"{layout.g}" + ("" if grouped else
+                             " (a grouped operand goes to mpgemm_grouped)"))
     codec = layout.codec
     if a.dtype == torch.int8:
         if codec is None or not codec.integer:
@@ -249,36 +303,48 @@ def mpgemm_packed_plain(a: torch.Tensor, b: PackedOperand, *,
                         epilogue: EpilogueSpec = LINEAR,
                         out_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
-    """K2's plain version, with the reference kernel's per-tile numerics.
+    """K2's plain version, with the reference kernel's per-tile numerics;
+    2-D (``a`` (M, K)) or grouped (``a`` (G, M, K) against a payload of G
+    groups).
 
     Float A: each codec tile is decoded, scaled in f32 and rounded to A's
     dtype (the reference's ``bf.astype(a.dtype)``), then one f32 matmul.
     Int8 A: one exact partial per K tile (f64 holds it exactly), then
     ``acc += float(partial) · tile_scale`` over the tiles in K order.
     """
-    _check_packed_pair(a, b)
+    grouped = a.dim() == 3
+    _check_packed_pair(a, b, grouped)
     layout = b.layout
-    m = a.shape[0]
-    tiles = decode_payload_tiles(b.payload, layout)     # (nkb, nnb, bk, bn)
-    kp, np_ = layout.nkb * layout.bk, layout.nnb * layout.bn
-    ap = torch.nn.functional.pad(a, (0, kp - layout.k))
+    g, nkb, nnb, bk, bn = layout.g, layout.nkb, layout.nnb, layout.bk, \
+        layout.bn
+    a3 = a if grouped else a[None]
+    m = a3.shape[1]
+    payload = b.payload.reshape(g, nkb, nnb, *layout.payload_tile)
+    tiles = decode_payload_tiles(payload, layout)     # (g, nkb, nnb, bk, bn)
+    scales = None if b.scales is None else b.scales.reshape(g, nkb, nnb)
+    kp, np_ = nkb * bk, nnb * bn
+    ap = F.pad(a3, (0, kp - layout.k))
     if a.dtype == torch.int8:
-        a_t = ap.to(torch.float64).reshape(m, layout.nkb, layout.bk)
-        w_t = tiles.to(torch.float64).permute(0, 2, 1, 3).reshape(
-            layout.nkb, layout.bk, np_)
-        parts = torch.einsum("mkb,kbn->kmn", a_t, w_t).float()
-        ts = b.scales.float().repeat_interleave(layout.bn, dim=1)  # (nkb, Np)
-        acc = torch.zeros(m, np_, dtype=torch.float32, device=a.device)
-        for kk in range(layout.nkb):
-            acc = acc + parts[kk] * ts[kk]
+        a_t = ap.to(torch.float64).reshape(g, m, nkb, bk)
+        w_t = tiles.to(torch.float64).permute(0, 1, 3, 2, 4).reshape(
+            g, nkb, bk, np_)
+        parts = torch.einsum("gmkb,gkbn->gkmn", a_t, w_t).float()
+        ts = scales.float().repeat_interleave(bn, dim=-1)  # (g, nkb, Np)
+        acc = torch.zeros(g, m, np_, dtype=torch.float32, device=a.device)
+        for kk in range(nkb):
+            acc = acc + parts[:, kk] * ts[:, kk, None, :]
     else:
-        if b.scales is not None:
-            tiles = (tiles.float() * b.scales[..., None, None]).to(a.dtype)
-        w = tiles.permute(0, 2, 1, 3).reshape(kp, np_)
+        if scales is not None:
+            tiles = (tiles.float() * scales[..., None, None]).to(a.dtype)
+        w = tiles.permute(0, 1, 3, 2, 4).reshape(g, kp, np_)
         acc = ap.float() @ w.float()
-    acc = acc[:, :layout.n]
-    return _epilogue_plain(epilogue, acc, bias, scale, extras,
-                           out_dtype or a.dtype)
+    acc = acc[..., :layout.n]
+    return _epilogue_plain(epilogue, acc if grouped else acc[0], bias, scale,
+                           extras, out_dtype or a.dtype)
+
+
+# The plain version is rank-generic: the grouped one is the same function.
+mpgemm_packed_grouped_plain = mpgemm_packed_plain
 
 
 def mpgemm_packed(a: torch.Tensor, b: PackedOperand, *,
@@ -291,24 +357,44 @@ def mpgemm_packed(a: torch.Tensor, b: PackedOperand, *,
     (M, K) and a packed (K, N) operand.  A bf16/f32 ``a`` takes an int8,
     int4 or fp8e4m3 payload or a float payload of its own dtype; an int8
     ``a`` takes an int8 or int4 payload."""
+    return _packed(a, b, bias, scale, extras, epilogue, out_dtype,
+                   grouped=False)
+
+
+def mpgemm_packed_grouped(a: torch.Tensor, b: PackedOperand, *,
+                          bias: Optional[torch.Tensor] = None,
+                          scale: Optional[torch.Tensor] = None,
+                          extras: Sequence[torch.Tensor] = (),
+                          epilogue: EpilogueSpec = LINEAR,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Grouped K2: :func:`mpgemm_packed` for a (G, M, K) against a packed
+    operand of G groups (``layout.g``), in one launch; bias (G, N) or a
+    shared (N,), extras (G, M, N)."""
+    return _packed(a, b, bias, scale, extras, epilogue, out_dtype,
+                   grouped=True)
+
+
+def _packed(a, b, bias, scale, extras, epilogue, out_dtype, *, grouped):
     out_dtype = out_dtype or a.dtype
     extras = tuple(extras)
     _check_extras(epilogue, extras)
-    _check_packed_pair(a, b)
+    _check_a(a, b.layout.k, grouped)
+    _check_packed_pair(a, b, grouped)
     if a.device.type == "cpu":
         return mpgemm_packed_plain(a, b, bias=bias, scale=scale,
                                    extras=extras, epilogue=epilogue,
                                    out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm_packed: unsupported device {a.device}")
-    return _launch_packed(a, b, bias, scale, extras, epilogue, out_dtype)
+    return _launch_packed(a, b, bias, scale, extras, epilogue, out_dtype,
+                          grouped)
 
 
-def _launch_packed(a, b, bias, scale, extras, epilogue, out_dtype):
+def _launch_packed(a, b, bias, scale, extras, epilogue, out_dtype, grouped):
     layout = b.layout
     if layout.dtype not in _PAYLOAD_CODES:
         raise NotImplementedError(f"packed payload {layout.dtype!r}")
-    _check_a(a, layout.k)
     payload, tile_scales = b.payload, b.scales
     if tuple(payload.shape) != layout.payload_shape or \
             payload.device != a.device or not payload.is_contiguous():
@@ -323,31 +409,33 @@ def _launch_packed(a, b, bias, scale, extras, epilogue, out_dtype):
             or not tile_scales.is_contiguous()):
         raise ValueError(f"mpgemm_packed: scales must be a contiguous f32 "
                          f"{layout.scales_shape} tensor on {a.device}")
-    m, n = a.shape[0], layout.n
-    bias, scale, extra = _epilogue_args(a, m, n, bias, scale, extras,
-                                        epilogue, out_dtype)
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    if m == 0:
+    m, n = a.shape[-2], layout.n
+    out_shape = (*a.shape[:-2], m, n)
+    bias, bias_stride, scale, extra = _epilogue_args(
+        a, out_shape, bias, scale, extras, epilogue, out_dtype)
+    out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
         return out
     lib = _packed_lib()
     rc = lib.mpgemm_packed_launch(
         a.data_ptr(), payload.data_ptr(),
         _ptr(tile_scales) if layout.per_tile_scales else None,
         out.data_ptr(), _ptr(bias), _ptr(extra), _ptr(scale),
-        m, n, layout.k, layout.bk, layout.bn, _DTYPE_CODES[a.dtype],
-        _PAYLOAD_CODES[layout.dtype], _OUT_CODES[out_dtype],
-        _KIND_CODES[epilogue.kind], _ACT_CODES[epilogue.activation],
-        float(epilogue.alpha),
+        layout.g, m, n, layout.k, layout.bk, layout.bn, bias_stride,
+        _DTYPE_CODES[a.dtype], _PAYLOAD_CODES[layout.dtype],
+        _OUT_CODES[out_dtype], _KIND_CODES[epilogue.kind],
+        _ACT_CODES[epilogue.activation], float(epilogue.alpha),
         torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"mpgemm_packed kernel launch failed: CUDA error {rc} "
             f"({lib.mpgemm_packed_error_string(rc).decode()})")
-    mpgemm_packed.launches += 1
+    (mpgemm_packed_grouped if grouped else mpgemm_packed).launches += 1
     return out
 
 
 mpgemm_packed.launches = 0
+mpgemm_packed_grouped.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -355,7 +443,8 @@ def _packed_lib() -> ctypes.CDLL:
     lib = _build.load("mpgemm_packed")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mpgemm_packed_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                         i, i, i, i, i, ctypes.c_float, p]
+                                         i, i, i, i, i, i, i, ctypes.c_float,
+                                         p]
     lib.mpgemm_packed_launch.restype = i
     lib.mpgemm_packed_error_string.argtypes = [i]
     lib.mpgemm_packed_error_string.restype = ctypes.c_char_p

@@ -4,6 +4,8 @@ ServeEngine, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --pack --pack-format int4 [--policy int8]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m [--pack --pack-format int4]
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Weights are random (drawn from a seeded ``torch.Generator`` on the target

@@ -1,15 +1,16 @@
-"""The dense decoder block on the paged-KV serving path (port of the dense
-part of ``repro.models.blocks``).
+"""The dense and MoE decoder blocks on the paged-KV serving path (port of
+the dense and MoE parts of ``repro.models.blocks``).
 
 ``ctx`` keys: cfg, policy, rope=(cos, sin), positions (B, C), paged =
 {block_tables, q_start, n_valid, lengths}.  Every matmul routes through
-mp_dot; the MLP's gating and residual ride its GEMM epilogues.
+mp_dot, every expert GEMM through mp_dot_grouped; the MLPs' gating (and
+the dense block's residual) ride the GEMM epilogues.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.gemm import mp_dot
+from repro_torch.core.gemm import mp_dot, mp_dot_grouped
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_rope, dense_init, init_swiglu, rmsnorm, swiglu_mlp,
@@ -108,3 +109,122 @@ def dense_paged_step(params, x, cache, ctx, *, window=None):
     # The block residual rides the down projection's epilogue.
     return swiglu_mlp(params["mlp"], norm(params["ln2"], x, cfg),
                       ctx["policy"], residual=x)
+
+
+# ================================ MoE ========================================
+
+def init_moe(cfg, *, generator, device):
+    """Attention, norms, an f32 (d, E) router and three (E, ., .) f32
+    expert stacks, with the reference's distributions."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    kw = dict(generator=generator, device=device)
+    scale = (2.0 / (d + f)) ** 0.5
+    return {"ln1": init_norm(cfg, device=device),
+            "attn": init_attn(cfg, **kw),
+            "ln2": init_norm(cfg, device=device),
+            "router": dense_init(d, e, **kw),
+            "w_gate": torch.randn(e, d, f, **kw) * scale,
+            "w_up": torch.randn(e, d, f, **kw) * scale,
+            "w_down": torch.randn(e, f, d, **kw) * scale}
+
+
+def moe_topk(gates: torch.Tensor, k: int):
+    """(weights, experts) of the ``k`` largest gates, largest first and, on
+    ties, the lower expert index first -- ``jax.lax.top_k``'s order, which
+    a stable descending sort gives and ``torch.topk`` does not promise."""
+    topw, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return topw[..., :k], topi[..., :k]
+
+
+def moe_capacity(capacity_factor: float, k: int, s: int, e: int) -> int:
+    """Slots per expert and sequence: ``max(1, round(cf · k · s / e))``
+    with Python's round half to even, from shapes only."""
+    return max(1, int(round(capacity_factor * k * s / e)))
+
+
+def moe_dispatch(topi: torch.Tensor, e: int, cap: int):
+    """Capacity dispatch of each sequence's (token, choice) pairs.
+
+    topi: (b, s, k) expert ids.  -> (src (b, e·cap): the token each expert
+    slot reads, ``s`` for an empty slot; dest (b, s·k): the slot of each
+    (token, choice) pair in token order, ``e·cap`` for a dropped one).
+    Slots go newest token first (the reference's ``route``): pairs are
+    ordered by token from last to first, stably sorted by expert, and
+    the first ``cap`` of each expert are kept.
+    """
+    b, s, k = topi.shape
+    dev = topi.device
+    rev = torch.arange(s - 1, -1, -1, device=dev)
+    slot_e = topi[:, rev].reshape(b, s * k)
+    slot_t = rev.repeat_interleave(k)
+    order = torch.argsort(slot_e, dim=-1, stable=True)
+    se = torch.gather(slot_e, 1, order)
+    st = slot_t[order]
+    counts = torch.zeros(b, e, dtype=torch.long, device=dev).scatter_add_(
+        1, slot_e, torch.ones_like(slot_e))
+    starts = torch.cumsum(counts, dim=1) - counts
+    rank = torch.arange(s * k, device=dev) - torch.gather(starts, 1, se)
+    dest = torch.where(rank < cap, se * cap + rank,
+                       torch.full_like(se, e * cap))
+    # Dropped pairs all land in the extra slot e·cap, which is cut off: the
+    # write order of those duplicates does not matter.
+    src = torch.full((b, e * cap + 1), s, dtype=torch.long, device=dev)
+    src = src.scatter(1, dest, st)[:, :-1]
+    dest_tok = torch.empty_like(dest).scatter_(1, order, dest)
+    dest_tok = dest_tok.reshape(b, s, k)[:, rev].reshape(b, s * k)
+    return src, dest_tok
+
+
+def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25):
+    """Top-k MoE with per-sequence capacity dispatch (the reference's
+    ``moe_mlp`` forward; its auxiliary losses serve training only and are
+    not ported).
+
+    The router runs in f32 (K1).  Each expert's capacity slots are
+    gathered into one (E, b·cap, d) buffer, and the SwiGLU experts run as
+    three grouped GEMMs with f32 outputs (group = expert): up, then gate
+    with ``silu(·) · up`` fused into its store, then down.  The combine
+    sums each token's kept choices in f32, weighted by the renormalised
+    top-k gates, and casts to ``x``'s dtype.  No step here waits on the
+    host: the capacity comes from shapes.
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    logits = mp_dot(x, params["router"], policy="fp32").float()
+    gates = torch.softmax(logits, dim=-1)                     # (b, s, e)
+    topw, topi = moe_topk(gates, k)
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = moe_capacity(capacity_factor, k, s, e)
+    src, dest_tok = moe_dispatch(topi, e, cap)
+
+    tok_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)     # (b, s+1, d)
+    buf = torch.gather(tok_pad, 1, src[..., None].expand(b, e * cap, d))
+    ebuf = buf.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    f32 = torch.float32
+    h_up = mp_dot_grouped(ebuf, params["w_up"], policy=policy, out_dtype=f32)
+    h = mp_dot_grouped(ebuf, params["w_gate"], policy=policy, out_dtype=f32,
+                       activation="silu", gate=h_up)
+    y = mp_dot_grouped(h, params["w_down"], policy=policy, out_dtype=f32)
+    y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+
+    y_pad = torch.cat([y, y.new_zeros(b, 1, d)], dim=1)
+    contrib = torch.gather(y_pad, 1, dest_tok[..., None].expand(b, s * k, d))
+    kept = (dest_tok < e * cap).reshape(b, s, k)
+    w = topw.float() * kept
+    out = torch.einsum("bskd,bsk->bsd", contrib.reshape(b, s, k, d), w)
+    return out.to(x.dtype)
+
+
+def moe_paged_step(params, x, cache, ctx, *, window=None,
+                   capacity_factor: float):
+    """The MoE block on the paged serving path: paged attention, then
+    :func:`moe_mlp`; both residual adds are plain adds in the activation
+    dtype.  Dead padding rows take part in the routing, as in the
+    reference."""
+    cfg = ctx["cfg"]
+    o = attn_paged_step(params["attn"], norm(params["ln1"], x, cfg), cache,
+                        ctx, window=window)
+    x = x + o
+    y = moe_mlp(params, norm(params["ln2"], x, cfg), cfg, ctx["policy"],
+                capacity_factor=capacity_factor)
+    return x + y

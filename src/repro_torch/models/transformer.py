@@ -1,5 +1,5 @@
-"""Model assembly for the paged serving path (port of the dense part of
-``repro.models.transformer``): :class:`LM` with ``init``,
+"""Model assembly for the paged serving path (port of the dense and MoE
+parts of ``repro.models.transformer``): :class:`LM` with ``init``,
 ``init_paged_caches`` and ``paged_step``, and :func:`params_from_jax`, which
 carries a reference parameter tree across so both packages compute the
 same function.
@@ -7,9 +7,13 @@ same function.
 Parameters are a plain dict: ``embed`` (Vp, d), ``final_norm``, ``head``
 (d, Vp) when untied, and ``layers``, a list of per-layer block dicts in
 layer order (the reference stacks them per unit kind for ``lax.scan``).
+A dense layer keeps its projections in the ``attn`` and ``mlp`` sub-dicts;
+an MoE layer keeps ``attn`` and, at its top level, the f32 ``router``
+(d, E) and the (E, ., .) expert stacks ``w_gate``, ``w_up``, ``w_down``.
 A GEMM weight is a dense tensor or, once packed (``LM.init(pack=True)`` or
 ``packing.params.pack_params``), a
-:class:`~repro_torch.packing.layout.PackedOperand`.
+:class:`~repro_torch.packing.layout.PackedOperand` (grouped for an expert
+stack).
 """
 from __future__ import annotations
 
@@ -29,7 +33,12 @@ from repro_torch.packing.layout import PackedLayout, PackedOperand
 from repro_torch.packing.params import pack_params
 
 # Block kinds the port's paged-KV serving path runs.
-PAGED_KINDS = ("dense", "attn_local")
+PAGED_KINDS = ("dense", "attn_local", "moe")
+
+# Serve-time MoE capacity factor, as in the reference's paged step: at 4.0
+# an expert holds every token of a sequence whenever top-k picks each
+# expert at most once per token (granite: cap = s).
+MOE_SERVE_CAPACITY = 4.0
 
 
 def resolve_device(device) -> torch.device:
@@ -63,13 +72,14 @@ def _window(cfg, kind):
     return cfg.local_attn_window if kind == "attn_local" else cfg.window
 
 
-# The GEMM weights of a layer: cast once to the compute dtype at load time
-# (mp_dot would cast them on every call; a cast done once gives the same
-# bits).  Under the int8 policy they stay f32, as in the reference, and
-# mp_dot quantizes them per call.  Packed weights and norm scales are left
-# as they are.
-_GEMM_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
-                 "mlp": ("w_gate", "w_up", "w_down")}
+# The GEMM weights of a layer, wherever they sit in its dict: cast once to
+# the compute dtype at load time (mp_dot would cast them on every call; a
+# cast done once gives the same bits).  Under the int8 policy they stay
+# f32, as in the reference, and mp_dot quantizes them per call.  Packed
+# weights, norm scales and the MoE router (an f32 GEMM under every policy)
+# are left as they are.
+_GEMM_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
+                           "w_down"})
 
 
 @dataclasses.dataclass
@@ -134,18 +144,19 @@ class LM:
             params["head"] = (pack_params({"head": head}, policy=self.policy,
                                           pack_format=pack_format)["head"]
                               if pack else head.to(self.weight_dtype))
-        params["layers"] = [prepare(B.init_dense(cfg, **kw))
-                            for _ in cfg.pattern]
+        params["layers"] = [
+            prepare((B.init_moe if kind == "moe" else B.init_dense)(cfg, **kw))
+            for kind in cfg.pattern]
         return self.load_params(params)
 
     def _cast_layer(self, layer):
-        out = dict(layer)
-        for sub, names in _GEMM_WEIGHTS.items():
-            out[sub] = {k: (v.to(self.weight_dtype)
-                            if k in names and isinstance(v, torch.Tensor)
-                            else v)
-                        for k, v in layer[sub].items()}
-        return out
+        def cast(node, name=None):
+            if isinstance(node, dict):
+                return {k: cast(v, k) for k, v in node.items()}
+            if name in _GEMM_WEIGHTS and isinstance(node, torch.Tensor):
+                return node.to(self.weight_dtype)
+            return node
+        return cast(layer)
 
     def load_params(self, params) -> Dict[str, Any]:
         """Move ``params`` to the model's device and cast the dense GEMM
@@ -155,17 +166,17 @@ class LM:
         dev = self.device
 
         def to(t, dtype=None):
+            if isinstance(t, dict):
+                return {k: to(v) for k, v in t.items()}
             if isinstance(t, PackedOperand):
                 return t.to(dev)
             return t.to(device=dev, dtype=dtype or t.dtype)
 
         out = {
             "embed": to(params["embed"], self.act_dtype),
-            "final_norm": {k: to(v) for k, v in params["final_norm"].items()},
-            "layers": [
-                {sub: {k: to(v) for k, v in d.items()}
-                 for sub, d in self._cast_layer(layer).items()}
-                for layer in params["layers"]],
+            "final_norm": to(params["final_norm"]),
+            "layers": [to(self._cast_layer(layer))
+                       for layer in params["layers"]],
         }
         if "head" in params:
             out["head"] = to(params["head"], self.weight_dtype)
@@ -186,10 +197,11 @@ class LM:
         vp = self.vocab_padded
         if vp == self.cfg.vocab:
             return logits
+        # masked_fill takes the fill as a scalar: a fill tensor built from a
+        # Python number would be copied from pageable host memory, and that
+        # copy waits for the stream, once per step.
         valid = torch.arange(vp, device=logits.device) < self.cfg.vocab
-        return torch.where(valid, logits,
-                           torch.tensor(-1e30, dtype=logits.dtype,
-                                        device=logits.device))
+        return logits.masked_fill(~valid, -1e30)
 
     @torch.inference_mode()
     def paged_step(self, params, tokens, caches, block_tables, q_start,
@@ -229,8 +241,13 @@ class LM:
             },
         }
         for kind, layer, cache in zip(cfg.pattern, params["layers"], caches):
-            x = B.dense_paged_step(layer, x, cache, ctx,
-                                   window=_window(cfg, kind))
+            if kind == "moe":
+                x = B.moe_paged_step(layer, x, cache, ctx,
+                                     window=_window(cfg, kind),
+                                     capacity_factor=MOE_SERVE_CAPACITY)
+            else:
+                x = B.dense_paged_step(layer, x, cache, ctx,
+                                       window=_window(cfg, kind))
         # Each row's next-token logits live at its LAST valid position
         # (idle rows clamp to column 0 — the engine ignores them).
         idx = (n_valid.long() - 1).clamp(0, c - 1)
@@ -250,13 +267,14 @@ def build_model(cfg: ArchConfig, policy: str = "bf16",
 
 def _packed_from_jax(p, idx=None) -> PackedOperand:
     """A reference ``PackedOperand`` with numpy leaves (a stacked one is
-    sliced at layer ``idx``) as the port's, on the CPU.  ``torch.from_numpy``
-    refuses ml_dtypes' bfloat16 and float8_e4m3fn, so their bytes cross as
-    uint16 / uint8 and are viewed back."""
+    sliced at layer ``idx``; a grouped one keeps its group axis) as the
+    port's, on the CPU.  ``torch.from_numpy`` refuses ml_dtypes' bfloat16
+    and float8_e4m3fn, so their bytes cross as uint16 / uint8 and are
+    viewed back."""
     lay = p.layout
     layout = PackedLayout(k=lay.k, n=lay.n, bk=lay.bk, bn=lay.bn,
                           dtype=lay.dtype, orig_dtype=lay.orig_dtype,
-                          trans_w=lay.trans_w)
+                          trans_w=lay.trans_w, g=lay.g)
     payload = np.asarray(p.payload if idx is None else p.payload[idx])
     want = layout.storage_dtype
     if want in (torch.bfloat16, torch.float8_e4m3fn):

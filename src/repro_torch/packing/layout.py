@@ -5,13 +5,13 @@
         |  pack (packing/pack.py): tile, pad edges with ZEROS,
         |  resolve the transpose, optionally per-tile quantize
         v
-    payload[nkb, nnb, tk, bn]
-    scales [nkb, nnb] f32 (quantized codecs)
+    payload[(g,) nkb, nnb, tk, bn]
+    scales [(g,) nkb, nnb] f32 (quantized codecs)
 
 ``tk`` is the PHYSICAL tile row count: ``bk`` for byte-or-wider payloads,
 ``ceil(bk / 2)`` for int4.  Every (bk, bn) tile is contiguous in memory,
-so the packed GEMM (K2) reads tile (kk, j) at a known offset.  Grouped
-(MoE) operands are not ported: ``g`` is always 1 here.
+so the packed GEMM (K2) reads tile (kk, j) at a known offset.  A grouped
+operand (an MoE expert stack, ``g`` > 1) leads with its group axis.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 
 ``pack_operand`` reorders a (k, n) weight -- or an (n, k) one under
 ``trans_w``, transposed during the pack -- into zero-padded (bk, bn) tiles
-(:class:`~repro_torch.packing.layout.PackedLayout`).  A codec payload
-quantizes each tile symmetrically with its own f32 scale
+(:class:`~repro_torch.packing.layout.PackedLayout`); a (G, ., .) expert
+stack packs group by group into one grouped payload (``layout.g = G``).
+A codec payload quantizes each tile symmetrically with its own f32 scale
 ``max(amax, 1e-8) / qmax``: int8 and int4 round half to even and clip
 (int4 nibble-packs two K-adjacent values per byte, low nibble = even k),
 fp8e4m3 clips to +-448 and casts.
@@ -36,28 +37,30 @@ from repro_torch.packing.layout import PackedLayout, PackedOperand
 
 def _layout_for(w: torch.Tensor, bk: int, bn: int, *, trans_w: bool,
                 dtype) -> PackedLayout:
-    if w.dim() != 2:
-        raise NotImplementedError(
-            f"pack_operand takes a 2-D operand, got {tuple(w.shape)} "
-            "(grouped MoE packing is not ported)")
-    k, n = (w.shape[1], w.shape[0]) if trans_w else w.shape
+    if w.dim() not in (2, 3):
+        raise ValueError(f"pack_operand expects a 2-D (or grouped 3-D) "
+                         f"operand, got {tuple(w.shape)}")
+    k, n = w.shape[-1:-3:-1] if trans_w else w.shape[-2:]
     # Clamp blocks to the extent: a tiny operand packs as one exact tile.
     return PackedLayout(
         k=k, n=n, bk=min(int(bk), k), bn=min(int(bn), n),
         dtype=canonical_payload_dtype(dtype if dtype is not None
                                       else w.dtype),
-        orig_dtype=dtype_name(w.dtype), trans_w=trans_w)
+        orig_dtype=dtype_name(w.dtype), trans_w=trans_w,
+        g=w.shape[0] if w.dim() == 3 else 1)
 
 
 # --- the plain version -------------------------------------------------------
 
-def _tiles(w2d: torch.Tensor, layout: PackedLayout) -> torch.Tensor:
-    """(k, n) / (n, k) source -> zero-padded (nkb, nnb, bk, bn) tiles."""
+def _tiles(w: torch.Tensor, layout: PackedLayout) -> torch.Tensor:
+    """(..., k, n) / (..., n, k) source -> zero-padded
+    (..., nkb, nnb, bk, bn) tiles (a grouped stack keeps its lead axis)."""
     if layout.trans_w:
-        w2d = w2d.t()
+        w = w.transpose(-1, -2)
     k, n, bk, bn = layout.k, layout.n, layout.bk, layout.bn
-    wp = F.pad(w2d, (0, layout.nnb * bn - n, 0, layout.nkb * bk - k))
-    return wp.reshape(layout.nkb, bk, layout.nnb, bn).permute(0, 2, 1, 3)
+    wp = F.pad(w, (0, layout.nnb * bn - n, 0, layout.nkb * bk - k))
+    return wp.reshape(*w.shape[:-2], layout.nkb, bk, layout.nnb,
+                      bn).transpose(-3, -2)
 
 
 def pack_nibbles(q: torch.Tensor) -> torch.Tensor:
@@ -84,7 +87,7 @@ def unpack_nibbles(b: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def _encode(tiles: torch.Tensor, layout: PackedLayout):
-    """Per-tile symmetric quantization: (nkb, nnb, bk, bn) ->
+    """Per-tile symmetric quantization: (..., nkb, nnb, bk, bn) ->
     (payload in the codec's storage dtype, f32 scales)."""
     codec = layout.codec
     t32 = tiles.float()
@@ -104,11 +107,16 @@ def _encode(tiles: torch.Tensor, layout: PackedLayout):
 
 
 def pack_reference(w: torch.Tensor, layout: PackedLayout):
-    """K6's plain version: (payload, scales | None)."""
+    """K6's plain version: (payload, scales | None), shaped as the layout
+    says (a one-group stack drops its group axis, as the reference's
+    layout does)."""
     tiles = _tiles(w, layout)
     if layout.per_tile_scales:
-        return _encode(tiles, layout)
-    return tiles.to(layout.storage_dtype).contiguous(), None
+        payload, scales = _encode(tiles, layout)
+        return (payload.reshape(layout.payload_shape),
+                scales.reshape(layout.scales_shape))
+    return tiles.to(layout.storage_dtype).reshape(
+        layout.payload_shape).contiguous(), None
 
 
 def decode_payload_tiles(payload: torch.Tensor,
@@ -122,20 +130,22 @@ def decode_payload_tiles(payload: torch.Tensor,
 
 
 def unpack_reference(payload, scales, layout: PackedLayout, dtype):
-    """K7's plain version: the dense (k, n) operand in ``dtype``."""
+    """K7's plain version: the dense (k, n) operand in ``dtype``, or
+    (g, k, n) for a grouped payload."""
     tiles = decode_payload_tiles(payload, layout)
     if scales is not None:
         tiles = tiles.float() * scales[..., None, None]
-    full = tiles.permute(0, 2, 1, 3).reshape(layout.nkb * layout.bk,
-                                             layout.nnb * layout.bn)
-    return full[:layout.k, :layout.n].to(torch_dtype(dtype))
+    full = tiles.transpose(-3, -2).reshape(
+        *tiles.shape[:-4], layout.nkb * layout.bk, layout.nnb * layout.bn)
+    return full[..., :layout.k, :layout.n].to(torch_dtype(dtype))
 
 
 # --- public API --------------------------------------------------------------
 
 def pack_operand(w: torch.Tensor, blocks: Tuple[int, int], *,
                  trans_w: bool = False, dtype=None) -> PackedOperand:
-    """Pack a (k, n) / (n, k) weight into ``blocks = (bk, bn)`` tiles.
+    """Pack a (k, n) / (n, k) weight -- or a grouped (g, ., .) stack, in
+    one launch -- into ``blocks = (bk, bn)`` tiles.
 
     ``dtype`` selects the payload: a float dtype stores cast tiles; a codec
     name (``"int8"`` / ``"int4"`` / ``"fp8e4m3"``, aliases such as
@@ -154,8 +164,9 @@ def pack_operand(w: torch.Tensor, blocks: Tuple[int, int], *,
 
 
 def unpack_operand(p: PackedOperand, *, dtype=None) -> torch.Tensor:
-    """Inverse of :func:`pack_operand`: the dense (k, n) operand.  Codec
-    payloads dequantize per tile; float payloads round-trip exactly.
+    """Inverse of :func:`pack_operand`: the dense (k, n) operand ((g, k, n)
+    for a grouped one).  Codec payloads dequantize per tile; float payloads
+    round-trip exactly.
     ``dtype`` defaults to the payload dtype (codecs: the source dtype).
     Plain version only: a payload off the CPU would need K7."""
     layout = p.layout
@@ -196,7 +207,8 @@ def _launch(w: torch.Tensor, layout: PackedLayout):
         w.data_ptr(), payload.data_ptr(),
         scales.data_ptr() if scales is not None else None,
         _SRC_CODES[w.dtype], _PAYLOAD_CODES[layout.dtype],
-        layout.k, layout.n, layout.bk, layout.bn, int(layout.trans_w),
+        layout.g, layout.k, layout.n, layout.bk, layout.bn,
+        int(layout.trans_w),
         torch.cuda.current_stream(w.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pack kernel launch failed: CUDA error {rc} "
@@ -212,7 +224,7 @@ pack_operand.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pack")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pack_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.pack_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pack_launch.restype = i
     lib.pack_error_string.argtypes = [i]
     lib.pack_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,11 @@
 """Pack a model's parameter dict at load time (port of
-``repro.packing.params``, 2-D leaves only: there is no stacked-layer axis in
-the port's per-layer dict, and grouped MoE packing is not ported).
+``repro.packing.params``; the port's per-layer dict has no stacked-layer
+axis, so a leaf is a 2-D weight or a 3-D MoE expert stack).
 
 ``pack_params`` replaces every eligible GEMM weight (``QUANT_LEAVES``: the
-projections and the untied head; embeddings and norms stay dense) with its
-:class:`~repro_torch.packing.layout.PackedOperand`:
+projections and the untied head; embeddings, norms and MoE routers stay
+dense) with its :class:`~repro_torch.packing.layout.PackedOperand`, grouped
+for the (E, d, f) expert stacks of ``MOE_GROUPED_LEAVES``:
 
     policy fp32 / bf16 / bf16_serve  ->  float payload in the compute dtype
     policy int8                      ->  int8 payload + per-tile scales
@@ -31,7 +32,7 @@ from repro_torch.core.quantization import QUANT_LEAVES
 from repro_torch.packing.layout import PackedOperand
 from repro_torch.packing.pack import pack_operand
 
-# Leaves that would be grouped (expert-batched) when 3-D.
+# Leaves that are grouped (expert-batched) when 3-D.
 MOE_GROUPED_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
 
 BLOCK = 128
@@ -60,7 +61,8 @@ def pack_params(params, *, policy="bf16", pack_format: Optional[str] = None,
                 blocks: Optional[Callable[[int, int],
                                           Tuple[int, int]]] = None):
     """A copy of the (nested dict / list) ``params`` with eligible 2-D float
-    GEMM weights packed; ``blocks(k, n) -> (bk, bn)`` defaults to
+    GEMM weights and 3-D expert stacks packed (one grouped pack launch per
+    stack); ``blocks(k, n) -> (bk, bn)`` defaults to
     :func:`default_blocks`.  Run it on the f32 draw: per-tile amax over
     bf16-rounded values gives other payload bytes."""
     dtype = payload_dtype(policy, pack_format)
@@ -75,12 +77,10 @@ def pack_params(params, *, policy="bf16", pack_format: Optional[str] = None,
         if (name not in eligible or not isinstance(node, torch.Tensor)
                 or not node.is_floating_point()):
             return node
-        if node.dim() == 3 and name in MOE_GROUPED_LEAVES:
-            raise NotImplementedError(
-                f"grouped (MoE) packing of {name!r} is not ported yet")
-        if node.dim() != 2:
+        if node.dim() != 2 and not (node.dim() == 3
+                                    and name in MOE_GROUPED_LEAVES):
             return node
-        k, n = node.shape
+        k, n = node.shape[-2:]
         return pack_operand(node, blocks(k, n), dtype=dtype)
 
     return walk(params)

@@ -228,3 +228,155 @@ def test_mpgemm_packed_kernel_matches_plain(gen, m, a_dtype, payload, kind,
     want = mpgemm_packed_plain(a, b, **kw)
     assert got.dtype == out_dtype and got.shape == (m, n)
     torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+
+
+# --- grouped (MoE) variants --------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype,out_dtype", [
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32), (torch.int8, torch.bfloat16),
+    (torch.int8, torch.float32),
+])
+@pytest.mark.parametrize("g,m,k,n,kind,act,trans_b,bias", [
+    (32, 2, 1024, 512, "gated", "silu", False, "gn"),
+    (32, 32, 512, 1024, "linear", None, False, None),
+    (3, 37, 129, 100, "residual", "relu", True, "n"),
+    (5, 1, 300, 77, "linear", "gelu", False, "gn"),
+])
+def test_mpgemm_grouped_kernel_matches_plain(gen, a_dtype, out_dtype, g, m,
+                                             k, n, kind, act, trans_b, bias):
+    """Grouped K1 (the group on the third grid axis) against its plain
+    version; the int8 variant's exact int32 sums make it bit-equal up to
+    the output rounding."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped, \
+        mpgemm_grouped_plain
+
+    def rand(*shape):
+        if a_dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return torch.randn(*shape, generator=gen, device="cuda").to(a_dtype)
+
+    a = rand(g, m, k)
+    b = rand(*((g, n, k) if trans_b else (g, k, n)))
+    scale = (torch.full((), 1e-4, device="cuda") if a_dtype == torch.int8
+             else None)
+    bi = None
+    if bias:
+        bi = torch.randn(*((g, n) if bias == "gn" else (n,)), generator=gen,
+                         device="cuda")
+    extras = () if kind == "linear" else (
+        torch.randn(g, m, n, generator=gen, device="cuda").to(out_dtype),)
+    ep = EpilogueSpec(kind=kind, activation=act)
+    kw = dict(bias=bi, scale=scale, extras=extras, epilogue=ep,
+              out_dtype=out_dtype)
+    before = (mpgemm.launches, mpgemm_grouped.launches)
+    got = mpgemm_grouped(a, b, spec=GemmSpec(grouped=True, trans_b=trans_b),
+                         **kw)
+    torch.cuda.synchronize()
+    assert (mpgemm.launches, mpgemm_grouped.launches) == \
+        (before[0], before[1] + 1)
+    want = mpgemm_grouped_plain(a, b, trans_b=trans_b, **kw)
+    assert got.dtype == out_dtype and got.shape == (g, m, n)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+    # Each group equals the 2-D kernel on its own slice.
+    for i in (0, g - 1):
+        one = mpgemm(a[i].contiguous(), b[i].contiguous(),
+                     bias=None if bi is None else (bi[i] if bi.dim() == 2
+                                                   else bi),
+                     scale=scale, extras=tuple(e[i].contiguous()
+                                               for e in extras),
+                     spec=GemmSpec(trans_b=trans_b), epilogue=ep,
+                     out_dtype=out_dtype)
+        assert torch.equal(one, got[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 32])
+@pytest.mark.parametrize("a_dtype,payload", [
+    (torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
+    (torch.bfloat16, "int4"), (torch.bfloat16, "fp8e4m3"),
+    (torch.float32, "float32"), (torch.float32, "int4"),
+    (torch.int8, "int8"), (torch.int8, "int4"),
+])
+@pytest.mark.parametrize("kind,act,blocks,bias", [
+    ("gated", "silu", (128, 128), "gn"), ("linear", None, (33, 16), "n"),
+    ("residual", "gelu", (64, 128), None),
+])
+def test_mpgemm_packed_grouped_kernel_matches_plain(gen, m, a_dtype,
+                                                    payload, kind, act,
+                                                    blocks, bias):
+    """Grouped K2 over G = 6 groups: K = 300 (a K tail), N = 200 (ragged
+    column tiles), an odd bk for int4's dangling nibble."""
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import (
+        mpgemm_packed, mpgemm_packed_grouped, mpgemm_packed_grouped_plain,
+    )
+    from repro_torch.packing.pack import pack_operand
+
+    g, k, n = 6, 300, 200
+    out_dtype = torch.float32 if a_dtype != torch.bfloat16 else \
+        torch.bfloat16
+    w = torch.randn(g, k, n, generator=gen, device="cuda") * 0.05
+    b = pack_operand(w, blocks, dtype=payload)
+    assert b.layout.g == g
+    scale = None
+    if a_dtype == torch.int8:
+        a = torch.randint(-127, 128, (g, m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        scale = torch.full((), 0.01, device="cuda")
+    else:
+        a = torch.randn(g, m, k, generator=gen, device="cuda").to(a_dtype)
+    bi = None
+    if bias:
+        bi = torch.randn(*((g, n) if bias == "gn" else (n,)), generator=gen,
+                         device="cuda")
+    extras = () if kind == "linear" else (
+        torch.randn(g, m, n, generator=gen, device="cuda").to(out_dtype),)
+    ep = EpilogueSpec(kind=kind, activation=act)
+    kw = dict(bias=bi, scale=scale, extras=extras, epilogue=ep,
+              out_dtype=out_dtype)
+    before = (mpgemm_packed.launches, mpgemm_packed_grouped.launches)
+    got = mpgemm_packed_grouped(a, b, **kw)
+    torch.cuda.synchronize()
+    assert (mpgemm_packed.launches, mpgemm_packed_grouped.launches) == \
+        (before[0], before[1] + 1)
+    want = mpgemm_packed_grouped_plain(a, b, **kw)
+    assert got.dtype == out_dtype and got.shape == (g, m, n)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8", "int4",
+                                   "fp8e4m3"])
+@pytest.mark.parametrize("shape,blocks,trans_w", [
+    ((3, 100, 70), (32, 32), False),
+    ((4, 48, 101), (17, 16), True),
+    ((32, 1024, 512), (128, 128), False),
+])
+def test_pack_kernel_grouped_is_byte_identical_to_plain(gen, src_dtype, dtype,
+                                                        shape, blocks,
+                                                        trans_w):
+    """Grouped K6: one launch packs the whole stack, byte-equal to the
+    plain version on the card and on the CPU."""
+    from repro_torch.packing.pack import pack_operand, pack_reference
+
+    w = (torch.randn(*shape, generator=gen, device="cuda") * 0.05).to(
+        src_dtype)
+    w[-1, -1, -1] = 0.37
+    before = pack_operand.launches
+    got = pack_operand(w, blocks, trans_w=trans_w, dtype=dtype)
+    torch.cuda.synchronize()
+    assert pack_operand.launches == before + 1
+    assert got.layout.g == shape[0]
+    for want in (pack_reference(w, got.layout),
+                 pack_reference(w.cpu(), got.layout)):
+        assert got.payload.dtype == want[0].dtype
+        assert torch.equal(_bytes(got.payload), _bytes(want[0]))
+        if want[1] is None:
+            assert got.scales is None
+        else:
+            assert torch.equal(_bytes(got.scales), _bytes(want[1]))

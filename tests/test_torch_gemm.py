@@ -12,8 +12,6 @@ f32 epilogue result to a bf16 output, and a different summation order can
 put the two results on either side of a rounding boundary (one bf16 ulp is
 2**-8 relative).
 """
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -126,21 +124,20 @@ def test_gelu_is_the_tanh_approximation():
                                      "quant_in", "int8_policy"])
 def test_unported_variants_raise(variant):
     """Variants the kernels do not take yet raise on every device, so the
-    CPU path never offers what the card cannot run: ``packed`` is a grouped
-    (MoE) packed operand, ``int8_policy`` a float payload under the int8
-    policy off the CPU, which would need the unpack kernel (K7)."""
-    from repro_torch.packing.layout import PackedOperand
+    CPU path never offers what the card cannot run: ``packed`` is beta·C
+    against a packed operand (K2 has no C operand), ``int8_policy`` a float
+    payload under the int8 policy off the CPU, which would need the unpack
+    kernel (K7)."""
     from repro_torch.packing.pack import pack_operand
 
     a, b = torch.ones(4, 8), torch.ones(8, 16)
     p = pack_operand(b, (8, 8), dtype="float32")
-    grouped = PackedOperand(p.payload, None,
-                            dataclasses.replace(p.layout, g=2))
     calls = {
         "trans_a": lambda: mpgemm(a, b, spec=tspec.GemmSpec(trans_a=True)),
         "beta_c": lambda: mpgemm(a, b, c=torch.ones(4, 16),
                                  epilogue=tspec.EpilogueSpec(beta=1.0)),
-        "packed": lambda: mpgemm(a, grouped),
+        "packed": lambda: mpgemm(a, p, c=torch.ones(4, 16),
+                                 epilogue=tspec.EpilogueSpec(beta=1.0)),
         "quant_in": lambda: mp_dot(a, b, quant_in=True),
         "int8_policy": lambda: mp_dot(a.to("meta"), p.to("meta"),
                                       policy="int8"),

@@ -197,3 +197,64 @@ def test_unpack_refuses_a_payload_off_the_cpu():
     with pytest.raises(ValueError, match="device"):
         tpack.pack_operand(torch.ones(8, 4, device="meta"), (4, 4))
     assert tpack.pack_operand.launches == 0
+
+
+# Grouped (MoE expert) stacks: (G, k, n), or (G, n, k) under trans_w, with
+# ragged k and n and an odd bk.
+GROUPED = {
+    "stack": ((3, 100, 70), (32, 32), False),
+    "stack_trans_w_odd_bk": ((4, 48, 101), (17, 16), True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", sorted(GROUPED))
+def test_grouped_pack_matches_reference_bytes(shape, dtype):
+    """One grouped pack of the whole stack: the reference's payload
+    (g, nkb, nnb, tk, bn) and scales (g, nkb, nnb), byte for byte, and the
+    reference's layout."""
+    src_shape, blocks, trans_w = GROUPED[shape]
+    rng = np.random.default_rng(21 + sorted(GROUPED).index(shape))
+    w = (rng.standard_normal(src_shape) * 0.05).astype(np.float32)
+    w[1, -1, -1] = 0.37
+    want = jpack.pack_operand(jnp.asarray(w), blocks, trans_w=trans_w,
+                              dtype=dtype, backend="xla")
+    got = tpack.pack_operand(torch.from_numpy(w), blocks, trans_w=trans_w,
+                             dtype=dtype)
+    for field in ("k", "n", "bk", "bn", "g", "payload_shape",
+                  "scales_shape", "tag"):
+        assert getattr(got.layout, field) == getattr(want.layout, field)
+    assert got.layout.describe() == want.layout.describe()
+    assert got.shape == tuple(want.shape)
+    _assert_same(got, want)
+    # Each group is the 2-D pack of its own slice.
+    for i in range(src_shape[0]):
+        one = tpack.pack_operand(torch.from_numpy(w[i]), blocks,
+                                 trans_w=trans_w, dtype=dtype)
+        assert _bytes_t(one.payload) == _bytes_t(got.payload[i])
+    # And unpacks back to the reference's dense stack.
+    back = tpack.unpack_operand(got, dtype="float32")
+    ref = np.asarray(jpack.unpack_operand(want, dtype=jnp.float32,
+                                          backend="xla"))
+    assert _bytes_t(back) == _bytes_np(ref)
+
+
+def test_one_group_stack_packs_as_its_slice():
+    """A (1, k, n) stack has the layout of its (k, n) slice (``g`` = 1, no
+    group axis, as the reference's layout has) and the same bytes; the
+    grouped GEMM takes it.  The reference's ``pack_reference`` refuses such
+    a stack (ROADMAP C), so the slice is the yardstick."""
+    from repro_torch.core.gemm import mp_dot, mp_dot_grouped
+
+    rng = np.random.default_rng(31)
+    w = (rng.standard_normal((1, 40, 24)) * 0.05).astype(np.float32)
+    for dtype in DTYPES:
+        got = tpack.pack_operand(torch.from_numpy(w), (16, 8), dtype=dtype)
+        want = tpack.pack_operand(torch.from_numpy(w[0]), (16, 8),
+                                  dtype=dtype)
+        assert got.layout == want.layout and got.layout.g == 1
+        assert _bytes_t(got.payload) == _bytes_t(want.payload)
+    x = torch.from_numpy(rng.standard_normal((1, 3, 40)).astype(np.float32))
+    torch.testing.assert_close(mp_dot_grouped(x, got, policy="fp32")[0],
+                               mp_dot(x[0], want, policy="fp32"),
+                               atol=0, rtol=0)
