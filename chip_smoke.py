@@ -18,7 +18,12 @@ printing a result:
 3. K5 (``kernels/csrc/paged_flash.cu``) against its plain version at
    phi3-mini's and granite's attention shapes (decode and 16-token chunked
    prefill) and at a GQA + sliding-window shape, with ragged lengths, dead
-   block-table slots over a NaN-filled scratch page and one idle row;
+   block-table slots over a NaN-filled scratch page and one idle row; then
+   K4 (``kernels/csrc/flash_attention.cu``) at whisper-medium's shapes
+   (the encoder's 1500 x 1500 non-causal self-attention, the decoder's
+   causal prefill, cross-attention at prefill and at decode), phi3-mini's
+   causal prefill, a GQA 32:8 head of 120 with a window and tq < tk, and
+   an f32 case, each beside SDPA with the same mask;
 4. K6 (``kernels/csrc/pack.cu``) packing every full-width phi3-mini weight
    shape and a ragged ``trans_w`` one into bf16, int8, int4 and fp8
    payloads: payload and scales byte-equal to its plain version;
@@ -49,7 +54,13 @@ printing a result:
    full-width mixed step through the kernels agrees with the same step
    through the plain versions; one two-row decode step of each path is
    timed on the host clock and traced with ``torch.profiler`` (the
-   device's busy time and idle share, its ops by kind);
+   device's busy time and idle share, its ops by kind); then the wave
+   engine (``ServeEngine(batch_size=2)``) over the same traffic, dense
+   bf16: full-width whisper-medium (24 encoder and 24 decoder layers, 385
+   K1 and 72 K4 per prefill, 193 K1 and 24 K4 per decode step) and
+   full-width phi3-mini (225 K1 and 32 K4 per prefill, 225 K1 per decode
+   step), with the same checks, one prefill and one decode step against
+   the plain versions;
 8. one JSON line with every ported kernel's launches, error and times;
 9. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -62,6 +73,7 @@ bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16, 67 TFLOP/s f32,
 once.  ``library_ms`` times one
 PyTorch call of the same function as a yardstick; the port never calls it.
 """
+import contextlib
 import gc
 import json
 import subprocess
@@ -524,6 +536,119 @@ def phase_k5(torch, timer):
     return steps, rows
 
 
+# ----------------------------------------------------------------- phase 3b
+
+# K4 cases: (name, B, H, Hkv, tq, tk, D, causal, window, dtype, model use).
+# Whisper-medium (16 MHA heads of 64) as the wave path runs it: the
+# encoder's non-causal self-attention over 1500 frames (not a multiple of
+# the kernel's 32-key chunk), the decoder's causal self-attention at a
+# 32-token prefill, its cross-attention over the encoder states at prefill
+# and at every decode step; phi3-mini's causal prefill (32 heads of 96); a
+# danube3-like GQA 32:8 head of 120 with a window shorter than tk and
+# tq < tk; an f32 case.
+K4_CASES = [
+    ("whisper-encoder", 2, 16, 16, 1500, 1500, 64, False, None, "bfloat16"),
+    ("whisper-dec-self", 2, 16, 16, 32, 32, 64, True, None, "bfloat16"),
+    ("whisper-cross", 2, 16, 16, 32, 1500, 64, False, None, "bfloat16"),
+    ("whisper-decode-cross", 2, 16, 16, 1, 1500, 64, False, None,
+     "bfloat16"),
+    ("phi3-prefill", 2, 32, 32, 32, 32, 96, True, None, "bfloat16"),
+    ("gqa-window", 2, 32, 8, 64, 600, 120, True, 256, "bfloat16"),
+    ("f32-gqa", 2, 8, 2, 48, 300, 64, True, None, "float32"),
+]
+WHISPER_LAYERS = 24
+PHI3_LAYERS = 32
+
+
+def _k4_pairs(tq, tk, causal, window):
+    """(query row, key) pairs one head sees: the work K4 must do."""
+    pairs = 0
+    for t in range(tq):
+        qi = t + tk - tq
+        hi = min(tk - 1, qi) if causal else tk - 1
+        lo = max(0, qi - window + 1) if window else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def phase_k4(torch, timer):
+    """K4 against its plain version at the wave path's shapes, each launch
+    timed alone on a cold L2, beside the plain version, SDPA with the same
+    mask (K/V repeated for GQA beforehand, not timed) and the bound."""
+    from repro_torch.kernels.flash_attention import (
+        _attention_mask, flash_attention, flash_attention_plain,
+    )
+    F = torch.nn.functional
+    rng = np.random.default_rng(5)
+    rows = {}
+    for name, b, h, hkv, tq, tk, d, causal, window, dt in K4_CASES:
+        dtype = getattr(torch, dt)
+
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(device="cuda", dtype=dtype)
+
+        q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+        kw = dict(causal=causal, window=window)
+        g = h // hkv
+        kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        mask = _attention_mask(tq, tk, causal, window, q.device)
+
+        def kern():
+            return flash_attention(q, k, v, **kw)
+
+        def plain():
+            return flash_attention_plain(q, k, v, **kw)
+
+        def library():
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        tol = TOL[dt]
+        err = _check_close(torch, f"K4 {name}", got, ref, tol)
+        esz = q.element_size()
+        n_bytes = 2 * q.numel() * esz + 2 * k.numel() * esz
+        n_ops = 4 * b * h * d * _k4_pairs(tq, tk, causal, window)
+        bound, bound_by = _bound_ms(n_bytes, n_ops, dt)
+        ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=bound,
+                          bound_by=bound_by, bytes=n_bytes, ops=n_ops)
+        print(f"[k4] {name:>20} {dt:>8} B={b} H={h} Hkv={hkv} D={d} "
+              f"tq={tq} tk={tk} causal={causal:d} window={window}: err "
+              f"{err:.2e} (rtol {tol['rtol']}, atol {tol['atol']})  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f}  library (SDPA) "
+              f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
+              f"{n_ops / ms / 1e9:.1f} TFLOP/s")
+
+    def total(label, parts):
+        """Times of the launches ``parts`` = {case: launches} summed."""
+        out = {key: sum(n * rows[c][key] for c, n in parts.items())
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        n_bytes = sum(n * rows[c]["bytes"] for c, n in parts.items())
+        n_ops = sum(n * rows[c]["ops"] for c, n in parts.items())
+        out["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")[1]
+        out["max_abs_err"] = max(rows[c]["max_abs_err"] for c in rows)
+        print(f"[k4] {label} ({sum(parts.values())} launches): kernel "
+              f"{out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, library "
+              f"{out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
+              f"({out['bound_by']})")
+        return out
+
+    L = WHISPER_LAYERS
+    return {
+        "whisper-prefill": total(
+            "one whisper-medium prefill of 32 tokens",
+            {"whisper-encoder": L, "whisper-dec-self": L,
+             "whisper-cross": L}),
+        "whisper-decode": total("one whisper-medium decode step",
+                                {"whisper-decode-cross": L}),
+        "phi3-prefill": total("one phi3-mini wave prefill of 32 tokens",
+                              {"phi3-prefill": PHI3_LAYERS}),
+    }
+
+
 # ------------------------------------------------------------------ phase 4
 
 PAYLOADS = ("bfloat16", "int8", "int4", "fp8e4m3")
@@ -945,14 +1070,16 @@ def phase_k6_grouped(torch, timer):
 # ------------------------------------------------------------------ phase 7
 
 def _counters():
-    from repro_torch.kernels.flash_attention import paged_flash_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, paged_flash_attention,
+    )
     from repro_torch.kernels.mpgemm import (
         mpgemm, mpgemm_grouped, mpgemm_packed, mpgemm_packed_grouped,
     )
     from repro_torch.packing.pack import pack_operand
     return dict(k1=mpgemm, k1g=mpgemm_grouped, k2=mpgemm_packed,
-                k2g=mpgemm_packed_grouped, k5=paged_flash_attention,
-                k6=pack_operand)
+                k2g=mpgemm_packed_grouped, k4=flash_attention,
+                k5=paged_flash_attention, k6=pack_operand)
 
 
 def _want_launches(cfg, pack, n_steps):
@@ -974,6 +1101,7 @@ def _want_launches(cfg, pack, n_steps):
         per_step = dict(k1=n_layers * (4 + dense_2d) + 1, k2=0,
                         k1g=n_layers * grouped, k2g=0)
     want = {k: v * n_steps for k, v in per_step.items()}
+    want["k4"] = 0
     want["k5"] = n_layers * n_steps
     want["k6"] = (n_layers * (4 + (3 if moe else dense_2d)) + int(head_packed)
                   if pack else 0)
@@ -1063,12 +1191,16 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
                  steps=n_steps, payload_gb=payload / 1e9,
                  decode_step_ms=1e3 * float(np.median(decode)), **counts)
     serve["logit_err"] = _kernel_vs_plain_step(torch, model, params, label)
-    serve["enqueue_ms"], serve["step_ms"] = _decode_step_times(torch, model,
-                                                               params)
+    args = _decode_args(torch, model)
+
+    def step():
+        return model.paged_step(params, *args)
+
+    serve["enqueue_ms"], serve["step_ms"] = _decode_step_times(torch, step)
     print(f"[serve:{label}] one two-row decode step: the host enqueues it "
           f"in {serve['enqueue_ms']:.2f} ms, the device is done after "
           f"{serve['step_ms']:.2f} ms")
-    _profile_decode_step(torch, model, params, label, serve["step_ms"])
+    _profile_decode_step(torch, step, label, serve["step_ms"])
     return serve
 
 
@@ -1083,17 +1215,46 @@ def _leaves(tree):
         yield tree
 
 
-def _kernel_vs_plain_step(torch, model, params, label):
-    """One full-width mixed step (a 16-token prefill chunk beside a decode
-    row) through the kernels and through the plain versions, on copies of
-    the same pools."""
+@contextlib.contextmanager
+def _plain_versions(enabled=True):
+    """Within the block, every GEMM and attention wrapper the model calls is
+    its plain version (the plain versions are rank-generic: they stand in
+    for the 2-D and the grouped GEMM wrappers alike)."""
     from repro_torch.core import gemm as gemm_mod
-    from repro_torch.kernels.flash_attention import \
-        paged_flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_plain, paged_flash_attention_plain,
+    )
     from repro_torch.kernels.mpgemm import mpgemm_packed_plain, mpgemm_plain
     from repro_torch.models import attention as attn_mod
     from repro_torch.packing.layout import PackedOperand
 
+    if not enabled:
+        yield
+        return
+
+    def plain_gemm(a, b, *, spec, out_dtype=None, c=None, **kw):
+        out_dtype = out_dtype or spec.out_dtype
+        if isinstance(b, PackedOperand):
+            return mpgemm_packed_plain(a, b, out_dtype=out_dtype, **kw)
+        return mpgemm_plain(a, b, trans_b=spec.trans_b, out_dtype=out_dtype,
+                            **kw)
+
+    saved = (gemm_mod.mpgemm, gemm_mod.mpgemm_grouped,
+             attn_mod.paged_flash_attention, attn_mod.flash_attention)
+    gemm_mod.mpgemm = gemm_mod.mpgemm_grouped = plain_gemm
+    attn_mod.paged_flash_attention = paged_flash_attention_plain
+    attn_mod.flash_attention = flash_attention_plain
+    try:
+        yield
+    finally:
+        (gemm_mod.mpgemm, gemm_mod.mpgemm_grouped,
+         attn_mod.paged_flash_attention, attn_mod.flash_attention) = saved
+
+
+def _kernel_vs_plain_step(torch, model, params, label):
+    """One full-width mixed step (a 16-token prefill chunk beside a decode
+    row) through the kernels and through the plain versions, on copies of
+    the same pools."""
     dev = "cuda"
     ps, w = 16, 4
     caches = model.init_paged_caches(1 + 2 * w, ps)
@@ -1118,24 +1279,8 @@ def _kernel_vs_plain_step(torch, model, params, label):
     tokens, bt, qs, nv = step_in
     lk, _ = model.paged_step(params, tokens, pools_k, bt, qs, nv)
 
-    def plain_gemm(a, b, *, spec, out_dtype=None, c=None, **kw):
-        out_dtype = out_dtype or spec.out_dtype
-        if isinstance(b, PackedOperand):
-            return mpgemm_packed_plain(a, b, out_dtype=out_dtype, **kw)
-        return mpgemm_plain(a, b, trans_b=spec.trans_b, out_dtype=out_dtype,
-                            **kw)
-
-    # The plain versions are rank-generic: they stand in for the 2-D and
-    # the grouped wrappers alike.
-    saved = (gemm_mod.mpgemm, gemm_mod.mpgemm_grouped,
-             attn_mod.paged_flash_attention)
-    gemm_mod.mpgemm = gemm_mod.mpgemm_grouped = plain_gemm
-    attn_mod.paged_flash_attention = paged_flash_attention_plain
-    try:
+    with _plain_versions():
         lp, _ = model.paged_step(params, tokens, pools_p, bt, qs, nv)
-    finally:
-        (gemm_mod.mpgemm, gemm_mod.mpgemm_grouped,
-         attn_mod.paged_flash_attention) = saved
     lk, lp = lk.float()[:, :vocab], lp.float()[:, :vocab]
     diff = (lk - lp).abs()
     err, scale = diff.max().item(), lp.abs().max().item()
@@ -1161,17 +1306,17 @@ def _decode_args(torch, model):
             torch.tensor([1, 1], **i32))
 
 
-def _decode_step_times(torch, model, params, steps=5):
-    """Median host time to enqueue one two-row decode step, and the same
-    step's time until the device is done.  Equal times alone do not say
-    which side bounds the step (a full launch queue also blocks the host):
-    :func:`_profile_decode_step` measures the device's busy time."""
-    args = _decode_args(torch, model)
+def _decode_step_times(torch, step, steps=5):
+    """Median host time to enqueue one two-row decode step (``step()``),
+    and the same step's time until the device is done.  Equal times alone
+    do not say which side bounds the step (a full launch queue also blocks
+    the host): :func:`_profile_decode_step` measures the device's busy
+    time."""
     enqueue, total = [], []
     for _ in range(steps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.paged_step(params, *args)
+        step()
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         enqueue.append(t1 - t0)
@@ -1183,26 +1328,25 @@ def _decode_step_times(torch, model, params, steps=5):
 # Device kernels by name, as the profiler reports them (demangled).
 TRACE_KERNELS = (("mpgemm_packed_kernel", "K2"), ("mpgemm_int8_kernel", "K1"),
                  ("mpgemm_kernel", "K1"), ("paged_flash_kernel", "K5"),
-                 ("pack_kernel", "K6"))
+                 ("flash_kernel", "K4"), ("pack_kernel", "K6"))
 
 
-def _profile_decode_step(torch, model, params, label, step_ms):
-    """One two-row decode step under ``torch.profiler``: the device's busy
-    time (the union of its kernels' and copies' spans) against the traced
-    step's span (from the step's first host op to its last device op) and
-    against ``step_ms``, the same step's time untraced (tracing slows the
-    host, not the kernels); the device's ops by kind, and the host calls in
-    the step that copy or wait."""
+def _profile_decode_step(torch, step, label, step_ms):
+    """One two-row decode step (``step()``) under ``torch.profiler``: the
+    device's busy time (the union of its kernels' and copies' spans)
+    against the traced step's span (from the step's first host op to its
+    last device op) and against ``step_ms``, the same step's time untraced
+    (tracing slows the host, not the kernels); the device's ops by kind,
+    and the host calls in the step that copy or wait."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    args = _decode_args(torch, model)
-    model.paged_step(params, *args)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("decode_step"):
-            model.paged_step(params, *args)
+            step()
         torch.cuda.synchronize()
     events = prof.events()
     step = next(e for e in events if e.name == "decode_step"
@@ -1270,6 +1414,180 @@ def _profile_decode_step(torch, model, params, label, step_ms):
           f"(with their callers): {waits or 'none'}")
 
 
+# ----------------------------------------------------------------- phase 7b
+
+def _want_wave_launches(cfg):
+    """K1 and K4 launches per prefill and per decode step of the wave path.
+
+    Whisper (enc-dec): each encoder layer runs 4 attention projections and
+    2 MLP GEMMs and one non-causal K4; each decoder layer at prefill 4
+    self-attention projections, 4 cross-attention ones (q, k and v of the
+    encoder states, o) and 2 MLP GEMMs, with a causal K4 and a cross K4; at
+    a decode step the cross K/V come from the cache, so 4 + 2 + 2 GEMMs and
+    one cross K4 (the self-attention against the ring cache is plain torch
+    ops, as in the reference).  A dense decoder: 7 GEMMs a layer, one
+    causal K4 a layer at prefill.  Both add the head."""
+    n, enc = cfg.n_layers, cfg.encoder_layers
+    if cfg.family == "audio":
+        return (dict(k1=enc * 6 + n * 10 + 1, k4=enc + 2 * n),
+                dict(k1=n * 8 + 1, k4=n))
+    return dict(k1=n * 7 + 1, k4=n), dict(k1=n * 7 + 1, k4=0)
+
+
+def phase_wave_serve(torch, *, label, arch, n_layers=None):
+    """Serve 4 requests through the wave engine (``ServeEngine(batch_size=
+    2)``); every launch count of the run must be what its prefills and
+    decode steps need."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.configs import base as cb
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = cb.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, policy="bf16", device="cuda")
+    cfg = model.cfg
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    enc = (f" + {cfg.encoder_layers} encoder layers over "
+           f"{cfg.encoder_seq} frames" if cfg.encoder_layers else "")
+    print(f"[wave:{label}] {cfg.name}, {cfg.n_layers} decoder layers{enc}, "
+          f"dense bf16: {weights / 1e9:.3f} GB of weights, initialised on "
+          f"the card in {t_init:.3f} s")
+
+    calls = {"prefill": 0, "decode": 0}
+    finite = []
+    inner_prefill, inner_decode = model.prefill, model.decode_step
+
+    def counted(kind, fn):
+        def call(*args, **kw):
+            logits, caches = fn(*args, **kw)
+            calls[kind] += 1
+            finite.append(bool(torch.isfinite(logits.float()).all()))
+            return logits, caches
+        return call
+
+    model.prefill = counted("prefill", inner_prefill)
+    model.decode_step = counted("decode", inner_decode)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        eng = ServeEngine(model, params, batch_size=2, max_len=64)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        2, cfg.vocab, (int(rng.integers(4, 33)),)).astype(np.int32),
+        max_new_tokens=16) for i in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    del model.prefill, model.decode_step
+    per_prefill, per_decode = _want_wave_launches(cfg)
+    want = {k: 0 for k in counters}
+    for key in ("k1", "k4"):
+        want[key] = (calls["prefill"] * per_prefill[key]
+                     + calls["decode"] * per_decode[key])
+    n_tok = sum(len(v) for v in out.values())
+    decode = [s.wall_s for s in eng.step_telemetry if s.phase == "decode"]
+    prefill = [w.prefill_s for w in eng.telemetry]
+    print(f"[wave:{label}] 4 requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}) in {len(eng.telemetry)} waves "
+          f"of 2, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; "
+          f"{calls['prefill']} prefills ("
+          + ", ".join(f"{1e3 * p:.2f}" for p in prefill) + " ms), "
+          f"{calls['decode']} decode steps (median "
+          f"{1e3 * np.median(decode):.2f} ms)")
+    print(f"[wave:{label}] launches: K1 {counts['k1']}, K4 {counts['k4']} "
+          f"({calls['prefill']} prefills x {per_prefill} + "
+          f"{calls['decode']} decode steps x {per_decode}), K5 "
+          f"{counts['k5']}, K2 {counts['k2']}, grouped K1 {counts['k1g']}")
+    if sorted(out) != [0, 1, 2, 3] or not all(out.values()):
+        raise AssertionError(f"served {sorted(out)} of 4 requests")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, want {want}")
+    if not all(finite):
+        raise AssertionError("non-finite logits during serving")
+    serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+                 weights_gb=weights / 1e9, prefills=calls["prefill"],
+                 decode_steps=calls["decode"], prefill_ms=[
+                     1e3 * p for p in prefill],
+                 decode_step_ms=1e3 * float(np.median(decode)), **counts)
+    batch = _wave_batch(torch, model)
+    serve["logit_err"] = _wave_kernel_vs_plain(torch, model, params, label,
+                                               batch)
+    _, caches = model.prefill(params, batch, max_len=64)
+    pos = batch["tokens"].shape[1]
+    token = torch.tensor([[5], [7]], device="cuda")
+
+    def step():
+        return model.decode_step(params, token, caches, pos)
+
+    serve["enqueue_ms"], serve["step_ms"] = _decode_step_times(torch, step)
+    print(f"[wave:{label}] one two-row decode step: the host enqueues it "
+          f"in {serve['enqueue_ms']:.2f} ms, the device is done after "
+          f"{serve['step_ms']:.2f} ms")
+    _profile_decode_step(torch, step, f"wave:{label}", serve["step_ms"])
+    return serve
+
+
+def _wave_batch(torch, model):
+    """A two-row prefill batch, 16 tokens and a row left-padded to 16 from
+    9 (stubbed zero audio frames for whisper)."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(2, cfg.vocab, (2, 16), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    toks[1, :7] = 0
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.zeros(
+            (2, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16,
+            device="cuda")
+    return batch
+
+
+def _wave_kernel_vs_plain(torch, model, params, label, batch):
+    """One full-width prefill and one decode step through the kernels and
+    through the plain versions; both logits within the bf16 bound."""
+    token = torch.tensor([[11], [13]], device="cuda")
+    pos = batch["tokens"].shape[1]
+    runs = []
+    for plain in (False, True):
+        with _plain_versions(enabled=plain):
+            logits, caches = model.prefill(params, batch, max_len=64)
+            step, _ = model.decode_step(params, token, caches, pos)
+        runs.append((logits.float()[:, :model.cfg.vocab],
+                     step.float()[:, :model.cfg.vocab]))
+        del caches
+    errs = []
+    for what, lk, lp in (("prefill", runs[0][0], runs[1][0]),
+                         ("decode step", runs[0][1], runs[1][1])):
+        diff = (lk - lp).abs()
+        err, scale = diff.max().item(), lp.abs().max().item()
+        rel = LOGIT_REL_TOL["bf16"]
+        agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        print(f"[wave:{label}] one full-width {what}, kernels vs plain "
+              f"versions: max |logit diff| {err:.3e}, mean "
+              f"{diff.mean().item():.3e} (bound {rel} x max |logit| = "
+              f"{rel * scale:.3e}), argmax agreement {agree:.2f}")
+        if not (err <= rel * scale and torch.isfinite(lk).all()):
+            raise AssertionError(f"{what}: kernel and plain logits differ "
+                                 f"by {err:.3e}")
+        errs.append(err)
+    return max(errs)
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -1312,6 +1630,7 @@ def main():
     k1 = phase_k1(torch, timer)
     k1_int8 = phase_k1_int8(torch, timer)
     k5, _ = phase_k5(torch, timer)
+    k4 = phase_k4(torch, timer)
     k6 = phase_k6(torch, timer)
     k2 = phase_k2(torch, timer)
     k1g = phase_k1_grouped(torch, timer)
@@ -1334,6 +1653,12 @@ def main():
         serves[label] = phase_serve(torch, label=label, **kw)
         gc.collect()              # free each path's weights before the next
         torch.cuda.empty_cache()
+    waves = {}
+    for label, arch in (("whisper", "whisper-medium"),
+                        ("phi3", "phi3-mini-3.8b")):
+        waves[label] = phase_wave_serve(torch, label=label, arch=arch)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def row(name, source, replaces, launches, numbers):
         return dict(name=name, route="cuda",
@@ -1346,6 +1671,7 @@ def main():
 
     mp = "src/repro/kernels/mpgemm.py"
     fa = "src/repro/kernels/flash_attention.py:154"
+    fa4 = "src/repro/kernels/flash_attention.py:31"
     kernels = [
         row("K1 mpgemm (dense 2-D MPGEMM, bf16, fused epilogue)",
             "mpgemm.cu", f"{mp}:232", serves["bf16"]["k1"], k1["phi3"]),
@@ -1392,6 +1718,15 @@ def main():
             "int4 payload)", "pack.cu", "src/repro/packing/pack.py:280",
             serves["granite-int4"]["k6"],
             dict(k6g["int4"], library_ms=None)),
+        row("K4 flash_attention (whisper-medium wave prefill: 24 encoder "
+            "1500x1500, 24 causal, 24 cross 32x1500)", "flash_attention.cu",
+            fa4, waves["whisper"]["k4"], k4["whisper-prefill"]),
+        row("K4 flash_attention (whisper-medium decode step: 24 cross "
+            "1x1500)", "flash_attention.cu", fa4, waves["whisper"]["k4"],
+            k4["whisper-decode"]),
+        row("K4 flash_attention (phi3-mini wave prefill: 32 causal, D 96)",
+            "flash_attention.cu", fa4, waves["phi3"]["k4"],
+            k4["phi3-prefill"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")

@@ -69,12 +69,14 @@ ARCH_IDS = [
     "granite-moe-1b-a400m",
     "h2o-danube3-4b",
     "phi3-mini-3.8b",
+    "whisper-medium",
 ]
 
 _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "h2o-danube3-4b": "h2o_danube3_4b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "whisper-medium": "whisper_medium",
 }
 
 

@@ -1,12 +1,18 @@
-"""Serving entrypoint: continuous-batching generation with the port's
-ServeEngine, on the card by default.
+"""Serving entrypoint: generation with the port's ServeEngine, on the card
+by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --pack --pack-format int4 [--policy int8]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-1b-a400m [--pack --pack-format int4]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --engine wave
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+The default ``--engine continuous`` runs the paged-KV continuous-batching
+engine; ``--engine wave`` the static-batch wave engine, the only one that
+serves whisper-medium (its enc-dec blocks have no paged step).
 
 Weights are random (drawn from a seeded ``torch.Generator`` on the target
 device).  ``--pack`` packs them from their f32 draw; under bf16 a packed
@@ -17,6 +23,7 @@ command exits non-zero; ``--device cpu`` runs the plain PyTorch path.
 import argparse
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -35,8 +42,16 @@ def main(argv=None):
     ap.add_argument("--policy", default="bf16",
                     choices=["bf16", "bf16_serve", "int8"])
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--max-batch", type=int, default=2,
-                    help="concurrent sequence slots")
+    ap.add_argument("--engine", default="continuous",
+                    choices=["continuous", "wave"],
+                    help="continuous: paged-KV continuous batching; wave: "
+                         "the static-batch wave engine (whisper's only "
+                         "path)")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="concurrent sequence slots (default 2); the wave "
+                         "width under --engine wave")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="DEPRECATED alias for --max-batch")
     ap.add_argument("--page-size", type=int, default=16,
                     help="KV page size in tokens")
     ap.add_argument("--max-pages", type=int, default=None,
@@ -68,6 +83,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.pack_format is not None and not args.pack:
         raise SystemExit("--pack-format requires --pack")
+    if args.warm_prefix and args.engine == "wave":
+        raise SystemExit("--warm-prefix requires --engine continuous "
+                         "(prefix sharing lives in the paged KV cache)")
+    if args.batch is not None:
+        print("[serve] --batch is deprecated; use --max-batch "
+              "(and --engine wave for the wave engine)")
+        if args.max_batch is None:
+            args.max_batch = args.batch
+    max_batch = args.max_batch if args.max_batch is not None else 2
 
     try:
         device = resolve_device(args.device)
@@ -87,10 +111,18 @@ def main(argv=None):
         fmt = f", format={args.pack_format}" if args.pack_format else ""
         print(f"[serve] packed static weights: "
               f"{packed_param_bytes(params) / 2**20:.1f} MiB payload{fmt}")
-    eng = ServeEngine(model, params, max_len=args.max_len,
-                      max_batch=args.max_batch, page_size=args.page_size,
-                      max_pages=args.max_pages,
-                      prefill_chunk=args.prefill_chunk)
+    if args.engine == "wave":
+        with warnings.catch_warnings():
+            # The CLI chose the wave engine explicitly; the constructor's
+            # deprecation warning targets programmatic batch_size= callers.
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = ServeEngine(model, params, batch_size=max_batch,
+                              max_len=args.max_len)
+    else:
+        eng = ServeEngine(model, params, max_len=args.max_len,
+                          max_batch=max_batch, page_size=args.page_size,
+                          max_pages=args.max_pages,
+                          prefill_chunk=args.prefill_chunk)
     rng = np.random.default_rng(args.seed)
     warm = None
     if args.warm_prefix > 0:
@@ -117,15 +149,22 @@ def main(argv=None):
              else "cpu")
     print(f"[serve] {cfg.name} on {where}: {args.requests} requests, "
           f"{n_tok} tokens, {dt:.3f}s ({n_tok / dt:.1f} tok/s, "
-          f"policy={args.policy})")
+          f"policy={args.policy}, engine={args.engine})")
     steps = eng.step_telemetry
-    peak_pages = max((s.pages_in_use for s in steps), default=0)
-    preempt = sum(s.preemptions for s in steps)
-    shared = steps[-1].prefix_hit_tokens if steps else 0
-    print(f"  {len(steps)} steps "
-          f"({sum(1 for s in steps if s.phase != 'decode')} with prefill), "
-          f"peak {peak_pages} pages, {preempt} preemptions, {shared} prompt "
-          f"tokens prefix-shared")
+    if args.engine == "wave":
+        for t in eng.telemetry:
+            print(f"  wave{t.wave}: {t.requests} reqs, {t.tokens} tok, "
+                  f"{t.decode_steps} decode steps, {t.tokens_per_s:.1f} "
+                  f"tok/s, prefill {t.prefill_s:.3f}s, occupancy "
+                  f"{t.slot_occupancy:.2f}, queue {t.queue_depth}")
+    else:
+        peak_pages = max((s.pages_in_use for s in steps), default=0)
+        preempt = sum(s.preemptions for s in steps)
+        shared = steps[-1].prefix_hit_tokens if steps else 0
+        print(f"  {len(steps)} steps "
+              f"({sum(1 for s in steps if s.phase != 'decode')} with "
+              f"prefill), peak {peak_pages} pages, {preempt} preemptions, "
+              f"{shared} prompt tokens prefix-shared")
     for uid in sorted(out):
         print(f"  req{uid}: {out[uid][:10]}")
     return 0

@@ -1,8 +1,11 @@
-"""Paged attention for continuous-batching serving (port of the paged part
-of ``repro.models.attention``).
+"""Attention cores (port of ``repro.models.attention``): the prefill and
+cross-attention dispatch :func:`attention_core` (K4), one-token decode
+attention against a ring cache (:func:`decode_attention`, plain torch ops,
+as the reference has no kernel there), and paged attention for
+continuous-batching serving (K5).
 
-KV lives in a pooled page array (P, Hkv, page_size, D) per layer; each
-request's logical KV stream is the concatenation of the pages its
+Paged KV lives in a pooled page array (P, Hkv, page_size, D) per layer;
+each request's logical KV stream is the concatenation of the pages its
 block-table row names.  Positions are LOGICAL (page j, offset o -> j*ps +
 o); which physical page backs them is irrelevant to masking.
 """
@@ -13,8 +16,47 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    NEG_INF, paged_flash_attention,
+    NEG_INF, flash_attention, paged_flash_attention,
 )
+
+
+def attention_core(q, k, v, *, causal: bool = True,
+                   window: Optional[int] = None, scale=None):
+    """Prefill / cross-attention: q (B, H, Tq, D) over k/v (B, Hkv, Tk, D),
+    the causal mask right-aligned.  The K4 wrapper dispatches by device: its
+    CUDA kernel for CUDA tensors, its plain version for CPU tensors (the
+    reference picks its XLA algorithms on the CPU; the math is the same)."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, length: int, *, scale=None):
+    """One-token attention against a (possibly ring-buffered) KV cache.
+
+    q: (B, H, 1, D); caches (B, Hkv, S, D); ``length``: the valid slots of
+    every row (the wave path's rows share one position).  GQA in grouped
+    form (q as (B, Hkv, G, D), the cache never repeated); f32 scores, slots
+    at or past the length masked with -1e30, f32 softmax, and P rounded to
+    the cache dtype before P·V, as the reference does.  A ring cache that
+    has wrapped holds only the window, so the mask is on slot validity,
+    not recency.
+    """
+    b, h, _, d = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    qg = q.reshape(b, hkv, g, d)
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg.float(),
+                          k_cache.float()) * scale
+    mask = torch.arange(s_max, device=q.device) < length
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    o = o / l.clamp_min(1e-30)
+    return o.reshape(b, h, 1, d).to(q.dtype)
 
 
 def paged_kv_write(k_pages, v_pages, k_new, v_new, block_tables, q_start,

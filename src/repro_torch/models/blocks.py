@@ -1,10 +1,17 @@
-"""The dense and MoE decoder blocks on the paged-KV serving path (port of
-the dense and MoE parts of ``repro.models.blocks``).
+"""Per-layer blocks (port of ``repro.models.blocks``): dense, MoE and the
+whisper enc-dec decoder block, each on the wave path (``<kind>_fwd`` over a
+whole prompt, ``<kind>_decode`` one token against a ring cache) and, for
+dense and MoE, on the paged-KV serving path (``<kind>_paged_step``).
 
-``ctx`` keys: cfg, policy, rope=(cos, sin), positions (B, C), paged =
-{block_tables, q_start, n_valid, lengths}.  Every matmul routes through
-mp_dot, every expert GEMM through mp_dot_grouped; the MLPs' gating (and
-the dense block's residual) ride the GEMM epilogues.
+``ctx`` keys: cfg, policy, rope=(cos, sin) | None, positions (B, C),
+causal, collect_cache, cache_len, cache_dtype, pos (decode: the wave's
+shared position, a Python int), cross_states (B, Tsrc, d) for enc-dec,
+moe_capacity, and paged = {block_tables, q_start, n_valid, lengths} on the
+paged path.  Every matmul routes through mp_dot, every expert GEMM through
+mp_dot_grouped; every prefill and cross-attention through attention_core
+(K4), every paged attention through K5.  The MLPs' gating, bias and
+activation and the dense block's residual ride the GEMM epilogues.  Caches
+are updated in place (the reference returns new ones).
 """
 from __future__ import annotations
 
@@ -13,20 +20,46 @@ import torch
 from repro_torch.core.gemm import mp_dot, mp_dot_grouped
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
-    apply_rope, dense_init, init_swiglu, rmsnorm, swiglu_mlp,
+    apply_rope, dense_init, gelu_mlp, init_gelu_mlp, init_swiglu, layernorm,
+    rmsnorm, swiglu_mlp,
 )
 
 
 def norm(params, x, cfg):
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return rmsnorm(x, params["scale"])
+    if cfg.norm == "layer":
+        return layernorm(x, params["scale"], params["bias"])
+    if cfg.norm == "rms":
+        return rmsnorm(x, params["scale"])
+    raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
 
 
 def init_norm(cfg, *, device):
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return {"scale": torch.zeros(cfg.d_model, device=device)}
+    d = cfg.d_model
+    if cfg.norm == "layer":
+        return {"scale": torch.ones(d, device=device),
+                "bias": torch.zeros(d, device=device)}
+    if cfg.norm == "rms":
+        return {"scale": torch.zeros(d, device=device)}
+    raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+
+
+def _mlp(params, x, cfg, policy, residual=None):
+    """The block's MLP with the residual riding the down projection's
+    epilogue; callers pass the pre-norm stream."""
+    if cfg.mlp == "gelu":
+        return gelu_mlp(params, x, policy, residual=residual)
+    if cfg.mlp == "swiglu":
+        return swiglu_mlp(params, x, policy, residual=residual)
+    raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
+
+
+def _init_mlp(cfg, *, generator, device):
+    kw = dict(generator=generator, device=device)
+    if cfg.mlp == "gelu":
+        return init_gelu_mlp(cfg.d_model, cfg.d_ff, bias=cfg.mlp_bias, **kw)
+    if cfg.mlp == "swiglu":
+        return init_swiglu(cfg.d_model, cfg.d_ff, **kw)
+    raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
 
 
 # --- attention plumbing --------------------------------------------------------
@@ -52,15 +85,84 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, t, h * hd)
 
 
-def attn_qkv(params, x, cfg, ctx):
+def attn_qkv(params, x, cfg, ctx, kv_source=None):
+    """q from ``x``; k and v from ``kv_source`` (cross-attention) or x."""
     policy = ctx["policy"]
     hd = cfg.head_dim
     q = _split_heads(mp_dot(x, params["wq"], policy=policy), cfg.n_heads, hd)
-    k = _split_heads(mp_dot(x, params["wk"], policy=policy), cfg.n_kv_heads,
-                     hd)
-    v = _split_heads(mp_dot(x, params["wv"], policy=policy), cfg.n_kv_heads,
-                     hd)
+    src = kv_source if kv_source is not None else x
+    k = _split_heads(mp_dot(src, params["wk"], policy=policy),
+                     cfg.n_kv_heads, hd)
+    v = _split_heads(mp_dot(src, params["wv"], policy=policy),
+                     cfg.n_kv_heads, hd)
     return q, k, v
+
+
+def _self_attention(params, h, ctx, window):
+    """Normed input -> (attention output, (k, v) when collecting a cache)."""
+    cfg = ctx["cfg"]
+    q, k, v = attn_qkv(params, h, cfg, ctx)
+    if ctx.get("rope") is not None:
+        cos, sin = ctx["rope"]
+        q = apply_rope(q, cos, sin, ctx["positions"])
+        k = apply_rope(k, cos, sin, ctx["positions"])
+    o = attn.attention_core(q, k, v, causal=ctx.get("causal", True),
+                            window=window)
+    out = mp_dot(_merge_heads(o), params["wo"], policy=ctx["policy"])
+    return out, ((k, v) if ctx.get("collect_cache") else None)
+
+
+def _kv_to_ring_cache(kv, cache_len: int, dtype):
+    """Prefill K/V (B, Hkv, S, hd) -> a ring cache of ``cache_len`` slots:
+    position p lands in slot p % cache_len, as decode writes it."""
+    k, v = kv
+    b, hkv, s, hd = k.shape
+    if s <= cache_len:
+        pad = (0, 0, 0, cache_len - s)
+        return {"k": torch.nn.functional.pad(k.to(dtype), pad),
+                "v": torch.nn.functional.pad(v.to(dtype), pad)}
+    slots = (torch.arange(cache_len, device=k.device) + (s - cache_len)) \
+        % cache_len
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        ring = torch.zeros(b, hkv, cache_len, hd, dtype=dtype,
+                           device=k.device)
+        ring[:, :, slots] = t[:, :, s - cache_len:].to(dtype)
+        out[name] = ring
+    return out
+
+
+def attn_init_cache(cfg, batch, max_len, dtype, window=None, *, device):
+    """One layer's zeroed ring cache, ``min(window, max_len)`` slots."""
+    cache_len = min(window, max_len) if window else max_len
+    shape = (batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(params, x, cache, ctx):
+    """x: (B, 1, d) normed input -> attention output; the new K/V row is
+    written into ``cache``'s ring slot ``pos % S`` in place."""
+    cfg = ctx["cfg"]
+    pos = ctx["pos"]
+    q, k, v = attn_qkv(params, x, cfg, ctx)
+    if ctx.get("rope") is not None:
+        cos, sin = ctx["rope"]            # one row each, at ``pos``
+        q = apply_rope(q, cos, sin, ctx["positions"])
+        k = apply_rope(k, cos, sin, ctx["positions"])
+    s_max = cache["k"].shape[2]
+    slot = pos % s_max
+    cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+    o = attn.decode_attention(q, cache["k"], cache["v"], min(pos + 1, s_max))
+    return mp_dot(_merge_heads(o), params["wo"], policy=ctx["policy"])
+
+
+def _ring_cache(kv, ctx, window):
+    cache_len = ctx["cache_len"]
+    if window is not None:
+        cache_len = min(window, cache_len)
+    return _kv_to_ring_cache(kv, cache_len, ctx["cache_dtype"])
 
 
 def attn_paged_init_cache(cfg, num_pages, page_size, dtype, *, device):
@@ -95,20 +197,36 @@ def init_dense(cfg, *, generator, device):
     return {"ln1": init_norm(cfg, device=device),
             "attn": init_attn(cfg, generator=generator, device=device),
             "ln2": init_norm(cfg, device=device),
-            "mlp": init_swiglu(cfg.d_model, cfg.d_ff, generator=generator,
-                               device=device)}
+            "mlp": _init_mlp(cfg, generator=generator, device=device)}
+
+
+def dense_fwd(params, x, ctx, *, window=None):
+    """-> (x, aux = 0.0, ring cache | None)."""
+    cfg = ctx["cfg"]
+    o, kv = _self_attention(params["attn"], norm(params["ln1"], x, cfg), ctx,
+                            window)
+    x = x + o
+    x = _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg, ctx["policy"],
+             residual=x)
+    return x, 0.0, (None if kv is None else _ring_cache(kv, ctx, window))
+
+
+def dense_decode(params, x, cache, ctx):
+    cfg = ctx["cfg"]
+    o = attn_decode(params["attn"], norm(params["ln1"], x, cfg), cache, ctx)
+    x = x + o
+    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg,
+                ctx["policy"], residual=x)
 
 
 def dense_paged_step(params, x, cache, ctx, *, window=None):
     cfg = ctx["cfg"]
-    if cfg.mlp != "swiglu":
-        raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
     o = attn_paged_step(params["attn"], norm(params["ln1"], x, cfg), cache,
                         ctx, window=window)
     x = x + o        # plain add in the activation dtype, outside the GEMM
     # The block residual rides the down projection's epilogue.
-    return swiglu_mlp(params["mlp"], norm(params["ln2"], x, cfg),
-                      ctx["policy"], residual=x)
+    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg,
+                ctx["policy"], residual=x)
 
 
 # ================================ MoE ========================================
@@ -175,10 +293,12 @@ def moe_dispatch(topi: torch.Tensor, e: int, cap: int):
     return src, dest_tok
 
 
-def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25):
+def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25,
+            return_aux: bool = False):
     """Top-k MoE with per-sequence capacity dispatch (the reference's
-    ``moe_mlp`` forward; its auxiliary losses serve training only and are
-    not ported).
+    ``moe_mlp`` forward).  ``return_aux`` also returns its auxiliary loss,
+    ``0.01 · load balance + 0.001 · router z-loss`` (an f32 0-d tensor),
+    which serves training; the serve path drops it.
 
     The router runs in f32 (K1).  Each expert's capacity slots are
     gathered into one (E, b·cap, d) buffer, and the SwiGLU experts run as
@@ -212,7 +332,36 @@ def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25):
     kept = (dest_tok < e * cap).reshape(b, s, k)
     w = topw.float() * kept
     out = torch.einsum("bskd,bsk->bsd", contrib.reshape(b, s, k, d), w)
-    return out.to(x.dtype)
+    if not return_aux:
+        return out.to(x.dtype)
+    me = gates.mean(dim=(0, 1))
+    counts = torch.zeros(e, device=x.device).scatter_add_(
+        0, topi.reshape(-1), torch.ones(topi.numel(), device=x.device))
+    ce = counts / (b * s * k)
+    zloss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    return out.to(x.dtype), 0.01 * (e * (me * ce).sum()) + 0.001 * zloss
+
+
+def moe_fwd(params, x, ctx, *, window=None):
+    """-> (x, aux, ring cache | None); the capacity is ``ctx
+    ["moe_capacity"]`` (1.25 unless set)."""
+    cfg = ctx["cfg"]
+    o, kv = _self_attention(params["attn"], norm(params["ln1"], x, cfg), ctx,
+                            window)
+    x = x + o
+    y, aux = moe_mlp(params, norm(params["ln2"], x, cfg), cfg, ctx["policy"],
+                     capacity_factor=ctx.get("moe_capacity", 1.25),
+                     return_aux=True)
+    return x + y, aux, (None if kv is None else _ring_cache(kv, ctx, window))
+
+
+def moe_decode(params, x, cache, ctx):
+    cfg = ctx["cfg"]
+    o = attn_decode(params["attn"], norm(params["ln1"], x, cfg), cache, ctx)
+    x = x + o
+    y = moe_mlp(params, norm(params["ln2"], x, cfg), cfg, ctx["policy"],
+                capacity_factor=ctx.get("moe_capacity", 1.25))
+    return x + y
 
 
 def moe_paged_step(params, x, cache, ctx, *, window=None,
@@ -228,3 +377,73 @@ def moe_paged_step(params, x, cache, ctx, *, window=None,
     y = moe_mlp(params, norm(params["ln2"], x, cfg), cfg, ctx["policy"],
                 capacity_factor=capacity_factor)
     return x + y
+
+
+# ============================== enc-dec (whisper) ============================
+
+def init_encdec(cfg, *, generator, device):
+    kw = dict(generator=generator, device=device)
+    return {"ln1": init_norm(cfg, device=device), "attn": init_attn(cfg, **kw),
+            "lnx": init_norm(cfg, device=device),
+            "xattn": init_attn(cfg, **kw),
+            "ln2": init_norm(cfg, device=device),
+            "mlp": _init_mlp(cfg, **kw)}
+
+
+def _cross_attention(params, h, ctx, kv=None):
+    """Non-causal attention of ``h``'s queries over the encoder states
+    (``ctx["cross_states"]``, projected here) or over cached ``kv``.
+    -> (output, (k, v))."""
+    cfg = ctx["cfg"]
+    if kv is None:
+        q, k, v = attn_qkv(params, h, cfg, ctx,
+                           kv_source=ctx["cross_states"])
+    else:
+        q = _split_heads(mp_dot(h, params["wq"], policy=ctx["policy"]),
+                         cfg.n_heads, cfg.head_dim)
+        k, v = kv
+    o = attn.attention_core(q, k.to(q.dtype), v.to(q.dtype), causal=False)
+    return mp_dot(_merge_heads(o), params["wo"], policy=ctx["policy"]), (k, v)
+
+
+def encdec_fwd(params, x, ctx):
+    """Decoder block: causal self-attention, cross-attention to the encoder
+    states, GELU MLP.  -> (x, aux = 0.0, {"self": ring, "cross": {k, v}} |
+    None); the cross K/V are computed here once and cached for decode."""
+    cfg = ctx["cfg"]
+    o, kv = _self_attention(params["attn"], norm(params["ln1"], x, cfg), ctx,
+                            None)
+    x = x + o
+    o, xkv = _cross_attention(params["xattn"], norm(params["lnx"], x, cfg),
+                              ctx)
+    x = x + o
+    x = _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg, ctx["policy"],
+             residual=x)
+    cache = None
+    if kv is not None:
+        dt = ctx["cache_dtype"]
+        cache = {"self": _ring_cache(kv, ctx, None),
+                 "cross": {"k": xkv[0].to(dt), "v": xkv[1].to(dt)}}
+    return x, 0.0, cache
+
+
+def encdec_decode(params, x, cache, ctx):
+    """One decoder token: the self-attention ring cache grows in place; the
+    cross K/V are read back from the cache, never recomputed."""
+    cfg = ctx["cfg"]
+    o = attn_decode(params["attn"], norm(params["ln1"], x, cfg),
+                    cache["self"], ctx)
+    x = x + o
+    o, _ = _cross_attention(params["xattn"], norm(params["lnx"], x, cfg), ctx,
+                            kv=(cache["cross"]["k"], cache["cross"]["v"]))
+    x = x + o
+    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg,
+                ctx["policy"], residual=x)
+
+
+def encdec_init_cache(cfg, batch, max_len, dtype, *, device):
+    shape = (batch, cfg.n_kv_heads, cfg.encoder_seq, cfg.head_dim)
+    return {"self": attn_init_cache(cfg, batch, max_len, dtype,
+                                    device=device),
+            "cross": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}}

@@ -1,6 +1,7 @@
 """Common layers (port of ``repro.models.layers``).  Every matmul routes
-through ``core.gemm.mp_dot``; the SwiGLU gating step and the block residual
-ride the GEMM's epilogue (the reference's fused path)."""
+through ``core.gemm.mp_dot``; the SwiGLU gating step, the GELU MLP's bias
+and activation and the block residual ride the GEMM's epilogue (the
+reference's fused path)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -36,6 +37,17 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return (x * (1.0 + weight.float())).to(dt)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (biased variance), then ``x * weight + bias``."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
+
+
 # --- rotary position embeddings ---------------------------------------------
 
 def rope_frequencies(head_dim: int, max_t: int, theta: float = 10000.0,
@@ -69,6 +81,26 @@ def swiglu_mlp(params, x, policy, residual: Optional[torch.Tensor] = None):
     h = mp_dot(x, params["w_gate"], policy=policy, activation="silu",
                gate=up)
     return mp_dot(h, params["w_down"], policy=policy, residual=residual)
+
+
+def gelu_mlp(params, x, policy, residual: Optional[torch.Tensor] = None):
+    """gelu(x@w_up + b_up) @ w_down + b_down [+ residual], fused: the up
+    projection carries its bias and the tanh GELU in its epilogue, the down
+    projection its bias and the residual add."""
+    h = mp_dot(x, params["w_up"], params.get("b_up"), policy=policy,
+               activation="gelu")
+    return mp_dot(h, params["w_down"], params.get("b_down"), policy=policy,
+                  residual=residual)
+
+
+def init_gelu_mlp(d: int, f: int, *, generator, device, bias: bool = False):
+    """Up and down projections; zero f32 biases when ``bias``."""
+    p = {"w_up": dense_init(d, f, generator=generator, device=device),
+         "w_down": dense_init(f, d, generator=generator, device=device)}
+    if bias:
+        p["b_up"] = torch.zeros(f, device=device)
+        p["b_down"] = torch.zeros(d, device=device)
+    return p
 
 
 def init_swiglu(d: int, f: int, *, generator, device):

@@ -1,16 +1,22 @@
-"""Model assembly for the paged serving path (port of the dense and MoE
-parts of ``repro.models.transformer``): :class:`LM` with ``init``,
-``init_paged_caches`` and ``paged_step``, and :func:`params_from_jax`, which
-carries a reference parameter tree across so both packages compute the
-same function.
+"""Model assembly (port of ``repro.models.transformer``): :class:`LM` with
+``init``, the wave path (``prefill`` over left-padded prompts and
+``decode_step`` against per-layer ring caches, with whisper's encoder
+stack) and the paged path (``init_paged_caches``, ``paged_step``), and
+:func:`params_from_jax`, which carries a reference parameter tree across so
+both packages compute the same function.
 
 Parameters are a plain dict: ``embed`` (Vp, d), ``final_norm``, ``head``
-(d, Vp) when untied, and ``layers``, a list of per-layer block dicts in
-layer order (the reference stacks them per unit kind for ``lax.scan``).
-A dense layer keeps its projections in the ``attn`` and ``mlp`` sub-dicts;
-an MoE layer keeps ``attn`` and, at its top level, the f32 ``router``
-(d, E) and the (E, ., .) expert stacks ``w_gate``, ``w_up``, ``w_down``.
-A GEMM weight is a dense tensor or, once packed (``LM.init(pack=True)`` or
+(d, Vp) when untied, ``pos_embed`` (32776, d) for learned positions, and
+``layers``, a list of per-layer block dicts in layer order (the reference
+stacks them per unit kind for ``lax.scan``).  An audio (enc-dec) model adds
+``encoder`` (a list of dense layers; the reference's is one stack with a
+leading layer axis), ``enc_norm`` and ``enc_pos`` (encoder_seq, d).  A
+dense layer keeps its projections in the ``attn`` and ``mlp`` sub-dicts
+(a GELU MLP also its f32 biases ``b_up``, ``b_down``); an enc-dec layer
+adds ``lnx`` and the cross-attention ``xattn``; an MoE layer keeps
+``attn`` and, at its top level, the f32 ``router`` (d, E) and the (E, .,
+.) expert stacks ``w_gate``, ``w_up``, ``w_down``.  A GEMM weight is a
+dense tensor or, once packed (``LM.init(pack=True)`` or
 ``packing.params.pack_params``), a
 :class:`~repro_torch.packing.layout.PackedOperand` (grouped for an expert
 stack).
@@ -27,13 +33,19 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import get_policy
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (
-    embed_init, logits_from_hidden, rmsnorm, rope_frequencies,
+    embed_init, logits_from_hidden, rope_frequencies,
 )
 from repro_torch.packing.layout import PackedLayout, PackedOperand
 from repro_torch.packing.params import pack_params
 
-# Block kinds the port's paged-KV serving path runs.
+# Block kinds the port's paged-KV serving path runs; the wave path also
+# runs whisper's enc-dec decoder block.  Cross-attention (VLM) and the
+# recurrent kinds are not ported yet.
 PAGED_KINDS = ("dense", "attn_local", "moe")
+WAVE_KINDS = PAGED_KINDS + ("encdec",)
+
+# Rows of the learned decoder position table (the reference's 32768 + 8).
+POS_EMBED_ROWS = 32768 + 8
 
 # Serve-time MoE capacity factor, as in the reference's paged step: at 4.0
 # an expert holds every token of a sequence whenever top-k picks each
@@ -72,6 +84,34 @@ def _window(cfg, kind):
     return cfg.local_attn_window if kind == "attn_local" else cfg.window
 
 
+_INIT = {"dense": B.init_dense, "attn_local": B.init_dense,
+         "moe": B.init_moe, "encdec": B.init_encdec}
+
+
+def _block_fwd(kind, layer, x, ctx):
+    """-> (x, aux, cache | None) of one block over a whole prompt."""
+    if kind == "moe":
+        return B.moe_fwd(layer, x, ctx, window=ctx["cfg"].window)
+    if kind == "encdec":
+        return B.encdec_fwd(layer, x, ctx)
+    return B.dense_fwd(layer, x, ctx, window=_window(ctx["cfg"], kind))
+
+
+def _block_decode(kind, layer, x, cache, ctx):
+    if kind == "moe":
+        return B.moe_decode(layer, x, cache, ctx)
+    if kind == "encdec":
+        return B.encdec_decode(layer, x, cache, ctx)
+    return B.dense_decode(layer, x, cache, ctx)
+
+
+def _block_init_cache(kind, cfg, batch, max_len, dtype, device):
+    if kind == "encdec":
+        return B.encdec_init_cache(cfg, batch, max_len, dtype, device=device)
+    return B.attn_init_cache(cfg, batch, max_len, dtype,
+                             window=_window(cfg, kind), device=device)
+
+
 # The GEMM weights of a layer, wherever they sit in its dict: cast once to
 # the compute dtype at load time (mp_dot would cast them on every call; a
 # cast done once gives the same bits).  Under the int8 policy they stay
@@ -84,21 +124,22 @@ _GEMM_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
 
 @dataclasses.dataclass
 class LM:
-    """Decoder LM over paged KV; ``device`` defaults to the card."""
+    """Decoder LM (with whisper's encoder for an audio config); ``device``
+    defaults to the card."""
 
     cfg: ArchConfig
     policy: str = "bf16"
     device: Any = "cuda"
 
     def __post_init__(self):
-        bad = sorted({k for k in self.cfg.pattern if k not in PAGED_KINDS})
+        bad = sorted({k for k in self.cfg.pattern if k not in WAVE_KINDS})
         if bad:
             raise NotImplementedError(
                 f"block kinds {bad} are not ported yet (ported: "
-                f"{PAGED_KINDS})")
-        if self.cfg.pos_embed != "rope":
-            raise NotImplementedError("only RoPE position embeddings are "
-                                      "ported")
+                f"{WAVE_KINDS})")
+        if self.cfg.pos_embed not in ("rope", "learned"):
+            raise NotImplementedError(
+                f"position embedding {self.cfg.pos_embed!r} is not ported")
         self.device = resolve_device(self.device)
         pol = get_policy(self.policy)
         self.compute_dtype = pol.compute
@@ -144,9 +185,15 @@ class LM:
             params["head"] = (pack_params({"head": head}, policy=self.policy,
                                           pack_format=pack_format)["head"]
                               if pack else head.to(self.weight_dtype))
-        params["layers"] = [
-            prepare((B.init_moe if kind == "moe" else B.init_dense)(cfg, **kw))
-            for kind in cfg.pattern]
+        if cfg.pos_embed == "learned":
+            params["pos_embed"] = embed_init(POS_EMBED_ROWS, cfg.d_model, **kw)
+        params["layers"] = [prepare(_INIT[kind](cfg, **kw))
+                            for kind in cfg.pattern]
+        if cfg.encoder_layers:
+            params["encoder"] = [prepare(B.init_dense(cfg, **kw))
+                                 for _ in range(cfg.encoder_layers)]
+            params["enc_norm"] = B.init_norm(cfg, device=dev)
+            params["enc_pos"] = embed_init(cfg.encoder_seq, cfg.d_model, **kw)
         return self.load_params(params)
 
     def _cast_layer(self, layer):
@@ -160,9 +207,9 @@ class LM:
 
     def load_params(self, params) -> Dict[str, Any]:
         """Move ``params`` to the model's device and cast the dense GEMM
-        weights and head to :attr:`weight_dtype` and the embedding table to
-        the activation dtype (both what the reference casts them to per
-        use).  Packed weights move as they are."""
+        weights and head to :attr:`weight_dtype` and the embedding and
+        position tables to the activation dtype (both what the reference
+        casts them to per use).  Packed weights move as they are."""
         dev = self.device
 
         def to(t, dtype=None):
@@ -180,15 +227,143 @@ class LM:
         }
         if "head" in params:
             out["head"] = to(params["head"], self.weight_dtype)
+        if "pos_embed" in params:
+            out["pos_embed"] = to(params["pos_embed"], self.act_dtype)
+        if "encoder" in params:
+            out["encoder"] = [to(self._cast_layer(layer))
+                              for layer in params["encoder"]]
+            out["enc_norm"] = to(params["enc_norm"])
+            out["enc_pos"] = to(params["enc_pos"], self.act_dtype)
         return out
 
+    # ------------------------------ helpers ---------------------------------
+
+    def _head_logits(self, params, x):
+        """Final norm, head and the padded-vocab mask of hidden (B, 1, d)."""
+        cfg = self.cfg
+        x = B.norm(params["final_norm"], x, cfg)
+        tied = cfg.tie_embeddings
+        head = params["embed"] if tied else params["head"]
+        return self._mask_logits(
+            logits_from_hidden(x, head, tied=tied, policy=self.policy))
+
+    def _ctx(self, **extra):
+        cfg = self.cfg
+        ctx = {"cfg": cfg, "policy": self.policy, "rope": None,
+               "positions": None, "causal": cfg.causal,
+               "collect_cache": False, "cache_dtype": self.act_dtype,
+               "moe_capacity": MOE_SERVE_CAPACITY}
+        ctx.update(extra)
+        return ctx
+
+    def _embed(self, params, tokens):
+        x = params["embed"][tokens.long()].to(self.act_dtype)
+        if self.cfg.pos_embed == "learned":
+            x = x + params["pos_embed"][:tokens.shape[1]][None]
+        return x
+
+    def _encode(self, params, audio_embeds):
+        """Whisper's encoder: a non-causal dense stack over the (stubbed)
+        frame embeddings plus ``enc_pos``, then ``enc_norm``."""
+        x = audio_embeds.to(self.act_dtype)
+        x = x + params["enc_pos"][:x.shape[1]][None]
+        ctx = self._ctx(causal=False)
+        for layer in params["encoder"]:
+            x, _, _ = B.dense_fwd(layer, x, ctx, window=None)
+        return B.norm(params["enc_norm"], x, self.cfg)
+
+    def _cross_states(self, params, batch):
+        if self.cfg.family == "audio":
+            return self._encode(params, batch["audio_embeds"])
+        return None
+
+    def _run_stack(self, params, x, ctx):
+        """-> (x, summed aux, per-layer caches | None)."""
+        aux, caches = 0.0, []
+        for kind, layer in zip(self.cfg.pattern, params["layers"]):
+            x, a, cache = _block_fwd(kind, layer, x, ctx)
+            aux = aux + a
+            caches.append(cache)
+        return x, aux, (caches if ctx["collect_cache"] else None)
+
+    # ------------------------- wave serving ---------------------------------
+
+    @torch.inference_mode()
+    def init_caches(self, batch_size: int,
+                    max_len: int) -> List[Dict[str, Any]]:
+        """Zeroed per-layer caches of the wave path (ring caches of
+        ``min(window, max_len)`` slots; enc-dec layers add the cross K/V)."""
+        return [_block_init_cache(kind, self.cfg, batch_size, max_len,
+                                  self.act_dtype, self.device)
+                for kind in self.cfg.pattern]
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, max_len: Optional[int] = None):
+        """Run whole (left-padded) prompts: ``batch["tokens"]`` (B, S) and,
+        for audio, ``batch["audio_embeds"]`` (B, encoder_seq, d).  Every row
+        sits at positions 0..S-1, pads included, as in the reference.
+        -> (last-token logits (B, Vp), per-layer caches of ``max_len``
+        slots)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        s = tokens.shape[1]
+        max_len = max_len or s
+        x = self._embed(params, tokens)
+        ctx = self._ctx(collect_cache=True, cache_len=max_len)
+        if cfg.pos_embed == "rope":
+            ctx["rope"] = rope_frequencies(cfg.head_dim, s, cfg.rope_theta,
+                                           device=self.device)
+            ctx["positions"] = torch.arange(s, device=self.device)[None]
+        ctx["cross_states"] = self._cross_states(params, batch)
+        x, _, caches = self._run_stack(params, x, ctx)
+        return self._head_logits(params, x[:, -1:])[:, 0], caches
+
+    def _decode_rope(self, pos: int):
+        """Single-row (cos, sin) tables at ``pos`` (1, hd / 2), f32."""
+        hd, theta = self.cfg.head_dim, self.cfg.rope_theta
+        inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                            device=self.device) / hd))
+        ang = inv * float(pos)
+        return torch.cos(ang)[None], torch.sin(ang)[None]
+
+    @torch.inference_mode()
+    def decode_step(self, params, token, caches, pos: int):
+        """token: (B, 1) int; ``pos``: the count of tokens every row has
+        seen (a Python int, shared by the wave).  The caches are updated in
+        place.  -> (logits (B, Vp), caches)."""
+        cfg = self.cfg
+        b = token.shape[0]
+        x = params["embed"][token.long()].to(self.act_dtype)
+        if cfg.pos_embed == "learned":
+            pe = params["pos_embed"]
+            x = x + pe[min(pos, pe.shape[0] - 1)][None, None]
+        ctx = self._ctx(pos=pos)
+        if cfg.pos_embed == "rope":
+            ctx["rope"] = self._decode_rope(pos)
+            ctx["positions"] = torch.zeros(b, 1, dtype=torch.long,
+                                           device=self.device)
+        for kind, layer, cache in zip(cfg.pattern, params["layers"], caches):
+            x = _block_decode(kind, layer, x, cache, ctx)
+        return self._head_logits(params, x)[:, 0], caches
+
     # ------------------------- paged serving --------------------------------
+
+    def paged_unsupported_reason(self) -> Optional[str]:
+        """None if every block kind has a paged-KV step, else why not."""
+        bad = sorted({k for k in self.cfg.pattern if k not in PAGED_KINDS})
+        if bad:
+            return (f"block kinds {bad} have no paged-KV step (supported: "
+                    f"{PAGED_KINDS}); serve this arch with the wave engine")
+        return None
 
     @torch.inference_mode()
     def init_paged_caches(self, num_pages: int,
                           page_size: int) -> List[Dict[str, torch.Tensor]]:
         """One (num_pages, Hkv, page_size, hd) K/V pool pair per layer, in
         the activation dtype; the block tables are shared across layers."""
+        reason = self.paged_unsupported_reason()
+        if reason:
+            raise ValueError(reason)
         return [B.attn_paged_init_cache(self.cfg, num_pages, page_size,
                                         self.act_dtype, device=self.device)
                 for _ in self.cfg.pattern]
@@ -252,16 +427,15 @@ class LM:
         # (idle rows clamp to column 0 — the engine ignores them).
         idx = (n_valid.long() - 1).clamp(0, c - 1)
         x = x[torch.arange(b, device=dev), idx][:, None]          # (B, 1, d)
-        x = rmsnorm(x, params["final_norm"]["scale"])
-        tied = cfg.tie_embeddings
-        head = params["embed"] if tied else params["head"]
-        logits = self._mask_logits(
-            logits_from_hidden(x, head, tied=tied, policy=self.policy))
-        return logits[:, 0], caches
+        return self._head_logits(params, x)[:, 0], caches
 
 
 def build_model(cfg: ArchConfig, policy: str = "bf16",
                 device="cuda") -> LM:
+    # Audio (enc-dec) archs run the 'encdec' block kind in the decoder.
+    if cfg.family == "audio" and not cfg.block_pattern:
+        cfg = dataclasses.replace(cfg,
+                                  block_pattern=("encdec",) * cfg.n_layers)
     return LM(cfg, policy=policy, device=device)
 
 
@@ -301,7 +475,8 @@ def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
 
     The reference keeps ``stack``, one dict per unit kind with a leading
     ``n_units`` axis, and ``tail``, a list; layer ``u * len(unit) + p`` is
-    ``stack[p]`` at index ``u``, followed by the tail layers.  Pass the
+    ``stack[p]`` at index ``u``, followed by the tail layers.  Its
+    ``encoder`` is one dict with a leading ``encoder_layers`` axis.  Pass the
     result to :meth:`LM.load_params` for the device and the policy's casts.
     """
     def t(a, idx=None):
@@ -321,6 +496,11 @@ def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
     out = {"embed": t(np_params["embed"]),
            "final_norm": tree(np_params["final_norm"]),
            "layers": layers}
-    if "head" in np_params:
-        out["head"] = t(np_params["head"])
+    for name in ("head", "pos_embed", "enc_pos"):
+        if name in np_params:
+            out[name] = t(np_params[name])
+    if "encoder" in np_params:
+        out["encoder"] = [tree(np_params["encoder"], i)
+                          for i in range(cfg.encoder_layers)]
+        out["enc_norm"] = tree(np_params["enc_norm"])
     return out

@@ -1,5 +1,5 @@
-"""Serving engine: continuous batching over a paged KV cache (port of the
-continuous engine of ``repro.serve.engine``).
+"""Serving engine: continuous batching over a paged KV cache, and the
+deprecated wave engine (port of ``repro.serve.engine``).
 
   * ``add_request()`` queues work; ``step()`` runs ONE forward — a pure
     decode step (chunk width 1) or, when a prompt is still being
@@ -14,12 +14,21 @@ at a time, and when the pool runs dry the most recently admitted request
 is preempted (pages freed, request requeued for recompute).  Sampling is
 greedy: ``np.argmax`` of the logits, which takes the first index among
 ties.  Every step runs under ``torch.inference_mode()`` and emits a
-:class:`StepTelemetry` record.  The wave engine is not ported yet.
+:class:`StepTelemetry` record.
+
+``ServeEngine(batch_size=)`` selects the wave engine instead (deprecated,
+as in the reference, but the only serving path of the block kinds without
+a paged step, such as whisper's enc-dec): requests run in static waves of
+``batch_size`` left-padded prompts, one ``LM.prefill`` each, then
+``LM.decode_step`` against per-layer ring caches until every row of the
+wave is done.  Its per-phase StepTelemetry records fold into one
+:class:`WaveTelemetry` per wave.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -62,6 +71,41 @@ class StepTelemetry:
     tokens_per_s: float      # tokens / wall_s
 
 
+@dataclasses.dataclass(frozen=True)
+class WaveTelemetry:
+    """Aggregated observability for ONE wave of the wave engine, folded
+    from the wave's StepTelemetry records (:meth:`from_steps`).
+    ``wall_s`` covers prefill and decode; ``prefill_s`` the prefill."""
+
+    wave: int                # 0-based wave index within this generate() call
+    requests: int            # requests admitted into the wave
+    tokens: int              # tokens emitted by the wave
+    decode_steps: int        # decode iterations the wave ran
+    wall_s: float            # wave wall time (prefill + decode)
+    prefill_s: float         # prefill wall time
+    tokens_per_s: float      # tokens / wall_s
+    slot_occupancy: float    # mean live-slot fraction over decode steps
+    queue_depth: int         # requests still queued when the wave finished
+
+    @classmethod
+    def from_steps(cls, wave: int, requests: int, queue_depth: int,
+                   steps: List[StepTelemetry], wall_s: float,
+                   batch: int) -> "WaveTelemetry":
+        """Fold one wave's StepTelemetry stream into its record."""
+        emits = [s for s in steps if s.phase != "prefill"]
+        n_tok = sum(s.tokens for s in steps)
+        prefill_s = sum(s.wall_s for s in steps if s.phase == "prefill")
+        occ = (sum(s.live / batch for s in emits) / len(emits)
+               if emits else 0.0)
+        return cls(
+            wave=wave, requests=requests, tokens=n_tok,
+            decode_steps=sum(1 for s in emits if s.phase == "decode"),
+            wall_s=wall_s, prefill_s=prefill_s,
+            tokens_per_s=n_tok / wall_s if wall_s > 0 else 0.0,
+            slot_occupancy=occ, queue_depth=queue_depth,
+        )
+
+
 @dataclasses.dataclass
 class _Slot:
     req: Request
@@ -80,19 +124,35 @@ def _kv_token_bytes(model) -> int:
 
 
 class ServeEngine:
-    """Continuous-batching engine over paged KV, on the model's device."""
+    """Continuous-batching engine over paged KV, on the model's device.  The
+    deprecated ``batch_size=`` keyword selects the wave engine (static
+    batch, ring caches)."""
 
     def __init__(self, model, params, *, max_len: int,
                  max_batch: Optional[int] = None, page_size: int = 16,
                  max_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 eos_id: int = 1):
+                 eos_id: int = 1, batch_size: Optional[int] = None):
         self.model = model
         self.params = params
         self.max_len = max_len
         self.eos_id = eos_id
+        self.telemetry: List[WaveTelemetry] = []
         self.step_telemetry: List[StepTelemetry] = []
         self._token_bytes = _kv_token_bytes(model)
+        self._wave_mode = batch_size is not None
+        if self._wave_mode:
+            warnings.warn(
+                "ServeEngine(batch_size=) selects the deprecated wave "
+                "engine; use max_batch= for continuous batching",
+                DeprecationWarning, stacklevel=2)
+            self.batch_size = batch_size
+            return
+        reason = model.paged_unsupported_reason()
+        if reason:
+            raise ValueError(
+                f"continuous batching unavailable: {reason} (construct "
+                f"with batch_size= for the wave engine)")
         self.max_batch = max_batch if max_batch is not None else 8
         self.page_size = page_size
         self.bt_width = cdiv(max_len, page_size)
@@ -111,9 +171,16 @@ class ServeEngine:
         self._uid_counter = 0
         self._preempted_now = 0
 
+    def _require_continuous(self, what: str):
+        if self._wave_mode:
+            raise RuntimeError(
+                f"{what} requires the continuous engine; this instance was "
+                f"built with the deprecated batch_size= (wave) engine")
+
     def add_request(self, prompt, max_new_tokens: int = 16,
                     uid: Optional[int] = None) -> int:
         """Queue a request; returns its uid.  Also accepts a Request."""
+        self._require_continuous("add_request()")
         if isinstance(prompt, Request):
             req = prompt
         else:
@@ -185,6 +252,7 @@ class ServeEngine:
 
     def step(self) -> List[Request]:
         """Run one engine step; returns the requests that finished."""
+        self._require_continuous("step()")
         t0 = time.perf_counter()
         self._preempted_now = 0
         self._admit()
@@ -283,6 +351,7 @@ class ServeEngine:
     @property
     def pending(self) -> int:
         """Requests not yet finished (queued + occupying a slot)."""
+        self._require_continuous("pending")
         return len(self._queue) + sum(s is not None for s in self._slots)
 
     def warm_prefixes(self, prompts,
@@ -296,6 +365,7 @@ class ServeEngine:
         admits.  Resets the telemetry stream afterwards.  Returns the
         number of newly indexed prefix pages.
         """
+        self._require_continuous("warm_prefixes()")
         before = self.kv.prefix_entries
         budget = 0
         for prompt in prompts:
@@ -320,7 +390,10 @@ class ServeEngine:
         return self.kv.prefix_entries - before
 
     def generate(self, requests: List[Request]) -> Dict[int, List[int]]:
-        """Run every request to completion; resets the telemetry stream."""
+        """Run every request to completion; resets the telemetry streams.
+        The wave engine runs its waves (:meth:`_generate_waves`)."""
+        if self._wave_mode:
+            return self._generate_waves(requests)
         self.step_telemetry = []
         self._step_counter = 0
         for r in requests:
@@ -335,3 +408,98 @@ class ServeEngine:
                 return results
         raise RuntimeError(f"generate() exceeded its step budget with "
                            f"{self.pending} requests unfinished")
+
+    # ----------------- deprecated wave engine (batch_size=) --------------
+
+    def _generate_waves(self, requests: List[Request]) -> Dict[int, List[int]]:
+        """Static-batch generation, ``batch_size`` requests per wave in
+        arrival order."""
+        results: Dict[int, List[int]] = {}
+        queue = list(requests)
+        self.telemetry = []
+        self.step_telemetry = []
+        self._wave_step = 0
+        wave_idx = 0
+        while queue:
+            wave = queue[: self.batch_size]
+            queue = queue[self.batch_size:]
+            t0 = time.perf_counter()
+            n_steps0 = len(self.step_telemetry)
+            out = self._run_wave(wave, len(queue))
+            wall = time.perf_counter() - t0
+            self.telemetry.append(WaveTelemetry.from_steps(
+                wave_idx, len(wave), len(queue),
+                self.step_telemetry[n_steps0:], wall, self.batch_size))
+            results.update(out)
+            wave_idx += 1
+        return results
+
+    def _wave_record(self, phase: str, live: int, queue_depth: int,
+                     tokens: int, wall: float) -> None:
+        dense = self.batch_size * self.max_len * self._token_bytes
+        self.step_telemetry.append(StepTelemetry(
+            step=self._wave_step, phase=phase, live=live,
+            queue_depth=queue_depth, tokens=tokens, preemptions=0,
+            pages_in_use=0, page_occupancy=0.0,
+            kv_bytes=dense, kv_bytes_dense=dense, prefix_hit_tokens=0,
+            wall_s=wall, tokens_per_s=tokens / wall if wall > 0 else 0.0))
+        self._wave_step += 1
+
+    def _sample(self, logits) -> np.ndarray:
+        """Greedy tokens of (B, Vp) logits on the host (the copy waits for
+        the device)."""
+        return np.argmax(logits.float().cpu().numpy(), axis=-1)
+
+    def _run_wave(self, wave: List[Request], queue_depth: int):
+        """One wave: left-padded prefill, then decode steps at the wave's
+        shared position until every row has its tokens (or eos), or the
+        position reaches ``max_len - 1``."""
+        b = self.batch_size
+        model, dev = self.model, self.model.device
+        plen = max(len(r.prompt) for r in wave)
+        toks = np.zeros((b, plen), np.int32)
+        for i, r in enumerate(wave):
+            toks[i, plen - len(r.prompt):] = r.prompt       # left-pad
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        cfg = model.cfg
+        if cfg.family == "audio":
+            # The stubbed audio frontend: zero frame embeddings.
+            batch["audio_embeds"] = torch.zeros(
+                (b, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16,
+                device=dev)
+        t_pf = time.perf_counter()
+        logits, caches = model.prefill(self.params, batch,
+                                       max_len=self.max_len)
+        tok = self._sample(logits)
+        self._wave_record("prefill", len(wave), queue_depth, 0,
+                          time.perf_counter() - t_pf)
+        out = {r.uid: [] for r in wave}
+        live = np.array([True] * len(wave) + [False] * (b - len(wave)))
+        max_new = max(r.max_new_tokens for r in wave)
+        pos = plen
+        for _ in range(max_new):
+            # Emission: live slots doing useful work this step over the
+            # static batch width (the occupancy sample).
+            t_it = time.perf_counter()
+            n_live = int(live.sum())
+            emitted = 0
+            for i, r in enumerate(wave):
+                if live[i]:
+                    out[r.uid].append(int(tok[i]))
+                    emitted += 1
+                    if (int(tok[i]) == self.eos_id
+                            or len(out[r.uid]) >= r.max_new_tokens):
+                        live[i] = False
+            if not live.any() or pos >= self.max_len - 1:
+                # Final flush: tokens emitted, no decode ran.
+                self._wave_record("emit", n_live, queue_depth, emitted,
+                                  time.perf_counter() - t_it)
+                break
+            token = torch.from_numpy(tok.astype(np.int64))[:, None].to(dev)
+            logits, caches = model.decode_step(self.params, token, caches,
+                                               pos)
+            tok = self._sample(logits)
+            pos += 1
+            self._wave_record("decode", n_live, queue_depth, emitted,
+                              time.perf_counter() - t_it)
+        return out

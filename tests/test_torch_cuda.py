@@ -380,3 +380,106 @@ def test_pack_kernel_grouped_is_byte_identical_to_plain(gen, src_dtype, dtype,
             assert got.scales is None
         else:
             assert torch.equal(_bytes(got.scales), _bytes(want[1]))
+
+
+# K4: flash attention over dense K/V.  Shapes of the ported models: whisper
+# (D 64, MHA, non-causal encoder, 1500 frames: not a multiple of the
+# kernel's 32-key chunk), phi3 (D 96), granite (D 64, GQA 2), danube3 (D
+# 120, GQA 4, a window shorter than tk), decode-time cross-attention (tq =
+# 1), tq < tk under causal (right-aligned), and the kernel's widest D.
+K4_CASES = [
+    # b, h, hkv, tq, tk, d, causal, window
+    (2, 4, 4, 77, 77, 64, False, None),
+    (1, 4, 4, 1, 1500, 64, False, None),
+    (2, 4, 4, 32, 1500, 64, False, None),
+    (2, 8, 8, 40, 40, 96, True, None),
+    (2, 8, 4, 33, 33, 64, True, None),
+    (2, 8, 2, 20, 150, 120, True, 37),
+    (1, 8, 2, 1, 90, 120, True, 16),
+    (1, 4, 1, 5, 9, 256, True, None),
+    (3, 6, 3, 64, 64, 24, False, 10),
+    (2, 4, 2, 7, 45, 20, True, None),      # bf16 rows of 40 bytes: scalar
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,tq,tk,d,causal,window", K4_CASES)
+def test_flash_attention_kernel_matches_plain(gen, dtype, b, h, hkv, tq, tk,
+                                              d, causal, window):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_unaligned_kv(gen, dtype):
+    """K/V that start one element into their storage are not 16-byte
+    aligned: the kernel loads them element by element."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+
+    shape = (2, 4, 70, 64)
+    n = 2 * 4 * 70 * 64
+    q = torch.randn(2, 8, 3, 64, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)[1:]
+    v = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)[1:]
+    k, v = k.view(shape), v.view(shape)
+    assert k.is_contiguous() and k.data_ptr() % 16 != 0
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_fully_masked_rows_are_finite(gen):
+    """tq > tk under causal leaves the first rows without a key: finite
+    there, equal to the plain version on every row that sees a key."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+
+    q = torch.randn(1, 2, 40, 64, generator=gen, device="cuda")
+    k = torch.randn(1, 2, 8, 64, generator=gen, device="cuda")
+    v = torch.randn(1, 2, 8, 64, generator=gen, device="cuda")
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    sees = 32                          # rows t >= tq - tk see key 0
+    torch.testing.assert_close(got[:, :, sees:], want[:, :, sees:],
+                               **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take(gen):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    half = torch.ones(1, 2, 4, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(NotImplementedError):
+        flash_attention(half, half, half)
+    wide = torch.ones(1, 2, 4, 264, device="cuda")
+    with pytest.raises(NotImplementedError):
+        flash_attention(wide, wide, wide)
+    q = torch.ones(1, 64, 4, 32, device="cuda")
+    kv = torch.ones(1, 1, 4, 32, device="cuda")
+    with pytest.raises(NotImplementedError):            # group of 64
+        flash_attention(q, kv, kv)
+    strided = torch.ones(1, 4, 2, 32, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(strided, strided, strided)

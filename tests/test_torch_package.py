@@ -114,11 +114,14 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     """A tensor on any other device than the CPU never reaches a plain
     version: meta tensors are refused outright, and the launch counters
     stay at zero on the CPU path."""
-    from repro_torch.kernels.flash_attention import paged_flash_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, paged_flash_attention,
+    )
     from repro_torch.kernels.mpgemm import mpgemm, mpgemm_packed
     from repro_torch.packing.pack import pack_operand
 
     k1, k5 = mpgemm.launches, paged_flash_attention.launches
+    k4 = flash_attention.launches
     k2, k6 = mpgemm_packed.launches, pack_operand.launches
     a = torch.ones(2, 8)
     assert mpgemm(a, torch.ones(8, 4)).shape == (2, 4)
@@ -139,16 +142,25 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     with pytest.raises(ValueError, match="device"):
         paged_flash_attention(q.to("meta"), pages.to("meta"),
                               pages.to("meta"), *(t.to("meta") for t in args))
+    kv = torch.ones(1, 1, 5, 8)
+    assert flash_attention(q, kv, kv, causal=False).shape == q.shape
+    with pytest.raises(ValueError, match="device"):
+        flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
     assert (mpgemm.launches, paged_flash_attention.launches) == (k1, k5)
     assert (mpgemm_packed.launches, pack_operand.launches) == (k2, k6)
+    assert flash_attention.launches == k4
 
 
 def test_importing_the_kernels_builds_nothing():
-    """Kernels build at their first launch, never at import."""
+    """Kernels build at their first launch, never at import; K4's source is
+    among the ones ``build_all`` compiles."""
     r = _run(["-c", "import repro_torch.kernels.mpgemm, "
               "repro_torch.kernels.flash_attention, "
+              "repro_torch.models.attention, "
               "repro_torch.packing.params, "
               "repro_torch.kernels._build as b; "
+              "assert 'flash_attention' in b.KERNELS; "
+              "assert (b.CSRC / 'flash_attention.cu').is_file(); "
               "print(b.BUILD_DIR, b._loaded)"])
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("{}")
