@@ -38,7 +38,12 @@ printing a result:
    the gate GEMM), grouped K2 with int4 and bf16 payloads under bf16 A and
    int8 payloads under int8 A, each against its plain version; grouped K6
    packing every weight shape of the model (byte-equal), then all 72
-   expert stacks of a full-width model into int4, byte-equal;
+   expert stacks of a full-width model into int4, byte-equal; then K3
+   (``kernels/csrc/mpgemm_sparse.cu``) on tile-sparse weights built on the
+   card: phi3-mini's GEMMs at 50 % magnitude, bf16 A x bf16 tiles and
+   int8 A x int8 tiles with the activation scale, granite's attention
+   projections and (grouped) expert stacks under int8 N:M 2:4, and an
+   edge case with an empty column and a K tail, at M = 2 and 32;
 7. serving 4 requests through ``repro_torch.serve.engine.ServeEngine``:
    full-width phi3-mini-3.8b (random weights from a seed), dense bf16 (225
    K1 and 32 K5 launches per ``paged_step``), packed from the f32 draw by
@@ -49,9 +54,13 @@ printing a result:
    grouped K1, 24 K5 per step), packed int4 under bf16 and packed int8
    under int8 (96 K2, 72 grouped K2, 25 K1 -- routers and the tied head --
    and 24 K5 per step; 168 K6 launches at load), and dense int8 at 4
-   layers (21 K1 and 12 grouped K1 per step).  Every launch count of each
-   run is asserted, every logit is finite, and for each path one
-   full-width mixed step through the kernels agrees with the same step
+   layers (21 K1 and 12 grouped K1 per step); and the two tile-sparse
+   paths at full width: phi3-mini under bf16 at sparsity 0.5 by magnitude
+   (225 K3, 32 K5 and 0 K1 per step) and granite under int8 with N:M 2:4
+   (96 K3, 72 grouped K3, 25 K1, 24 K5 per step), each sparsified from
+   the f32 draw through K6 (225 and 168 launches at load).  Every launch
+   count of each run is asserted, every logit is finite, and for each path
+   one full-width mixed step through the kernels agrees with the same step
    through the plain versions; one two-row decode step of each path is
    timed on the host clock and traced with ``torch.profiler`` (the
    device's busy time and idle share, its ops by kind); then the wave
@@ -1067,6 +1076,133 @@ def phase_k6_grouped(torch, timer):
     return rows
 
 
+# ----------------------------------------------------------------- phase 6b
+
+SPARSE_BLOCKS = (128, 128)
+
+
+def _sparse_weight(torch, gen, shape, dtype, method):
+    """A tile-sparse operand built on the card from a random f32 weight;
+    ``method`` is "magnitude" (50 %), "nm" (2:4) or a keep-mask."""
+    from repro_torch.sparse import sparsify_magnitude, sparsify_nm, \
+        sparsify_with_mask
+
+    k, n = shape[-2:]
+    w = torch.randn(*shape, generator=gen, device="cuda") * \
+        (2.0 / (k + n)) ** 0.5
+    if not isinstance(method, str):
+        return sparsify_with_mask(w, SPARSE_BLOCKS, method, dtype=dtype)
+    if method == "nm":
+        return sparsify_nm(w, SPARSE_BLOCKS, n_keep=2, m_block=4, dtype=dtype)
+    return sparsify_magnitude(w, SPARSE_BLOCKS, density=0.5, dtype=dtype)
+
+
+def phase_k3(torch, timer):
+    """K3 (``kernels/csrc/mpgemm_sparse.cu``) against its plain version:
+    phi3-mini's GEMMs at 50 % magnitude (bf16 A x bf16 tiles, and int8 A x
+    int8 tiles with the activation scale), granite's attention projections
+    and expert stacks (grouped) under int8 N:M 2:4, an empty column and a
+    K tail.  Times per launch on a cold L2; bound from the stored-tile, A
+    and output bytes or the stored tiles' operations; the library time is
+    ``torch.matmul`` on the weight densified beforehand, plus the
+    epilogue."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, apply_epilogue
+    from repro_torch.core.policy import quantize_per_tensor
+    from repro_torch.kernels.mpgemm import (
+        mpgemm_sparse, mpgemm_sparse_grouped, mpgemm_sparse_plain,
+    )
+    from repro_torch.sparse import densify_operand
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = GRANITE_EXPERTS
+    # (step row, name, weight shape, kind, act, policy, pattern, per step)
+    cases = [("phi3-bf16", name, (k, n), kind, act, "bf16", "magnitude",
+              per_step) for name, k, n, kind, act, per_step in MAIN_SHAPES]
+    cases += [("phi3-int8", name, (k, n), kind, act, "int8", "magnitude",
+               per_step) for name, k, n, kind, act, per_step in MAIN_SHAPES]
+    cases += [("granite-int8", f"g-{name}", (k, n), "linear", None, "int8",
+               "nm", per_step)
+              for name, k, n, _, _, per_step in GRANITE_2D_SHAPES
+              if name in ("wq/wo", "wk/wv")]
+    cases += [("granite-grouped-int8", f"e-{name}", (g, k, n), kind, act,
+               "int8", "nm", per_step)
+              for name, k, n, kind, act, per_step in GROUPED_SHAPES]
+    # Edge cases: column tile 1 empty and a K tail (K = 3000 over 128).
+    keep = np.random.default_rng(0).random((24, 24)) < 0.5
+    keep[:, 1] = False
+    keep[-1, :] = True
+    cases += [(None, "edge", (3000, 3072), "residual", "gelu", pol, keep, 0)
+              for pol in ("bf16", "int8")]
+    steps = {row: StepSum() for row, *_ in cases if row}
+    for row, name, shape, kind, act, policy, method, per_step in cases:
+        grouped = len(shape) == 3
+        dtype = "int8" if policy == "int8" else "bfloat16"
+        b = _sparse_weight(torch, gen, shape, dtype, method)
+        lay = b.layout
+        out_dtype = f32 if grouped else bf16
+        w_lib = densify_operand(b, dtype=bf16)
+        k, n = shape[-2:]
+        ep = EpilogueSpec(kind=kind, activation=act)
+        wrapper = mpgemm_sparse_grouped if grouped else mpgemm_sparse
+        for m in (2, 32):
+            lead = (g, m) if grouped else (m,)
+            x = torch.randn(*lead, k, generator=gen, device="cuda").to(bf16)
+            xq, sx = quantize_per_tensor(x)
+            a, scale = (xq, sx) if policy == "int8" else (x, None)
+            extras = () if kind == "linear" else (
+                torch.randn(*lead, n, generator=gen,
+                            device="cuda").to(out_dtype),)
+            kw = dict(scale=scale, extras=extras, epilogue=ep,
+                      out_dtype=out_dtype)
+
+            def kern():
+                return wrapper(a, b, **kw)
+
+            def plain():
+                return mpgemm_sparse_plain(a, b, **kw)
+
+            def library():
+                acc = torch.matmul(x, w_lib)
+                return apply_epilogue(ep, acc.float(),
+                                      extras=extras).to(out_dtype)
+
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = _check_close(torch, f"K3 {name} m={m} {policy}", got, ref,
+                               TOL[_dtype_name(out_dtype)])
+            esz = a.element_size()
+            tile_bytes = lay.nnz * lay.bk * lay.bn * esz
+            scale_bytes = 4 * lay.nnz if lay.per_tile_scales else 0
+            out_bytes = got.numel() * got.element_size()
+            n_bytes = (tile_bytes + scale_bytes + a.numel() * esz
+                       + out_bytes * (1 + len(extras)))
+            n_ops = 2 * m * lay.nnz * lay.bk * lay.bn
+            peak = "int8" if policy == "int8" else "bfloat16"
+            bound, bound_by = _bound_ms(n_bytes, n_ops, peak)
+            ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+            print(f"[k3] {name:>8} {'x'.join(map(str, shape)):>14} m={m:<3} "
+                  f"{policy:>4} d={lay.density:.3f}: err {err:.2e}  kernel "
+                  f"{ms:.4f} ms  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
+                  f"bound {bound:.4f} ({bound_by})  "
+                  f"{n_bytes / ms / 1e6:.1f} GB/s")
+            if row:
+                steps[row].max_abs_err = max(steps[row].max_abs_err, err)
+                if m == 2:
+                    steps[row].add(per_step, ms, plain_ms, lib_ms, bound,
+                                   n_bytes, n_ops)
+        del b, w_lib
+    rows = {}
+    for row, st in steps.items():
+        r = rows[row] = st.row("int8" if "int8" in row else "bfloat16")
+        print(f"[k3] one full-width decode step, {row} (M=2, {st.launches} "
+              f"launches): kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms "
+              f"(densified beforehand), bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']})")
+    return rows
+
+
 # ------------------------------------------------------------------ phase 7
 
 def _counters():
@@ -1075,49 +1211,57 @@ def _counters():
     )
     from repro_torch.kernels.mpgemm import (
         mpgemm, mpgemm_grouped, mpgemm_packed, mpgemm_packed_grouped,
+        mpgemm_sparse, mpgemm_sparse_grouped,
     )
     from repro_torch.packing.pack import pack_operand
     return dict(k1=mpgemm, k1g=mpgemm_grouped, k2=mpgemm_packed,
-                k2g=mpgemm_packed_grouped, k4=flash_attention,
+                k2g=mpgemm_packed_grouped, k3=mpgemm_sparse,
+                k3g=mpgemm_sparse_grouped, k4=flash_attention,
                 k5=paged_flash_attention, k6=pack_operand)
 
 
-def _want_launches(cfg, pack, n_steps):
+def _want_launches(cfg, pack, n_steps, sparse=False):
     """Every launch count of a serve run: per ``paged_step`` each layer has
     4 attention projections, then 3 dense MLP GEMMs or (MoE) 1 f32 router
-    GEMM and 3 grouped expert GEMMs, plus the head; packing packs every
-    projection, MLP weight and expert stack (one launch each) and an
-    untied head, but never the router or a tied head (the embedding)."""
+    GEMM and 3 grouped expert GEMMs, plus the head.  Packing (K2) or
+    sparsifying (K3) covers every projection, MLP weight and expert stack
+    and an untied head, never the router or a tied head (the embedding),
+    and takes one K6 pack launch per weight at load."""
     n_layers, moe = cfg.n_layers, cfg.family == "moe"
     dense_2d = 1 if moe else 3            # router | gate, up, down
     grouped = 3 if moe else 0             # expert gate, up, down
-    head_packed = pack and not cfg.tie_embeddings
-    if pack:
-        per_step = dict(
-            k1=n_layers * (1 if moe else 0) + (0 if head_packed else 1),
-            k2=n_layers * (4 if moe else 4 + dense_2d) + int(head_packed),
-            k1g=0, k2g=n_layers * grouped)
+    head_done = (pack or sparse) and not cfg.tie_embeddings
+    per_step = dict(k1=0, k1g=0, k2=0, k2g=0, k3=0, k3g=0)
+    if pack or sparse:
+        fmt = "k2" if pack else "k3"
+        per_step.update({
+            "k1": n_layers * (1 if moe else 0) + (0 if head_done else 1),
+            fmt: n_layers * (4 if moe else 4 + dense_2d) + int(head_done),
+            fmt + "g": n_layers * grouped})
     else:
-        per_step = dict(k1=n_layers * (4 + dense_2d) + 1, k2=0,
-                        k1g=n_layers * grouped, k2g=0)
+        per_step.update(k1=n_layers * (4 + dense_2d) + 1,
+                        k1g=n_layers * grouped)
     want = {k: v * n_steps for k, v in per_step.items()}
     want["k4"] = 0
     want["k5"] = n_layers * n_steps
-    want["k6"] = (n_layers * (4 + (3 if moe else dense_2d)) + int(head_packed)
-                  if pack else 0)
+    want["k6"] = (n_layers * (4 + (3 if moe else dense_2d)) + int(head_done)
+                  if pack or sparse else 0)
     return want, per_step
 
 
 def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
-                pack=False, pack_format=None, n_layers=None):
+                pack=False, pack_format=None, n_layers=None, sparsity=0.0,
+                sparsity_method="magnitude"):
     """Serve 4 requests through the engine; every launch count of the run
-    (packing at load included) must be what the path needs."""
+    (packing or sparsifying at load included) must be what the path
+    needs."""
     import dataclasses
 
     from repro_torch.configs import base as cb
     from repro_torch.models.transformer import build_model
     from repro_torch.packing.params import packed_param_bytes
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sparse import sparse_param_bytes, sparse_param_density
 
     cfg = cb.get(arch)
     if n_layers is not None:
@@ -1128,20 +1272,29 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        pack=pack, pack_format=pack_format)
+                        pack=pack, pack_format=pack_format, sparsity=sparsity,
+                        sparsity_method=sparsity_method)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     dense = sum(t.numel() * t.element_size() for t in _leaves(params)
                 if isinstance(t, torch.Tensor))
-    payload = packed_param_bytes(params)
-    packing = (f", packed {pack_format or 'at the policy dtype'}" if pack
-               else "")
+    payload = packed_param_bytes(params) + sparse_param_bytes(params)
+    how = ""
+    if pack:
+        how = f", packed {pack_format or 'at the policy dtype'}"
+    elif sparsity:
+        how = (f", tile-sparse {sparsity_method} at sparsity {sparsity} "
+               f"(tile density {sparse_param_density(params):.4f}, "
+               f"{SPARSE_BLOCKS[0]} x {SPARSE_BLOCKS[1]} tiles)")
+    kind = "sparse" if sparsity else "packed"
+    peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[serve:{label}] {cfg.name}, {n_layers} layers, policy {policy}"
-          f"{packing}: {payload / 1e9:.3f} GB packed payload + "
+          f"{how}: {payload / 1e9:.3f} GB {kind} payload + "
           f"{dense / 1e9:.3f} GB dense tensors, initialised on the card in "
-          f"{t_init:.3f} s")
+          f"{t_init:.3f} s ({peak:.2f} GB allocated at the peak)")
 
     step_calls, finite = [], []
     inner = model.paged_step
@@ -1166,7 +1319,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     counts = {name: fn.launches for name, fn in counters.items()}
     del model.paged_step
     n_steps = len(step_calls)
-    want, per_step = _want_launches(cfg, pack, n_steps)
+    want, per_step = _want_launches(cfg, pack, n_steps, sparse=sparsity > 0)
     n_tok = sum(len(v) for v in out.values())
     decode = [s.wall_s for s in eng.step_telemetry if s.phase == "decode"]
     prefill = [s.wall_s for s in eng.step_telemetry if s.phase != "decode"]
@@ -1178,6 +1331,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
           f"{1e3 * np.median(decode):.2f} ms")
     print(f"[serve:{label}] launches: K1 {counts['k1']}, grouped K1 "
           f"{counts['k1g']}, K2 {counts['k2']}, grouped K2 {counts['k2g']}, "
+          f"K3 {counts['k3']}, grouped K3 {counts['k3g']}, "
           f"K5 {counts['k5']} ({n_steps} steps x {per_step} and "
           f"{n_layers} attention layers), K6 {counts['k6']} at load")
     # eos (id 1) may end a request early; every request must finish.
@@ -1189,7 +1343,8 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
         raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                  steps=n_steps, payload_gb=payload / 1e9,
-                 decode_step_ms=1e3 * float(np.median(decode)), **counts)
+                 decode_step_ms=1e3 * float(np.median(decode)),
+                 ttft_ms=1e3 * float(np.median(prefill)), **counts)
     serve["logit_err"] = _kernel_vs_plain_step(torch, model, params, label)
     args = _decode_args(torch, model)
 
@@ -1224,9 +1379,12 @@ def _plain_versions(enabled=True):
     from repro_torch.kernels.flash_attention import (
         flash_attention_plain, paged_flash_attention_plain,
     )
-    from repro_torch.kernels.mpgemm import mpgemm_packed_plain, mpgemm_plain
+    from repro_torch.kernels.mpgemm import (
+        mpgemm_packed_plain, mpgemm_plain, mpgemm_sparse_plain,
+    )
     from repro_torch.models import attention as attn_mod
     from repro_torch.packing.layout import PackedOperand
+    from repro_torch.sparse import TileSparseOperand
 
     if not enabled:
         yield
@@ -1236,6 +1394,8 @@ def _plain_versions(enabled=True):
         out_dtype = out_dtype or spec.out_dtype
         if isinstance(b, PackedOperand):
             return mpgemm_packed_plain(a, b, out_dtype=out_dtype, **kw)
+        if isinstance(b, TileSparseOperand):
+            return mpgemm_sparse_plain(a, b, out_dtype=out_dtype, **kw)
         return mpgemm_plain(a, b, trans_b=spec.trans_b, out_dtype=out_dtype,
                             **kw)
 
@@ -1326,7 +1486,8 @@ def _decode_step_times(torch, step, steps=5):
 
 
 # Device kernels by name, as the profiler reports them (demangled).
-TRACE_KERNELS = (("mpgemm_packed_kernel", "K2"), ("mpgemm_int8_kernel", "K1"),
+TRACE_KERNELS = (("mpgemm_sparse", "K3"),
+                 ("mpgemm_packed_kernel", "K2"), ("mpgemm_int8_kernel", "K1"),
                  ("mpgemm_kernel", "K1"), ("paged_flash_kernel", "K5"),
                  ("flash_kernel", "K4"), ("pack_kernel", "K6"))
 
@@ -1636,6 +1797,7 @@ def main():
     k1g = phase_k1_grouped(torch, timer)
     k2g = phase_k2_grouped(torch, timer)
     k6g = phase_k6_grouped(torch, timer)
+    k3 = phase_k3(torch, timer)
     del timer
     serves = {}
     granite = "granite-moe-1b-a400m"
@@ -1644,12 +1806,16 @@ def main():
             ("int4", dict(pack=True, pack_format="int4")),
             ("int8", dict(policy="int8", pack=True)),
             ("int8-dense", dict(policy="int8", n_layers=4)),
+            ("phi3-sparse-bf16", dict(sparsity=0.5)),
             ("granite-bf16", dict(arch=granite)),
             ("granite-int4", dict(arch=granite, pack=True,
                                   pack_format="int4")),
             ("granite-int8", dict(arch=granite, policy="int8", pack=True)),
             ("granite-int8-dense", dict(arch=granite, policy="int8",
-                                        n_layers=4))):
+                                        n_layers=4)),
+            ("granite-sparse-int8", dict(arch=granite, policy="int8",
+                                         sparsity=0.5,
+                                         sparsity_method="nm"))):
         serves[label] = phase_serve(torch, label=label, **kw)
         gc.collect()              # free each path's weights before the next
         torch.cuda.empty_cache()
@@ -1727,6 +1893,16 @@ def main():
         row("K4 flash_attention (phi3-mini wave prefill: 32 causal, D 96)",
             "flash_attention.cu", fa4, waves["phi3"]["k4"],
             k4["phi3-prefill"]),
+        row("K3 mpgemm_sparse (phi3-mini, 50 % magnitude, bf16 A x bf16 "
+            "tiles)", "mpgemm_sparse.cu", f"{mp}:181",
+            serves["phi3-sparse-bf16"]["k3"], k3["phi3-bf16"]),
+        row("K3 mpgemm_sparse at granite's attention (N:M 2:4, int8 A x int8 "
+            "tiles)", "mpgemm_sparse.cu", f"{mp}:181",
+            serves["granite-sparse-int8"]["k3"], k3["granite-int8"]),
+        row("K3 mpgemm_sparse_grouped (granite experts, N:M 2:4, int8 A x "
+            "int8 tiles)", "mpgemm_sparse.cu", f"{mp}:181",
+            serves["granite-sparse-int8"]["k3g"],
+            k3["granite-grouped-int8"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")

@@ -86,3 +86,20 @@ def get(name: str, smoke: bool = False) -> ArchConfig:
             f"architecture {name!r} is not ported yet; ported: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def segment_pattern(pattern):
+    """-> (unit, n_units, remainder): smallest unit P<=8 such that the
+    pattern is unit-periodic with a unit-prefix remainder (the reference's
+    layer stacking: it unstacks the reference's parameters, and its stacks
+    are the groups of layers that share one sparsity pattern)."""
+    L = len(pattern)
+    for p in range(1, min(8, L) + 1):
+        n_units = L // p
+        if n_units == 0:
+            continue
+        if all(pattern[i] == pattern[i % p] for i in range(n_units * p)):
+            rem = pattern[n_units * p:]
+            if all(rem[i] == pattern[i] for i in range(len(rem))):
+                return pattern[:p], n_units, rem
+    return pattern, 1, ()

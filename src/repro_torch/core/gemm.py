@@ -21,12 +21,20 @@ versions for CPU tensors:
   ``sx`` in the scale slot, and an fp8 payload under int8 takes bf16 ``x``
   (there is no int8 x fp8 product).  A float payload under int8 is
   unpacked and re-quantized like a dense weight, which on the card would
-  need K7 (the training slice), so it raises there.
+  need K7 (the training slice), so it raises there;
+* tile-sparse ``b`` (:class:`~repro_torch.sparse.layout.TileSparseOperand`):
+  only the stored tiles are read (K3) -- a float payload takes ``x`` in
+  the compute dtype (the payload cast to it, a no-op when sparsified under
+  the same policy), an int8 payload under int8 takes per-tensor-quantized
+  ``x`` with ``sx`` in the scale slot.  A float payload under int8 is
+  densified (plain torch ops, zeros at the pruned tiles) and takes the
+  dense int8 path (K1), as in the reference.  An int8 payload under a
+  float policy would need a float-A x int8 K3, which is not ported: it
+  raises on every device.
 
 Serving needs no backward pass, so this is a plain function; the custom
 ``torch.autograd.Function`` with fused-transpose backward GEMMs comes with
-the training slice.  Tile-sparse ``b`` and ``quant_in`` raise until their
-slices.
+the training slice.  ``quant_in`` raises until its slice.
 """
 from __future__ import annotations
 
@@ -41,6 +49,8 @@ from repro_torch.core.policy import PrecisionPolicy, get_policy, \
 from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
 from repro_torch.packing.layout import PackedOperand
 from repro_torch.packing.pack import unpack_operand
+from repro_torch.sparse.layout import TileSparseOperand
+from repro_torch.sparse.sparsify import densify_operand
 
 
 def _build_epilogue(epilogue, activation, gate, residual, epilogue_operands):
@@ -65,6 +75,19 @@ def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
     gemm = mpgemm_grouped if grouped else mpgemm
     kw = dict(bias=bias, extras=extras, epilogue=epilogue,
               out_dtype=out_dtype)
+    if isinstance(w, TileSparseOperand):
+        if not policy.quantized or w.layout.per_tile_scales:
+            spec = GemmSpec(grouped=grouped, sparse=True,
+                            out_dtype=out_dtype)
+            if policy.quantized:
+                xq, sx = quantize_per_tensor(x)
+                return gemm(xq.contiguous(), w, scale=sx, spec=spec, **kw)
+            return gemm(x.to(policy.compute).contiguous(),
+                        w.astype(policy.compute), spec=spec, **kw)
+        # A float payload under the dynamic-int8 policy: per-tensor weight
+        # quantization needs the dense weight (zeros at the pruned tiles).
+        w = densify_operand(w)
+        trans_w = False
     if isinstance(w, PackedOperand):
         layout = w.layout
         if layout.per_tile_scales or not policy.quantized:
@@ -111,31 +134,31 @@ def mp_dot(
 ) -> torch.Tensor:
     """y[..., n] = tail(x[..., k] @ (b[n, k]ᵀ if trans_w else b[k, n]) + bias).
 
-    ``b`` is a dense tensor or a :class:`PackedOperand`, whose ``trans_w``
-    must match the one it was packed with (the transpose is resolved at
-    pack time).  ``activation`` fuses an activation into the GEMM's store;
-    ``gate`` fuses ``act(·) · gate`` and ``residual`` fuses
-    ``act(·) + residual`` (both shaped like the output).  A dense weight
-    already in the compute dtype (cast once at load time) is used as it is.
+    ``b`` is a dense tensor, a :class:`PackedOperand` or a
+    :class:`TileSparseOperand`, whose ``trans_w`` must match the one it
+    was made with (the transpose is resolved at pack / sparsify time).
+    ``activation`` fuses an activation into the GEMM's store; ``gate``
+    fuses ``act(·) · gate`` and ``residual`` fuses ``act(·) + residual``
+    (both shaped like the output).  A dense weight already in the compute
+    dtype (cast once at load time) is used as it is.
     """
     if quant_in:
         raise NotImplementedError("quant_in (per-token activation "
                                   "quantization) is not ported yet")
-    if isinstance(b, PackedOperand):
+    if isinstance(b, (PackedOperand, TileSparseOperand)):
         if b.layout.g != 1:
-            raise ValueError("grouped PackedOperand: use mp_dot_grouped")
+            raise ValueError(f"grouped {type(b).__name__}: use "
+                             "mp_dot_grouped")
         if trans_w != b.layout.trans_w:
             raise ValueError(
-                f"trans_w={trans_w} but the operand was packed with "
-                f"trans_w={b.layout.trans_w} (transposition is resolved at "
-                "pack time)")
+                f"trans_w={trans_w} but the operand was made with "
+                f"trans_w={b.layout.trans_w} (transposition is resolved "
+                "when it is packed or sparsified)")
         n = b.layout.n
     elif isinstance(b, torch.Tensor):
         n = b.shape[0] if trans_w else b.shape[-1]
     else:
-        raise NotImplementedError(
-            f"mp_dot: {type(b).__name__} operands (tile-sparse) are not "
-            "ported yet")
+        raise TypeError(f"mp_dot: unsupported operand {type(b).__name__}")
     policy = get_policy(policy)
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
@@ -169,9 +192,10 @@ def mp_dot_grouped(
     b[g, k, n]) + bias[g, n]): G independent GEMMs in one launch.
 
     ``b`` is a dense (G, K, N) tensor or a grouped :class:`PackedOperand`
-    (``layout.g == G``, ``trans_w`` as packed).  ``bias`` is (G, N), or
-    one (N,) row that every group adds (the reference broadcasts it to
-    (G, N); the kernels read it with a group stride of 0).  ``gate`` and
+    or :class:`TileSparseOperand` (``layout.g == G``, ``trans_w`` as
+    made).  ``bias`` is (G, N), or one (N,) row that every group adds
+    (the reference broadcasts it to (G, N); the kernels read it with a
+    group stride of 0).  ``gate`` and
     ``residual`` are (G, M, N).  ``group_sizes`` (G,) marks ragged groups:
     rows ``>= group_sizes[g]`` of each output group are zero.
     ``out_dtype`` overrides the policy's output dtype (MoE keeps the
@@ -181,22 +205,21 @@ def mp_dot_grouped(
         raise ValueError(f"mp_dot_grouped expects x of rank 3, got "
                          f"{tuple(x.shape)}")
     g = x.shape[0]
-    if isinstance(b, PackedOperand):
+    if isinstance(b, (PackedOperand, TileSparseOperand)):
         if b.layout.g != g:
             raise ValueError(f"group mismatch: x has {g}, payload "
                              f"{b.layout.g}")
         if trans_w != b.layout.trans_w:
             raise ValueError(
-                f"trans_w={trans_w} but the operand was packed with "
+                f"trans_w={trans_w} but the operand was made with "
                 f"trans_w={b.layout.trans_w}")
     elif isinstance(b, torch.Tensor):
         if b.dim() != 3 or b.shape[0] != g:
             raise ValueError(f"mp_dot_grouped: b must be ({g}, ., .), got "
                              f"{tuple(b.shape)}")
     else:
-        raise NotImplementedError(
-            f"mp_dot_grouped: {type(b).__name__} operands (tile-sparse) are "
-            "not ported yet")
+        raise TypeError(
+            f"mp_dot_grouped: unsupported operand {type(b).__name__}")
     policy = get_policy(policy)
     epilogue, extras = _build_epilogue(epilogue, activation, gate, residual,
                                        epilogue_operands)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (git
-ignores ``build/``).  The hash covers the source and the flags, so an
-edited source never loads a stale library.  Nothing here runs at import:
+ignores ``build/``); the MPGEMM sources share ``csrc/gemm_epilogue.cuh``.
+The hash covers the source, the headers and the flags, so an edited
+source never loads a stale library.  Nothing here runs at import:
 the first wrapper call on a CUDA tensor builds what it needs, and
 :func:`build_all` builds every kernel at once, one nvcc process per source,
 all started together.
@@ -23,8 +24,8 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("mpgemm", "mpgemm_packed", "pack", "paged_flash",
-           "flash_attention")
+KERNELS = ("mpgemm", "mpgemm_packed", "mpgemm_sparse", "pack",
+           "paged_flash", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -51,7 +52,10 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # The hash covers the shared headers too: an edited header rebuilds
+    # every kernel that may include it.
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -51,16 +51,9 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "gemm_epilogue.cuh"
+
 namespace {
-
-enum { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2 };
-enum { KIND_LINEAR = 0, KIND_GATED = 1, KIND_RESIDUAL = 2 };
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU_TANH = 3 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -69,21 +62,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case ACT_RELU:
-      return fmaxf(x, 0.f);
-    case ACT_SILU:
-      return x / (1.f + expf(-x));
-    case ACT_GELU_TANH: {
-      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
-    }
-    default:
-      return x;
-  }
 }
 
 // Thread (ty, tx) owns rows ty + i * TY and columns tx + j * TX of the tile:
@@ -224,12 +202,6 @@ cudaError_t launch_trans(int trans_b, const void* a, const void* b, void* out,
 // The int8 variant: the loop above over int32 staging and an exact int32
 // sum; the output (and the gate / residual operand, of the output's dtype)
 // is f32 or bf16, chosen at run time.
-__device__ __forceinline__ float load_out(const void* p, size_t i, int dt) {
-  return dt == DT_BF16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-             : static_cast<const float*>(p)[i];
-}
-
 template <int BM, int BN, int BK, int TM, int TN, bool TRANS_B>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 mpgemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
@@ -304,18 +276,8 @@ mpgemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + j * TX;
       if (gn >= N) continue;
-      const size_t o = (size_t)gm * N + gn;
-      float v = static_cast<float>(acc[i][j]);
-      if (scale != nullptr) v *= *scale;
-      if (alpha != 1.f) v *= alpha;
-      if (bias != nullptr) v += bias[gn];
-      v = activate(v, act);
-      if (kind == KIND_GATED) v *= load_out(extra, o, out_dt);
-      else if (kind == KIND_RESIDUAL) v += load_out(extra, o, out_dt);
-      if (out_dt == DT_BF16)
-        static_cast<__nv_bfloat16*>(C)[o] = __float2bfloat16_rn(v);
-      else
-        static_cast<float*>(C)[o] = v;
+      epilogue_store(static_cast<float>(acc[i][j]), (size_t)gm * N + gn, gn,
+                     C, bias, extra, scale, out_dt, kind, act, alpha);
     }
   }
 }

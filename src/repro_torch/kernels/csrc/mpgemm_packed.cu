@@ -51,39 +51,15 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "gemm_epilogue.cuh"
+
 namespace {
 
-enum { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2 };
 enum { P_F32 = 0, P_BF16 = 1, P_INT8 = 2, P_INT4 = 3, P_FP8 = 4 };
-enum { KIND_LINEAR = 0, KIND_GATED = 1, KIND_RESIDUAL = 2 };
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU_TANH = 3 };
 
 constexpr int kCols = 32;   // output columns per block, one per lane
 constexpr int kWarps = 8;   // K-tile groups per block
 constexpr int kThreads = kCols * kWarps;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case ACT_RELU:
-      return fmaxf(x, 0.f);
-    case ACT_SILU:
-      return x / (1.f + expf(-x));
-    case ACT_GELU_TANH: {
-      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
-    }
-    default:
-      return x;
-  }
-}
 
 // Integer element (r, c) of an int8 or int4 payload tile.
 template <int P>
@@ -216,22 +192,8 @@ mpgemm_packed_kernel(const AT* __restrict__ A,
     float v = red[0][i][cc];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) v += red[w][i][cc];
-    const size_t idx = (size_t)gm * N + col;
-    if (scale != nullptr) v *= *scale;
-    if (alpha != 1.f) v *= alpha;
-    if (bias != nullptr) v += bias[col];
-    v = activate(v, act);
-    if (kind != KIND_LINEAR) {
-      const float e =
-          out_dt == DT_BF16
-              ? __bfloat162float(static_cast<const __nv_bfloat16*>(extra)[idx])
-              : static_cast<const float*>(extra)[idx];
-      v = kind == KIND_GATED ? v * e : v + e;
-    }
-    if (out_dt == DT_BF16)
-      static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
-    else
-      static_cast<float*>(out)[idx] = v;
+    epilogue_store(v, (size_t)gm * N + col, col, out, bias, extra, scale,
+                   out_dt, kind, act, alpha);
   }
 }
 

@@ -1,0 +1,356 @@
+// K3: the tile-sparse mixed-precision GEMM with a fused epilogue, 2-D or
+// grouped, for sm_90a.
+//
+// Replaces the TPU kernel src/repro/kernels/mpgemm.py::make_gemm_kernel
+// (`sparse_kernel`), launched by _launch_sparse for a TileSparseOperand B
+// (2-D, or grouped for the MoE expert stacks).  Computes, for every output
+// column c of the g * nnb tile columns (group g = c / nnb, n-tile j =
+// c % nnb),
+//
+//     out[g][:, j] = tail(alpha * (sum over t in [indptr[c], indptr[c+1])
+//                         of A[g][:, indices[t]] @ payload[t]) * scale
+//                         + bias[g][j])
+//
+// with A (G, M, K) row-major, payload[nnz + 1][bk][bn] the stored tiles in
+// column-major order (repro_torch/sparse/layout.py; tile t belongs to the
+// column whose indptr range holds t, at k-tile indices[t]), and
+//
+//   bf16 A x bf16 tiles, f32 A x f32 tiles: an f32 sum;
+//   int8 A x int8 tiles: an exact int32 partial over each tile's bk rows,
+//       then acc += float(partial) * tile_scale[t], so the f32 sum sees the
+//       reference's tile boundaries.
+//
+// The reference walks a schedule with first / last flags and gives an
+// empty column one "anchor" visit of the trailing zero tile; here a block
+// owns its column, so an empty column is a loop that runs no iteration and
+// the epilogue runs on a zero sum (the zero tile is never read).  Payload
+// tiles are zero-padded past K and N, so only A's K edge needs a mask: the
+// tile at k-tile nkb - 1 reads min(bk, K - k0) rows of A, never past K, and
+// stores past M and N are masked.  `scale` (the int8 policy's per-tensor
+// sx) is one f32 in device memory; the epilogue is gemm_epilogue.cuh's.
+//
+// What bounds it on an H100: decode (M = 2) and chunked prefill (M <= 32)
+// read every stored tile once per call, so bytes over the 3.35 TB/s of HBM:
+// at 50 % tile density, half of K1's weight bytes.  Design, simple first,
+// with a block per (column slice of one tile column c, rows) that reads
+// indptr and indices from device memory and walks the column's stored
+// tiles; a column's stored-tile count sets its block's work, so a skewed
+// pattern is load-imbalanced.  Two loops:
+//
+//   M <= 4 (decode): K2's loop over the stored tiles instead of all K
+//       tiles -- 32 columns a block, one per lane; each of the 8 warps
+//       takes every 8th stored tile, so a warp's payload loads are 32
+//       consecutive elements of a tile row and its A loads are
+//       broadcasts; the 8 partial sums meet in shared memory once, in
+//       warp order;
+//   M > 4 (chunked prefill, M = 32): K1's loop -- a 32 x 64 output tile a
+//       block, each stored tile staged 32 rows at a time through shared
+//       memory (A and payload), 2 x 4 outputs a thread; K2's loop would
+//       issue one global load of A per multiply-add at M = 32.
+//
+// Known gaps, for later work: no 16-byte loads, no tensor cores, no split
+// over a long column.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+#include "gemm_epilogue.cuh"
+
+namespace {
+
+constexpr int kCols = 32;   // output columns per block, one per lane
+constexpr int kWarps = 8;   // stored-tile groups per block
+constexpr int kThreads = kCols * kWarps;
+
+// The decode loop (M <= BM = 4).  T is the element type of A and of the
+// payload (bf16, f32 or int8).
+template <typename T, int BM>
+__global__ void __launch_bounds__(kThreads)
+mpgemm_sparse_kernel(const T* __restrict__ A, const T* __restrict__ payload,
+                     const float* __restrict__ tile_scales,
+                     const int* __restrict__ indptr,
+                     const int* __restrict__ indices,
+                     void* __restrict__ out, const float* __restrict__ bias,
+                     const void* __restrict__ extra,
+                     const float* __restrict__ scale, int M, int N, int K,
+                     int bk, int bn, int nnb, int nsub, int bias_stride,
+                     int out_dt, int kind, int act, float alpha) {
+  constexpr bool kIntDot = std::is_same<T, int8_t>::value;
+  const int lane = threadIdx.x % kCols;
+  const int warp = threadIdx.x / kCols;
+  const int c = blockIdx.x / nsub;                 // output tile column
+  const int g = c / nnb, j = c % nnb;
+  const int col0 = (blockIdx.x % nsub) * kCols;    // first column in tile
+  const int cc = col0 + lane;
+  const int gn = j * bn + cc;
+  const int m0 = blockIdx.y * BM;
+  const int mrows = min(BM, M - m0);
+
+  const size_t out_bytes = out_dt == DT_BF16 ? 2 : 4;
+  A += (size_t)g * M * K;
+  out = static_cast<char*>(out) + (size_t)g * M * N * out_bytes;
+  if (extra != nullptr)
+    extra = static_cast<const char*>(extra) + (size_t)g * M * N * out_bytes;
+  if (bias != nullptr) bias += (size_t)g * bias_stride;
+
+  float acc[BM];
+#pragma unroll
+  for (int i = 0; i < BM; ++i) acc[i] = 0.f;
+
+  if (cc < bn && gn < N) {
+    const int lo = indptr[c], hi = indptr[c + 1];
+    for (int t = lo + warp; t < hi; t += kWarps) {
+      const T* tile = payload + (size_t)t * bk * bn + cc;
+      const int k0 = indices[t] * bk;
+      const int rows = min(bk, K - k0);
+      const T* a0 = A + (size_t)m0 * K + k0;
+      if constexpr (kIntDot) {
+        int part[BM];
+#pragma unroll
+        for (int i = 0; i < BM; ++i) part[i] = 0;
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r) {
+          const int q = tile[(size_t)r * bn];
+#pragma unroll
+          for (int i = 0; i < BM; ++i)
+            if (i < mrows)
+              part[i] += static_cast<int>(a0[(size_t)i * K + r]) * q;
+        }
+        const float ts = tile_scales[t];
+#pragma unroll
+        for (int i = 0; i < BM; ++i)
+          acc[i] = __fadd_rn(acc[i],
+                             __fmul_rn(static_cast<float>(part[i]), ts));
+      } else {
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r) {
+          const float w = to_f32(tile[(size_t)r * bn]);
+#pragma unroll
+          for (int i = 0; i < BM; ++i)
+            if (i < mrows)
+              acc[i] = fmaf(to_f32(a0[(size_t)i * K + r]), w, acc[i]);
+        }
+      }
+    }
+  }
+
+  // The kWarps partial sums of each output meet here, added in warp order.
+  __shared__ float red[kWarps][BM][kCols];
+#pragma unroll
+  for (int i = 0; i < BM; ++i) red[warp][i][lane] = acc[i];
+  __syncthreads();
+  for (int o = threadIdx.x; o < BM * kCols; o += kThreads) {
+    const int i = o / kCols, l = o % kCols;
+    const int gm = m0 + i, col = j * bn + col0 + l;
+    if (gm >= M || col0 + l >= bn || col >= N) continue;
+    float v = red[0][i][l];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += red[w][i][l];
+    epilogue_store(v, (size_t)gm * N + col, col, out, bias, extra, scale,
+                   out_dt, kind, act, alpha);
+  }
+}
+
+// An element widened for the product: int for int8, else f32.
+template <typename S, typename T>
+__device__ __forceinline__ S widen(T x) {
+  if constexpr (std::is_same<S, int>::value) return static_cast<int>(x);
+  else return to_f32(x);
+}
+
+// The chunked-prefill loop (M > 4): a BM x BN output tile of one tile
+// column, each stored tile staged BK rows at a time, TM x TN outputs a
+// thread; int8 sums each tile exactly in int32 before its scale.
+template <typename T, int BM, int BN, int BK, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+mpgemm_sparse_tiled_kernel(const T* __restrict__ A,
+                           const T* __restrict__ payload,
+                           const float* __restrict__ tile_scales,
+                           const int* __restrict__ indptr,
+                           const int* __restrict__ indices,
+                           void* __restrict__ out,
+                           const float* __restrict__ bias,
+                           const void* __restrict__ extra,
+                           const float* __restrict__ scale, int M, int N,
+                           int K, int bk, int bn, int nnb, int nsub,
+                           int bias_stride, int out_dt, int kind, int act,
+                           float alpha) {
+  constexpr bool kIntDot = std::is_same<T, int8_t>::value;
+  using S = typename std::conditional<kIntDot, int, float>::type;
+  constexpr int TX = BN / TN;
+  constexpr int TY = BM / TM;
+  constexpr int NT = TX * TY;
+  __shared__ S As[BK][BM + 1];
+  __shared__ S Bs[BK][BN + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int c = blockIdx.x / nsub;                 // output tile column
+  const int g = c / nnb, j = c % nnb;
+  const int col0 = (blockIdx.x % nsub) * BN;       // first column in tile
+  const int m0 = blockIdx.y * BM;
+
+  const size_t out_bytes = out_dt == DT_BF16 ? 2 : 4;
+  A += (size_t)g * M * K;
+  out = static_cast<char*>(out) + (size_t)g * M * N * out_bytes;
+  if (extra != nullptr)
+    extra = static_cast<const char*>(extra) + (size_t)g * M * N * out_bytes;
+  if (bias != nullptr) bias += (size_t)g * bias_stride;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) acc[i][jj] = 0.f;
+
+  const int lo = indptr[c], hi = indptr[c + 1];
+  for (int t = lo; t < hi; ++t) {
+    const T* tile = payload + (size_t)t * bk * bn;
+    const int k0 = indices[t] * bk;
+    const int rows = min(bk, K - k0);
+    int part[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) part[i][jj] = 0;
+    for (int kc = 0; kc < rows; kc += BK) {
+      // A rows m0.., K columns k0 + kc..: consecutive threads walk K.
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int mm = e / BK, kk = e % BK;
+        const int gm = m0 + mm, r = kc + kk;
+        As[kk][mm] = (gm < M && r < rows)
+                         ? widen<S>(A[(size_t)gm * K + k0 + r]) : S(0);
+      }
+      // Payload rows kc.., columns col0..: consecutive threads walk N.
+      for (int e = tid; e < BK * BN; e += NT) {
+        const int kk = e / BN, nn = e % BN;
+        const int r = kc + kk, cc = col0 + nn;
+        Bs[kk][nn] = (r < rows && cc < bn)
+                         ? widen<S>(tile[(size_t)r * bn + cc]) : S(0);
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) {
+        S a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) b[jj] = Bs[kk][tx + jj * TX];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int jj = 0; jj < TN; ++jj) {
+            if constexpr (kIntDot) part[i][jj] += a[i] * b[jj];
+            else acc[i][jj] = fmaf(a[i], b[jj], acc[i][jj]);
+          }
+      }
+      __syncthreads();
+    }
+    if constexpr (kIntDot) {
+      const float ts = tile_scales[t];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj)
+          acc[i][jj] = __fadd_rn(
+              acc[i][jj], __fmul_rn(static_cast<float>(part[i][jj]), ts));
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty + i * TY;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int cc = col0 + tx + jj * TX;
+      const int col = j * bn + cc;
+      if (cc >= bn || col >= N) continue;
+      epilogue_store(acc[i][jj], (size_t)gm * N + col, col, out, bias, extra,
+                     scale, out_dt, kind, act, alpha);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_rows(const void* a, const void* payload, const float* ts,
+                        const int* indptr, const int* indices, void* out,
+                        const float* bias, const void* extra,
+                        const float* scale, int g, int m, int n, int k,
+                        int bk, int bn, int bias_stride, int out_dt, int kind,
+                        int act, float alpha, cudaStream_t stream) {
+  const T* A = static_cast<const T*>(a);
+  const T* P = static_cast<const T*>(payload);
+  const int nnb = (n + bn - 1) / bn;
+  if (m <= 4) {
+    constexpr int BM = 4;
+    const int nsub = (bn + kCols - 1) / kCols;
+    const long long nblocks = (long long)g * nnb * nsub;
+    if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const dim3 grid((unsigned)nblocks, (m + BM - 1) / BM);
+    mpgemm_sparse_kernel<T, BM><<<grid, kThreads, 0, stream>>>(
+        A, P, ts, indptr, indices, out, bias, extra, scale, m, n, k, bk, bn,
+        nnb, nsub, bias_stride, out_dt, kind, act, alpha);
+  } else {
+    constexpr int BM = 32, BN = 64, BK = 32, TM = 2, TN = 4;
+    const int nsub = (bn + BN - 1) / BN;
+    const long long nblocks = (long long)g * nnb * nsub;
+    if (nblocks > 0x7fffffffLL || (m + BM - 1) / BM > 65535)
+      return cudaErrorInvalidValue;
+    const dim3 grid((unsigned)nblocks, (m + BM - 1) / BM);
+    mpgemm_sparse_tiled_kernel<T, BM, BN, BK, TM, TN>
+        <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+            A, P, ts, indptr, indices, out, bias, extra, scale, m, n, k, bk,
+            bn, nnb, nsub, bias_stride, out_dt, kind, act, alpha);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K3 on `stream` over `g` groups (1 for a 2-D GEMM); returns the
+// cudaError_t of the launch (0 = ok).  dt: 0 f32, 1 bf16, 2 int8 -- the
+// dtype of A and of the payload alike; out_dt: 0 f32, 1 bf16.
+// `tile_scales` is (nnz + 1) f32 for an int8 payload; `indptr` (g * nnb +
+// 1) and `indices` (nnz) are int32 in device memory; `bias`, `extra` and
+// `scale` may be null; `bias_stride` is N for a (G, N) bias and 0 for a
+// shared (N,) one; `extra` has the output's dtype.
+int mpgemm_sparse_launch(const void* a, const void* payload,
+                         const void* tile_scales, const void* indptr,
+                         const void* indices, void* out, const void* bias,
+                         const void* extra, const void* scale, int g, int m,
+                         int n, int k, int bk, int bn, int bias_stride,
+                         int dt, int out_dt, int kind, int act, float alpha,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ts = static_cast<const float*>(tile_scales);
+  const int* ip = static_cast<const int*>(indptr);
+  const int* ix = static_cast<const int*>(indices);
+  const float* bi = static_cast<const float*>(bias);
+  const float* sc = static_cast<const float*>(scale);
+  if (out_dt != DT_F32 && out_dt != DT_BF16) return cudaErrorInvalidValue;
+  if (dt == DT_INT8 && ts == nullptr) return cudaErrorInvalidValue;
+  if (kind != KIND_LINEAR && extra == nullptr) return cudaErrorInvalidValue;
+  if (ip == nullptr || m <= 0 || n <= 0 || k <= 0 || bk <= 0 || bn <= 0 ||
+      g <= 0 || bias_stride < 0)
+    return cudaErrorInvalidValue;
+#define K3_LAUNCH(T)                                                       \
+  return launch_rows<T>(a, payload, ts, ip, ix, out, bi, extra, sc, g, m, n, \
+                        k, bk, bn, bias_stride, out_dt, kind, act, alpha, s)
+  if (dt == DT_BF16) K3_LAUNCH(__nv_bfloat16);
+  if (dt == DT_F32) K3_LAUNCH(float);
+  if (dt == DT_INT8) K3_LAUNCH(int8_t);
+#undef K3_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* mpgemm_sparse_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,18 +1,20 @@
-"""K1 and K2 wrappers: the MPGEMM with a fused epilogue (port of
+"""K1, K2 and K3 wrappers: the MPGEMM with a fused epilogue (port of
 ``repro.kernels.mpgemm.mpgemm_pallas_spec`` and ``mpgemm_grouped_pallas``),
-2-D or grouped, with dense B (K1) or pre-packed B (K2).
+2-D or grouped, with dense B (K1), pre-packed B (K2) or tile-sparse B (K3).
 
 :func:`mpgemm` runs one GEMM, :func:`mpgemm_grouped` G of them in one
 launch (the MoE expert GEMMs: A (G, M, K) against B (G, K, N)).  Both are
 polymorphic in ``b``, as the reference is: a dense tensor goes to K1, a
 :class:`~repro_torch.packing.layout.PackedOperand` to K2
-(:func:`mpgemm_packed`, :func:`mpgemm_packed_grouped`).  Each dispatches by
-the device of its operands: a CPU tensor runs the plain version, a CUDA
+(:func:`mpgemm_packed`, :func:`mpgemm_packed_grouped`), a
+:class:`~repro_torch.sparse.layout.TileSparseOperand` to K3
+(:func:`mpgemm_sparse`, :func:`mpgemm_sparse_grouped`).  Each dispatches
+by the device of its operands: a CPU tensor runs the plain version, a CUDA
 tensor launches the hand-written kernel (``csrc/mpgemm.cu``,
-``csrc/mpgemm_packed.cu``, built on first use by ``_build.py``; the group
-is the kernels' third grid axis).  Variants the kernels do not take yet --
-``trans_a``, ``beta·C`` and tile-sparse B -- raise ``NotImplementedError``
-on every device, so the CPU path never offers what the card cannot run.
+``csrc/mpgemm_packed.cu``, ``csrc/mpgemm_sparse.cu``, built on first use
+by ``_build.py``).  Variants the kernels do not take yet -- ``trans_a``
+and ``beta·C`` -- raise ``NotImplementedError`` on every device, so the
+CPU path never offers what the card cannot run.
 
 K1 takes bf16 or f32 operands summed in f32, or int8 operands summed
 exactly in int32 (the int8 policy).  ``scale`` is a one-element f32 tensor
@@ -22,7 +24,8 @@ a bias of shape (G, N), or one (N,) bias shared by every group, and
 gate / residual operands of the output's shape (G, M, N).
 
 ``mpgemm.launches``, ``mpgemm_grouped.launches``,
-``mpgemm_packed.launches`` and ``mpgemm_packed_grouped.launches`` count
+``mpgemm_packed.launches``, ``mpgemm_packed_grouped.launches``,
+``mpgemm_sparse.launches`` and ``mpgemm_sparse_grouped.launches`` count
 kernel launches (never plain-version calls).
 """
 from __future__ import annotations
@@ -40,6 +43,7 @@ from repro_torch.core.gemm_spec import (
 from repro_torch.kernels import _build
 from repro_torch.packing.layout import PackedOperand
 from repro_torch.packing.pack import decode_payload_tiles
+from repro_torch.sparse.layout import TileSparseOperand
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,8 +55,6 @@ _PAYLOAD_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3,
 
 
 def _check_supported(spec: GemmSpec, epilogue: EpilogueSpec, c):
-    if spec.sparse:
-        raise NotImplementedError("tile-sparse GEMMs are not ported yet")
     if spec.trans_a:
         raise NotImplementedError("trans_a is not ported yet")
     if epilogue.beta != 0.0 or c is not None:
@@ -106,10 +108,10 @@ def mpgemm(a: torch.Tensor, b, *,
            epilogue: EpilogueSpec = LINEAR,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``out = tail(alpha · (a @ op(b)) · scale + bias)`` for a (M, K) and b
-    (K, N), or (N, K) under ``spec.trans_b``, or a packed operand (K2);
-    ``extras`` are the epilogue's (M, N) operands in registry order.
-    Output dtype: ``out_dtype``, else ``spec.out_dtype``, else
-    ``a.dtype``."""
+    (K, N), or (N, K) under ``spec.trans_b``, or a packed operand (K2), or
+    a tile-sparse one (K3); ``extras`` are the epilogue's (M, N) operands
+    in registry order.  Output dtype: ``out_dtype``, else
+    ``spec.out_dtype``, else ``a.dtype``."""
     if spec.grouped:
         raise ValueError("a grouped GemmSpec goes to mpgemm_grouped")
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
@@ -126,15 +128,26 @@ def mpgemm_grouped(a: torch.Tensor, b, *,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """G GEMMs in one launch: ``out[g] = tail(alpha · (a[g] @ op(b[g])) ·
     scale + bias[g])`` for a (G, M, K) and b (G, K, N), or (G, N, K) under
-    ``spec.trans_b``, or a grouped packed operand (K2).  ``bias`` is
-    (G, N) or a shared (N,); ``extras`` are (G, M, N); ``scale`` is one
-    value for every group."""
+    ``spec.trans_b``, or a grouped packed (K2) or tile-sparse (K3)
+    operand.  ``bias`` is (G, N) or a shared (N,); ``extras`` are (G, M,
+    N); ``scale`` is one value for every group."""
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
                    grouped=True)
 
 
 def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
             grouped):
+    if isinstance(b, TileSparseOperand):
+        if spec.trans_b or spec.packed:
+            raise ValueError("a TileSparseOperand b takes no trans_b or "
+                             "packed spec (its transpose is resolved at "
+                             "sparsify time)")
+        _check_supported(spec, epilogue, c)
+        sparse = mpgemm_sparse_grouped if grouped else mpgemm_sparse
+        return sparse(a, b, bias=bias, scale=scale, extras=extras,
+                      epilogue=epilogue, out_dtype=out_dtype or spec.out_dtype)
+    if spec.sparse:
+        raise ValueError("spec.sparse needs a TileSparseOperand b")
     if isinstance(b, PackedOperand):
         if spec.trans_b:
             raise ValueError("packed B has its transpose resolved at pack "
@@ -448,4 +461,176 @@ def _packed_lib() -> ctypes.CDLL:
     lib.mpgemm_packed_launch.restype = i
     lib.mpgemm_packed_error_string.argtypes = [i]
     lib.mpgemm_packed_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# --- K3: tile-sparse B -------------------------------------------------------
+
+# (A dtype, payload dtype) pairs K3 takes: the sparse payload is read with
+# A's own type.
+_SPARSE_PAIRS = {(torch.float32, "float32"), (torch.bfloat16, "bfloat16"),
+                 (torch.int8, "int8")}
+
+
+def _check_sparse_pair(a: torch.Tensor, b: TileSparseOperand, grouped: bool):
+    """The group count and the (A dtype, payload) pairs K3 and its plain
+    version take."""
+    layout = b.layout
+    g = a.shape[0] if grouped and a.dim() == 3 else 1
+    if layout.g != g:
+        raise ValueError(
+            f"group mismatch: A has {g} group(s), the sparse operand "
+            f"{layout.g}" + ("" if grouped else
+                             " (a grouped operand goes to mpgemm_grouped)"))
+    if (a.dtype, layout.dtype) not in _SPARSE_PAIRS:
+        raise NotImplementedError(
+            f"sparse GEMM of {a.dtype} A against a {layout.dtype} payload "
+            "(takes f32 x float32, bf16 x bfloat16 and int8 x int8)")
+
+
+def mpgemm_sparse_plain(a: torch.Tensor, b: TileSparseOperand, *,
+                        bias: Optional[torch.Tensor] = None,
+                        scale: Optional[torch.Tensor] = None,
+                        extras: Sequence[torch.Tensor] = (),
+                        epilogue: EpilogueSpec = LINEAR,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """K3's plain version, 2-D (``a`` (M, K)) or grouped (``a`` (G, M, K)
+    against an operand of G groups), in torch ops: gather the A tile of
+    each stored tile's k index, one product per stored tile (f32 for float
+    operands, exact in f64 for int8, then scaled by the tile's scale),
+    ``index_add`` of the products into their output columns in payload
+    order -- on the CPU that is the reference's visit order -- and the
+    epilogue.  Empty columns keep a zero sum."""
+    _check_sparse_pair(a, b, a.dim() == 3)
+    return _sparse_plain(a, b, bias, scale, extras, epilogue, out_dtype)
+
+
+def _sparse_plain(a, b, bias, scale, extras, epilogue, out_dtype):
+    grouped = a.dim() == 3
+    layout = b.layout
+    g, nkb, nnb, bk, bn, nnz = (layout.g, layout.nkb, layout.nnb, layout.bk,
+                                layout.bn, layout.nnz)
+    a3 = a if grouped else a[None]
+    m, dev = a3.shape[1], a.device
+    a_tiles = F.pad(a3, (0, nkb * bk - layout.k)).reshape(g, m, nkb, bk)
+    counts = (b.indptr[1:] - b.indptr[:-1]).long()
+    col = torch.repeat_interleave(
+        torch.arange(g * nnb, device=dev), counts, output_size=nnz)
+    kk = b.indices.long()
+    a_t = a_tiles[col // nnb, :, kk, :]                 # (nnz, M, bk)
+    w_t = b.payload[:nnz]
+    if a.dtype == torch.int8:
+        parts = torch.bmm(a_t.double(), w_t.double()).float()
+        parts = parts * b.scales[:nnz].reshape(-1, 1, 1)
+    else:
+        parts = torch.bmm(a_t.float(), w_t.float())
+    acc = torch.zeros(g * nnb, m, bn, dtype=torch.float32, device=dev)
+    acc.index_add_(0, col, parts)
+    acc = acc.reshape(g, nnb, m, bn).permute(0, 2, 1, 3).reshape(
+        g, m, nnb * bn)[..., :layout.n]
+    return _epilogue_plain(epilogue, acc if grouped else acc[0], bias, scale,
+                           extras, out_dtype or a.dtype)
+
+
+def mpgemm_sparse(a: torch.Tensor, b: TileSparseOperand, *,
+                  bias: Optional[torch.Tensor] = None,
+                  scale: Optional[torch.Tensor] = None,
+                  extras: Sequence[torch.Tensor] = (),
+                  epilogue: EpilogueSpec = LINEAR,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K3: ``out = tail(alpha · (a @ b) · scale + bias)`` for a (M, K) and
+    a tile-sparse (K, N) operand, walking only its stored tiles: bf16 ``a``
+    against a bf16 payload, f32 against f32, int8 against an int8 payload
+    with per-tile scales (``scale`` then carries the int8 policy's sx)."""
+    return _sparse(a, b, bias, scale, extras, epilogue, out_dtype,
+                   grouped=False)
+
+
+def mpgemm_sparse_grouped(a: torch.Tensor, b: TileSparseOperand, *,
+                          bias: Optional[torch.Tensor] = None,
+                          scale: Optional[torch.Tensor] = None,
+                          extras: Sequence[torch.Tensor] = (),
+                          epilogue: EpilogueSpec = LINEAR,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Grouped K3: :func:`mpgemm_sparse` for a (G, M, K) against a sparse
+    operand of G groups (``layout.g``), in one launch; bias (G, N) or a
+    shared (N,), extras (G, M, N)."""
+    return _sparse(a, b, bias, scale, extras, epilogue, out_dtype,
+                   grouped=True)
+
+
+def _sparse(a, b, bias, scale, extras, epilogue, out_dtype, *, grouped):
+    out_dtype = out_dtype or a.dtype
+    extras = tuple(extras)
+    _check_extras(epilogue, extras)
+    _check_a(a, b.layout.k, grouped)
+    _check_sparse_pair(a, b, grouped)
+    if a.device.type == "cpu":
+        return _sparse_plain(a, b, bias, scale, extras, epilogue, out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"mpgemm_sparse: unsupported device {a.device}")
+    return _launch_sparse(a, b, bias, scale, extras, epilogue, out_dtype,
+                          grouped)
+
+
+def _check_on(name, t, shape, dtype, device):
+    if (t is None or tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        got = "None" if t is None else (f"{t.dtype} {tuple(t.shape)} on "
+                                        f"{t.device}")
+        raise ValueError(f"mpgemm_sparse: {name} must be a contiguous "
+                         f"{dtype} {tuple(shape)} tensor on {device}, got "
+                         f"{got}")
+
+
+def _launch_sparse(a, b, bias, scale, extras, epilogue, out_dtype, grouped):
+    layout, dev = b.layout, a.device
+    _check_on("payload", b.payload, layout.payload_shape, a.dtype, dev)
+    if layout.per_tile_scales:
+        _check_on("scales", b.scales, layout.scales_shape, torch.float32,
+                  dev)
+    _check_on("indptr", b.indptr, (layout.g * layout.nnb + 1,),
+              torch.int32, dev)
+    _check_on("indices", b.indices, (layout.nnz,), torch.int32, dev)
+    m, n = a.shape[-2], layout.n
+    out_shape = (*a.shape[:-2], m, n)
+    bias, bias_stride, scale, extra = _epilogue_args(
+        a, out_shape, bias, scale, extras, epilogue, out_dtype)
+    out = torch.empty(out_shape, dtype=out_dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _sparse_lib()
+    rc = lib.mpgemm_sparse_launch(
+        a.data_ptr(), b.payload.data_ptr(),
+        _ptr(b.scales) if layout.per_tile_scales else None,
+        b.indptr.data_ptr(), b.indices.data_ptr(), out.data_ptr(),
+        _ptr(bias), _ptr(extra), _ptr(scale), layout.g, m, n, layout.k,
+        layout.bk, layout.bn, bias_stride, _DTYPE_CODES[a.dtype],
+        _OUT_CODES[out_dtype], _KIND_CODES[epilogue.kind],
+        _ACT_CODES[epilogue.activation], float(epilogue.alpha),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"mpgemm_sparse kernel launch failed: CUDA error {rc} "
+            f"({lib.mpgemm_sparse_error_string(rc).decode()})")
+    (mpgemm_sparse_grouped if grouped else mpgemm_sparse).launches += 1
+    return out
+
+
+mpgemm_sparse.launches = 0
+mpgemm_sparse_grouped.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sparse_lib() -> ctypes.CDLL:
+    lib = _build.load("mpgemm_sparse")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mpgemm_sparse_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
+                                         i, i, i, i, i, i, i, i,
+                                         ctypes.c_float, p]
+    lib.mpgemm_sparse_launch.restype = i
+    lib.mpgemm_sparse_error_string.argtypes = [i]
+    lib.mpgemm_sparse_error_string.restype = ctypes.c_char_p
     return lib

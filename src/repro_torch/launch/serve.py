@@ -8,6 +8,11 @@ by default.
         --arch granite-moe-1b-a400m [--pack --pack-format int4]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-medium --engine wave
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
+        --sparsity 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m --policy int8 --sparsity 0.5 \
+        --sparsity-method nm
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 The default ``--engine continuous`` runs the paged-KV continuous-batching
@@ -32,6 +37,9 @@ from repro_torch.configs import base as cb
 from repro_torch.models.transformer import build_model, resolve_device
 from repro_torch.packing.params import packed_param_bytes
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.sparse.params import (
+    nm_for_sparsity, sparse_param_bytes, sparse_param_density,
+)
 
 
 def main(argv=None):
@@ -76,6 +84,21 @@ def main(argv=None):
                     help="payload codec for --pack: int8 per-tile quantized, "
                          "int4 nibble-packed (half the int8 bytes), fp8 e4m3 "
                          "scaled.  Default: the policy's payload dtype")
+    ap.add_argument("--sparsity", type=float, default=0.0,
+                    help="fraction of weight TILES to prune at load time "
+                         "(repro_torch.sparse tile-magnitude pruning; 0 = "
+                         "off); the tile-sparse GEMM then skips the pruned "
+                         "tiles")
+    ap.add_argument("--sparsity-method", default="magnitude",
+                    choices=["magnitude", "nm"],
+                    help="tile sparsifier: magnitude top-k per operand, or "
+                         "structured N:M over k-tiles (N of every 4 kept, N "
+                         "derived from --sparsity -- the level rounds to a "
+                         "multiple of 1/4)")
+    ap.add_argument("--sparsity-blocks", type=int, nargs=2, default=None,
+                    metavar=("BK", "BN"),
+                    help="tile size of the sparsity lattice (default 128 x "
+                         "128, clamped to each weight)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default: the card; cpu runs the "
                          "plain PyTorch path)")
@@ -83,6 +106,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.pack_format is not None and not args.pack:
         raise SystemExit("--pack-format requires --pack")
+    if not 0.0 <= args.sparsity < 1.0:
+        raise SystemExit(f"--sparsity must be in [0, 1) -- a fraction of "
+                         f"tiles to prune, got {args.sparsity}")
+    if args.pack and args.sparsity > 0:
+        raise SystemExit("--pack and --sparsity are mutually exclusive "
+                         "(a weight is stored packed-dense OR tile-sparse)")
     if args.warm_prefix and args.engine == "wave":
         raise SystemExit("--warm-prefix requires --engine continuous "
                          "(prefix sharing lives in the paged KV cache)")
@@ -106,11 +135,30 @@ def main(argv=None):
     cfg = cb.get(args.arch, smoke=args.smoke)
     model = build_model(cfg, policy=args.policy, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen, pack=args.pack, pack_format=args.pack_format)
+    if args.sparsity > 0 and args.sparsity_method == "nm":
+        n_keep, m_block = nm_for_sparsity(args.sparsity)
+        print(f"[serve] N:M sparsity: keeping {n_keep} of every {m_block} "
+              f"k-tiles (requested prune {args.sparsity:.2f} -> effective "
+              f"{1 - n_keep / m_block:.2f})")
+    params = model.init(gen, pack=args.pack, pack_format=args.pack_format,
+                        sparsity=args.sparsity,
+                        sparsity_method=args.sparsity_method,
+                        sparsity_blocks=args.sparsity_blocks)
     if args.pack:
         fmt = f", format={args.pack_format}" if args.pack_format else ""
         print(f"[serve] packed static weights: "
               f"{packed_param_bytes(params) / 2**20:.1f} MiB payload{fmt}")
+    if args.sparsity > 0:
+        density = sparse_param_density(params)
+        print(f"[serve] tile-sparse static weights: "
+              f"{sparse_param_bytes(params) / 2**20:.1f} MiB payload, "
+              f"tile density {density:.2f} ({args.sparsity_method})")
+        if density > (1.0 - args.sparsity) + 0.1:
+            print(f"[serve] WARNING: effective tile density {density:.2f} "
+                  f"is well above the requested {1 - args.sparsity:.2f} -- "
+                  f"the tile lattice is too coarse for these weight shapes "
+                  f"(pruning is per whole tile). Pass --sparsity-blocks "
+                  f"with smaller BK BN for finer granularity.")
     if args.engine == "wave":
         with warnings.catch_warnings():
             # The CLI chose the wave engine explicitly; the constructor's

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.core.gemm import mp_dot
 from repro_torch.packing.layout import PackedOperand
+from repro_torch.sparse.layout import TileSparseOperand
 
 
 # --- initializers ------------------------------------------------------------
@@ -115,9 +116,10 @@ def init_swiglu(d: int, f: int, *, generator, device):
 
 def logits_from_hidden(x, head, *, tied: bool, policy):
     """tied=True: head is the (V, d) embedding table -> on-the-fly
-    transpose; otherwise a (d, V) head.  A packed head carries its
-    orientation in its layout (the transpose was resolved at pack time),
-    so the layout's flag wins over ``tied``."""
-    if isinstance(head, PackedOperand):
+    transpose; otherwise a (d, V) head.  A packed or tile-sparse head
+    (only an untied head is ever transformed) carries its orientation in
+    its layout (the transpose was resolved at pack / sparsify time), so the
+    layout's flag wins over ``tied``."""
+    if isinstance(head, (PackedOperand, TileSparseOperand)):
         return mp_dot(x, head, policy=policy, trans_w=head.layout.trans_w)
     return mp_dot(x, head, policy=policy, trans_w=tied)

@@ -18,18 +18,21 @@ adds ``lnx`` and the cross-attention ``xattn``; an MoE layer keeps
 .) expert stacks ``w_gate``, ``w_up``, ``w_down``.  A GEMM weight is a
 dense tensor or, once packed (``LM.init(pack=True)`` or
 ``packing.params.pack_params``), a
-:class:`~repro_torch.packing.layout.PackedOperand` (grouped for an expert
-stack).
+:class:`~repro_torch.packing.layout.PackedOperand`, or once sparsified
+(``LM.init(sparsity=...)`` or ``sparse.params.sparsify_params``), a
+:class:`~repro_torch.sparse.layout.TileSparseOperand` (either grouped for
+an expert stack).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, segment_pattern
+from repro_torch.core.codecs import dtype_name
 from repro_torch.core.policy import get_policy
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (
@@ -37,6 +40,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.packing.layout import PackedLayout, PackedOperand
 from repro_torch.packing.params import pack_params
+from repro_torch.sparse.layout import TileSparseLayout, TileSparseOperand
+from repro_torch.sparse.params import nm_for_sparsity, sparsify_params
 
 # Block kinds the port's paged-KV serving path runs; the wave path also
 # runs whisper's enc-dec decoder block.  Cross-attention (VLM) and the
@@ -62,22 +67,6 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' (--device cpu) "
             "to run the port's plain PyTorch path on the CPU")
     return dev
-
-
-def segment_pattern(pattern):
-    """-> (unit, n_units, remainder): smallest unit P<=8 such that the
-    pattern is unit-periodic with a unit-prefix remainder (the reference's
-    layer stacking, needed to unstack its parameters)."""
-    L = len(pattern)
-    for p in range(1, min(8, L) + 1):
-        n_units = L // p
-        if n_units == 0:
-            continue
-        if all(pattern[i] == pattern[i % p] for i in range(n_units * p)):
-            rem = pattern[n_units * p:]
-            if all(rem[i] == pattern[i] for i in range(len(rem))):
-                return pattern[:p], n_units, rem
-    return pattern, 1, ()
 
 
 def _window(cfg, kind):
@@ -156,7 +145,10 @@ class LM:
     # ------------------------------ init ------------------------------------
 
     def init(self, generator: torch.Generator, *, pack: bool = False,
-             pack_format: Optional[str] = None) -> Dict[str, Any]:
+             pack_format: Optional[str] = None, sparsity: float = 0.0,
+             sparsity_method: str = "magnitude",
+             sparsity_blocks: Optional[Tuple[int, int]] = None
+             ) -> Dict[str, Any]:
         """Random parameters drawn on the model's device from ``generator``
         (which must live on that device), with the reference's
         distributions, then cast for the policy (:meth:`load_params`).
@@ -164,13 +156,29 @@ class LM:
         ``pack=True`` packs every GEMM weight (``packing.params``) from its
         f32 draw, before any cast, with the payload ``pack_format`` (None:
         the policy's) in the port's 128 x 128 blocks.
+
+        ``sparsity`` > 0 prunes that fraction of every GEMM weight's tiles
+        instead (``sparse.params.sparsify_params``: ``sparsity_method``
+        ``"magnitude"`` keeps the top ``1 - sparsity`` of the tiles, ``"nm"``
+        keeps ``nm_for_sparsity(sparsity)`` of every 4 k-tiles), on
+        ``sparsity_blocks`` (default 128 x 128).  The layers that the
+        reference stacks share one pattern, whose scores need every layer
+        of the stack, so the whole f32 draw is made first (phi3-mini's is
+        15.3 GB), then sparsified, then freed.
         """
+        if pack and sparsity > 0:
+            raise ValueError("pack and sparsity are mutually exclusive (a "
+                             "weight is stored packed-dense or tile-sparse)")
+        if not 0.0 <= sparsity < 1.0:
+            raise ValueError(f"sparsity must be in [0, 1), got {sparsity}")
         cfg, dev = self.cfg, self.device
         kw = dict(generator=generator, device=dev)
 
         def prepare(tree):
             # Pack or cast each part as it is drawn: the f32 draft of a
             # full-width model would not have to fit beside the result.
+            if sparsity > 0:
+                return tree
             if pack:
                 return pack_params(tree, policy=self.policy,
                                    pack_format=pack_format)
@@ -184,7 +192,7 @@ class LM:
             head = torch.randn(cfg.d_model, self.vocab_padded, **kw) * 0.02
             params["head"] = (pack_params({"head": head}, policy=self.policy,
                                           pack_format=pack_format)["head"]
-                              if pack else head.to(self.weight_dtype))
+                              if pack else head)
         if cfg.pos_embed == "learned":
             params["pos_embed"] = embed_init(POS_EMBED_ROWS, cfg.d_model, **kw)
         params["layers"] = [prepare(_INIT[kind](cfg, **kw))
@@ -194,6 +202,11 @@ class LM:
                                  for _ in range(cfg.encoder_layers)]
             params["enc_norm"] = B.init_norm(cfg, device=dev)
             params["enc_pos"] = embed_init(cfg.encoder_seq, cfg.d_model, **kw)
+        if sparsity > 0:
+            params = sparsify_params(
+                params, cfg=cfg, density=1.0 - sparsity,
+                method=sparsity_method, nm=nm_for_sparsity(sparsity),
+                policy=self.policy, blocks=sparsity_blocks)
         return self.load_params(params)
 
     def _cast_layer(self, layer):
@@ -209,13 +222,14 @@ class LM:
         """Move ``params`` to the model's device and cast the dense GEMM
         weights and head to :attr:`weight_dtype` and the embedding and
         position tables to the activation dtype (both what the reference
-        casts them to per use).  Packed weights move as they are."""
+        casts them to per use).  Packed and sparse weights move as they
+        are."""
         dev = self.device
 
         def to(t, dtype=None):
             if isinstance(t, dict):
                 return {k: to(v) for k, v in t.items()}
-            if isinstance(t, PackedOperand):
+            if isinstance(t, (PackedOperand, TileSparseOperand)):
                 return t.to(dev)
             return t.to(device=dev, dtype=dtype or t.dtype)
 
@@ -467,11 +481,39 @@ def _packed_from_jax(p, idx=None) -> PackedOperand:
     return PackedOperand(tensor, scales, layout)
 
 
+def _sparse_from_jax(p, idx=None) -> TileSparseOperand:
+    """A reference ``TileSparseOperand`` with numpy leaves (a stacked one
+    is sliced at layer ``idx`` and keeps the stack's shared layout) as the
+    port's, on the CPU; bf16 payload bytes cross as uint16."""
+    lay = p.layout
+    layout = TileSparseLayout(k=lay.k, n=lay.n, bk=lay.bk, bn=lay.bn,
+                              dtype=lay.dtype, orig_dtype=lay.orig_dtype,
+                              indptr=lay.indptr, indices=lay.indices,
+                              trans_w=lay.trans_w, g=lay.g)
+    payload = np.asarray(p.payload if idx is None else p.payload[idx])
+    if layout.dtype == "bfloat16":
+        tensor = torch.from_numpy(payload.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    else:
+        tensor = torch.from_numpy(payload.copy())
+    if (dtype_name(tensor.dtype) != layout.dtype
+            or tuple(tensor.shape) != layout.payload_shape):
+        raise ValueError(f"sparse leaf {layout.describe()}: payload "
+                         f"{tensor.dtype} {tuple(tensor.shape)}")
+    scales = None
+    if p.scales is not None:
+        scales = torch.from_numpy(np.asarray(
+            p.scales if idx is None else p.scales[idx],
+            dtype=np.float32).copy())
+    return TileSparseOperand(tensor, scales, layout)
+
+
 def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
     """The port's parameter dict from a reference pytree with numpy leaves
     (``jax.tree_util.tree_map(np.asarray, params)``), as CPU tensors: f32
-    for dense leaves, and the port's ``PackedOperand`` for the reference's
-    packed ones (``repro.packing.pack_params``), payload bytes unchanged.
+    for dense leaves, and the port's ``PackedOperand`` / ``TileSparseOperand``
+    for the reference's packed (``repro.packing.pack_params``) and sparse
+    (``repro.sparse.sparsify_params``) ones, payload bytes unchanged.
 
     The reference keeps ``stack``, one dict per unit kind with a leading
     ``n_units`` axis, and ``tail``, a list; layer ``u * len(unit) + p`` is
@@ -481,6 +523,8 @@ def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
     """
     def t(a, idx=None):
         if hasattr(a, "payload") and hasattr(a, "layout"):
+            if hasattr(a.layout, "indptr"):
+                return _sparse_from_jax(a, idx)
             return _packed_from_jax(a, idx)
         a = np.asarray(a) if idx is None else np.asarray(a)[idx]
         return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())

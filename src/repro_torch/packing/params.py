@@ -14,7 +14,7 @@ for the (E, d, f) expert stacks of ``MOE_GROUPED_LEAVES``:
 **Blocks.**  The reference takes (bk, bn) from its TPU block planner, which
 gives 2048 x 2048 at every phi3-mini shape: K = 3072 would pad to 4096 and
 waste a third of the weight bytes.  Until the Hopper planner is ported
-(ROADMAP A6), the port's rule is ``bk = min(128, k)``, ``bn = min(128, n)``
+(ROADMAP A7), the port's rule is ``bk = min(128, k)``, ``bn = min(128, n)``
 (:func:`default_blocks`).  ``blocks=`` overrides it, so that a parity test
 can hand both packages the same blocks.
 """

@@ -483,3 +483,115 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(gen):
     strided = torch.ones(1, 4, 2, 32, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(strided, strided, strided)
+
+
+# --- K3: tile-sparse B -------------------------------------------------------
+
+def _sparse_operand(gen, shape, blocks, dtype, mask):
+    """A tile-sparse operand built on the card (K6 packs it) from a random
+    keep-mask: column tile 1 empty, the K- and N-tail tile stored; or no
+    tile at all (``mask == "empty"``)."""
+    import numpy as np
+
+    from repro_torch.sparse import sparsify_with_mask
+
+    *lead, k, n = shape
+    lattice = (*lead, -(-k // blocks[0]), -(-n // blocks[1]))
+    keep = np.random.default_rng(0).random(lattice) < 0.5
+    keep[..., 1] = False
+    keep[..., -1, -1] = True
+    if mask == "empty":
+        keep[...] = False
+    w = torch.randn(*shape, generator=gen, device="cuda") * 0.05
+    return sparsify_with_mask(w, blocks, keep, dtype=dtype)
+
+
+def _sparse_a(gen, shape, dtype):
+    if dtype == "int8":
+        a = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        return a, torch.full((), 0.01, device="cuda")
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return torch.randn(*shape, generator=gen, device="cuda").to(dt), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k,n,blocks,kind,act,mask", [
+    (300, 200, (128, 64), "linear", None, "half"),     # K and N tails
+    (256, 96, (64, 48), "gated", "silu", "half"),      # bn not 32-aligned
+    (130, 70, (32, 32), "residual", "gelu", "empty"),  # no stored tile
+])
+def test_mpgemm_sparse_kernel_matches_plain(gen, m, dtype, k, n, blocks,
+                                            kind, act, mask):
+    """K3 against its plain version; an empty column (and an empty
+    operand) still gets its epilogue on a zero sum."""
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import mpgemm_sparse, \
+        mpgemm_sparse_plain
+
+    b = _sparse_operand(gen, (k, n), blocks, dtype, mask)
+    a, scale = _sparse_a(gen, (m, k), dtype)
+    out_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    bi = torch.randn(n, generator=gen, device="cuda")
+    extras = () if kind == "linear" else (
+        torch.randn(m, n, generator=gen, device="cuda").to(out_dtype),)
+    ep = EpilogueSpec(kind=kind, activation=act)
+    kw = dict(bias=bi, scale=scale, extras=extras, epilogue=ep,
+              out_dtype=out_dtype)
+    before = mpgemm_sparse.launches
+    got = mpgemm_sparse(a, b, **kw)
+    torch.cuda.synchronize()
+    assert mpgemm_sparse.launches == before + 1
+    want = mpgemm_sparse_plain(a, b, **kw)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 32])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("g,k,n,blocks,kind,act,bias", [
+    (4, 300, 100, (128, 64), "gated", "silu", "gn"),
+    (3, 130, 136, (64, 64), "residual", None, "n"),
+    (32, 1024, 512, (128, 128), "linear", None, None),
+])
+def test_mpgemm_sparse_grouped_kernel_matches_plain(gen, m, dtype, g, k, n,
+                                                    blocks, kind, act, bias):
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import mpgemm_sparse_grouped, \
+        mpgemm_sparse_plain
+
+    b = _sparse_operand(gen, (g, k, n), blocks, dtype, "half")
+    a, scale = _sparse_a(gen, (g, m, k), dtype)
+    bi = None if bias is None else torch.randn(
+        *((g, n) if bias == "gn" else (n,)), generator=gen, device="cuda")
+    extras = () if kind == "linear" else (
+        torch.randn(g, m, n, generator=gen, device="cuda"),)
+    ep = EpilogueSpec(kind=kind, activation=act)
+    kw = dict(bias=bi, scale=scale, extras=extras, epilogue=ep,
+              out_dtype=torch.float32)
+    before = mpgemm_sparse_grouped.launches
+    got = mpgemm_sparse_grouped(a, b, **kw)
+    torch.cuda.synchronize()
+    assert mpgemm_sparse_grouped.launches == before + 1
+    want = mpgemm_sparse_plain(a, b, **kw)
+    assert got.shape == (g, m, n)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_mpgemm_sparse_kernel_refuses_what_it_does_not_take(gen):
+    from repro_torch.kernels.mpgemm import mpgemm_sparse
+
+    b = _sparse_operand(gen, (64, 64), (32, 32), "int8", "half")
+    with pytest.raises(NotImplementedError, match="int8 payload"):
+        mpgemm_sparse(torch.ones(2, 64, device="cuda"), b)
+    a = torch.ones(2, 64, device="cuda", dtype=torch.int8)
+    with pytest.raises(ValueError, match="payload"):
+        mpgemm_sparse(a, type(b)(b.payload.cpu(), b.scales, b.layout,
+                                 b.indptr, b.indices))
+    with pytest.raises(ValueError, match="indptr"):
+        mpgemm_sparse(a, type(b)(b.payload, b.scales, b.layout,
+                                 b.indptr.cpu(), b.indices))

@@ -52,7 +52,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert len(MODULES) >= 15
 
 
-@pytest.mark.parametrize("path", ["src/repro_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("path", ["src/repro_torch", "chip_smoke.py",
+                                  "chip_ab.py"])
 def test_sources_name_no_jax_and_no_reference_import(path):
     """Also the imports inside functions, which a module import never runs
     (``chip_smoke.py`` imports torch and the port inside ``main``)."""
@@ -117,11 +118,13 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     from repro_torch.kernels.flash_attention import (
         flash_attention, paged_flash_attention,
     )
-    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_packed
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_packed, \
+        mpgemm_sparse
     from repro_torch.packing.pack import pack_operand
+    from repro_torch.sparse import sparsify_magnitude
 
     k1, k5 = mpgemm.launches, paged_flash_attention.launches
-    k4 = flash_attention.launches
+    k4, k3 = flash_attention.launches, mpgemm_sparse.launches
     k2, k6 = mpgemm_packed.launches, pack_operand.launches
     a = torch.ones(2, 8)
     assert mpgemm(a, torch.ones(8, 4)).shape == (2, 4)
@@ -133,6 +136,10 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
         mpgemm(a.to("meta"), packed.to("meta"))
     with pytest.raises(ValueError, match="device"):
         pack_operand(torch.ones(8, 4, device="meta"), (8, 4), dtype="int4")
+    sparse = sparsify_magnitude(torch.ones(8, 4), (4, 4), density=0.5)
+    assert mpgemm(a, sparse).shape == (2, 4)
+    with pytest.raises(ValueError, match="device"):
+        mpgemm(a.to("meta"), sparse.to("meta"))
     q = torch.ones(1, 2, 1, 8)
     pages = torch.ones(2, 2, 4, 8)
     i32 = dict(dtype=torch.int32)
@@ -148,19 +155,21 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
     assert (mpgemm.launches, paged_flash_attention.launches) == (k1, k5)
     assert (mpgemm_packed.launches, pack_operand.launches) == (k2, k6)
-    assert flash_attention.launches == k4
+    assert (flash_attention.launches, mpgemm_sparse.launches) == (k4, k3)
 
 
 def test_importing_the_kernels_builds_nothing():
-    """Kernels build at their first launch, never at import; K4's source is
-    among the ones ``build_all`` compiles."""
+    """Kernels build at their first launch, never at import; K4's and K3's
+    sources are among the ones ``build_all`` compiles."""
     r = _run(["-c", "import repro_torch.kernels.mpgemm, "
               "repro_torch.kernels.flash_attention, "
               "repro_torch.models.attention, "
-              "repro_torch.packing.params, "
+              "repro_torch.packing.params, repro_torch.sparse, "
               "repro_torch.kernels._build as b; "
               "assert 'flash_attention' in b.KERNELS; "
               "assert (b.CSRC / 'flash_attention.cu').is_file(); "
+              "assert 'mpgemm_sparse' in b.KERNELS; "
+              "assert (b.CSRC / 'mpgemm_sparse.cu').is_file(); "
               "print(b.BUILD_DIR, b._loaded)"])
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("{}")
