@@ -11,13 +11,18 @@ in parallel.  Each run calls the named ``chip_smoke.py`` phases of its tree
 (default: ``phase_k1 phase_k1_int8 phase_k2 phase_k1_grouped
 phase_k2_grouped phase_k3``; a phase the old tree lacks is left out
 there, one the new tree lacks fails the run) and reports their
-per-decode-step kernel times; the last lines print one row per result
+per-decode-step kernel times.  A phase named ``serve:LABEL`` serves the
+new tree's ``chip_smoke.SERVE_PATHS[LABEL]`` path through each tree's
+``phase_serve`` and reports the median decode step on the host clock and
+one two-row decode step's time (host and device).  The last lines print
+one row per result
 (marked ``new only`` or ``old only`` where one tree lacks it), its four
 times in run order and the change of the new tree's mean against the old
 one's.  Needs the card: single launches are timed with
 CUDA events on a cold L2, as in ``chip_smoke.py``.
 """
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,15 +32,21 @@ DEFAULT_PHASES = ("phase_k1", "phase_k1_int8", "phase_k2",
 
 # One run: the tree's chip_smoke phases, their step rows as one JSON line.
 RUN = r"""
-import json, sys
+import json, os, sys
 tree, phases = sys.argv[1], sys.argv[2:]
 sys.path[:0] = [tree + "/src", tree]
 import torch
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 timer = cs.Timer(torch)
+serve = json.loads(os.environ.get("AB_SERVE", "{}"))
 out = {}
 for name in phases:
+    if name.startswith("serve:"):
+        r = cs.phase_serve(torch, label=name[6:], **serve[name[6:]])
+        out[name] = {"median decode step": r["decode_step_ms"],
+                     "two-row decode step": r["step_ms"]}
+        continue
     if not hasattr(cs, name):
         print(f"AB-MISSING {name}")
         continue
@@ -61,11 +72,15 @@ def main(argv):
     if any(p.wait() != 0 for p in builds):
         print("chip_ab: a build failed", file=sys.stderr)
         return 1
+    sys.path.insert(0, new)
+    import chip_smoke
+    env = dict(os.environ, AB_SERVE=json.dumps(
+        getattr(chip_smoke, "SERVE_PATHS", {})))
     order = (old, new, new, old)
     results = []
     for tree in order:
         run = subprocess.run([sys.executable, "-c", RUN, tree, *phases],
-                             capture_output=True, text=True)
+                             capture_output=True, text=True, env=env)
         sys.stdout.write(run.stdout)
         if run.returncode != 0:
             sys.stderr.write(run.stderr)

@@ -48,17 +48,18 @@ printing a result:
    full-width phi3-mini-3.8b (random weights from a seed), dense bf16 (225
    K1 and 32 K5 launches per ``paged_step``), packed from the f32 draw by
    K6 with int4 payloads under bf16 and with int8 payloads under the int8
-   policy (225 K2, 32 K5 and 0 K1 launches per step), and dense under the
-   int8 policy at 4 layers (29 int8 K1 launches per step); then full-width
-   granite-moe-1b-a400m over the same traffic, dense bf16 (121 K1, 72
-   grouped K1, 24 K5 per step), packed int4 under bf16 and packed int8
-   under int8 (96 K2, 72 grouped K2, 25 K1 -- routers and the tied head --
-   and 24 K5 per step; 168 K6 launches at load), and dense int8 at 4
-   layers (21 K1 and 12 grouped K1 per step); and the two tile-sparse
-   paths at full width: phi3-mini under bf16 at sparsity 0.5 by magnitude
-   (225 K3, 32 K5 and 0 K1 per step) and granite under int8 with N:M 2:4
-   (96 K3, 72 grouped K3, 25 K1, 24 K5 per step), each sparsified from
-   the f32 draw through K6 (225 and 168 launches at load).  Every launch
+   policy, at 16 of its 32 layers (113 K2, 16 K5 and 0 K1 launches per
+   step), and dense under the int8 policy at 4 layers (29 int8 K1
+   launches per step); then full-width granite-moe-1b-a400m over the same
+   traffic, dense bf16 (121 K1, 72 grouped K1, 24 K5 per step), packed
+   int4 under bf16 and packed int8 under int8 at 12 of its 24 layers (48
+   K2, 36 grouped K2, 13 K1 -- routers and the tied head -- and 12 K5 per
+   step; 84 K6 launches at load), and dense int8 at 4 layers (21 K1 and
+   12 grouped K1 per step); and the two tile-sparse paths at full width
+   and half depth: phi3-mini under bf16 at sparsity 0.5 by magnitude (113
+   K3, 16 K5 and 0 K1 per step) and granite under int8 with N:M 2:4 (48
+   K3, 36 grouped K3, 13 K1, 12 K5 per step), each sparsified from the
+   f32 draw through K6 (113 and 84 launches at load).  Every launch
    count of each run is asserted, every logit is finite, and for each path
    one full-width mixed step through the kernels agrees with the same step
    through the plain versions; one two-row decode step of each path is
@@ -70,8 +71,29 @@ printing a result:
    full-width phi3-mini (225 K1 and 32 K4 per prefill, 225 K1 per decode
    step), with the same checks, one prefill and one decode step against
    the plain versions;
-8. one JSON line with every ported kernel's launches, error and times;
-9. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
+8. the training path: K1 ``trans_a`` (A read (K, M), the weight
+   gradients) at a 512-token training step's dW shapes -- granite's
+   attention projections, f32 router, tied embedding (49280 x 1024) and
+   (grouped) expert stacks at the training capacity, phi3-mini's
+   projections and head -- against its plain version and deterministic;
+   K7 (the unpacker, ``kernels/csrc/pack.cu``) bit-equal to its plain
+   version on every full-width phi3-mini weight packed bf16, int8, int4
+   and fp8 and on granite's expert stacks; ``mp_dot`` forward and
+   backward on a packed phi3 ``w_up`` (bf16: K2, K7, K1 trans_b and
+   trans_a, K6; int4: frozen, dx only) and a bf16 payload's forward under
+   int8 (K7, int8 K1), against the plain versions; then
+   ``repro_torch.launch.train.main``: full-width granite-moe-1b-a400m, all
+   24 layers, bf16, batch 4 x seq 128, remat, 3 steps with a checkpoint,
+   and phi3-mini at full width cut to 4 layers under int8 (the STE), 2
+   steps -- finite loss and grad norm, exact launch counts a step
+   (``_want_train_launches``), ``--resume`` restoring bit-identical
+   parameters and AdamW state, one step's loss and gradients against the
+   plain versions, step time, tokens/s, peak memory, and one step traced
+   with ``torch.profiler``;
+9. the script's wall time, one JSON line with every ported kernel's
+   launches, error and times;
+10. the card line, then ``{"ok": true, "device": {...}}`` as the last
+    line.
 
 Times come from CUDA events around single launches, each after a 256 MiB
 write that evicts the 50 MB L2 (serving reads every weight cold once per
@@ -1213,11 +1235,30 @@ def _counters():
         mpgemm, mpgemm_grouped, mpgemm_packed, mpgemm_packed_grouped,
         mpgemm_sparse, mpgemm_sparse_grouped,
     )
-    from repro_torch.packing.pack import pack_operand
+    from repro_torch.packing.pack import pack_operand, unpack_operand
     return dict(k1=mpgemm, k1g=mpgemm_grouped, k2=mpgemm_packed,
                 k2g=mpgemm_packed_grouped, k3=mpgemm_sparse,
                 k3g=mpgemm_sparse_grouped, k4=flash_attention,
-                k5=paged_flash_attention, k6=pack_operand)
+                k5=paged_flash_attention, k6=pack_operand, k7=unpack_operand)
+
+
+def _reset_counters():
+    """Every launch count to 0 (K1's per-variant counts too)."""
+    for fn in _counters().values():
+        fn.launches = 0
+    for fn in _counters()["k1"], _counters()["k1g"]:
+        fn.trans_a_launches = fn.trans_b_launches = 0
+
+
+def _read_counters():
+    """Every launch count, K1's and grouped K1's ``trans_a`` and
+    ``trans_b`` ones as ``k1_ta`` / ``k1_tb`` / ``k1g_ta`` / ``k1g_tb``."""
+    c = _counters()
+    out = {name: fn.launches for name, fn in c.items()}
+    for name in ("k1", "k1g"):
+        out[f"{name}_ta"] = c[name].trans_a_launches
+        out[f"{name}_tb"] = c[name].trans_b_launches
+    return out
 
 
 def _want_launches(cfg, pack, n_steps, sparse=False):
@@ -1242,7 +1283,7 @@ def _want_launches(cfg, pack, n_steps, sparse=False):
         per_step.update(k1=n_layers * (4 + dense_2d) + 1,
                         k1g=n_layers * grouped)
     want = {k: v * n_steps for k, v in per_step.items()}
-    want["k4"] = 0
+    want["k4"] = want["k7"] = 0
     want["k5"] = n_layers * n_steps
     want["k6"] = (n_layers * (4 + (3 if moe else dense_2d)) + int(head_done)
                   if pack or sparse else 0)
@@ -1269,8 +1310,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     n_layers = cfg.n_layers
     model = build_model(cfg, policy=policy, device="cuda")
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1286,8 +1326,9 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     if pack:
         how = f", packed {pack_format or 'at the policy dtype'}"
     elif sparsity:
+        density = sparse_param_density(params, model.cfg)
         how = (f", tile-sparse {sparsity_method} at sparsity {sparsity} "
-               f"(tile density {sparse_param_density(params):.4f}, "
+               f"(tile density {density:.4f}, "
                f"{SPARSE_BLOCKS[0]} x {SPARSE_BLOCKS[1]} tiles)")
     kind = "sparse" if sparsity else "packed"
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1359,22 +1400,40 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     return serve
 
 
+# The serve paths of phase 7, by label: phase_serve's arguments.  The
+# packed and sparse paths run at half depth (16 of phi3's 32 layers, 12 of
+# granite's 24) so that the training phases fit the script's time: each
+# layer is the same, so the launch counts per layer and every kernel's
+# shapes stay those of the full model.
+SERVE_PATHS = {
+    "bf16": dict(),
+    "int4": dict(pack=True, pack_format="int4", n_layers=16),
+    "int8": dict(policy="int8", pack=True, n_layers=16),
+    "int8-dense": dict(policy="int8", n_layers=4),
+    "phi3-sparse-bf16": dict(sparsity=0.5, n_layers=16),
+    "granite-bf16": dict(arch="granite-moe-1b-a400m"),
+    "granite-int4": dict(arch="granite-moe-1b-a400m", pack=True,
+                         pack_format="int4", n_layers=12),
+    "granite-int8": dict(arch="granite-moe-1b-a400m", policy="int8",
+                         pack=True, n_layers=12),
+    "granite-int8-dense": dict(arch="granite-moe-1b-a400m", policy="int8",
+                               n_layers=4),
+    "granite-sparse-int8": dict(arch="granite-moe-1b-a400m", policy="int8",
+                                sparsity=0.5, sparsity_method="nm",
+                                n_layers=12),
+}
+
+
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+    return (leaf for _, leaf in _tree_paths(tree))
 
 
 @contextlib.contextmanager
 def _plain_versions(enabled=True):
-    """Within the block, every GEMM and attention wrapper the model calls is
-    its plain version (the plain versions are rank-generic: they stand in
-    for the 2-D and the grouped GEMM wrappers alike)."""
+    """Within the block, every GEMM, attention, unpack (K7) and pack (K6)
+    wrapper the model and its backward call is its plain version (the
+    plain versions are rank-generic: they stand in for the 2-D and the
+    grouped GEMM wrappers alike, ``trans_a`` and ``trans_b`` included)."""
     from repro_torch.core import gemm as gemm_mod
     from repro_torch.kernels.flash_attention import (
         flash_attention_plain, paged_flash_attention_plain,
@@ -1384,6 +1443,9 @@ def _plain_versions(enabled=True):
     )
     from repro_torch.models import attention as attn_mod
     from repro_torch.packing.layout import PackedOperand
+    from repro_torch.packing.pack import (
+        _layout_for, pack_reference, unpack_reference,
+    )
     from repro_torch.sparse import TileSparseOperand
 
     if not enabled:
@@ -1396,19 +1458,34 @@ def _plain_versions(enabled=True):
             return mpgemm_packed_plain(a, b, out_dtype=out_dtype, **kw)
         if isinstance(b, TileSparseOperand):
             return mpgemm_sparse_plain(a, b, out_dtype=out_dtype, **kw)
-        return mpgemm_plain(a, b, trans_b=spec.trans_b, out_dtype=out_dtype,
-                            **kw)
+        return mpgemm_plain(a, b, trans_a=spec.trans_a, trans_b=spec.trans_b,
+                            out_dtype=out_dtype, **kw)
 
-    saved = (gemm_mod.mpgemm, gemm_mod.mpgemm_grouped,
+    def plain_unpack(p, *, dtype=None):            # K7's plain version
+        layout = p.layout
+        if dtype is None:
+            dtype = layout.orig_dtype if layout.per_tile_scales \
+                else layout.dtype
+        return unpack_reference(p.payload, p.scales, layout, dtype)
+
+    def plain_pack(w, blocks, *, trans_w=False, dtype=None):  # K6's
+        layout = _layout_for(w, *blocks, trans_w=trans_w, dtype=dtype)
+        return PackedOperand(*pack_reference(w, layout), layout)
+
+    names = ("mpgemm", "mpgemm_grouped", "unpack_operand", "pack_operand")
+    saved = ([getattr(gemm_mod, n) for n in names],
              attn_mod.paged_flash_attention, attn_mod.flash_attention)
-    gemm_mod.mpgemm = gemm_mod.mpgemm_grouped = plain_gemm
+    for n, fn in zip(names, (plain_gemm, plain_gemm, plain_unpack,
+                             plain_pack)):
+        setattr(gemm_mod, n, fn)
     attn_mod.paged_flash_attention = paged_flash_attention_plain
     attn_mod.flash_attention = flash_attention_plain
     try:
         yield
     finally:
-        (gemm_mod.mpgemm, gemm_mod.mpgemm_grouped,
-         attn_mod.paged_flash_attention, attn_mod.flash_attention) = saved
+        for n, fn in zip(names, saved[0]):
+            setattr(gemm_mod, n, fn)
+        attn_mod.paged_flash_attention, attn_mod.flash_attention = saved[1:]
 
 
 def _kernel_vs_plain_step(torch, model, params, label):
@@ -1492,8 +1569,10 @@ TRACE_KERNELS = (("mpgemm_sparse", "K3"),
                  ("flash_kernel", "K4"), ("pack_kernel", "K6"))
 
 
-def _profile_decode_step(torch, step, label, step_ms):
-    """One two-row decode step (``step()``) under ``torch.profiler``: the
+def _profile_decode_step(torch, step, label, step_ms,
+                         what="one two-row decode step"):
+    """One two-row decode step (``step()``; ``what`` names another step)
+    under ``torch.profiler``: the
     device's busy time (the union of its kernels' and copies' spans)
     against the traced step's span (from the step's first host op to its
     last device op) and against ``step_ms``, the same step's time untraced
@@ -1506,17 +1585,17 @@ def _profile_decode_step(torch, step, label, step_ms):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("decode_step"):
+        with record_function("traced_step"):
             step()
         torch.cuda.synchronize()
     events = prof.events()
-    step = next(e for e in events if e.name == "decode_step"
+    step = next(e for e in events if e.name == "traced_step"
                 and e.device_type == DeviceType.CPU)
     t0, t_host = step.time_range.start, step.time_range.end
-    # Kernels, copies and sets; the trace also mirrors the "decode_step"
+    # Kernels, copies and sets; the trace also mirrors the "traced_step"
     # annotation on the device, which is no work of the device.
     dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                  and e.name != "decode_step" and e.time_range.end >= t0),
+                  and e.name != "traced_step" and e.time_range.end >= t0),
                  key=lambda e: e.time_range.start)
     if not dev:
         print(f"[profile:{label}] the profiler saw no device activity: "
@@ -1558,7 +1637,7 @@ def _profile_decode_step(torch, step, label, step_ms):
                    and "LaunchKernel" in e.name
                    and t0 <= e.time_range.start <= t_host)
     busy_ms, span_ms = busy / 1e3, span / 1e3
-    print(f"[profile:{label}] one two-row decode step under torch.profiler: "
+    print(f"[profile:{label}] {what} under torch.profiler: "
           f"{len(dev)} device ops ({launches} kernel-launch calls traced on "
           f"the host); device busy {busy_ms:.3f} ms of a {span_ms:.3f} ms "
           f"traced span (idle share {1 - busy_ms / span_ms:.3f}) and of the "
@@ -1612,8 +1691,7 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
     model = build_model(cfg, policy="bf16", device="cuda")
     cfg = model.cfg
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -1751,7 +1829,464 @@ def _wave_kernel_vs_plain(torch, model, params, label, batch):
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------------------ phase 8
+
+# Training shapes: batch 4 x seq 128 = 512 tokens a step.
+TRAIN_TOKENS = 512
+# granite's training capacity: round(1.25 * top-8 * 128 / 32 experts) = 40
+# slots per expert and sequence, 4 sequences: 160 rows per expert.
+GRANITE_TRAIN_ROWS = 4 * 40
+GRANITE_VOCAB_PADDED = 49280
+# K1 trans_a cases, dW = A^T B with A (T, M) and B (T, N): (name, model, M,
+# N, dtype, per-step launches, G).  granite: wq/wo 1024 x 1024, wk/wv
+# 1024 x 512, the f32 router 1024 x 32, the tied head's embedding
+# gradient (V_p x 1024, A = the logits' cotangent), the expert stacks
+# (grouped, 160 rows each); phi3-mini's projections (4 layers).
+TRANS_A_CASES = [
+    ("g-wq/wo", "granite", 1024, 1024, "bfloat16", 2 * GRANITE_LAYERS, None),
+    ("g-wk/wv", "granite", 1024, 512, "bfloat16", 2 * GRANITE_LAYERS, None),
+    ("g-router", "granite", 1024, 32, "float32", GRANITE_LAYERS, None),
+    ("g-embed", "granite", GRANITE_VOCAB_PADDED, 1024, "bfloat16", 1, None),
+    ("g-experts-up/gate", "granite", 1024, 512, "bfloat16",
+     2 * GRANITE_LAYERS, GRANITE_EXPERTS),
+    ("g-experts-down", "granite", 512, 1024, "bfloat16", GRANITE_LAYERS,
+     GRANITE_EXPERTS),
+    ("phi3-qkvo", "phi3", 3072, 3072, "bfloat16", 4 * 4, None),
+    ("phi3-up/gate", "phi3", 3072, 8192, "bfloat16", 2 * 4, None),
+    ("phi3-down", "phi3", 8192, 3072, "bfloat16", 4, None),
+    ("phi3-head", "phi3", 3072, 32128, "bfloat16", 1, None),
+]
+
+
+def phase_k1_trans_a(torch, timer):
+    """K1 with A read (K, M): the weight gradients of a training step at
+    512 tokens, bf16 operands (f32 for the router) with f32 outputs, each
+    against its plain version and beside ``torch.matmul(a.t(), b)``; then
+    the deterministic check (two launches, the same bits)."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped, \
+        mpgemm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    steps = {"granite": StepSum(), "granite-grouped": StepSum(),
+             "phi3": StepSum()}
+    for name, model, m, n, dt, per_step, g in TRANS_A_CASES:
+        dtype = getattr(torch, dt)
+        t = GRANITE_TRAIN_ROWS if g else TRAIN_TOKENS
+        lead = (g,) if g else ()
+        a = torch.randn(*lead, t, m, generator=gen, device="cuda").to(dtype)
+        b = torch.randn(*lead, t, n, generator=gen, device="cuda").to(dtype)
+        fn = mpgemm_grouped if g else mpgemm
+        spec = GemmSpec(grouped=bool(g), trans_a=True)
+
+        def kern():
+            return fn(a, b, spec=spec, out_dtype=torch.float32)
+
+        def plain():
+            return mpgemm_plain(a, b, trans_a=True, out_dtype=torch.float32)
+
+        def library():
+            return torch.matmul(a.transpose(-1, -2), b).float()
+
+        got, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        err = _check_close(torch, f"K1 trans_a {name}", got, ref,
+                           TOL["float32"])
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 trans_a {name}: two launches differ")
+        groups = g or 1
+        n_bytes = groups * (t * (m + n) * a.element_size() + m * n * 4)
+        n_ops = 2 * groups * m * n * t
+        bound, bound_by = _bound_ms(n_bytes, n_ops, dt)
+        ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+        print(f"[k1-trans_a] {name:>18} {dt:>8} G={g or 1:<2} M={m:<5} "
+              f"N={n:<5} K={t}: err {err:.2e} (f32 out, rtol 1e-4, atol "
+              f"1e-4), deterministic  kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f}  library {lib_ms:.4f}  bound {bound:.4f} "
+              f"({bound_by})  {n_ops / ms / 1e9:.1f} TFLOP/s")
+        key = f"{model}-grouped" if g else model
+        steps[key].max_abs_err = max(steps[key].max_abs_err, err)
+        steps[key].add(per_step, ms, plain_ms, lib_ms, bound, n_bytes, n_ops)
+    rows = {}
+    for key, acc in steps.items():
+        rows[key] = acc.row("bfloat16")
+        print(f"[k1-trans_a] the dW GEMMs of one {key} training step "
+              f"({acc.launches} launches): kernel {acc.ms:.3f} ms, plain "
+              f"{acc.plain_ms:.3f} ms, library {acc.library_ms:.3f} ms, "
+              f"bound {acc.bound_ms:.3f} ms ({rows[key]['bound_by']})")
+    return rows
+
+
+def phase_k7(torch, timer):
+    """K7 (the tile unpacker) against its plain version, bit for bit:
+    every full-width phi3-mini weight shape packed as int4, int8, fp8 and
+    bf16 (each unpacked to bf16), and granite's expert stacks; each timed
+    against its bytes bound (payload and scales read once, the dense
+    operand written once)."""
+    from repro_torch.packing.pack import (
+        pack_operand, unpack_operand, unpack_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = [(nm, (k, n), 2 * c if nm == "up" else c)
+              for nm, k, n, _, _, c in MAIN_SHAPES if nm != "gate"]
+    shapes += [("g-experts-up/gate", (GRANITE_EXPERTS, 1024, 512), 0),
+               ("g-experts-down", (GRANITE_EXPERTS, 512, 1024), 0)]
+    model = {fmt: StepSum() for fmt in PAYLOADS}
+    rows = {}
+    for name, shape, per_model in shapes:
+        w = torch.randn(*shape, generator=gen, device="cuda") * 0.02
+        for fmt in PAYLOADS:
+            p = pack_operand(w, (128, 128), dtype=fmt)
+
+            def kern():
+                return unpack_operand(p, dtype="bfloat16")
+
+            def plain():
+                return unpack_reference(p.payload, p.scales, p.layout,
+                                        "bfloat16")
+
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                raise AssertionError(f"K7 {name} {fmt}: output differs from "
+                                     "the plain version")
+            n_bytes = p.nbytes + got.numel() * got.element_size()
+            bound, bound_by = _bound_ms(n_bytes, 0, "float32")
+            ms, plain_ms = timer(kern), timer(plain)
+            print(f"[k7] {name:>18} {str(shape):>16} {fmt:>8} -> bf16: "
+                  f"bit-equal  kernel {ms:.4f} ms  plain {plain_ms:.4f}  "
+                  f"bound {bound:.4f} ({bound_by})  "
+                  f"{n_bytes / ms / 1e6:.1f} GB/s")
+            model[fmt].add(per_model, ms, plain_ms, 0.0, bound, n_bytes, 0)
+            if name == "up" and fmt == "bfloat16":
+                rows["up-bf16"] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound, bound_by=bound_by,
+                                       max_abs_err=0.0)
+    for fmt, acc in model.items():
+        rows[fmt] = acc.row("float32")
+        print(f"[k7] unpacking a full-width phi3-mini ({acc.launches} "
+              f"weights) from {fmt}: kernel {acc.ms:.3f} ms, plain "
+              f"{acc.plain_ms:.3f} ms, bound {acc.bound_ms:.3f} ms")
+    return rows
+
+
+def phase_packed_grad(torch):
+    """``mp_dot`` forward and backward on full-width phi3 ``w_up`` (3072 x
+    8192) packed bf16 (trainable: K2 forward; K7, K1 trans_b and trans_a,
+    K6 backward) and int4 (frozen: dx only), 512 bf16 tokens, and the
+    forward of the bf16 payload under the int8 policy (K7, then int8 K1);
+    each against the same calls through the plain versions (bf16 outputs:
+    atol = rtol = 1.6e-2).  -> the launch counts of the phase."""
+    from repro_torch.core.gemm import mp_dot
+    from repro_torch.packing.pack import pack_operand
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    k, n = 3072, 8192
+    w = torch.randn(k, n, generator=gen, device="cuda") * (2 / (k + n)) ** .5
+    x0 = torch.randn(TRAIN_TOKENS, k, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    dy = torch.randn(TRAIN_TOKENS, n, generator=gen, device="cuda")
+    packed = {fmt: pack_operand(w, (128, 128), dtype=fmt)
+              for fmt in ("bfloat16", "int4")}
+
+    def run(fmt, policy):
+        p = packed[fmt]
+        p.payload.grad = None
+        if p.layout.codec is None:
+            p.payload.requires_grad_(True)
+        x = x0.clone().requires_grad_(True)
+        y = mp_dot(x, p, policy=policy)
+        if policy == "int8":
+            return [y.detach()]
+        (y.float() * dy).sum().backward()
+        return [y.detach(), x.grad] + ([p.payload.grad]
+                                       if p.layout.codec is None else [])
+
+    _reset_counters()
+    cases = [("bfloat16", "bf16"), ("int4", "bf16"), ("bfloat16", "int8")]
+    got = [run(fmt, pol) for fmt, pol in cases]
+    torch.cuda.synchronize()
+    counts = _read_counters()
+    with _plain_versions():
+        want = [run(fmt, pol) for fmt, pol in cases]
+    for (fmt, pol), gs, ws in zip(cases, got, want):
+        for what, g, w_ in zip(("y", "dx", "dpayload"), gs, ws):
+            err = _check_close(torch, f"packed grad {fmt}/{pol} {what}", g,
+                               w_, TOL["bfloat16"])
+            print(f"[packed-grad] {fmt} payload under {pol}: {what} "
+                  f"{tuple(g.shape)} {_dtype_name(g.dtype)}, max |kernel - "
+                  f"plain| {err:.3e} (atol = rtol = 1.6e-2)")
+    # bf16/bf16: K2 fwd, K7, dx (trans_b), dW (trans_a), K6; int4/bf16: K2
+    # fwd, K7, dx; bf16/int8: K7, then int8 K1.
+    want_counts = dict(k2=2, k7=3, k1=4, k1_tb=2, k1_ta=1, k6=1)
+    seen = {key: counts[key] for key in want_counts}
+    print(f"[packed-grad] launches: {seen}")
+    if seen != want_counts:
+        raise AssertionError(f"packed-grad launches {seen}, want "
+                             f"{want_counts}")
+    return counts
+
+
+def _want_train_launches(cfg, remat=True, seq=128):
+    """Kernel launches of one training step (forward, the rematerialised
+    forward, backward) of a dense model: per layer 4 attention GEMMs and
+    the MLP's 3 (a dense model) or the f32 router and 3 grouped expert
+    GEMMs (MoE), one K4; the head GEMM once per loss chunk, which the loss
+    always rematerialises.  The backward: dx (K1 ``trans_b`` for a (k, n)
+    weight; a tied head's dx reads the (V, d) embedding as it is) and dW
+    (``trans_a``) for every GEMM, plus the recompute of z for the gated
+    SwiGLU GEMM; attention's backward is torch ops (no K4).  K7 never runs:
+    the weights are dense."""
+    n, moe, tied = cfg.n_layers, cfg.family == "moe", cfg.tie_embeddings
+    r = 2 if remat else 1
+    chunks = -(-seq // 512)
+    fwd_2d = 4 + (1 if moe else 3)              # + router | up, gate, down
+    bwd_2d = 2 * fwd_2d + (0 if moe else 1)     # dense gate: z again
+    want = dict(k2=0, k2g=0, k3=0, k3g=0, k5=0, k6=0, k7=0)
+    want["k1"] = n * (r * fwd_2d + bwd_2d) + 2 * chunks + 2
+    want["k1_ta"] = n * fwd_2d + 1
+    want["k1_tb"] = n * fwd_2d + (2 * chunks if tied else 1)
+    want["k1g"] = n * (r * 3 + 7) if moe else 0   # gate: z again
+    want["k1g_ta"] = want["k1g_tb"] = 3 * n if moe else 0
+    want["k4"] = r * n
+    return want
+
+
+# Kernels against plain versions over one whole training step: the loss
+# within 1e-2 of its value; the global grad norm within 5 %.  Each
+# gradient leaf's max |kernel - plain| within a share of the leaf's max
+# |g|.  Why: the forward rounds every GEMM output and the residual stream
+# to bf16, and the two paths sum in different orders, so hidden states
+# differ by a few bf16 ulps (2**-8 relative) after a few layers; a
+# gradient leaf sums T = 512 token contributions each off by that much,
+# so its error stays a few ulps of its largest entry (5 %), not of each
+# entry.  Under int8 each GEMM input is also re-quantized per tensor, so
+# an input a bf16 ulp off crosses a level (step amax / 127) now and then
+# (as in the serve check): 15 %.  An MoE model's top-8 routing is not a
+# kernel, but it is chaotic under that noise: a token whose 8th and 9th
+# gates lie within it picks another expert in the other path (a few
+# percent of the 24 x 512 choices of a granite step), and that moves
+# whole token contributions in every leaf behind it.  So the plain step
+# replays the kernel step's expert choices (``_shared_routing``), and
+# the bounds above hold for every leaf.
+TRAIN_TOL = {"bf16": dict(loss=1e-2, gnorm=0.05, leaf=0.05),
+             "int8": dict(loss=2e-2, gnorm=0.1, leaf=0.15)}
+
+
+@contextlib.contextmanager
+def _shared_routing():
+    """-> ``route(mode)``: a context in which ``blocks.moe_topk`` records
+    its expert choices (mode "record") or replays the recorded ones in
+    call order (mode "replay"), the weights gathered from the live
+    gates so that gradients flow through them as through the sort."""
+    from repro_torch.models import blocks
+
+    inner, chosen = blocks.moe_topk, []
+
+    def recorded(gates, k):
+        topw, topi = inner(gates, k)
+        chosen.append(topi)
+        return topw, topi
+
+    def replayed(gates, k):
+        topi = chosen[replayed.calls]
+        replayed.calls += 1
+        return gates.gather(-1, topi), topi
+
+    replayed.calls = 0
+
+    @contextlib.contextmanager
+    def route(mode):
+        blocks.moe_topk = recorded if mode == "record" else replayed
+        try:
+            yield
+        finally:
+            blocks.moe_topk = inner
+        if mode == "replay" and replayed.calls != len(chosen):
+            raise AssertionError(f"the plain step routed {replayed.calls} "
+                                 f"times, the kernel step {len(chosen)}")
+
+    yield route
+
+
+def _train_kernel_vs_plain(torch, model, params, batch, label):
+    """One step's loss and gradients through the kernels and through the
+    plain versions, from the same parameters and batch, with the same
+    expert choices (``_shared_routing``)."""
+    from repro_torch.train.train_step import _value_and_grad
+
+    with _shared_routing() as route:
+        with route("record"):
+            lk, gk = _value_and_grad(model, params, batch)
+        with route("replay"), _plain_versions():
+            lp, gp = _value_and_grad(model, params, batch)
+    tol = TRAIN_TOL["int8" if model.policy == "int8" else "bf16"]
+    leaf_tol = tol["leaf"]
+    nk = float(torch.sqrt(sum((g.float() ** 2).sum()
+                              for _, g in _tree_paths(gk))))
+    np_ = float(torch.sqrt(sum((g.float() ** 2).sum()
+                               for _, g in _tree_paths(gp))))
+    worst, bad = (0.0, ""), []
+    flat_p = dict(_tree_paths(gp))
+    for path, g in _tree_paths(gk):
+        ref = flat_p[path]
+        rel = (g - ref).abs().max().item() / max(ref.abs().max().item(),
+                                                 1e-30)
+        if not (rel <= leaf_tol and torch.isfinite(g).all()):
+            bad.append((path, rel))
+        worst = max(worst, (rel, "/".join(map(str, path))))
+    lerr = abs(float(lk) - float(lp))
+    gerr = abs(nk - np_) / max(np_, 1e-30)
+    print(f"[train:{label}] one step, kernels vs plain versions: loss "
+          f"{float(lk):.6f} vs {float(lp):.6f} (|diff| {lerr:.3e}, bound "
+          f"{tol['loss']}), grad norm {nk:.6f} vs {np_:.6f} (rel "
+          f"{gerr:.3e}, bound {tol['gnorm']}); per leaf max |diff| / "
+          f"max |g|: worst {worst[0]:.3e} at {worst[1]} (bound {leaf_tol})")
+    if lerr > tol["loss"] or gerr > tol["gnorm"] or bad:
+        raise AssertionError(f"train {label}: kernels and plain versions "
+                             f"differ (leaves beyond bounds: {bad[:5]})")
+    return dict(loss_err=lerr, gnorm_rel=gerr, leaf_rel=worst[0])
+
+
+def _tree_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_paths(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_paths(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _n_params(cfg):
+    """Parameters of a dense or MoE decoder (rope, no learned positions):
+    embedding, untied head, per layer the attention projections, two
+    norms and the MLP (or router and expert stacks), the final norm."""
+    d, hd, vp = cfg.d_model, cfg.head_dim, -(-cfg.vocab // 128) * 128
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    mlp = (d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.d_ff
+           if cfg.family == "moe" else 3 * d * cfg.d_ff)
+    return (vp * d * (1 if cfg.tie_embeddings else 2)
+            + cfg.n_layers * (attn + 2 * d + mlp) + d)
+
+
+def _ckpt_dir(need_bytes):
+    """A temporary checkpoint directory with room for ``need_bytes`` and a
+    quarter more: in the temp dir ($TMPDIR), else in the checkout's
+    ``build/`` (which git ignores)."""
+    import shutil
+    import tempfile
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    for base in (tempfile.gettempdir(), str(build)):
+        if shutil.disk_usage(base).free > 1.25 * need_bytes:
+            return tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
+    raise RuntimeError(f"no temp directory with {1.25 * need_bytes / 1e9:.1f}"
+                       " GB free for the checkpoint")
+
+
+def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
+    """Train through ``repro_torch.launch.train.main``: ``steps`` steps of
+    batch 4 x seq 128 with remat, a checkpoint after the last step, then
+    ``--resume`` (which restores it and has no step left to run): finite
+    loss and grad norm, exact launch counts of every step, restored
+    parameters and AdamW state bit-equal to the run's, and one step
+    through the kernels against the same step through the plain
+    versions; then one step traced with ``torch.profiler``."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import SyntheticLM, device_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = cb.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    argv = ["--arch", arch, "--policy", policy, "--batch", "4", "--seq",
+            "128", "--seed", "0"]
+    if n_layers is not None:
+        argv += ["--layers", str(n_layers)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    ckpt = None
+    try:
+        # A checkpoint holds f32 params and both moments: 12 bytes each.
+        ckpt = _ckpt_dir(12 * _n_params(cfg))
+        print(f"[train:{label}] checkpoints in {ckpt}")
+        t0 = time.perf_counter()
+        trainer, params, opt = train_cli.main(
+            argv + ["--steps", str(steps), "--ckpt", ckpt, "--ckpt-every",
+                    str(steps)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counters()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        model = trainer.model
+        want = {key: v * steps for key, v in _want_train_launches(
+            model.cfg).items()}
+        log = trainer.metrics_log
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        times = [r["time_s"] for r in log]
+        step_ms = 1e3 * float(np.median(times[1:])) if len(times) > 1 \
+            else 1e3 * times[0]
+        print(f"[train:{label}] {model.cfg.name}, {model.cfg.n_layers} "
+              f"layers, {n_params / 1e9:.3f} B f32 params, policy {policy}, "
+              f"remat, batch 4 x seq 128: {steps} steps in {wall:.2f} s "
+              f"(checkpoint included); losses "
+              f"{[round(r['loss'], 5) for r in log]}, grad norms "
+              f"{[round(r['grad_norm'], 5) for r in log]}, step times (ms) "
+              f"{[round(1e3 * t, 2) for t in times]}; median of steps 2.. "
+              f"{step_ms:.2f} ms = {TRAIN_TOKENS / step_ms * 1e3:.1f} "
+              f"tokens/s; peak {peak:.2f} GB allocated")
+        print(f"[train:{label}] launches over {steps} steps: {counts}")
+        if not all(np.isfinite(r["loss"]) and r["loss"] > 0
+                   and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+                   for r in log) or len(log) != steps:
+            raise AssertionError(f"train {label}: bad metrics {log}")
+        if counts != {**{k: 0 for k in counts}, **want}:
+            raise AssertionError(f"train {label}: launch counts {counts}, "
+                                 f"want {want}")
+
+        t0 = time.perf_counter()
+        _, p_res, o_res = train_cli.main(
+            argv + ["--steps", str(steps), "--ckpt", ckpt, "--resume"])
+        t_res = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params) + tree_leaves(opt),
+            tree_leaves(p_res) + tree_leaves(o_res)))
+        print(f"[train:{label}] --resume restored step {steps} in "
+              f"{t_res:.2f} s: params and AdamW state (m, v, step) "
+              f"bit-identical: {same}")
+        if not same or int(o_res.step) != steps:
+            raise AssertionError(f"train {label}: the restored state differs")
+        del p_res, o_res
+        gc.collect()
+
+        batch = device_batch(SyntheticLM(model.cfg.vocab, 4, 128,
+                                         seed=7).next_batch(), "cuda")
+        errs = _train_kernel_vs_plain(torch, model, params, batch, label)
+
+        def step():
+            trainer.step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+
+        _profile_decode_step(torch, step, f"train:{label}", step_ms,
+                             what="one training step")
+    finally:
+        if ckpt:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(counts=counts, step_ms=step_ms, wall_s=wall, peak_gb=peak,
+                tokens_per_s=TRAIN_TOKENS / step_ms * 1e3, **errs)
+
+
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1788,6 +2323,7 @@ def main():
             print(f"[build] {name}: {line}")
 
     timer = Timer(torch)
+    t_phases = time.perf_counter()
     k1 = phase_k1(torch, timer)
     k1_int8 = phase_k1_int8(torch, timer)
     k5, _ = phase_k5(torch, timer)
@@ -1798,24 +2334,14 @@ def main():
     k2g = phase_k2_grouped(torch, timer)
     k6g = phase_k6_grouped(torch, timer)
     k3 = phase_k3(torch, timer)
+    k1ta = phase_k1_trans_a(torch, timer)
+    k7 = phase_k7(torch, timer)
     del timer
+    packed_grad = phase_packed_grad(torch)
+    print(f"[time] kernel phases: {time.perf_counter() - t_phases:.1f} s")
+    t_phases = time.perf_counter()
     serves = {}
-    granite = "granite-moe-1b-a400m"
-    for label, kw in (
-            ("bf16", dict()),
-            ("int4", dict(pack=True, pack_format="int4")),
-            ("int8", dict(policy="int8", pack=True)),
-            ("int8-dense", dict(policy="int8", n_layers=4)),
-            ("phi3-sparse-bf16", dict(sparsity=0.5)),
-            ("granite-bf16", dict(arch=granite)),
-            ("granite-int4", dict(arch=granite, pack=True,
-                                  pack_format="int4")),
-            ("granite-int8", dict(arch=granite, policy="int8", pack=True)),
-            ("granite-int8-dense", dict(arch=granite, policy="int8",
-                                        n_layers=4)),
-            ("granite-sparse-int8", dict(arch=granite, policy="int8",
-                                         sparsity=0.5,
-                                         sparsity_method="nm"))):
+    for label, kw in SERVE_PATHS.items():
         serves[label] = phase_serve(torch, label=label, **kw)
         gc.collect()              # free each path's weights before the next
         torch.cuda.empty_cache()
@@ -1825,6 +2351,19 @@ def main():
         waves[label] = phase_wave_serve(torch, label=label, arch=arch)
         gc.collect()
         torch.cuda.empty_cache()
+    print(f"[time] serve phases: {time.perf_counter() - t_phases:.1f} s")
+    t_phases = time.perf_counter()
+    granite = "granite-moe-1b-a400m"
+    trains = {}
+    for label, kw in (("granite-bf16", dict(arch=granite, policy="bf16",
+                                             steps=3)),
+                      ("phi3-int8-4-layers", dict(arch="phi3-mini-3.8b",
+                                                  policy="int8", steps=2,
+                                                  n_layers=4))):
+        trains[label] = phase_train(torch, label=label, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[time] train phases: {time.perf_counter() - t_phases:.1f} s")
 
     def row(name, source, replaces, launches, numbers):
         return dict(name=name, route="cuda",
@@ -1865,7 +2404,8 @@ def main():
         row("K5 paged_flash at granite's attention (GQA 16:8, D 64)",
             "paged_flash.cu", fa, serves["granite-bf16"]["k5"],
             k5["granite"]),
-        row("K6 pack (tile packing, int4 payload, whole model)", "pack.cu",
+        row("K6 pack (tile packing, int4 payload: ms a whole phi3-mini, "
+            "launches a 16-layer load)", "pack.cu",
             "src/repro/packing/pack.py:221", serves["int4"]["k6"],
             dict(k6["int4"], library_ms=None)),
         row("K1 mpgemm_grouped (granite expert GEMMs, bf16 A, f32 out, "
@@ -1880,8 +2420,9 @@ def main():
         row("K2 mpgemm_packed_grouped (granite experts, int8 payload, int8 "
             "A)", "mpgemm_packed.cu", f"{mp}:250",
             serves["granite-int8"]["k2g"], k2g[("int8", "int8")]),
-        row("K6 pack (granite: 96 2-D weights and 72 grouped expert stacks, "
-            "int4 payload)", "pack.cu", "src/repro/packing/pack.py:280",
+        row("K6 pack (granite, int4 payload: ms 96 2-D weights and 72 "
+            "grouped expert stacks, launches a 12-layer load)", "pack.cu",
+            "src/repro/packing/pack.py:280",
             serves["granite-int4"]["k6"],
             dict(k6g["int4"], library_ms=None)),
         row("K4 flash_attention (whisper-medium wave prefill: 24 encoder "
@@ -1903,7 +2444,23 @@ def main():
             "int8 tiles)", "mpgemm_sparse.cu", f"{mp}:181",
             serves["granite-sparse-int8"]["k3g"],
             k3["granite-grouped-int8"]),
+        row("K1 mpgemm trans_a (dW of a granite training step, 512 tokens: "
+            "attention, f32 routers, tied embedding)", "mpgemm.cu",
+            f"{mp}:232", trains["granite-bf16"]["counts"]["k1_ta"],
+            k1ta["granite"]),
+        row("K1 mpgemm_grouped trans_a (dW of granite's expert stacks, 160 "
+            "rows each)", "mpgemm.cu", f"{mp}:812",
+            trains["granite-bf16"]["counts"]["k1g_ta"],
+            k1ta["granite-grouped"]),
+        row("K1 mpgemm trans_a (dW of a phi3-mini int8 training step, 4 "
+            "layers, 512 tokens)", "mpgemm.cu", f"{mp}:232",
+            trains["phi3-int8-4-layers"]["counts"]["k1_ta"], k1ta["phi3"]),
+        row("K7 unpack (phi3-mini w_up 3072x8192, bf16 payload, the packed "
+            "backward)", "pack.cu", "src/repro/packing/pack.py:242",
+            packed_grad["k7"], dict(k7["up-bf16"], library_ms=None)),
     ]
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} "
+          f"s wall, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -103,3 +103,14 @@ def segment_pattern(pattern):
             if all(rem[i] == pattern[i] for i in range(len(rem))):
                 return pattern[:p], n_units, rem
     return pattern, 1, ()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """A run's shape: sequence length and global batch (the reference's
+    ``ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str   # train | prefill | decode

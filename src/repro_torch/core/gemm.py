@@ -1,6 +1,7 @@
 """``mp_dot`` / ``mp_dot_grouped`` — the mixed-precision GEMM ops every
-projection and every MoE expert GEMM go through (port of the forward of
-``repro.core.gemm.mp_dot`` and ``mp_dot_grouped``).
+projection and every MoE expert GEMM go through (port of
+``repro.core.gemm.mp_dot`` and ``mp_dot_grouped``, with their one
+differentiable core).
 
 Each applies a :class:`PrecisionPolicy`, resolves the fusion epilogue from
 named operands, and hands one 2-D GEMM (``mp_dot``) or one grouped GEMM of
@@ -20,8 +21,7 @@ versions for CPU tensors:
   an int8/int4 payload under int8 takes per-tensor-quantized ``x`` with
   ``sx`` in the scale slot, and an fp8 payload under int8 takes bf16 ``x``
   (there is no int8 x fp8 product).  A float payload under int8 is
-  unpacked and re-quantized like a dense weight, which on the card would
-  need K7 (the training slice), so it raises there;
+  unpacked (K7) and re-quantized like a dense weight;
 * tile-sparse ``b`` (:class:`~repro_torch.sparse.layout.TileSparseOperand`):
   only the stored tiles are read (K3) -- a float payload takes ``x`` in
   the compute dtype (the payload cast to it, a no-op when sparsified under
@@ -32,9 +32,22 @@ versions for CPU tensors:
   float policy would need a float-A x int8 K3, which is not ported: it
   raises on every device.
 
-Serving needs no backward pass, so this is a plain function; the custom
-``torch.autograd.Function`` with fused-transpose backward GEMMs comes with
-the training slice.  ``quant_in`` raises until its slice.
+Every call that autograd records goes through one
+``torch.autograd.Function`` (:class:`_Gemm`, the port of ``_gemm_core`` /
+``_gemm_fwd`` / ``_gemm_bwd``; a call it does not record runs the same
+forward without it), whose backward
+runs fused-transpose GEMMs through K1: ``dx = dz · op(w)ᵀ`` (``trans_b``
+for a (k, n) weight) and ``dW = xᵀ · dz`` (``trans_a``; ``dzᵀ · x`` for a
+weight stored (n, k)), in the weight's storage orientation, so no
+transposed copy is made.  The backward runs in fp32 under fp32 and in bf16
+otherwise (the int8 policy's straight-through estimator), with f32 sums
+(the kernel path's numerics).  An epilogue whose rule needs the pre-tail
+value recomputes it with one more forward GEMM; alpha is chained; dbias is
+the f32 row sum of dz.  A packed weight is unpacked by K7; a float
+payload's cotangent is its packed dense gradient (K6 on the card), a
+codec payload is frozen (no gradient).  A sparse weight is densified and
+its cotangent masked to the stored tiles (``payload_cotangent``).
+``quant_in`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -42,15 +55,17 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
-    resolve_epilogue
+from repro_torch.core.gemm_spec import (
+    LINEAR, EpilogueSpec, GemmSpec, epilogue_bwd, epilogue_needs_pre,
+    resolve_epilogue,
+)
 from repro_torch.core.policy import PrecisionPolicy, get_policy, \
     quantize_per_tensor
 from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
 from repro_torch.packing.layout import PackedOperand
-from repro_torch.packing.pack import unpack_operand
+from repro_torch.packing.pack import pack_operand, unpack_operand
 from repro_torch.sparse.layout import TileSparseOperand
-from repro_torch.sparse.sparsify import densify_operand
+from repro_torch.sparse.sparsify import densify_operand, payload_cotangent
 
 
 def _build_epilogue(epilogue, activation, gate, residual, epilogue_operands):
@@ -69,9 +84,10 @@ def _build_epilogue(epilogue, activation, gate, residual, epilogue_operands):
 
 def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
                 policy: PrecisionPolicy, out_dtype,
-                grouped: bool = False) -> torch.Tensor:
+                grouped: bool = False, trans_a: bool = False) -> torch.Tensor:
     """One 2-D or grouped GEMM under a policy -- the dispatch point (the
-    reference's ``_apply_gemm`` on its kernel backends)."""
+    reference's ``_apply_gemm`` on its kernel backends).  ``trans_a``
+    (a dense float ``w`` only) reads ``x`` as (K, M): the backward's dW."""
     gemm = mpgemm_grouped if grouped else mpgemm
     kw = dict(bias=bias, extras=extras, epilogue=epilogue,
               out_dtype=out_dtype)
@@ -107,7 +123,8 @@ def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
         # quantization needs the dense weight back.
         w = unpack_operand(w)
         trans_w = False
-    spec = GemmSpec(grouped=grouped, trans_b=trans_w, out_dtype=out_dtype)
+    spec = GemmSpec(grouped=grouped, trans_a=trans_a, trans_b=trans_w,
+                    out_dtype=out_dtype)
     if policy.quantized:
         xq, sx = quantize_per_tensor(x)
         wq, sw = quantize_per_tensor(w)
@@ -115,6 +132,118 @@ def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
                     spec=spec, **kw)
     return gemm(x.to(policy.compute).contiguous(),
                 w.to(policy.compute).contiguous(), spec=spec, **kw)
+
+
+def _bwd_policy(policy: PrecisionPolicy) -> PrecisionPolicy:
+    """The backward's policy: fp32 under fp32, else bf16 (the int8 policy's
+    straight-through estimator); the kernels sum in f32 either way (the
+    reference's ``_bwd_flavor`` on its kernel backends)."""
+    return get_policy("fp32" if policy.name == "fp32" else "bf16")
+
+
+def _as_operand(w, w_tensor):
+    """The operand ``w`` with ``w_tensor`` (the autograd input: the dense
+    weight or the payload) in its place."""
+    if isinstance(w, PackedOperand):
+        return PackedOperand(w_tensor, w.scales, w.layout)
+    if isinstance(w, TileSparseOperand):
+        return TileSparseOperand(w_tensor, w.scales, w.layout, w.indptr,
+                                 w.indices)
+    return w_tensor
+
+
+def _weight_cotangent(w, dw_dense):
+    """The cotangent of ``w``'s autograd input from the dense (k, n) /
+    (g, k, n) gradient: itself for a dense weight, the packed gradient of a
+    float payload (K6 on the card), the gradient masked to the stored
+    tiles of a sparse one."""
+    if isinstance(w, PackedOperand):
+        layout = w.layout
+        # dw_dense is in the logical orientation: do not transpose again.
+        return pack_operand(dw_dense, (layout.bk, layout.bn), trans_w=False,
+                            dtype=layout.dtype).payload
+    if isinstance(w, TileSparseOperand):
+        return payload_cotangent(dw_dense, w.layout)
+    return dw_dense
+
+
+class _Gemm(torch.autograd.Function):
+    """The one differentiable core of ``mp_dot`` and ``mp_dot_grouped``.
+
+    Inputs: ``meta`` = (the operand ``w`` -- a dense tensor, a
+    PackedOperand or a TileSparseOperand --, trans_w, epilogue, policy,
+    out_dtype, grouped), then the tensors autograd tracks: ``x``, the
+    weight tensor (dense ``w`` or the payload), ``bias`` and the extras.
+    """
+
+    @staticmethod
+    def forward(ctx, meta, x, w_tensor, bias, *extras):
+        w, trans_w, epilogue, policy, out_dtype, grouped = meta
+        ctx.meta = meta
+        ctx.save_for_backward(x, w_tensor, bias, *extras)
+        return _apply_gemm(x, _as_operand(w, w_tensor), bias, extras,
+                           trans_w, epilogue, policy, out_dtype, grouped)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, trans_w, epilogue, policy, _, grouped = ctx.meta
+        x, w_tensor, bias, *extras = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[1:3]
+        bpol = _bwd_policy(policy)
+        w = _as_operand(w, w_tensor)
+        frozen = (isinstance(w, (PackedOperand, TileSparseOperand))
+                  and w.layout.per_tile_scales)
+        if isinstance(w, PackedOperand):
+            w_dense, w_trans = unpack_operand(w), False        # K7
+        elif isinstance(w, TileSparseOperand):
+            w_dense, w_trans = densify_operand(w), False
+        else:
+            w_dense, w_trans = w, trans_w
+
+        z = None
+        if epilogue_needs_pre(epilogue):
+            z = _apply_gemm(x, w_dense, bias, (), w_trans,
+                            EpilogueSpec(alpha=epilogue.alpha), bpol,
+                            torch.float32, grouped)
+        dz, dextras = epilogue_bwd(epilogue, z, tuple(extras), dy.float())
+        # z = alpha·acc + bias: dacc = alpha·dz, dbias = Σ dz (unscaled).
+        # The int8 policy's dequant scale is not chained (STE).
+        dzg = dz * epilogue.alpha if epilogue.alpha != 1.0 else dz
+
+        dx = dw = dbias = None
+        if need_x:
+            # dx = dzg · op(w)ᵀ: a (k, n) weight is read as B^T.
+            dx = _apply_gemm(dzg, w_dense, None, (), not w_trans, LINEAR,
+                             bpol, x.dtype, grouped)
+        if need_w and not frozen:
+            # dW in the weight's storage orientation: (k, n) = xᵀ · dzg,
+            # (n, k) = dzgᵀ · x.
+            a, b = (dzg, x) if w_trans else (x, dzg)
+            dw = _weight_cotangent(w, _apply_gemm(
+                a, b, None, (), False, LINEAR, bpol, w_dense.dtype, grouped,
+                trans_a=True))
+        if bias is not None and ctx.needs_input_grad[3]:
+            dbias = dz.sum(dim=-2, dtype=torch.float32)
+            if grouped and bias.dim() == 1:
+                dbias = dbias.sum(0)             # one row shared by groups
+            dbias = dbias.to(bias.dtype)
+        return (None, dx, dw, dbias, *dextras)
+
+
+def _gemm(x, w, bias, extras, trans_w, epilogue, policy, out_dtype,
+          grouped=False):
+    """Run one GEMM through :class:`_Gemm` -- or, when autograd records
+    nothing (serving, under inference mode or with no input that requires
+    a gradient), its forward alone: the same kernels without
+    ``Function.apply``'s host cost on every launch of a host-bound step."""
+    w_tensor = w if isinstance(w, torch.Tensor) else w.payload
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w_tensor, bias, *extras))):
+        return _apply_gemm(x, w, bias, extras, trans_w, epilogue, policy,
+                           out_dtype, grouped)
+    meta = (w, trans_w, epilogue, policy, out_dtype, grouped)
+    return _Gemm.apply(meta, x, w_tensor, bias, *extras)
 
 
 def mp_dot(
@@ -168,8 +297,7 @@ def mp_dot(
                                        epilogue_operands)
     extras = tuple(e.reshape(-1, e.shape[-1]).contiguous() for e in extras)
     out_dtype = out_dtype or policy.out
-    y2d = _apply_gemm(x2d, b, bias, extras, trans_w, epilogue, policy,
-                      out_dtype)
+    y2d = _gemm(x2d, b, bias, extras, trans_w, epilogue, policy, out_dtype)
     return y2d.reshape(*lead, n)
 
 
@@ -224,8 +352,8 @@ def mp_dot_grouped(
     epilogue, extras = _build_epilogue(epilogue, activation, gate, residual,
                                        epilogue_operands)
     extras = tuple(e.contiguous() for e in extras)
-    y = _apply_gemm(x, b, bias, extras, trans_w, epilogue, policy,
-                    out_dtype or policy.out, grouped=True)
+    y = _gemm(x, b, bias, extras, trans_w, epilogue, policy,
+              out_dtype or policy.out, grouped=True)
     if group_sizes is not None:
         rows = torch.arange(y.shape[1], device=y.device)[None, :, None]
         sizes = group_sizes.to(device=y.device).reshape(-1, 1, 1)

@@ -9,9 +9,12 @@ gated activation, residual add) and beta·C.
 
 :func:`apply_epilogue` is the single implementation of the epilogue
 semantics on tensors; the plain GEMM (``kernels/mpgemm.py``) calls it, and
-the CUDA kernel's epilogue repeats it in the same order.  This slice
-registers the forward tails of ``linear``, ``gated`` and ``residual``; the
-``quant_in`` families and the backward rules come with their slices.
+the CUDA kernel's epilogue repeats it in the same order.  Each registered
+family also carries its backward rule (:func:`epilogue_bwd`, with
+:func:`epilogue_needs_pre` saying whether it needs the recomputed pre-tail
+value), which ``core/gemm.py``'s autograd function applies.  The port
+registers ``linear``, ``gated`` and ``residual``; the ``quant_in``
+families are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,28 +35,39 @@ ACTIVATIONS = {
 }
 
 
+def _has_act(ep: "EpilogueSpec") -> bool:
+    return ep.activation not in (None, "none")
+
+
 # --- the fused-epilogue registry ---------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class EpilogueDef:
     """One registered epilogue family: ``tail(ep, acc, extras)`` maps the
     post-bias f32 accumulator to the output block; ``extras`` is a dict of
-    the entry's named (M, N) operands."""
+    the entry's named (M, N) operands.  ``bwd(ep, z, extras, dy)`` returns
+    ``(dz, dextras)``, the cotangent flowing back into the GEMM (pre-tail)
+    and those of the extra operands; ``z`` is the recomputed pre-tail value
+    (f32) when ``needs_pre(ep)`` holds, else None."""
 
     kind: str
     extra_operands: Tuple[str, ...]
     tail: Callable
+    bwd: Callable
+    needs_pre: Callable
 
 
 _EPILOGUES: Dict[str, EpilogueDef] = {}
 
 
-def register_epilogue(kind: str, *, extra_operands: Tuple[str, ...] = ()):
+def register_epilogue(kind: str, *, extra_operands: Tuple[str, ...] = (),
+                      bwd: Callable, needs_pre: Callable):
     """Register a fused-epilogue family under ``kind`` (decorator)."""
     def deco(tail: Callable) -> Callable:
         if kind in _EPILOGUES:
             raise ValueError(f"epilogue {kind!r} already registered")
-        _EPILOGUES[kind] = EpilogueDef(kind, tuple(extra_operands), tail)
+        _EPILOGUES[kind] = EpilogueDef(kind, tuple(extra_operands), tail,
+                                       bwd, needs_pre)
         return tail
     return deco
 
@@ -149,6 +163,21 @@ def apply_epilogue(ep: EpilogueSpec, acc, *, bias=None, scale=None, c=None,
     return acc
 
 
+def epilogue_bwd(ep: EpilogueSpec, z, extras, dy):
+    """Cotangents through the registry tail: ``(dz, dextras)``.
+
+    ``dy`` must be f32; ``z`` is the recomputed pre-tail value (f32) when
+    the entry's ``needs_pre`` demanded it, else None.  Bias, alpha and
+    scale cotangents are the caller's (dbias = the row sum of dz).
+    """
+    return get_epilogue(ep.kind).bwd(ep, z, extras, dy)
+
+
+def epilogue_needs_pre(ep: EpilogueSpec) -> bool:
+    """Does the backward rule need the recomputed pre-tail value?"""
+    return bool(get_epilogue(ep.kind).needs_pre(ep))
+
+
 # --- operand -> spec resolution ----------------------------------------------
 
 def infer_epilogue_kind(named: dict) -> str:
@@ -200,13 +229,33 @@ def resolve_epilogue(named: dict, *, epilogue: Optional[EpilogueSpec] = None,
 
 # --- built-in epilogue families ----------------------------------------------
 
-@register_epilogue("linear")
+def _act_vjp(ep, z, dy):
+    """(act(z), dy · act'(z)) by autograd of the forward activation."""
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_(True)
+        a = ACTIVATIONS[ep.activation](zz)
+        (dz,) = torch.autograd.grad(a, zz, dy)
+    return a.detach(), dz
+
+
+def _linear_bwd(ep, z, extras, dy):
+    return (_act_vjp(ep, z, dy)[1] if _has_act(ep) else dy), ()
+
+
+@register_epilogue("linear", bwd=_linear_bwd, needs_pre=_has_act)
 def _linear_tail(ep, acc, extras):
     """act(acc) — the classic BLAS-plus-activation epilogue."""
     return ACTIVATIONS[ep.activation](acc)
 
 
-@register_epilogue("gated", extra_operands=("gate",))
+def _gated_bwd(ep, z, extras, dy):
+    g = extras[0]
+    a_z, dz = _act_vjp(ep, z, dy * g.to(dy.dtype))
+    return dz, ((dy * a_z.to(dy.dtype)).to(g.dtype),)
+
+
+@register_epilogue("gated", extra_operands=("gate",), bwd=_gated_bwd,
+                   needs_pre=lambda ep: True)
 def _gated_tail(ep, acc, extras):
     """act(acc) · g — SwiGLU/GeGLU gating fused into the gate GEMM's store;
     the gate (the bf16 output of the up projection under bf16) is widened
@@ -214,7 +263,13 @@ def _gated_tail(ep, acc, extras):
     return ACTIVATIONS[ep.activation](acc) * extras["gate"].to(acc.dtype)
 
 
-@register_epilogue("residual", extra_operands=("residual",))
+def _residual_bwd(ep, z, extras, dy):
+    dz = _act_vjp(ep, z, dy)[1] if _has_act(ep) else dy
+    return dz, (dy.to(extras[0].dtype),)
+
+
+@register_epilogue("residual", extra_operands=("residual",),
+                   bwd=_residual_bwd, needs_pre=_has_act)
 def _residual_tail(ep, acc, extras):
     """act(acc) + r — the transformer residual add riding the GEMM's store,
     with the residual widened to f32."""

@@ -9,22 +9,32 @@
 //     out[g] = tail(alpha * (A[g] @ op(B[g])) * scale + bias[g])
 //     tail = act(acc) | act(acc) * gate[g] | act(acc) + residual[g]
 //
-// with A (G, M, K) row-major, B (G, K, N) row-major or (G, N, K) under
-// trans_b, bf16 or f32 inputs summed in f32, or int8 inputs summed exactly
-// in int32 over the whole K (the int8 policy), an f32 bias of N values per
-// group (bias_stride = N) or shared by all (bias_stride = 0), gate /
-// residual (G, M, N) in the output dtype, and a bf16 or f32 output.  The
-// 2-D GEMM is the case G = 1: the group is blockIdx.z, so one
-// instantiation serves both.  The float kernel folds the group into its
-// row indices (A's and C's row g * M + m, B's row g * K + k); the int8
-// kernel instead moves its pointers by the group's extent before the loop.
-// Each form is the faster one for its loop on an H100 (built side by side,
-// with bit-equal outputs): moved pointers made the float loop much slower
-// at the decode shapes, folded indices the int8 loop.  `scale` is an
-// optional f32 scalar in device memory (the int8 policy's sx * sw), read by
-// the kernel so that the host never waits for it.  The epilogue runs in f32
-// in the order of repro_torch/core/gemm_spec.py::apply_epilogue
-// (float(acc) * scale, alpha, bias, tail).
+// with A (G, M, K) row-major -- or (G, K, M) under trans_a, the backward's dW =
+// op(A)^T B (float inputs, trans_b off) -- B (G, K, N) row-major or (G, N, K)
+// under trans_b, bf16 or f32 inputs summed in f32, or int8 inputs summed
+// exactly in int32 over the whole K (the int8 policy), an f32 bias of N values
+// per group (bias_stride = N) or shared by all (bias_stride = 0), gate /
+// residual (G, M, N) in the output dtype, and a bf16 or f32 output.  The 2-D
+// GEMM is the case G = 1: the group is blockIdx.z, so one instantiation serves
+// both.  The float kernel folds the group into its row indices (A's and C's row
+// g * M + m, B's row g * K + k); the int8 kernel instead moves its pointers by
+// the group's extent before the loop.  Each form is the faster one for its loop
+// on an H100 (built side by side, with bit-equal outputs): moved pointers made
+// the float loop much slower at the decode shapes, folded indices the int8
+// loop.  `scale` is an optional f32 scalar in device memory (the int8 policy's
+// sx * sw), read by the kernel so that the host never waits for it.  The
+// epilogue runs in f32 in the order of
+// repro_torch/core/gemm_spec.py::apply_epilogue (float(acc) * scale, alpha,
+// bias, tail).
+//
+// trans_a (training's weight gradient) stages A's (BK, BM) tile from its
+// (K, M) rows -- consecutive threads on consecutive m, A's contiguous axis
+// -- into the same shared tile, with the K tail predicated on A's rows;
+// the sum over K stays in one block's registers, in one fixed order, so dW
+// is deterministic (no atomics, no split over K): a resumed run repeats a
+// continuous one bit for bit.  Its shapes are the training step's weight
+// gradients (M x N a weight, K the tokens of the step), a compute-bound
+// product for this scalar loop.
 //
 // What bounds it on an H100: the served shapes are decode (M = 2) and
 // chunked prefill (M <= 32) against 3072..32128-wide weights, or 32
@@ -68,7 +78,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // strided ownership keeps the shared-memory reads of a warp on distinct
 // banks and its global stores coalesced.
 template <typename T, typename OutT, int BM, int BN, int BK, int TM, int TN,
-          bool TRANS_B>
+          bool TRANS_A, bool TRANS_B>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 mpgemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
               OutT* __restrict__ C, const float* __restrict__ bias,
@@ -95,12 +105,22 @@ mpgemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile (BM x BK): consecutive threads walk K, the contiguous axis.
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int mm = e / BK, kk = e % BK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K)
-                       ? to_f32(A[((size_t)gz * M + gm) * K + gk]) : 0.f;
+    // A tile (BM x BK): consecutive threads walk the contiguous axis, K
+    // for an (M, K) A, M for a (K, M) one (trans_a).
+    if (!TRANS_A) {
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int mm = e / BK, kk = e % BK;
+        const int gm = m0 + mm, gk = k0 + kk;
+        As[kk][mm] = (gm < M && gk < K)
+                         ? to_f32(A[((size_t)gz * M + gm) * K + gk]) : 0.f;
+      }
+    } else {
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int kk = e / BM, mm = e % BM;
+        const int gm = m0 + mm, gk = k0 + kk;
+        As[kk][mm] = (gm < M && gk < K)
+                         ? to_f32(A[((size_t)gz * K + gk) * M + gm]) : 0.f;
+      }
     }
     // B tile (BK x BN): consecutive threads walk the contiguous axis.
     if (!TRANS_B) {
@@ -157,7 +177,7 @@ mpgemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
   }
 }
 
-template <typename T, typename OutT, bool TRANS_B>
+template <typename T, typename OutT, bool TRANS_A, bool TRANS_B>
 cudaError_t launch_typed(const void* a, const void* b, void* out,
                          const void* bias, const void* extra,
                          const float* scale, int g, int m, int n, int k,
@@ -168,16 +188,18 @@ cudaError_t launch_typed(const void* a, const void* b, void* out,
   OutT* C = static_cast<OutT*>(out);
   const float* bi = static_cast<const float*>(bias);
   const OutT* ex = static_cast<const OutT*>(extra);
-  if (m <= 16) {
+  // The narrow decode tile serves small M; trans_a (dW, M a weight's K)
+  // always takes the wide one, which halves its instantiations.
+  if (!TRANS_A && m <= 16) {
     constexpr int BM = 16, BN = 32, BK = 64, TM = 2, TN = 2;
     dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, g);
-    mpgemm_kernel<T, OutT, BM, BN, BK, TM, TN, TRANS_B>
+    mpgemm_kernel<T, OutT, BM, BN, BK, TM, TN, false, TRANS_B>
         <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
             A, B, C, bi, ex, m, n, k, bias_stride, kind, act, alpha, scale);
   } else {
     constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
     dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, g);
-    mpgemm_kernel<T, OutT, BM, BN, BK, TM, TN, TRANS_B>
+    mpgemm_kernel<T, OutT, BM, BN, BK, TM, TN, TRANS_A, TRANS_B>
         <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
             A, B, C, bi, ex, m, n, k, bias_stride, kind, act, alpha, scale);
   }
@@ -185,18 +207,22 @@ cudaError_t launch_typed(const void* a, const void* b, void* out,
 }
 
 template <typename T, typename OutT>
-cudaError_t launch_trans(int trans_b, const void* a, const void* b, void* out,
-                         const void* bias, const void* extra,
-                         const float* scale, int g, int m, int n, int k,
-                         int bias_stride, int kind, int act, float alpha,
-                         cudaStream_t stream) {
+cudaError_t launch_trans(int trans_a, int trans_b, const void* a,
+                         const void* b, void* out, const void* bias,
+                         const void* extra, const float* scale, int g, int m,
+                         int n, int k, int bias_stride, int kind, int act,
+                         float alpha, cudaStream_t stream) {
+  if (trans_a)   // trans_a with trans_b is refused by mpgemm_launch
+    return launch_typed<T, OutT, true, false>(a, b, out, bias, extra, scale,
+                                              g, m, n, k, bias_stride, kind,
+                                              act, alpha, stream);
   if (trans_b)
-    return launch_typed<T, OutT, true>(a, b, out, bias, extra, scale, g, m, n,
-                                       k, bias_stride, kind, act, alpha,
-                                       stream);
-  return launch_typed<T, OutT, false>(a, b, out, bias, extra, scale, g, m, n,
-                                      k, bias_stride, kind, act, alpha,
-                                      stream);
+    return launch_typed<T, OutT, false, true>(a, b, out, bias, extra, scale,
+                                              g, m, n, k, bias_stride, kind,
+                                              act, alpha, stream);
+  return launch_typed<T, OutT, false, false>(a, b, out, bias, extra, scale,
+                                             g, m, n, k, bias_stride, kind,
+                                             act, alpha, stream);
 }
 
 // The int8 variant: the loop above over int32 staging and an exact int32
@@ -315,19 +341,23 @@ extern "C" {
 // Launches K1 on `stream` over `g` groups (1 for a 2-D GEMM); returns the
 // cudaError_t of the launch (0 = ok).  in_dtype: 0 f32, 1 bf16, 2 int8
 // (both operands); out_dtype: 0 f32, 1 bf16.  Every operand is contiguous
-// with the group as its leading axis.  `bias`, `extra` and `scale` may be
+// with the group as its leading axis; A is (K, M) per group under trans_a
+// (float operands only, trans_b off).  `bias`, `extra` and `scale` may be
 // null; `bias_stride` is N for a (G, N) bias and 0 for one (N,) bias shared
 // by every group; `extra` is read for kind 1 (gated) and kind 2 (residual)
 // and has the output's dtype; `scale` is one f32 in device memory.
 int mpgemm_launch(const void* a, const void* b, void* out, const void* bias,
                   const void* extra, const void* scale, int g, int m, int n,
                   int k, int bias_stride, int in_dtype, int out_dtype,
-                  int trans_b, int kind, int act, float alpha, void* stream) {
+                  int trans_a, int trans_b, int kind, int act, float alpha,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   if (out_dtype != DT_F32 && out_dtype != DT_BF16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (g <= 0 || g > 65535 || bias_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (trans_a && (trans_b || in_dtype == DT_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == DT_INT8) {
     const float* bi = static_cast<const float*>(bias);
@@ -338,8 +368,8 @@ int mpgemm_launch(const void* a, const void* b, void* out, const void* bias,
                               bias_stride, out_dtype, kind, act, alpha, s);
   }
 #define K1_LAUNCH(T, OutT)                                                   \
-  return launch_trans<T, OutT>(trans_b, a, b, out, bias, extra, sc, g, m, n, \
-                               k, bias_stride, kind, act, alpha, s)
+  return launch_trans<T, OutT>(trans_a, trans_b, a, b, out, bias, extra, sc, \
+                               g, m, n, k, bias_stride, kind, act, alpha, s)
   if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
     K1_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (in_dtype == DT_BF16 && out_dtype == DT_F32)

@@ -1,5 +1,6 @@
 // K6: tile packing with on-the-fly transposition and per-tile quantization,
-// for sm_90a.
+// and K7, its inverse (the tile unpacker), for sm_90a.  The two share the
+// payload codes and the codec constants.
 //
 // Replaces the TPU kernels src/repro/packing/pack.py::_pack_kernel and
 // ::_pack_quant_kernel (launched by _pack_pallas, 2-D or with the group
@@ -29,8 +30,24 @@
 // shuffles, then shared memory), then a second pass over the tile (from L2)
 // that quantizes and stores.  Consecutive threads walk the source's
 // contiguous axis for the reads (n, or k under trans_w).
+//
+// K7 replaces src/repro/packing/pack.py::_unpack_kernel and
+// ::_unpack_quant_kernel (launched by _unpack_pallas): payload tiles back to
+// the dense (k, n) operand -- (g, k, n) for a grouped payload -- with the
+// transpose already resolved, in f32 or bf16.  A float payload is cast; a
+// codec payload is decoded (int8 as is, int4 nibbles sign-extended, low
+// nibble = even k, fp8e4m3 exactly through half) and multiplied in f32 by
+// its tile's scale, then cast once: the IEEE product and rounding of the
+// plain version (repro_torch/packing/pack.py::unpack_reference), so the two
+// are bit-equal.  It serves training's backward of a packed weight and a
+// float payload's forward under the int8 policy.  Bound: bytes (the payload
+// read once, the dense operand written once); one thread per output
+// element, a row of blocks per output row, consecutive threads on
+// consecutive columns (the contiguous axis of both the tile rows and the
+// output).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
 #include <cstdint>
@@ -167,6 +184,57 @@ pack_kernel(const void* __restrict__ src, void* __restrict__ payload,
   }
 }
 
+enum { OUT_F32 = 0, OUT_BF16 = 1 };
+
+// Element (r, c) of group gg of the dense output: tile (r / bk, c / bn),
+// lane (r % bk, c % bn) of the payload.  One block row of threads per
+// output row (blockIdx.y, blockIdx.z: row and group), so no thread divides
+// a 64-bit index.
+__global__ void __launch_bounds__(kThreads)
+unpack_kernel(const void* __restrict__ payload,
+              const float* __restrict__ scales, void* __restrict__ out,
+              int pcode, int out_dt, int g, int k, int n, int bk, int bn) {
+  const int nkb = (k + bk - 1) / bk, nnb = (n + bn - 1) / bn;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= n) return;
+  const int j = c / bn, cc = c % bn;
+  for (int gg = blockIdx.z; gg < g; gg += gridDim.z) {
+    for (int r = blockIdx.y; r < k; r += gridDim.y) {
+      const int i = r / bk, rr = r % bk;
+      const size_t t = ((size_t)gg * nkb + i) * nnb + j;
+      float v;
+      if (pcode == P_INT4) {
+        const int rows = (bk + 1) / 2;
+        const int b = static_cast<const int8_t*>(
+            payload)[(t * rows + rr / 2) * bn + cc];
+        const int q = (rr & 1) ? (b >> 4) : (((b & 0xF) ^ 8) - 8);
+        v = static_cast<float>(q) * scales[t];
+      } else {
+        const size_t e = (t * bk + rr) * bn + cc;
+        if (pcode == P_F32) {
+          v = static_cast<const float*>(payload)[e];
+        } else if (pcode == P_BF16) {
+          v = __bfloat162float(
+              static_cast<const __nv_bfloat16*>(payload)[e]);
+        } else if (pcode == P_INT8) {
+          v = static_cast<float>(static_cast<const int8_t*>(payload)[e]) *
+              scales[t];
+        } else {  // P_FP8: e4m3 is exact in half, half exact in f32
+          const __half_raw h = __nv_cvt_fp8_to_halfraw(
+              static_cast<const __nv_fp8_storage_t*>(payload)[e],
+              __NV_E4M3);
+          v = __half2float(__half(h)) * scales[t];
+        }
+      }
+      const size_t o = ((size_t)gg * k + r) * n + c;
+      if (out_dt == OUT_BF16)
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
+      else
+        static_cast<float*>(out)[o] = v;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -185,6 +253,25 @@ int pack_launch(const void* src, void* payload, float* scales, int src_dt,
   const dim3 grid((n + bn - 1) / bn, (k + bk - 1) / bk, g);
   pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       src, payload, scales, src_dt, pcode, k, n, bk, bn, trans_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K7 on `stream`: the dense (g, k, n) operand of a payload of g
+// groups (1 for a 2-D weight) in f32 (out_dt 0) or bf16 (1); returns the
+// cudaError_t of the launch (0 = ok).  `scales` is read for the codec
+// payloads (int8, int4, fp8) and may be null for the float ones.
+int unpack_launch(const void* payload, const float* scales, void* out,
+                  int pcode, int out_dt, int g, int k, int n, int bk, int bn,
+                  void* stream) {
+  if (pcode < P_F32 || pcode > P_FP8) return cudaErrorInvalidValue;
+  if (out_dt != OUT_F32 && out_dt != OUT_BF16) return cudaErrorInvalidValue;
+  if (pcode >= P_INT8 && scales == nullptr) return cudaErrorInvalidValue;
+  if (k <= 0 || n <= 0 || bk <= 0 || bn <= 0 || g <= 0)
+    return cudaErrorInvalidValue;
+  const dim3 grid((n + kThreads - 1) / kThreads, k < 65535 ? k : 65535,
+                  g < 65535 ? g : 65535);
+  unpack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      payload, scales, out, pcode, out_dt, g, k, n, bk, bn);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,9 +12,12 @@ polymorphic in ``b``, as the reference is: a dense tensor goes to K1, a
 by the device of its operands: a CPU tensor runs the plain version, a CUDA
 tensor launches the hand-written kernel (``csrc/mpgemm.cu``,
 ``csrc/mpgemm_packed.cu``, ``csrc/mpgemm_sparse.cu``, built on first use
-by ``_build.py``).  Variants the kernels do not take yet -- ``trans_a``
-and ``beta·C`` -- raise ``NotImplementedError`` on every device, so the
-CPU path never offers what the card cannot run.
+by ``_build.py``).  K1 also takes ``spec.trans_a`` (A read as (K, M),
+or (G, K, M) grouped: the backward's dW = Aᵀ·B), for float operands
+without ``trans_b``.  Variants the kernels do not take yet -- ``beta·C``,
+int8 ``trans_a``, ``trans_a`` with ``trans_b`` or against a packed or
+sparse B -- raise ``NotImplementedError`` on every device, so the CPU path
+never offers what the card cannot run.
 
 K1 takes bf16 or f32 operands summed in f32, or int8 operands summed
 exactly in int32 (the int8 policy).  ``scale`` is a one-element f32 tensor
@@ -26,7 +29,9 @@ gate / residual operands of the output's shape (G, M, N).
 ``mpgemm.launches``, ``mpgemm_grouped.launches``,
 ``mpgemm_packed.launches``, ``mpgemm_packed_grouped.launches``,
 ``mpgemm_sparse.launches`` and ``mpgemm_sparse_grouped.launches`` count
-kernel launches (never plain-version calls).
+kernel launches (never plain-version calls); ``mpgemm.trans_a_launches``,
+``mpgemm.trans_b_launches`` and their ``mpgemm_grouped`` twins count the
+K1 launches of each transposed variant among them.
 """
 from __future__ import annotations
 
@@ -54,9 +59,21 @@ _PAYLOAD_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3,
                   "fp8e4m3": 4}
 
 
-def _check_supported(spec: GemmSpec, epilogue: EpilogueSpec, c):
+def _check_supported(spec: GemmSpec, epilogue: EpilogueSpec, c, *,
+                     dense_a_dtype=None):
+    """Raise on what neither the kernels nor their plain versions take;
+    ``dense_a_dtype`` is A's dtype against a dense B (None: packed or
+    sparse B, which take no ``trans_a``)."""
     if spec.trans_a:
-        raise NotImplementedError("trans_a is not ported yet")
+        if dense_a_dtype is None:
+            raise NotImplementedError(
+                "trans_a against a packed or sparse B is not ported")
+        if spec.trans_b:
+            raise NotImplementedError(
+                "trans_a with trans_b is not ported (the backward never "
+                "issues it)")
+        if dense_a_dtype == torch.int8:
+            raise NotImplementedError("int8 trans_a is not ported yet")
     if epilogue.beta != 0.0 or c is not None:
         raise NotImplementedError("beta·C accumulation is not ported yet")
     if epilogue.kind not in _KIND_CODES:
@@ -74,16 +91,18 @@ def mpgemm_plain(a: torch.Tensor, b: torch.Tensor, *,
                  bias: Optional[torch.Tensor] = None,
                  scale: Optional[torch.Tensor] = None,
                  extras: Sequence[torch.Tensor] = (),
-                 trans_b: bool = False, epilogue: EpilogueSpec = LINEAR,
+                 trans_a: bool = False, trans_b: bool = False,
+                 epilogue: EpilogueSpec = LINEAR,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """K1's plain version, 2-D or grouped (a leading G axis on ``a``,
     ``b`` and the extras): the matmul of the (already compute-dtype)
     operands -- f32, or exact for int8 (f64 holds every int8 dot product
     sum of these sizes exactly) -- then :func:`apply_epilogue` in f32, then
-    the output cast."""
+    the output cast.  ``trans_a`` reads ``a`` as (K, M)."""
     wide = torch.float64 if a.dtype == torch.int8 else torch.float32
-    bw = b.to(wide)
-    acc = (a.to(wide) @ (bw.transpose(-1, -2) if trans_b else bw)).float()
+    aw, bw = a.to(wide), b.to(wide)
+    acc = ((aw.transpose(-1, -2) if trans_a else aw)
+           @ (bw.transpose(-1, -2) if trans_b else bw)).float()
     return _epilogue_plain(epilogue, acc, bias, scale, extras,
                            out_dtype or a.dtype)
 
@@ -158,28 +177,28 @@ def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
                       epilogue=epilogue, out_dtype=out_dtype or spec.out_dtype)
     if spec.packed:
         raise ValueError("spec.packed needs a PackedOperand b")
-    _check_supported(spec, epilogue, c)
+    _check_supported(spec, epilogue, c, dense_a_dtype=a.dtype)
     out_dtype = out_dtype or spec.out_dtype or a.dtype
     extras = tuple(extras)
     _check_extras(epilogue, extras)
     if a.device.type == "cpu":
         return mpgemm_plain(a, b, bias=bias, scale=scale, extras=extras,
-                            trans_b=spec.trans_b, epilogue=epilogue,
-                            out_dtype=out_dtype)
+                            trans_a=spec.trans_a, trans_b=spec.trans_b,
+                            epilogue=epilogue, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm: unsupported device {a.device}")
-    return _launch(a, b, bias, scale, extras, spec.trans_b, epilogue,
-                   out_dtype, grouped)
+    return _launch(a, b, bias, scale, extras, spec.trans_a, spec.trans_b,
+                   epilogue, out_dtype, grouped)
 
 
 # --- shared argument checks --------------------------------------------------
 
-def _check_a(a, k, grouped):
+def _check_a(a, k, grouped, trans_a=False):
     rank = 3 if grouped else 2
     if a.dim() != rank:
         raise ValueError(f"{'grouped' if grouped else '2-D'} mpgemm: A must "
                          f"have rank {rank}, got {tuple(a.shape)}")
-    if a.shape[-1] != k:
+    if a.shape[-2 if trans_a else -1] != k:
         raise ValueError(f"contraction mismatch: A {tuple(a.shape)} against "
                          f"K = {k}")
     if not a.is_contiguous():
@@ -225,8 +244,8 @@ def _ptr(t):
 
 # --- K1 launch ---------------------------------------------------------------
 
-def _launch(a, b, bias, scale, extras, trans_b, epilogue, out_dtype,
-            grouped):
+def _launch(a, b, bias, scale, extras, trans_a, trans_b, epilogue,
+            out_dtype, grouped):
     rank = 3 if grouped else 2
     if b.dim() != rank:
         raise ValueError(f"mpgemm: B must have rank {rank}, got "
@@ -236,7 +255,7 @@ def _launch(a, b, bias, scale, extras, trans_b, epilogue, out_dtype,
             f"mpgemm kernel takes bf16, f32 or int8 operands of one dtype, "
             f"got {a.dtype} x {b.dtype}")
     n, k = (b.shape[-2:] if trans_b else b.shape[-2:][::-1])
-    _check_a(a, k, grouped)
+    _check_a(a, k, grouped, trans_a)
     g = a.shape[0] if grouped else 1
     if grouped and b.shape[0] != g:
         raise ValueError(f"group mismatch: A has {g}, B {b.shape[0]}")
@@ -244,7 +263,7 @@ def _launch(a, b, bias, scale, extras, trans_b, epilogue, out_dtype,
         raise ValueError(f"mpgemm: b on {b.device}, a on {a.device}")
     if not b.is_contiguous():
         raise ValueError("mpgemm: b must be contiguous")
-    m = a.shape[-2]
+    m = a.shape[-1 if trans_a else -2]
     out_shape = (*a.shape[:-2], m, n)
     bias, bias_stride, scale, extra = _epilogue_args(
         a, out_shape, bias, scale, extras, epilogue, out_dtype)
@@ -255,18 +274,21 @@ def _launch(a, b, bias, scale, extras, trans_b, epilogue, out_dtype,
     rc = lib.mpgemm_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(extra),
         _ptr(scale), g, m, n, k, bias_stride, _DTYPE_CODES[a.dtype],
-        _OUT_CODES[out_dtype], int(trans_b), _KIND_CODES[epilogue.kind],
-        _ACT_CODES[epilogue.activation], float(epilogue.alpha),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        _OUT_CODES[out_dtype], int(trans_a), int(trans_b),
+        _KIND_CODES[epilogue.kind], _ACT_CODES[epilogue.activation],
+        float(epilogue.alpha), torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mpgemm kernel launch failed: CUDA error {rc} "
                            f"({lib.mpgemm_error_string(rc).decode()})")
-    (mpgemm_grouped if grouped else mpgemm).launches += 1
+    fn = mpgemm_grouped if grouped else mpgemm
+    fn.launches += 1
+    fn.trans_a_launches += int(trans_a)
+    fn.trans_b_launches += int(trans_b)
     return out
 
 
-mpgemm.launches = 0
-mpgemm_grouped.launches = 0
+for _fn in (mpgemm, mpgemm_grouped):
+    _fn.launches = _fn.trans_a_launches = _fn.trans_b_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -275,7 +297,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mpgemm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mpgemm_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                  i, i, ctypes.c_float, p]
+                                  i, i, i, ctypes.c_float, p]
     lib.mpgemm_launch.restype = i
     lib.mpgemm_error_string.argtypes = [i]
     lib.mpgemm_error_string.restype = ctypes.c_char_p

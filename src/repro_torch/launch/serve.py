@@ -149,7 +149,7 @@ def main(argv=None):
         print(f"[serve] packed static weights: "
               f"{packed_param_bytes(params) / 2**20:.1f} MiB payload{fmt}")
     if args.sparsity > 0:
-        density = sparse_param_density(params)
+        density = sparse_param_density(params, model.cfg)
         print(f"[serve] tile-sparse static weights: "
               f"{sparse_param_bytes(params) / 2**20:.1f} MiB payload, "
               f"tile density {density:.2f} ({args.sparsity_method})")

@@ -1,0 +1,82 @@
+"""Training entrypoint, on the card by default.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-1b-a400m --steps 3 --ckpt /tmp/ck
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 2 \
+        --device cpu
+
+Weights are random f32 masters drawn from ``--seed`` on the device; the
+batches come from the seeded synthetic pipeline.  ``--ckpt DIR`` saves
+every ``--ckpt-every`` steps (in the background); ``--resume`` restores
+the latest checkpoint there and runs on to ``--steps``.  Without a card,
+leave ``--device cuda`` (the default) and the command exits non-zero;
+``--device cpu`` runs the plain PyTorch path.
+"""
+import argparse
+import dataclasses
+import sys
+
+from repro_torch.configs import base as cb
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models.transformer import build_model, resolve_device
+from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def main(argv=None):
+    """Run the CLI; -> (trainer, params, opt_state) after the last step."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="h2o-danube3-4b", choices=cb.ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced SMOKE config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--policy", default="bf16",
+                    choices=["fp32", "bf16", "int8"])
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="checkpoint every N steps (with --ckpt)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the architecture to its first N layers")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"[train] {e}", file=sys.stderr)
+        raise SystemExit(2)
+
+    cfg = cb.get(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers,
+                                  block_pattern=cfg.block_pattern[
+                                      :args.layers])
+    model = build_model(cfg, policy=args.policy, device=device)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    tcfg = TrainerConfig(steps=args.steps, microbatches=args.microbatches,
+                         checkpoint_every=args.ckpt_every,
+                         checkpoint_dir=args.ckpt,
+                         opt=AdamWConfig(lr=args.lr))
+    trainer = Trainer(model, shape, tcfg, seed=args.seed)
+    params, opt = trainer.init_state()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"[train] {cfg.name}: {len(cfg.pattern)} layers, "
+          f"{n_params / 1e6:.1f}M params, policy={args.policy}, "
+          f"device={device}")
+    start = 0
+    if args.resume and args.ckpt:
+        params, opt, start = trainer.restore(params, opt)
+        print(f"[train] resumed from step {start}")
+    params, opt = trainer.run(params, opt, start_step=start)
+    print("[train] done; final loss",
+          trainer.metrics_log[-1]["loss"] if trainer.metrics_log else "n/a")
+    return trainer, params, opt
+
+
+if __name__ == "__main__":
+    main()

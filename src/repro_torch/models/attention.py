@@ -1,5 +1,6 @@
-"""Attention cores (port of ``repro.models.attention``): the prefill and
-cross-attention dispatch :func:`attention_core` (K4), one-token decode
+"""Attention cores (port of ``repro.models.attention``): the prefill,
+training and cross-attention dispatch :func:`attention_core` (K4 forward,
+the gradient of :func:`dense_attention` backward), one-token decode
 attention against a ring cache (:func:`decode_attention`, plain torch ops,
 as the reference has no kernel there), and paged attention for
 continuous-batching serving (K5).
@@ -20,12 +21,80 @@ from repro_torch.kernels.flash_attention import (
 )
 
 
+def dense_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, scale=None, lengths=None):
+    """The reference's dense attention (its XLA path for short sequences,
+    and the one its training differentiates): K/V heads repeated for GQA,
+    f32 scores, the right-aligned causal mask, an optional window and
+    per-row valid ``lengths``, ``-1e30`` masking, an f32 softmax, ``p``
+    rounded to V's dtype, f32 P·V, the result in q's dtype."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    g = h // hkv
+    # Each KV head repeated for its g query heads (expand, not
+    # repeat_interleave, whose output size would be read on the host).
+    k = k[:, :, None].expand(b, hkv, g, tk, d).reshape(b, h, tk, d)
+    v = v[:, :, None].expand(b, hkv, g, tk, d).reshape(b, h, tk, d)
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    ki = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones(tq, tk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (ki <= qi)
+    if window is not None:
+        mask = mask & (ki > qi - window)
+    mask = mask[None, None]
+    if lengths is not None:
+        mask = mask & (ki[None, None] < lengths.reshape(-1, 1, 1, 1))
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """K4 forward, the gradient of :func:`dense_attention` backward.
+
+    The reference has no attention-backward kernel: its flash kernel (K4)
+    has no VJP, so it trains on its XLA backend, where XLA differentiates
+    ``dense_attention``.  The port keeps K4 for the forward on the card
+    and, on every device, recomputes ``dense_attention`` from the saved
+    q, k, v in the backward and differentiates it with autograd -- the
+    counterpart of the reference's XLA-computed gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, scale)
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window,
+                               scale=scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, window, scale = ctx.opts
+        with torch.enable_grad():
+            qkv = tuple(t.detach().requires_grad_(True)
+                        for t in ctx.saved_tensors)
+            out = dense_attention(*qkv, causal=causal, window=window,
+                                  scale=scale)
+            grads = torch.autograd.grad(out, qkv, do)
+        return (*grads, None, None, None)
+
+
 def attention_core(q, k, v, *, causal: bool = True,
                    window: Optional[int] = None, scale=None):
-    """Prefill / cross-attention: q (B, H, Tq, D) over k/v (B, Hkv, Tk, D),
-    the causal mask right-aligned.  The K4 wrapper dispatches by device: its
-    CUDA kernel for CUDA tensors, its plain version for CPU tensors (the
-    reference picks its XLA algorithms on the CPU; the math is the same)."""
+    """Prefill / training / cross-attention: q (B, H, Tq, D) over k/v (B,
+    Hkv, Tk, D), the causal mask right-aligned.  The forward is the K4
+    wrapper, which dispatches by device: its CUDA kernel for CUDA tensors,
+    its plain version for CPU tensors (the reference picks its XLA
+    algorithms on the CPU; the math is the same).  The backward is the
+    gradient of :func:`dense_attention` (:class:`_Attention` says why);
+    when autograd records nothing (serving) the K4 wrapper runs alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, causal, window, scale)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window, scale=scale)
 

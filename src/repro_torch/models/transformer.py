@@ -1,9 +1,11 @@
 """Model assembly (port of ``repro.models.transformer``): :class:`LM` with
-``init``, the wave path (``prefill`` over left-padded prompts and
-``decode_step`` against per-layer ring caches, with whisper's encoder
-stack) and the paged path (``init_paged_caches``, ``paged_step``), and
-:func:`params_from_jax`, which carries a reference parameter tree across so
-both packages compute the same function.
+``init``, training (``init_train`` / ``train_params`` for the f32 master
+parameters, ``loss_fn`` with per-layer rematerialisation), the wave path
+(``prefill`` over left-padded prompts and ``decode_step`` against
+per-layer ring caches, with whisper's encoder stack) and the paged path
+(``init_paged_caches``, ``paged_step``), and :func:`params_from_jax`,
+which carries a reference parameter tree across so both packages compute
+the same function.
 
 Parameters are a plain dict: ``embed`` (Vp, d), ``final_norm``, ``head``
 (d, Vp) when untied, ``pos_embed`` (32776, d) for learned positions, and
@@ -30,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, segment_pattern
 from repro_torch.core.codecs import dtype_name
@@ -38,6 +41,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import (
     embed_init, logits_from_hidden, rope_frequencies,
 )
+from repro_torch.models.losses import chunked_softmax_xent
 from repro_torch.packing.layout import PackedLayout, PackedOperand
 from repro_torch.packing.params import pack_params
 from repro_torch.sparse.layout import TileSparseLayout, TileSparseOperand
@@ -56,6 +60,8 @@ POS_EMBED_ROWS = 32768 + 8
 # an expert holds every token of a sequence whenever top-k picks each
 # expert at most once per token (granite: cap = s).
 MOE_SERVE_CAPACITY = 4.0
+# Training's MoE capacity factor: the reference's ``moe_mlp`` default.
+MOE_TRAIN_CAPACITY = 1.25
 
 
 def resolve_device(device) -> torch.device:
@@ -114,11 +120,14 @@ _GEMM_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
 @dataclasses.dataclass
 class LM:
     """Decoder LM (with whisper's encoder for an audio config); ``device``
-    defaults to the card."""
+    defaults to the card.  ``remat`` recomputes each layer's activations in
+    the backward (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` of its scan body."""
 
     cfg: ArchConfig
     policy: str = "bf16"
     device: Any = "cuda"
+    remat: bool = True
 
     def __post_init__(self):
         bad = sorted({k for k in self.cfg.pattern if k not in WAVE_KINDS})
@@ -171,9 +180,6 @@ class LM:
                              "weight is stored packed-dense or tile-sparse)")
         if not 0.0 <= sparsity < 1.0:
             raise ValueError(f"sparsity must be in [0, 1), got {sparsity}")
-        cfg, dev = self.cfg, self.device
-        kw = dict(generator=generator, device=dev)
-
         def prepare(tree):
             # Pack or cast each part as it is drawn: the f32 draft of a
             # full-width model would not have to fit beside the result.
@@ -184,15 +190,39 @@ class LM:
                                    pack_format=pack_format)
             return self._cast_layer(tree)
 
+        def prepare_head(head):
+            if not pack:
+                return head
+            return pack_params({"head": head}, policy=self.policy,
+                               pack_format=pack_format)["head"]
+
+        params = self._draw(generator, prepare, prepare_head)
+        if sparsity > 0:
+            params = sparsify_params(
+                params, cfg=self.cfg, density=1.0 - sparsity,
+                method=sparsity_method, nm=nm_for_sparsity(sparsity),
+                policy=self.policy, blocks=sparsity_blocks)
+        return self.load_params(params)
+
+    def init_train(self, generator: torch.Generator) -> Dict[str, Any]:
+        """Random f32 master parameters on the model's device, with the
+        distributions of :meth:`init` and no cast: training keeps f32
+        weights and ``mp_dot`` casts them per call, as the reference
+        does."""
+        return self._draw(generator, lambda tree: tree, lambda head: head)
+
+    def _draw(self, generator, prepare, prepare_head) -> Dict[str, Any]:
+        """The f32 draw of every parameter on the model's device, each
+        layer (and the head) passed through ``prepare`` as it is drawn."""
+        cfg, dev = self.cfg, self.device
+        kw = dict(generator=generator, device=dev)
         params: Dict[str, Any] = {
             "embed": embed_init(self.vocab_padded, cfg.d_model, **kw),
             "final_norm": B.init_norm(cfg, device=dev),
         }
         if not cfg.tie_embeddings:
-            head = torch.randn(cfg.d_model, self.vocab_padded, **kw) * 0.02
-            params["head"] = (pack_params({"head": head}, policy=self.policy,
-                                          pack_format=pack_format)["head"]
-                              if pack else head)
+            params["head"] = prepare_head(
+                torch.randn(cfg.d_model, self.vocab_padded, **kw) * 0.02)
         if cfg.pos_embed == "learned":
             params["pos_embed"] = embed_init(POS_EMBED_ROWS, cfg.d_model, **kw)
         params["layers"] = [prepare(_INIT[kind](cfg, **kw))
@@ -202,12 +232,7 @@ class LM:
                                  for _ in range(cfg.encoder_layers)]
             params["enc_norm"] = B.init_norm(cfg, device=dev)
             params["enc_pos"] = embed_init(cfg.encoder_seq, cfg.d_model, **kw)
-        if sparsity > 0:
-            params = sparsify_params(
-                params, cfg=cfg, density=1.0 - sparsity,
-                method=sparsity_method, nm=nm_for_sparsity(sparsity),
-                policy=self.policy, blocks=sparsity_blocks)
-        return self.load_params(params)
+        return params
 
     def _cast_layer(self, layer):
         def cast(node, name=None):
@@ -250,6 +275,21 @@ class LM:
             out["enc_pos"] = to(params["enc_pos"], self.act_dtype)
         return out
 
+    def train_params(self, params) -> Dict[str, Any]:
+        """``params`` (dense tensors, e.g. from :func:`params_from_jax`)
+        as f32 master parameters on the model's device: every leaf f32,
+        nothing cast to the policy's dtypes."""
+        def to(node):
+            if isinstance(node, dict):
+                return {k: to(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [to(v) for v in node]
+            if not isinstance(node, torch.Tensor):
+                raise TypeError(f"training takes dense tensors, got "
+                                f"{type(node).__name__}")
+            return node.to(device=self.device, dtype=torch.float32)
+        return to(params)
+
     # ------------------------------ helpers ---------------------------------
 
     def _head_logits(self, params, x):
@@ -273,17 +313,25 @@ class LM:
     def _embed(self, params, tokens):
         x = params["embed"][tokens.long()].to(self.act_dtype)
         if self.cfg.pos_embed == "learned":
-            x = x + params["pos_embed"][:tokens.shape[1]][None]
+            x = x + params["pos_embed"][:tokens.shape[1]][None].to(
+                self.act_dtype)
         return x
+
+    def _layer(self, fn, *args):
+        """``fn(*args)``, rematerialised in the backward when ``remat``
+        holds and autograd records the call."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     def _encode(self, params, audio_embeds):
         """Whisper's encoder: a non-causal dense stack over the (stubbed)
         frame embeddings plus ``enc_pos``, then ``enc_norm``."""
         x = audio_embeds.to(self.act_dtype)
-        x = x + params["enc_pos"][:x.shape[1]][None]
+        x = x + params["enc_pos"][:x.shape[1]][None].to(self.act_dtype)
         ctx = self._ctx(causal=False)
         for layer in params["encoder"]:
-            x, _, _ = B.dense_fwd(layer, x, ctx, window=None)
+            x, _, _ = self._layer(B.dense_fwd, layer, x, ctx)
         return B.norm(params["enc_norm"], x, self.cfg)
 
     def _cross_states(self, params, batch):
@@ -299,6 +347,36 @@ class LM:
             aux = aux + a
             caches.append(cache)
         return x, aux, (caches if ctx["collect_cache"] else None)
+
+    # ------------------------------ training --------------------------------
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy plus the MoE auxiliary loss of
+        ``batch["tokens"]`` (B, S + 1) (and ``audio_embeds`` for an audio
+        model): an f32 0-d tensor that autograd differentiates.  Each layer
+        is rematerialised under ``remat``; MoE layers route at the
+        training capacity (1.25)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens[:, :-1])
+        labels = tokens[:, 1:]
+        s = x.shape[1]
+        ctx = self._ctx(moe_capacity=MOE_TRAIN_CAPACITY)
+        if cfg.pos_embed == "rope":
+            ctx["rope"] = rope_frequencies(cfg.head_dim, s, cfg.rope_theta,
+                                           device=self.device)
+            ctx["positions"] = torch.arange(s, device=self.device)[None]
+        ctx["cross_states"] = self._cross_states(params, batch)
+        aux = 0.0
+        for kind, layer in zip(cfg.pattern, params["layers"]):
+            x, a, _ = self._layer(_block_fwd, kind, layer, x, ctx)
+            aux = aux + a
+        x = B.norm(params["final_norm"], x, cfg)
+        tied = cfg.tie_embeddings
+        head = params["embed"] if tied else params["head"]
+        loss = chunked_softmax_xent(x, head, labels, tied=tied,
+                                    policy=self.policy, valid_vocab=cfg.vocab)
+        return loss + aux
 
     # ------------------------- wave serving ---------------------------------
 
@@ -444,13 +522,13 @@ class LM:
         return self._head_logits(params, x)[:, 0], caches
 
 
-def build_model(cfg: ArchConfig, policy: str = "bf16",
-                device="cuda") -> LM:
+def build_model(cfg: ArchConfig, policy: str = "bf16", device="cuda",
+                remat: bool = True) -> LM:
     # Audio (enc-dec) archs run the 'encdec' block kind in the decoder.
     if cfg.family == "audio" and not cfg.block_pattern:
         cfg = dataclasses.replace(cfg,
                                   block_pattern=("encdec",) * cfg.n_layers)
-    return LM(cfg, policy=policy, device=device)
+    return LM(cfg, policy=policy, device=device, remat=remat)
 
 
 def _packed_from_jax(p, idx=None) -> PackedOperand:

@@ -13,11 +13,12 @@ fp8e4m3 clips to +-448 and casts.
 Dispatch is by the source tensor's device: a CPU tensor runs
 :func:`pack_reference`, the plain version; a CUDA tensor launches K6
 (``csrc/pack.cu``), whose payload and scales are byte-identical to the
-plain version's.  :func:`unpack_operand` has only its plain version: on the
-card it would need K7, which comes with the training slice, so it raises
-there.
+plain version's.  :func:`unpack_operand` is the inverse: a CPU payload
+runs :func:`unpack_reference`, a CUDA payload launches K7 (the tile
+unpacker, in the same source), bit-equal to it.
 
-``pack_operand.launches`` counts K6 launches.
+``pack_operand.launches`` counts K6 launches, ``unpack_operand.launches``
+K7 launches.
 """
 from __future__ import annotations
 
@@ -168,15 +169,16 @@ def unpack_operand(p: PackedOperand, *, dtype=None) -> torch.Tensor:
     for a grouped one).  Codec payloads dequantize per tile; float payloads
     round-trip exactly.
     ``dtype`` defaults to the payload dtype (codecs: the source dtype).
-    Plain version only: a payload off the CPU would need K7."""
+    A CPU payload runs the plain version, a CUDA one K7."""
     layout = p.layout
-    if p.payload.device.type != "cpu":
-        raise NotImplementedError(
-            "unpack_operand on the card needs the unpack kernel (K7), which "
-            "comes with the training slice")
     if dtype is None:
         dtype = layout.orig_dtype if layout.per_tile_scales else layout.dtype
-    return unpack_reference(p.payload, p.scales, layout, dtype)
+    dev = p.payload.device
+    if dev.type == "cpu":
+        return unpack_reference(p.payload, p.scales, layout, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"unpack_operand: unsupported device {dev}")
+    return _launch_unpack(p, torch_dtype(dtype))
 
 
 # --- K6 launch ---------------------------------------------------------------
@@ -220,12 +222,62 @@ def _launch(w: torch.Tensor, layout: PackedLayout):
 pack_operand.launches = 0
 
 
+# --- K7 launch ---------------------------------------------------------------
+
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _launch_unpack(p: PackedOperand, dtype: torch.dtype) -> torch.Tensor:
+    layout = p.layout
+    if dtype not in _OUT_CODES:
+        raise NotImplementedError(f"unpack kernel output dtype {dtype} "
+                                  "(takes float32 or bfloat16)")
+    if layout.dtype not in _PAYLOAD_CODES:
+        raise NotImplementedError(f"unpack kernel payload {layout.dtype!r}")
+    payload = p.payload
+    if (tuple(payload.shape) != layout.payload_shape
+            or payload.dtype != layout.storage_dtype
+            or not payload.is_contiguous()):
+        raise ValueError(f"unpack_operand: the payload must be a contiguous "
+                         f"{layout.payload_shape} {layout.storage_dtype} "
+                         f"tensor, got {tuple(payload.shape)} {payload.dtype}")
+    scales = p.scales
+    if layout.per_tile_scales:
+        if (scales is None or scales.device != payload.device
+                or scales.dtype != torch.float32
+                or scales.numel() != layout.g * layout.nkb * layout.nnb):
+            raise ValueError("unpack_operand: a codec payload needs its f32 "
+                             "per-tile scales on the payload's device")
+        scales = scales.contiguous()
+    shape = ((layout.g,) if layout.g != 1 else ()) + (layout.k, layout.n)
+    out = torch.empty(shape, dtype=dtype, device=payload.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    rc = lib.unpack_launch(
+        payload.data_ptr(),
+        scales.data_ptr() if layout.per_tile_scales else None,
+        out.data_ptr(), _PAYLOAD_CODES[layout.dtype], _OUT_CODES[dtype],
+        layout.g, layout.k, layout.n, layout.bk, layout.bn,
+        torch.cuda.current_stream(payload.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"unpack kernel launch failed: CUDA error {rc} "
+                           f"({lib.pack_error_string(rc).decode()})")
+    unpack_operand.launches += 1
+    return out
+
+
+unpack_operand.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pack")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pack_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pack_launch.restype = i
+    lib.unpack_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.unpack_launch.restype = i
     lib.pack_error_string.argtypes = [i]
     lib.pack_error_string.restype = ctypes.c_char_p
     return lib

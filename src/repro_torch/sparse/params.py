@@ -28,7 +28,7 @@ ROADMAP A7), clamped to each weight's extent.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -178,25 +178,32 @@ def sparsify_params(params, *, cfg, density: float = 0.5,
     return out
 
 
-def _operands(tree) -> List[Any]:
-    if isinstance(tree, TileSparseOperand):
-        return [tree]
-    if isinstance(tree, dict):
-        return [op for v in tree.values() for op in _operands(v)]
-    if isinstance(tree, (list, tuple)):
-        return [op for v in tree for op in _operands(v)]
-    return []
+def _sparse_leaves(node, path=()):
+    """(path, operand) for every sparse operand of a nested dict / list."""
+    if isinstance(node, TileSparseOperand):
+        yield path, node
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            yield from _sparse_leaves(v, path + (k,))
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            yield from _sparse_leaves(v, path + (i,))
 
 
 def sparse_param_bytes(params) -> int:
     """Total payload and scale bytes of the sparse operands in a tree."""
-    return sum(op.nbytes for op in _operands(params))
+    return sum(op.nbytes for _, op in _sparse_leaves(params))
 
 
-def sparse_param_density(params) -> float:
-    """nnz over the dense tile count of every sparse operand (1.0 when
-    there is none).  Each layer counts: the reference's tree holds one
-    operand per stack, so its figure weighs a stack like one layer."""
-    ops = _operands(params)
-    ntiles = sum(op.layout.ntiles for op in ops)
-    return sum(op.layout.nnz for op in ops) / ntiles if ntiles else 1.0
+def sparse_param_density(params, cfg) -> float:
+    """nnz over the dense tile count of the sparse operands (1.0 when there
+    is none), each group of layers that shares one pattern counted once --
+    the reference's one stacked leaf (``sparsify_params`` builds the same
+    groups from ``cfg``, the model's ``ArchConfig``)."""
+    layer_groups = _layer_groups(len(params.get("layers", ())), cfg)
+    layouts = {}
+    for path, op in _sparse_leaves(params):
+        layouts.setdefault(_group_key(path, layer_groups), op.layout)
+    ntiles = sum(lay.ntiles for lay in layouts.values())
+    return (sum(lay.nnz for lay in layouts.values()) / ntiles if ntiles
+            else 1.0)

@@ -125,6 +125,25 @@ def densify_operand(p: TileSparseOperand, *, dtype=None) -> torch.Tensor:
     return full if layout.g != 1 else full[0]
 
 
+def payload_cotangent(dense_ct: torch.Tensor,
+                      layout: TileSparseLayout) -> torch.Tensor:
+    """Mask a dense weight cotangent to the stored tiles (the sparse
+    weight's gradient rule): the stored tiles of ``dense_ct`` in payload
+    order, then a zero cotangent for the trailing zero tile, a structural
+    constant.  ``dense_ct`` is (k, n) or (g, k, n) with the transpose
+    resolved (the backward GEMMs resolve it), so the layout's source
+    transpose is not applied again.  Plain torch ops on ``dense_ct``'s
+    device and in its dtype, as the reference's XLA gather."""
+    bk, bn, nkb, nnb = layout.bk, layout.bn, layout.nkb, layout.nnb
+    w = dense_ct.reshape(layout.g, layout.k, layout.n)
+    w = F.pad(w, (0, nnb * bn - layout.n, 0, nkb * bk - layout.k))
+    tiles = w.reshape(layout.g, nkb, bk, nnb, bn).permute(
+        0, 1, 3, 2, 4).reshape(-1, bk, bn)
+    idx = torch.from_numpy(_stored_linear_idx(layout)).to(dense_ct.device)
+    stored = tiles[idx]
+    return torch.cat([stored, stored.new_zeros(1, bk, bn)])
+
+
 # --- pattern -> operand ------------------------------------------------------
 
 def sparsify_with_mask(w: torch.Tensor, blocks: Tuple[int, int], keep, *,

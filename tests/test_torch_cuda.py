@@ -595,3 +595,137 @@ def test_mpgemm_sparse_kernel_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="indptr"):
         mpgemm_sparse(a, type(b)(b.payload, b.scales, b.layout,
                                  b.indptr.cpu(), b.indices))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,m,k,n", [
+    (None, 1024, 512, 1024), (None, 37, 129, 100), (None, 5, 3, 77),
+    (None, 49280 // 64, 64, 96), (3, 40, 17, 24), (4, 64, 1, 33),
+])
+def test_mpgemm_trans_a_kernel_matches_plain(gen, dtype, out_dtype, g, m, k,
+                                             n):
+    """K1 with A read as (K, M) (the backward's dW), 2-D and grouped, with
+    K tails and M and N off the tiles; deterministic: two launches give the
+    same bits."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import (
+        mpgemm, mpgemm_grouped, mpgemm_plain,
+    )
+    lead = () if g is None else (g,)
+    a = torch.randn(*lead, k, m, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(*lead, k, n, generator=gen, device="cuda").to(dtype)
+    spec = GemmSpec(grouped=g is not None, trans_a=True)
+    fn = mpgemm_grouped if g is not None else mpgemm
+    before = (fn.launches, fn.trans_a_launches)
+    got = fn(a, b, spec=spec, out_dtype=out_dtype)
+    again = fn(a, b, spec=spec, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.trans_a_launches) == (before[0] + 2,
+                                                  before[1] + 2)
+    want = mpgemm_plain(a, b, trans_a=True, out_dtype=out_dtype)
+    assert got.shape == (*lead, m, n) and got.dtype == out_dtype
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+
+
+@pytest.mark.cuda
+def test_mpgemm_trans_a_refuses_what_it_does_not_take(gen):
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm
+    a = torch.randint(-3, 4, (8, 4), dtype=torch.int8, device="cuda")
+    with pytest.raises(NotImplementedError):
+        mpgemm(a, a, spec=GemmSpec(trans_a=True))
+    f = torch.randn(8, 4, generator=gen, device="cuda")
+    with pytest.raises(NotImplementedError):
+        mpgemm(f, f, spec=GemmSpec(trans_a=True, trans_b=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("payload", ["float32", "bfloat16", "int8", "int4",
+                                     "fp8e4m3"])
+@pytest.mark.parametrize("shape,blocks,trans_w", [
+    ((100, 70), (32, 32), False), ((48, 101), (17, 16), True),
+    ((3, 40, 24), (16, 8), False), ((2, 30, 52), (15, 16), True),
+    ((3072, 8192), (128, 128), False),
+])
+def test_unpack_kernel_is_bit_equal_to_plain(gen, payload, out, shape,
+                                             blocks, trans_w):
+    """K7: the dense operand of every payload, 2-D and grouped, both
+    orientations, ragged edges -- bit-equal to ``unpack_reference``."""
+    from repro_torch.packing import pack as tpack
+    w = torch.randn(*shape, generator=gen, device="cuda") * 0.3
+    p = tpack.pack_operand(w, blocks, trans_w=trans_w, dtype=payload)
+    before = tpack.unpack_operand.launches
+    got = tpack.unpack_operand(p, dtype=out)
+    torch.cuda.synchronize()
+    assert tpack.unpack_operand.launches == before + 1
+    want = tpack.unpack_reference(p.payload, p.scales, p.layout, out)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("weight", ["dense", "packed_bf16", "packed_int4"])
+def test_mp_dot_backward_on_the_card_matches_the_cpu(gen, policy, weight):
+    """One full ``mp_dot`` forward and backward on the card (K1, K1
+    trans_b and trans_a, K7 and K6 for a packed weight) against the same
+    step on CPU copies (the plain versions), with a gated epilogue and a
+    bias; the gradients' tolerance is the bf16 one under bf16 and int8."""
+    from repro_torch.core.gemm import mp_dot
+    from repro_torch.kernels.mpgemm import mpgemm
+    from repro_torch.packing import pack as tpack
+    k, n = 384, 520
+    xd = torch.float32 if policy == "fp32" else torch.bfloat16
+    x = torch.randn(40, k, generator=gen, device="cuda").to(xd)
+    w = torch.randn(k, n, generator=gen, device="cuda") * 0.05
+    bias = torch.randn(n, generator=gen, device="cuda")
+    gate = torch.randn(40, n, generator=gen, device="cuda").to(xd)
+    dy = torch.randn(40, n, generator=gen, device="cuda")
+
+    def run(dev):
+        # detach: on the card .to() returns the tensor itself, whose
+        # requires_grad would stick to the next run.
+        xx = x.detach().to(dev).requires_grad_(True)
+        bb = bias.detach().to(dev).requires_grad_(True)
+        gg = gate.detach().to(dev).requires_grad_(True)
+        if weight == "dense":
+            ww = w.detach().to(dev).requires_grad_(True)
+            leaf = ww
+        else:
+            ww = tpack.pack_operand(w.to(dev), (128, 128),
+                                    dtype={"packed_bf16": "bfloat16",
+                                           "packed_int4": "int4"}[weight])
+            leaf = ww.payload
+            if ww.layout.codec is None:
+                leaf.requires_grad_(True)
+        y = mp_dot(xx, ww, bb, policy=policy, activation="silu", gate=gg)
+        (y.float() * dy.to(dev)).sum().backward()
+        return [t.grad for t in (xx, bb, gg, leaf)]
+
+    k1 = (mpgemm.launches, mpgemm.trans_a_launches, mpgemm.trans_b_launches)
+    k7 = tpack.unpack_operand.launches
+    got = run("cuda")
+    torch.cuda.synchronize()
+    want = run("cpu")
+    tol = TOL[torch.float32 if policy == "fp32" else torch.bfloat16]
+    for gk, gp in zip(got, want):
+        if gp is None:
+            assert gk is None
+            continue
+        torch.testing.assert_close(gk.float().cpu(), gp.float(), **tol)
+    trainable = weight != "packed_int4"
+    # K1 in the forward for a dense weight, and for a float payload under
+    # int8 (unpacked, K7); in the backward the z recompute, dx (trans_b)
+    # and, when trainable, dW (trans_a); a packed weight is unpacked once
+    # more for the backward.
+    unpacked_fwd = weight == "packed_bf16" and policy == "int8"
+    fwd = int(weight == "dense" or unpacked_fwd)
+    assert (mpgemm.launches - k1[0], mpgemm.trans_b_launches - k1[2],
+            mpgemm.trans_a_launches - k1[1]) == (fwd + 2 + trainable, 1,
+                                                 int(trainable))
+    assert tpack.unpack_operand.launches - k7 == (
+        0 if weight == "dense" else 1 + unpacked_fwd)

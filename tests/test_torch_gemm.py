@@ -124,23 +124,27 @@ def test_gelu_is_the_tanh_approximation():
                                      "quant_in", "int8_policy"])
 def test_unported_variants_raise(variant):
     """Variants the kernels do not take yet raise on every device, so the
-    CPU path never offers what the card cannot run: ``packed`` is beta·C
-    against a packed operand (K2 has no C operand), ``int8_policy`` a float
-    payload under the int8 policy off the CPU, which would need the unpack
-    kernel (K7)."""
+    CPU path never offers what the card cannot run: ``trans_a`` is A read
+    as (K, M) together with ``trans_b`` (the backward issues only the
+    first), ``packed`` is beta·C against a packed operand (K2 has no C
+    operand), ``int8_policy`` the int8 policy's operands under ``trans_a``
+    (the backward runs in bf16, so K1 has no int8 ``trans_a``)."""
     from repro_torch.packing.pack import pack_operand
 
     a, b = torch.ones(4, 8), torch.ones(8, 16)
     p = pack_operand(b, (8, 8), dtype="float32")
     calls = {
-        "trans_a": lambda: mpgemm(a, b, spec=tspec.GemmSpec(trans_a=True)),
+        "trans_a": lambda: mpgemm(a.t().contiguous(), b.t().contiguous(),
+                                  spec=tspec.GemmSpec(trans_a=True,
+                                                      trans_b=True)),
         "beta_c": lambda: mpgemm(a, b, c=torch.ones(4, 16),
                                  epilogue=tspec.EpilogueSpec(beta=1.0)),
         "packed": lambda: mpgemm(a, p, c=torch.ones(4, 16),
                                  epilogue=tspec.EpilogueSpec(beta=1.0)),
         "quant_in": lambda: mp_dot(a, b, quant_in=True),
-        "int8_policy": lambda: mp_dot(a.to("meta"), p.to("meta"),
-                                      policy="int8"),
+        "int8_policy": lambda: mpgemm(
+            a.t().to(torch.int8).contiguous(), b.to(torch.int8),
+            spec=tspec.GemmSpec(trans_a=True)),
     }
     with pytest.raises(NotImplementedError):
         calls[variant]()

@@ -139,16 +139,18 @@ def test_packed_trans_w_must_match_the_layout():
 
 def test_float_payload_under_int8_unpacks_on_the_cpu_and_raises_off_it():
     """The reference's unpack fallback (a float payload under the int8
-    policy) needs K7 on the card: the port raises there, never falls
-    back."""
+    policy): the plain unpack on the CPU, K7 on the card, and a raise on
+    any other device, never a fallback."""
     x = torch.randn(3, 16)
     w = torch.randn(16, 8)
     p = tpack.pack_operand(w, (8, 8), dtype="float32")
     dense = mp_dot(x, w, policy="int8")
     torch.testing.assert_close(mp_dot(x, p, policy="int8"), dense,
                                atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="K7"):
+    k7 = tpack.unpack_operand.launches
+    with pytest.raises(ValueError, match="device"):
         mp_dot(x.to("meta"), p.to("meta"), policy="int8")
+    assert tpack.unpack_operand.launches == k7
     k1 = mpgemm.launches
     with pytest.raises(ValueError, match="device"):
         mp_dot(x.to("meta"), w.to("meta"), policy="int8")

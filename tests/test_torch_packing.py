@@ -189,11 +189,12 @@ def test_nibbles_round_trip_and_match_reference():
 
 
 def test_unpack_refuses_a_payload_off_the_cpu():
-    """Unpacking on the card needs K7, which is not ported: it raises and
-    never falls back."""
+    """A payload off the CPU runs K7 on the card and raises on any other
+    device: it never falls back to the plain version."""
     p = tpack.pack_operand(torch.ones(8, 4), (4, 4), dtype="int8")
-    with pytest.raises(NotImplementedError, match="K7"):
+    with pytest.raises(ValueError, match="device"):
         tpack.unpack_operand(p.to("meta"))
+    assert tpack.unpack_operand.launches == 0
     with pytest.raises(ValueError, match="device"):
         tpack.pack_operand(torch.ones(8, 4, device="meta"), (4, 4))
     assert tpack.pack_operand.launches == 0

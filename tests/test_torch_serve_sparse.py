@@ -39,6 +39,7 @@ from repro.core import config as jcfg  # noqa: E402
 from repro.models.transformer import build_model as jbuild  # noqa: E402
 from repro.serve.engine import Request as JRequest  # noqa: E402
 from repro.serve.engine import ServeEngine as JEngine  # noqa: E402
+from repro.sparse import sparse_param_density as jsparse_density  # noqa: E402,E501
 from repro.sparse import sparsify_params as jsparsify  # noqa: E402
 from repro_torch.configs import base as tcb  # noqa: E402
 from repro_torch.kernels import mpgemm as tk  # noqa: E402
@@ -50,6 +51,7 @@ from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.sparse import (  # noqa: E402
     TileSparseOperand, sparse_param_density,
 )
+from repro_torch.sparse import sparsify_params as tsparsify  # noqa: E402
 
 TOL = {"fp32": dict(atol=1e-4, rtol=1e-4), "bf16": dict(atol=3e-2, rtol=3e-2),
        "int8": dict(atol=3e-2, rtol=3e-2)}
@@ -152,7 +154,7 @@ def test_sparse_paged_step_matches_reference(arch, policy, method):
         layer = tp["layers"][0]
         assert layer["w_up"].layout.g == tm.cfg.n_experts
         assert isinstance(layer["router"], torch.Tensor)
-    assert sparse_param_density(tp) < 0.75
+    assert sparse_param_density(tp, tm.cfg) < 0.75
     before = _counts()
     backend = "xla" if policy == "fp32" else "interpret"
     with jcfg.gemm_backend(backend):
@@ -160,6 +162,24 @@ def test_sparse_paged_step_matches_reference(arch, policy, method):
     np.testing.assert_allclose(got[live], want[live], **TOL[policy])
     assert np.isfinite(got).all()
     assert _counts() == before                  # plain versions on the CPU
+
+
+@pytest.mark.parametrize("arch,want", [("phi3-mini-3.8b", 0.5145),
+                                       ("mixed", 0.5189)])
+def test_sparse_param_density_matches_reference(arch, want):
+    """Each group of layers that shares a pattern counts once, as the
+    reference's stacked leaf does: the port's figure equals the
+    reference's on the same weights (carried over, and sparsified by the
+    port from the same dense draw)."""
+    jm, jp, tm, tp = _sparse_pair(arch, "fp32")
+    ref = jsparse_density(jp)
+    assert round(ref, 4) == want
+    assert sparse_param_density(tp, tm.cfg) == ref
+    dense = params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(0))), tm.cfg)
+    own = tsparsify(dense, cfg=tm.cfg, density=0.5, method="magnitude",
+                    policy="fp32", blocks=BLOCKS)
+    assert sparse_param_density(own, tm.cfg) == ref
 
 
 def test_params_from_jax_keeps_the_shared_layout_of_a_stack():
