@@ -12,9 +12,11 @@ in parallel.  Each run calls the named ``chip_smoke.py`` phases of its tree
 phase_k2_grouped phase_k3``; a phase the old tree lacks is left out
 there, one the new tree lacks fails the run) and reports their
 per-decode-step kernel times.  A phase named ``serve:LABEL`` serves the
-new tree's ``chip_smoke.SERVE_PATHS[LABEL]`` path through each tree's
-``phase_serve`` and reports the median decode step on the host clock and
-one two-row decode step's time (host and device).  The last lines print
+new tree's ``chip_smoke.SERVE_PATHS[LABEL]`` (or ``NO_FUSE_PATHS[LABEL]``)
+path through each tree's ``phase_serve`` and reports the median decode
+step on the host clock and one two-row decode step's time (host and
+device); ``serve:LABEL+fused`` serves the same path with its MLPs fused,
+for an A/B of ``--no-fuse`` at the same depth.  The last lines print
 one row per result
 (marked ``new only`` or ``old only`` where one tree lacks it), its four
 times in run order and the change of the new tree's mean against the old
@@ -43,7 +45,9 @@ serve = json.loads(os.environ.get("AB_SERVE", "{}"))
 out = {}
 for name in phases:
     if name.startswith("serve:"):
-        r = cs.phase_serve(torch, label=name[6:], **serve[name[6:]])
+        label, _, fused = name[6:].partition("+")
+        kw = dict(serve[label], **({"fused": True} if fused else {}))
+        r = cs.phase_serve(torch, label=name[6:], **kw)
         out[name] = {"median decode step": r["decode_step_ms"],
                      "two-row decode step": r["step_ms"]}
         continue
@@ -75,7 +79,8 @@ def main(argv):
     sys.path.insert(0, new)
     import chip_smoke
     env = dict(os.environ, AB_SERVE=json.dumps(
-        getattr(chip_smoke, "SERVE_PATHS", {})))
+        {**getattr(chip_smoke, "SERVE_PATHS", {}),
+         **getattr(chip_smoke, "NO_FUSE_PATHS", {})}))
     order = (old, new, new, old)
     results = []
     for tree in order:

@@ -44,6 +44,28 @@ printing a result:
    int8 A x int8 tiles with the activation scale, granite's attention
    projections and (grouped) expert stacks under int8 N:M 2:4, and an
    edge case with an empty column and a K tail, at M = 2 and 32;
+   after them (in the run's order) K1 ``trans_a``, K7 and the packed
+   backward of phase 8;
+7a. the op-level API (``phase_ops``) and the kernel variants only it
+   reaches, each row driven once with every launch count at 0 and each
+   case held against its plain version: the paper's 24 Table III GEMMs
+   (``TABLE_III``, a copy of ``benchmarks/common.py``'s) through
+   ``kernels.ops.mpgemm`` in f32 -> f32, bf16 -> bf16 and int8 -> int32
+   (equal to the plain version; ``torch.matmul`` and ``torch._int_mm`` as
+   yardsticks), K1's beta·C and integer epilogues at W1, W13 and W19, int8
+   ``trans_a`` and f32 / bf16 ``trans_a`` + ``trans_b`` at W13 and W19;
+   ``mp_dot(..., quant_in=True)`` (silu, and a residual) at phi3-mini's
+   full-width projections, M = 2 and 32, over a dense bf16 weight (K1),
+   packed int8, int4 and fp8 payloads (K2; fp8 is K2's int8 x fp8 loop), a
+   packed bf16 payload and an int8 tile-sparse one (K3), and one
+   straight-through backward; K3 with bf16 A against int8 tiles; K2 and K3
+   beta·C; at granite's expert shapes grouped K1 beta·C, ``quant_in`` over
+   grouped K1, K2 (int8) and K3 (int8 N:M 2:4), and one
+   ``mp_einsum("gmk,gkn->gmn")``; then ``--no-fuse`` serving (the unfused
+   MLPs) of full-width phi3-mini at 8 layers and granite-moe-1b-a400m at 6
+   (the same traffic as below; the same launch counts as fused; one mixed
+   step's logits against the fused model's within 2 % of the largest
+   |logit|);
 7. serving 4 requests through ``repro_torch.serve.engine.ServeEngine``:
    full-width phi3-mini-3.8b (random weights from a seed), dense bf16 (225
    K1 and 32 K5 launches per ``paged_step``), packed from the f32 draw by
@@ -1292,10 +1314,12 @@ def _want_launches(cfg, pack, n_steps, sparse=False):
 
 def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
                 pack=False, pack_format=None, n_layers=None, sparsity=0.0,
-                sparsity_method="magnitude"):
+                sparsity_method="magnitude", fused=True):
     """Serve 4 requests through the engine; every launch count of the run
     (packing or sparsifying at load included) must be what the path
-    needs."""
+    needs.  ``fused=False`` serves the unfused MLPs (``--no-fuse``): the
+    same launch counts, and one mixed step's logits also against the
+    fused model's."""
     import dataclasses
 
     from repro_torch.configs import base as cb
@@ -1308,7 +1332,8 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     n_layers = cfg.n_layers
-    model = build_model(cfg, policy=policy, device="cuda")
+    model = build_model(cfg, policy=policy, device="cuda",
+                        fused_epilogues=fused)
     counters = _counters()
     _reset_counters()
     torch.cuda.synchronize()
@@ -1332,6 +1357,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
                f"{SPARSE_BLOCKS[0]} x {SPARSE_BLOCKS[1]} tiles)")
     kind = "sparse" if sparsity else "packed"
     peak = torch.cuda.max_memory_allocated() / 1e9
+    how += "" if fused else ", unfused MLPs (--no-fuse)"
     print(f"[serve:{label}] {cfg.name}, {n_layers} layers, policy {policy}"
           f"{how}: {payload / 1e9:.3f} GB {kind} payload + "
           f"{dense / 1e9:.3f} GB dense tensors, initialised on the card in "
@@ -1387,6 +1413,10 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
                  decode_step_ms=1e3 * float(np.median(decode)),
                  ttft_ms=1e3 * float(np.median(prefill)), **counts)
     serve["logit_err"] = _kernel_vs_plain_step(torch, model, params, label)
+    if not fused:
+        serve["fused_logit_err"] = _kernel_vs_plain_step(
+            torch, model, params, label,
+            against=dataclasses.replace(model, fused_epilogues=True))
     args = _decode_args(torch, model)
 
     def step():
@@ -1422,10 +1452,36 @@ SERVE_PATHS = {
                                 sparsity=0.5, sparsity_method="nm",
                                 n_layers=12),
 }
+# --no-fuse (the unfused MLPs), served right after the op-level phase: cut
+# to 8 of phi3's 32 layers and 6 of granite's 24 to keep the script's time
+# (every layer is the same, so the counts per layer and the shapes stay).
+NO_FUSE_PATHS = {
+    "phi3-no-fuse": dict(fused=False, n_layers=8),
+    "granite-no-fuse": dict(arch="granite-moe-1b-a400m", fused=False,
+                            n_layers=6),
+}
 
 
 def _leaves(tree):
     return (leaf for _, leaf in _tree_paths(tree))
+
+
+def _plain_gemm(a, b, *, spec, out_dtype=None, c=None, **kw):
+    """The plain version of a call ``core/gemm.py`` makes to its GEMM
+    wrappers (``mpgemm`` or ``mpgemm_grouped``), by the form of ``b``."""
+    from repro_torch.kernels.mpgemm import (
+        mpgemm_packed_plain, mpgemm_plain, mpgemm_sparse_plain,
+    )
+    from repro_torch.packing.layout import PackedOperand
+    from repro_torch.sparse import TileSparseOperand
+
+    out_dtype = out_dtype or spec.out_dtype
+    if isinstance(b, PackedOperand):
+        return mpgemm_packed_plain(a, b, out_dtype=out_dtype, **kw)
+    if isinstance(b, TileSparseOperand):
+        return mpgemm_sparse_plain(a, b, out_dtype=out_dtype, **kw)
+    return mpgemm_plain(a, b, trans_a=spec.trans_a, trans_b=spec.trans_b,
+                        out_dtype=out_dtype, **kw)
 
 
 @contextlib.contextmanager
@@ -1438,28 +1494,15 @@ def _plain_versions(enabled=True):
     from repro_torch.kernels.flash_attention import (
         flash_attention_plain, paged_flash_attention_plain,
     )
-    from repro_torch.kernels.mpgemm import (
-        mpgemm_packed_plain, mpgemm_plain, mpgemm_sparse_plain,
-    )
     from repro_torch.models import attention as attn_mod
     from repro_torch.packing.layout import PackedOperand
     from repro_torch.packing.pack import (
         _layout_for, pack_reference, unpack_reference,
     )
-    from repro_torch.sparse import TileSparseOperand
 
     if not enabled:
         yield
         return
-
-    def plain_gemm(a, b, *, spec, out_dtype=None, c=None, **kw):
-        out_dtype = out_dtype or spec.out_dtype
-        if isinstance(b, PackedOperand):
-            return mpgemm_packed_plain(a, b, out_dtype=out_dtype, **kw)
-        if isinstance(b, TileSparseOperand):
-            return mpgemm_sparse_plain(a, b, out_dtype=out_dtype, **kw)
-        return mpgemm_plain(a, b, trans_a=spec.trans_a, trans_b=spec.trans_b,
-                            out_dtype=out_dtype, **kw)
 
     def plain_unpack(p, *, dtype=None):            # K7's plain version
         layout = p.layout
@@ -1475,7 +1518,7 @@ def _plain_versions(enabled=True):
     names = ("mpgemm", "mpgemm_grouped", "unpack_operand", "pack_operand")
     saved = ([getattr(gemm_mod, n) for n in names],
              attn_mod.paged_flash_attention, attn_mod.flash_attention)
-    for n, fn in zip(names, (plain_gemm, plain_gemm, plain_unpack,
+    for n, fn in zip(names, (_plain_gemm, _plain_gemm, plain_unpack,
                              plain_pack)):
         setattr(gemm_mod, n, fn)
     attn_mod.paged_flash_attention = paged_flash_attention_plain
@@ -1488,10 +1531,11 @@ def _plain_versions(enabled=True):
         attn_mod.paged_flash_attention, attn_mod.flash_attention = saved[1:]
 
 
-def _kernel_vs_plain_step(torch, model, params, label):
+def _kernel_vs_plain_step(torch, model, params, label, against=None):
     """One full-width mixed step (a 16-token prefill chunk beside a decode
-    row) through the kernels and through the plain versions, on copies of
-    the same pools."""
+    row) through the kernels and through the plain versions -- or through
+    the model ``against`` (the fused one, for an unfused ``model``) -- on
+    copies of the same pools."""
     dev = "cuda"
     ps, w = 16, 4
     caches = model.init_paged_caches(1 + 2 * w, ps)
@@ -1516,19 +1560,22 @@ def _kernel_vs_plain_step(torch, model, params, label):
     tokens, bt, qs, nv = step_in
     lk, _ = model.paged_step(params, tokens, pools_k, bt, qs, nv)
 
-    with _plain_versions():
-        lp, _ = model.paged_step(params, tokens, pools_p, bt, qs, nv)
+    with _plain_versions(enabled=against is None):
+        lp, _ = (against or model).paged_step(params, tokens, pools_p, bt,
+                                              qs, nv)
     lk, lp = lk.float()[:, :vocab], lp.float()[:, :vocab]
     diff = (lk - lp).abs()
     err, scale = diff.max().item(), lp.abs().max().item()
     top_agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     rel = LOGIT_REL_TOL["int8" if model.policy == "int8" else "bf16"]
-    print(f"[serve:{label}] one full-width mixed step, kernels vs plain "
-          f"versions: max |logit diff| {err:.3e}, mean "
+    what = ("unfused vs fused" if against is not None
+            else "kernels vs plain versions")
+    print(f"[serve:{label}] one full-width mixed step, {what}: max |logit "
+          f"diff| {err:.3e}, mean "
           f"{diff.mean().item():.3e} (bound {rel} x max |logit| = "
           f"{rel * scale:.3e}), argmax agreement {top_agree:.2f}")
     if not (err <= rel * scale and torch.isfinite(lk).all()):
-        raise AssertionError(f"kernel and plain logits differ by {err:.3e}")
+        raise AssertionError(f"{what}: the logits differ by {err:.3e}")
     return err
 
 
@@ -2028,6 +2075,567 @@ def phase_packed_grad(torch):
     return counts
 
 
+# ------------------------------------------------------------ phase 8b: ops
+
+# The paper's GEMM workloads, Table III: (id, M, N, K), DeepSeek (1-18) and
+# LLaMA (19-24).  A copy of benchmarks/common.py:24-33 (PAPER_WORKLOADS),
+# which this script may not import; tests/test_torch_ops.py holds the two
+# equal.
+TABLE_III = [
+    (1, 64, 2112, 7168), (2, 64, 24576, 1536), (3, 64, 32768, 512),
+    (4, 64, 7168, 16384), (5, 64, 4096, 7168), (6, 64, 7168, 2048),
+    (7, 128, 2112, 7168), (8, 128, 24576, 1536), (9, 128, 32768, 512),
+    (10, 128, 7168, 16384), (11, 128, 4096, 7168), (12, 128, 7168, 2048),
+    (13, 4096, 2112, 7168), (14, 4096, 24576, 1536), (15, 4096, 32768, 512),
+    (16, 4096, 7168, 16384), (17, 4096, 4096, 7168), (18, 4096, 7168, 2048),
+    (19, 4096, 256, 4096), (20, 11008, 256, 4096), (21, 4096, 256, 11008),
+    (22, 5120, 256, 5120), (23, 13824, 256, 5120), (24, 5120, 256, 13824),
+]
+EPILOGUE_WORKLOADS = (1, 13, 19)     # Table III ids with the epilogue cases
+TRANS_WORKLOADS = (13, 19)           # ... and with the transposed cases
+# phi3-mini's projections at full width (d 3072, d_ff 8192): (name, K, N).
+PHI3_PROJ = [("qkvo", 3072, 3072), ("gate/up", 3072, 8192),
+             ("down", 8192, 3072)]
+# The quant_in backward's bound on dx and dW, a share of the gradient's max
+# |g|: the sound kernels read 0.22 % (dx) and 0.24 % (dW) on an H100; a
+# wrong epilogue (a row scale dropped on a few rows) moves whole rows.
+QUANT_IN_BWD_TOL = 0.01
+# granite-moe-1b-a400m's expert stacks: (name, K, N), 32 experts each.
+GRANITE_EXPERT_PROJ = [("up/gate", 1024, 512), ("down", 512, 1024)]
+OPS_ITERS = 3                        # timed launches a case (each cold)
+
+
+def _ops_case(name, kern, plain, *, n_bytes, n_ops, peak, library=None,
+              exact=False, tol=None):
+    """One op-level case: the kernel's call, its plain version's, a
+    library yardstick or None, the bound's bytes and operations, and the
+    check (``exact``: equal bits, else ``tol``)."""
+    return dict(name=name, kern=kern, plain=plain, library=library,
+                n_bytes=n_bytes, n_ops=n_ops, peak=peak, exact=exact,
+                tol=tol or TOL[peak if peak != "int8" else "bfloat16"])
+
+
+def _ops_row(torch, timer, label, counter, cases):
+    """Drive one row's path -- each case's call once -- with every launch
+    count at 0 just before and read just after: every launch must be
+    ``counter``'s, one per case.  Then each case against its plain version
+    (equal bits or the tolerance), and timed: kernel, plain, library.  ->
+    the row's numbers (times summed over its cases, one launch each)."""
+    _reset_counters()
+    outs = [c["kern"]() for c in cases]
+    torch.cuda.synchronize()
+    counts = _read_counters()
+    launched = {k: v for k, v in counts.items()
+                if v and k in _counters()}
+    if launched != {counter: len(cases)}:
+        raise AssertionError(f"{label}: launches {launched}, want "
+                             f"{{{counter!r}: {len(cases)}}}")
+    acc = StepSum()
+    library = all(c["library"] is not None for c in cases)
+    for c, got in zip(cases, outs):
+        ref = c["plain"]()
+        torch.cuda.synchronize()
+        if c["exact"]:
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                bad = (got.to(torch.int64) - ref.to(torch.int64)).abs().max()
+                raise AssertionError(f"{label} {c['name']}: int32 output "
+                                     f"differs from the plain version (max "
+                                     f"|diff| {bad.item()})")
+            err = 0.0
+        else:
+            err = _check_close(torch, f"{label} {c['name']}", got, ref,
+                               c["tol"])
+        del ref
+        bound, bound_by = _bound_ms(c["n_bytes"], c["n_ops"], c["peak"])
+        ms = timer(c["kern"], OPS_ITERS)
+        plain_ms = timer(c["plain"], OPS_ITERS)
+        lib_ms = timer(c["library"], OPS_ITERS) if library else 0.0
+        acc.max_abs_err = max(acc.max_abs_err, err)
+        acc.add(1, ms, plain_ms, lib_ms, bound, c["n_bytes"], c["n_ops"])
+        rate = c["n_ops"] / ms / 1e9
+        print(f"[ops:{label}] {c['name']:>24}: "
+              + ("equal" if c["exact"] else f"err {err:.2e}")
+              + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f}"
+              + (f"  library {lib_ms:.4f}" if library else "")
+              + f"  bound {bound:.4f} ({bound_by})  {rate:.2f} TOP/s")
+    del outs
+    row = acc.row(cases[0]["peak"])
+    row["library_ms"] = row["library_ms"] if library else None
+    row["launches"] = counts[counter]
+    print(f"[ops:{label}] {len(cases)} launches of {counter}: kernel "
+          f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+          + (f"{row['library_ms']:.3f} ms" if library else "none")
+          + f", bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return row
+
+
+def _ops_plain(a, b, c=None, *, trans_a=False, trans_b=False, alpha=1.0,
+               beta=0.0, bias=None, activation=None, out_dtype=None):
+    """``ops.mpgemm`` through the plain versions (the same epilogue, and the
+    same dispatch by ``b``'s form)."""
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import (
+        mpgemm_packed_plain, mpgemm_plain, mpgemm_sparse_plain,
+    )
+    from repro_torch.packing.layout import PackedOperand
+    from repro_torch.sparse import TileSparseOperand
+
+    kw = dict(c=c, bias=bias, out_dtype=out_dtype, epilogue=EpilogueSpec(
+        alpha=alpha, beta=beta, activation=activation))
+    if isinstance(b, PackedOperand):
+        return mpgemm_packed_plain(a, b, **kw)
+    if isinstance(b, TileSparseOperand):
+        return mpgemm_sparse_plain(a, b, **kw)
+    return mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b, **kw)
+
+
+def _table3_rows(torch, timer, gen):
+    """The paper's GEMMs: the 24 Table III shapes through ``ops.mpgemm`` in
+    f32 -> f32, bf16 -> bf16 and int8 -> int32 (equal to the plain
+    version); then the epilogue cases (W1, W13, W19) and the transposed
+    ones (W13, W19)."""
+    from repro_torch.kernels import ops
+
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+
+    def operands(m, n, k, dt, trans_a=False, trans_b=False):
+        if dt == i8:
+            a = torch.randint(-127, 128, (k, m) if trans_a else (m, k),
+                              generator=gen, device="cuda", dtype=i8)
+            b = torch.randint(-127, 128, (n, k) if trans_b else (k, n),
+                              generator=gen, device="cuda", dtype=i8)
+            return a, b
+        a = torch.randn(*((k, m) if trans_a else (m, k)), generator=gen,
+                        device="cuda").to(dt)
+        # B ~ N(0, 1/K): outputs of unit scale, as a weight's init gives.
+        b = (torch.randn(*((n, k) if trans_b else (k, n)), generator=gen,
+                         device="cuda") * k ** -0.5).to(dt)
+        return a, b
+
+    rows = {}
+    for label, dt in (("f32", f32), ("bf16", bf16), ("int8", i8)):
+        cases = []
+        for wid, m, n, k in TABLE_III:
+            a, b = operands(m, n, k, dt)
+            esz = a.element_size()
+            out_esz = 4 if dt == i8 else esz
+            if dt == i8:
+                library = (lambda a=a, b=b: torch._int_mm(a, b))
+            else:
+                library = (lambda a=a, b=b: torch.matmul(a, b))
+            cases.append(_ops_case(
+                f"W{wid} {m}x{n}x{k}",
+                lambda a=a, b=b: ops.mpgemm(a, b),
+                lambda a=a, b=b: _ops_plain(a, b),
+                library=library, exact=dt == i8,
+                n_bytes=(m * k + k * n) * esz + m * n * out_esz,
+                n_ops=2 * m * n * k,
+                peak={f32: "float32", bf16: "bfloat16", i8: "int8"}[dt]))
+        rows[f"table3-{label}"] = _ops_row(torch, timer, f"table3-{label}",
+                                           "k1", cases)
+        del cases
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    shapes = {wid: (m, n, k) for wid, m, n, k in TABLE_III}
+    cases, int_cases = [], []
+    for wid in EPILOGUE_WORKLOADS:
+        m, n, k = shapes[wid]
+        for dt in (f32, bf16, i8):
+            a, b = operands(m, n, k, dt)
+            bias = torch.randn(n, generator=gen, device="cuda")
+            if dt == i8:
+                bias = bias * 100
+                c = torch.randint(-10 ** 6, 10 ** 6, (m, n), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+                kw = dict(alpha=2.0, beta=3.0, bias=bias)
+            else:
+                c = torch.randn(m, n, generator=gen, device="cuda").to(dt)
+                kw = dict(alpha=1.5, beta=2.0, bias=bias, activation="gelu")
+            esz = a.element_size()
+            case = _ops_case(
+                f"W{wid} {_dtype_name(dt)}",
+                lambda a=a, b=b, c=c, kw=kw: ops.mpgemm(a, b, c, **kw),
+                lambda a=a, b=b, c=c, kw=kw: _ops_plain(a, b, c, **kw),
+                exact=dt == i8,
+                n_bytes=(m * k + k * n) * esz + 4 * n
+                + m * n * c.element_size() + m * n * (4 if dt == i8 else esz),
+                n_ops=2 * m * n * k,
+                peak={f32: "float32", bf16: "bfloat16", i8: "int8"}[dt])
+            (int_cases if dt == i8 else cases).append(case)
+    rows["beta-c"] = _ops_row(torch, timer, "beta-c", "k1", cases)
+    rows["int32-epilogue"] = _ops_row(torch, timer, "int32-epilogue", "k1",
+                                      int_cases)
+
+    cases, int_cases = [], []
+    for wid in TRANS_WORKLOADS:
+        m, n, k = shapes[wid]
+        a, b = operands(m, n, k, i8, trans_a=True)
+        int_cases.append(_ops_case(
+            f"W{wid} int8 trans_a",
+            lambda a=a, b=b: ops.mpgemm(a, b, trans_a=True),
+            lambda a=a, b=b: _ops_plain(a, b, trans_a=True),
+            library=lambda a=a, b=b: torch._int_mm(a.t(), b),
+            exact=True, n_bytes=(m * k + k * n) + 4 * m * n,
+            n_ops=2 * m * n * k, peak="int8"))
+        for dt in (f32, bf16):
+            a, b = operands(m, n, k, dt, trans_a=True, trans_b=True)
+            esz = a.element_size()
+            cases.append(_ops_case(
+                f"W{wid} {_dtype_name(dt)} trans_a+b",
+                lambda a=a, b=b: ops.mpgemm(a, b, trans_a=True, trans_b=True),
+                lambda a=a, b=b: _ops_plain(a, b, trans_a=True,
+                                                  trans_b=True),
+                library=lambda a=a, b=b: torch.matmul(a.t(), b.t()),
+                n_bytes=(m * k + k * n + m * n) * esz, n_ops=2 * m * n * k,
+                peak="float32" if dt == f32 else "bfloat16"))
+    rows["int8-trans_a"] = _ops_row(torch, timer, "int8-trans_a", "k1",
+                                    int_cases)
+    rows["trans_a+b"] = _ops_row(torch, timer, "trans_a+b", "k1", cases)
+    return rows
+
+
+def _quant_in_rows(torch, timer, gen):
+    """``mp_dot(x, w, quant_in=True, activation="silu")`` and with a
+    residual at phi3-mini's full-width projections, M = 2 and 32, bf16 x,
+    over a dense bf16 weight (K1), packed int8, int4 and fp8 payloads (K2,
+    fp8 in the int8 x fp8 loop), a packed bf16 payload (K2, the rows
+    upcast) and a tile-sparse int8 one at 0.5 by magnitude (K3), through
+    :func:`_ops_row_via`.  Then one backward of the dense case
+    (straight-through: K1 trans_b and trans_a) against the plain
+    versions."""
+    from repro_torch.core.gemm import mp_dot
+    from repro_torch.packing.pack import pack_operand
+    from repro_torch.packing.params import default_blocks
+
+    bf16 = torch.bfloat16
+    weights = {}
+    for name, k, n in PHI3_PROJ:
+        w = (torch.randn(k, n, generator=gen, device="cuda")
+             * (2.0 / (k + n)) ** 0.5)
+        weights[name] = {
+            "dense": w.to(bf16),
+            **{f"packed-{fmt}": pack_operand(w, default_blocks(k, n),
+                                             dtype=fmt)
+               for fmt in ("int8", "int4", "fp8e4m3", "bfloat16")},
+            "sparse-int8": _sparse_weight(torch, gen, (k, n), "int8",
+                                          "magnitude"),
+        }
+    forms = [("dense", "k1"), ("packed-int8", "k2"), ("packed-int4", "k2"),
+             ("packed-fp8e4m3", "k2"), ("packed-bfloat16", "k2"),
+             ("sparse-int8", "k3")]
+    rows = {}
+    for form, counter in forms:
+        calls = []
+        for name, k, n in PHI3_PROJ:
+            w = weights[name][form]
+            for m in (2, 32):
+                x = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+                r = torch.randn(m, n, generator=gen, device="cuda").to(bf16)
+                calls.append((f"{name} m={m} silu", x, w,
+                              dict(activation="silu")))
+                calls.append((f"{name} m={m} residual", x, w,
+                              dict(residual=r)))
+        rows[form] = _ops_row_via(torch, timer, f"quant_in-{form}",
+                                  counter, mp_dot, calls)
+    _quant_in_backward(torch, gen, weights["gate/up"])
+    return rows
+
+
+@contextlib.contextmanager
+def _handed_to_wrappers():
+    """Within the block, every call ``core/gemm.py`` makes to its GEMM
+    wrappers (``mpgemm``, ``mpgemm_grouped``) is made and then recorded
+    as (wrapper, a, b, kwargs, output)."""
+    from repro_torch.core import gemm as gemm_mod
+
+    handed = []
+    saved = gemm_mod.mpgemm, gemm_mod.mpgemm_grouped
+
+    def recorded(fn):
+        def call(a, b, **kw):
+            out = fn(a, b, **kw)
+            handed.append((fn, a, b, kw, out))
+            return out
+        return call
+
+    gemm_mod.mpgemm, gemm_mod.mpgemm_grouped = map(recorded, saved)
+    try:
+        yield handed
+    finally:
+        gemm_mod.mpgemm, gemm_mod.mpgemm_grouped = saved
+
+
+def _handed_case(torch, name, fn, a, b, kw, out):
+    """An :func:`_ops_case` from one recorded wrapper call: the same call
+    again, its plain version, the bound's bytes (a, the weight, the scale
+    and the extras read once, the output written once) and operations
+    (over the stored tiles of a sparse weight)."""
+    from repro_torch.sparse import TileSparseOperand
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    reads = [a, kw.get("scale"), *kw.get("extras", ())]
+    n_bytes = (sum(nbytes(t) for t in reads if t is not None)
+               + (nbytes(b) if isinstance(b, torch.Tensor) else b.nbytes)
+               + nbytes(out))
+    m = out.shape[-2]
+    n_ops = 2 * out.numel() * (a.shape[-2] if kw["spec"].trans_a
+                               else a.shape[-1])
+    if isinstance(b, TileSparseOperand):
+        n_ops = 2 * m * b.layout.bk * b.layout.bn * b.layout.nnz
+    return _ops_case(
+        name, lambda: fn(a, b, **kw), lambda: _plain_gemm(a, b, **kw),
+        n_bytes=n_bytes, n_ops=n_ops,
+        peak="bfloat16" if a.dtype == torch.bfloat16 else "int8",
+        tol=TOL["bfloat16"])
+
+
+def _ops_row_via(torch, timer, label, counter, op, calls):
+    """:func:`_ops_row` for rows whose path is an op-level call that
+    prepares its wrapper's inputs (``mp_dot`` / ``mp_dot_grouped`` with
+    ``quant_in``; ``calls`` are (name, x, w, kwargs)): those calls are
+    driven once, with the launch counts at 0 just before and read just
+    after, and what each hands its wrapper is recorded; their outputs are
+    held against the same calls through the plain versions.  Then each
+    recorded wrapper call (made again, not counted) against its plain
+    version, timed: the times leave out the pre-stage."""
+    _reset_counters()
+    with _handed_to_wrappers() as handed:
+        got = [op(x, w, policy="bf16", quant_in=True, **kw)
+               for _, x, w, kw in calls]
+    torch.cuda.synchronize()
+    counts = _read_counters()
+    launched = {k: v for k, v in counts.items() if v and k in _counters()}
+    if launched != {counter: len(calls)} or len(handed) != len(calls):
+        raise AssertionError(f"{label}: launches {launched}, wrapper calls "
+                             f"{len(handed)}, want {{{counter!r}: "
+                             f"{len(calls)}}}")
+    with _plain_versions():
+        want = [op(x, w, policy="bf16", quant_in=True, **kw)
+                for _, x, w, kw in calls]
+    for (name, _, _, _), g, ref in zip(calls, got, want):
+        _check_close(torch, f"{label} {op.__name__} {name}", g, ref,
+                     TOL["bfloat16"])
+    del got, want
+    cases = [_handed_case(torch, name, *h)
+             for (name, _, _, _), h in zip(calls, handed)]
+    del handed
+    row = _ops_row(torch, timer, label, counter, cases)
+    row["launches"] = counts[counter]
+    return row
+
+
+def _quant_in_backward(torch, gen, weights):
+    """One straight-through backward of ``mp_dot(x, w, quant_in=True,
+    activation="silu")`` over phi3's dense bf16 ``w_up`` (3072 x 8192) at
+    M = 32: the int8 forward, then z, dx (K1 trans_b) and dW (K1 trans_a)
+    in bf16, against the same call through the plain versions.  y within
+    the bf16 tolerance; dx and dW within :data:`QUANT_IN_BWD_TOL` of the
+    gradient's max |g|: the backward rounds dz = dy · silu'(z) to bf16 for
+    its GEMMs, and z, recomputed by each path in its own summation order,
+    moves some of those roundings by an ulp, which the 32-row and
+    8192-column sums of dW and dx carry."""
+    from repro_torch.core.gemm import mp_dot
+
+    w0 = weights["dense"]
+    x0 = torch.randn(32, w0.shape[0], generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dy = torch.randn(32, w0.shape[1], generator=gen, device="cuda")
+
+    def run():
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        y = mp_dot(x, w, policy="bf16", quant_in=True, activation="silu")
+        (y.float() * dy).sum().backward()
+        return [y.detach(), x.grad, w.grad]
+
+    _reset_counters()
+    got = run()
+    torch.cuda.synchronize()
+    counts = _read_counters()
+    with _plain_versions():
+        want = run()
+    y_err = _check_close(torch, "quant_in backward y", got[0], want[0],
+                         TOL["bfloat16"])
+    errs = []
+    for what, g, ref in zip(("dx", "dW"), got[1:], want[1:]):
+        err = (g.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        errs.append(err / scale)
+        if not err <= QUANT_IN_BWD_TOL * scale:
+            raise AssertionError(f"quant_in backward {what}: max |kernel - "
+                                 f"plain| {err:.3e} beyond "
+                                 f"{QUANT_IN_BWD_TOL} x {scale:.3e}")
+    seen = {key: counts[key] for key in ("k1", "k1_tb", "k1_ta")}
+    print(f"[ops:quant_in-backward] against the plain versions: y max |diff| "
+          f"{y_err:.3e} (atol = rtol = 1.6e-2); dx, dW max |diff| "
+          f"{errs[0]:.2e}, {errs[1]:.2e} of their max |g| (bound "
+          f"{QUANT_IN_BWD_TOL}); launches {seen}")
+    # The int8 forward, then z (the float pre-tail GEMM), dx and dW.
+    if seen != dict(k1=4, k1_tb=1, k1_ta=1):
+        raise AssertionError(f"quant_in backward launches {seen}")
+    return counts
+
+
+def _sparse_float_rows(torch, timer, gen):
+    """K3 with float A against int8 tiles: ``mp_dot`` under bf16 over an
+    int8 tile-sparse weight (0.5 by magnitude) at phi3-mini's projections,
+    M = 2 and 32."""
+    from repro_torch.core.gemm import mp_dot
+    from repro_torch.kernels.mpgemm import mpgemm_sparse_plain
+
+    bf16 = torch.bfloat16
+    cases = []
+    for name, k, n in PHI3_PROJ:
+        w = _sparse_weight(torch, gen, (k, n), "int8", "magnitude")
+        lay = w.layout
+        for m in (2, 32):
+            x = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+            cases.append(_ops_case(
+                f"{name} m={m}",
+                lambda x=x, w=w: mp_dot(x, w, policy="bf16"),
+                lambda x=x, w=w: mpgemm_sparse_plain(x, w, out_dtype=bf16),
+                n_bytes=2 * m * k + w.nbytes + 2 * m * n,
+                n_ops=2 * m * lay.bk * lay.bn * lay.nnz, peak="bfloat16"))
+    return _ops_row(torch, timer, "k3-float-x-int8", "k3", cases)
+
+
+def _laid_out_beta_c_rows(torch, timer, gen):
+    """beta·C on K2 (phi3 ``w_up`` packed int4, bf16 A) and on K3 (the
+    same weight tile-sparse bf16 at 0.5), M = 2 and 32, through
+    ``ops.mpgemm(a, operand, c, beta=...)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.packing.pack import pack_operand
+    from repro_torch.packing.params import default_blocks
+
+    bf16 = torch.bfloat16
+    k, n = 3072, 8192
+    w = torch.randn(k, n, generator=gen, device="cuda") * (2 / (k + n)) ** .5
+    operands = {"k2": pack_operand(w, default_blocks(k, n), dtype="int4"),
+                "k3": _sparse_weight(torch, gen, (k, n), "bfloat16",
+                                     "magnitude")}
+    rows = {}
+    for counter, b in operands.items():
+        cases = []
+        for m in (2, 32):
+            a = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+            c = torch.randn(m, n, generator=gen, device="cuda").to(bf16)
+            kw = dict(alpha=1.5, beta=2.0, activation="relu")
+            n_ops = 2 * m * n * k
+            if counter == "k3":
+                n_ops = 2 * m * b.layout.bk * b.layout.bn * b.layout.nnz
+            cases.append(_ops_case(
+                f"w_up m={m}",
+                lambda a=a, b=b, c=c, kw=kw: ops.mpgemm(a, b, c, **kw),
+                lambda a=a, b=b, c=c, kw=kw: _ops_plain(a, b, c, **kw),
+                n_bytes=2 * m * k + b.nbytes + 4 * m * n, n_ops=n_ops,
+                peak="bfloat16"))
+        rows[counter] = _ops_row(torch, timer, f"beta-c-{counter}", counter,
+                                 cases)
+    return rows
+
+
+def _grouped_ops_rows(torch, timer, gen):
+    """At granite-moe-1b-a400m's expert shapes (32 experts, 1024 <-> 512,
+    M = 2 and 32 rows an expert): beta·C on grouped K1 (bf16, f32 C and
+    output, 2·A·B + 0.5·C), ``mp_dot_grouped(..., quant_in=True,
+    activation="silu")`` over a dense bf16 stack (grouped K1), a packed
+    int8 one (grouped K2) and an int8 N:M 2:4 sparse one (grouped K3), and
+    ``mp_einsum("gmk,gkn->gmn")`` (grouped K1)."""
+    from repro_torch.core.gemm import mp_dot_grouped, mp_einsum
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm_grouped, mpgemm_plain
+    from repro_torch.packing.pack import pack_operand
+
+    g, bf16, f32 = GRANITE_EXPERTS, torch.bfloat16, torch.float32
+    shapes = GRANITE_EXPERT_PROJ
+    rows = {}
+    cases = []
+    for name, k, n in shapes:
+        b = (torch.randn(g, k, n, generator=gen, device="cuda")
+             * (2 / (k + n)) ** .5).to(bf16)
+        for m in (2, 32):
+            a = torch.randn(g, m, k, generator=gen, device="cuda").to(bf16)
+            c = torch.randn(g, m, n, generator=gen, device="cuda")
+            ep = EpilogueSpec(alpha=2.0, beta=0.5)
+            spec = GemmSpec(grouped=True)
+            cases.append(_ops_case(
+                f"{name} m={m}",
+                lambda a=a, b=b, c=c, ep=ep, spec=spec: mpgemm_grouped(
+                    a, b, c=c, spec=spec, epilogue=ep, out_dtype=f32),
+                lambda a=a, b=b, c=c, ep=ep: mpgemm_plain(
+                    a, b, c=c, epilogue=ep, out_dtype=f32),
+                library=lambda a=a, b=b, c=c: torch.baddbmm(
+                    c, a.float(), b.float(), beta=0.5, alpha=2.0),
+                n_bytes=g * (2 * m * k + 2 * k * n + 8 * m * n),
+                n_ops=2 * g * m * n * k, peak="bfloat16",
+                tol=TOL["float32"]))
+    rows["beta-c"] = _ops_row(torch, timer, "grouped-beta-c", "k1g", cases)
+
+    stacks = {}
+    for name, k, n in shapes:
+        w = torch.randn(g, k, n, generator=gen, device="cuda") * \
+            (2 / (k + n)) ** .5
+        stacks[name] = {
+            "dense": w.to(bf16),
+            "packed-int8": pack_operand(w, (128, 128), dtype="int8"),
+            "sparse-int8": _sparse_weight(torch, gen, (g, k, n), "int8",
+                                          "nm"),
+        }
+    for form, counter in (("dense", "k1g"), ("packed-int8", "k2g"),
+                          ("sparse-int8", "k3g")):
+        calls = []
+        for name, k, n in shapes:
+            for m in (2, 32):
+                x = torch.randn(g, m, k, generator=gen,
+                                device="cuda").to(bf16)
+                calls.append((f"{name} m={m}", x, stacks[name][form],
+                              dict(activation="silu")))
+        rows[form] = _ops_row_via(torch, timer, f"grouped-quant_in-{form}",
+                                  counter, mp_dot_grouped, calls)
+
+    cases = []
+    for name, k, n in shapes:
+        b = (torch.randn(g, k, n, generator=gen, device="cuda")
+             * (2 / (k + n)) ** .5).to(bf16)
+        a = torch.randn(g, 32, k, generator=gen, device="cuda").to(bf16)
+        cases.append(_ops_case(
+            f"{name} m=32",
+            lambda a=a, b=b: mp_einsum("gmk,gkn->gmn", a, b, policy="bf16"),
+            lambda a=a, b=b: mpgemm_plain(a, b, out_dtype=bf16),
+            library=lambda a=a, b=b: torch.bmm(a, b),
+            n_bytes=2 * g * (32 * k + k * n + 32 * n),
+            n_ops=2 * g * 32 * n * k, peak="bfloat16"))
+    rows["einsum"] = _ops_row(torch, timer, "grouped-einsum", "k1g", cases)
+    return rows
+
+
+def phase_ops(torch, timer):
+    """The op-level API and the kernel variants it reaches (K1 beta·C,
+    int8 -> int32, int8 trans_a, trans_a + trans_b, the quant_in tails of
+    K1, K2 and K3, K2 int8 x fp8, K3 float x int8, K2 and K3 beta·C),
+    each row driven once with the launch counts at 0 and every case held
+    against its plain version.  -> {row: numbers}."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    rows.update({f"t3/{k}": v for k, v in
+                 _table3_rows(torch, timer, gen).items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update({f"qi/{k}": v for k, v in
+                 _quant_in_rows(torch, timer, gen).items()})
+    rows["k3-float"] = _sparse_float_rows(torch, timer, gen)
+    rows.update({f"bc/{k}": v for k, v in
+                 _laid_out_beta_c_rows(torch, timer, gen).items()})
+    rows.update({f"g/{k}": v for k, v in
+                 _grouped_ops_rows(torch, timer, gen).items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _want_train_launches(cfg, remat=True, seq=128):
     """Kernel launches of one training step (forward, the rematerialised
     forward, backward) of a dense model: per layer 4 attention GEMMs and
@@ -2336,11 +2944,19 @@ def main():
     k3 = phase_k3(torch, timer)
     k1ta = phase_k1_trans_a(torch, timer)
     k7 = phase_k7(torch, timer)
-    del timer
     packed_grad = phase_packed_grad(torch)
     print(f"[time] kernel phases: {time.perf_counter() - t_phases:.1f} s")
     t_phases = time.perf_counter()
+    ops = phase_ops(torch, timer)
+    del timer
     serves = {}
+    for label, kw in NO_FUSE_PATHS.items():
+        serves[label] = phase_serve(torch, label=label, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[time] op-level and --no-fuse phases: "
+          f"{time.perf_counter() - t_phases:.1f} s")
+    t_phases = time.perf_counter()
     for label, kw in SERVE_PATHS.items():
         serves[label] = phase_serve(torch, label=label, **kw)
         gc.collect()              # free each path's weights before the next
@@ -2459,6 +3075,54 @@ def main():
             "backward)", "pack.cu", "src/repro/packing/pack.py:242",
             packed_grad["k7"], dict(k7["up-bf16"], library_ms=None)),
     ]
+    # The op-level API's rows (phase_ops): launches are each row's driven
+    # run; ms, plain_ms, library_ms and bound_ms sum one launch a case.
+    ops_rows = [
+        ("K1 ops.mpgemm, paper Table III (24 shapes), f32 -> f32",
+         "mpgemm.cu", f"{mp}:232", "t3/table3-f32"),
+        ("K1 ops.mpgemm, paper Table III (24 shapes), bf16 -> bf16",
+         "mpgemm.cu", f"{mp}:232", "t3/table3-bf16"),
+        ("K1 ops.mpgemm, paper Table III (24 shapes), int8 -> int32 "
+         "(exact)", "mpgemm.cu", f"{mp}:232", "t3/table3-int8"),
+        ("K1 beta*C (W1, W13, W19: alpha 1.5, beta 2.0 * C, bias, gelu; "
+         "f32 and bf16)", "mpgemm.cu", f"{mp}:237", "t3/beta-c"),
+        ("K1 int8 -> int32 integer epilogue (W1, W13, W19: alpha 2, beta "
+         "3 * C, bias)", "mpgemm.cu", f"{mp}:232", "t3/int32-epilogue"),
+        ("K1 int8 trans_a (W13, W19, int32)", "mpgemm.cu", f"{mp}:232",
+         "t3/int8-trans_a"),
+        ("K1 trans_a + trans_b (W13, W19, f32 and bf16)", "mpgemm.cu",
+         f"{mp}:232", "t3/trans_a+b"),
+        ("K1 quant_in tails (phi3 projections, int8 rows x int8 weight, "
+         "silu / residual)", "mpgemm.cu", f"{mp}:232", "qi/dense"),
+        ("K2 quant_in tails, int8 payload", "mpgemm_packed.cu", f"{mp}:106",
+         "qi/packed-int8"),
+        ("K2 quant_in tails, int4 payload", "mpgemm_packed.cu", f"{mp}:106",
+         "qi/packed-int4"),
+        ("K2 int8 A x fp8e4m3 payload (quant_in)", "mpgemm_packed.cu",
+         f"{mp}:124", "qi/packed-fp8e4m3"),
+        ("K2 quant_in tails, bf16 payload (int8 rows upcast)",
+         "mpgemm_packed.cu", f"{mp}:106", "qi/packed-bfloat16"),
+        ("K3 quant_in tails, int8 tiles (phi3, 0.5 magnitude)",
+         "mpgemm_sparse.cu", f"{mp}:181", "qi/sparse-int8"),
+        ("K3 bf16 A x int8 tiles (phi3 projections, M 2 and 32)",
+         "mpgemm_sparse.cu", f"{mp}:181", "k3-float"),
+        ("K2 beta*C (phi3 w_up, int4 payload, bf16 A)", "mpgemm_packed.cu",
+         f"{mp}:106", "bc/k2"),
+        ("K3 beta*C (phi3 w_up, bf16 tiles, 0.5 magnitude)",
+         "mpgemm_sparse.cu", f"{mp}:193", "bc/k3"),
+        ("K1 mpgemm_grouped beta*C (granite experts, 2 A B + 0.5 C)",
+         "mpgemm.cu", f"{mp}:812", "g/beta-c"),
+        ("K1 mpgemm_grouped quant_in (granite experts, dense bf16 stacks)",
+         "mpgemm.cu", f"{mp}:812", "g/dense"),
+        ("K2 mpgemm_packed_grouped quant_in (granite experts, int8 payload)",
+         "mpgemm_packed.cu", f"{mp}:250", "g/packed-int8"),
+        ("K3 mpgemm_sparse_grouped quant_in (granite experts, int8 N:M 2:4)",
+         "mpgemm_sparse.cu", f"{mp}:181", "g/sparse-int8"),
+        ("K1 mpgemm_grouped via mp_einsum('gmk,gkn->gmn') (granite experts)",
+         "mpgemm.cu", f"{mp}:812", "g/einsum"),
+    ]
+    kernels += [row(name, source, replaces, ops[key]["launches"], ops[key])
+                for name, source, replaces, key in ops_rows]
     print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} "
           f"s wall, the kernels' build included")
     print(json.dumps({"kernels": kernels}))

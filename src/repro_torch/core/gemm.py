@@ -29,8 +29,15 @@ versions for CPU tensors:
   ``x`` with ``sx`` in the scale slot.  A float payload under int8 is
   densified (plain torch ops, zeros at the pruned tiles) and takes the
   dense int8 path (K1), as in the reference.  An int8 payload under a
-  float policy would need a float-A x int8 K3, which is not ported: it
-  raises on every device.
+  float policy takes ``x`` in the compute dtype against the int8 tiles,
+  each dequantized by its scale (K3's float x int8 loop);
+* ``quant_in=True`` (the ``quant_in`` / ``quant_in_residual`` epilogues):
+  ``x`` is quantized per row to int8 before the launch, and its (M, 1)
+  row scales ride the epilogue -- a dense weight is quantized per tensor
+  (int8 x int8 in K1, its scale in the scalar slot), an int8, int4 or fp8
+  payload dots against the int8 ``x`` (K2; fp8 in f32), an int8 sparse
+  payload in int32 (K3), and a float payload, packed or sparse, against
+  ``x``'s int values upcast to the compute dtype.  Still one launch.
 
 Every call that autograd records goes through one
 ``torch.autograd.Function`` (:class:`_Gemm`, the port of ``_gemm_core`` /
@@ -47,7 +54,12 @@ the f32 row sum of dz.  A packed weight is unpacked by K7; a float
 payload's cotangent is its packed dense gradient (K6 on the card), a
 codec payload is frozen (no gradient).  A sparse weight is densified and
 its cotangent masked to the stored tiles (``payload_cotangent``).
-``quant_in`` is not ported yet and raises.
+Under ``quant_in`` the backward is straight-through: the gradients of the
+float GEMM, the rounding ignored.
+
+:func:`mp_einsum` routes grouped-matmul einsum specs through
+:func:`mp_dot_grouped` and runs any other spec as a plain torch einsum
+under the policy's dtypes.
 """
 from __future__ import annotations
 
@@ -57,7 +69,7 @@ import torch
 
 from repro_torch.core.gemm_spec import (
     LINEAR, EpilogueSpec, GemmSpec, epilogue_bwd, epilogue_needs_pre,
-    resolve_epilogue,
+    get_epilogue, resolve_epilogue,
 )
 from repro_torch.core.policy import PrecisionPolicy, get_policy, \
     quantize_per_tensor
@@ -68,11 +80,24 @@ from repro_torch.sparse.layout import TileSparseOperand
 from repro_torch.sparse.sparsify import densify_operand, payload_cotangent
 
 
-def _build_epilogue(epilogue, activation, gate, residual, epilogue_operands):
-    """The op-level EpilogueSpec and ordered extras (registry-resolved)."""
+def _build_epilogue(epilogue, activation, gate, residual, epilogue_operands,
+                    quant_in=False):
+    """The op-level EpilogueSpec and ordered extras (registry-resolved);
+    ``quant_in`` selects the activation-quantization family, which is
+    explicit only: never with an explicit epilogue or a gate."""
     named = {"gate": gate, "residual": residual}
     if epilogue_operands:
         named.update(epilogue_operands)
+    if quant_in:
+        if epilogue is not None:
+            raise ValueError(
+                "pass quant_in=True OR an explicit epilogue spec, not both")
+        if gate is not None:
+            raise ValueError(
+                "quant_in does not compose with the gated epilogue")
+        kind = "quant_in_residual" if residual is not None else "quant_in"
+        epilogue = EpilogueSpec(kind=kind, activation=activation)
+        activation = None
     epilogue, extras = resolve_epilogue(named, epilogue=epilogue,
                                         activation=activation)
     if epilogue.beta != 0.0:
@@ -89,6 +114,10 @@ def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
     reference's ``_apply_gemm`` on its kernel backends).  ``trans_a``
     (a dense float ``w`` only) reads ``x`` as (K, M): the backward's dW."""
     gemm = mpgemm_grouped if grouped else mpgemm
+    ed = get_epilogue(epilogue.kind)
+    if ed.pre is not None:
+        return _apply_quant_in(x, w, bias, extras, trans_w, epilogue, ed,
+                               policy, out_dtype, gemm, grouped)
     kw = dict(bias=bias, extras=extras, epilogue=epilogue,
               out_dtype=out_dtype)
     if isinstance(w, TileSparseOperand):
@@ -132,6 +161,34 @@ def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
                     spec=spec, **kw)
     return gemm(x.to(policy.compute).contiguous(),
                 w.to(policy.compute).contiguous(), spec=spec, **kw)
+
+
+def _apply_quant_in(x, w, bias, extras, trans_w, epilogue, ed, policy,
+                    out_dtype, gemm, grouped):
+    """The ``quant_in`` forward (the reference's ``pre_quant`` branches):
+    the pre-stage quantizes ``x`` per row and its row scales lead the
+    extras; then one launch, by weight form."""
+    if bias is not None:
+        raise ValueError(
+            f"epilogue {epilogue.kind!r} does not take a bias (the fused "
+            "per-row dequant would rescale it)")
+    xq, pre_extras = ed.pre(epilogue, x)
+    kw = dict(extras=tuple(pre_extras) + tuple(extras), epilogue=epilogue,
+              out_dtype=out_dtype)
+    if isinstance(w, (TileSparseOperand, PackedOperand)):
+        spec = GemmSpec(grouped=grouped, out_dtype=out_dtype,
+                        sparse=isinstance(w, TileSparseOperand),
+                        packed=isinstance(w, PackedOperand))
+        if w.layout.per_tile_scales:
+            # int8 / int4 / fp8 tiles against the int8 rows (K2, K3).
+            return gemm(xq.contiguous(), w, spec=spec, **kw)
+        # A float payload: the int values upcast to the compute dtype.
+        return gemm(xq.to(policy.compute).contiguous(),
+                    w.astype(policy.compute), spec=spec, **kw)
+    # A dense weight: quantized per tensor, its scale in the scalar slot.
+    wq, sw = quantize_per_tensor(w)
+    spec = GemmSpec(grouped=grouped, trans_b=trans_w, out_dtype=out_dtype)
+    return gemm(xq.contiguous(), wq.contiguous(), scale=sw, spec=spec, **kw)
 
 
 def _bwd_policy(policy: PrecisionPolicy) -> PrecisionPolicy:
@@ -270,10 +327,12 @@ def mp_dot(
     fuses ``act(·) · gate`` and ``residual`` fuses ``act(·) + residual``
     (both shaped like the output).  A dense weight already in the compute
     dtype (cast once at load time) is used as it is.
+
+    ``quant_in=True`` quantizes ``x`` per token row to int8 before the
+    launch and fuses the per-row dequant (+ ``activation``, + ``residual``)
+    into the epilogue: quantize, GEMM and dequant in one launch, with a
+    straight-through backward.  It takes no ``bias`` and no ``gate``.
     """
-    if quant_in:
-        raise NotImplementedError("quant_in (per-token activation "
-                                  "quantization) is not ported yet")
     if isinstance(b, (PackedOperand, TileSparseOperand)):
         if b.layout.g != 1:
             raise ValueError(f"grouped {type(b).__name__}: use "
@@ -294,7 +353,7 @@ def mp_dot(
     if bias is not None:
         bias = bias.reshape(-1)
     epilogue, extras = _build_epilogue(epilogue, activation, gate, residual,
-                                       epilogue_operands)
+                                       epilogue_operands, quant_in)
     extras = tuple(e.reshape(-1, e.shape[-1]).contiguous() for e in extras)
     out_dtype = out_dtype or policy.out
     y2d = _gemm(x2d, b, bias, extras, trans_w, epilogue, policy, out_dtype)
@@ -315,6 +374,7 @@ def mp_dot_grouped(
     residual: Optional[torch.Tensor] = None,
     epilogue: Optional[EpilogueSpec] = None,
     epilogue_operands: Optional[dict] = None,
+    quant_in: bool = False,
 ) -> torch.Tensor:
     """y[g, m, n] = tail(x[g, m, k] @ (b[g, n, k]ᵀ if trans_w else
     b[g, k, n]) + bias[g, n]): G independent GEMMs in one launch.
@@ -327,7 +387,8 @@ def mp_dot_grouped(
     ``residual`` are (G, M, N).  ``group_sizes`` (G,) marks ragged groups:
     rows ``>= group_sizes[g]`` of each output group are zero.
     ``out_dtype`` overrides the policy's output dtype (MoE keeps the
-    expert GEMMs' outputs in f32).
+    expert GEMMs' outputs in f32).  ``quant_in`` is :func:`mp_dot`'s, per
+    row of each group.
     """
     if x.dim() != 3:
         raise ValueError(f"mp_dot_grouped expects x of rank 3, got "
@@ -350,7 +411,7 @@ def mp_dot_grouped(
             f"mp_dot_grouped: unsupported operand {type(b).__name__}")
     policy = get_policy(policy)
     epilogue, extras = _build_epilogue(epilogue, activation, gate, residual,
-                                       epilogue_operands)
+                                       epilogue_operands, quant_in)
     extras = tuple(e.contiguous() for e in extras)
     y = _gemm(x, b, bias, extras, trans_w, epilogue, policy,
               out_dtype or policy.out, grouped=True)
@@ -360,3 +421,48 @@ def mp_dot_grouped(
         y = torch.where(rows < sizes, y, torch.zeros((), dtype=y.dtype,
                                                      device=y.device))
     return y
+
+
+def _as_grouped_matmul(spec: str, n_ops: int) -> Optional[bool]:
+    """Is ``spec`` a grouped matmul ``Xab,Xbc->Xac`` (any letters)?
+    Returns ``trans_w`` (False for ``Xab,Xbc->Xac``, True for the
+    stored-transposed ``Xab,Xcb->Xac``) or None when it is not one."""
+    if n_ops != 2:
+        return None
+    try:
+        ins, out = spec.replace(" ", "").split("->")
+        a, b = ins.split(",")
+    except ValueError:
+        return None
+    if not (len(a) == len(b) == len(out) == 3 and len(set(a)) == 3):
+        return None
+    if not (a[0] == b[0] == out[0] and out[1] == a[1]):
+        return None
+    if b[1] == a[2] and out[2] == b[2] and len({a[0], a[1], a[2], b[2]}) == 4:
+        return False           # Xab,Xbc->Xac
+    if b[2] == a[2] and out[2] == b[1] and len({a[0], a[1], a[2], b[1]}) == 4:
+        return True            # Xab,Xcb->Xac
+    return None
+
+
+def mp_einsum(spec: str, *operands, policy="bf16") -> torch.Tensor:
+    """Policy-aware einsum (port of ``repro.core.gemm.mp_einsum``).
+
+    A grouped-matmul spec over float operands (``gmk,gkn->gmn`` or the
+    stored-transposed ``gmk,gnk->gmn``, any letters) goes through
+    :func:`mp_dot_grouped`, so it reaches grouped K1.  Anything else is a
+    plain torch einsum: float operands cast to the policy's compute dtype
+    (an integer operand beside them too, as jnp promotes it), the sum in
+    f32, the result in the policy's output dtype (a quantized policy takes
+    its bf16 sibling here).
+    """
+    trans_w = _as_grouped_matmul(spec, len(operands))
+    if trans_w is not None and all(o.is_floating_point() for o in operands):
+        return mp_dot_grouped(operands[0], operands[1], policy=policy,
+                              trans_w=trans_w)
+    policy = get_policy(policy)
+    if policy.quantized:
+        policy = get_policy("bf16")
+    if any(o.is_floating_point() for o in operands):
+        operands = [o.to(policy.compute).float() for o in operands]
+    return torch.einsum(spec, *operands).to(policy.out)

@@ -22,16 +22,20 @@
 //   int8 A x int8 / int4 tile: an exact int32 partial over the tile's bk
 //       rows, then acc += float(partial) * tile_scale, so the f32 sum sees
 //       the same tile boundaries as the reference;
+//   int8 A x fp8e4m3 tile (quant_in's int8 X over an fp8 payload): the
+//       reference's int x float branch -- both sides upcast to f32, the
+//       tile's scale applied to B in f32 (no rounding to a narrower type),
+//       an f32 sum;
 //   float A x float tile of the same dtype: no scale.
 //
 // int4 bytes hold row 2r in the low nibble and row 2r + 1 in the high one,
 // sign-extended with arithmetic shifts.  The payload is zero-padded, so only
 // A's K edge needs a mask: rows past K are never visited.  `scale` (the int8
-// policy's per-tensor sx) is one f32 in device memory; the epilogue runs in
-// f32 in apply_epilogue's order (scale, alpha, bias, activation, gate or
-// residual).  The group is blockIdx.z (G = 1 for a 2-D GEMM): each block
-// moves its pointers by g times the group's extent before the loop, and the
-// bias by g * bias_stride (N, or 0 for one bias shared by every group).
+// policy's per-tensor sx) is one f32 in device memory; the epilogue is
+// gemm_epilogue.cuh's f32 one (scale, alpha, bias, the quant_in row scale,
+// activation, gate or residual, beta * C).  The group is blockIdx.z (G = 1
+// for a 2-D GEMM): each block moves its A and payload pointers by g times
+// the group's extent before the loop.
 //
 // What bounds it on an H100: decode (M = 2) and chunked prefill (M <= 32)
 // read every payload byte once per call, so bytes over the 3.35 TB/s of
@@ -104,13 +108,12 @@ template <typename AT, int P, int BM>
 __global__ void __launch_bounds__(kThreads)
 mpgemm_packed_kernel(const AT* __restrict__ A,
                      const void* __restrict__ payload,
-                     const float* __restrict__ tile_scales,
-                     void* __restrict__ out, const float* __restrict__ bias,
-                     const void* __restrict__ extra,
-                     const float* __restrict__ scale, int M, int N, int K,
-                     int bk, int bn, int bias_stride, int out_dt, int kind,
-                     int act, float alpha) {
-  constexpr bool kIntDot = std::is_same<AT, int8_t>::value;
+                     const float* __restrict__ tile_scales, EPILOGUE_PARAMS,
+                     int M, int N, int K, int bk, int bn) {
+  const Epilogue e = EPILOGUE_FROM_PARAMS;
+  // int8 A takes the exact integer partial against int8 / int4 tiles, and
+  // the f32 loop below against fp8 tiles (round_to<int8_t> is the identity).
+  constexpr bool kIntDot = std::is_same<AT, int8_t>::value && P != P_FP8;
   constexpr bool kCodec = P >= P_INT8;
   constexpr int kElemBytes = P == P_F32 ? 4 : P == P_BF16 ? 2 : 1;
   // Unroll the row loop (several payload loads in flight) only for the
@@ -127,14 +130,9 @@ mpgemm_packed_kernel(const AT* __restrict__ A,
   const size_t tile_bytes = (size_t)tk * bn * kElemBytes;
 
   const size_t g = blockIdx.z;
-  const size_t out_bytes = out_dt == DT_BF16 ? 2 : 4;
   A += g * M * K;
   payload = static_cast<const char*>(payload) + g * nkb * nnb * tile_bytes;
   if (tile_scales != nullptr) tile_scales += g * nkb * nnb;
-  out = static_cast<char*>(out) + g * M * N * out_bytes;
-  if (extra != nullptr)
-    extra = static_cast<const char*>(extra) + g * M * N * out_bytes;
-  if (bias != nullptr) bias += g * bias_stride;
 
   float acc[BM];
 #pragma unroll
@@ -192,30 +190,25 @@ mpgemm_packed_kernel(const AT* __restrict__ A,
     float v = red[0][i][cc];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) v += red[w][i][cc];
-    epilogue_store(v, (size_t)gm * N + col, col, out, bias, extra, scale,
-                   out_dt, kind, act, alpha);
+    epilogue_store(e, v, g, M, N, gm, col);
   }
 }
 
 template <typename AT, int P>
 cudaError_t launch_rows(const void* a, const void* payload, const float* ts,
-                        void* out, const float* bias, const void* extra,
-                        const float* scale, int g, int m, int n, int k,
-                        int bk, int bn, int bias_stride, int out_dt, int kind,
-                        int act, float alpha, cudaStream_t stream) {
+                        const Epilogue& e, int g, int m, int n, int k, int bk,
+                        int bn, cudaStream_t stream) {
   const AT* A = static_cast<const AT*>(a);
   if (m <= 4) {
     constexpr int BM = 4;
     const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM, g);
     mpgemm_packed_kernel<AT, P, BM><<<grid, kThreads, 0, stream>>>(
-        A, payload, ts, out, bias, extra, scale, m, n, k, bk, bn, bias_stride,
-        out_dt, kind, act, alpha);
+        A, payload, ts, EPILOGUE_ARGS(e), m, n, k, bk, bn);
   } else {
     constexpr int BM = 32;
     const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM, g);
     mpgemm_packed_kernel<AT, P, BM><<<grid, kThreads, 0, stream>>>(
-        A, payload, ts, out, bias, extra, scale, m, n, k, bk, bn, bias_stride,
-        out_dt, kind, act, alpha);
+        A, payload, ts, EPILOGUE_ARGS(e), m, n, k, bk, bn);
   }
   return cudaGetLastError();
 }
@@ -228,28 +221,30 @@ extern "C" {
 // cudaError_t of the launch (0 = ok).  a_dt: 0 f32, 1 bf16, 2 int8.
 // pcode: 0 f32, 1 bf16, 2 int8, 3 int4, 4 fp8e4m3.  Taken pairs: f32 A x
 // {f32, int8, int4, fp8}, bf16 A x {bf16, int8, int4, fp8}, int8 A x
-// {int8, int4}.  `tile_scales` is (G, nkb, nnb) f32 for the codec payloads;
-// `bias`, `extra` and `scale` may be null; `bias_stride` is N for a (G, N)
-// bias and 0 for a shared (N,) one; `extra` has the output's dtype.
+// {int8, int4, fp8}.  `tile_scales` is (G, nkb, nnb) f32 for the codec
+// payloads; the epilogue's operands are those of mpgemm_launch
+// (csrc/mpgemm.cu): `bias`, `extra`, `c`, `row_scale` and `scale` may be
+// null, `bias_stride` is N for a (G, N) bias and 0 for a shared (N,) one,
+// `extra` has the output's dtype.
 int mpgemm_packed_launch(const void* a, const void* payload,
                          const void* tile_scales, void* out, const void* bias,
-                         const void* extra, const void* scale, int g, int m,
-                         int n, int k, int bk, int bn, int bias_stride,
-                         int a_dt, int pcode, int out_dt, int kind, int act,
-                         float alpha, void* stream) {
+                         const void* extra, const void* c,
+                         const void* row_scale, const void* scale, int g,
+                         int m, int n, int k, int bk, int bn, int bias_stride,
+                         int a_dt, int pcode, int out_dt, int c_dt, int kind,
+                         int act, float alpha, float beta, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ts = static_cast<const float*>(tile_scales);
-  const float* bi = static_cast<const float*>(bias);
-  const float* sc = static_cast<const float*>(scale);
-  if (out_dt != DT_F32 && out_dt != DT_BF16) return cudaErrorInvalidValue;
+  const Epilogue e = make_epilogue(out, bias, extra, c, row_scale, scale,
+                                   out_dt, bias_stride, c_dt, kind, act, alpha,
+                                   beta);
+  if (!epilogue_ok(e)) return cudaErrorInvalidValue;
   if (pcode >= P_INT8 && ts == nullptr) return cudaErrorInvalidValue;
-  if (kind != KIND_LINEAR && extra == nullptr) return cudaErrorInvalidValue;
   if (m <= 0 || n <= 0 || k <= 0 || bk <= 0 || bn <= 0 || g <= 0 ||
-      g > 65535 || bias_stride < 0)
+      g > 65535)
     return cudaErrorInvalidValue;
-#define K2_LAUNCH(AT, P)                                                  \
-  return launch_rows<AT, P>(a, payload, ts, out, bi, extra, sc, g, m, n, k, \
-                            bk, bn, bias_stride, out_dt, kind, act, alpha, s)
+#define K2_LAUNCH(AT, P) \
+  return launch_rows<AT, P>(a, payload, ts, e, g, m, n, k, bk, bn, s)
   if (a_dt == DT_BF16) {
     if (pcode == P_BF16) K2_LAUNCH(__nv_bfloat16, P_BF16);
     if (pcode == P_INT8) K2_LAUNCH(__nv_bfloat16, P_INT8);
@@ -263,6 +258,7 @@ int mpgemm_packed_launch(const void* a, const void* payload,
   } else if (a_dt == DT_INT8) {
     if (pcode == P_INT8) K2_LAUNCH(int8_t, P_INT8);
     if (pcode == P_INT4) K2_LAUNCH(int8_t, P_INT4);
+    if (pcode == P_FP8) K2_LAUNCH(int8_t, P_FP8);
   }
 #undef K2_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -12,26 +12,32 @@ polymorphic in ``b``, as the reference is: a dense tensor goes to K1, a
 by the device of its operands: a CPU tensor runs the plain version, a CUDA
 tensor launches the hand-written kernel (``csrc/mpgemm.cu``,
 ``csrc/mpgemm_packed.cu``, ``csrc/mpgemm_sparse.cu``, built on first use
-by ``_build.py``).  K1 also takes ``spec.trans_a`` (A read as (K, M),
-or (G, K, M) grouped: the backward's dW = Aᵀ·B), for float operands
-without ``trans_b``.  Variants the kernels do not take yet -- ``beta·C``,
-int8 ``trans_a``, ``trans_a`` with ``trans_b`` or against a packed or
-sparse B -- raise ``NotImplementedError`` on every device, so the CPU path
-never offers what the card cannot run.
+by ``_build.py``).  K1 takes ``spec.trans_a`` (A read as (K, M), or
+(G, K, M) grouped: the backward's dW = Aᵀ·B) and ``spec.trans_b``, alone
+or together, for every operand dtype.  ``trans_a`` against a packed or
+sparse B raises ``NotImplementedError`` on every device (no caller issues
+it), so the CPU path never offers what the card cannot run.
 
 K1 takes bf16 or f32 operands summed in f32, or int8 operands summed
-exactly in int32 (the int8 policy).  ``scale`` is a one-element f32 tensor
+exactly in int32 (the int8 policy, and the paper's INT8 -> INT32 GEMM,
+whose default output is int32).  An int8 product with no ``scale`` keeps
+the reference's integer epilogue (``apply_epilogue``): alpha, the bias and
+beta truncated to int32, only relu.  ``scale`` is a one-element f32 tensor
 on the operands' device (the int8 policy's ``sx · sw``); the kernels read
-it in their epilogue, so no GEMM waits on the host.  A grouped call takes
-a bias of shape (G, N), or one (N,) bias shared by every group, and
-gate / residual operands of the output's shape (G, M, N).
+it in their epilogue, so no GEMM waits on the host.  ``c`` (the output's
+shape, f32, bf16 or int32) is added times ``epilogue.beta``.  A grouped
+call takes a bias of shape (G, N), or one (N,) bias shared by every group,
+and gate / residual / C operands of the output's shape (G, M, N).  The
+``quant_in`` kinds' row scale is an (M, 1) -- grouped (G, M, 1) -- f32
+operand, the first of their extras.
 
 ``mpgemm.launches``, ``mpgemm_grouped.launches``,
 ``mpgemm_packed.launches``, ``mpgemm_packed_grouped.launches``,
 ``mpgemm_sparse.launches`` and ``mpgemm_sparse_grouped.launches`` count
 kernel launches (never plain-version calls); ``mpgemm.trans_a_launches``,
 ``mpgemm.trans_b_launches`` and their ``mpgemm_grouped`` twins count the
-K1 launches of each transposed variant among them.
+K1 launches of each transposed variant among them (a launch with both
+counts in both).
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.gemm_spec import (
-    LINEAR, EpilogueSpec, GemmSpec, apply_epilogue, get_epilogue,
+    INT_ACTIVATIONS, LINEAR, EpilogueSpec, GemmSpec, apply_epilogue,
+    get_epilogue,
 )
 from repro_torch.kernels import _build
 from repro_torch.packing.layout import PackedOperand
@@ -51,43 +58,43 @@ from repro_torch.packing.pack import decode_payload_tiles
 from repro_torch.sparse.layout import TileSparseOperand
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KIND_CODES = {"linear": 0, "gated": 1, "residual": 2}
+# Output and C dtypes of csrc/gemm_epilogue.cuh.
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 3}
+_KIND_CODES = {"linear": 0, "gated": 1, "residual": 2, "quant_in": 3,
+               "quant_in_residual": 4}
 _ACT_CODES = {None: 0, "none": 0, "relu": 1, "silu": 2, "gelu": 3}
 # Payload codes of csrc/mpgemm_packed.cu (the same as csrc/pack.cu's).
 _PAYLOAD_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3,
                   "fp8e4m3": 4}
 
 
-def _check_supported(spec: GemmSpec, epilogue: EpilogueSpec, c, *,
-                     dense_a_dtype=None):
-    """Raise on what neither the kernels nor their plain versions take;
-    ``dense_a_dtype`` is A's dtype against a dense B (None: packed or
-    sparse B, which take no ``trans_a``)."""
-    if spec.trans_a:
-        if dense_a_dtype is None:
-            raise NotImplementedError(
-                "trans_a against a packed or sparse B is not ported")
-        if spec.trans_b:
-            raise NotImplementedError(
-                "trans_a with trans_b is not ported (the backward never "
-                "issues it)")
-        if dense_a_dtype == torch.int8:
-            raise NotImplementedError("int8 trans_a is not ported yet")
-    if epilogue.beta != 0.0 or c is not None:
-        raise NotImplementedError("beta·C accumulation is not ported yet")
-    if epilogue.kind not in _KIND_CODES:
-        raise NotImplementedError(
-            f"epilogue {epilogue.kind!r} is not ported yet")
+def _check_c(epilogue: EpilogueSpec, c):
+    if epilogue.beta != 0.0 and c is None:
+        raise ValueError("beta != 0 requires c")
 
 
-def _epilogue_plain(epilogue, acc, bias, scale, extras, out_dtype):
+def _default_out_dtype(a_dtype: torch.dtype) -> torch.dtype:
+    """The reference's default output: int32 for int8 operands, else the
+    operands' dtype (``core/blocking.py::_resolve_dtypes``)."""
+    return torch.int32 if a_dtype == torch.int8 else a_dtype
+
+
+def _int_epilogue(a, scale) -> bool:
+    """Does K1's epilogue run on an int32 accumulator?  An int8 product
+    with no scale (a packed or sparse int8 payload's tile scales make K2's
+    and K3's sums f32)."""
+    return a.dtype == torch.int8 and scale is None
+
+
+def _epilogue_plain(epilogue, acc, bias, scale, c, extras, out_dtype):
     out = apply_epilogue(epilogue, acc, bias=bias, scale=scale,
+                         c=c if epilogue.beta != 0.0 else None,
                          extras=tuple(extras))
     return out.to(out_dtype)
 
 
 def mpgemm_plain(a: torch.Tensor, b: torch.Tensor, *,
+                 c: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None,
                  scale: Optional[torch.Tensor] = None,
                  extras: Sequence[torch.Tensor] = (),
@@ -96,15 +103,17 @@ def mpgemm_plain(a: torch.Tensor, b: torch.Tensor, *,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """K1's plain version, 2-D or grouped (a leading G axis on ``a``,
     ``b`` and the extras): the matmul of the (already compute-dtype)
-    operands -- f32, or exact for int8 (f64 holds every int8 dot product
-    sum of these sizes exactly) -- then :func:`apply_epilogue` in f32, then
-    the output cast.  ``trans_a`` reads ``a`` as (K, M)."""
+    operands -- f32, or an exact int32 sum for int8 (computed in f64, which
+    holds every int8 dot product sum of these sizes exactly) -- then
+    :func:`apply_epilogue` (in f32, or in int32 for an int8 product with no
+    scale), then the output cast.  ``trans_a`` reads ``a`` as (K, M)."""
     wide = torch.float64 if a.dtype == torch.int8 else torch.float32
     aw, bw = a.to(wide), b.to(wide)
     acc = ((aw.transpose(-1, -2) if trans_a else aw)
-           @ (bw.transpose(-1, -2) if trans_b else bw)).float()
-    return _epilogue_plain(epilogue, acc, bias, scale, extras,
-                           out_dtype or a.dtype)
+           @ (bw.transpose(-1, -2) if trans_b else bw))
+    acc = acc.to(torch.int32 if a.dtype == torch.int8 else torch.float32)
+    return _epilogue_plain(epilogue, acc, bias, scale, c, extras,
+                           out_dtype or _default_out_dtype(a.dtype))
 
 
 # The plain version is rank-generic: the grouped one is the same function.
@@ -126,11 +135,12 @@ def mpgemm(a: torch.Tensor, b, *,
            spec: GemmSpec = GemmSpec(),
            epilogue: EpilogueSpec = LINEAR,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``out = tail(alpha · (a @ op(b)) · scale + bias)`` for a (M, K) and b
-    (K, N), or (N, K) under ``spec.trans_b``, or a packed operand (K2), or
-    a tile-sparse one (K3); ``extras`` are the epilogue's (M, N) operands
-    in registry order.  Output dtype: ``out_dtype``, else
-    ``spec.out_dtype``, else ``a.dtype``."""
+    """``out = tail(alpha · (op(a) @ op(b)) · scale + bias) + beta · c`` for
+    a (M, K), or (K, M) under ``spec.trans_a``, and b (K, N), or (N, K)
+    under ``spec.trans_b``, or a packed operand (K2), or a tile-sparse one
+    (K3); ``extras`` are the epilogue's operands in registry order.  Output
+    dtype: ``out_dtype``, else ``spec.out_dtype``, else int32 for int8
+    operands and ``a.dtype`` otherwise."""
     if spec.grouped:
         raise ValueError("a grouped GemmSpec goes to mpgemm_grouped")
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
@@ -145,49 +155,53 @@ def mpgemm_grouped(a: torch.Tensor, b, *,
                    spec: GemmSpec = GemmSpec(grouped=True),
                    epilogue: EpilogueSpec = LINEAR,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """G GEMMs in one launch: ``out[g] = tail(alpha · (a[g] @ op(b[g])) ·
-    scale + bias[g])`` for a (G, M, K) and b (G, K, N), or (G, N, K) under
-    ``spec.trans_b``, or a grouped packed (K2) or tile-sparse (K3)
-    operand.  ``bias`` is (G, N) or a shared (N,); ``extras`` are (G, M,
-    N); ``scale`` is one value for every group."""
+    """G GEMMs in one launch: ``out[g] = tail(alpha · (op(a[g]) @
+    op(b[g])) · scale + bias[g]) + beta · c[g]`` for a (G, M, K) and b
+    (G, K, N) (transposes as in :func:`mpgemm`), or a grouped packed (K2)
+    or tile-sparse (K3) operand.  ``bias`` is (G, N) or a shared (N,);
+    ``c`` and the extras are (G, M, N) (a row scale (G, M, 1)); ``scale``
+    is one value for every group."""
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
                    grouped=True)
 
 
 def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
             grouped):
+    out_dtype = out_dtype or spec.out_dtype
+    if spec.trans_a and isinstance(b, (PackedOperand, TileSparseOperand)):
+        raise NotImplementedError(
+            "trans_a against a packed or sparse B is not ported (no caller "
+            "issues it)")
     if isinstance(b, TileSparseOperand):
         if spec.trans_b or spec.packed:
             raise ValueError("a TileSparseOperand b takes no trans_b or "
                              "packed spec (its transpose is resolved at "
                              "sparsify time)")
-        _check_supported(spec, epilogue, c)
         sparse = mpgemm_sparse_grouped if grouped else mpgemm_sparse
-        return sparse(a, b, bias=bias, scale=scale, extras=extras,
-                      epilogue=epilogue, out_dtype=out_dtype or spec.out_dtype)
+        return sparse(a, b, c=c, bias=bias, scale=scale, extras=extras,
+                      epilogue=epilogue, out_dtype=out_dtype)
     if spec.sparse:
         raise ValueError("spec.sparse needs a TileSparseOperand b")
     if isinstance(b, PackedOperand):
         if spec.trans_b:
             raise ValueError("packed B has its transpose resolved at pack "
                              "time")
-        _check_supported(spec, epilogue, c)
         packed = mpgemm_packed_grouped if grouped else mpgemm_packed
-        return packed(a, b, bias=bias, scale=scale, extras=extras,
-                      epilogue=epilogue, out_dtype=out_dtype or spec.out_dtype)
+        return packed(a, b, c=c, bias=bias, scale=scale, extras=extras,
+                      epilogue=epilogue, out_dtype=out_dtype)
     if spec.packed:
         raise ValueError("spec.packed needs a PackedOperand b")
-    _check_supported(spec, epilogue, c, dense_a_dtype=a.dtype)
-    out_dtype = out_dtype or spec.out_dtype or a.dtype
+    _check_c(epilogue, c)
+    out_dtype = out_dtype or _default_out_dtype(a.dtype)
     extras = tuple(extras)
     _check_extras(epilogue, extras)
     if a.device.type == "cpu":
-        return mpgemm_plain(a, b, bias=bias, scale=scale, extras=extras,
+        return mpgemm_plain(a, b, c=c, bias=bias, scale=scale, extras=extras,
                             trans_a=spec.trans_a, trans_b=spec.trans_b,
                             epilogue=epilogue, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm: unsupported device {a.device}")
-    return _launch(a, b, bias, scale, extras, spec.trans_a, spec.trans_b,
+    return _launch(a, b, c, bias, scale, extras, spec.trans_a, spec.trans_b,
                    epilogue, out_dtype, grouped)
 
 
@@ -205,12 +219,22 @@ def _check_a(a, k, grouped, trans_a=False):
         raise ValueError("mpgemm: a must be contiguous")
 
 
-def _epilogue_args(a, out_shape, bias, scale, extras, epilogue, out_dtype):
-    """(bias, bias_stride, scale, extra) checked and made kernel-ready; the
-    bias is N values shared by every group (stride 0) or (G, N) (stride
-    N)."""
+def _epilogue_args(a, out, c, bias, scale, extras, epilogue, int_acc):
+    """The epilogue's arguments of every launch (csrc/gemm_epilogue.cuh),
+    checked and made kernel-ready: the tensors to keep alive, then (bias,
+    extra, c, row_scale, scale) pointers, (out, C) dtype codes, the bias
+    stride (N values shared by every group: 0; (G, N): N), the kind and
+    activation codes, alpha and beta.  ``int_acc``: the epilogue runs on
+    an int32 accumulator."""
+    out_shape, out_dtype = tuple(out.shape), out.dtype
     if out_dtype not in _OUT_CODES:
         raise NotImplementedError(f"mpgemm kernel output dtype {out_dtype}")
+    ed = get_epilogue(epilogue.kind)
+    if (int_acc and ed.pre is None
+            and epilogue.activation not in INT_ACTIVATIONS):
+        raise TypeError(f"activation {epilogue.activation!r} does not take "
+                        "an integer accumulator; pass a scale to dequantize "
+                        "first")
     g, n = (out_shape[0] if len(out_shape) == 3 else 1), out_shape[-1]
     bias_stride = 0
     if bias is not None:
@@ -226,16 +250,37 @@ def _epilogue_args(a, out_shape, bias, scale, extras, epilogue, out_dtype):
             raise ValueError(f"mpgemm: scale must be one value on "
                              f"{a.device}")
         scale = scale.reshape(1).to(torch.float32).contiguous()
-    extra = None
-    if extras:
-        (extra,) = extras
-        if (tuple(extra.shape) != tuple(out_shape) or extra.dtype != out_dtype
-                or extra.device != a.device or not extra.is_contiguous()):
-            raise ValueError(
-                f"mpgemm: the {epilogue.kind} operand must be a contiguous "
-                f"{tuple(out_shape)} {out_dtype} tensor on {a.device}, got "
-                f"{tuple(extra.shape)} {extra.dtype} on {extra.device}")
-    return bias, bias_stride, scale, extra
+    extra = row_scale = None
+    for name, t in zip(ed.extra_operands, extras):
+        if name in ed.row_operands:
+            shape = out_shape[:-1] + (1,)
+            if tuple(t.shape) != shape or t.device != a.device:
+                raise ValueError(f"mpgemm: the {name} operand must be "
+                                 f"{shape} on {a.device}, got "
+                                 f"{tuple(t.shape)} on {t.device}")
+            row_scale = t.to(torch.float32).contiguous()
+        else:
+            if (tuple(t.shape) != out_shape or t.dtype != out_dtype
+                    or t.device != a.device or not t.is_contiguous()):
+                raise ValueError(
+                    f"mpgemm: the {name} operand must be a contiguous "
+                    f"{out_shape} {out_dtype} tensor on {a.device}, got "
+                    f"{tuple(t.shape)} {t.dtype} on {t.device}")
+            extra = t
+    if epilogue.beta == 0.0:
+        c = None
+    elif tuple(c.shape) != out_shape or c.device != a.device:
+        raise ValueError(f"mpgemm: c must be {out_shape} on {a.device}, got "
+                         f"{tuple(c.shape)} on {c.device}")
+    elif c.dtype not in _OUT_CODES or not c.is_contiguous():
+        c = c.to(torch.int32 if int_acc else torch.float32).contiguous()
+    kept = (bias, extra, c, row_scale, scale)
+    return kept, (_ptr(bias), _ptr(extra), _ptr(c), _ptr(row_scale),
+                  _ptr(scale), _OUT_CODES[out_dtype],
+                  _OUT_CODES[c.dtype] if c is not None else 0, bias_stride,
+                  _KIND_CODES[epilogue.kind],
+                  _ACT_CODES[epilogue.activation], float(epilogue.alpha),
+                  float(epilogue.beta))
 
 
 def _ptr(t):
@@ -244,7 +289,7 @@ def _ptr(t):
 
 # --- K1 launch ---------------------------------------------------------------
 
-def _launch(a, b, bias, scale, extras, trans_a, trans_b, epilogue,
+def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
             out_dtype, grouped):
     rank = 3 if grouped else 2
     if b.dim() != rank:
@@ -264,19 +309,19 @@ def _launch(a, b, bias, scale, extras, trans_a, trans_b, epilogue,
     if not b.is_contiguous():
         raise ValueError("mpgemm: b must be contiguous")
     m = a.shape[-1 if trans_a else -2]
-    out_shape = (*a.shape[:-2], m, n)
-    bias, bias_stride, scale, extra = _epilogue_args(
-        a, out_shape, bias, scale, extras, epilogue, out_dtype)
-    out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
+    out = torch.empty((*a.shape[:-2], m, n), dtype=out_dtype,
+                      device=a.device)
+    kept, (bi, ex, cp, rs, sc, out_dt, c_dt, bias_stride, kind, act, alpha,
+           beta) = _epilogue_args(a, out, c, bias, scale, extras, epilogue,
+                                  _int_epilogue(a, scale))
     if out.numel() == 0:
         return out
     lib = _lib()
     rc = lib.mpgemm_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(extra),
-        _ptr(scale), g, m, n, k, bias_stride, _DTYPE_CODES[a.dtype],
-        _OUT_CODES[out_dtype], int(trans_a), int(trans_b),
-        _KIND_CODES[epilogue.kind], _ACT_CODES[epilogue.activation],
-        float(epilogue.alpha), torch.cuda.current_stream(a.device).cuda_stream)
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc, g, m,
+        n, k, bias_stride, _DTYPE_CODES[a.dtype], out_dt, c_dt,
+        int(trans_a), int(trans_b), kind, act, alpha, beta,
+        torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mpgemm kernel launch failed: CUDA error {rc} "
                            f"({lib.mpgemm_error_string(rc).decode()})")
@@ -295,9 +340,8 @@ for _fn in (mpgemm, mpgemm_grouped):
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
     lib = _build.load("mpgemm")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mpgemm_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                  i, i, i, ctypes.c_float, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mpgemm_launch.argtypes = [p] * 8 + [i] * 12 + [f, f, p]
     lib.mpgemm_launch.restype = i
     lib.mpgemm_error_string.argtypes = [i]
     lib.mpgemm_error_string.restype = ctypes.c_char_p
@@ -318,10 +362,10 @@ def _check_packed_pair(a: torch.Tensor, b: PackedOperand, grouped: bool):
                              " (a grouped operand goes to mpgemm_grouped)"))
     codec = layout.codec
     if a.dtype == torch.int8:
-        if codec is None or not codec.integer:
+        if codec is None:
             raise NotImplementedError(
-                f"int8 A against a {layout.dtype} payload (takes int8 or "
-                "int4)")
+                f"int8 A against a {layout.dtype} payload (takes int8, int4 "
+                "or fp8e4m3; upcast A to the payload's dtype first)")
     elif a.dtype in (torch.float32, torch.bfloat16):
         if codec is None and b.payload.dtype != a.dtype:
             raise NotImplementedError(
@@ -332,6 +376,7 @@ def _check_packed_pair(a: torch.Tensor, b: PackedOperand, grouped: bool):
 
 
 def mpgemm_packed_plain(a: torch.Tensor, b: PackedOperand, *,
+                        c: Optional[torch.Tensor] = None,
                         bias: Optional[torch.Tensor] = None,
                         scale: Optional[torch.Tensor] = None,
                         extras: Sequence[torch.Tensor] = (),
@@ -344,8 +389,11 @@ def mpgemm_packed_plain(a: torch.Tensor, b: PackedOperand, *,
 
     Float A: each codec tile is decoded, scaled in f32 and rounded to A's
     dtype (the reference's ``bf.astype(a.dtype)``), then one f32 matmul.
-    Int8 A: one exact partial per K tile (f64 holds it exactly), then
-    ``acc += float(partial) · tile_scale`` over the tiles in K order.
+    Int8 A against int8 / int4 tiles: one exact partial per K tile (f64
+    holds it exactly), then ``acc += float(partial) · tile_scale`` over the
+    tiles in K order.  Int8 A against fp8 tiles (the reference's int x
+    float branch): both sides in f32, the tile scale applied to B, one f32
+    matmul.
     """
     grouped = a.dim() == 3
     _check_packed_pair(a, b, grouped)
@@ -359,7 +407,7 @@ def mpgemm_packed_plain(a: torch.Tensor, b: PackedOperand, *,
     scales = None if b.scales is None else b.scales.reshape(g, nkb, nnb)
     kp, np_ = nkb * bk, nnb * bn
     ap = F.pad(a3, (0, kp - layout.k))
-    if a.dtype == torch.int8:
+    if a.dtype == torch.int8 and layout.codec.integer:
         a_t = ap.to(torch.float64).reshape(g, m, nkb, bk)
         w_t = tiles.to(torch.float64).permute(0, 1, 3, 2, 4).reshape(
             g, nkb, bk, np_)
@@ -370,12 +418,14 @@ def mpgemm_packed_plain(a: torch.Tensor, b: PackedOperand, *,
             acc = acc + parts[:, kk] * ts[:, kk, None, :]
     else:
         if scales is not None:
-            tiles = (tiles.float() * scales[..., None, None]).to(a.dtype)
+            tiles = tiles.float() * scales[..., None, None]
+            if a.dtype != torch.int8:
+                tiles = tiles.to(a.dtype)
         w = tiles.permute(0, 1, 3, 2, 4).reshape(g, kp, np_)
         acc = ap.float() @ w.float()
     acc = acc[..., :layout.n]
     return _epilogue_plain(epilogue, acc if grouped else acc[0], bias, scale,
-                           extras, out_dtype or a.dtype)
+                           c, extras, out_dtype or _default_out_dtype(a.dtype))
 
 
 # The plain version is rank-generic: the grouped one is the same function.
@@ -383,20 +433,22 @@ mpgemm_packed_grouped_plain = mpgemm_packed_plain
 
 
 def mpgemm_packed(a: torch.Tensor, b: PackedOperand, *,
+                  c: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None,
                   scale: Optional[torch.Tensor] = None,
                   extras: Sequence[torch.Tensor] = (),
                   epilogue: EpilogueSpec = LINEAR,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """K2: ``out = tail(alpha · (a @ dequant(b)) · scale + bias)`` for a
-    (M, K) and a packed (K, N) operand.  A bf16/f32 ``a`` takes an int8,
-    int4 or fp8e4m3 payload or a float payload of its own dtype; an int8
-    ``a`` takes an int8 or int4 payload."""
-    return _packed(a, b, bias, scale, extras, epilogue, out_dtype,
+    """K2: ``out = tail(alpha · (a @ dequant(b)) · scale + bias) + beta ·
+    c`` for a (M, K) and a packed (K, N) operand.  A bf16/f32 ``a`` takes
+    an int8, int4 or fp8e4m3 payload or a float payload of its own dtype;
+    an int8 ``a`` takes an int8, int4 or fp8e4m3 payload."""
+    return _packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
                    grouped=False)
 
 
 def mpgemm_packed_grouped(a: torch.Tensor, b: PackedOperand, *,
+                          c: Optional[torch.Tensor] = None,
                           bias: Optional[torch.Tensor] = None,
                           scale: Optional[torch.Tensor] = None,
                           extras: Sequence[torch.Tensor] = (),
@@ -405,28 +457,30 @@ def mpgemm_packed_grouped(a: torch.Tensor, b: PackedOperand, *,
                           ) -> torch.Tensor:
     """Grouped K2: :func:`mpgemm_packed` for a (G, M, K) against a packed
     operand of G groups (``layout.g``), in one launch; bias (G, N) or a
-    shared (N,), extras (G, M, N)."""
-    return _packed(a, b, bias, scale, extras, epilogue, out_dtype,
+    shared (N,), c and extras (G, M, N)."""
+    return _packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
                    grouped=True)
 
 
-def _packed(a, b, bias, scale, extras, epilogue, out_dtype, *, grouped):
-    out_dtype = out_dtype or a.dtype
+def _packed(a, b, c, bias, scale, extras, epilogue, out_dtype, *, grouped):
+    out_dtype = out_dtype or _default_out_dtype(a.dtype)
     extras = tuple(extras)
     _check_extras(epilogue, extras)
+    _check_c(epilogue, c)
     _check_a(a, b.layout.k, grouped)
     _check_packed_pair(a, b, grouped)
     if a.device.type == "cpu":
-        return mpgemm_packed_plain(a, b, bias=bias, scale=scale,
+        return mpgemm_packed_plain(a, b, c=c, bias=bias, scale=scale,
                                    extras=extras, epilogue=epilogue,
                                    out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm_packed: unsupported device {a.device}")
-    return _launch_packed(a, b, bias, scale, extras, epilogue, out_dtype,
+    return _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
                           grouped)
 
 
-def _launch_packed(a, b, bias, scale, extras, epilogue, out_dtype, grouped):
+def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
+                   grouped):
     layout = b.layout
     if layout.dtype not in _PAYLOAD_CODES:
         raise NotImplementedError(f"packed payload {layout.dtype!r}")
@@ -445,21 +499,20 @@ def _launch_packed(a, b, bias, scale, extras, epilogue, out_dtype, grouped):
         raise ValueError(f"mpgemm_packed: scales must be a contiguous f32 "
                          f"{layout.scales_shape} tensor on {a.device}")
     m, n = a.shape[-2], layout.n
-    out_shape = (*a.shape[:-2], m, n)
-    bias, bias_stride, scale, extra = _epilogue_args(
-        a, out_shape, bias, scale, extras, epilogue, out_dtype)
-    out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
+    out = torch.empty((*a.shape[:-2], m, n), dtype=out_dtype,
+                      device=a.device)
+    kept, (bi, ex, cp, rs, sc, out_dt, c_dt, bias_stride, kind, act, alpha,
+           beta) = _epilogue_args(a, out, c, bias, scale, extras, epilogue,
+                                  False)
     if out.numel() == 0:
         return out
     lib = _packed_lib()
     rc = lib.mpgemm_packed_launch(
         a.data_ptr(), payload.data_ptr(),
         _ptr(tile_scales) if layout.per_tile_scales else None,
-        out.data_ptr(), _ptr(bias), _ptr(extra), _ptr(scale),
-        layout.g, m, n, layout.k, layout.bk, layout.bn, bias_stride,
-        _DTYPE_CODES[a.dtype], _PAYLOAD_CODES[layout.dtype],
-        _OUT_CODES[out_dtype], _KIND_CODES[epilogue.kind],
-        _ACT_CODES[epilogue.activation], float(epilogue.alpha),
+        out.data_ptr(), bi, ex, cp, rs, sc, layout.g, m, n, layout.k,
+        layout.bk, layout.bn, bias_stride, _DTYPE_CODES[a.dtype],
+        _PAYLOAD_CODES[layout.dtype], out_dt, c_dt, kind, act, alpha, beta,
         torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -476,10 +529,8 @@ mpgemm_packed_grouped.launches = 0
 @functools.lru_cache(maxsize=None)
 def _packed_lib() -> ctypes.CDLL:
     lib = _build.load("mpgemm_packed")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mpgemm_packed_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                         i, i, i, i, i, i, i, ctypes.c_float,
-                                         p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mpgemm_packed_launch.argtypes = [p] * 9 + [i] * 13 + [f, f, p]
     lib.mpgemm_packed_launch.restype = i
     lib.mpgemm_packed_error_string.argtypes = [i]
     lib.mpgemm_packed_error_string.restype = ctypes.c_char_p
@@ -488,10 +539,11 @@ def _packed_lib() -> ctypes.CDLL:
 
 # --- K3: tile-sparse B -------------------------------------------------------
 
-# (A dtype, payload dtype) pairs K3 takes: the sparse payload is read with
-# A's own type.
+# (A dtype, payload dtype) pairs K3 takes: the payload is read with A's own
+# type, or, int8, dequantized by its tile scales against float A.
 _SPARSE_PAIRS = {(torch.float32, "float32"), (torch.bfloat16, "bfloat16"),
-                 (torch.int8, "int8")}
+                 (torch.int8, "int8"), (torch.float32, "int8"),
+                 (torch.bfloat16, "int8")}
 
 
 def _check_sparse_pair(a: torch.Tensor, b: TileSparseOperand, grouped: bool):
@@ -507,10 +559,12 @@ def _check_sparse_pair(a: torch.Tensor, b: TileSparseOperand, grouped: bool):
     if (a.dtype, layout.dtype) not in _SPARSE_PAIRS:
         raise NotImplementedError(
             f"sparse GEMM of {a.dtype} A against a {layout.dtype} payload "
-            "(takes f32 x float32, bf16 x bfloat16 and int8 x int8)")
+            "(takes f32 x float32, bf16 x bfloat16, and int8 payloads "
+            "against int8, bf16 or f32 A)")
 
 
 def mpgemm_sparse_plain(a: torch.Tensor, b: TileSparseOperand, *,
+                        c: Optional[torch.Tensor] = None,
                         bias: Optional[torch.Tensor] = None,
                         scale: Optional[torch.Tensor] = None,
                         extras: Sequence[torch.Tensor] = (),
@@ -520,15 +574,16 @@ def mpgemm_sparse_plain(a: torch.Tensor, b: TileSparseOperand, *,
     """K3's plain version, 2-D (``a`` (M, K)) or grouped (``a`` (G, M, K)
     against an operand of G groups), in torch ops: gather the A tile of
     each stored tile's k index, one product per stored tile (f32 for float
-    operands, exact in f64 for int8, then scaled by the tile's scale),
-    ``index_add`` of the products into their output columns in payload
-    order -- on the CPU that is the reference's visit order -- and the
-    epilogue.  Empty columns keep a zero sum."""
+    operands, exact in f64 for int8, then scaled by the tile's scale; an
+    int8 tile against float A dequantized by its scale and rounded to A's
+    dtype first), ``index_add`` of the products into their output columns
+    in payload order -- on the CPU that is the reference's visit order --
+    and the epilogue.  Empty columns keep a zero sum."""
     _check_sparse_pair(a, b, a.dim() == 3)
-    return _sparse_plain(a, b, bias, scale, extras, epilogue, out_dtype)
+    return _sparse_plain(a, b, c, bias, scale, extras, epilogue, out_dtype)
 
 
-def _sparse_plain(a, b, bias, scale, extras, epilogue, out_dtype):
+def _sparse_plain(a, b, c, bias, scale, extras, epilogue, out_dtype):
     grouped = a.dim() == 3
     layout = b.layout
     g, nkb, nnb, bk, bn, nnz = (layout.g, layout.nkb, layout.nnb, layout.bk,
@@ -546,30 +601,36 @@ def _sparse_plain(a, b, bias, scale, extras, epilogue, out_dtype):
         parts = torch.bmm(a_t.double(), w_t.double()).float()
         parts = parts * b.scales[:nnz].reshape(-1, 1, 1)
     else:
+        if layout.per_tile_scales:
+            w_t = (w_t.float() * b.scales[:nnz].reshape(-1, 1, 1)).to(
+                a.dtype)
         parts = torch.bmm(a_t.float(), w_t.float())
     acc = torch.zeros(g * nnb, m, bn, dtype=torch.float32, device=dev)
     acc.index_add_(0, col, parts)
     acc = acc.reshape(g, nnb, m, bn).permute(0, 2, 1, 3).reshape(
         g, m, nnb * bn)[..., :layout.n]
     return _epilogue_plain(epilogue, acc if grouped else acc[0], bias, scale,
-                           extras, out_dtype or a.dtype)
+                           c, extras, out_dtype or _default_out_dtype(a.dtype))
 
 
 def mpgemm_sparse(a: torch.Tensor, b: TileSparseOperand, *,
+                  c: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None,
                   scale: Optional[torch.Tensor] = None,
                   extras: Sequence[torch.Tensor] = (),
                   epilogue: EpilogueSpec = LINEAR,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """K3: ``out = tail(alpha · (a @ b) · scale + bias)`` for a (M, K) and
-    a tile-sparse (K, N) operand, walking only its stored tiles: bf16 ``a``
-    against a bf16 payload, f32 against f32, int8 against an int8 payload
-    with per-tile scales (``scale`` then carries the int8 policy's sx)."""
-    return _sparse(a, b, bias, scale, extras, epilogue, out_dtype,
+    """K3: ``out = tail(alpha · (a @ b) · scale + bias) + beta · c`` for a
+    (M, K) and a tile-sparse (K, N) operand, walking only its stored
+    tiles: bf16 ``a`` against a bf16 payload, f32 against f32, and an int8
+    payload with per-tile scales against int8 ``a`` (``scale`` then
+    carries the int8 policy's sx) or against bf16 or f32 ``a``."""
+    return _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
                    grouped=False)
 
 
 def mpgemm_sparse_grouped(a: torch.Tensor, b: TileSparseOperand, *,
+                          c: Optional[torch.Tensor] = None,
                           bias: Optional[torch.Tensor] = None,
                           scale: Optional[torch.Tensor] = None,
                           extras: Sequence[torch.Tensor] = (),
@@ -578,22 +639,24 @@ def mpgemm_sparse_grouped(a: torch.Tensor, b: TileSparseOperand, *,
                           ) -> torch.Tensor:
     """Grouped K3: :func:`mpgemm_sparse` for a (G, M, K) against a sparse
     operand of G groups (``layout.g``), in one launch; bias (G, N) or a
-    shared (N,), extras (G, M, N)."""
-    return _sparse(a, b, bias, scale, extras, epilogue, out_dtype,
+    shared (N,), c and extras (G, M, N)."""
+    return _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
                    grouped=True)
 
 
-def _sparse(a, b, bias, scale, extras, epilogue, out_dtype, *, grouped):
-    out_dtype = out_dtype or a.dtype
+def _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype, *, grouped):
+    out_dtype = out_dtype or _default_out_dtype(a.dtype)
     extras = tuple(extras)
     _check_extras(epilogue, extras)
+    _check_c(epilogue, c)
     _check_a(a, b.layout.k, grouped)
     _check_sparse_pair(a, b, grouped)
     if a.device.type == "cpu":
-        return _sparse_plain(a, b, bias, scale, extras, epilogue, out_dtype)
+        return _sparse_plain(a, b, c, bias, scale, extras, epilogue,
+                             out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm_sparse: unsupported device {a.device}")
-    return _launch_sparse(a, b, bias, scale, extras, epilogue, out_dtype,
+    return _launch_sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
                           grouped)
 
 
@@ -607,9 +670,11 @@ def _check_on(name, t, shape, dtype, device):
                          f"{got}")
 
 
-def _launch_sparse(a, b, bias, scale, extras, epilogue, out_dtype, grouped):
+def _launch_sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
+                   grouped):
     layout, dev = b.layout, a.device
-    _check_on("payload", b.payload, layout.payload_shape, a.dtype, dev)
+    p_dtype = torch.int8 if layout.per_tile_scales else a.dtype
+    _check_on("payload", b.payload, layout.payload_shape, p_dtype, dev)
     if layout.per_tile_scales:
         _check_on("scales", b.scales, layout.scales_shape, torch.float32,
                   dev)
@@ -617,21 +682,20 @@ def _launch_sparse(a, b, bias, scale, extras, epilogue, out_dtype, grouped):
               torch.int32, dev)
     _check_on("indices", b.indices, (layout.nnz,), torch.int32, dev)
     m, n = a.shape[-2], layout.n
-    out_shape = (*a.shape[:-2], m, n)
-    bias, bias_stride, scale, extra = _epilogue_args(
-        a, out_shape, bias, scale, extras, epilogue, out_dtype)
-    out = torch.empty(out_shape, dtype=out_dtype, device=dev)
+    out = torch.empty((*a.shape[:-2], m, n), dtype=out_dtype, device=dev)
+    kept, (bi, ex, cp, rs, sc, out_dt, c_dt, bias_stride, kind, act, alpha,
+           beta) = _epilogue_args(a, out, c, bias, scale, extras, epilogue,
+                                  False)
     if out.numel() == 0:
         return out
     lib = _sparse_lib()
     rc = lib.mpgemm_sparse_launch(
         a.data_ptr(), b.payload.data_ptr(),
         _ptr(b.scales) if layout.per_tile_scales else None,
-        b.indptr.data_ptr(), b.indices.data_ptr(), out.data_ptr(),
-        _ptr(bias), _ptr(extra), _ptr(scale), layout.g, m, n, layout.k,
-        layout.bk, layout.bn, bias_stride, _DTYPE_CODES[a.dtype],
-        _OUT_CODES[out_dtype], _KIND_CODES[epilogue.kind],
-        _ACT_CODES[epilogue.activation], float(epilogue.alpha),
+        b.indptr.data_ptr(), b.indices.data_ptr(), out.data_ptr(), bi, ex,
+        cp, rs, sc, layout.g, m, n, layout.k, layout.bk, layout.bn,
+        bias_stride, _DTYPE_CODES[a.dtype], _DTYPE_CODES[p_dtype], out_dt,
+        c_dt, kind, act, alpha, beta,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -648,10 +712,8 @@ mpgemm_sparse_grouped.launches = 0
 @functools.lru_cache(maxsize=None)
 def _sparse_lib() -> ctypes.CDLL:
     lib = _build.load("mpgemm_sparse")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mpgemm_sparse_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
-                                         i, i, i, i, i, i, i, i,
-                                         ctypes.c_float, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mpgemm_sparse_launch.argtypes = [p] * 11 + [i] * 13 + [f, f, p]
     lib.mpgemm_sparse_launch.restype = i
     lib.mpgemm_sparse_error_string.argtypes = [i]
     lib.mpgemm_sparse_error_string.restype = ctypes.c_char_p

@@ -14,6 +14,8 @@ by default.
         --arch granite-moe-1b-a400m --policy int8 --sparsity 0.5 \
         --sparsity-method nm
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --no-fuse
 
 The default ``--engine continuous`` runs the paged-KV continuous-batching
 engine; ``--engine wave`` the static-batch wave engine, the only one that
@@ -99,6 +101,11 @@ def main(argv=None):
                     metavar=("BK", "BN"),
                     help="tile size of the sparsity lattice (default 128 x "
                          "128, clamped to each weight)")
+    ap.add_argument("--no-fuse", action="store_true",
+                    help="run the MLPs unfused: the gated activation and "
+                         "the residual add as separate ops after their "
+                         "GEMMs, for A/B runs against the fused epilogues "
+                         "(the default)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default: the card; cpu runs the "
                          "plain PyTorch path)")
@@ -133,7 +140,8 @@ def main(argv=None):
                          f"for request tails under --max-len {args.max_len}")
 
     cfg = cb.get(args.arch, smoke=args.smoke)
-    model = build_model(cfg, policy=args.policy, device=device)
+    model = build_model(cfg, policy=args.policy, device=device,
+                        fused_epilogues=not args.no_fuse)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.sparsity > 0 and args.sparsity_method == "nm":
         n_keep, m_block = nm_for_sparsity(args.sparsity)

@@ -16,6 +16,7 @@ are updated in place (the reference returns new ones).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.gemm import mp_dot, mp_dot_grouped
 from repro_torch.models import attention as attn
@@ -43,13 +44,15 @@ def init_norm(cfg, *, device):
     raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
 
 
-def _mlp(params, x, cfg, policy, residual=None):
+def _mlp(params, x, ctx, residual=None):
     """The block's MLP with the residual riding the down projection's
-    epilogue; callers pass the pre-norm stream."""
+    epilogue (on the fused path, ``ctx["fused"]``); callers pass the
+    pre-norm stream."""
+    cfg, policy, fused = ctx["cfg"], ctx["policy"], ctx["fused"]
     if cfg.mlp == "gelu":
-        return gelu_mlp(params, x, policy, residual=residual)
+        return gelu_mlp(params, x, policy, residual=residual, fused=fused)
     if cfg.mlp == "swiglu":
-        return swiglu_mlp(params, x, policy, residual=residual)
+        return swiglu_mlp(params, x, policy, residual=residual, fused=fused)
     raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
 
 
@@ -206,8 +209,8 @@ def dense_fwd(params, x, ctx, *, window=None):
     o, kv = _self_attention(params["attn"], norm(params["ln1"], x, cfg), ctx,
                             window)
     x = x + o
-    x = _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg, ctx["policy"],
-             residual=x)
+    x = _mlp(params["mlp"], norm(params["ln2"], x, cfg), ctx,
+                residual=x)
     return x, 0.0, (None if kv is None else _ring_cache(kv, ctx, window))
 
 
@@ -215,8 +218,8 @@ def dense_decode(params, x, cache, ctx):
     cfg = ctx["cfg"]
     o = attn_decode(params["attn"], norm(params["ln1"], x, cfg), cache, ctx)
     x = x + o
-    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg,
-                ctx["policy"], residual=x)
+    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), ctx,
+                residual=x)
 
 
 def dense_paged_step(params, x, cache, ctx, *, window=None):
@@ -225,8 +228,8 @@ def dense_paged_step(params, x, cache, ctx, *, window=None):
                         ctx, window=window)
     x = x + o        # plain add in the activation dtype, outside the GEMM
     # The block residual rides the down projection's epilogue.
-    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg,
-                ctx["policy"], residual=x)
+    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), ctx,
+                residual=x)
 
 
 # ================================ MoE ========================================
@@ -294,7 +297,7 @@ def moe_dispatch(topi: torch.Tensor, e: int, cap: int):
 
 
 def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25,
-            return_aux: bool = False):
+            return_aux: bool = False, fused: bool = True):
     """Top-k MoE with per-sequence capacity dispatch (the reference's
     ``moe_mlp`` forward).  ``return_aux`` also returns its auxiliary loss,
     ``0.01 · load balance + 0.001 · router z-loss`` (an f32 0-d tensor),
@@ -303,7 +306,8 @@ def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25,
     The router runs in f32 (K1).  Each expert's capacity slots are
     gathered into one (E, b·cap, d) buffer, and the SwiGLU experts run as
     three grouped GEMMs with f32 outputs (group = expert): up, then gate
-    with ``silu(·) · up`` fused into its store, then down.  The combine
+    with ``silu(·) · up`` fused into its store (unless ``fused`` is off:
+    then a plain gate GEMM and the f32 product), then down.  The combine
     sums each token's kept choices in f32, weighted by the renormalised
     top-k gates, and casts to ``x``'s dtype.  No step here waits on the
     host: the capacity comes from shapes.
@@ -322,8 +326,13 @@ def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25,
     ebuf = buf.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
     f32 = torch.float32
     h_up = mp_dot_grouped(ebuf, params["w_up"], policy=policy, out_dtype=f32)
-    h = mp_dot_grouped(ebuf, params["w_gate"], policy=policy, out_dtype=f32,
-                       activation="silu", gate=h_up)
+    if fused:
+        h = mp_dot_grouped(ebuf, params["w_gate"], policy=policy,
+                           out_dtype=f32, activation="silu", gate=h_up)
+    else:
+        h_gate = mp_dot_grouped(ebuf, params["w_gate"], policy=policy,
+                                out_dtype=f32)
+        h = F.silu(h_gate) * h_up
     y = mp_dot_grouped(h, params["w_down"], policy=policy, out_dtype=f32)
     y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
 
@@ -351,7 +360,7 @@ def moe_fwd(params, x, ctx, *, window=None):
     x = x + o
     y, aux = moe_mlp(params, norm(params["ln2"], x, cfg), cfg, ctx["policy"],
                      capacity_factor=ctx.get("moe_capacity", 1.25),
-                     return_aux=True)
+                     return_aux=True, fused=ctx["fused"])
     return x + y, aux, (None if kv is None else _ring_cache(kv, ctx, window))
 
 
@@ -360,7 +369,8 @@ def moe_decode(params, x, cache, ctx):
     o = attn_decode(params["attn"], norm(params["ln1"], x, cfg), cache, ctx)
     x = x + o
     y = moe_mlp(params, norm(params["ln2"], x, cfg), cfg, ctx["policy"],
-                capacity_factor=ctx.get("moe_capacity", 1.25))
+                capacity_factor=ctx.get("moe_capacity", 1.25),
+                fused=ctx["fused"])
     return x + y
 
 
@@ -375,7 +385,7 @@ def moe_paged_step(params, x, cache, ctx, *, window=None,
                         ctx, window=window)
     x = x + o
     y = moe_mlp(params, norm(params["ln2"], x, cfg), cfg, ctx["policy"],
-                capacity_factor=capacity_factor)
+                capacity_factor=capacity_factor, fused=ctx["fused"])
     return x + y
 
 
@@ -417,8 +427,8 @@ def encdec_fwd(params, x, ctx):
     o, xkv = _cross_attention(params["xattn"], norm(params["lnx"], x, cfg),
                               ctx)
     x = x + o
-    x = _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg, ctx["policy"],
-             residual=x)
+    x = _mlp(params["mlp"], norm(params["ln2"], x, cfg), ctx,
+                residual=x)
     cache = None
     if kv is not None:
         dt = ctx["cache_dtype"]
@@ -437,8 +447,8 @@ def encdec_decode(params, x, cache, ctx):
     o, _ = _cross_attention(params["xattn"], norm(params["lnx"], x, cfg), ctx,
                             kv=(cache["cross"]["k"], cache["cross"]["v"]))
     x = x + o
-    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), cfg,
-                ctx["policy"], residual=x)
+    return _mlp(params["mlp"], norm(params["ln2"], x, cfg), ctx,
+                residual=x)
 
 
 def encdec_init_cache(cfg, batch, max_len, dtype, *, device):

@@ -1,7 +1,10 @@
 """Common layers (port of ``repro.models.layers``).  Every matmul routes
-through ``core.gemm.mp_dot``; the SwiGLU gating step, the GELU MLP's bias
-and activation and the block residual ride the GEMM's epilogue (the
-reference's fused path)."""
+through ``core.gemm.mp_dot``; on the fused path (the default) the SwiGLU
+gating step, the GELU MLP's bias and activation and the block residual
+ride the GEMM's epilogue.  ``fused=False`` takes the reference's unfused
+path instead -- the same GEMMs, with the activation, the gating product
+and the residual add as separate elementwise ops -- for A/B runs (the
+reference's ``fused_epilogue(False)``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.gemm import mp_dot
+from repro_torch.core.gemm_spec import ACTIVATIONS
 from repro_torch.packing.layout import PackedOperand
 from repro_torch.sparse.layout import TileSparseOperand
 
@@ -74,24 +78,37 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 # --- MLPs ---------------------------------------------------------------------
 
-def swiglu_mlp(params, x, policy, residual: Optional[torch.Tensor] = None):
-    """silu(x@w_gate) * (x@w_up) @ w_down [+ residual], fused: the gate GEMM
-    carries silu and the product with the up projection in its epilogue,
-    and the down projection carries the residual add."""
+def swiglu_mlp(params, x, policy, residual: Optional[torch.Tensor] = None,
+               fused: bool = True):
+    """silu(x@w_gate) * (x@w_up) @ w_down [+ residual].  Fused: the gate
+    GEMM carries silu and the product with the up projection in its
+    epilogue, and the down projection carries the residual add."""
+    if fused:
+        up = mp_dot(x, params["w_up"], policy=policy)
+        h = mp_dot(x, params["w_gate"], policy=policy, activation="silu",
+                   gate=up)
+        return mp_dot(h, params["w_down"], policy=policy, residual=residual)
+    gate = mp_dot(x, params["w_gate"], policy=policy)
     up = mp_dot(x, params["w_up"], policy=policy)
-    h = mp_dot(x, params["w_gate"], policy=policy, activation="silu",
-               gate=up)
-    return mp_dot(h, params["w_down"], policy=policy, residual=residual)
+    out = mp_dot(ACTIVATIONS["silu"](gate.float()).to(up.dtype) * up,
+                 params["w_down"], policy=policy)
+    return out if residual is None else residual + out
 
 
-def gelu_mlp(params, x, policy, residual: Optional[torch.Tensor] = None):
-    """gelu(x@w_up + b_up) @ w_down + b_down [+ residual], fused: the up
+def gelu_mlp(params, x, policy, residual: Optional[torch.Tensor] = None,
+             fused: bool = True):
+    """gelu(x@w_up + b_up) @ w_down + b_down [+ residual].  Fused: the up
     projection carries its bias and the tanh GELU in its epilogue, the down
     projection its bias and the residual add."""
-    h = mp_dot(x, params["w_up"], params.get("b_up"), policy=policy,
-               activation="gelu")
-    return mp_dot(h, params["w_down"], params.get("b_down"), policy=policy,
-                  residual=residual)
+    if fused:
+        h = mp_dot(x, params["w_up"], params.get("b_up"), policy=policy,
+                   activation="gelu")
+        return mp_dot(h, params["w_down"], params.get("b_down"),
+                      policy=policy, residual=residual)
+    h = mp_dot(x, params["w_up"], params.get("b_up"), policy=policy)
+    h = ACTIVATIONS["gelu"](h.float()).to(h.dtype)
+    out = mp_dot(h, params["w_down"], params.get("b_down"), policy=policy)
+    return out if residual is None else residual + out
 
 
 def init_gelu_mlp(d: int, f: int, *, generator, device, bias: bool = False):

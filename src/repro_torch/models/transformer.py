@@ -122,12 +122,15 @@ class LM:
     """Decoder LM (with whisper's encoder for an audio config); ``device``
     defaults to the card.  ``remat`` recomputes each layer's activations in
     the backward (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint`` of its scan body."""
+    ``jax.checkpoint`` of its scan body.  ``fused_epilogues=False`` runs
+    every MLP unfused (the reference's ``fused_epilogue(False)``): the
+    same GEMMs, the gating and the residual as separate ops."""
 
     cfg: ArchConfig
     policy: str = "bf16"
     device: Any = "cuda"
     remat: bool = True
+    fused_epilogues: bool = True
 
     def __post_init__(self):
         bad = sorted({k for k in self.cfg.pattern if k not in WAVE_KINDS})
@@ -303,7 +306,8 @@ class LM:
 
     def _ctx(self, **extra):
         cfg = self.cfg
-        ctx = {"cfg": cfg, "policy": self.policy, "rope": None,
+        ctx = {"cfg": cfg, "policy": self.policy,
+               "fused": self.fused_epilogues, "rope": None,
                "positions": None, "causal": cfg.causal,
                "collect_cache": False, "cache_dtype": self.act_dtype,
                "moe_capacity": MOE_SERVE_CAPACITY}
@@ -497,6 +501,7 @@ class LM:
         x = params["embed"][tokens.long()].to(self.act_dtype)
         ctx = {
             "cfg": cfg, "policy": self.policy,
+            "fused": self.fused_epilogues,
             "rope": rope_frequencies(cfg.head_dim, max_pos, cfg.rope_theta,
                                      device=dev),
             "positions": positions,
@@ -523,12 +528,13 @@ class LM:
 
 
 def build_model(cfg: ArchConfig, policy: str = "bf16", device="cuda",
-                remat: bool = True) -> LM:
+                remat: bool = True, fused_epilogues: bool = True) -> LM:
     # Audio (enc-dec) archs run the 'encdec' block kind in the decoder.
     if cfg.family == "audio" and not cfg.block_pattern:
         cfg = dataclasses.replace(cfg,
                                   block_pattern=("encdec",) * cfg.n_layers)
-    return LM(cfg, policy=policy, device=device, remat=remat)
+    return LM(cfg, policy=policy, device=device, remat=remat,
+              fused_epilogues=fused_epilogues)
 
 
 def _packed_from_jax(p, idx=None) -> PackedOperand:

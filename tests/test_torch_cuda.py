@@ -583,11 +583,19 @@ def test_mpgemm_sparse_grouped_kernel_matches_plain(gen, m, dtype, g, k, n,
 
 @pytest.mark.cuda
 def test_mpgemm_sparse_kernel_refuses_what_it_does_not_take(gen):
-    from repro_torch.kernels.mpgemm import mpgemm_sparse
+    """Payload and index tensors off the card are refused.  Float A against
+    an int8 payload, once refused too, is K3's float x int8 variant now:
+    it launches and matches its plain version."""
+    from repro_torch.kernels.mpgemm import mpgemm_sparse, mpgemm_sparse_plain
 
     b = _sparse_operand(gen, (64, 64), (32, 32), "int8", "half")
-    with pytest.raises(NotImplementedError, match="int8 payload"):
-        mpgemm_sparse(torch.ones(2, 64, device="cuda"), b)
+    f = torch.randn(2, 64, generator=gen, device="cuda")
+    before = mpgemm_sparse.launches
+    got = mpgemm_sparse(f, b)
+    torch.cuda.synchronize()
+    assert mpgemm_sparse.launches == before + 1
+    torch.testing.assert_close(got, mpgemm_sparse_plain(f, b),
+                               **TOL[torch.float32])
     a = torch.ones(2, 64, device="cuda", dtype=torch.int8)
     with pytest.raises(ValueError, match="payload"):
         mpgemm_sparse(a, type(b)(b.payload.cpu(), b.scales, b.layout,
@@ -632,14 +640,27 @@ def test_mpgemm_trans_a_kernel_matches_plain(gen, dtype, out_dtype, g, m, k,
 
 @pytest.mark.cuda
 def test_mpgemm_trans_a_refuses_what_it_does_not_take(gen):
+    """int8 ``trans_a`` and ``trans_a`` with ``trans_b``, once refused, now
+    launch K1 and match the plain version (int32 outputs equal); ``trans_a``
+    against a packed B is still refused."""
     from repro_torch.core.gemm_spec import GemmSpec
-    from repro_torch.kernels.mpgemm import mpgemm
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_plain
+    from repro_torch.packing.pack import pack_operand
     a = torch.randint(-3, 4, (8, 4), dtype=torch.int8, device="cuda")
-    with pytest.raises(NotImplementedError):
-        mpgemm(a, a, spec=GemmSpec(trans_a=True))
+    spec = GemmSpec(trans_a=True)
+    got = mpgemm(a, a, spec=spec)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, mpgemm_plain(a, a, trans_a=True))
     f = torch.randn(8, 4, generator=gen, device="cuda")
-    with pytest.raises(NotImplementedError):
-        mpgemm(f, f, spec=GemmSpec(trans_a=True, trans_b=True))
+    spec = GemmSpec(trans_a=True, trans_b=True)
+    ft = f.t().contiguous()                # B stored (N, K)
+    torch.testing.assert_close(
+        mpgemm(f, ft, spec=spec),
+        mpgemm_plain(f, ft, trans_a=True, trans_b=True), **TOL[torch.float32])
+    p = pack_operand(torch.randn(8, 16, generator=gen, device="cuda"),
+                     (8, 8), dtype="float32")
+    with pytest.raises(NotImplementedError, match="trans_a"):
+        mpgemm(f, p, spec=GemmSpec(trans_a=True))
 
 
 @pytest.mark.cuda
@@ -729,3 +750,234 @@ def test_mp_dot_backward_on_the_card_matches_the_cpu(gen, policy, weight):
                                                  int(trainable))
     assert tpack.unpack_operand.launches - k7 == (
         0 if weight == "dense" else 1 + unpacked_fwd)
+
+
+# --- the op-level API's variants (K1-K3) -------------------------------------
+
+def _int8(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (True, False),
+                                             (False, True), (True, True)])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(alpha=2.0, beta=3.0, bias=True), dict(alpha=0.5),
+    dict(activation="relu", beta=-1.0), dict(out_dtype=torch.float32,
+                                             alpha=2.5, bias=True)],
+    ids=["plain", "alpha_beta_bias", "alpha_truncated", "relu_beta",
+         "f32_out"])
+@pytest.mark.parametrize("m,n,k", [(2, 77, 129), (64, 96, 513),
+                                   (133, 40, 17)])
+def test_ops_mpgemm_int8_is_bit_equal_to_plain(gen, m, n, k, trans_a,
+                                               trans_b, kw):
+    """``ops.mpgemm`` of int8 operands: K1's exact int32 sum and integer
+    epilogue (alpha, bias and beta truncated to int32), equal to the plain
+    version, transposes included."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mpgemm import mpgemm
+    kw = dict(kw)
+    a = _int8(gen, *((k, m) if trans_a else (m, k)))
+    b = _int8(gen, *((n, k) if trans_b else (k, n)))
+    c = None
+    if kw.get("beta"):
+        c = torch.randint(-1000, 1000, (m, n), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    if kw.pop("bias", False):
+        kw["bias"] = torch.randn(n, generator=gen, device="cuda") * 50
+    before = mpgemm.launches
+    got = ops.mpgemm(a, b, c, trans_a=trans_a, trans_b=trans_b, **kw)
+    torch.cuda.synchronize()
+    assert mpgemm.launches == before + 1
+    want = ops.mpgemm(a.cpu(), b.cpu(), None if c is None else c.cpu(),
+                      trans_a=trans_a, trans_b=trans_b,
+                      **{k: v.cpu() if torch.is_tensor(v) else v
+                         for k, v in kw.items()})
+    assert got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (True, True),
+                                             (True, False)])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_mpgemm_beta_c_kernel_matches_plain(gen, dtype, trans_a, trans_b,
+                                            grouped):
+    """K1's beta·C, 2-D and grouped, with alpha, a bias and gelu; C in the
+    output's dtype and, 2-D, in another one."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped, \
+        mpgemm_plain
+    m, n, k = 37, 100, 129
+    lead = (3,) if grouped else ()
+    a = torch.randn(*lead, *((k, m) if trans_a else (m, k)), generator=gen,
+                    device="cuda").to(dtype)
+    b = torch.randn(*lead, *((n, k) if trans_b else (k, n)), generator=gen,
+                    device="cuda").to(dtype)
+    for c_dtype in ((dtype,) if grouped else (dtype, torch.int32)):
+        c = (torch.randn(*lead, m, n, generator=gen, device="cuda") * 10
+             ).to(c_dtype)
+        ep = EpilogueSpec(alpha=1.5, beta=2.0, activation="gelu")
+        bias = torch.randn(n, generator=gen, device="cuda")
+        spec = GemmSpec(grouped=grouped, trans_a=trans_a, trans_b=trans_b)
+        fn = mpgemm_grouped if grouped else mpgemm
+        got = fn(a, b, c=c, bias=bias, spec=spec, epilogue=ep)
+        want = mpgemm_plain(a, b, c=c, bias=bias, trans_a=trans_a,
+                            trans_b=trans_b, epilogue=ep)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", ["bfloat16", "int8", "int4", "fp8e4m3"])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_mpgemm_packed_beta_c_kernel_matches_plain(gen, payload, grouped):
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import mpgemm_packed, \
+        mpgemm_packed_grouped, mpgemm_packed_plain
+    from repro_torch.packing.pack import pack_operand
+    lead = (4,) if grouped else ()
+    w = torch.randn(*lead, 200, 136, generator=gen, device="cuda") * 0.05
+    p = pack_operand(w, (64, 64), dtype=payload)
+    for m in (2, 33):
+        a = torch.randn(*lead, m, 200, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        c = torch.randn(*lead, m, 136, generator=gen, device="cuda")
+        ep = EpilogueSpec(alpha=0.5, beta=3.0, activation="relu")
+        fn = mpgemm_packed_grouped if grouped else mpgemm_packed
+        got = fn(a, p, c=c, epilogue=ep, out_dtype=torch.float32)
+        want = mpgemm_packed_plain(a, p, c=c, epilogue=ep,
+                                   out_dtype=torch.float32)
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 33])
+@pytest.mark.parametrize("a_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_mpgemm_sparse_beta_c_and_float_int8_kernel_matches_plain(
+        gen, m, a_dtype, grouped):
+    """K3 with beta·C against int8 tiles: int8 A (the exact partials) and
+    float A (K3's float x int8 dequant), 2-D and grouped, an empty column
+    and a K tail included."""
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import mpgemm_sparse, \
+        mpgemm_sparse_grouped, mpgemm_sparse_plain
+    lead = (3,) if grouped else ()
+    b = _sparse_operand(gen, (*lead, 150, 96), (32, 32), "int8", "half")
+    a, scale = _sparse_a(gen, (*lead, m, 150), a_dtype)
+    c = torch.randn(*lead, m, 96, generator=gen, device="cuda")
+    ep = EpilogueSpec(alpha=2.0, beta=0.5, activation="silu")
+    kw = dict(c=c, scale=scale, epilogue=ep, out_dtype=torch.float32)
+    fn = mpgemm_sparse_grouped if grouped else mpgemm_sparse
+    got = fn(a, b, **kw)
+    torch.testing.assert_close(got, mpgemm_sparse_plain(a, b, **kw),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("kind,act", [("linear", None), ("residual", "relu")])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_mpgemm_packed_int8_a_fp8_kernel_matches_plain(gen, m, kind, act,
+                                                       grouped):
+    """K2's int8 A x fp8 payload (quant_in over an fp8 weight): both sides
+    in f32, the tile scale applied to B."""
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import mpgemm_packed, \
+        mpgemm_packed_grouped, mpgemm_packed_plain
+    from repro_torch.packing.pack import pack_operand
+    lead = (2,) if grouped else ()
+    w = torch.randn(*lead, 300, 200, generator=gen, device="cuda") * 0.05
+    p = pack_operand(w, (128, 64), dtype="fp8e4m3")
+    a = _int8(gen, *lead, m, 300)
+    extras = () if kind == "linear" else (
+        torch.randn(*lead, m, 200, generator=gen, device="cuda"),)
+    kw = dict(extras=extras, epilogue=EpilogueSpec(kind=kind, activation=act),
+              out_dtype=torch.float32)
+    fn = mpgemm_packed_grouped if grouped else mpgemm_packed
+    before = fn.launches
+    got = fn(a, p, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got, mpgemm_packed_plain(a, p, **kw),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight", ["dense", "packed_int8", "packed_int4",
+                                    "packed_fp8", "packed_bf16",
+                                    "sparse_int8", "sparse_bf16"])
+@pytest.mark.parametrize("tail", ["silu", "residual"])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_quant_in_on_the_card_matches_the_cpu(gen, weight, tail, grouped):
+    """``mp_dot(_grouped)(..., quant_in=True)`` on the card (the quant_in
+    tails of K1, K2 and K3, one launch) against the same call on CPU
+    copies (the plain versions); bf16 outputs."""
+    from repro_torch.core.gemm import mp_dot, mp_dot_grouped
+    from repro_torch.kernels import mpgemm as tk
+    from repro_torch.packing.pack import pack_operand
+    from repro_torch.sparse import sparsify_magnitude
+    lead = (4,) if grouped else ()
+    k, n, m = 320, 200, 33
+    w = torch.randn(*lead, k, n, generator=gen, device="cuda") * 0.05
+    kind, fmt = weight.split("_") if "_" in weight else (weight, None)
+    fmt = {"fp8": "fp8e4m3", "bf16": "bfloat16"}.get(fmt, fmt)
+    if kind == "packed":
+        w = pack_operand(w, (64, 64), dtype=fmt)
+    elif kind == "sparse":
+        w = sparsify_magnitude(w, (64, 64), density=0.5, dtype=fmt)
+    x = torch.randn(*lead, m, k, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    r = torch.randn(*lead, m, n, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    op = mp_dot_grouped if grouped else mp_dot
+    kw = (dict(activation="silu") if tail == "silu" else dict(residual=r))
+    counters = (tk.mpgemm_grouped, tk.mpgemm_packed_grouped,
+                tk.mpgemm_sparse_grouped) if grouped else (
+                    tk.mpgemm, tk.mpgemm_packed, tk.mpgemm_sparse)
+    before = sum(f.launches for f in counters)
+    got = op(x, w, policy="bf16", quant_in=True, **kw)
+    torch.cuda.synchronize()
+    assert sum(f.launches for f in counters) == before + 1
+    cpu_w = w.to("cpu") if kind != "dense" else w.cpu()
+    want = op(x.cpu(), cpu_w, policy="bf16", quant_in=True,
+              **{k_: v.cpu() if torch.is_tensor(v) else v
+                 for k_, v in kw.items()})
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_ops_flash_attention_on_the_card(gen):
+    """``ops.flash_attention`` launches K4 for float operands and raises on
+    the card for non-float ones, naming the reason (it never runs the
+    plain formula there)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, \
+        flash_attention_plain
+    q = torch.randn(1, 4, 9, 64, generator=gen, device="cuda")
+    k = torch.randn(1, 2, 9, 64, generator=gen, device="cuda")
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, flash_attention_plain(q, k, k),
+                               **TOL[torch.float32])
+    with pytest.raises(NotImplementedError, match="non-float q"):
+        ops.flash_attention(q.int(), k, k)
+
+
+@pytest.mark.cuda
+def test_mp_einsum_grouped_spec_launches_grouped_k1(gen):
+    from repro_torch.core.gemm import mp_einsum
+    from repro_torch.kernels.mpgemm import mpgemm_grouped
+    a = torch.randn(4, 8, 64, generator=gen, device="cuda")
+    b = torch.randn(4, 64, 32, generator=gen, device="cuda")
+    before = mpgemm_grouped.launches
+    got = mp_einsum("gmk,gkn->gmn", a, b, policy="fp32")
+    torch.cuda.synchronize()
+    assert mpgemm_grouped.launches == before + 1
+    torch.testing.assert_close(got, torch.einsum("gmk,gkn->gmn", a, b),
+                               **TOL[torch.float32])

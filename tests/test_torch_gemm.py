@@ -122,32 +122,52 @@ def test_gelu_is_the_tanh_approximation():
 
 @pytest.mark.parametrize("variant", ["trans_a", "beta_c", "packed",
                                      "quant_in", "int8_policy"])
-def test_unported_variants_raise(variant):
-    """Variants the kernels do not take yet raise on every device, so the
-    CPU path never offers what the card cannot run: ``trans_a`` is A read
-    as (K, M) together with ``trans_b`` (the backward issues only the
-    first), ``packed`` is beta·C against a packed operand (K2 has no C
-    operand), ``int8_policy`` the int8 policy's operands under ``trans_a``
-    (the backward runs in bf16, so K1 has no int8 ``trans_a``)."""
+def test_formerly_unported_variants_match_reference(variant):
+    """The variants the kernels once refused, now ported and held against
+    the reference on the CPU: ``trans_a`` (A read as (K, M)) together with
+    ``trans_b``, ``beta_c`` (beta·C on K1), ``packed`` (beta·C against a
+    packed operand, K2), ``quant_in`` (per-token activation quantization)
+    and ``int8_policy`` (int8 operands under ``trans_a``, an exact int32
+    output: equal).  The reference runs its interpret kernels; f32 outputs
+    within atol = rtol = 1e-5 (summation order)."""
+    from repro.kernels import ops as jops
+    from repro.packing import pack_operand as jax_pack
     from repro_torch.packing.pack import pack_operand
 
-    a, b = torch.ones(4, 8), torch.ones(8, 16)
-    p = pack_operand(b, (8, 8), dtype="float32")
-    calls = {
-        "trans_a": lambda: mpgemm(a.t().contiguous(), b.t().contiguous(),
-                                  spec=tspec.GemmSpec(trans_a=True,
-                                                      trans_b=True)),
-        "beta_c": lambda: mpgemm(a, b, c=torch.ones(4, 16),
-                                 epilogue=tspec.EpilogueSpec(beta=1.0)),
-        "packed": lambda: mpgemm(a, p, c=torch.ones(4, 16),
-                                 epilogue=tspec.EpilogueSpec(beta=1.0)),
-        "quant_in": lambda: mp_dot(a, b, quant_in=True),
-        "int8_policy": lambda: mpgemm(
-            a.t().to(torch.int8).contiguous(), b.to(torch.int8),
-            spec=tspec.GemmSpec(trans_a=True)),
-    }
-    with pytest.raises(NotImplementedError):
-        calls[variant]()
+    rng = np.random.default_rng(["trans_a", "beta_c", "packed", "quant_in",
+                                 "int8_policy"].index(variant))
+    a, b = _draw(rng, (4, 8), "fp32"), _draw(rng, (8, 16), "fp32")
+    c = _draw(rng, (4, 16), "fp32")
+    j, t = jnp.asarray, torch.from_numpy
+    if variant == "trans_a":
+        want = jops.mpgemm(j(a.T.copy()), j(b.T.copy()), trans_a=True,
+                           trans_b=True, interpret=True)
+        got = mpgemm(t(a.T.copy()), t(b.T.copy()),
+                     spec=tspec.GemmSpec(trans_a=True, trans_b=True))
+    elif variant == "beta_c":
+        want = jops.mpgemm(j(a), j(b), j(c), beta=1.0, interpret=True)
+        got = mpgemm(t(a), t(b), c=t(c),
+                     epilogue=tspec.EpilogueSpec(beta=1.0))
+    elif variant == "packed":
+        want = jops.mpgemm(j(a), jax_pack(j(b), (8, 8), dtype="float32",
+                                          backend="xla"), j(c), beta=1.0,
+                           interpret=True)
+        got = mpgemm(t(a), pack_operand(t(b), (8, 8), dtype="float32"),
+                     c=t(c), epilogue=tspec.EpilogueSpec(beta=1.0))
+    elif variant == "quant_in":
+        with jcfg.gemm_backend("interpret"):
+            want = jax_mp_dot(j(a), j(b), policy="fp32", quant_in=True)
+        got = mp_dot(t(a), t(b), policy="fp32", quant_in=True)
+    else:
+        ai = rng.integers(-127, 128, (8, 4)).astype(np.int8)
+        bi = rng.integers(-127, 128, (8, 16)).astype(np.int8)
+        want = jops.mpgemm(j(ai), j(bi), trans_a=True, interpret=True)
+        got = mpgemm(t(ai), t(bi), spec=tspec.GemmSpec(trans_a=True))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL["fp32"])
 
 
 def test_scale_rides_the_epilogue_before_alpha():

@@ -164,15 +164,30 @@ def test_float_payload_under_int8_is_densified():
     assert _count() == (k1, k3, k3g)
 
 
-def test_int8_payload_under_a_float_policy_raises():
-    """A float A against an int8 payload is no K3 variant: refused on every
-    device, so the CPU path never offers what the card cannot run."""
-    w = torch.from_numpy(_draw(np.random.default_rng(4), (K, N), False))
-    wt = ts.sparsify_magnitude(w, BLOCKS, density=0.5, dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8 payload"):
-        mp_dot(torch.ones(M, K), wt, policy="bf16")
-    with pytest.raises(NotImplementedError, match="int8 payload"):
-        tk.mpgemm_sparse(torch.ones(M, K), wt)
+def test_int8_payload_under_a_float_policy_matches_reference():
+    """A float A against an int8 payload, once refused, is now K3's float x
+    int8 variant: each tile dequantized by its scale and rounded to A's
+    dtype (bf16) before an f32 sum, as the reference's ``_accumulate``.
+    ``mp_dot`` under bf16 and the K3 wrapper alike, against the
+    reference's interpret kernel (bf16 outputs, 1.6e-2)."""
+    rng = np.random.default_rng(4)
+    x = _draw(rng, (M, K), True)
+    w = _draw(rng, (K, N), False)
+    wj, wt = _operands(w, _keep(rng, (3, 4), "half"), "int8")
+    xj = jnp.asarray(x.astype(ml_dtypes.bfloat16))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    with jcfg.gemm_backend("interpret"):
+        want = jax_mp_dot(xj, wj, policy="bf16", activation="silu")
+    got = mp_dot(xt, wt, policy="bf16", activation="silu")
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               **TOL[torch.bfloat16])
+    got = tk.mpgemm_sparse(xt, wt, out_dtype=torch.bfloat16)
+    with jcfg.gemm_backend("interpret"):
+        want = jax_mp_dot(xj, wj, policy="bf16")
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               **TOL[torch.bfloat16])
 
 
 def test_mpgemm_dispatches_a_sparse_operand_to_k3(monkeypatch):
