@@ -9,12 +9,15 @@ printing a result:
 
 1. the card's name and power limit; build every kernel from ``csrc/`` with
    nvcc (one process per source, in parallel) and print the build seconds;
-2. K1 (``kernels/csrc/mpgemm.cu``) against its plain version at the
-   full-width phi3-mini and granite-moe-1b-a400m 2-D GEMM shapes (decode
-   M = 2 and chunked prefill M = 32; granite's attention projections, its
-   f32 router and its tied head read as B^T), a ragged edge case and an
-   f32 case; then K1's int8 variant (int8 operands, exact int32 sum,
-   device scale) at the same shapes but the router;
+2. K1 against its plain version at the full-width phi3-mini and
+   granite-moe-1b-a400m 2-D GEMM shapes (decode M = 2 and chunked prefill
+   M = 32; granite's attention projections, its f32 router and its tied
+   head read as B^T), a ragged edge case and an f32 case, each row naming
+   the design that ran it (``kernels/mpgemm.py::k1_design``: bf16 with
+   16-byte rows on ``kernels/csrc/mpgemm_wgmma.cu``, TMA and wgmma; the
+   rest on ``kernels/csrc/mpgemm.cu``'s scalar loops); then K1's int8
+   variant (int8 operands, exact int32 sum, device scale) at the same
+   shapes but the router;
 3. K5 (``kernels/csrc/paged_flash.cu``) against its plain version at
    phi3-mini's and granite's attention shapes (decode and 16-token chunked
    prefill) and at a GQA + sliding-window shape, with ragged lengths, dead
@@ -53,7 +56,10 @@ printing a result:
    ``kernels.ops.mpgemm`` in f32 -> f32, bf16 -> bf16 and int8 -> int32
    (equal to the plain version; ``torch.matmul`` and ``torch._int_mm`` as
    yardsticks), K1's beta·C and integer epilogues at W1, W13 and W19, int8
-   ``trans_a`` and f32 / bf16 ``trans_a`` + ``trans_b`` at W13 and W19;
+   ``trans_a`` and f32 / bf16 ``trans_a`` + ``trans_b`` at W13 and W19
+   (each K1 case naming its design); K2 and K3 ``trans_a`` (A read (K,
+   M) at phi3-mini's ``w_up``, M = 2 and 32; the wrapper's copy of Aᵀ
+   timed alone);
    ``mp_dot(..., quant_in=True)`` (silu, and a residual) at phi3-mini's
    full-width projections, M = 2 and 32, over a dense bf16 weight (K1),
    packed int8, int4 and fp8 payloads (K2; fp8 is K2's int8 x fp8 loop), a
@@ -82,7 +88,8 @@ printing a result:
    K3, 16 K5 and 0 K1 per step) and granite under int8 with N:M 2:4 (48
    K3, 36 grouped K3, 13 K1, 12 K5 per step), each sparsified from the
    f32 draw through K6 (113 and 84 launches at load).  Every launch
-   count of each run is asserted, every logit is finite, and for each path
+   count of each run is asserted, every bf16 K1 launch must have run the
+   wgmma design, every logit is finite, and for each path
    one full-width mixed step through the kernels agrees with the same step
    through the plain versions; one two-row decode step of each path is
    timed on the host clock and traced with ``torch.profiler`` (the
@@ -108,7 +115,8 @@ printing a result:
    24 layers, bf16, batch 4 x seq 128, remat, 3 steps with a checkpoint,
    and phi3-mini at full width cut to 4 layers under int8 (the STE), 2
    steps -- finite loss and grad norm, exact launch counts a step
-   (``_want_train_launches``), ``--resume`` restoring bit-identical
+   (``_want_train_launches``; the wgmma design's among them: every bf16
+   K1 launch), ``--resume`` restoring bit-identical
    parameters and AdamW state, one step's loss and gradients against the
    plain versions, step time, tokens/s, peak memory, and one step traced
    with ``torch.profiler``;
@@ -297,7 +305,10 @@ def phase_k1(torch, timer):
                       act="silu", dtype=f32, trans_b=False, bias=True,
                       per_step=0, model=None))
 
-    steps = {"phi3": StepSum(), "granite": StepSum()}
+    # Decode steps (M = 2) by model, and the same launches at M = 32 (a
+    # 32-token chunk of prefill).
+    steps = {"phi3": StepSum(), "granite": StepSum(),
+             "phi3-m32": StepSum(), "granite-m32": StepSum()}
     for c in cases:
         m, k, n, dt = c["m"], c["k"], c["n"], c["dtype"]
         a = torch.randn(m, k, generator=gen, device="cuda").to(dt)
@@ -328,12 +339,13 @@ def phase_k1(torch, timer):
                 bias=None if bias is None else bias.reshape(1, -1),
                 extras=extras).to(dt)
 
-        got, ref = kern(), plain()
+        (got, design), ref = _k1_design_of(kern), plain()
         torch.cuda.synchronize()
         tol = TOL[_dtype_name(dt)]
         err = _check_close(torch, f"K1 {c['name']} m={m} k={k} n={n}", got,
                            ref, tol)
-        for model in ([c["model"]] if c["model"] else steps):
+        for model in ([c["model"], f"{c['model']}-m32"] if c["model"]
+                      else steps):
             steps[model].max_abs_err = max(steps[model].max_abs_err, err)
         esz = a.element_size()
         n_bytes = (m * k + k * n + m * n) * esz + m * n * esz * len(extras) \
@@ -341,20 +353,24 @@ def phase_k1(torch, timer):
         n_ops = 2 * m * n * k
         bound, bound_by = _bound_ms(n_bytes, n_ops, _dtype_name(dt))
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
-        print(f"[k1] {c['name']:>10} {_dtype_name(dt):>8} m={m:<3} k={k:<5} "
-              f"n={n:<6} trans_b={c['trans_b']:d} {c['kind']:>8}/{c['act']}: "
+        print(f"[k1] {c['name']:>10} {_dtype_name(dt):>8} {design:>5} "
+              f"m={m:<3} k={k:<5} n={n:<6} trans_b={c['trans_b']:d} "
+              f"{c['kind']:>8}/{c['act']}: "
               f"err {err:.2e} (rtol {tol['rtol']}, atol {tol['atol']})  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
               f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
               f"{n_bytes / ms / 1e6:.1f} GB/s")
-        if m == 2 and c["per_step"]:
-            steps[c["model"]].add(c["per_step"], ms, plain_ms, lib_ms, bound,
-                                  n_bytes, n_ops)
+        if c["per_step"]:
+            key = c["model"] if m == 2 else f"{c['model']}-m32"
+            steps[key].add(c["per_step"], ms, plain_ms, lib_ms, bound,
+                           n_bytes, n_ops)
     rows = {}
     for model, step in steps.items():
         row = rows[model] = step.row("bfloat16")
-        print(f"[k1] one full-width {model} decode step (M=2, "
-              f"{step.launches} launches): kernel {row['ms']:.3f} ms, plain "
+        what = ("M=32 chunk of prefill" if model.endswith("-m32") else
+                "decode step (M=2)")
+        print(f"[k1] one full-width {model.split('-')[0]} {what}, "
+              f"{step.launches} launches: kernel {row['ms']:.3f} ms, plain "
               f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} "
               f"ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
     return rows
@@ -935,7 +951,7 @@ def phase_k1_grouped(torch, timer):
                     return apply_epilogue(ep, acc.float(), scale=scale,
                                           extras=extras)
 
-                got, ref = kern(), plain()
+                (got, design), ref = _k1_design_of(kern), plain()
                 torch.cuda.synchronize()
                 err = _check_close(torch, f"grouped K1 {dt_name} {name} "
                                    f"m={m}", got, ref, TOL["float32"])
@@ -946,7 +962,8 @@ def phase_k1_grouped(torch, timer):
                 bound, bound_by = _bound_ms(n_bytes, n_ops, dt_name)
                 ms, plain_ms, lib_ms = timer(kern), timer(plain), \
                     timer(library)
-                print(f"[k1-grouped] {dt_name:>8} {name:>4} G={g} m={m:<3} "
+                print(f"[k1-grouped] {dt_name:>8} {design:>5} {name:>4} "
+                      f"G={g} m={m:<3} "
                       f"k={k:<5} n={n:<5} {kind:>6}/{act}: err {err:.2e}  "
                       f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
                       f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
@@ -1265,22 +1282,51 @@ def _counters():
 
 
 def _reset_counters():
-    """Every launch count to 0 (K1's per-variant counts too)."""
-    for fn in _counters().values():
+    """Every launch count to 0 (the per-variant and per-design counts
+    too)."""
+    c = _counters()
+    for fn in c.values():
         fn.launches = 0
-    for fn in _counters()["k1"], _counters()["k1g"]:
-        fn.trans_a_launches = fn.trans_b_launches = 0
+    for name in ("k1", "k1g"):
+        c[name].trans_b_launches = c[name].wgmma_launches = 0
+    for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g"):
+        c[name].trans_a_launches = 0
 
 
 def _read_counters():
     """Every launch count, K1's and grouped K1's ``trans_a`` and
-    ``trans_b`` ones as ``k1_ta`` / ``k1_tb`` / ``k1g_ta`` / ``k1g_tb``."""
+    ``trans_b`` ones as ``k1_ta`` / ``k1_tb`` / ``k1g_ta`` / ``k1g_tb``,
+    and those that ran the wgmma design as ``k1_wgmma`` / ``k1g_wgmma``."""
     c = _counters()
     out = {name: fn.launches for name, fn in c.items()}
     for name in ("k1", "k1g"):
         out[f"{name}_ta"] = c[name].trans_a_launches
         out[f"{name}_tb"] = c[name].trans_b_launches
+        out[f"{name}_wgmma"] = c[name].wgmma_launches
     return out
+
+
+def _k1_design_of(call):
+    """Run ``call`` (one K1 launch, 2-D or grouped) -> (its output, the
+    design that ran it: "wgmma" or "simt", read off the counters)."""
+    c = _counters()
+
+    def wgmma():      # (0 on a tree without the wgmma design: chip_ab.py)
+        return sum(getattr(c[k], "wgmma_launches", 0) for k in ("k1", "k1g"))
+
+    before = wgmma()
+    out = call()
+    return out, "wgmma" if wgmma() > before else "simt"
+
+
+def _check_wgmma(label, got, want):
+    """Every bf16 K1 launch of a path ran the wgmma design: ``got`` and
+    ``want`` map ``k1`` / ``k1g`` to wgmma launches and bf16 launches."""
+    print(f"[{label}] wgmma design: K1 {got['k1']} of {want['k1']} bf16 "
+          f"launches, grouped K1 {got['k1g']} of {want['k1g']}")
+    if got != want:
+        raise AssertionError(f"{label}: wgmma launches {got}, want every "
+                             f"bf16 K1 launch: {want}")
 
 
 def _want_launches(cfg, pack, n_steps, sparse=False):
@@ -1384,6 +1430,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
+    wgmma = {name: counters[name].wgmma_launches for name in ("k1", "k1g")}
     del model.paged_step
     n_steps = len(step_calls)
     want, per_step = _want_launches(cfg, pack, n_steps, sparse=sparsity > 0)
@@ -1406,6 +1453,13 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
         raise AssertionError(f"served {sorted(out)} of 4 requests")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
+    # bf16 K1 launches: under bf16 all of them but the MoE routers (f32);
+    # under int8 none (int8 operands).
+    bf16 = policy == "bf16"
+    routers = n_layers if cfg.family == "moe" else 0
+    _check_wgmma(f"serve:{label}", wgmma, dict(
+        k1=(per_step["k1"] - routers) * n_steps if bf16 else 0,
+        k1g=per_step["k1g"] * n_steps if bf16 else 0))
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
@@ -1477,9 +1531,11 @@ def _plain_gemm(a, b, *, spec, out_dtype=None, c=None, **kw):
 
     out_dtype = out_dtype or spec.out_dtype
     if isinstance(b, PackedOperand):
-        return mpgemm_packed_plain(a, b, out_dtype=out_dtype, **kw)
+        return mpgemm_packed_plain(a, b, out_dtype=out_dtype,
+                                   trans_a=spec.trans_a, **kw)
     if isinstance(b, TileSparseOperand):
-        return mpgemm_sparse_plain(a, b, out_dtype=out_dtype, **kw)
+        return mpgemm_sparse_plain(a, b, out_dtype=out_dtype,
+                                   trans_a=spec.trans_a, **kw)
     return mpgemm_plain(a, b, trans_a=spec.trans_a, trans_b=spec.trans_b,
                         out_dtype=out_dtype, **kw)
 
@@ -1612,8 +1668,9 @@ def _decode_step_times(torch, step, steps=5):
 # Device kernels by name, as the profiler reports them (demangled).
 TRACE_KERNELS = (("mpgemm_sparse", "K3"),
                  ("mpgemm_packed_kernel", "K2"), ("mpgemm_int8_kernel", "K1"),
-                 ("mpgemm_kernel", "K1"), ("paged_flash_kernel", "K5"),
-                 ("flash_kernel", "K4"), ("pack_kernel", "K6"))
+                 ("mpgemm_kernel", "K1"), ("mpgemm_wgmma_kernel", "K1 wgmma"),
+                 ("paged_flash_kernel", "K5"), ("flash_kernel", "K4"),
+                 ("pack_kernel", "K6"))
 
 
 def _profile_decode_step(torch, step, label, step_ms,
@@ -1778,6 +1835,7 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
+    wgmma = {name: counters[name].wgmma_launches for name in ("k1", "k1g")}
     del model.prefill, model.decode_step
     per_prefill, per_decode = _want_wave_launches(cfg)
     want = {k: 0 for k in counters}
@@ -1802,6 +1860,8 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
         raise AssertionError(f"served {sorted(out)} of 4 requests")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
+    # Dense bf16 and no router: every K1 launch is a bf16 one.
+    _check_wgmma(f"wave:{label}", wgmma, dict(k1=counts["k1"], k1g=0))
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
@@ -1935,7 +1995,7 @@ def phase_k1_trans_a(torch, timer):
         def library():
             return torch.matmul(a.transpose(-1, -2), b).float()
 
-        got, again, ref = kern(), kern(), plain()
+        (got, design), again, ref = _k1_design_of(kern), kern(), plain()
         torch.cuda.synchronize()
         err = _check_close(torch, f"K1 trans_a {name}", got, ref,
                            TOL["float32"])
@@ -1946,7 +2006,8 @@ def phase_k1_trans_a(torch, timer):
         n_ops = 2 * groups * m * n * t
         bound, bound_by = _bound_ms(n_bytes, n_ops, dt)
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
-        print(f"[k1-trans_a] {name:>18} {dt:>8} G={g or 1:<2} M={m:<5} "
+        print(f"[k1-trans_a] {name:>18} {dt:>8} {design:>5} G={g or 1:<2} "
+              f"M={m:<5} "
               f"N={n:<5} K={t}: err {err:.2e} (f32 out, rtol 1e-4, atol "
               f"1e-4), deterministic  kernel {ms:.4f} ms  plain "
               f"{plain_ms:.4f}  library {lib_ms:.4f}  bound {bound:.4f} "
@@ -2106,13 +2167,15 @@ OPS_ITERS = 3                        # timed launches a case (each cold)
 
 
 def _ops_case(name, kern, plain, *, n_bytes, n_ops, peak, library=None,
-              exact=False, tol=None):
+              exact=False, tol=None, copy=None):
     """One op-level case: the kernel's call, its plain version's, a
-    library yardstick or None, the bound's bytes and operations, and the
-    check (``exact``: equal bits, else ``tol``)."""
+    library yardstick or None, the bound's bytes and operations, the
+    check (``exact``: equal bits, else ``tol``), and ``copy``, a call of
+    the operand copy the kernel's call makes first, timed alone."""
     return dict(name=name, kern=kern, plain=plain, library=library,
                 n_bytes=n_bytes, n_ops=n_ops, peak=peak, exact=exact,
-                tol=tol or TOL[peak if peak != "int8" else "bfloat16"])
+                tol=tol or TOL[peak if peak != "int8" else "bfloat16"],
+                copy=copy)
 
 
 def _ops_row(torch, timer, label, counter, cases):
@@ -2120,9 +2183,10 @@ def _ops_row(torch, timer, label, counter, cases):
     count at 0 just before and read just after: every launch must be
     ``counter``'s, one per case.  Then each case against its plain version
     (equal bits or the tolerance), and timed: kernel, plain, library.  ->
-    the row's numbers (times summed over its cases, one launch each)."""
+    the row's numbers (times summed over its cases, one launch each); a
+    K1 case names the design it ran."""
     _reset_counters()
-    outs = [c["kern"]() for c in cases]
+    ran = [_k1_design_of(c["kern"]) for c in cases]
     torch.cuda.synchronize()
     counts = _read_counters()
     launched = {k: v for k, v in counts.items()
@@ -2132,7 +2196,8 @@ def _ops_row(torch, timer, label, counter, cases):
                              f"{{{counter!r}: {len(cases)}}}")
     acc = StepSum()
     library = all(c["library"] is not None for c in cases)
-    for c, got in zip(cases, outs):
+    copy_ms = 0.0
+    for c, (got, design) in zip(cases, ran):
         ref = c["plain"]()
         torch.cuda.synchronize()
         if c["exact"]:
@@ -2150,18 +2215,25 @@ def _ops_row(torch, timer, label, counter, cases):
         ms = timer(c["kern"], OPS_ITERS)
         plain_ms = timer(c["plain"], OPS_ITERS)
         lib_ms = timer(c["library"], OPS_ITERS) if library else 0.0
+        case_copy = timer(c["copy"], OPS_ITERS) if c["copy"] else None
+        copy_ms += case_copy or 0.0
         acc.max_abs_err = max(acc.max_abs_err, err)
         acc.add(1, ms, plain_ms, lib_ms, bound, c["n_bytes"], c["n_ops"])
         rate = c["n_ops"] / ms / 1e9
-        print(f"[ops:{label}] {c['name']:>24}: "
+        print(f"[ops:{label}] {c['name']:>24}"
+              + (f" {design:>5}" if counter in ("k1", "k1g") else "") + ": "
               + ("equal" if c["exact"] else f"err {err:.2e}")
-              + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f}"
+              + f"  kernel {ms:.4f} ms"
+              + (f" (A copy {case_copy:.4f})" if case_copy else "")
+              + f"  plain {plain_ms:.4f}"
               + (f"  library {lib_ms:.4f}" if library else "")
               + f"  bound {bound:.4f} ({bound_by})  {rate:.2f} TOP/s")
-    del outs
+    del ran
     row = acc.row(cases[0]["peak"])
     row["library_ms"] = row["library_ms"] if library else None
     row["launches"] = counts[counter]
+    if any(c["copy"] for c in cases):
+        row["copy_ms"] = copy_ms
     print(f"[ops:{label}] {len(cases)} launches of {counter}: kernel "
           f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
           + (f"{row['library_ms']:.3f} ms" if library else "none")
@@ -2183,9 +2255,9 @@ def _ops_plain(a, b, c=None, *, trans_a=False, trans_b=False, alpha=1.0,
     kw = dict(c=c, bias=bias, out_dtype=out_dtype, epilogue=EpilogueSpec(
         alpha=alpha, beta=beta, activation=activation))
     if isinstance(b, PackedOperand):
-        return mpgemm_packed_plain(a, b, **kw)
+        return mpgemm_packed_plain(a, b, trans_a=trans_a, **kw)
     if isinstance(b, TileSparseOperand):
-        return mpgemm_sparse_plain(a, b, **kw)
+        return mpgemm_sparse_plain(a, b, trans_a=trans_a, **kw)
     return mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b, **kw)
 
 
@@ -2537,6 +2609,41 @@ def _laid_out_beta_c_rows(torch, timer, gen):
     return rows
 
 
+def _laid_out_trans_a_rows(torch, timer, gen):
+    """``trans_a`` on K2 (phi3 ``w_up`` packed int4, bf16 A) and on K3
+    (the same weight tile-sparse bf16 at 0.5), A read (K, M) with M = 2
+    and 32, through ``ops.mpgemm(a, operand, trans_a=True)``: the wrapper
+    copies Aᵀ to (M, K) rows, timed alone beside the call."""
+    from repro_torch.kernels import ops
+    from repro_torch.packing.pack import pack_operand
+    from repro_torch.packing.params import default_blocks
+
+    k, n = 3072, 8192
+    w = torch.randn(k, n, generator=gen, device="cuda") * (2 / (k + n)) ** .5
+    operands = {"k2": pack_operand(w, default_blocks(k, n), dtype="int4"),
+                "k3": _sparse_weight(torch, gen, (k, n), "bfloat16",
+                                     "magnitude")}
+    rows = {}
+    for counter, b in operands.items():
+        cases = []
+        for m in (2, 32):
+            a = torch.randn(k, m, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            n_ops = 2 * m * n * k
+            if counter == "k3":
+                n_ops = 2 * m * b.layout.bk * b.layout.bn * b.layout.nnz
+            cases.append(_ops_case(
+                f"w_up m={m}",
+                lambda a=a, b=b: ops.mpgemm(a, b, trans_a=True),
+                lambda a=a, b=b: _ops_plain(a, b, trans_a=True),
+                copy=lambda a=a: a.mT.contiguous(),
+                n_bytes=2 * m * k + b.nbytes + 2 * m * n, n_ops=n_ops,
+                peak="bfloat16"))
+        rows[counter] = _ops_row(torch, timer, f"trans_a-{counter}", counter,
+                                 cases)
+    return rows
+
+
 def _grouped_ops_rows(torch, timer, gen):
     """At granite-moe-1b-a400m's expert shapes (32 experts, 1024 <-> 512,
     M = 2 and 32 rows an expert): beta·C on grouped K1 (bf16, f32 C and
@@ -2629,6 +2736,8 @@ def phase_ops(torch, timer):
     rows["k3-float"] = _sparse_float_rows(torch, timer, gen)
     rows.update({f"bc/{k}": v for k, v in
                  _laid_out_beta_c_rows(torch, timer, gen).items()})
+    rows.update({f"ta/{k}": v for k, v in
+                 _laid_out_trans_a_rows(torch, timer, gen).items()})
     rows.update({f"g/{k}": v for k, v in
                  _grouped_ops_rows(torch, timer, gen).items()})
     gc.collect()
@@ -2636,7 +2745,7 @@ def phase_ops(torch, timer):
     return rows
 
 
-def _want_train_launches(cfg, remat=True, seq=128):
+def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     """Kernel launches of one training step (forward, the rematerialised
     forward, backward) of a dense model: per layer 4 attention GEMMs and
     the MLP's 3 (a dense model) or the f32 router and 3 grouped expert
@@ -2645,7 +2754,10 @@ def _want_train_launches(cfg, remat=True, seq=128):
     weight; a tied head's dx reads the (V, d) embedding as it is) and dW
     (``trans_a``) for every GEMM, plus the recompute of z for the gated
     SwiGLU GEMM; attention's backward is torch ops (no K4).  K7 never runs:
-    the weights are dense."""
+    the weights are dense.  The wgmma design runs every bf16 K1 launch
+    (``k1_wgmma``, ``k1g_wgmma``): under bf16 all but the f32 routers'
+    (forward, dx, dW); under int8 the backward's (the straight-through
+    estimator runs it in bf16) but the routers'."""
     n, moe, tied = cfg.n_layers, cfg.family == "moe", cfg.tie_embeddings
     r = 2 if remat else 1
     chunks = -(-seq // 512)
@@ -2658,6 +2770,13 @@ def _want_train_launches(cfg, remat=True, seq=128):
     want["k1g"] = n * (r * 3 + 7) if moe else 0   # gate: z again
     want["k1g_ta"] = want["k1g_tb"] = 3 * n if moe else 0
     want["k4"] = r * n
+    want["k1_wgmma"] = want["k1g_wgmma"] = 0
+    if policy == "bf16":
+        want["k1_wgmma"] = want["k1"] - ((r + 2) * n if moe else 0)
+        want["k1g_wgmma"] = want["k1g"]
+    elif policy == "int8":
+        want["k1_wgmma"] = n * bwd_2d + 2 - (2 * n if moe else 0)
+        want["k1g_wgmma"] = 7 * n if moe else 0
     return want
 
 
@@ -2837,7 +2956,7 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
         peak = torch.cuda.max_memory_allocated() / 1e9
         model = trainer.model
         want = {key: v * steps for key, v in _want_train_launches(
-            model.cfg).items()}
+            model.cfg, policy=policy).items()}
         log = trainer.metrics_log
         n_params = sum(p.numel() for p in tree_leaves(params))
         times = [r["time_s"] for r in log]
@@ -2860,6 +2979,9 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
         if counts != {**{k: 0 for k in counts}, **want}:
             raise AssertionError(f"train {label}: launch counts {counts}, "
                                  f"want {want}")
+        print(f"[train:{label}] wgmma design: K1 {counts['k1_wgmma']} of "
+              f"{counts['k1']} launches, grouped K1 {counts['k1g_wgmma']} "
+              f"of {counts['k1g']} (every bf16 one)")
 
         t0 = time.perf_counter()
         _, p_res, o_res = train_cli.main(
@@ -2988,7 +3110,9 @@ def main():
                     **{k: numbers[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by")},
-                    library_ms=numbers.get("library_ms"))
+                    library_ms=numbers.get("library_ms"),
+                    **({"copy_ms": numbers["copy_ms"]}
+                       if "copy_ms" in numbers else {}))
 
     mp = "src/repro/kernels/mpgemm.py"
     fa = "src/repro/kernels/flash_attention.py:154"
@@ -3110,6 +3234,12 @@ def main():
          f"{mp}:106", "bc/k2"),
         ("K3 beta*C (phi3 w_up, bf16 tiles, 0.5 magnitude)",
          "mpgemm_sparse.cu", f"{mp}:193", "bc/k3"),
+        ("K2 trans_a (phi3 w_up, int4 payload, bf16 A read (K, M); the "
+         "wrapper copies A^T, copy_ms)", "mpgemm_packed.cu", f"{mp}:669",
+         "ta/k2"),
+        ("K3 trans_a (phi3 w_up, bf16 tiles, 0.5 magnitude, A read (K, M); "
+         "the wrapper copies A^T, copy_ms)", "mpgemm_sparse.cu", f"{mp}:418",
+         "ta/k3"),
         ("K1 mpgemm_grouped beta*C (granite experts, 2 A B + 0.5 C)",
          "mpgemm.cu", f"{mp}:812", "g/beta-c"),
         ("K1 mpgemm_grouped quant_in (granite experts, dense bf16 stacks)",

@@ -24,8 +24,8 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("mpgemm", "mpgemm_packed", "mpgemm_sparse", "pack",
-           "paged_flash", "flash_attention")
+KERNELS = ("mpgemm", "mpgemm_wgmma", "mpgemm_packed", "mpgemm_sparse",
+           "pack", "paged_flash", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,5 +1,8 @@
 // K1: the dense mixed-precision GEMM with a fused epilogue, 2-D or grouped,
-// for sm_90a.
+// for sm_90a: the scalar design.  bf16 launches whose operands TMA can
+// describe run csrc/mpgemm_wgmma.cu instead (kernels/mpgemm.py::k1_design);
+// this file runs f32, int8 and the bf16 shapes that rule leaves out (rows
+// that are not a multiple of 16 bytes, a view off a 16-byte boundary).
 //
 // Replaces the TPU kernel src/repro/kernels/mpgemm.py::make_gemm_kernel
 // (dense body `kernel`), launched by mpgemm_pallas_spec for one GEMM and
@@ -61,8 +64,9 @@
 // because one template for both compiled the float loop into code about
 // 30 % slower on an H100 at M = 2 (with bit-equal outputs).  Known gaps,
 // for later work: no vectorised or asynchronous loads (cp.async / TMA), no
-// split-K for decode (N / 32 blocks cannot fill 132 SMs when N = 3072), no
-// wgmma.
+// split-K for decode (N / 32 blocks cannot fill 132 SMs when N = 3072);
+// int8 has no tensor-core route here yet (wgmma's int8 form takes K-major
+// operands only), and f32 has none at its 1e-4 gate.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 

@@ -14,9 +14,16 @@ tensor launches the hand-written kernel (``csrc/mpgemm.cu``,
 ``csrc/mpgemm_packed.cu``, ``csrc/mpgemm_sparse.cu``, built on first use
 by ``_build.py``).  K1 takes ``spec.trans_a`` (A read as (K, M), or
 (G, K, M) grouped: the backward's dW = Aᵀ·B) and ``spec.trans_b``, alone
-or together, for every operand dtype.  ``trans_a`` against a packed or
-sparse B raises ``NotImplementedError`` on every device (no caller issues
-it), so the CPU path never offers what the card cannot run.
+or together, for every operand dtype.  K2 and K3 take ``trans_a`` too:
+their wrappers hand the kernel the contiguous Aᵀ (one copy of M·K
+elements, no arithmetic), and their plain versions read A transposed.
+
+K1 has two designs on the card, and :func:`k1_design` picks one by a rule
+(never by trying): bf16 operands whose row strides and base pointers are
+multiples of 16 bytes (TMA's rule) run ``csrc/mpgemm_wgmma.cu`` (TMA,
+``wgmma``, split-K by :func:`k1_split` when the output has fewer tiles
+than the card has SMs); everything else -- f32, int8, odd shapes such as
+rows of 101 values -- runs ``csrc/mpgemm.cu``'s scalar loops.
 
 K1 takes bf16 or f32 operands summed in f32, or int8 operands summed
 exactly in int32 (the int8 policy, and the paper's INT8 -> INT32 GEMM,
@@ -37,7 +44,9 @@ operand, the first of their extras.
 kernel launches (never plain-version calls); ``mpgemm.trans_a_launches``,
 ``mpgemm.trans_b_launches`` and their ``mpgemm_grouped`` twins count the
 K1 launches of each transposed variant among them (a launch with both
-counts in both).
+counts in both), and ``mpgemm.wgmma_launches`` / ``mpgemm_grouped.
+wgmma_launches`` those that ran the wgmma design; the K2 and K3 wrappers'
+``trans_a_launches`` count their ``trans_a`` launches.
 """
 from __future__ import annotations
 
@@ -168,10 +177,6 @@ def mpgemm_grouped(a: torch.Tensor, b, *,
 def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
             grouped):
     out_dtype = out_dtype or spec.out_dtype
-    if spec.trans_a and isinstance(b, (PackedOperand, TileSparseOperand)):
-        raise NotImplementedError(
-            "trans_a against a packed or sparse B is not ported (no caller "
-            "issues it)")
     if isinstance(b, TileSparseOperand):
         if spec.trans_b or spec.packed:
             raise ValueError("a TileSparseOperand b takes no trans_b or "
@@ -179,7 +184,8 @@ def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
                              "sparsify time)")
         sparse = mpgemm_sparse_grouped if grouped else mpgemm_sparse
         return sparse(a, b, c=c, bias=bias, scale=scale, extras=extras,
-                      epilogue=epilogue, out_dtype=out_dtype)
+                      epilogue=epilogue, out_dtype=out_dtype,
+                      trans_a=spec.trans_a)
     if spec.sparse:
         raise ValueError("spec.sparse needs a TileSparseOperand b")
     if isinstance(b, PackedOperand):
@@ -188,7 +194,8 @@ def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
                              "time")
         packed = mpgemm_packed_grouped if grouped else mpgemm_packed
         return packed(a, b, c=c, bias=bias, scale=scale, extras=extras,
-                      epilogue=epilogue, out_dtype=out_dtype)
+                      epilogue=epilogue, out_dtype=out_dtype,
+                      trans_a=spec.trans_a)
     if spec.packed:
         raise ValueError("spec.packed needs a PackedOperand b")
     _check_c(epilogue, c)
@@ -287,6 +294,89 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+# --- K1's two designs --------------------------------------------------------
+
+# The wgmma design's tile (csrc/mpgemm_wgmma.cu): BK deep, BN wide, BM 64
+# or 128 rows; and the SMs of an H100 SXM, split-K's target.
+WGMMA_BK, WGMMA_BN = 64, 128
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k1_design(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The K1 kernel that runs ``a`` against dense ``b`` on the card:
+    ``"wgmma"`` (``csrc/mpgemm_wgmma.cu``) when both are bf16, neither is
+    empty, and each operand's base pointer and row stride (its stored
+    rows of 2-byte values, whichever way it is read; the operands are
+    contiguous) are multiples of 16 bytes, as TMA needs; else ``"simt"``
+    (``csrc/mpgemm.cu``).  A rule on what the operands are, not a
+    fallback: a failed wgmma build or launch raises."""
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or a.shape[-1] % 8 or b.shape[-1] % 8
+            or a.data_ptr() % 16 or b.data_ptr() % 16
+            or not a.numel() or not b.numel()):
+        return "simt"
+    return "wgmma"
+
+
+def k1_wgmma_bm(m: int) -> int:
+    """The wgmma design's tile rows: one consumer warpgroup (64) for M <=
+    64, else two (128)."""
+    return 64 if m <= 64 else 128
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_split(m: int, n: int, k: int, g: int = 1,
+             sms: int = H100_SMS) -> tuple:
+    """(slices, K tiles a slice) of the wgmma design's split over K: with
+    fewer output tiles than ``sms``, K is cut into slices so that tiles x
+    slices reaches ``sms`` where K allows, every slice at least one
+    ``WGMMA_BK`` deep and none empty; else one slice.  The kernel sums the
+    slices in slice order, so the result is the same bits every run."""
+    tiles = g * _cdiv(m, k1_wgmma_bm(m)) * _cdiv(n, WGMMA_BN)
+    k_tiles = max(1, _cdiv(k, WGMMA_BK))
+    want = min(_cdiv(sms, tiles), k_tiles) if tiles < sms else 1
+    per = k_tiles // want            # slices of ``per``: at least ``want``
+    return _cdiv(k_tiles, per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_split_buffers: dict = {}
+
+
+def _split_workspace(device: torch.device, stream: int, n_partial: int,
+                     n_tiles: int) -> tuple:
+    """The wgmma design's split-K buffers on ``stream``: the slices' f32
+    partial sums (``torch.empty``) and one int32 counter an output tile
+    (``torch.zeros``; each launch leaves them at zero).  One pair a
+    stream, grown as needed and kept: the launches on one stream run in
+    order, so each has summed its slices before the next writes.  An
+    allocation a call cost about as much host time as the launch."""
+    partial, counters = _split_buffers.get((device, stream), (None, None))
+    if partial is None or partial.numel() < n_partial:
+        partial = torch.empty(max(n_partial, 1 << 16), dtype=torch.float32,
+                              device=device)
+    if counters is None or counters.numel() < n_tiles:
+        counters = torch.zeros(max(n_tiles, 1024), dtype=torch.int32,
+                               device=device)
+    _split_buffers[(device, stream)] = partial, counters
+    return partial, counters
+
+
+def _current_stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s card (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` returns, at a tenth
+    of its host cost)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 # --- K1 launch ---------------------------------------------------------------
 
 def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
@@ -316,17 +406,36 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
                                   _int_epilogue(a, scale))
     if out.numel() == 0:
         return out
-    lib = _lib()
-    rc = lib.mpgemm_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc, g, m,
-        n, k, bias_stride, _DTYPE_CODES[a.dtype], out_dt, c_dt,
-        int(trans_a), int(trans_b), kind, act, alpha, beta,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    stream = _current_stream(a)
+    wgmma = k1_design(a, b) == "wgmma"
+    if wgmma:
+        bm = k1_wgmma_bm(m)
+        splits, per = k1_split(m, n, k, g, _sm_count(a.get_device()))
+        partial = counters = None
+        if splits > 1:
+            partial, counters = _split_workspace(
+                a.device, stream, splits * g * m * n,
+                g * _cdiv(m, bm) * _cdiv(n, WGMMA_BN))
+        lib = _wgmma_lib()
+        rc = lib.mpgemm_wgmma_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc,
+            _ptr(partial), _ptr(counters), g, m, n, k, bias_stride, out_dt,
+            c_dt, int(trans_a), int(trans_b), kind, act, alpha, beta, bm,
+            splits, per, stream)
+        error = lib.mpgemm_wgmma_error_string
+    else:
+        lib = _lib()
+        rc = lib.mpgemm_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc,
+            g, m, n, k, bias_stride, _DTYPE_CODES[a.dtype], out_dt, c_dt,
+            int(trans_a), int(trans_b), kind, act, alpha, beta, stream)
+        error = lib.mpgemm_error_string
     if rc != 0:
         raise RuntimeError(f"mpgemm kernel launch failed: CUDA error {rc} "
-                           f"({lib.mpgemm_error_string(rc).decode()})")
+                           f"({error(rc).decode()})")
     fn = mpgemm_grouped if grouped else mpgemm
     fn.launches += 1
+    fn.wgmma_launches += int(wgmma)
     fn.trans_a_launches += int(trans_a)
     fn.trans_b_launches += int(trans_b)
     return out
@@ -334,6 +443,7 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
 
 for _fn in (mpgemm, mpgemm_grouped):
     _fn.launches = _fn.trans_a_launches = _fn.trans_b_launches = 0
+    _fn.wgmma_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -345,6 +455,18 @@ def _lib() -> ctypes.CDLL:
     lib.mpgemm_launch.restype = i
     lib.mpgemm_error_string.argtypes = [i]
     lib.mpgemm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("mpgemm_wgmma")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mpgemm_wgmma_launch.argtypes = [p] * 10 + [i] * 11 + [f, f] \
+        + [i] * 3 + [p]
+    lib.mpgemm_wgmma_launch.restype = i
+    lib.mpgemm_wgmma_error_string.argtypes = [i]
+    lib.mpgemm_wgmma_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -381,11 +503,11 @@ def mpgemm_packed_plain(a: torch.Tensor, b: PackedOperand, *,
                         scale: Optional[torch.Tensor] = None,
                         extras: Sequence[torch.Tensor] = (),
                         epilogue: EpilogueSpec = LINEAR,
-                        out_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
+                        out_dtype: Optional[torch.dtype] = None,
+                        trans_a: bool = False) -> torch.Tensor:
     """K2's plain version, with the reference kernel's per-tile numerics;
-    2-D (``a`` (M, K)) or grouped (``a`` (G, M, K) against a payload of G
-    groups).
+    2-D (``a`` (M, K), or (K, M) under ``trans_a``) or grouped (``a`` (G,
+    M, K) or (G, K, M) against a payload of G groups).
 
     Float A: each codec tile is decoded, scaled in f32 and rounded to A's
     dtype (the reference's ``bf.astype(a.dtype)``), then one f32 matmul.
@@ -397,6 +519,8 @@ def mpgemm_packed_plain(a: torch.Tensor, b: PackedOperand, *,
     """
     grouped = a.dim() == 3
     _check_packed_pair(a, b, grouped)
+    if trans_a:
+        a = a.transpose(-1, -2)
     layout = b.layout
     g, nkb, nnb, bk, bn = layout.g, layout.nkb, layout.nnb, layout.bk, \
         layout.bn
@@ -438,13 +562,15 @@ def mpgemm_packed(a: torch.Tensor, b: PackedOperand, *,
                   scale: Optional[torch.Tensor] = None,
                   extras: Sequence[torch.Tensor] = (),
                   epilogue: EpilogueSpec = LINEAR,
-                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """K2: ``out = tail(alpha · (a @ dequant(b)) · scale + bias) + beta ·
-    c`` for a (M, K) and a packed (K, N) operand.  A bf16/f32 ``a`` takes
-    an int8, int4 or fp8e4m3 payload or a float payload of its own dtype;
-    an int8 ``a`` takes an int8, int4 or fp8e4m3 payload."""
+                  out_dtype: Optional[torch.dtype] = None,
+                  trans_a: bool = False) -> torch.Tensor:
+    """K2: ``out = tail(alpha · (op(a) @ dequant(b)) · scale + bias) +
+    beta · c`` for a (M, K), or (K, M) under ``trans_a``, and a packed (K,
+    N) operand.  A bf16/f32 ``a`` takes an int8, int4 or fp8e4m3 payload or
+    a float payload of its own dtype; an int8 ``a`` takes an int8, int4 or
+    fp8e4m3 payload."""
     return _packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   grouped=False)
+                   trans_a, grouped=False)
 
 
 def mpgemm_packed_grouped(a: torch.Tensor, b: PackedOperand, *,
@@ -453,30 +579,41 @@ def mpgemm_packed_grouped(a: torch.Tensor, b: PackedOperand, *,
                           scale: Optional[torch.Tensor] = None,
                           extras: Sequence[torch.Tensor] = (),
                           epilogue: EpilogueSpec = LINEAR,
-                          out_dtype: Optional[torch.dtype] = None
-                          ) -> torch.Tensor:
-    """Grouped K2: :func:`mpgemm_packed` for a (G, M, K) against a packed
-    operand of G groups (``layout.g``), in one launch; bias (G, N) or a
-    shared (N,), c and extras (G, M, N)."""
+                          out_dtype: Optional[torch.dtype] = None,
+                          trans_a: bool = False) -> torch.Tensor:
+    """Grouped K2: :func:`mpgemm_packed` for a (G, M, K), or (G, K, M)
+    under ``trans_a``, against a packed operand of G groups
+    (``layout.g``), in one launch; bias (G, N) or a shared (N,), c and
+    extras (G, M, N)."""
     return _packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   grouped=True)
+                   trans_a, grouped=True)
 
 
-def _packed(a, b, c, bias, scale, extras, epilogue, out_dtype, *, grouped):
+def _a_for_kernel(a, trans_a):
+    """K2's and K3's A: their loops read (M, K) rows, so ``trans_a``
+    hands them the contiguous Aᵀ, one copy of M·K elements."""
+    return a.transpose(-1, -2).contiguous() if trans_a else a
+
+
+def _packed(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, *,
+            grouped):
     out_dtype = out_dtype or _default_out_dtype(a.dtype)
     extras = tuple(extras)
     _check_extras(epilogue, extras)
     _check_c(epilogue, c)
-    _check_a(a, b.layout.k, grouped)
+    _check_a(a, b.layout.k, grouped, trans_a)
     _check_packed_pair(a, b, grouped)
     if a.device.type == "cpu":
         return mpgemm_packed_plain(a, b, c=c, bias=bias, scale=scale,
                                    extras=extras, epilogue=epilogue,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, trans_a=trans_a)
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm_packed: unsupported device {a.device}")
-    return _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                          grouped)
+    out = _launch_packed(_a_for_kernel(a, trans_a), b, c, bias, scale, extras,
+                         epilogue, out_dtype, grouped)
+    (mpgemm_packed_grouped if grouped else mpgemm_packed).trans_a_launches \
+        += int(trans_a)
+    return out
 
 
 def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
@@ -522,8 +659,8 @@ def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
     return out
 
 
-mpgemm_packed.launches = 0
-mpgemm_packed_grouped.launches = 0
+for _fn in (mpgemm_packed, mpgemm_packed_grouped):
+    _fn.launches = _fn.trans_a_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -569,10 +706,11 @@ def mpgemm_sparse_plain(a: torch.Tensor, b: TileSparseOperand, *,
                         scale: Optional[torch.Tensor] = None,
                         extras: Sequence[torch.Tensor] = (),
                         epilogue: EpilogueSpec = LINEAR,
-                        out_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
-    """K3's plain version, 2-D (``a`` (M, K)) or grouped (``a`` (G, M, K)
-    against an operand of G groups), in torch ops: gather the A tile of
+                        out_dtype: Optional[torch.dtype] = None,
+                        trans_a: bool = False) -> torch.Tensor:
+    """K3's plain version, 2-D (``a`` (M, K), or (K, M) under
+    ``trans_a``) or grouped (``a`` (G, M, K) or (G, K, M) against an
+    operand of G groups), in torch ops: gather the A tile of
     each stored tile's k index, one product per stored tile (f32 for float
     operands, exact in f64 for int8, then scaled by the tile's scale; an
     int8 tile against float A dequantized by its scale and rounded to A's
@@ -580,11 +718,15 @@ def mpgemm_sparse_plain(a: torch.Tensor, b: TileSparseOperand, *,
     in payload order -- on the CPU that is the reference's visit order --
     and the epilogue.  Empty columns keep a zero sum."""
     _check_sparse_pair(a, b, a.dim() == 3)
-    return _sparse_plain(a, b, c, bias, scale, extras, epilogue, out_dtype)
+    return _sparse_plain(a, b, c, bias, scale, extras, epilogue, out_dtype,
+                         trans_a)
 
 
-def _sparse_plain(a, b, c, bias, scale, extras, epilogue, out_dtype):
+def _sparse_plain(a, b, c, bias, scale, extras, epilogue, out_dtype,
+                  trans_a=False):
     grouped = a.dim() == 3
+    if trans_a:
+        a = a.transpose(-1, -2)
     layout = b.layout
     g, nkb, nnb, bk, bn, nnz = (layout.g, layout.nkb, layout.nnb, layout.bk,
                                 layout.bn, layout.nnz)
@@ -619,14 +761,16 @@ def mpgemm_sparse(a: torch.Tensor, b: TileSparseOperand, *,
                   scale: Optional[torch.Tensor] = None,
                   extras: Sequence[torch.Tensor] = (),
                   epilogue: EpilogueSpec = LINEAR,
-                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """K3: ``out = tail(alpha · (a @ b) · scale + bias) + beta · c`` for a
-    (M, K) and a tile-sparse (K, N) operand, walking only its stored
-    tiles: bf16 ``a`` against a bf16 payload, f32 against f32, and an int8
-    payload with per-tile scales against int8 ``a`` (``scale`` then
-    carries the int8 policy's sx) or against bf16 or f32 ``a``."""
+                  out_dtype: Optional[torch.dtype] = None,
+                  trans_a: bool = False) -> torch.Tensor:
+    """K3: ``out = tail(alpha · (op(a) @ b) · scale + bias) + beta · c``
+    for a (M, K), or (K, M) under ``trans_a``, and a tile-sparse (K, N)
+    operand, walking only its stored tiles: bf16 ``a`` against a bf16
+    payload, f32 against f32, and an int8 payload with per-tile scales
+    against int8 ``a`` (``scale`` then carries the int8 policy's sx) or
+    against bf16 or f32 ``a``."""
     return _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   grouped=False)
+                   trans_a, grouped=False)
 
 
 def mpgemm_sparse_grouped(a: torch.Tensor, b: TileSparseOperand, *,
@@ -635,29 +779,34 @@ def mpgemm_sparse_grouped(a: torch.Tensor, b: TileSparseOperand, *,
                           scale: Optional[torch.Tensor] = None,
                           extras: Sequence[torch.Tensor] = (),
                           epilogue: EpilogueSpec = LINEAR,
-                          out_dtype: Optional[torch.dtype] = None
-                          ) -> torch.Tensor:
-    """Grouped K3: :func:`mpgemm_sparse` for a (G, M, K) against a sparse
-    operand of G groups (``layout.g``), in one launch; bias (G, N) or a
-    shared (N,), c and extras (G, M, N)."""
+                          out_dtype: Optional[torch.dtype] = None,
+                          trans_a: bool = False) -> torch.Tensor:
+    """Grouped K3: :func:`mpgemm_sparse` for a (G, M, K), or (G, K, M)
+    under ``trans_a``, against a sparse operand of G groups
+    (``layout.g``), in one launch; bias (G, N) or a shared (N,), c and
+    extras (G, M, N)."""
     return _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   grouped=True)
+                   trans_a, grouped=True)
 
 
-def _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype, *, grouped):
+def _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, *,
+            grouped):
     out_dtype = out_dtype or _default_out_dtype(a.dtype)
     extras = tuple(extras)
     _check_extras(epilogue, extras)
     _check_c(epilogue, c)
-    _check_a(a, b.layout.k, grouped)
+    _check_a(a, b.layout.k, grouped, trans_a)
     _check_sparse_pair(a, b, grouped)
     if a.device.type == "cpu":
         return _sparse_plain(a, b, c, bias, scale, extras, epilogue,
-                             out_dtype)
+                             out_dtype, trans_a)
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm_sparse: unsupported device {a.device}")
-    return _launch_sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                          grouped)
+    out = _launch_sparse(_a_for_kernel(a, trans_a), b, c, bias, scale, extras,
+                         epilogue, out_dtype, grouped)
+    (mpgemm_sparse_grouped if grouped else mpgemm_sparse).trans_a_launches \
+        += int(trans_a)
+    return out
 
 
 def _check_on(name, t, shape, dtype, device):
@@ -705,8 +854,8 @@ def _launch_sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
     return out
 
 
-mpgemm_sparse.launches = 0
-mpgemm_sparse_grouped.launches = 0
+for _fn in (mpgemm_sparse, mpgemm_sparse_grouped):
+    _fn.launches = _fn.trans_a_launches = 0
 
 
 @functools.lru_cache(maxsize=None)

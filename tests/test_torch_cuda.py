@@ -248,10 +248,14 @@ def test_mpgemm_grouped_kernel_matches_plain(gen, a_dtype, out_dtype, g, m,
                                              k, n, kind, act, trans_b, bias):
     """Grouped K1 (the group on the third grid axis) against its plain
     version; the int8 variant's exact int32 sums make it bit-equal up to
-    the output rounding."""
+    the output rounding.  Each group equals the 2-D kernel on its own
+    slice: bit for bit where both launches sum K in the same slices (the
+    scalar design, or wgmma with the same split), else within the
+    output's tolerance (the wgmma design splits K by the grid's tile
+    count, so G groups and one group may be cut differently)."""
     from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec
-    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped, \
-        mpgemm_grouped_plain
+    from repro_torch.kernels.mpgemm import k1_design, k1_split, mpgemm, \
+        mpgemm_grouped, mpgemm_grouped_plain
 
     def rand(*shape):
         if a_dtype == torch.int8:
@@ -290,7 +294,12 @@ def test_mpgemm_grouped_kernel_matches_plain(gen, a_dtype, out_dtype, g, m,
                                                for e in extras),
                      spec=GemmSpec(trans_b=trans_b), epilogue=ep,
                      out_dtype=out_dtype)
-        assert torch.equal(one, got[i])
+        if (k1_design(a, b) == "simt"
+                or k1_split(m, n, k, g) == k1_split(m, n, k, 1)):
+            assert torch.equal(one, got[i])
+        else:
+            torch.testing.assert_close(one.float(), got[i].float(),
+                                       **TOL[out_dtype])
 
 
 @pytest.mark.cuda
@@ -641,10 +650,13 @@ def test_mpgemm_trans_a_kernel_matches_plain(gen, dtype, out_dtype, g, m, k,
 @pytest.mark.cuda
 def test_mpgemm_trans_a_refuses_what_it_does_not_take(gen):
     """int8 ``trans_a`` and ``trans_a`` with ``trans_b``, once refused, now
-    launch K1 and match the plain version (int32 outputs equal); ``trans_a``
-    against a packed B is still refused."""
+    launch K1 and match the plain version (int32 outputs equal); so does
+    ``trans_a`` against a packed B, once refused too (K2 on the copied
+    Aᵀ)."""
     from repro_torch.core.gemm_spec import GemmSpec
-    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_plain
+    from repro_torch.kernels.mpgemm import (
+        mpgemm, mpgemm_packed, mpgemm_packed_plain, mpgemm_plain,
+    )
     from repro_torch.packing.pack import pack_operand
     a = torch.randint(-3, 4, (8, 4), dtype=torch.int8, device="cuda")
     spec = GemmSpec(trans_a=True)
@@ -659,8 +671,11 @@ def test_mpgemm_trans_a_refuses_what_it_does_not_take(gen):
         mpgemm_plain(f, ft, trans_a=True, trans_b=True), **TOL[torch.float32])
     p = pack_operand(torch.randn(8, 16, generator=gen, device="cuda"),
                      (8, 8), dtype="float32")
-    with pytest.raises(NotImplementedError, match="trans_a"):
-        mpgemm(f, p, spec=GemmSpec(trans_a=True))
+    before = mpgemm_packed.trans_a_launches
+    torch.testing.assert_close(
+        mpgemm(f, p, spec=GemmSpec(trans_a=True)),
+        mpgemm_packed_plain(f, p, trans_a=True), **TOL[torch.float32])
+    assert mpgemm_packed.trans_a_launches == before + 1
 
 
 @pytest.mark.cuda
@@ -981,3 +996,201 @@ def test_mp_einsum_grouped_spec_launches_grouped_k1(gen):
     assert mpgemm_grouped.launches == before + 1
     torch.testing.assert_close(got, torch.einsum("gmk,gkn->gmn", a, b),
                                **TOL[torch.float32])
+
+
+# --- K1's wgmma design (csrc/mpgemm_wgmma.cu) ---------------------------------
+
+def _bf16(gen, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(
+        torch.bfloat16)
+
+
+def _k1_operands(gen, lead, m, n, k, trans_a, trans_b):
+    a = _bf16(gen, *lead, *((k, m) if trans_a else (m, k)))
+    b = _bf16(gen, *lead, *((n, k) if trans_b else (k, n)), scale=k ** -0.5)
+    return a, b
+
+
+def _run_k1(a, b, spec, **kw):
+    """One K1 launch; -> (output, the design it ran)."""
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
+    fn = mpgemm_grouped if spec.grouped else mpgemm
+    before = (fn.launches, fn.wgmma_launches)
+    out = fn(a, b, spec=spec, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before[0] + 1
+    return out, "wgmma" if fn.wgmma_launches > before[1] else "simt"
+
+
+TRANSPOSES = [(False, False), (False, True), (True, False), (True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", TRANSPOSES)
+@pytest.mark.parametrize("m", [1, 2, 8, 63, 64, 65, 72, 129, 136])
+def test_mpgemm_wgmma_kernel_matches_plain(gen, m, trans_a, trans_b):
+    """bf16 K1 at M off the 64-row tile and N = 200, K = 136 off BN and BK,
+    in all four transposes: the design the rule names runs (wgmma, except
+    ``trans_a`` with rows of M values that are no multiple of 8), and it
+    matches the plain version."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import k1_design, mpgemm_plain
+    n, k = 200, 136
+    a, b = _k1_operands(gen, (), m, n, k, trans_a, trans_b)
+    got, design = _run_k1(a, b, GemmSpec(trans_a=trans_a, trans_b=trans_b))
+    assert design == k1_design(a, b)
+    assert design == ("simt" if trans_a and m % 8 else "wgmma")
+    want = mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", TRANSPOSES)
+@pytest.mark.parametrize("m,k,n", [(2, 1024, 512), (32, 512, 1024),
+                                   (40, 200, 136)])
+def test_mpgemm_wgmma_grouped_kernel_matches_plain(gen, m, k, n, trans_a,
+                                                   trans_b):
+    """Grouped bf16 K1 over G = 32 groups (granite's expert count), f32
+    outputs: no tile crosses a group, split-K included (M = 2); ``trans_a``
+    at M = 2 (rows of 2 values) is the scalar K1's by the rule."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import k1_design, mpgemm_plain
+    a, b = _k1_operands(gen, (32,), m, n, k, trans_a, trans_b)
+    spec = GemmSpec(grouped=True, trans_a=trans_a, trans_b=trans_b)
+    got, design = _run_k1(a, b, spec, out_dtype=torch.float32)
+    assert design == k1_design(a, b)
+    assert design == ("simt" if trans_a and m % 8 else "wgmma")
+    want = mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b,
+                        out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,act", [
+    ("linear", "gelu"), ("gated", "silu"), ("residual", None),
+    ("quant_in", "silu"), ("quant_in_residual", "relu")])
+@pytest.mark.parametrize("m,grouped", [(2, False), (100, False), (2, True)])
+def test_mpgemm_wgmma_epilogues_match_plain(gen, kind, act, out_dtype, m,
+                                            grouped):
+    """Every epilogue kind on the wgmma design, with alpha, a bias and
+    beta·C, f32 and bf16 outputs; M = 2 runs split-K (the epilogue in the
+    reducing launch), M = 100 one slice."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
+        get_epilogue
+    from repro_torch.kernels.mpgemm import mpgemm_plain
+    n, k = 264, 1024
+    lead = (4,) if grouped else ()
+    a, b = _k1_operands(gen, lead, m, n, k, False, False)
+    ed = get_epilogue(kind)
+    extras = tuple(
+        torch.rand(*lead, m, 1, generator=gen, device="cuda") + 0.5
+        if name in ed.row_operands else
+        torch.randn(*lead, m, n, generator=gen, device="cuda").to(out_dtype)
+        for name in ed.extra_operands)
+    c = torch.randn(*lead, m, n, generator=gen, device="cuda").to(out_dtype)
+    kw = dict(c=c, bias=torch.randn(n, generator=gen, device="cuda"),
+              extras=extras, out_dtype=out_dtype,
+              epilogue=EpilogueSpec(kind=kind, activation=act, alpha=1.5,
+                                    beta=0.5))
+    got, design = _run_k1(a, b, GemmSpec(grouped=grouped), **kw)
+    assert design == "wgmma"
+    want = mpgemm_plain(a, b, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["split-k", "trans_a", "grouped-trans_a"])
+def test_mpgemm_wgmma_is_deterministic(gen, case):
+    """Two launches give the same bits: split-K at phi3's decode shape (the
+    slices summed in a fixed order), and ``trans_a`` at training's dW
+    shapes (a resumed run must repeat a continuous one)."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import k1_split
+    if case == "split-k":
+        lead, m, n, k, ta = (), 2, 3072, 3072, False
+        assert k1_split(m, n, k)[0] > 1
+    elif case == "trans_a":
+        lead, m, n, k, ta = (), 1024, 512, 512, True
+    else:
+        lead, m, n, k, ta = (32,), 1024, 512, 160, True
+    a, b = _k1_operands(gen, lead, m, n, k, ta, False)
+    spec = GemmSpec(grouped=bool(lead), trans_a=ta)
+    first, design = _run_k1(a, b, spec, out_dtype=torch.float32)
+    again, _ = _run_k1(a, b, spec, out_dtype=torch.float32)
+    assert design == "wgmma"
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_mpgemm_wgmma_rule_sends_misaligned_rows_to_simt(gen):
+    """A contiguous view that starts 2 bytes off a 16-byte boundary, and
+    rows of 101 values, run the scalar K1 and still match."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm_plain
+    base = _bf16(gen, 64 * 128 + 1)
+    a = base[1:].view(64, 128)               # contiguous, misaligned
+    b = _bf16(gen, 128, 96)
+    for x, y in ((a, b), (_bf16(gen, 48, 101), _bf16(gen, 101, 40))):
+        got, design = _run_k1(x, y, GemmSpec())
+        assert design == "simt"
+        torch.testing.assert_close(got.float(), mpgemm_plain(x, y).float(),
+                                   **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("a_dtype,payload", [
+    ("bfloat16", "int4"), ("bfloat16", "bfloat16"), ("int8", "int8"),
+    ("int8", "fp8e4m3")])
+def test_mpgemm_packed_trans_a_kernel_matches_plain(gen, a_dtype, payload,
+                                                    grouped):
+    """K2 with A read (K, M): the wrapper copies Aᵀ, the kernel matches
+    the plain version's transposed read."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import (
+        mpgemm, mpgemm_grouped, mpgemm_packed, mpgemm_packed_grouped,
+        mpgemm_packed_plain,
+    )
+    from repro_torch.packing.pack import pack_operand
+    lead = (3,) if grouped else ()
+    w = torch.randn(*lead, 200, 136, generator=gen, device="cuda") * 0.05
+    p = pack_operand(w, (64, 64), dtype=payload)
+    a, scale = _sparse_a(gen, (*lead, 200, 33), a_dtype)
+    counter = mpgemm_packed_grouped if grouped else mpgemm_packed
+    before = counter.trans_a_launches
+    fn = mpgemm_grouped if grouped else mpgemm
+    got = fn(a, p, scale=scale, out_dtype=torch.float32,
+             spec=GemmSpec(grouped=grouped, trans_a=True))
+    torch.cuda.synchronize()
+    assert counter.trans_a_launches == before + 1
+    want = mpgemm_packed_plain(a, p, scale=scale, out_dtype=torch.float32,
+                               trans_a=True)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_mpgemm_sparse_trans_a_kernel_matches_plain(gen, dtype, grouped):
+    """K3 with A read (K, M), bf16 and int8 tiles, 2-D and grouped."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import (
+        mpgemm, mpgemm_grouped, mpgemm_sparse, mpgemm_sparse_grouped,
+        mpgemm_sparse_plain,
+    )
+    lead = (3,) if grouped else ()
+    b = _sparse_operand(gen, (*lead, 150, 96), (32, 32), dtype, "half")
+    a, scale = _sparse_a(gen, (*lead, 150, 37), dtype)
+    counter = mpgemm_sparse_grouped if grouped else mpgemm_sparse
+    before = counter.trans_a_launches
+    fn = mpgemm_grouped if grouped else mpgemm
+    got = fn(a, b, scale=scale, out_dtype=torch.float32,
+             spec=GemmSpec(grouped=grouped, trans_a=True))
+    torch.cuda.synchronize()
+    assert counter.trans_a_launches == before + 1
+    want = mpgemm_sparse_plain(a, b, scale=scale, out_dtype=torch.float32,
+                               trans_a=True)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])

@@ -280,12 +280,18 @@ def test_sparse_beta_c_matches_reference(payload):
 
 
 def test_trans_a_against_a_packed_operand_is_refused():
-    """``trans_a`` against a packed or sparse B has no caller and is not
-    ported: refused on every device."""
-    w = torch.ones(32, 16)
-    p = pack_operand(w, (16, 16), dtype="float32")
-    with pytest.raises(NotImplementedError, match="trans_a"):
-        ops.mpgemm(torch.ones(32, 4), p, trans_a=True)
+    """``trans_a`` against a packed B, once refused, is ported now (K2 on
+    the copied Aᵀ on the card): it matches the reference (more cases in
+    ``tests/test_torch_k1_design.py``)."""
+    rng = np.random.default_rng(12)
+    w = _f32(rng, (32, 16))
+    aj, at = _both(_f32(rng, (32, 4)))
+    want = jops.mpgemm(aj, jax_pack(jnp.asarray(w), (16, 16),
+                                    dtype="float32"),
+                       trans_a=True, interpret=True)
+    got = ops.mpgemm(at, pack_operand(torch.from_numpy(w), (16, 16),
+                                      dtype="float32"), trans_a=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float64), **F32)
 
 
 # --- the oracle -------------------------------------------------------------
