@@ -9,8 +9,8 @@ Each tree is a directory holding ``chip_smoke.py`` and ``src/repro_torch``
 directory that ``.gitignore`` lists).  Both trees' kernels are built first,
 in parallel.  Each run calls the named ``chip_smoke.py`` phases of its tree
 (default: ``phase_k1 phase_k1_int8 phase_k2 phase_k1_grouped
-phase_k2_grouped phase_k3``; a phase the old tree lacks is left out
-there, one the new tree lacks fails the run) and reports their
+phase_k2_grouped phase_k3 phase_k4``; a phase the old tree lacks is left
+out there, one the new tree lacks fails the run) and reports their
 per-decode-step kernel times.  A phase named ``serve:LABEL`` serves the
 new tree's ``chip_smoke.SERVE_PATHS[LABEL]`` (or ``NO_FUSE_PATHS[LABEL]``)
 path through each tree's ``phase_serve`` and reports the median decode
@@ -39,7 +39,8 @@ import sys
 from pathlib import Path
 
 DEFAULT_PHASES = ("phase_k1", "phase_k1_int8", "phase_k2",
-                  "phase_k1_grouped", "phase_k2_grouped", "phase_k3")
+                  "phase_k1_grouped", "phase_k2_grouped", "phase_k3",
+                  "phase_k4")
 
 # One run: the tree's chip_smoke phases, their step rows as one JSON line.
 RUN = r"""

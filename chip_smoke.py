@@ -13,20 +13,26 @@ printing a result:
    granite-moe-1b-a400m 2-D GEMM shapes (decode M = 2 and chunked prefill
    M = 32; granite's attention projections, its f32 router and its tied
    head read as B^T), a ragged edge case and an f32 case, each row naming
-   the design that ran it (``kernels/mpgemm.py::k1_design``: bf16 with
-   16-byte rows on ``kernels/csrc/mpgemm_wgmma.cu``, TMA and wgmma; the
+   the design that ran it (``kernels/mpgemm.py::k1_design``: bf16 or int8
+   with 16-byte rows on the wgmma design, TMA and wgmma --
+   ``kernels/csrc/mpgemm_wgmma.cu`` for bf16, ``mpgemm_wgmma_int8.cu``
+   for int8, whose MN-major operands are transposed in shared memory; the
    rest on ``kernels/csrc/mpgemm.cu``'s scalar loops); then K1's int8
    variant (int8 operands, exact int32 sum, device scale) at the same
-   shapes but the router;
+   shapes but the router, every launch on the wgmma design;
 3. K5 (``kernels/csrc/paged_flash.cu``) against its plain version at
    phi3-mini's and granite's attention shapes (decode and 16-token chunked
    prefill) and at a GQA + sliding-window shape, with ragged lengths, dead
    block-table slots over a NaN-filled scratch page and one idle row; then
-   K4 (``kernels/csrc/flash_attention.cu``) at whisper-medium's shapes
-   (the encoder's 1500 x 1500 non-causal self-attention, the decoder's
-   causal prefill, cross-attention at prefill and at decode), phi3-mini's
-   causal prefill, a GQA 32:8 head of 120 with a window and tq < tk, and
-   an f32 case, each beside SDPA with the same mask;
+   K4 at whisper-medium's shapes (the encoder's 1500 x 1500 non-causal
+   self-attention, the decoder's causal prefill, cross-attention at
+   prefill and at decode), phi3-mini's causal prefill, a GQA 32:8 head of
+   120 with a window and tq < tk, and an f32 case, each on the design
+   ``kernels/flash_attention.py::k4_design`` names (bf16: the wgmma or
+   the split design of ``kernels/csrc/flash_attention_wgmma.cu``; f32:
+   ``kernels/csrc/flash_attention.cu``), the same bits from two
+   launches, beside SDPA (no mask where every key is seen,
+   ``is_causal`` for a causal square, else the mask);
 4. K6 (``kernels/csrc/pack.cu``) packing every full-width phi3-mini weight
    shape and a ragged ``trans_w`` one into bf16, int8, int4 and fp8
    payloads: payload and scales byte-equal to its plain version;
@@ -88,8 +94,8 @@ printing a result:
    K3, 16 K5 and 0 K1 per step) and granite under int8 with N:M 2:4 (48
    K3, 36 grouped K3, 13 K1, 12 K5 per step), each sparsified from the
    f32 draw through K6 (113 and 84 launches at load).  Every launch
-   count of each run is asserted, every bf16 K1 launch must have run the
-   wgmma design, every logit is finite, and for each path
+   count of each run is asserted, every bf16 and int8 K1 launch must have
+   run the wgmma design, every logit is finite, and for each path
    one full-width mixed step through the kernels agrees with the same step
    through the plain versions; one two-row decode step of each path is
    timed on the host clock and traced with ``torch.profiler`` (the
@@ -98,8 +104,8 @@ printing a result:
    bf16: full-width whisper-medium (24 encoder and 24 decoder layers, 385
    K1 and 72 K4 per prefill, 193 K1 and 24 K4 per decode step) and
    full-width phi3-mini (225 K1 and 32 K4 per prefill, 225 K1 per decode
-   step), with the same checks, one prefill and one decode step against
-   the plain versions;
+   step), with the same checks (every K4 launch on the wgmma or split
+   design), one prefill and one decode step against the plain versions;
 8. the training path: K1 ``trans_a`` (A read (K, M), the weight
    gradients) at a 512-token training step's dW shapes -- granite's
    attention projections, f32 router, tied embedding (49280 x 1024) and
@@ -115,8 +121,9 @@ printing a result:
    24 layers, bf16, batch 4 x seq 128, remat, 3 steps with a checkpoint,
    and phi3-mini at full width cut to 4 layers under int8 (the STE), 2
    steps -- finite loss and grad norm, exact launch counts a step
-   (``_want_train_launches``; the wgmma design's among them: every bf16
-   K1 launch), ``--resume`` restoring bit-identical
+   (``_want_train_launches``; the wgmma designs' among them: every bf16
+   and int8 K1 launch, every K4 launch), ``--resume`` restoring
+   bit-identical
    parameters and AdamW state, one step's loss and gradients against the
    plain versions, step time, tokens/s, peak memory, and one step traced
    with ``torch.profiler``;
@@ -423,15 +430,17 @@ def phase_k1_int8(torch, timer):
                 return apply_epilogue(ep, acc.float(), scale=scale,
                                       extras=extras).to(bf16)
 
-            got, ref = kern(), plain()
+            (got, design), ref = _k1_design_of(kern), plain()
             torch.cuda.synchronize()
+            if design != "wgmma":
+                raise AssertionError(f"K1 int8 {name} m={m}: ran {design}")
             err = _check_close(torch, f"K1 int8 {name} m={m}", got, ref, tol)
             step.max_abs_err = max(step.max_abs_err, err)
             n_bytes = m * k + k * n + 2 * m * n * (1 + len(extras)) + 4
             n_ops = 2 * m * n * k
             bound, bound_by = _bound_ms(n_bytes, n_ops, "int8")
             ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
-            print(f"[k1-int8] {name:>7} m={m:<3} k={k:<5} n={n:<6} "
+            print(f"[k1-int8] {name:>7} {design} m={m:<3} k={k:<5} n={n:<6} "
                   f"trans_b={trans_b:d} {kind:>8}/{act}: err {err:.2e}  "
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
                   f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
@@ -642,10 +651,14 @@ def _k4_pairs(tq, tk, causal, window):
 
 def phase_k4(torch, timer):
     """K4 against its plain version at the wave path's shapes, each launch
-    timed alone on a cold L2, beside the plain version, SDPA with the same
-    mask (K/V repeated for GQA beforehand, not timed) and the bound."""
+    timed alone on a cold L2, beside the plain version, SDPA (K/V repeated
+    for GQA beforehand, not timed) and the bound; each case names the
+    design ``k4_design`` ran (bf16: "wgmma" or "split", f32: "simt") and
+    the slices over the keys (``k4_split``).  SDPA gets no mask where every
+    key is visible, ``is_causal`` for a causal square without a window
+    (both keep its flash backend open), else the explicit mask."""
     from repro_torch.kernels.flash_attention import (
-        _attention_mask, flash_attention, flash_attention_plain,
+        _attention_mask, flash_attention, flash_attention_plain, k4_split,
     )
     F = torch.nn.functional
     rng = np.random.default_rng(5)
@@ -661,7 +674,13 @@ def phase_k4(torch, timer):
         kw = dict(causal=causal, window=window)
         g = h // hkv
         kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
-        mask = _attention_mask(tq, tk, causal, window, q.device)
+        if not causal and window is None:
+            sdpa = dict()
+        elif causal and window is None and tq == tk:
+            sdpa = dict(is_causal=True)
+        else:
+            sdpa = dict(attn_mask=_attention_mask(tq, tk, causal, window,
+                                                  q.device))
 
         def kern():
             return flash_attention(q, k, v, **kw)
@@ -670,10 +689,18 @@ def phase_k4(torch, timer):
             return flash_attention_plain(q, k, v, **kw)
 
         def library():
-            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+            return F.scaled_dot_product_attention(q, kr, vr, **sdpa)
 
-        got, ref = kern(), plain()
+        (got, design), ref = _k4_design_of(kern), plain()
         torch.cuda.synchronize()
+        if design != ("simt" if dt == "float32" else
+                      "split" if g * tq <= 16 else "wgmma"):
+            raise AssertionError(f"K4 {name}: ran the {design} design")
+        again = kern()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K4 {name}: two launches differ")
+        del again
         tol = TOL[dt]
         err = _check_close(torch, f"K4 {name}", got, ref, tol)
         esz = q.element_size()
@@ -684,11 +711,14 @@ def phase_k4(torch, timer):
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms, bound_ms=bound,
                           bound_by=bound_by, bytes=n_bytes, ops=n_ops)
-        print(f"[k4] {name:>20} {dt:>8} B={b} H={h} Hkv={hkv} D={d} "
+        slices = k4_split(g * tq, tk, b, hkv) if design != "simt" else 1
+        print(f"[k4] {name:>20} {dt:>8} {design:>5} x{slices:<2} B={b} "
+              f"H={h} Hkv={hkv} D={d} "
               f"tq={tq} tk={tk} causal={causal:d} window={window}: err "
               f"{err:.2e} (rtol {tol['rtol']}, atol {tol['atol']})  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f}  library (SDPA) "
-              f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
+              f"{lib_ms:.4f} {sdpa and next(iter(sdpa)) or 'no mask'}  "
+              f"bound {bound:.4f} ({bound_by})  "
               f"{n_ops / ms / 1e9:.1f} TFLOP/s")
 
     def total(label, parts):
@@ -953,6 +983,9 @@ def phase_k1_grouped(torch, timer):
 
                 (got, design), ref = _k1_design_of(kern), plain()
                 torch.cuda.synchronize()
+                if design != "wgmma":
+                    raise AssertionError(f"grouped K1 {dt_name} {name} "
+                                         f"m={m}: ran {design}")
                 err = _check_close(torch, f"grouped K1 {dt_name} {name} "
                                    f"m={m}", got, ref, TOL["float32"])
                 step.max_abs_err = max(step.max_abs_err, err)
@@ -1291,19 +1324,49 @@ def _reset_counters():
         c[name].trans_b_launches = c[name].wgmma_launches = 0
     for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g"):
         c[name].trans_a_launches = 0
+    c["k4"].wgmma_launches = c["k4"].split_launches = 0
 
 
 def _read_counters():
     """Every launch count, K1's and grouped K1's ``trans_a`` and
     ``trans_b`` ones as ``k1_ta`` / ``k1_tb`` / ``k1g_ta`` / ``k1g_tb``,
-    and those that ran the wgmma design as ``k1_wgmma`` / ``k1g_wgmma``."""
+    those that ran K1's wgmma design as ``k1_wgmma`` / ``k1g_wgmma``, and
+    K4's on its wgmma and split designs as ``k4_wgmma`` / ``k4_split``."""
     c = _counters()
     out = {name: fn.launches for name, fn in c.items()}
     for name in ("k1", "k1g"):
         out[f"{name}_ta"] = c[name].trans_a_launches
         out[f"{name}_tb"] = c[name].trans_b_launches
         out[f"{name}_wgmma"] = c[name].wgmma_launches
+    # (0 on a tree without them: chip_ab.py)
+    out["k4_wgmma"] = getattr(c["k4"], "wgmma_launches", 0)
+    out["k4_split"] = getattr(c["k4"], "split_launches", 0)
     return out
+
+
+def _k4_design_of(call):
+    """Run ``call`` (one K4 launch) -> (its output, the design that ran it:
+    "wgmma", "split" or "simt", read off the counters)."""
+    fn = _counters()["k4"]
+
+    def count(design):
+        return getattr(fn, f"{design}_launches", 0)
+
+    before = (count("wgmma"), count("split"))
+    out = call()
+    return out, ("wgmma" if count("wgmma") > before[0] else
+                 "split" if count("split") > before[1] else "simt")
+
+
+def _check_k4_designs(label, counts):
+    """Every K4 launch of a path ran a Hopper design (``k4_design``): its
+    operands are bf16 with head widths the rule takes."""
+    new = counts["k4_wgmma"] + counts["k4_split"]
+    print(f"[{label}] K4 designs: wgmma {counts['k4_wgmma']}, split "
+          f"{counts['k4_split']} of {counts['k4']} launches")
+    if new != counts["k4"]:
+        raise AssertionError(f"{label}: {counts['k4'] - new} K4 launches "
+                             f"ran the scalar kernel, want none")
 
 
 def _k1_design_of(call):
@@ -1320,13 +1383,14 @@ def _k1_design_of(call):
 
 
 def _check_wgmma(label, got, want):
-    """Every bf16 K1 launch of a path ran the wgmma design: ``got`` and
-    ``want`` map ``k1`` / ``k1g`` to wgmma launches and bf16 launches."""
-    print(f"[{label}] wgmma design: K1 {got['k1']} of {want['k1']} bf16 "
-          f"launches, grouped K1 {got['k1g']} of {want['k1g']}")
+    """Every bf16 and int8 K1 launch of a path ran the wgmma design: ``got``
+    and ``want`` map ``k1`` / ``k1g`` to wgmma launches and bf16 and int8
+    launches."""
+    print(f"[{label}] wgmma design: K1 {got['k1']} of {want['k1']} bf16 / "
+          f"int8 launches, grouped K1 {got['k1g']} of {want['k1g']}")
     if got != want:
         raise AssertionError(f"{label}: wgmma launches {got}, want every "
-                             f"bf16 K1 launch: {want}")
+                             f"bf16 and int8 K1 launch: {want}")
 
 
 def _want_launches(cfg, pack, n_steps, sparse=False):
@@ -1453,13 +1517,12 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
         raise AssertionError(f"served {sorted(out)} of 4 requests")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
-    # bf16 K1 launches: under bf16 all of them but the MoE routers (f32);
-    # under int8 none (int8 operands).
-    bf16 = policy == "bf16"
+    # bf16 and int8 K1 launches: all of them but the MoE routers (f32),
+    # under either policy (every width of both models is a multiple of 16).
     routers = n_layers if cfg.family == "moe" else 0
     _check_wgmma(f"serve:{label}", wgmma, dict(
-        k1=(per_step["k1"] - routers) * n_steps if bf16 else 0,
-        k1g=per_step["k1g"] * n_steps if bf16 else 0))
+        k1=(per_step["k1"] - routers) * n_steps,
+        k1g=per_step["k1g"] * n_steps))
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
@@ -1669,7 +1732,9 @@ def _decode_step_times(torch, step, steps=5):
 TRACE_KERNELS = (("mpgemm_sparse", "K3"),
                  ("mpgemm_packed_kernel", "K2"), ("mpgemm_int8_kernel", "K1"),
                  ("mpgemm_kernel", "K1"), ("mpgemm_wgmma_kernel", "K1 wgmma"),
-                 ("paged_flash_kernel", "K5"), ("flash_kernel", "K4"),
+                 ("paged_flash_kernel", "K5"),
+                 ("flash_wgmma_kernel", "K4 wgmma"),
+                 ("flash_split_kernel", "K4 split"), ("flash_kernel", "K4"),
                  ("pack_kernel", "K6"))
 
 
@@ -1862,6 +1927,7 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
         raise AssertionError(f"launch counts {counts}, want {want}")
     # Dense bf16 and no router: every K1 launch is a bf16 one.
     _check_wgmma(f"wave:{label}", wgmma, dict(k1=counts["k1"], k1g=0))
+    _check_k4_designs(f"wave:{label}", _read_counters())
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
@@ -2228,10 +2294,12 @@ def _ops_row(torch, timer, label, counter, cases):
               + f"  plain {plain_ms:.4f}"
               + (f"  library {lib_ms:.4f}" if library else "")
               + f"  bound {bound:.4f} ({bound_by})  {rate:.2f} TOP/s")
+    designs = [design for _, design in ran]
     del ran
     row = acc.row(cases[0]["peak"])
     row["library_ms"] = row["library_ms"] if library else None
     row["launches"] = counts[counter]
+    row["designs"] = designs
     if any(c["copy"] for c in cases):
         row["copy_ms"] = copy_ms
     print(f"[ops:{label}] {len(cases)} launches of {counter}: kernel "
@@ -2305,6 +2373,11 @@ def _table3_rows(torch, timer, gen):
                 peak={f32: "float32", bf16: "bfloat16", i8: "int8"}[dt]))
         rows[f"table3-{label}"] = _ops_row(torch, timer, f"table3-{label}",
                                            "k1", cases)
+        # The rule sends every bf16 and int8 shape of the table to wgmma.
+        if dt != f32 and set(rows[f"table3-{label}"]["designs"]) != {
+                "wgmma"}:
+            raise AssertionError(f"table3-{label}: designs "
+                                 f"{rows[f'table3-{label}']['designs']}")
         del cases
         gc.collect()
         torch.cuda.empty_cache()
@@ -2363,6 +2436,9 @@ def _table3_rows(torch, timer, gen):
                 peak="float32" if dt == f32 else "bfloat16"))
     rows["int8-trans_a"] = _ops_row(torch, timer, "int8-trans_a", "k1",
                                     int_cases)
+    for key in ("int32-epilogue", "int8-trans_a"):
+        if set(rows[key]["designs"]) != {"wgmma"}:
+            raise AssertionError(f"{key}: designs {rows[key]['designs']}")
     rows["trans_a+b"] = _ops_row(torch, timer, "trans_a+b", "k1", cases)
     return rows
 
@@ -2754,10 +2830,12 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     weight; a tied head's dx reads the (V, d) embedding as it is) and dW
     (``trans_a``) for every GEMM, plus the recompute of z for the gated
     SwiGLU GEMM; attention's backward is torch ops (no K4).  K7 never runs:
-    the weights are dense.  The wgmma design runs every bf16 K1 launch
-    (``k1_wgmma``, ``k1g_wgmma``): under bf16 all but the f32 routers'
-    (forward, dx, dW); under int8 the backward's (the straight-through
-    estimator runs it in bf16) but the routers'."""
+    the weights are dense.  The wgmma design runs every bf16 and int8 K1
+    launch (``k1_wgmma``, ``k1g_wgmma``): all but the f32 routers'
+    (forward, dx, dW), under either policy.  K4 runs
+    its split design when a kv head's G·seq folded rows number at most 16
+    (``k4_design``; the smoke configs), else its wgmma design (``k4_wgmma``,
+    ``k4_split``)."""
     n, moe, tied = cfg.n_layers, cfg.family == "moe", cfg.tie_embeddings
     r = 2 if remat else 1
     chunks = -(-seq // 512)
@@ -2771,12 +2849,12 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     want["k1g_ta"] = want["k1g_tb"] = 3 * n if moe else 0
     want["k4"] = r * n
     want["k1_wgmma"] = want["k1g_wgmma"] = 0
-    if policy == "bf16":
+    if policy in ("bf16", "int8"):
         want["k1_wgmma"] = want["k1"] - ((r + 2) * n if moe else 0)
         want["k1g_wgmma"] = want["k1g"]
-    elif policy == "int8":
-        want["k1_wgmma"] = n * bwd_2d + 2 - (2 * n if moe else 0)
-        want["k1g_wgmma"] = 7 * n if moe else 0
+    split = cfg.n_heads // cfg.n_kv_heads * seq <= 16
+    want["k4_split"] = want["k4"] if split else 0
+    want["k4_wgmma"] = 0 if split else want["k4"]
     return want
 
 
@@ -2981,7 +3059,8 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
                                  f"want {want}")
         print(f"[train:{label}] wgmma design: K1 {counts['k1_wgmma']} of "
               f"{counts['k1']} launches, grouped K1 {counts['k1g_wgmma']} "
-              f"of {counts['k1g']} (every bf16 one)")
+              f"of {counts['k1g']} (every bf16 and int8 one)")
+        _check_k4_designs(f"train:{label}", counts)
 
         t0 = time.perf_counter()
         _, p_res, o_res = train_cli.main(
@@ -3119,9 +3198,9 @@ def main():
     fa4 = "src/repro/kernels/flash_attention.py:31"
     kernels = [
         row("K1 mpgemm (dense 2-D MPGEMM, bf16, fused epilogue)",
-            "mpgemm.cu", f"{mp}:232", serves["bf16"]["k1"], k1["phi3"]),
+            "mpgemm_wgmma.cu", f"{mp}:232", serves["bf16"]["k1"], k1["phi3"]),
         row("K1 mpgemm int8 (dense int8 policy, int32 sum, device scale)",
-            "mpgemm.cu", f"{mp}:232", serves["int8-dense"]["k1"],
+            "mpgemm_wgmma_int8.cu", f"{mp}:232", serves["int8-dense"]["k1"],
             k1_int8["phi3"]),
         row("K2 mpgemm_packed (int4 payload, bf16 A)", "mpgemm_packed.cu",
             f"{mp}:106", serves["int4"]["k2"], k2[("phi3", ("bf16", "int4"))]),
@@ -3130,10 +3209,11 @@ def main():
         row("K5 paged_flash (paged flash attention)", "paged_flash.cu", fa,
             serves["bf16"]["k5"], k5["phi3"]),
         row("K1 mpgemm at granite's 2-D shapes (bf16 attention, f32 router, "
-            "tied head as B^T)", "mpgemm.cu", f"{mp}:232",
+            "tied head as B^T)", "mpgemm_wgmma.cu", f"{mp}:232",
             serves["granite-bf16"]["k1"], k1["granite"]),
         row("K1 mpgemm int8 at granite's 2-D shapes (attention, tied head; "
-            "the launches include the f32 routers)", "mpgemm.cu", f"{mp}:232",
+            "the launches include the f32 routers)", "mpgemm_wgmma_int8.cu",
+            f"{mp}:232",
             serves["granite-int8-dense"]["k1"], k1_int8["granite"]),
         row("K2 mpgemm_packed at granite's attention (int4 payload, bf16 A)",
             "mpgemm_packed.cu", f"{mp}:106", serves["granite-int4"]["k2"],
@@ -3149,10 +3229,10 @@ def main():
             "src/repro/packing/pack.py:221", serves["int4"]["k6"],
             dict(k6["int4"], library_ms=None)),
         row("K1 mpgemm_grouped (granite expert GEMMs, bf16 A, f32 out, "
-            "fused SwiGLU gate)", "mpgemm.cu", f"{mp}:812",
+            "fused SwiGLU gate)", "mpgemm_wgmma.cu", f"{mp}:812",
             serves["granite-bf16"]["k1g"], k1g["bfloat16"]),
         row("K1 mpgemm_grouped int8 (granite expert GEMMs, int32 sum, "
-            "device scale)", "mpgemm.cu", f"{mp}:812",
+            "device scale)", "mpgemm_wgmma_int8.cu", f"{mp}:812",
             serves["granite-int8-dense"]["k1g"], k1g["int8"]),
         row("K2 mpgemm_packed_grouped (granite experts, int4 payload, bf16 "
             "A)", "mpgemm_packed.cu", f"{mp}:250",
@@ -3166,13 +3246,14 @@ def main():
             serves["granite-int4"]["k6"],
             dict(k6g["int4"], library_ms=None)),
         row("K4 flash_attention (whisper-medium wave prefill: 24 encoder "
-            "1500x1500, 24 causal, 24 cross 32x1500)", "flash_attention.cu",
+            "1500x1500, 24 causal, 24 cross 32x1500)",
+            "flash_attention_wgmma.cu",
             fa4, waves["whisper"]["k4"], k4["whisper-prefill"]),
         row("K4 flash_attention (whisper-medium decode step: 24 cross "
-            "1x1500)", "flash_attention.cu", fa4, waves["whisper"]["k4"],
+            "1x1500)", "flash_attention_wgmma.cu", fa4, waves["whisper"]["k4"],
             k4["whisper-decode"]),
         row("K4 flash_attention (phi3-mini wave prefill: 32 causal, D 96)",
-            "flash_attention.cu", fa4, waves["phi3"]["k4"],
+            "flash_attention_wgmma.cu", fa4, waves["phi3"]["k4"],
             k4["phi3-prefill"]),
         row("K3 mpgemm_sparse (phi3-mini, 50 % magnitude, bf16 A x bf16 "
             "tiles)", "mpgemm_sparse.cu", f"{mp}:181",
@@ -3185,15 +3266,15 @@ def main():
             serves["granite-sparse-int8"]["k3g"],
             k3["granite-grouped-int8"]),
         row("K1 mpgemm trans_a (dW of a granite training step, 512 tokens: "
-            "attention, f32 routers, tied embedding)", "mpgemm.cu",
+            "attention, f32 routers, tied embedding)", "mpgemm_wgmma.cu",
             f"{mp}:232", trains["granite-bf16"]["counts"]["k1_ta"],
             k1ta["granite"]),
         row("K1 mpgemm_grouped trans_a (dW of granite's expert stacks, 160 "
-            "rows each)", "mpgemm.cu", f"{mp}:812",
+            "rows each)", "mpgemm_wgmma.cu", f"{mp}:812",
             trains["granite-bf16"]["counts"]["k1g_ta"],
             k1ta["granite-grouped"]),
         row("K1 mpgemm trans_a (dW of a phi3-mini int8 training step, 4 "
-            "layers, 512 tokens)", "mpgemm.cu", f"{mp}:232",
+            "layers, 512 tokens)", "mpgemm_wgmma.cu", f"{mp}:232",
             trains["phi3-int8-4-layers"]["counts"]["k1_ta"], k1ta["phi3"]),
         row("K7 unpack (phi3-mini w_up 3072x8192, bf16 payload, the packed "
             "backward)", "pack.cu", "src/repro/packing/pack.py:242",
@@ -3205,19 +3286,20 @@ def main():
         ("K1 ops.mpgemm, paper Table III (24 shapes), f32 -> f32",
          "mpgemm.cu", f"{mp}:232", "t3/table3-f32"),
         ("K1 ops.mpgemm, paper Table III (24 shapes), bf16 -> bf16",
-         "mpgemm.cu", f"{mp}:232", "t3/table3-bf16"),
+         "mpgemm_wgmma.cu", f"{mp}:232", "t3/table3-bf16"),
         ("K1 ops.mpgemm, paper Table III (24 shapes), int8 -> int32 "
-         "(exact)", "mpgemm.cu", f"{mp}:232", "t3/table3-int8"),
+         "(exact)", "mpgemm_wgmma_int8.cu", f"{mp}:232", "t3/table3-int8"),
         ("K1 beta*C (W1, W13, W19: alpha 1.5, beta 2.0 * C, bias, gelu; "
          "f32 and bf16)", "mpgemm.cu", f"{mp}:237", "t3/beta-c"),
         ("K1 int8 -> int32 integer epilogue (W1, W13, W19: alpha 2, beta "
-         "3 * C, bias)", "mpgemm.cu", f"{mp}:232", "t3/int32-epilogue"),
-        ("K1 int8 trans_a (W13, W19, int32)", "mpgemm.cu", f"{mp}:232",
-         "t3/int8-trans_a"),
+         "3 * C, bias)", "mpgemm_wgmma_int8.cu", f"{mp}:232",
+         "t3/int32-epilogue"),
+        ("K1 int8 trans_a (W13, W19, int32)", "mpgemm_wgmma_int8.cu",
+         f"{mp}:232", "t3/int8-trans_a"),
         ("K1 trans_a + trans_b (W13, W19, f32 and bf16)", "mpgemm.cu",
          f"{mp}:232", "t3/trans_a+b"),
         ("K1 quant_in tails (phi3 projections, int8 rows x int8 weight, "
-         "silu / residual)", "mpgemm.cu", f"{mp}:232", "qi/dense"),
+         "silu / residual)", "mpgemm_wgmma_int8.cu", f"{mp}:232", "qi/dense"),
         ("K2 quant_in tails, int8 payload", "mpgemm_packed.cu", f"{mp}:106",
          "qi/packed-int8"),
         ("K2 quant_in tails, int4 payload", "mpgemm_packed.cu", f"{mp}:106",
@@ -3241,15 +3323,15 @@ def main():
          "the wrapper copies A^T, copy_ms)", "mpgemm_sparse.cu", f"{mp}:418",
          "ta/k3"),
         ("K1 mpgemm_grouped beta*C (granite experts, 2 A B + 0.5 C)",
-         "mpgemm.cu", f"{mp}:812", "g/beta-c"),
+         "mpgemm_wgmma.cu", f"{mp}:812", "g/beta-c"),
         ("K1 mpgemm_grouped quant_in (granite experts, dense bf16 stacks)",
-         "mpgemm.cu", f"{mp}:812", "g/dense"),
+         "mpgemm_wgmma_int8.cu", f"{mp}:812", "g/dense"),
         ("K2 mpgemm_packed_grouped quant_in (granite experts, int8 payload)",
          "mpgemm_packed.cu", f"{mp}:250", "g/packed-int8"),
         ("K3 mpgemm_sparse_grouped quant_in (granite experts, int8 N:M 2:4)",
          "mpgemm_sparse.cu", f"{mp}:181", "g/sparse-int8"),
         ("K1 mpgemm_grouped via mp_einsum('gmk,gkn->gmn') (granite experts)",
-         "mpgemm.cu", f"{mp}:812", "g/einsum"),
+         "mpgemm_wgmma.cu", f"{mp}:812", "g/einsum"),
     ]
     kernels += [row(name, source, replaces, ops[key]["launches"], ops[key])
                 for name, source, replaces, key in ops_rows]

@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (git
-ignores ``build/``); the MPGEMM sources share ``csrc/gemm_epilogue.cuh``.
+ignores ``build/``); the MPGEMM sources share ``csrc/gemm_epilogue.cuh``,
+the Hopper designs ``csrc/hopper.cuh``, and the two K1 wgmma sources
+``csrc/mpgemm_wgmma.cuh``.
 The hash covers the source, the headers and the flags, so an edited
 source never loads a stale library.  Nothing here runs at import:
 the first wrapper call on a CUDA tensor builds what it needs, and
@@ -24,8 +26,9 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("mpgemm", "mpgemm_wgmma", "mpgemm_packed", "mpgemm_sparse",
-           "pack", "paged_flash", "flash_attention")
+KERNELS = ("mpgemm", "mpgemm_wgmma", "mpgemm_wgmma_int8", "mpgemm_packed",
+           "mpgemm_sparse", "pack", "paged_flash", "flash_attention",
+           "flash_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -5,11 +5,26 @@ pool (port of ``paged_flash_attention``).
 Each wrapper dispatches by the device of ``q``: a CPU tensor runs the plain
 version (:func:`flash_attention_plain`, :func:`paged_flash_attention_plain`),
 a CUDA tensor launches the hand-written kernel (``csrc/flash_attention.cu``,
-``csrc/paged_flash.cu``) or raises ``NotImplementedError`` for a variant the
-kernel does not take; nothing falls back.  Both compute the reference
-kernels' math: logical positions, ``-1e30`` (finite) masking, f32 scores,
-softmax and P·V (P is not rounded to the input dtype), ``acc / max(l,
+``csrc/flash_attention_wgmma.cu``, ``csrc/paged_flash.cu``) or raises
+``NotImplementedError`` for a variant the kernel does not take; nothing
+falls back.  Both compute the reference kernels' math: logical positions,
+``-1e30`` (finite) masking, f32 scores, softmax and P·V, ``acc / max(l,
 1e-30)`` in q's dtype.
+
+K4 has three designs on the card, and :func:`k4_design` picks one by a
+rule on the operands (never by trying): bf16 q, k and v with 16-byte
+aligned bases, a head width D % 8 == 0 and D <= 128 run
+``csrc/flash_attention_wgmma.cu`` -- ``"wgmma"`` (TMA, ``wgmma`` for
+Q·Kᵀ and P·V, blocks of 64 or 128 folded query rows) when the G·Tq
+folded rows of a kv head number more than 16, ``"split"`` (CUDA cores,
+16-byte loads) at most 16 (decode) -- and both cut the keys into
+:func:`k4_split` slices when there are fewer blocks than SMs, combined
+in slice order by the last block of a tile (one launch, the same bits
+every run); everything else (f32, other head widths) runs the scalar
+``csrc/flash_attention.cu``.  The wgmma design rounds P to bf16 before
+P·V (a relative error of at most 2⁻⁹ an element; the plain version and
+the other designs keep P in f32), and the two new designs take ``exp2``
+of scores scaled by ``scale · log2(e)``.
 
 K4 (:func:`flash_attention`): the causal mask is right-aligned (query row t
 sits at position ``t + tk - tq``), an optional window keeps keys with
@@ -29,7 +44,9 @@ under a window) each averages the V rows it visited, and the kernel visits
 fewer: such rows are padding that no caller reads.
 
 ``flash_attention.launches`` and ``paged_flash_attention.launches`` count
-kernel launches (never plain-version calls).
+kernel launches (never plain-version calls); ``flash_attention.
+wgmma_launches`` and ``.split_launches`` those of K4 that ran the
+``"wgmma"`` and the ``"split"`` design.
 """
 from __future__ import annotations
 
@@ -40,11 +57,61 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.mpgemm import (
+    H100_SMS, _cdiv, _current_stream, _ptr, _sm_count, _split_workspace,
+)
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 32      # query heads per kv head the kernel folds into a block
 _MAX_HEAD_DIM = 256
+# csrc/flash_attention_wgmma.cu: head widths up to K4_MAX_D; keys a tile;
+# the "split" design's folded rows at most, and its workspace a slice
+# (O of 16 x 128, then m and l).
+K4_MAX_D, K4_BKV, K4_SPLIT_ROWS = 128, 64, 16
+_SPLIT_WS = K4_SPLIT_ROWS * K4_MAX_D + 2 * K4_SPLIT_ROWS
+
+
+def k4_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The K4 kernel that runs q (B, H, Tq, D) over k/v (B, Hkv, Tk, D) on
+    the card: ``"wgmma"`` or ``"split"`` (``csrc/flash_attention_wgmma.
+    cu``) when all three are bf16 and non-empty, D % 8 == 0, D <=
+    :data:`K4_MAX_D`, B and Hkv <= 65535 and every base pointer is a
+    multiple of 16 bytes (rows of D bf16 values are then 16-byte aligned,
+    as TMA needs) -- ``"split"`` when the G·Tq folded rows of a kv head
+    number at most :data:`K4_SPLIT_ROWS`, else ``"wgmma"``; else
+    ``"simt"`` (``csrc/flash_attention.cu``).  A rule on what the operands
+    are, not a fallback: a failed build or launch raises."""
+    b, h, tq, d = q.shape
+    hkv = k.shape[1]
+    if (any(t.dtype != torch.bfloat16 or t.data_ptr() % 16
+            or not t.numel() for t in (q, k, v))
+            or d % 8 or d > K4_MAX_D or b > 65535 or hkv > 65535
+            or h % hkv):
+        return "simt"
+    return "split" if h // hkv * tq <= K4_SPLIT_ROWS else "wgmma"
+
+
+def k4_wgmma_bm(rows: int) -> int:
+    """The wgmma design's folded rows a block: one consumer warpgroup (64)
+    for at most 64 rows, else two (128)."""
+    return 64 if rows <= 64 else 128
+
+
+def k4_split(rows: int, tk: int, b: int, hkv: int,
+             sms: int = H100_SMS) -> int:
+    """Slices of the keys for ``rows`` folded rows a kv head (G·Tq) over
+    ``tk`` keys: with fewer blocks (q tiles x kv heads x requests) than
+    ``sms``, enough slices of whole :data:`K4_BKV`-key tiles that the grid
+    reaches ``sms``, none empty; else one.  The kernel combines the slices
+    in slice order, so the result is the same bits every run."""
+    bm = K4_SPLIT_ROWS if rows <= K4_SPLIT_ROWS else k4_wgmma_bm(rows)
+    tiles = b * hkv * _cdiv(rows, bm)
+    key_tiles = _cdiv(tk, K4_BKV)
+    if tiles >= sms:
+        return 1
+    per = max(1, key_tiles // min(_cdiv(sms, tiles), key_tiles))
+    return _cdiv(key_tiles, per)
 
 
 # --- K4: dense K/V -----------------------------------------------------------
@@ -140,21 +207,54 @@ def _launch_flash(q, k, v, causal, window, scale):
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else 1.0 / d ** 0.5
-    lib = _flash_lib()
-    rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
-        tq, tk, d, int(causal), int(window) if window is not None else 0,
-        float(scale), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    window = int(window) if window is not None else 0
+    stream = _current_stream(q)
+    design = k4_design(q, k, v)
+    if design == "simt":
+        lib = _flash_lib()
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            hkv, tq, tk, d, int(causal), window, float(scale),
+            _DTYPE_CODES[q.dtype], stream)
+        error = lib.flash_attention_error_string
+    else:
+        rows = h // hkv * tq
+        splits = k4_split(rows, tk, b, hkv, _sm_count(q.get_device()))
+        lib = _wgmma_lib()
+        ws = counters = None
+        if design == "split":
+            if splits > 1:
+                ws, counters = _split_workspace(
+                    q.device, stream, b * hkv * splits * _SPLIT_WS, b * hkv)
+            rc = lib.flash_split_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _ptr(ws), _ptr(counters), b, h, hkv, tq, tk, d, int(causal),
+                window, float(scale), splits, stream)
+        else:
+            bm = k4_wgmma_bm(rows)
+            dp = 64 if d <= 64 else 128
+            tiles = b * hkv * _cdiv(rows, bm)
+            if splits > 1:
+                ws, counters = _split_workspace(
+                    q.device, stream, tiles * splits * (bm * dp + 2 * bm),
+                    tiles)
+            rc = lib.flash_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _ptr(ws), _ptr(counters), b, h, hkv, tq, tk, d, int(causal),
+                window, float(scale), bm, splits, stream)
+        error = lib.flash_wgmma_error_string
     if rc != 0:
         raise RuntimeError(
-            f"flash attention kernel launch failed: CUDA error {rc} "
-            f"({lib.flash_attention_error_string(rc).decode()})")
+            f"flash attention kernel ({design}) launch failed: CUDA error "
+            f"{rc} ({error(rc).decode()})")
     flash_attention.launches += 1
+    flash_attention.wgmma_launches += int(design == "wgmma")
+    flash_attention.split_launches += int(design == "split")
     return out
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = flash_attention.split_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,6 +267,21 @@ def _flash_lib() -> ctypes.CDLL:
     lib.flash_attention_launch.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_lib() -> ctypes.CDLL:
+    """The built library of K4's "wgmma" and "split" designs, with its C
+    signatures declared (once)."""
+    lib = _build.load("flash_attention_wgmma")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_wgmma_launch.argtypes = [p] * 6 + [i] * 8 + [f, i, i, p]
+    lib.flash_wgmma_launch.restype = i
+    lib.flash_split_launch.argtypes = [p] * 6 + [i] * 8 + [f, i, p]
+    lib.flash_split_launch.restype = i
+    lib.flash_wgmma_error_string.argtypes = [i]
+    lib.flash_wgmma_error_string.restype = ctypes.c_char_p
     return lib
 
 

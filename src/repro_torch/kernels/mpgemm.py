@@ -19,11 +19,15 @@ their wrappers hand the kernel the contiguous Aᵀ (one copy of M·K
 elements, no arithmetic), and their plain versions read A transposed.
 
 K1 has two designs on the card, and :func:`k1_design` picks one by a rule
-(never by trying): bf16 operands whose row strides and base pointers are
-multiples of 16 bytes (TMA's rule) run ``csrc/mpgemm_wgmma.cu`` (TMA,
-``wgmma``, split-K by :func:`k1_split` when the output has fewer tiles
-than the card has SMs); everything else -- f32, int8, odd shapes such as
-rows of 101 values -- runs ``csrc/mpgemm.cu``'s scalar loops.
+(never by trying): bf16 or int8 operands whose row strides and base
+pointers are multiples of 16 bytes (TMA's rule) run the ``wgmma`` design
+(``csrc/mpgemm_wgmma.cuh``: TMA, ``wgmma``, split-K by :func:`k1_split`
+when the output has fewer tiles than the card has SMs; built as
+``csrc/mpgemm_wgmma.cu`` for bf16 and ``csrc/mpgemm_wgmma_int8.cu`` for
+int8, whose MN-major operands are transposed in shared memory); everything
+else -- f32, odd shapes such as rows of 101 values -- runs
+``csrc/mpgemm.cu``'s scalar loops.  An int8 product sums exactly in int32
+while K <= :data:`INT8_MAX_K`; the card path refuses a deeper one.
 
 K1 takes bf16 or f32 operands summed in f32, or int8 operands summed
 exactly in int32 (the int8 policy, and the paper's INT8 -> INT32 GEMM,
@@ -45,7 +49,8 @@ kernel launches (never plain-version calls); ``mpgemm.trans_a_launches``,
 ``mpgemm.trans_b_launches`` and their ``mpgemm_grouped`` twins count the
 K1 launches of each transposed variant among them (a launch with both
 counts in both), and ``mpgemm.wgmma_launches`` / ``mpgemm_grouped.
-wgmma_launches`` those that ran the wgmma design; the K2 and K3 wrappers'
+wgmma_launches`` those that ran the wgmma design (bf16 or int8); the K2
+and K3 wrappers'
 ``trans_a_launches`` count their ``trans_a`` launches.
 """
 from __future__ import annotations
@@ -296,10 +301,14 @@ def _ptr(t):
 
 # --- K1's two designs --------------------------------------------------------
 
-# The wgmma design's tile (csrc/mpgemm_wgmma.cu): BK deep, BN wide, BM 64
-# or 128 rows; and the SMs of an H100 SXM, split-K's target.
-WGMMA_BK, WGMMA_BN = 64, 128
+# The wgmma design's tile (csrc/mpgemm_wgmma.cuh): BK deep (128 bytes of
+# K: 64 bf16, 128 int8), BN wide, BM 64 or 128 rows; and the SMs of an
+# H100 SXM, split-K's target.
+WGMMA_BK, WGMMA_BK_INT8, WGMMA_BN = 64, 128, 128
 H100_SMS = 132
+# The deepest int8 product whose int32 sum is exact for every int8 input:
+# 128 * 128 * K < 2 ** 31.
+INT8_MAX_K = 2 ** 31 // (128 * 128) - 1
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -308,18 +317,26 @@ def _cdiv(a: int, b: int) -> int:
 
 def k1_design(a: torch.Tensor, b: torch.Tensor) -> str:
     """The K1 kernel that runs ``a`` against dense ``b`` on the card:
-    ``"wgmma"`` (``csrc/mpgemm_wgmma.cu``) when both are bf16, neither is
-    empty, and each operand's base pointer and row stride (its stored
-    rows of 2-byte values, whichever way it is read; the operands are
-    contiguous) are multiples of 16 bytes, as TMA needs; else ``"simt"``
+    ``"wgmma"`` (``csrc/mpgemm_wgmma.cuh``) when both are bf16 or both
+    int8, neither is empty, and each operand's base pointer and row stride
+    (its stored rows, whichever way it is read; the operands are
+    contiguous) are multiples of 16 bytes, as TMA needs -- rows of a
+    multiple of 8 bf16 or 16 int8 values; else ``"simt"``
     (``csrc/mpgemm.cu``).  A rule on what the operands are, not a
     fallback: a failed wgmma build or launch raises."""
-    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
-            or a.shape[-1] % 8 or b.shape[-1] % 8
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.int8):
+        return "simt"
+    row = 16 // a.element_size()
+    if (a.shape[-1] % row or b.shape[-1] % row
             or a.data_ptr() % 16 or b.data_ptr() % 16
             or not a.numel() or not b.numel()):
         return "simt"
     return "wgmma"
+
+
+def k1_wgmma_bk(dtype: torch.dtype) -> int:
+    """The wgmma design's K tile for operands of ``dtype``: 128 bytes."""
+    return WGMMA_BK_INT8 if dtype == torch.int8 else WGMMA_BK
 
 
 def k1_wgmma_bm(m: int) -> int:
@@ -330,14 +347,15 @@ def k1_wgmma_bm(m: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def k1_split(m: int, n: int, k: int, g: int = 1,
-             sms: int = H100_SMS) -> tuple:
+             sms: int = H100_SMS, bk: int = WGMMA_BK) -> tuple:
     """(slices, K tiles a slice) of the wgmma design's split over K: with
     fewer output tiles than ``sms``, K is cut into slices so that tiles x
-    slices reaches ``sms`` where K allows, every slice at least one
-    ``WGMMA_BK`` deep and none empty; else one slice.  The kernel sums the
-    slices in slice order, so the result is the same bits every run."""
+    slices reaches ``sms`` where K allows, every slice at least one K tile
+    (``bk`` deep: :func:`k1_wgmma_bk`) and none empty; else one slice.
+    The kernel sums the slices in slice order, so the result is the same
+    bits every run."""
     tiles = g * _cdiv(m, k1_wgmma_bm(m)) * _cdiv(n, WGMMA_BN)
-    k_tiles = max(1, _cdiv(k, WGMMA_BK))
+    k_tiles = max(1, _cdiv(k, bk))
     want = min(_cdiv(sms, tiles), k_tiles) if tiles < sms else 1
     per = k_tiles // want            # slices of ``per``: at least ``want``
     return _cdiv(k_tiles, per), per
@@ -353,12 +371,13 @@ _split_buffers: dict = {}
 
 def _split_workspace(device: torch.device, stream: int, n_partial: int,
                      n_tiles: int) -> tuple:
-    """The wgmma design's split-K buffers on ``stream``: the slices' f32
-    partial sums (``torch.empty``) and one int32 counter an output tile
-    (``torch.zeros``; each launch leaves them at zero).  One pair a
-    stream, grown as needed and kept: the launches on one stream run in
-    order, so each has summed its slices before the next writes.  An
-    allocation a call cost about as much host time as the launch."""
+    """The split buffers of the wgmma designs on ``stream`` (K1's split
+    over K, K4's over the keys): the slices' partial sums (``torch.empty``,
+    4-byte values: f32, or int32 for an int8 K1) and one int32 counter an
+    output tile (``torch.zeros``; each launch leaves them at zero).  One
+    pair a stream, grown as needed and kept: the launches on one stream
+    run in order, so each has summed its slices before the next writes.
+    An allocation a call cost about as much host time as the launch."""
     partial, counters = _split_buffers.get((device, stream), (None, None))
     if partial is None or partial.numel() < n_partial:
         partial = torch.empty(max(n_partial, 1 << 16), dtype=torch.float32,
@@ -398,6 +417,9 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
         raise ValueError(f"mpgemm: b on {b.device}, a on {a.device}")
     if not b.is_contiguous():
         raise ValueError("mpgemm: b must be contiguous")
+    if a.dtype == torch.int8 and k > INT8_MAX_K:
+        raise ValueError(f"mpgemm: an int8 product of depth K = {k} can "
+                         f"leave int32; the kernels take K <= {INT8_MAX_K}")
     m = a.shape[-1 if trans_a else -2]
     out = torch.empty((*a.shape[:-2], m, n), dtype=out_dtype,
                       device=a.device)
@@ -410,19 +432,24 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
     wgmma = k1_design(a, b) == "wgmma"
     if wgmma:
         bm = k1_wgmma_bm(m)
-        splits, per = k1_split(m, n, k, g, _sm_count(a.get_device()))
+        int8 = a.dtype == torch.int8
+        splits, per = k1_split(m, n, k, g, _sm_count(a.get_device()),
+                               k1_wgmma_bk(a.dtype))
         partial = counters = None
         if splits > 1:
             partial, counters = _split_workspace(
                 a.device, stream, splits * g * m * n,
                 g * _cdiv(m, bm) * _cdiv(n, WGMMA_BN))
-        lib = _wgmma_lib()
-        rc = lib.mpgemm_wgmma_launch(
+        lib = _wgmma_lib("mpgemm_wgmma_int8" if int8 else "mpgemm_wgmma")
+        launch = (lib.mpgemm_wgmma_int8_launch if int8
+                  else lib.mpgemm_wgmma_launch)
+        rc = launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc,
             _ptr(partial), _ptr(counters), g, m, n, k, bias_stride, out_dt,
             c_dt, int(trans_a), int(trans_b), kind, act, alpha, beta, bm,
             splits, per, stream)
-        error = lib.mpgemm_wgmma_error_string
+        error = (lib.mpgemm_wgmma_int8_error_string if int8
+                 else lib.mpgemm_wgmma_error_string)
     else:
         lib = _lib()
         rc = lib.mpgemm_launch(
@@ -459,14 +486,17 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _wgmma_lib() -> ctypes.CDLL:
-    lib = _build.load("mpgemm_wgmma")
+def _wgmma_lib(name: str) -> ctypes.CDLL:
+    """The wgmma design's library ``name`` (``mpgemm_wgmma``: bf16,
+    ``mpgemm_wgmma_int8``: int8) with its C signatures declared."""
+    lib = _build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mpgemm_wgmma_launch.argtypes = [p] * 10 + [i] * 11 + [f, f] \
-        + [i] * 3 + [p]
-    lib.mpgemm_wgmma_launch.restype = i
-    lib.mpgemm_wgmma_error_string.argtypes = [i]
-    lib.mpgemm_wgmma_error_string.restype = ctypes.c_char_p
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [p] * 10 + [i] * 11 + [f, f] + [i] * 3 + [p]
+    launch.restype = i
+    error = getattr(lib, f"{name}_error_string")
+    error.argtypes = [i]
+    error.restype = ctypes.c_char_p
     return lib
 
 

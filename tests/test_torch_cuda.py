@@ -1194,3 +1194,158 @@ def test_mpgemm_sparse_trans_a_kernel_matches_plain(gen, dtype, grouped):
     want = mpgemm_sparse_plain(a, b, scale=scale, out_dtype=torch.float32,
                                trans_a=True)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+# --- K1's wgmma design for int8 (csrc/mpgemm_wgmma_int8.cu) ------------------
+
+def _int8(gen, *shape):
+    return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", TRANSPOSES)
+@pytest.mark.parametrize("m,n,k", [
+    (2, 208, 400), (16, 208, 400), (64, 208, 400), (80, 208, 400),
+    (144, 208, 400), (1152, 2048, 320)])
+def test_mpgemm_wgmma_int8_is_bit_equal_to_plain(gen, m, n, k, trans_a,
+                                                 trans_b):
+    """int8 K1 in all four transposes, M off the 64-row tile, N and K off
+    BN and BK, split-K (the small grids) and one slice (1152 x 2048): the
+    rule's design runs (wgmma, except ``trans_a`` with rows of M values
+    that are no multiple of 16), its int32 output is bit-equal to the
+    plain version, and a scaled output is within the output's
+    tolerance."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import k1_design, mpgemm_plain
+    a = _int8(gen, *((k, m) if trans_a else (m, k)))
+    b = _int8(gen, *((n, k) if trans_b else (k, n)))
+    spec = GemmSpec(trans_a=trans_a, trans_b=trans_b)
+    got, design = _run_k1(a, b, spec)
+    assert design == k1_design(a, b)
+    assert design == ("simt" if trans_a and m % 16 else "wgmma")
+    want = mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    scale = torch.full((), 2.0 ** -12, device="cuda")
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got, _ = _run_k1(a, b, spec, scale=scale, out_dtype=out_dtype)
+        want = mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b,
+                            scale=scale, out_dtype=out_dtype)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[out_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", TRANSPOSES)
+@pytest.mark.parametrize("m,k,n", [(2, 1024, 512), (32, 512, 1024),
+                                   (48, 208, 144)])
+def test_mpgemm_wgmma_int8_grouped_is_bit_equal_to_plain(gen, m, k, n,
+                                                         trans_a, trans_b):
+    """Grouped int8 K1 over G = 32 groups (granite's expert count): int32
+    outputs bit-equal to the plain version, split-K included (M = 2);
+    ``trans_a`` at M = 2 is the scalar K1's by the rule."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import k1_design, mpgemm_plain
+    a = _int8(gen, 32, *((k, m) if trans_a else (m, k)))
+    b = _int8(gen, 32, *((n, k) if trans_b else (k, n)))
+    spec = GemmSpec(grouped=True, trans_a=trans_a, trans_b=trans_b)
+    got, design = _run_k1(a, b, spec)
+    assert design == k1_design(a, b)
+    assert design == ("simt" if trans_a and m % 16 else "wgmma")
+    assert torch.equal(got, mpgemm_plain(a, b, trans_a=trans_a,
+                                         trans_b=trans_b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,act", [
+    ("linear", "relu"), ("gated", None), ("residual", "gelu"),
+    ("quant_in", "silu")])
+@pytest.mark.parametrize("m", [2, 100])
+def test_mpgemm_wgmma_int8_epilogues_match_plain(gen, kind, act, m):
+    """The integer epilogue on the wgmma design (alpha, a bias and beta·C
+    truncated to int32; the int32 output bit-equal; the tanh GELU and the
+    quant_in row scale turn it into f32) with split-K (M = 2, the epilogue
+    in the reducing block) and without (M = 100)."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
+        get_epilogue
+    from repro_torch.kernels.mpgemm import mpgemm_plain
+    n, k = 272, 1024
+    a, b = _int8(gen, m, k), _int8(gen, k, n)
+    ed = get_epilogue(kind)
+    out_dtype = torch.float32 if kind == "quant_in" or act == "gelu" \
+        else torch.int32
+    extras = tuple(
+        torch.rand(m, 1, generator=gen, device="cuda") + 0.5
+        if name in ed.row_operands else
+        torch.randint(-3, 4, (m, n), generator=gen, device="cuda").to(
+            out_dtype)
+        for name in ed.extra_operands)
+    c = torch.randint(-1000, 1000, (m, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    kw = dict(c=c, bias=torch.randn(n, generator=gen, device="cuda") * 100,
+              extras=extras, out_dtype=out_dtype,
+              epilogue=EpilogueSpec(kind=kind, activation=act, alpha=2.0,
+                                    beta=3.0))
+    got, design = _run_k1(a, b, GemmSpec(), **kw)
+    assert design == "wgmma"
+    want = mpgemm_plain(a, b, **kw)
+    if out_dtype == torch.int32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+# --- K4's wgmma and split designs (csrc/flash_attention_wgmma.cu) ------------
+
+K4_NEW_CASES = [
+    # b, h, hkv, tq, tk, d, causal, window: whisper-medium's encoder,
+    # cross-attention at prefill (wgmma, split over the keys) and at decode
+    # (the split design), phi3-mini's prefill (D 96), a GQA head of 120 with
+    # a window, granite's training shape, D 128, a split-design GQA group
+    # with a window, 16 folded rows of D 72, fewer keys than a tile, and a
+    # window shorter than a tile with tq < tk.
+    (2, 16, 16, 1500, 1500, 64, False, None),
+    (2, 16, 16, 32, 1500, 64, False, None),
+    (2, 16, 16, 1, 1500, 64, False, None),
+    (2, 32, 32, 32, 32, 96, True, None),
+    (2, 32, 8, 64, 600, 120, True, 256),
+    (4, 16, 8, 128, 128, 64, True, None),
+    (1, 4, 4, 200, 700, 128, True, 100),
+    (1, 8, 2, 1, 90, 120, True, 16),
+    (2, 4, 1, 4, 300, 72, False, None),
+    (1, 2, 2, 100, 3, 64, False, None),
+    (3, 6, 2, 70, 333, 96, True, 20),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,tq,tk,d,causal,window", K4_NEW_CASES)
+def test_flash_attention_new_designs_match_plain(gen, b, h, hkv, tq, tk, d,
+                                                 causal, window):
+    """bf16 K4 on the design ``k4_design`` names ("wgmma" above 16 folded
+    rows, "split" at most), counted as such, within bf16's tolerance of
+    the plain version (P rounded to bf16 in the wgmma design: 2**-9 an
+    element), and the same bits from a second launch (the slices over the
+    keys combined in slice order)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain, k4_design, k4_split,
+    )
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+    design = k4_design(q, k, v)
+    assert design == ("split" if h // hkv * tq <= 16 else "wgmma")
+    counter = f"{design}_launches"
+    before = getattr(flash_attention, counter)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert getattr(flash_attention, counter) == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), k4_split(h // hkv * tq, tk, b, hkv)

@@ -1,13 +1,16 @@
 """K1's two designs and the rules around them, on the CPU.
 
-* :func:`k1_design` picks the wgmma kernel (``csrc/mpgemm_wgmma.cu``) or
-  the scalar one (``csrc/mpgemm.cu``) from the operands alone: bf16, no
-  empty extent, every row stride and base pointer a multiple of 16 bytes.
+* :func:`k1_design` picks the wgmma kernel (``csrc/mpgemm_wgmma.cuh``,
+  built for bf16 and for int8) or the scalar one (``csrc/mpgemm.cu``)
+  from the operands alone: both bf16 or both int8, no empty extent, every
+  row stride and base pointer a multiple of 16 bytes.
 * :func:`k1_split` cuts K for the wgmma kernel when the output has fewer
-  tiles than the card has SMs.
+  tiles than the card has SMs, in K tiles of 128 bytes (64 bf16, 128
+  int8).
 * The launch counts ``chip_smoke.py`` asserts on the card for the wgmma
-  design (``_want_train_launches``'s ``k1_wgmma`` / ``k1g_wgmma``) equal
-  the wrapper calls of one CPU training step that the rule sends there.
+  designs (``_want_train_launches``'s ``k1_wgmma`` / ``k1g_wgmma`` and
+  K4's ``k4_wgmma`` / ``k4_split``) equal the wrapper calls of one CPU
+  training step that the rules send there.
 * ``trans_a`` against a packed (K2) or tile-sparse (K3) operand, 2-D and
   grouped, matches the reference (``interpret``, the Pallas bodies).
   Tolerances: f32 outputs atol = rtol = 1e-4 (the two packages sum the K
@@ -37,7 +40,9 @@ from repro_torch.core.gemm_spec import GemmSpec  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, device_batch  # noqa: E402
 from repro_torch.kernels import mpgemm as tk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import k4_design  # noqa: E402
 from repro_torch.kernels.mpgemm import k1_design, k1_split  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.packing.pack import pack_operand  # noqa: E402
@@ -80,12 +85,45 @@ def test_k1_design_by_shape(case, a, b, want):
     assert k1_design(_aligned(*a), _aligned(*b)) == want, case
 
 
-@pytest.mark.parametrize("a_dtype,b_dtype", [
-    (torch.float32, torch.float32), (torch.int8, torch.int8),
-    (BF, torch.float32), (torch.float16, torch.float16)])
-def test_k1_design_takes_bf16_only(a_dtype, b_dtype):
+@pytest.mark.parametrize("a_dtype,b_dtype,want", [
+    (torch.float32, torch.float32, "simt"), (torch.int8, torch.int8, "wgmma"),
+    (BF, torch.float32, "simt"), (torch.float16, torch.float16, "simt"),
+    (torch.int8, BF, "simt"), (BF, BF, "wgmma")])
+def test_k1_design_takes_bf16_only(a_dtype, b_dtype, want):
+    """The operand types the wgmma design takes: bf16 x bf16 and (since
+    its int8 instantiation) int8 x int8; f32, fp16 and mixed pairs stay
+    scalar."""
     assert k1_design(_aligned(64, 64, dtype=a_dtype),
-                     _aligned(64, 64, dtype=b_dtype)) == "simt"
+                     _aligned(64, 64, dtype=b_dtype)) == want
+
+
+I8 = torch.int8
+
+
+@pytest.mark.parametrize("case,a,b,want", [
+    ("A (M, K) x B (K, N)", (2, 3072), (3072, 3072), "wgmma"),
+    ("trans_b: B (N, K)", (2, 1024), (49280, 1024), "wgmma"),
+    ("trans_a: A (K, M)", (512, 1024), (512, 1024), "wgmma"),
+    ("grouped", (32, 2, 1024), (32, 1024, 512), "wgmma"),
+    ("rows of 8 int8 values", (16, 8), (8, 32), "simt"),
+    ("B rows of 72", (4, 64), (64, 72), "simt"),
+    ("trans_a rows of M = 2", (1024, 2), (1024, 512), "simt"),
+    ("trans_a rows of M = 40", (256, 40), (256, 64), "simt"),
+    ("empty K", (4, 0), (0, 16), "simt"),
+])
+def test_k1_design_int8_by_shape(case, a, b, want):
+    """int8 rows are 16-byte aligned at multiples of 16 values."""
+    got = k1_design(_aligned(*a, dtype=I8), _aligned(*b, dtype=I8))
+    assert got == want, case
+
+
+def test_k1_design_sends_a_misaligned_int8_view_to_simt():
+    base = torch.zeros(64 * 64 + 16, dtype=I8)
+    a = base[8:-8].view(64, 64)
+    assert a.is_contiguous() and a.data_ptr() % 16
+    assert k1_design(a, _aligned(64, 64, dtype=I8)) == "simt"
+    assert k1_design(base[16:].view(64, 64), _aligned(64, 64, dtype=I8)) \
+        == "wgmma"
 
 
 @pytest.mark.parametrize("which", ["a", "b", "grouped a"])
@@ -136,6 +174,32 @@ def test_k1_split(m, n, k, g):
     assert g * splits <= 65535
 
 
+@pytest.mark.parametrize("m,n,k,g", SPLIT_SHAPES)
+def test_k1_split_int8(m, n, k, g):
+    """The same rule at int8's K tile of 128 values: slices cover K once,
+    none empty, each at least one tile deep."""
+    bk = tk.k1_wgmma_bk(torch.int8)
+    assert bk == tk.WGMMA_BK_INT8 == 128
+    splits, per = k1_split(m, n, k, g, bk=bk)
+    k_tiles = -(-k // bk)
+    tiles = g * -(-m // tk.k1_wgmma_bm(m)) * -(-n // tk.WGMMA_BN)
+    slices = [(s * per, min(k_tiles, (s + 1) * per)) for s in range(splits)]
+    assert slices[0][0] == 0 and slices[-1][1] == k_tiles
+    assert all(lo < hi for lo, hi in slices)
+    if tiles >= tk.H100_SMS:
+        assert splits == 1
+    else:
+        assert tiles * splits >= tk.H100_SMS or splits == k_tiles
+
+
+def test_k1_split_int8_examples():
+    """phi3's int8 decode projections at M = 2: 24 tiles, 24 K tiles of
+    128 -> 6 slices of 4; granite's: 8 tiles, 8 K tiles -> 8 slices."""
+    assert k1_split(2, 3072, 3072, bk=128) == (6, 4)
+    assert k1_split(2, 1024, 1024, bk=128) == (8, 1)
+    assert tk.k1_wgmma_bk(BF) == tk.WGMMA_BK == 64
+
+
 def test_k1_split_examples():
     """phi3's decode projections at M = 2: 24 tiles, 48 K tiles -> 6
     slices of 8; granite's 1024-wide attention: 8 tiles, 16 K tiles -> 16
@@ -161,10 +225,11 @@ def _chip_smoke():
     ("phi3-mini-3.8b", "int8"), ("granite-moe-1b-a400m", "int8")])
 def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
     """One CPU training step with remat: the K1 wrapper calls that
-    :func:`k1_design` sends to wgmma (every bf16 one of the smoke model,
-    whose widths are multiples of 8) number what ``chip_smoke.py``
-    asserts on the card."""
-    counts = {"k1_wgmma": 0, "k1g_wgmma": 0}
+    :func:`k1_design` sends to wgmma (every bf16 and int8 one of the smoke
+    model, whose widths are multiples of 16) and the K4 calls that
+    :func:`k4_design` sends to its wgmma and split designs number what
+    ``chip_smoke.py`` asserts on the card."""
+    counts = {"k1_wgmma": 0, "k1g_wgmma": 0, "k4_wgmma": 0, "k4_split": 0}
 
     def gemm(name, inner):
         def call(a, b, *, spec, **kw):
@@ -177,6 +242,15 @@ def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
                                                  gemm_mod.mpgemm))
     monkeypatch.setattr(gemm_mod, "mpgemm_grouped",
                         gemm("k1g_wgmma", gemm_mod.mpgemm_grouped))
+    attention = attn_mod.flash_attention
+
+    def flash(q, k, v, **kw):
+        design = k4_design(q, k, v)
+        if design != "simt":
+            counts[f"k4_{design}"] += 1
+        return attention(q, k, v, **kw)
+
+    monkeypatch.setattr(attn_mod, "flash_attention", flash)
     cfg = tcb.get(arch, smoke=True)
     model = build_model(cfg, policy=policy, device="cpu")
     params = model.init_train(torch.Generator().manual_seed(0))
