@@ -38,7 +38,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-DEFAULT_PHASES = ("phase_k1", "phase_k1_int8", "phase_k2",
+DEFAULT_PHASES = ("phase_k1", "phase_k1_int8", "phase_k5", "phase_k2",
                   "phase_k1_grouped", "phase_k2_grouped", "phase_k3",
                   "phase_k4")
 

@@ -20,10 +20,14 @@ printing a result:
    rest on ``kernels/csrc/mpgemm.cu``'s scalar loops); then K1's int8
    variant (int8 operands, exact int32 sum, device scale) at the same
    shapes but the router, every launch on the wgmma design;
-3. K5 (``kernels/csrc/paged_flash.cu``) against its plain version at
-   phi3-mini's and granite's attention shapes (decode and 16-token chunked
-   prefill) and at a GQA + sliding-window shape, with ragged lengths, dead
-   block-table slots over a NaN-filled scratch page and one idle row; then
+3. K5 against its plain version at phi3-mini's and granite's attention
+   shapes (decode and 16-token chunked prefill) and at a GQA +
+   sliding-window shape, with ragged lengths, dead block-table slots over
+   a NaN-filled scratch page and one idle row, each case on the design
+   ``kernels/flash_attention.py::k5_design`` names (bf16: the split or
+   wgmma body of ``kernels/csrc/flash_attention_wgmma.cu`` over the block
+   table; f32: ``kernels/csrc/paged_flash.cu``), the same bits from two
+   launches, beside SDPA over K/V gathered beforehand; then
    K4 at whisper-medium's shapes (the encoder's 1500 x 1500 non-causal
    self-attention, the decoder's causal prefill, cross-attention at
    prefill and at decode), phi3-mini's causal prefill, a GQA 32:8 head of
@@ -36,16 +40,21 @@ printing a result:
 4. K6 (``kernels/csrc/pack.cu``) packing every full-width phi3-mini weight
    shape and a ragged ``trans_w`` one into bf16, int8, int4 and fp8
    payloads: payload and scales byte-equal to its plain version;
-5. K2 (``kernels/csrc/mpgemm_packed.cu``) at phi3-mini's shapes, M = 2
-   and 32, for every payload under the bf16 policy (bf16 A) and the int8
-   and int4 payloads under the int8 policy (int8 A and its scale), and at
-   granite's attention projections for the two served payloads (int4
-   under bf16, int8 under int8), against its plain version;
+5. K2 at phi3-mini's shapes, M = 2 and 32, for every payload under the
+   bf16 policy (bf16 A) and the int8 and int4 payloads under the int8
+   policy (int8 A and its scale), and at granite's attention projections
+   for the two served payloads (int4 under bf16, int8 under int8),
+   against its plain version, each case on the wgmma design
+   ``kernels/mpgemm.py::k2_design`` names (``kernels/csrc/
+   mpgemm_packed_wgmma.cu`` for bf16 A, ``mpgemm_packed_wgmma_int8.cu``
+   for int8 A; the scalar ``mpgemm_packed.cu`` keeps f32 A, int8 A x fp8
+   and other tiles) and the same bits from two launches;
 6. the grouped variants at granite-moe-1b-a400m's expert shapes (32
    experts, K/N 1024 <-> 512, M = 2 and 32 rows per expert): grouped K1
    with bf16 A and with int8 A (f32 outputs, the SwiGLU gate fused into
    the gate GEMM), grouped K2 with int4 and bf16 payloads under bf16 A and
-   int8 payloads under int8 A, each against its plain version; grouped K6
+   int8 payloads under int8 A (the wgmma design, the same bits from two
+   launches), each against its plain version; grouped K6
    packing every weight shape of the model (byte-equal), then all 72
    expert stacks of a full-width model into int4, byte-equal; then K3
    (``kernels/csrc/mpgemm_sparse.cu``) on tile-sparse weights built on the
@@ -95,7 +104,9 @@ printing a result:
    K3, 36 grouped K3, 13 K1, 12 K5 per step), each sparsified from the
    f32 draw through K6 (113 and 84 launches at load).  Every launch
    count of each run is asserted, every bf16 and int8 K1 launch must have
-   run the wgmma design, every logit is finite, and for each path
+   run the wgmma design, every K2 and grouped K2 launch K2's wgmma design
+   and every K5 launch K5's split or wgmma design, every logit is finite,
+   and for each path
    one full-width mixed step through the kernels agrees with the same step
    through the plain versions; one two-row decode step of each path is
    timed on the host clock and traced with ``torch.profiler`` (the
@@ -128,7 +139,8 @@ printing a result:
    plain versions, step time, tokens/s, peak memory, and one step traced
    with ``torch.profiler``;
 9. the script's wall time, one JSON line with every ported kernel's
-   launches, error and times;
+   launches (and, for K2, K5 and the op rows, the launches on each
+   design), error and times;
 10. the card line, then ``{"ok": true, "device": {...}}`` as the last
     line.
 
@@ -499,40 +511,48 @@ def _attn_work(q_start, lengths, tq, h, hkv, d, window, esz):
     return n_bytes, 4 * d * h * pairs
 
 
+# K5's cases: the attention of the two served models at decode and in a
+# 16-token prefill chunk, a windowed GQA head, and an f32 case.
+K5_CASES = [
+    # phi3-mini attention as phase 7 serves it: MHA, D = 96, page 16,
+    # a block table 4 pages wide (max_len 64); request 2 is idle, and
+    # in the prefill chunk request 1 has 7 dead rows past its length.
+    dict(name="phi3-decode", h=32, hkv=32, d=96, ps=16, w=4, tq=1,
+         lengths=[45, 30, 0], window=None, dtype="bfloat16"),
+    dict(name="phi3-prefill16", h=32, hkv=32, d=96, ps=16, w=4, tq=16,
+         lengths=[48, 9, 0], window=None, dtype="bfloat16"),
+    # granite-moe-1b-a400m's attention as phase 7 serves it: GQA 2:1
+    # (16 heads, 8 KV heads), D = 64, the same pages and lengths.
+    dict(name="granite-decode", h=16, hkv=8, d=64, ps=16, w=4, tq=1,
+         lengths=[45, 30, 0], window=None, dtype="bfloat16"),
+    dict(name="granite-prefill16", h=16, hkv=8, d=64, ps=16, w=4,
+         tq=16, lengths=[48, 9, 0], window=None, dtype="bfloat16"),
+    # GQA 4:1, D = 120 (not a multiple of 16), window 64, ~200 context
+    dict(name="gqa-window-decode", h=32, hkv=8, d=120, ps=16, w=16,
+         tq=1, lengths=[201, 64, 0, 9], window=64, dtype="bfloat16"),
+    dict(name="gqa-window-prefill16", h=32, hkv=8, d=120, ps=16, w=16,
+         tq=16, lengths=[200, 70, 0, 16], window=64, dtype="bfloat16"),
+    dict(name="f32-gqa-prefill16", h=8, hkv=2, d=64, ps=16, w=8, tq=16,
+         lengths=[40, 100, 0, 3], window=None, dtype="float32"),
+]
+
+
 def phase_k5(torch, timer):
+    """K5 against its plain version at the served shapes, each case on
+    the design ``k5_design`` names (bf16: "split" at most 16 folded rows,
+    "wgmma" above; f32: "simt"), the same bits from two launches, live
+    rows within bf16's tolerance and idle rows exactly 0, timed beside
+    the plain version, SDPA and the bound; then one full-width decode step
+    and one 16-token chunk of each model (a launch a layer)."""
     from repro_torch.kernels.flash_attention import (
-        paged_flash_attention, paged_flash_attention_plain,
+        k5_split, paged_flash_attention, paged_flash_attention_plain,
     )
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
-    cases = [
-        # phi3-mini attention as phase 7 serves it: MHA, D = 96, page 16,
-        # a block table 4 pages wide (max_len 64); request 2 is idle, and
-        # in the prefill chunk request 1 has 7 dead rows past its length.
-        dict(name="phi3-decode", h=32, hkv=32, d=96, ps=16, w=4, tq=1,
-             lengths=[45, 30, 0], window=None, dtype=bf16, main="phi3"),
-        dict(name="phi3-prefill16", h=32, hkv=32, d=96, ps=16, w=4, tq=16,
-             lengths=[48, 9, 0], window=None, dtype=bf16, main=None),
-        # granite-moe-1b-a400m's attention as phase 7 serves it: GQA 2:1
-        # (16 heads, 8 KV heads), D = 64, the same pages and lengths.
-        dict(name="granite-decode", h=16, hkv=8, d=64, ps=16, w=4, tq=1,
-             lengths=[45, 30, 0], window=None, dtype=bf16, main="granite"),
-        dict(name="granite-prefill16", h=16, hkv=8, d=64, ps=16, w=4,
-             tq=16, lengths=[48, 9, 0], window=None, dtype=bf16, main=None),
-        # GQA 4:1, D = 120 (not a multiple of 16), window 64, ~200 context
-        dict(name="gqa-window-decode", h=32, hkv=8, d=120, ps=16, w=16,
-             tq=1, lengths=[201, 64, 0, 9], window=64, dtype=bf16,
-             main=None),
-        dict(name="gqa-window-prefill16", h=32, hkv=8, d=120, ps=16, w=16,
-             tq=16, lengths=[200, 70, 0, 16], window=64, dtype=bf16,
-             main=None),
-        dict(name="f32-gqa-prefill16", h=8, hkv=2, d=64, ps=16, w=8, tq=16,
-             lengths=[40, 100, 0, 3], window=None, dtype=torch.float32,
-             main=None),
-    ]
-    rows, main, max_err = [], {}, 0.0
-    for c in cases:
+    rows, max_err = [], 0.0
+    for c in K5_CASES:
+        c = dict(c, dtype=getattr(torch, c["dtype"]))
         b, tq = len(c["lengths"]), c["tq"]
         # Every live request's last tq tokens are this chunk (a chunk
         # shorter than tq leaves dead rows past the length).
@@ -568,8 +588,19 @@ def phase_k5(torch, timer):
         def library():
             return F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)
 
-        got, ref = kern(), plain()
+        (got, design), ref = _k5_design_of(kern), plain()
         torch.cuda.synchronize()
+        g_tq = c["h"] // c["hkv"] * tq
+        want = ("simt" if c["dtype"] != bf16 else
+                "split" if g_tq <= 16 else "wgmma")
+        if design != want:
+            raise AssertionError(f"K5 {c['name']}: ran the {design} design, "
+                                 f"want {want}")
+        again = kern()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K5 {c['name']}: two launches differ")
+        del again
         # Compare the live rows (position < length) and the idle rows
         # (length 0, both 0); dead rows past the length are padding.
         live = (qi < ln.long()[:, None]) | (ln.long()[:, None] == 0)
@@ -591,26 +622,35 @@ def phase_k5(torch, timer):
         bound, bound_by = _bound_ms(n_bytes, n_ops, _dtype_name(c["dtype"]))
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
         row = dict(case=c["name"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+                   library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                   design=design)
         rows.append(row)
-        if c["main"]:
-            main[c["main"]] = row
-        print(f"[k5] {c['name']:>20} H={c['h']} Hkv={c['hkv']} D={c['d']} "
+        slices = (k5_split(g_tq, c["w"], c["ps"], b, c["hkv"])
+                  if design != "simt" else 1)
+        print(f"[k5] {c['name']:>20} {design:>5} x{slices:<2} "
+              f"H={c['h']} Hkv={c['hkv']} D={c['d']} "
               f"tq={tq} lengths={c['lengths']} window={c['window']}: err "
               f"{err:.2e} (rtol {tol['rtol']}, atol {tol['atol']})  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
               f"bound {bound:.5f} ({bound_by})")
-    # Per full-width decode step: one launch per layer of the model's decode
-    # case, as the K1 numbers are one decode step's GEMM launches.
+    # Per full-width decode step (and 16-token chunk): one launch per layer
+    # of the model's case, as the K1 numbers are one decode step's GEMM
+    # launches.
+    by_name = {r["case"]: r for r in rows}
     steps = {}
     for model, layers in (("phi3", 32), ("granite", GRANITE_LAYERS)):
-        step = steps[model] = {k: layers * main[model][k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms")}
-        step.update(bound_by=main[model]["bound_by"], max_abs_err=max_err)
-        print(f"[k5] one full-width {model} decode step ({layers} launches "
-              f"of {model}-decode): kernel {step['ms']:.3f} ms, plain "
-              f"{step['plain_ms']:.3f} ms, library {step['library_ms']:.3f} "
-              f"ms, bound {step['bound_ms']:.4f} ms ({step['bound_by']})")
+        for key, case, what in ((model, f"{model}-decode", "decode step"),
+                                (f"{model}-chunk", f"{model}-prefill16",
+                                 "16-token chunk")):
+            r = by_name[case]
+            step = steps[key] = {k: layers * r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms")}
+            step.update(bound_by=r["bound_by"], max_abs_err=max_err)
+            print(f"[k5] one full-width {model} {what} ({layers} launches "
+                  f"of {case}, {r['design']}): kernel {step['ms']:.3f} ms, "
+                  f"plain {step['plain_ms']:.3f} ms, library "
+                  f"{step['library_ms']:.3f} ms, bound "
+                  f"{step['bound_ms']:.4f} ms ({step['bound_by']})")
     return steps, rows
 
 
@@ -875,8 +915,17 @@ def phase_k2(torch, timer):
                     return apply_epilogue(ep, acc.float(),
                                           extras=extras).to(bf16)
 
-                got, ref = kern(), plain()
+                (got, design), ref = _k2_design_of(kern), plain()
                 torch.cuda.synchronize()
+                if design != "wgmma":
+                    raise AssertionError(f"K2 {name} m={m} {policy}/{fmt}: "
+                                         f"ran the {design} design")
+                again = kern()
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K2 {name} m={m} {policy}/{fmt}: "
+                                         f"two launches differ")
+                del again
                 err = _check_close(torch, f"K2 {name} m={m} {policy}/{fmt}",
                                    got, ref, tol)
                 st = steps[(model, (policy, fmt))]
@@ -888,8 +937,8 @@ def phase_k2(torch, timer):
                 bound, bound_by = _bound_ms(n_bytes, n_ops, peak)
                 ms, plain_ms, lib_ms = (timer(kern), timer(plain),
                                         timer(library))
-                print(f"[k2] {name:>5} m={m:<3} {policy:>4} A x {fmt:>8}: "
-                      f"err {err:.2e}  kernel {ms:.4f} ms  plain "
+                print(f"[k2] {name:>5} m={m:<3} {policy:>4} A x {fmt:>8} "
+                      f"{design}: err {err:.2e}  kernel {ms:.4f} ms  plain "
                       f"{plain_ms:.4f}  library {lib_ms:.4f}  bound "
                       f"{bound:.4f} ({bound_by})  "
                       f"{n_bytes / ms / 1e6:.1f} GB/s")
@@ -1061,8 +1110,18 @@ def phase_k2_grouped(torch, timer):
                     acc = torch.bmm(x, w_lib)
                     return apply_epilogue(ep, acc.float(), extras=extras)
 
-                got, ref = kern(), plain()
+                (got, design), ref = _k2_design_of(kern), plain()
                 torch.cuda.synchronize()
+                if design != "wgmma":
+                    raise AssertionError(f"grouped K2 {name} m={m} "
+                                         f"{policy}/{fmt}: ran {design}")
+                again = kern()
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"grouped K2 {name} m={m} "
+                                         f"{policy}/{fmt}: two launches "
+                                         f"differ")
+                del again
                 err = _check_close(torch, f"grouped K2 {name} m={m} "
                                    f"{policy}/{fmt}", got, ref, tol)
                 st = steps[(policy, fmt)]
@@ -1075,7 +1134,8 @@ def phase_k2_grouped(torch, timer):
                 ms, plain_ms, lib_ms = (timer(kern), timer(plain),
                                         timer(library))
                 print(f"[k2-grouped] {name:>4} G={g} m={m:<3} {policy:>4} A x "
-                      f"{fmt:>8}: err {err:.2e}  kernel {ms:.4f} ms  plain "
+                      f"{fmt:>8} {design}: err {err:.2e}  kernel {ms:.4f} ms  "
+                      f"plain "
                       f"{plain_ms:.4f}  library {lib_ms:.4f}  bound "
                       f"{bound:.4f} ({bound_by})  "
                       f"{n_bytes / ms / 1e6:.1f} GB/s")
@@ -1324,14 +1384,19 @@ def _reset_counters():
         c[name].trans_b_launches = c[name].wgmma_launches = 0
     for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g"):
         c[name].trans_a_launches = 0
-    c["k4"].wgmma_launches = c["k4"].split_launches = 0
+    for name in ("k2", "k2g"):
+        c[name].wgmma_launches = 0
+    for name in ("k4", "k5"):
+        c[name].wgmma_launches = c[name].split_launches = 0
 
 
 def _read_counters():
     """Every launch count, K1's and grouped K1's ``trans_a`` and
     ``trans_b`` ones as ``k1_ta`` / ``k1_tb`` / ``k1g_ta`` / ``k1g_tb``,
-    those that ran K1's wgmma design as ``k1_wgmma`` / ``k1g_wgmma``, and
-    K4's on its wgmma and split designs as ``k4_wgmma`` / ``k4_split``."""
+    those that ran the wgmma design of K1 and K2 as ``k1_wgmma`` /
+    ``k1g_wgmma`` / ``k2_wgmma`` / ``k2g_wgmma``, and K4's and K5's on
+    their wgmma and split designs as ``k4_wgmma`` / ``k4_split`` /
+    ``k5_wgmma`` / ``k5_split``."""
     c = _counters()
     out = {name: fn.launches for name, fn in c.items()}
     for name in ("k1", "k1g"):
@@ -1339,8 +1404,12 @@ def _read_counters():
         out[f"{name}_tb"] = c[name].trans_b_launches
         out[f"{name}_wgmma"] = c[name].wgmma_launches
     # (0 on a tree without them: chip_ab.py)
-    out["k4_wgmma"] = getattr(c["k4"], "wgmma_launches", 0)
-    out["k4_split"] = getattr(c["k4"], "split_launches", 0)
+    for name, designs in (("k2", ("wgmma",)), ("k2g", ("wgmma",)),
+                          ("k4", ("wgmma", "split")),
+                          ("k5", ("wgmma", "split"))):
+        for design in designs:
+            out[f"{name}_{design}"] = getattr(c[name],
+                                              f"{design}_launches", 0)
     return out
 
 
@@ -1356,6 +1425,33 @@ def _k4_design_of(call):
     out = call()
     return out, ("wgmma" if count("wgmma") > before[0] else
                  "split" if count("split") > before[1] else "simt")
+
+
+def _k5_design_of(call):
+    """Run ``call`` (one K5 launch) -> (its output, the design that ran it:
+    "wgmma", "split" or "simt", read off the counters)."""
+    fn = _counters()["k5"]
+
+    def count(design):
+        return getattr(fn, f"{design}_launches", 0)
+
+    before = (count("wgmma"), count("split"))
+    out = call()
+    return out, ("wgmma" if count("wgmma") > before[0] else
+                 "split" if count("split") > before[1] else "simt")
+
+
+def _k2_design_of(call):
+    """Run ``call`` (one K2 launch, 2-D or grouped) -> (its output, the
+    design that ran it: "wgmma" or "simt", read off the counters)."""
+    c = _counters()
+
+    def wgmma():      # (0 on a tree without the wgmma design: chip_ab.py)
+        return sum(getattr(c[k], "wgmma_launches", 0) for k in ("k2", "k2g"))
+
+    before = wgmma()
+    out = call()
+    return out, "wgmma" if wgmma() > before else "simt"
 
 
 def _check_k4_designs(label, counts):
@@ -1383,14 +1479,19 @@ def _k1_design_of(call):
 
 
 def _check_wgmma(label, got, want):
-    """Every bf16 and int8 K1 launch of a path ran the wgmma design: ``got``
-    and ``want`` map ``k1`` / ``k1g`` to wgmma launches and bf16 and int8
-    launches."""
-    print(f"[{label}] wgmma design: K1 {got['k1']} of {want['k1']} bf16 / "
-          f"int8 launches, grouped K1 {got['k1g']} of {want['k1g']}")
+    """Every bf16 and int8 K1 launch of a path ran the wgmma design, every
+    K2 launch (2-D and grouped) K2's wgmma design, and every K5 launch one
+    of K5's Hopper designs (split or wgmma): ``got`` and ``want`` map
+    ``k1`` / ``k1g`` / ``k2`` / ``k2g`` / ``k5`` to the launches on those
+    designs and to the launches that must be."""
+    print(f"[{label}] Hopper designs: K1 wgmma {got['k1']} of {want['k1']} "
+          f"bf16 / int8 launches, grouped K1 {got['k1g']} of {want['k1g']}; "
+          f"K2 wgmma {got['k2']} of {want['k2']}, grouped K2 {got['k2g']} "
+          f"of {want['k2g']}; K5 split + wgmma {got['k5']} of "
+          f"{want['k5']}")
     if got != want:
-        raise AssertionError(f"{label}: wgmma launches {got}, want every "
-                             f"bf16 and int8 K1 launch: {want}")
+        raise AssertionError(f"{label}: Hopper-design launches {got}, want "
+                             f"{want}")
 
 
 def _want_launches(cfg, pack, n_steps, sparse=False):
@@ -1494,7 +1595,12 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
-    wgmma = {name: counters[name].wgmma_launches for name in ("k1", "k1g")}
+    wgmma = {name: counters[name].wgmma_launches
+             for name in ("k1", "k1g", "k2", "k2g")}
+    wgmma["k5"] = (counters["k5"].wgmma_launches
+                   + counters["k5"].split_launches)
+    k5_designs = {d: getattr(counters["k5"], f"{d}_launches")
+                  for d in ("split", "wgmma")}
     del model.paged_step
     n_steps = len(step_calls)
     want, per_step = _want_launches(cfg, pack, n_steps, sparse=sparsity > 0)
@@ -1518,17 +1624,24 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
     # bf16 and int8 K1 launches: all of them but the MoE routers (f32),
-    # under either policy (every width of both models is a multiple of 16).
+    # under either policy (every width of both models is a multiple of 16);
+    # every K2 launch (bf16 A x int4, int8 A x int8 payloads in 128 x 128
+    # tiles) and every K5 launch (bf16 pools of pages of 16).
     routers = n_layers if cfg.family == "moe" else 0
     _check_wgmma(f"serve:{label}", wgmma, dict(
         k1=(per_step["k1"] - routers) * n_steps,
-        k1g=per_step["k1g"] * n_steps))
+        k1g=per_step["k1g"] * n_steps, k2=counts["k2"], k2g=counts["k2g"],
+        k5=counts["k5"]))
+    print(f"[serve:{label}] K5 designs: split {k5_designs['split']}, wgmma "
+          f"{k5_designs['wgmma']}")
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                  steps=n_steps, payload_gb=payload / 1e9,
                  decode_step_ms=1e3 * float(np.median(decode)),
-                 ttft_ms=1e3 * float(np.median(prefill)), **counts)
+                 ttft_ms=1e3 * float(np.median(prefill)), **counts,
+                 k2_wgmma=wgmma["k2"], k2g_wgmma=wgmma["k2g"],
+                 k5_designs=k5_designs)
     serve["logit_err"] = _kernel_vs_plain_step(torch, model, params, label)
     if not fused:
         serve["fused_logit_err"] = _kernel_vs_plain_step(
@@ -1730,9 +1843,12 @@ def _decode_step_times(torch, step, steps=5):
 
 # Device kernels by name, as the profiler reports them (demangled).
 TRACE_KERNELS = (("mpgemm_sparse", "K3"),
+                 ("mpgemm_packed_wgmma_kernel", "K2 wgmma"),
                  ("mpgemm_packed_kernel", "K2"), ("mpgemm_int8_kernel", "K1"),
                  ("mpgemm_kernel", "K1"), ("mpgemm_wgmma_kernel", "K1 wgmma"),
                  ("paged_flash_kernel", "K5"),
+                 ("paged_wgmma_kernel", "K5 wgmma"),
+                 ("paged_split_kernel", "K5 split"),
                  ("flash_wgmma_kernel", "K4 wgmma"),
                  ("flash_split_kernel", "K4 split"), ("flash_kernel", "K4"),
                  ("pack_kernel", "K6"))
@@ -1900,7 +2016,10 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
-    wgmma = {name: counters[name].wgmma_launches for name in ("k1", "k1g")}
+    wgmma = {name: counters[name].wgmma_launches
+             for name in ("k1", "k1g", "k2", "k2g")}
+    wgmma["k5"] = (counters["k5"].wgmma_launches
+                   + counters["k5"].split_launches)
     del model.prefill, model.decode_step
     per_prefill, per_decode = _want_wave_launches(cfg)
     want = {k: 0 for k in counters}
@@ -1926,7 +2045,8 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
     # Dense bf16 and no router: every K1 launch is a bf16 one.
-    _check_wgmma(f"wave:{label}", wgmma, dict(k1=counts["k1"], k1g=0))
+    _check_wgmma(f"wave:{label}", wgmma, dict(k1=counts["k1"], k1g=0, k2=0,
+                                               k2g=0, k5=0))
     _check_k4_designs(f"wave:{label}", _read_counters())
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
@@ -2252,7 +2372,10 @@ def _ops_row(torch, timer, label, counter, cases):
     the row's numbers (times summed over its cases, one launch each); a
     K1 case names the design it ran."""
     _reset_counters()
-    ran = [_k1_design_of(c["kern"]) for c in cases]
+    design_of = {"k1": _k1_design_of, "k1g": _k1_design_of,
+                 "k2": _k2_design_of, "k2g": _k2_design_of}.get(
+                     counter, lambda call: (call(), "simt"))
+    ran = [design_of(c["kern"]) for c in cases]
     torch.cuda.synchronize()
     counts = _read_counters()
     launched = {k: v for k, v in counts.items()
@@ -2287,7 +2410,8 @@ def _ops_row(torch, timer, label, counter, cases):
         acc.add(1, ms, plain_ms, lib_ms, bound, c["n_bytes"], c["n_ops"])
         rate = c["n_ops"] / ms / 1e9
         print(f"[ops:{label}] {c['name']:>24}"
-              + (f" {design:>5}" if counter in ("k1", "k1g") else "") + ": "
+              + (f" {design:>5}" if counter in ("k1", "k1g", "k2", "k2g")
+                 else "") + ": "
               + ("equal" if c["exact"] else f"err {err:.2e}")
               + f"  kernel {ms:.4f} ms"
               + (f" (A copy {case_copy:.4f})" if case_copy else "")
@@ -2398,11 +2522,15 @@ def _table3_rows(torch, timer, gen):
                 c = torch.randn(m, n, generator=gen, device="cuda").to(dt)
                 kw = dict(alpha=1.5, beta=2.0, bias=bias, activation="gelu")
             esz = a.element_size()
+            # The yardstick: one addmm (beta * C + alpha * A B), float only.
+            library = None if dt == i8 else (
+                lambda a=a, b=b, c=c, kw=kw: torch.addmm(
+                    c, a, b, beta=kw["beta"], alpha=kw["alpha"]))
             case = _ops_case(
                 f"W{wid} {_dtype_name(dt)}",
                 lambda a=a, b=b, c=c, kw=kw: ops.mpgemm(a, b, c, **kw),
                 lambda a=a, b=b, c=c, kw=kw: _ops_plain(a, b, c, **kw),
-                exact=dt == i8,
+                library=library, exact=dt == i8,
                 n_bytes=(m * k + k * n) * esz + 4 * n
                 + m * n * c.element_size() + m * n * (4 if dt == i8 else esz),
                 n_ops=2 * m * n * k,
@@ -2650,20 +2778,33 @@ def _sparse_float_rows(torch, timer, gen):
     return _ops_row(torch, timer, "k3-float-x-int8", "k3", cases)
 
 
+def _laid_out_operands(torch, gen, k, n):
+    """phi3's ``w_up`` (k, n) packed int4 (K2) and tile-sparse bf16 at 0.5
+    by magnitude (K3), and each as the dense bf16 weight a library call
+    reads (dequantized, densified)."""
+    from repro_torch.packing.pack import pack_operand, unpack_reference
+    from repro_torch.packing.params import default_blocks
+    from repro_torch.sparse import densify_operand
+
+    w = torch.randn(k, n, generator=gen, device="cuda") * (2 / (k + n)) ** .5
+    packed = pack_operand(w, default_blocks(k, n), dtype="int4")
+    sparse = _sparse_weight(torch, gen, (k, n), "bfloat16", "magnitude")
+    dense = {"k2": unpack_reference(packed.payload, packed.scales,
+                                    packed.layout, "bfloat16"),
+             "k3": densify_operand(sparse, dtype=torch.bfloat16)}
+    return {"k2": packed, "k3": sparse}, dense
+
+
 def _laid_out_beta_c_rows(torch, timer, gen):
     """beta·C on K2 (phi3 ``w_up`` packed int4, bf16 A) and on K3 (the
     same weight tile-sparse bf16 at 0.5), M = 2 and 32, through
-    ``ops.mpgemm(a, operand, c, beta=...)``."""
+    ``ops.mpgemm(a, operand, c, beta=...)``; the yardstick is one addmm
+    over the weight dequantized (K2) or densified (K3) beforehand."""
     from repro_torch.kernels import ops
-    from repro_torch.packing.pack import pack_operand
-    from repro_torch.packing.params import default_blocks
 
     bf16 = torch.bfloat16
     k, n = 3072, 8192
-    w = torch.randn(k, n, generator=gen, device="cuda") * (2 / (k + n)) ** .5
-    operands = {"k2": pack_operand(w, default_blocks(k, n), dtype="int4"),
-                "k3": _sparse_weight(torch, gen, (k, n), "bfloat16",
-                                     "magnitude")}
+    operands, dense = _laid_out_operands(torch, gen, k, n)
     rows = {}
     for counter, b in operands.items():
         cases = []
@@ -2678,6 +2819,8 @@ def _laid_out_beta_c_rows(torch, timer, gen):
                 f"w_up m={m}",
                 lambda a=a, b=b, c=c, kw=kw: ops.mpgemm(a, b, c, **kw),
                 lambda a=a, b=b, c=c, kw=kw: _ops_plain(a, b, c, **kw),
+                library=lambda a=a, w=dense[counter], c=c: torch.addmm(
+                    c, a, w, beta=2.0, alpha=1.5),
                 n_bytes=2 * m * k + b.nbytes + 4 * m * n, n_ops=n_ops,
                 peak="bfloat16"))
         rows[counter] = _ops_row(torch, timer, f"beta-c-{counter}", counter,
@@ -2689,16 +2832,13 @@ def _laid_out_trans_a_rows(torch, timer, gen):
     """``trans_a`` on K2 (phi3 ``w_up`` packed int4, bf16 A) and on K3
     (the same weight tile-sparse bf16 at 0.5), A read (K, M) with M = 2
     and 32, through ``ops.mpgemm(a, operand, trans_a=True)``: the wrapper
-    copies Aᵀ to (M, K) rows, timed alone beside the call."""
+    copies Aᵀ to (M, K) rows, timed alone beside the call; the yardstick
+    is ``torch.matmul(a.t(), w)`` over the weight dequantized (K2) or
+    densified (K3) beforehand."""
     from repro_torch.kernels import ops
-    from repro_torch.packing.pack import pack_operand
-    from repro_torch.packing.params import default_blocks
 
     k, n = 3072, 8192
-    w = torch.randn(k, n, generator=gen, device="cuda") * (2 / (k + n)) ** .5
-    operands = {"k2": pack_operand(w, default_blocks(k, n), dtype="int4"),
-                "k3": _sparse_weight(torch, gen, (k, n), "bfloat16",
-                                     "magnitude")}
+    operands, dense = _laid_out_operands(torch, gen, k, n)
     rows = {}
     for counter, b in operands.items():
         cases = []
@@ -2712,6 +2852,7 @@ def _laid_out_trans_a_rows(torch, timer, gen):
                 f"w_up m={m}",
                 lambda a=a, b=b: ops.mpgemm(a, b, trans_a=True),
                 lambda a=a, b=b: _ops_plain(a, b, trans_a=True),
+                library=lambda a=a, w=dense[counter]: torch.matmul(a.t(), w),
                 copy=lambda a=a: a.mT.contiguous(),
                 n_bytes=2 * m * k + b.nbytes + 2 * m * n, n_ops=n_ops,
                 peak="bfloat16"))
@@ -3182,7 +3323,12 @@ def main():
         torch.cuda.empty_cache()
     print(f"[time] train phases: {time.perf_counter() - t_phases:.1f} s")
 
-    def row(name, source, replaces, launches, numbers):
+    def row(name, source, replaces, launches, numbers, designs=None):
+        """One kernel's entry; ``designs`` (or an op row's list of the
+        designs its cases ran) counts the launches on each design."""
+        if designs is None and "designs" in numbers:
+            designs = {d: numbers["designs"].count(d)
+                       for d in dict.fromkeys(numbers["designs"])}
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=launches,
@@ -3191,7 +3337,12 @@ def main():
                         "bound_by")},
                     library_ms=numbers.get("library_ms"),
                     **({"copy_ms": numbers["copy_ms"]}
-                       if "copy_ms" in numbers else {}))
+                       if "copy_ms" in numbers else {}),
+                    **({"designs": designs} if designs else {}))
+
+    def k2_designs(path, key):
+        return {"wgmma": serves[path][f"{key}_wgmma"],
+                "simt": serves[path][key] - serves[path][f"{key}_wgmma"]}
 
     mp = "src/repro/kernels/mpgemm.py"
     fa = "src/repro/kernels/flash_attention.py:154"
@@ -3202,12 +3353,18 @@ def main():
         row("K1 mpgemm int8 (dense int8 policy, int32 sum, device scale)",
             "mpgemm_wgmma_int8.cu", f"{mp}:232", serves["int8-dense"]["k1"],
             k1_int8["phi3"]),
-        row("K2 mpgemm_packed (int4 payload, bf16 A)", "mpgemm_packed.cu",
-            f"{mp}:106", serves["int4"]["k2"], k2[("phi3", ("bf16", "int4"))]),
-        row("K2 mpgemm_packed (int8 payload, int8 A)", "mpgemm_packed.cu",
-            f"{mp}:106", serves["int8"]["k2"], k2[("phi3", ("int8", "int8"))]),
-        row("K5 paged_flash (paged flash attention)", "paged_flash.cu", fa,
-            serves["bf16"]["k5"], k5["phi3"]),
+        row("K2 mpgemm_packed (int4 payload, bf16 A)",
+            "mpgemm_packed_wgmma.cu", f"{mp}:106", serves["int4"]["k2"],
+            k2[("phi3", ("bf16", "int4"))], k2_designs("int4", "k2")),
+        row("K2 mpgemm_packed (int8 payload, int8 A)",
+            "mpgemm_packed_wgmma_int8.cu", f"{mp}:106", serves["int8"]["k2"],
+            k2[("phi3", ("int8", "int8"))], k2_designs("int8", "k2")),
+        row("K5 paged_flash (paged flash attention, phi3 decode step)",
+            "flash_attention_wgmma.cu", fa, serves["bf16"]["k5"], k5["phi3"],
+            serves["bf16"]["k5_designs"]),
+        row("K5 paged_flash (phi3 16-token prefill chunk, a launch a "
+            "layer)", "flash_attention_wgmma.cu", fa, serves["bf16"]["k5"],
+            k5["phi3-chunk"], serves["bf16"]["k5_designs"]),
         row("K1 mpgemm at granite's 2-D shapes (bf16 attention, f32 router, "
             "tied head as B^T)", "mpgemm_wgmma.cu", f"{mp}:232",
             serves["granite-bf16"]["k1"], k1["granite"]),
@@ -3216,14 +3373,21 @@ def main():
             f"{mp}:232",
             serves["granite-int8-dense"]["k1"], k1_int8["granite"]),
         row("K2 mpgemm_packed at granite's attention (int4 payload, bf16 A)",
-            "mpgemm_packed.cu", f"{mp}:106", serves["granite-int4"]["k2"],
-            k2[("granite", ("bf16", "int4"))]),
+            "mpgemm_packed_wgmma.cu", f"{mp}:106",
+            serves["granite-int4"]["k2"], k2[("granite", ("bf16", "int4"))],
+            k2_designs("granite-int4", "k2")),
         row("K2 mpgemm_packed at granite's attention (int8 payload, int8 A)",
-            "mpgemm_packed.cu", f"{mp}:106", serves["granite-int8"]["k2"],
-            k2[("granite", ("int8", "int8"))]),
-        row("K5 paged_flash at granite's attention (GQA 16:8, D 64)",
-            "paged_flash.cu", fa, serves["granite-bf16"]["k5"],
-            k5["granite"]),
+            "mpgemm_packed_wgmma_int8.cu", f"{mp}:106",
+            serves["granite-int8"]["k2"], k2[("granite", ("int8", "int8"))],
+            k2_designs("granite-int8", "k2")),
+        row("K5 paged_flash at granite's attention (GQA 16:8, D 64, decode "
+            "step)", "flash_attention_wgmma.cu", fa,
+            serves["granite-bf16"]["k5"], k5["granite"],
+            serves["granite-bf16"]["k5_designs"]),
+        row("K5 paged_flash at granite's attention (16-token prefill chunk, "
+            "a launch a layer)", "flash_attention_wgmma.cu", fa,
+            serves["granite-bf16"]["k5"], k5["granite-chunk"],
+            serves["granite-bf16"]["k5_designs"]),
         row("K6 pack (tile packing, int4 payload: ms a whole phi3-mini, "
             "launches a 16-layer load)", "pack.cu",
             "src/repro/packing/pack.py:221", serves["int4"]["k6"],
@@ -3235,11 +3399,13 @@ def main():
             "device scale)", "mpgemm_wgmma_int8.cu", f"{mp}:812",
             serves["granite-int8-dense"]["k1g"], k1g["int8"]),
         row("K2 mpgemm_packed_grouped (granite experts, int4 payload, bf16 "
-            "A)", "mpgemm_packed.cu", f"{mp}:250",
-            serves["granite-int4"]["k2g"], k2g[("bf16", "int4")]),
+            "A)", "mpgemm_packed_wgmma.cu", f"{mp}:250",
+            serves["granite-int4"]["k2g"], k2g[("bf16", "int4")],
+            k2_designs("granite-int4", "k2g")),
         row("K2 mpgemm_packed_grouped (granite experts, int8 payload, int8 "
-            "A)", "mpgemm_packed.cu", f"{mp}:250",
-            serves["granite-int8"]["k2g"], k2g[("int8", "int8")]),
+            "A)", "mpgemm_packed_wgmma_int8.cu", f"{mp}:250",
+            serves["granite-int8"]["k2g"], k2g[("int8", "int8")],
+            k2_designs("granite-int8", "k2g")),
         row("K6 pack (granite, int4 payload: ms 96 2-D weights and 72 "
             "grouped expert stacks, launches a 12-layer load)", "pack.cu",
             "src/repro/packing/pack.py:280",
@@ -3300,25 +3466,25 @@ def main():
          f"{mp}:232", "t3/trans_a+b"),
         ("K1 quant_in tails (phi3 projections, int8 rows x int8 weight, "
          "silu / residual)", "mpgemm_wgmma_int8.cu", f"{mp}:232", "qi/dense"),
-        ("K2 quant_in tails, int8 payload", "mpgemm_packed.cu", f"{mp}:106",
-         "qi/packed-int8"),
-        ("K2 quant_in tails, int4 payload", "mpgemm_packed.cu", f"{mp}:106",
-         "qi/packed-int4"),
+        ("K2 quant_in tails, int8 payload", "mpgemm_packed_wgmma_int8.cu",
+         f"{mp}:106", "qi/packed-int8"),
+        ("K2 quant_in tails, int4 payload", "mpgemm_packed_wgmma_int8.cu",
+         f"{mp}:106", "qi/packed-int4"),
         ("K2 int8 A x fp8e4m3 payload (quant_in)", "mpgemm_packed.cu",
          f"{mp}:124", "qi/packed-fp8e4m3"),
         ("K2 quant_in tails, bf16 payload (int8 rows upcast)",
-         "mpgemm_packed.cu", f"{mp}:106", "qi/packed-bfloat16"),
+         "mpgemm_packed_wgmma.cu", f"{mp}:106", "qi/packed-bfloat16"),
         ("K3 quant_in tails, int8 tiles (phi3, 0.5 magnitude)",
          "mpgemm_sparse.cu", f"{mp}:181", "qi/sparse-int8"),
         ("K3 bf16 A x int8 tiles (phi3 projections, M 2 and 32)",
          "mpgemm_sparse.cu", f"{mp}:181", "k3-float"),
-        ("K2 beta*C (phi3 w_up, int4 payload, bf16 A)", "mpgemm_packed.cu",
-         f"{mp}:106", "bc/k2"),
+        ("K2 beta*C (phi3 w_up, int4 payload, bf16 A)",
+         "mpgemm_packed_wgmma.cu", f"{mp}:106", "bc/k2"),
         ("K3 beta*C (phi3 w_up, bf16 tiles, 0.5 magnitude)",
          "mpgemm_sparse.cu", f"{mp}:193", "bc/k3"),
         ("K2 trans_a (phi3 w_up, int4 payload, bf16 A read (K, M); the "
-         "wrapper copies A^T, copy_ms)", "mpgemm_packed.cu", f"{mp}:669",
-         "ta/k2"),
+         "wrapper copies A^T, copy_ms)", "mpgemm_packed_wgmma.cu",
+         f"{mp}:669", "ta/k2"),
         ("K3 trans_a (phi3 w_up, bf16 tiles, 0.5 magnitude, A read (K, M); "
          "the wrapper copies A^T, copy_ms)", "mpgemm_sparse.cu", f"{mp}:418",
          "ta/k3"),
@@ -3327,7 +3493,7 @@ def main():
         ("K1 mpgemm_grouped quant_in (granite experts, dense bf16 stacks)",
          "mpgemm_wgmma_int8.cu", f"{mp}:812", "g/dense"),
         ("K2 mpgemm_packed_grouped quant_in (granite experts, int8 payload)",
-         "mpgemm_packed.cu", f"{mp}:250", "g/packed-int8"),
+         "mpgemm_packed_wgmma_int8.cu", f"{mp}:250", "g/packed-int8"),
         ("K3 mpgemm_sparse_grouped quant_in (granite experts, int8 N:M 2:4)",
          "mpgemm_sparse.cu", f"{mp}:181", "g/sparse-int8"),
         ("K1 mpgemm_grouped via mp_einsum('gmk,gkn->gmn') (granite experts)",

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (git
 ignores ``build/``); the MPGEMM sources share ``csrc/gemm_epilogue.cuh``,
-the Hopper designs ``csrc/hopper.cuh``, and the two K1 wgmma sources
+the Hopper designs ``csrc/hopper.cuh``, and the K1 and K2 wgmma sources
 ``csrc/mpgemm_wgmma.cuh``.
 The hash covers the source, the headers and the flags, so an edited
 source never loads a stale library.  Nothing here runs at import:
@@ -27,6 +27,7 @@ from typing import Dict, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("mpgemm", "mpgemm_wgmma", "mpgemm_wgmma_int8", "mpgemm_packed",
+           "mpgemm_packed_wgmma", "mpgemm_packed_wgmma_int8",
            "mpgemm_sparse", "pack", "paged_flash", "flash_attention",
            "flash_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

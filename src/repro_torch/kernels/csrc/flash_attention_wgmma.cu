@@ -1,18 +1,25 @@
-// K4 on Hopper: flash attention over dense K/V for bf16 operands, for
-// sm_90a, in two designs that kernels/flash_attention.py::k4_design picks
-// between by the operands: "wgmma" (tensor cores, TMA) for blocks of 64 or
-// 128 folded query rows, "split" (CUDA cores) for at most 16 folded rows,
-// the decode shapes.  f32 attention and shapes outside the rule stay on
-// csrc/flash_attention.cu's scalar kernel.
+// K4 and K5 on Hopper: flash attention over dense K/V (K4) and over a
+// block-table KV pool (K5) for bf16 operands, for sm_90a, in two designs
+// that kernels/flash_attention.py::k4_design and k5_design pick between by
+// the operands: "wgmma" (tensor cores, TMA) for blocks of 64 or 128 folded
+// query rows, "split" (CUDA cores) for at most 16 folded rows, the decode
+// shapes.  Each design is one body, templated on where the keys come from
+// (PAGED): K4 and K5 run the same code.  f32 attention and shapes outside
+// the rules stay on csrc/flash_attention.cu's and csrc/paged_flash.cu's
+// scalar kernels.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 // src/repro/kernels/flash_attention.py::_flash_kernel, launched by
-// flash_attention.  For request b, kv head kv and query row t:
+// flash_attention, and ::_paged_flash_kernel, launched by
+// paged_flash_attention.  For request b, kv head kv and query row t:
 //
-//     qi   = t + (Tk - Tq)                     (right-aligned position)
-//     mask = j < Tk  [&& j <= qi if causal]  [&& j > qi - window]
+//     qi   = t + (Tk - Tq)         K4: right-aligned position
+//     qi   = q_start[b] + t        K5: logical position; key j lives at row
+//                                  j % ps of page block_tables[b, j / ps]
+//     mask = j < n_keys  [&& j <= qi if causal]  [&& j > qi - window]
+//            (n_keys = Tk, or K5's min(lengths[b], W * ps))
 //     s    = scale * q . k_j   (f32),  masked s = -1e30 (finite, never -inf)
-//     online softmax in f32 (m, l, acc)
+//     online softmax in f32 (m, l, acc); K5 reads V rows j >= n_keys as 0
 //     out  = acc / max(l, 1e-30), cast to bf16
 //
 // GQA: head h = kv * G + gi (the reference's q.reshape(b, hkv, g, tq, d)),
@@ -24,9 +31,9 @@
 // for whisper's encoder: far above the card's 295 flops a byte of bf16),
 // bytes at decode (every K/V row read for one query row).
 //
-// The "wgmma" design (flash_wgmma_kernel): one block per (BM = 64 or 128
-// folded rows, kv head, request, slice of the keys), one consumer
-// warpgroup per 64 rows and one producer warp.
+// The "wgmma" design (flash_wgmma_kernel, K5's paged_wgmma_kernel): one
+// block per (BM = 64 or 128 folded rows, kv head, request, slice of the
+// keys), one consumer warpgroup per 64 rows and one producer warp.
 // * TMA loads Q once (3-D maps over (D, rows, B * Hkv): a tile never
 //   crosses heads) and K and V tiles of 64 keys through a ring of 3 stages
 //   with full and empty mbarriers; D is cut into panels of 64 (one 128-byte
@@ -49,9 +56,9 @@
 //   normalises, writes the output and resets the counter.  One launch, the
 //   same bits every run.
 //
-// The "split" design (flash_split_kernel): at most 16 folded rows (decode:
-// whisper's cross-attention has one) make tensor-core tiles of 64 rows
-// mostly padding, and the work is bytes.  One block of 128 threads per
+// The "split" design (flash_split_kernel, K5's paged_split_kernel): at
+// most 16 folded rows (decode: whisper's cross-attention has one) make
+// tensor-core tiles of 64 rows mostly padding, and the work is bytes.  One block of 128 threads per
 // (slice of the keys, kv head, request); chunks of 64 keys come in with
 // 16-byte loads, the next chunk's loads in flight while the current one is
 // scored (K from a padded shared tile, one key a thread), softmaxed (a
@@ -61,10 +68,30 @@
 // slice a 64-key tile, ran no faster than 5 slices of 300 keys (31-36 us
 // a launch against a 3.7 us bound; SDPA 21-25 us).
 //
-// Numerics, against the plain version (f32 P, expf): P is rounded to
-// bf16 before P V in the wgmma design (a relative error of at most 2^-9
-// an element; l sums the unrounded P), and both designs take exp2f of
-// scores scaled by scale * log2(e).  The card gate stays bf16's 1.6e-2.
+// K5 (PAGED): the pool is (P, Hkv, ps, D), so a page's rows of one kv head
+// are ps * D contiguous values.  lengths and q_start stay on the card: each
+// block reads its request's, visits only the 64-key tiles that hold live
+// keys (the range starts on a 64-key boundary, so a tile is whole pages,
+// or 64 rows of one), and a slice past the length publishes an empty
+// partial (m = -1e30, l = 0), so an idle request's rows come out exactly
+// 0.  The wgmma design's producer reads the table once a page and loads
+// the page as a TMA box of the pool's map (D, ps, P * Hkv) at (64 p, row in
+// page, page * Hkv + kv); the consumers zero the V rows of keys past the
+// length in shared memory before P V, as the reference zeroes them (dead
+// table slots name a scratch page whose values may be anything, and the
+// tensor cores would turn P = 0 times NaN into NaN; scores are removed by
+// a select).  The split design's warps read the page ids of a chunk with
+// one lane a page and take 16-byte rows of K and V from those pages.
+//
+// Numerics, against the plain version (f32 P, expf): K4's wgmma design
+// rounds P to bf16 before P V (a relative error of at most 2^-9 an
+// element; l sums the unrounded P); K5's writes P as three bf16 terms,
+// bf16(P) and two rounding residues, and sums P V over all three (P to
+// about 2^-24 of itself: the served granite steps through K5 feed MoE
+// routers, which turn a rounding of P into another expert, and their
+// logits are held to the plain versions'), and both designs take exp2f
+// of scores scaled by scale * log2(e).  The card gate stays bf16's
+// 1.6e-2.
 //
 // Fully masked rows (a row that sees no key, possible only when Tq > Tk
 // under causal) are finite: they average the V rows their block visited
@@ -184,29 +211,71 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Is key j visible to right-aligned query position qi (j <= j_hi, the
-// last key of the block's range, already holds j < Tk)?
+// p[e] -= bf16(p[e]): what pack_bf16 rounds away (exact in f32).
+__device__ __forceinline__ void take_bf16_residue(float (&p)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; e += 2) {
+    const float2 r =
+        __bfloat1622float2(__floats2bfloat162_rn(p[e], p[e + 1]));
+    p[e] -= r.x;
+    p[e + 1] -= r.y;
+  }
+}
+
+// Is key j visible to query position qi (j <= j_hi, the last key of the
+// block's range, already holds j < the live keys)?
 __device__ __forceinline__ bool visible(int j, int j_hi, int qi, int causal,
                                         int window) {
   return j <= j_hi && (!causal || j <= qi) && (window <= 0 || j > qi - window);
 }
 
-// The keys [j_lo, j_hi] any of the folded rows [r_lo, r_hi] can see (a
-// row's right-aligned position is r % Tq + Tk - Tq).
-__device__ __forceinline__ void key_range(int r_lo, int r_hi, int Tq, int Tk,
-                                          int causal, int window, int& j_lo,
-                                          int& j_hi) {
-  const int off = Tk - Tq;
+// The keys [j_lo, j_hi] any of the folded rows [r_lo, r_hi] can see, of
+// n_keys live keys, when row r sits at position r % Tq + qi_off (K4: Tk -
+// Tq, right-aligned; K5: q_start[b]).
+__device__ __forceinline__ void key_range(int r_lo, int r_hi, int Tq,
+                                          int n_keys, int qi_off, int causal,
+                                          int window, int& j_lo, int& j_hi) {
   // Folded rows past one head's Tq wrap around to t = 0.
   const int t_lo = r_hi - r_lo + 1 >= Tq ? 0 : r_lo % Tq;
   const int t_hi = r_hi - r_lo + 1 >= Tq ? Tq - 1 : r_hi % Tq;
   const bool wraps = t_hi < t_lo;
-  const int qi_lo = (wraps ? 0 : t_lo) + off;
-  const int qi_hi = (wraps ? Tq - 1 : t_hi) + off;
+  const int qi_lo = (wraps ? 0 : t_lo) + qi_off;
+  const int qi_hi = (wraps ? Tq - 1 : t_hi) + qi_off;
   j_lo = 0;
-  j_hi = Tk - 1;
+  j_hi = n_keys - 1;
   if (causal) j_hi = min(j_hi, qi_hi);
   if (window > 0) j_lo = max(0, qi_lo - window + 1);
+}
+
+// K5's key source: request b's keys j live at row j % ps of page
+// block_tables[b * W + j / ps] of a (P, Hkv, ps, D) pool; its rows sit at
+// q_start[b] + t; min(lengths[b], W * ps) keys are live.  K4 passes none.
+struct Pages {
+  const int* block_tables;
+  const int* q_start;
+  const int* lengths;
+  int ps, W;
+};
+
+// A block's live keys and its rows' position offset: K4's Tk keys and
+// right-aligned rows, or K5's request b (read from the card: the wrapper
+// never reads lengths or q_start, so no launch waits on the host).  K5's
+// range starts on a 64-key boundary, so every tile is whole pages (or a
+// 64-row part of one): the page sizes the wrapper sends here divide 64 or
+// are multiples of it.
+template <bool PAGED>
+__device__ __forceinline__ void block_keys(const Pages& pg, int b, int r_lo,
+                                           int r_hi, int Tq, int Tk,
+                                           int causal, int window, int& qi_off,
+                                           int& n_keys, int& j_lo, int& j_hi) {
+  qi_off = Tk - Tq;
+  n_keys = Tk;
+  if constexpr (PAGED) {
+    qi_off = pg.q_start[b];
+    n_keys = min(pg.lengths[b], pg.W * pg.ps);
+  }
+  key_range(r_lo, r_hi, Tq, n_keys, qi_off, causal, window, j_lo, j_hi);
+  if constexpr (PAGED) j_lo &= ~(BKV - 1);
 }
 
 // The slice [t0, t1) of a block's n_tiles key tiles.
@@ -232,17 +301,17 @@ struct FaCfg {
   static constexpr int kWs = BM * DP + 2 * BM;
 };
 
-// grid (q_tiles * splits, Hkv, B); FaCfg::kThreads threads; the maps
-// cover q and out as (B * Hkv, G * Tq, D) and k, v as (B * Hkv, Tk, D).
-template <int BM, int DP>
-__global__ void __launch_bounds__(FaCfg<BM, DP>::kThreads, 1)
-flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                   const __grid_constant__ CUtensorMap map_k,
-                   const __grid_constant__ CUtensorMap map_v,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
-                   int* __restrict__ counters, int Hkv, int Tq, int Tk,
-                   int D, int rows, int causal, int window, float scale_log2,
-                   int splits) {
+// The wgmma design's body: grid (q_tiles * splits, Hkv, B); FaCfg::kThreads
+// threads; the maps cover q and out as (B * Hkv, G * Tq, D) and k, v as (B *
+// Hkv, Tk, D) -- or, PAGED (K5), the pools as (P * Hkv, ps, D), boxes of
+// min(ps, 64) rows.
+template <int BM, int DP, bool PAGED>
+__device__ __forceinline__ void flash_wgmma_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ ws, int* __restrict__ counters, const Pages& pg,
+    int Hkv, int Tq, int Tk, int D, int rows, int causal, int window,
+    float scale_log2, int splits) {
   using C = FaCfg<BM, DP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -258,8 +327,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int kv = blockIdx.y, b = blockIdx.z;
   const int bh = b * Hkv + kv;
   const int m0 = qt * BM;
-  int j_lo, j_hi;
-  key_range(m0, min(m0 + BM, rows) - 1, Tq, Tk, causal, window, j_lo, j_hi);
+  int qi_off, n_keys, j_lo, j_hi;
+  block_keys<PAGED>(pg, b, m0, min(m0 + BM, rows) - 1, Tq, Tk, causal,
+                    window, qi_off, n_keys, j_lo, j_hi);
   const int n_tiles = j_hi >= j_lo ? (j_hi - j_lo + BKV) / BKV : 0;
   int t0, t1;
   slice_tiles(n_tiles, splits, s, t0, t1);
@@ -290,10 +360,29 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         uint8_t* v_s = k_s + C::kKVBytes;
         const int j0 = j_lo + (t0 + it) * BKV;
         mbar_expect_tx(&full[st], C::kStageBytes);
+        if constexpr (PAGED) {
+          // One box a page (or a 64-row part of one), at the page the
+          // table names; a slot past the table (keys past W * ps, never
+          // live) reads its last page, and the masks drop those keys.
+          const int box = min(pg.ps, BKV);
+          for (int i = 0; i < BKV; i += box) {
+            const int slot = min((j0 + i) / pg.ps, pg.W - 1);
+            const int grp = pg.block_tables[b * pg.W + slot] * Hkv + kv;
+            const int row = (j0 + i) % pg.ps;
 #pragma unroll
-        for (int p = 0; p < C::kPanels; ++p) {
-          tma_load(k_s + p * kPanel, &map_k, &full[st], 64 * p, j0, bh);
-          tma_load(v_s + p * kPanel, &map_v, &full[st], 64 * p, j0, bh);
+            for (int p = 0; p < C::kPanels; ++p) {
+              tma_load(k_s + p * kPanel + i * 128, &map_k, &full[st], 64 * p,
+                       row, grp);
+              tma_load(v_s + p * kPanel + i * 128, &map_v, &full[st], 64 * p,
+                       row, grp);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) {
+            tma_load(k_s + p * kPanel, &map_k, &full[st], 64 * p, j0, bh);
+            tma_load(v_s + p * kPanel, &map_v, &full[st], 64 * p, j0, bh);
+          }
         }
       }
     }
@@ -306,7 +395,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int r_base = m0 + wg * 64 + warp * 16 + lane / 4;
   int qi[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) qi[h] = (r_base + 8 * h) % Tq + Tk - Tq;
+  for (int h = 0; h < 2; ++h) qi[h] = (r_base + 8 * h) % Tq + qi_off;
   float o[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
@@ -317,6 +406,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int it = 0; it < n_kv; ++it) {
     const int st = it % kStages;
     mbar_wait(&full[st], (it / kStages) & 1);
+    const int j0 = j_lo + (t0 + it) * BKV;
+    if constexpr (PAGED) {
+      // V rows of keys past the length (the rest of the last live page,
+      // dead slots' scratch page) are zeroed before P V: a masked key's P
+      // is 0, and the tensor cores would turn 0 x NaN into NaN.
+      const int live = n_keys - j0;
+      if (live < BKV) {
+        uint8_t* v_s = ring + st * C::kStageBytes + C::kKVBytes;
+        const int chunks = (BKV - live) * 8;    // 16-byte chunks a panel
+        for (int e = tid; e < C::kPanels * chunks; e += C::kConsumerThreads)
+          *reinterpret_cast<uint4*>(v_s + (e / chunks) * kPanel +
+                                    live * 128 + (e % chunks) * 16) =
+              make_uint4(0, 0, 0, 0);
+        fence_async_smem();
+        named_sync(C::kConsumerThreads);
+      }
+    }
     const uint32_t k_base = smem_u32(ring + st * C::kStageBytes);
     const uint32_t v_base = k_base + C::kKVBytes;
     float sc[32];
@@ -334,7 +440,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<0>();
 
     // Masks, then the online softmax of this tile, in the log2 domain.
-    const int j0 = j_lo + (t0 + it) * BKV;
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -357,7 +462,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       m_run[h] = mx[h];
       l_run[h] *= alpha[h];
     }
-    uint32_t pa[4][4];
+    // K5 (PAGED) writes P as three bf16 terms, P = bf16(P) + r1 + r2 to
+    // about 2^-24 of P (each r the rounding residue of the last), and sums
+    // P V over the three: as exact as its f32 plain version and scalar
+    // kernel, whose answers the served models' steps are held to.
+    constexpr int kTerms = PAGED ? 3 : 1;
+    uint32_t pa[kTerms][4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float p[4];
@@ -368,8 +478,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       // Key block j is half of the A fragment of k16 step j / 2: rows r
       // and r + 8, keys 2 (lane % 4) + 8 (j % 2) and the next.
-      pa[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
-      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+#pragma unroll
+      for (int t = 0; t < kTerms; ++t) {
+        pa[t][j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
+        pa[t][j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+        if (t + 1 < kTerms) take_bf16_residue(p);
+      }
     }
 #pragma unroll
     for (int i = 0; i < DP / 8; ++i) {
@@ -380,8 +494,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_rs(o, pa[kk], smem_desc(v_base + kk * 16 * 128, kPanel, 1024));
+    for (int t = 0; t < kTerms; ++t)
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_rs(o, pa[t][kk],
+                 smem_desc(v_base + kk * 16 * 128, kPanel, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     mbar_arrive(&empty[st]);
@@ -476,6 +593,36 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (tid == 0) counters[tile] = 0;     // ready for the next launch
 }
 
+// K4's wgmma design over dense K/V.
+template <int BM, int DP>
+__global__ void __launch_bounds__(FaCfg<BM, DP>::kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+                   int* __restrict__ counters, int Hkv, int Tq, int Tk,
+                   int D, int rows, int causal, int window, float scale_log2,
+                   int splits) {
+  flash_wgmma_body<BM, DP, false>(map_q, map_k, map_v, out, ws, counters,
+                                  Pages{}, Hkv, Tq, Tk, D, rows, causal,
+                                  window, scale_log2, splits);
+}
+
+// K5's wgmma design over a paged pool.
+template <int BM, int DP>
+__global__ void __launch_bounds__(FaCfg<BM, DP>::kThreads, 1)
+paged_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+                   int* __restrict__ counters, const Pages pg, int Hkv,
+                   int Tq, int D, int rows, int causal, int window,
+                   float scale_log2, int splits) {
+  flash_wgmma_body<BM, DP, true>(map_q, map_k, map_v, out, ws, counters, pg,
+                                 Hkv, Tq, 0, D, rows, causal, window,
+                                 scale_log2, splits);
+}
+
 // ---------------------------------------------------------------- "split"
 
 constexpr int SP_ROWS = 16;        // folded rows a block, at most
@@ -509,17 +656,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// grid (splits, Hkv, B); SP_THREADS threads; q and out (B * Hkv, rows, D)
-// with rows = G * Tq <= SP_ROWS, k and v (B * Hkv, Tk, D); D <= SP_DMAX,
-// D % 8 == 0, 16-byte aligned bases.
-__global__ void __launch_bounds__(SP_THREADS)
-flash_split_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
-                   int* __restrict__ counters, int Hkv, int Tq, int Tk,
-                   int D, int rows, int causal, int window, float scale_log2,
-                   int splits) {
+// The split design's body: grid (splits, Hkv, B); SP_THREADS threads; q and
+// out (B * Hkv, rows, D) with rows = G * Tq <= SP_ROWS, k and v (B * Hkv,
+// Tk, D) -- or, PAGED (K5), the pools (P, Hkv, ps, D); D <= SP_DMAX, D % 8
+// == 0, 16-byte aligned bases.
+template <bool PAGED>
+__device__ __forceinline__ void flash_split_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ ws, int* __restrict__ counters, const Pages& pg,
+    int Hkv, int Tq, int Tk, int D, int rows, int causal, int window,
+    float scale_log2, int splits) {
   __shared__ __align__(16) float q_s[SP_ROWS][SP_DMAX];
   // K rows padded by 16 bytes: the 16-byte reads of 8 consecutive keys
   // land in 8 distinct bank groups.
@@ -532,8 +679,9 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int s = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int bh = b * Hkv + kv;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  int j_lo, j_hi;
-  key_range(0, rows - 1, Tq, Tk, causal, window, j_lo, j_hi);
+  int qi_off, n_keys, j_lo, j_hi;
+  block_keys<PAGED>(pg, b, 0, rows - 1, Tq, Tk, causal, window, qi_off,
+                    n_keys, j_lo, j_hi);
   const int n_tiles = j_hi >= j_lo ? (j_hi - j_lo + BKV) / BKV : 0;
   int t0, t1;
   slice_tiles(n_tiles, splits, s, t0, t1);
@@ -543,18 +691,34 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
     l_s[tid] = 0.f;
   }
   const int dv = D / 8;                 // 16-byte vectors a row
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * Tk * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * Tk * D;
+  const size_t kv_base = PAGED ? 0 : static_cast<size_t>(bh) * Tk * D;
+  const __nv_bfloat16* kb = k + kv_base;
+  const __nv_bfloat16* vb = v + kv_base;
   uint4 kr[SP_LOADS], vr[SP_LOADS];
   auto load = [&](int c) {
     const int j0 = j_lo + (t0 + c) * BKV;
+    // K5: lane l of each warp reads the id of the chunk's page l (one read
+    // of the table a page and warp; a 64-key chunk spans 64 / ps pages, or
+    // one), and every load takes its page from that lane.
+    int page = 0;
+    if constexpr (PAGED) {
+      const int first = j0 / pg.ps;
+      if (lane < max(1, BKV / pg.ps) && (first + lane) * pg.ps <= j_hi)
+        page = __ldg(pg.block_tables + b * pg.W + first + lane);
+    }
 #pragma unroll
     for (int i = 0; i < SP_LOADS; ++i) {
       const int e = tid + SP_THREADS * i;
       const int key = j0 + e / dv;
+      size_t row = key;
+      if constexpr (PAGED) {
+        const int pid = __shfl_sync(0xffffffffu, page,
+                                    pg.ps >= BKV ? 0 : (e / dv) / pg.ps);
+        row = (static_cast<size_t>(pid) * Hkv + kv) * pg.ps + key % pg.ps;
+      }
       kr[i] = vr[i] = make_uint4(0, 0, 0, 0);
       if (e < BKV * dv && key <= j_hi) {
-        const size_t at = static_cast<size_t>(key) * D + (e % dv) * 8;
+        const size_t at = row * D + (e % dv) * 8;
         kr[i] = __ldg(reinterpret_cast<const uint4*>(kb + at));
         vr[i] = __ldg(reinterpret_cast<const uint4*>(vb + at));
       }
@@ -563,7 +727,6 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
   float acc[SP_OUT];
 #pragma unroll
   for (int i = 0; i < SP_OUT; ++i) acc[i] = 0.f;
-  const int qi_of = Tk - Tq;
   if (t1 > t0) load(0);                 // in flight while q is staged
   for (int e = tid; e < rows * D; e += SP_THREADS)
     q_s[e / D][e % D] = __bfloat162float(
@@ -608,7 +771,7 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < SP_ROWS / 2; ++i) {
         const int r = r0 + 2 * i;
         if (r < rows)
-          p_s[r][jj] = visible(j0 + jj, j_hi, r % Tq + qi_of, causal, window)
+          p_s[r][jj] = visible(j0 + jj, j_hi, r % Tq + qi_off, causal, window)
                            ? sacc[i] * scale_log2
                            : NEG_INF;
       }
@@ -696,20 +859,57 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
   if (tid == 0) counters[bh] = 0;     // ready for the next launch
 }
 
-template <int BM, int DP>
+// K4's split design over dense K/V.
+__global__ void __launch_bounds__(SP_THREADS)
+flash_split_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+                   int* __restrict__ counters, int Hkv, int Tq, int Tk,
+                   int D, int rows, int causal, int window, float scale_log2,
+                   int splits) {
+  flash_split_body<false>(q, k, v, out, ws, counters, Pages{}, Hkv, Tq, Tk,
+                          D, rows, causal, window, scale_log2, splits);
+}
+
+// K5's split design over a paged pool.
+__global__ void __launch_bounds__(SP_THREADS)
+paged_split_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k_pages,
+                   const __nv_bfloat16* __restrict__ v_pages,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+                   int* __restrict__ counters, const Pages pg, int Hkv,
+                   int Tq, int D, int rows, int causal, int window,
+                   float scale_log2, int splits) {
+  flash_split_body<true>(q, k_pages, v_pages, out, ws, counters, pg, Hkv, Tq,
+                         0, D, rows, causal, window, scale_log2, splits);
+}
+
+// K4 (dense K/V: maps over (B * Hkv, Tk, D) in 64-key boxes) or K5
+// (PAGED: maps over the pools (P * Hkv, ps, D) in boxes of a page, at most
+// 64 rows).
+template <int BM, int DP, bool PAGED>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, float* ws, int* counters, int B, int Hkv,
-                         int Tq, int Tk, int D, int rows, int causal,
-                         int window, float scale_log2, int splits,
-                         cudaStream_t stream) {
+                         void* out, float* ws, int* counters, const Pages& pg,
+                         int n_pages, int B, int Hkv, int Tq, int Tk, int D,
+                         int rows, int causal, int window, float scale_log2,
+                         int splits, cudaStream_t stream) {
   using C = FaCfg<BM, DP>;
   CUtensorMap map_q, map_k, map_v;
   const uint64_t groups = static_cast<uint64_t>(B) * Hkv;
+  const uint64_t kv_rows = PAGED ? pg.ps : Tk;
+  const uint64_t kv_groups = PAGED ? static_cast<uint64_t>(n_pages) * Hkv
+                                   : groups;
+  const uint32_t box = PAGED && pg.ps < BKV ? pg.ps : BKV;
   if (!make_map(&map_q, q, D, rows, groups, 64, BM) ||
-      !make_map(&map_k, k, D, Tk, groups, 64, BKV) ||
-      !make_map(&map_v, v, D, Tk, groups, 64, BKV))
+      !make_map(&map_k, k, D, kv_rows, kv_groups, 64, box) ||
+      !make_map(&map_v, v, D, kv_rows, kv_groups, 64, box))
     return cudaErrorInvalidValue;
-  auto kernel = flash_wgmma_kernel<BM, DP>;
+  const void* kernel;
+  if constexpr (PAGED)
+    kernel = reinterpret_cast<const void*>(paged_wgmma_kernel<BM, DP>);
+  else
+    kernel = reinterpret_cast<const void*>(flash_wgmma_kernel<BM, DP>);
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t rc = cudaFuncSetAttribute(
@@ -719,10 +919,49 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   }
   const int q_tiles = (rows + BM - 1) / BM;
   dim3 grid(q_tiles * splits, Hkv, B);
-  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), ws, counters,
-      Hkv, Tq, Tk, D, rows, causal, window, scale_log2, splits);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if constexpr (PAGED)
+    paged_wgmma_kernel<BM, DP><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+        map_q, map_k, map_v, o, ws, counters, pg, Hkv, Tq, D, rows, causal,
+        window, scale_log2, splits);
+  else
+    flash_wgmma_kernel<BM, DP><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+        map_q, map_k, map_v, o, ws, counters, Hkv, Tq, Tk, D, rows, causal,
+        window, scale_log2, splits);
   return cudaGetLastError();
+}
+
+// Picks the wgmma design's instantiation: `bm` folded rows a block, D
+// padded to 64 or 128.
+template <bool PAGED>
+int launch_wgmma_bm(const void* q, const void* k, const void* v, void* out,
+                    void* ws, void* counters, const Pages& pg, int n_pages,
+                    int B, int H, int Hkv, int Tq, int Tk, int D, int causal,
+                    int window, float scale, int bm, int splits,
+                    void* stream) {
+  const int rows = H / Hkv * Tq;
+  const long long blocks = static_cast<long long>((rows + bm - 1) / bm) *
+                           splits;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(counters);
+  const float sl = scale * LOG2E;
+  if (bm == 64 && D <= 64)
+    return launch_wgmma<64, 64, PAGED>(q, k, v, out, w, c, pg, n_pages, B,
+                                       Hkv, Tq, Tk, D, rows, causal, window,
+                                       sl, splits, s);
+  if (bm == 64)
+    return launch_wgmma<64, 128, PAGED>(q, k, v, out, w, c, pg, n_pages, B,
+                                        Hkv, Tq, Tk, D, rows, causal, window,
+                                        sl, splits, s);
+  if (D <= 64)
+    return launch_wgmma<128, 64, PAGED>(q, k, v, out, w, c, pg, n_pages, B,
+                                        Hkv, Tq, Tk, D, rows, causal, window,
+                                        sl, splits, s);
+  return launch_wgmma<128, 128, PAGED>(q, k, v, out, w, c, pg, n_pages, B,
+                                       Hkv, Tq, Tk, D, rows, causal, window,
+                                       sl, splits, s);
 }
 
 bool args_ok(const void* q, const void* k, const void* v, int B, int H,
@@ -734,6 +973,20 @@ bool args_ok(const void* q, const void* k, const void* v, int B, int H,
          && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(v) % 16 == 0;
+}
+
+// K5's operands: the dense checks over W * ps keys, page sizes that tile
+// 64 keys (a TMA box of whole 128-byte swizzle atoms: ps % 8 == 0), and
+// the tables on the card.
+bool paged_ok(const void* q, const void* k, const void* v, int B, int H,
+              int Hkv, int Tq, int D, int ps, int W, int n_pages, int splits,
+              const void* ws, const void* counters, const void* bt,
+              const void* q_start, const void* lengths) {
+  return ps >= 8 && ps % 8 == 0 && (64 % ps == 0 || ps % 64 == 0) &&
+         ps <= 256 && W >= 1 && n_pages >= 1 &&
+         static_cast<long long>(W) * ps <= 0x7fffffffll &&
+         bt != nullptr && q_start != nullptr && lengths != nullptr &&
+         args_ok(q, k, v, B, H, Hkv, Tq, W * ps, D, splits, ws, counters);
 }
 
 }  // namespace
@@ -755,25 +1008,9 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v,
   if (!args_ok(q, k, v, B, H, Hkv, Tq, Tk, D, splits, ws, counters) ||
       (bm != 64 && bm != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = H / Hkv * Tq;
-  const long long blocks = static_cast<long long>((rows + bm - 1) / bm) *
-                           splits;
-  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  int* c = static_cast<int*>(counters);
-  const float sl = scale * LOG2E;
-  if (bm == 64 && D <= 64)
-    return launch_wgmma<64, 64>(q, k, v, out, w, c, B, Hkv, Tq, Tk, D, rows,
-                                causal, window, sl, splits, s);
-  if (bm == 64)
-    return launch_wgmma<64, 128>(q, k, v, out, w, c, B, Hkv, Tq, Tk, D,
-                                 rows, causal, window, sl, splits, s);
-  if (D <= 64)
-    return launch_wgmma<128, 64>(q, k, v, out, w, c, B, Hkv, Tq, Tk, D,
-                                 rows, causal, window, sl, splits, s);
-  return launch_wgmma<128, 128>(q, k, v, out, w, c, B, Hkv, Tq, Tk, D, rows,
-                                causal, window, sl, splits, s);
+  return launch_wgmma_bm<false>(q, k, v, out, ws, counters, Pages{}, 0, B, H,
+                                Hkv, Tq, Tk, D, causal, window, scale, bm,
+                                splits, stream);
 }
 
 // Launches the "split" design on `stream`, as flash_wgmma_launch but for
@@ -795,6 +1032,60 @@ int flash_split_launch(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
       static_cast<int*>(counters), Hkv, Tq, Tk, D, rows, causal, window,
+      scale * LOG2E, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's "wgmma" design on `stream`, as flash_wgmma_launch over a paged
+// pool: k_pages and v_pages (n_pages, Hkv, ps, D) contiguous bf16 with
+// 16-byte aligned bases; block_tables (B, W), q_start and lengths (B,)
+// int32 on the card (read by the blocks, never by the host; every table
+// entry a page of the pool); ps a multiple of 8 that divides 64, or a
+// multiple of 64.  The workspace and counters are flash_wgmma_launch's.
+int paged_wgmma_launch(const void* q, const void* k_pages,
+                       const void* v_pages, void* out, void* ws,
+                       void* counters, const void* block_tables,
+                       const void* q_start, const void* lengths, int B, int H,
+                       int Hkv, int Tq, int D, int ps, int W, int n_pages,
+                       int causal, int window, float scale, int bm,
+                       int splits, void* stream) {
+  if (!paged_ok(q, k_pages, v_pages, B, H, Hkv, Tq, D, ps, W, n_pages,
+                splits, ws, counters, block_tables, q_start, lengths) ||
+      (bm != 64 && bm != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Pages pg{static_cast<const int*>(block_tables),
+                 static_cast<const int*>(q_start),
+                 static_cast<const int*>(lengths), ps, W};
+  return launch_wgmma_bm<true>(q, k_pages, v_pages, out, ws, counters, pg,
+                               n_pages, B, H, Hkv, Tq, 0, D, causal, window,
+                               scale, bm, splits, stream);
+}
+
+// K5's "split" design on `stream`, as paged_wgmma_launch for H / Hkv * Tq
+// <= 16 folded rows; the workspace and counters are flash_split_launch's.
+int paged_split_launch(const void* q, const void* k_pages,
+                       const void* v_pages, void* out, void* ws,
+                       void* counters, const void* block_tables,
+                       const void* q_start, const void* lengths, int B, int H,
+                       int Hkv, int Tq, int D, int ps, int W, int n_pages,
+                       int causal, int window, float scale, int splits,
+                       void* stream) {
+  const int rows = Hkv > 0 ? H / Hkv * Tq : 0;
+  if (!paged_ok(q, k_pages, v_pages, B, H, Hkv, Tq, D, ps, W, n_pages,
+                splits, ws, counters, block_tables, q_start, lengths) ||
+      rows > SP_ROWS || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Pages pg{static_cast<const int*>(block_tables),
+                 static_cast<const int*>(q_start),
+                 static_cast<const int*>(lengths), ps, W};
+  dim3 grid(splits, Hkv, B);
+  paged_split_kernel<<<grid, SP_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pages),
+      static_cast<const __nv_bfloat16*>(v_pages),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
+      static_cast<int*>(counters), pg, Hkv, Tq, D, rows, causal, window,
       scale * LOG2E, splits);
   return static_cast<int>(cudaGetLastError());
 }

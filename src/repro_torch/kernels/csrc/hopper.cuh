@@ -1,9 +1,10 @@
 // Device and host helpers of the Hopper (sm_90a) designs: mbarriers, TMA
 // loads, wgmma shared-memory descriptors and fences, and TMA tensor maps
 // encoded on the host and kept for the next launch with the same operand.
-// Shared by csrc/mpgemm_wgmma.cu (K1, bf16 and int8) and
-// csrc/flash_attention_wgmma.cu (K4); each source compiles on its own into
-// a library, so each holds its own map cache.
+// Shared by csrc/mpgemm_wgmma.cu and mpgemm_wgmma_int8.cu (K1),
+// mpgemm_packed_wgmma.cu and mpgemm_packed_wgmma_int8.cu (K2) and
+// csrc/flash_attention_wgmma.cu (K4, K5); each source compiles on its own
+// into a library, so each holds its own map cache.
 #pragma once
 
 #include <cuda.h>
@@ -72,6 +73,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One bulk copy of `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) from device memory into shared memory, no
+// tensor map; its bytes complete on the barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -1,7 +1,10 @@
-// K1 on Hopper's tensor cores: the dense MPGEMM with a fused epilogue, 2-D
-// or grouped, loaded by TMA and summed by wgmma, for sm_90a.  One template
-// for both operand types; csrc/mpgemm_wgmma.cu instantiates it for bf16
-// and csrc/mpgemm_wgmma_int8.cu for int8, so the two build in parallel.
+// K1 and K2 on Hopper's tensor cores: the dense MPGEMM with a fused
+// epilogue, 2-D or grouped, loaded by TMA and summed by wgmma, for sm_90a,
+// and the same with B read from a packed payload (K2, below).  One
+// template for both operand types; csrc/mpgemm_wgmma.cu instantiates it
+// for bf16 and csrc/mpgemm_wgmma_int8.cu for int8 (K1),
+// csrc/mpgemm_packed_wgmma.cu and mpgemm_packed_wgmma_int8.cu for K2, so
+// the four build in parallel.
 //
 // Replaces, with csrc/mpgemm.cu, the TPU kernel
 // src/repro/kernels/mpgemm.py::make_gemm_kernel (dense body `kernel`),
@@ -85,6 +88,29 @@
 //   epilogue_store (or epilogue_store_int), as mpgemm.cu does, so each
 //   instantiation holds one copy of the epilogue and the stores are
 //   coalesced.
+// * K2 (the packed payload, P != kDense; csrc/mpgemm_packed_wgmma.cu and
+//   mpgemm_packed_wgmma_int8.cu): the same ring, A by TMA, and a B stage
+//   read from the payload's contiguous 128 x 128 tiles
+//   (repro_torch/packing/layout.py).  A bf16 payload comes by TMA boxes of
+//   the payload viewed as (G * nkb * nnb) tiles and goes to wgmma as a
+//   dense (K, N) weight does; a codec payload comes raw by one bulk copy
+//   a stage and the consumer warpgroups decode it into a transposed
+//   buffer: for bf16 A (decode_tile) each value times its tile's scale
+//   (__fmul_rn), rounded to bf16, into the MN-major layout above; for
+//   int8 A the int8 tile, or the int4 one with its nibbles sign-extended,
+//   through transpose_tile into the K-major layout.  Every payload tile's
+//   128 rows are summed on the tensor cores and folded into an f32 sum on
+//   the CUDA cores in K-tile order -- int8: acc += float(partial) *
+//   tile_scale, the exact int32 partial rounded as the reference rounds
+//   it; bf16: acc += partial -- so the f32 sum sees the reference's tile
+//   boundaries, and a tensor core's sum never runs longer than a tile
+//   (summed over all of a long K on the tensor cores, the served granite
+//   steps' logits moved past their bound in chip_smoke.py).  The
+//   split-K rule (kernels/mpgemm.py::k2_split) cuts whole payload tiles
+//   and keeps the grid within one wave of blocks: a K2 block's decoded
+//   tiles leave no room for a second on its SM.  The decode runs on the
+//   consumer warpgroups, as the int8 transposes do; the tile's scale is
+//   loaded one stage ahead.
 // Known gaps, for later work: no persistent blocks (a tile's epilogue does
 // not overlap the next tile's loads; the bf16 Table III shapes with K <=
 // 1536 and N >= 24576 run 2.5-4.2x cuBLAS on an H100 80GB HBM3 at 700 W,
@@ -101,6 +127,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 
 #include <cstddef>
 #include <cstdint>
@@ -120,25 +148,53 @@ constexpr int kLd = BN + 8;     // the output tile's row stride in smem
 constexpr int kGroupRows = 8;   // tile rows walked together (L2 reuse)
 constexpr uint32_t kBox = 64 * kRowBytes;   // one 64-row box: 8 KB
 
-template <int BM, typename T, bool TRANS_A, bool TRANS_B>
+// K2's payload codes (kernels/mpgemm.py::_PAYLOAD_CODES); kDense: K1's
+// dense B.
+enum { kDense = -1, P_BF16 = 1, P_INT8 = 2, P_INT4 = 3, P_FP8 = 4 };
+
+// K2's packed B (P != kDense): payload[G][nkb][nnb][tk][BN] tiles of 128 K
+// rows, scales[G][nkb][nnb] f32 for the codecs.  K1 passes none.
+struct PackedB {
+  const uint8_t* payload;
+  const float* scales;
+  int nkb, nnb;
+};
+
+template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P = kDense>
 struct Cfg {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   static constexpr int BK = kRowBytes / sizeof(T);          // 64 | 128
   static constexpr int kConsumers = BM / 64;                // warpgroups
   static constexpr int kThreads = (kConsumers + 1) * 128;   // + producer
+  // K2: a stage is BK rows of one 128-deep payload tile (bf16 A: half of
+  // it, int8 A: all of it); a codec payload arrives raw (BK rows of BN
+  // bytes, int4 BK / 2) and is decoded into a transposed buffer.
+  static constexpr bool kPacked = P != kDense;
+  static constexpr bool kDecode = kPacked && P != P_BF16;
+  static constexpr int kSub = 128 / BK;                     // stages a tile
+  // K2 sums each payload tile's 128 rows on the tensor cores and folds
+  // the tile's partial into an f32 sum on the CUDA cores (int8 A: the
+  // exact int32 partial times the tile's scale), as the reference adds a
+  // tile's dot to its accumulator: the tensor cores' f32 sums then never
+  // run longer than a tile.
+  static constexpr bool kFold = kPacked;
+  static constexpr int kBBytes =
+      kDecode ? (P == P_INT4 ? BK / 2 : BK) * BN : BN * kRowBytes;
   // bf16 at BM = 64 (decode) runs two blocks an SM: 2 x ~97 KB of shared
-  // memory; int8's transposed buffers leave room for one.
-  static constexpr int kMinBlocks = BM == 64 && !kInt8 ? 2 : 1;
+  // memory; int8's transposed buffers leave room for one, and K2 keeps
+  // one so that its f32 fold's registers (64 a thread) do not spill.
+  static constexpr int kMinBlocks = BM == 64 && !kInt8 && !kPacked ? 2 : 1;
   static constexpr int kABytes = BM * kRowBytes;
-  static constexpr int kStageBytes = kABytes + BN * kRowBytes;
+  static constexpr int kStageBytes = kABytes + kBBytes;
   static constexpr int kPipeBytes = kStages * kStageBytes;
-  // int8 only: the K-major copies of MN-major tiles, three of each.
+  // int8's K-major copies of MN-major tiles and K2's decoded tiles, three
+  // of each.
   static constexpr bool kTransA = kInt8 && TRANS_A;
   static constexpr bool kTransB = kInt8 && !TRANS_B;
-  static constexpr bool kTranspose = kTransA || kTransB;
+  static constexpr bool kTranspose = kTransA || kTransB || kDecode;
   static constexpr int kTBufs = 3;
   static constexpr int kTBytes = (kTransA ? kABytes : 0) +
-                                 (kTransB ? BN * kRowBytes : 0);
+                                 (kTransB || kDecode ? BN * kRowBytes : 0);
   static constexpr int kOutBytes = BM * kLd * 4;
   static_assert(kOutBytes <= kPipeBytes, "the output tile reuses the ring");
   // The ring, the transposed buffers, 2 * kStages mbarriers, and slack to
@@ -222,14 +278,25 @@ __device__ __forceinline__ void wgmma_m64n128(int (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// The four bytes of w with each one's low (high) nibble sign-extended.
+__device__ __forceinline__ uint32_t nibbles_lo(uint32_t w) {
+  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+__device__ __forceinline__ uint32_t nibbles_hi(uint32_t w) {
+  return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
 // One int8 tile, MN-major to K-major: `raw` holds 128 K rows of W bytes
 // (W = the tile's M or N extent, 64 or 128; unswizzled, as TMA wrote it);
 // `dst` gets W rows of 128 K bytes in the 128-byte swizzle (16-byte chunk
 // c of row r at chunk c ^ (r % 8)).  Lane l of a warp takes the 4 x 4 byte
 // block (K rows 4a..4a+3, MN bytes 4b..4b+3) with a = l ^ s, b = l % (W /
 // 4), for s = this warp's steps: each 4-byte store of the warp hits 32
-// distinct banks, each load at most two-way (W = 64).
-template <int W, int kThreads>
+// distinct banks, each load at most two-way (W = 64).  NIBBLES (K2's int4
+// payload): `raw` holds 64 rows of W bytes, byte (r, n) K rows 2r (low
+// nibble) and 2r + 1 (high), sign-extended here; the loads of a warp are
+// then conflict-free.
+template <int W, int kThreads, bool NIBBLES = false>
 __device__ __forceinline__ void transpose_tile(const uint8_t* raw,
                                                uint8_t* dst, int tid) {
   constexpr int NB = W / 4, kWarps = kThreads / 32;
@@ -239,11 +306,22 @@ __device__ __forceinline__ void transpose_tile(const uint8_t* raw,
   for (int i = 0; i < NB / kWarps; ++i) {
     const int s = warp + i * kWarps;
     const int a = lane ^ s, b = lane % NB;
-    const uint8_t* src = raw + 4 * a * W + 4 * b;
-    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(src);
-    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(src + W);
-    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(src + 2 * W);
-    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(src + 3 * W);
+    uint32_t w0, w1, w2, w3;
+    if constexpr (NIBBLES) {
+      const uint8_t* src = raw + 2 * a * W + 4 * b;
+      const uint32_t p0 = *reinterpret_cast<const uint32_t*>(src);
+      const uint32_t p1 = *reinterpret_cast<const uint32_t*>(src + W);
+      w0 = nibbles_lo(p0);
+      w1 = nibbles_hi(p0);
+      w2 = nibbles_lo(p1);
+      w3 = nibbles_hi(p1);
+    } else {
+      const uint8_t* src = raw + 4 * a * W + 4 * b;
+      w0 = *reinterpret_cast<const uint32_t*>(src);
+      w1 = *reinterpret_cast<const uint32_t*>(src + W);
+      w2 = *reinterpret_cast<const uint32_t*>(src + 2 * W);
+      w3 = *reinterpret_cast<const uint32_t*>(src + 3 * W);
+    }
     // Row i of the block is w_i; column c of it is byte c of each.
     const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);
     const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);
@@ -263,22 +341,101 @@ __device__ __forceinline__ void transpose_tile(const uint8_t* raw,
   }
 }
 
+// Eight bf16 values x[0..7] * ts (the product rounded as __fmul_rn, then
+// to bf16 by round-to-nearest: the reference's bf.astype(a.dtype)) as the
+// 16-byte chunk of K row k, N columns 8c..8c+7, of the MN-major layout TMA
+// writes for a dense (K, N) bf16 B: two boxes of 64 N x 64 K rows, chunk c
+// % 8 of row k at chunk (c % 8) ^ (k % 8).
+__device__ __forceinline__ void store_row8(uint8_t* dst, int k, int c,
+                                           const float (&x)[8], float ts) {
+  uint32_t h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(
+        __fmul_rn(x[2 * i], ts), __fmul_rn(x[2 * i + 1], ts));
+    h[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  *reinterpret_cast<uint4*>(dst + (c / 8) * kBox + k * kRowBytes +
+                            (((c % 8) ^ (k % 8)) * 16)) =
+      make_uint4(h[0], h[1], h[2], h[3]);
+}
+
+// K2, bf16 A against a codec payload: `raw` holds one stage's 64 payload
+// rows of BN (128) values as the payload stores them (int8 and fp8e4m3 a
+// byte each; int4 32 rows of bytes holding K rows 2r, low nibble, and 2r +
+// 1); `dst` gets them decoded, times the tile's scale, in bf16, in the
+// layout wgmma reads for the served bf16 weight.  A thread takes 8 bytes
+// of a row at a time (a warp reads 256 contiguous bytes) and stores 16.
+template <int P, int kThreads>
+__device__ __forceinline__ void decode_tile(const uint8_t* raw,
+                                            uint8_t* dst, float ts,
+                                            int tid) {
+  constexpr int kRows = P == P_INT4 ? 32 : 64;   // payload rows in `raw`
+  constexpr int kItems = kRows * BN / 8;         // 8-byte pieces
+  static_assert(kItems % kThreads == 0, "every thread the same pieces");
+#pragma unroll
+  for (int i = 0; i < kItems / kThreads; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e / (BN / 8), c = e % (BN / 8);
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + r * BN + c * 8);
+    const uint32_t word[2] = {w.x, w.y};
+    float x[8], y[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t byte = (word[j / 4] >> (8 * (j % 4))) & 0xFFu;
+      if constexpr (P == P_INT4) {
+        x[j] = static_cast<float>(static_cast<int8_t>(byte << 4) >> 4);
+        y[j] = static_cast<float>(static_cast<int8_t>(byte) >> 4);
+      } else if constexpr (P == P_FP8) {
+        x[j] = __half2float(__half(__nv_cvt_fp8_to_halfraw(
+            static_cast<__nv_fp8_storage_t>(byte), __NV_E4M3)));
+      } else {
+        x[j] = static_cast<float>(static_cast<int8_t>(byte));
+      }
+    }
+    if constexpr (P == P_INT4) {
+      store_row8(dst, 2 * r, c, x, ts);
+      store_row8(dst, 2 * r + 1, c, y, ts);
+    } else {
+      store_row8(dst, r, c, x, ts);
+    }
+  }
+}
+
+// The accumulator fragment d of warpgroup rows r0 (this thread's rows r0
+// and r0 + 8) into the shared output tile cs.
+template <typename V, typename V2>
+__device__ __forceinline__ void stash_fragment(V* cs, const V (&d)[64],
+                                               int r0, int lane) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = j * 8 + (lane % 4) * 2;
+    *reinterpret_cast<V2*>(&cs[r0 * kLd + col]) = V2{d[4 * j], d[4 * j + 1]};
+    *reinterpret_cast<V2*>(&cs[(r0 + 8) * kLd + col]) =
+        V2{d[4 * j + 2], d[4 * j + 3]};
+  }
+}
+
 // One block computes a BM x BN output tile of group g over the K tiles of
 // its slice s (blockIdx.z = g * splits + s).  With one slice it runs the
 // epilogue; with more it writes its partial tile to partial[s][g][M][N],
 // and the last slice of the tile to arrive (counted on counters[g * tiles
-// + tile], zero between launches) sums them.
-template <int BM, typename T, bool TRANS_A, bool TRANS_B>
-__global__ void __launch_bounds__(Cfg<BM, T, TRANS_A, TRANS_B>::kThreads,
-                                  Cfg<BM, T, TRANS_A, TRANS_B>::kMinBlocks)
-mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                    const __grid_constant__ CUtensorMap map_b,
-                    EPILOGUE_PARAMS, void* partial_raw, int* counters, int M,
-                    int N, int G, int k_tiles, int per_split, int splits) {
-  using C = Cfg<BM, T, TRANS_A, TRANS_B>;
-  using Acc = typename std::conditional<C::kInt8, int, float>::type;
+// + tile], zero between launches) sums them.  K2 (P != kDense) reads B
+// from the packed payload `pk` (map_b covers a bf16 payload as (BN, 128,
+// G * nkb * nnb) tiles; a codec payload comes by bulk copies).
+template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P>
+__device__ __forceinline__ void mpgemm_wgmma_body(
+    const CUtensorMap& map_a, const CUtensorMap& map_b, const Epilogue& e,
+    void* partial_raw, int* counters, int M, int N, int G, int k_tiles,
+    int per_split, int splits, const PackedB& pk) {
+  using C = Cfg<BM, T, TRANS_A, TRANS_B, P>;
+  // The sum a block holds: int32 for K1's int8 product, f32 otherwise
+  // (K2's int8 partials are folded into f32 a payload tile at a time).
+  using Acc =
+      typename std::conditional<C::kInt8 && !C::kPacked, int, float>::type;
+  // What wgmma accumulates.
+  using WAcc = typename std::conditional<C::kInt8, int, float>::type;
   Acc* partial = static_cast<Acc*>(partial_raw);
-  const Epilogue e = EPILOGUE_FROM_PARAMS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
@@ -328,7 +485,22 @@ mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         } else {                      // (M, K): one box of BM rows x BK
           tma_load(a_s, &map_a, &full[st], k0, m0, g);
         }
-        if (TRANS_B) {                // (N, K): one box of 128 rows x BK
+        if constexpr (C::kPacked) {
+          // Payload tile (g, kt / kSub, n0 / BN); this stage is its
+          // (kt % kSub)-th BK rows.
+          const int kt = kt0 + it;
+          const int tile = (g * pk.nkb + kt / C::kSub) * pk.nnb + n0 / BN;
+          if constexpr (C::kDecode) {
+            bulk_load(b_s, pk.payload + (static_cast<size_t>(tile) * C::kSub +
+                                         kt % C::kSub) * C::kBBytes,
+                      C::kBBytes, &full[st]);
+          } else {                    // bf16 payload: boxes of 64 N x 64 K
+#pragma unroll
+            for (int w = 0; w < BN / 64; ++w)
+              tma_load(b_s + w * kBox, &map_b, &full[st], 64 * w,
+                       (kt % C::kSub) * C::BK, tile);
+          }
+        } else if (TRANS_B) {         // (N, K): one box of 128 rows x BK
           tma_load(b_s, &map_b, &full[st], k0, n0, g);
         } else if (C::kInt8) {        // int8 (K, N): 128 N bytes x 128 K
           tma_load(b_s, &map_b, &full[st], n0, k0, g);
@@ -344,9 +516,23 @@ mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 
   // Consumers: warpgroup wg owns output rows 64 wg .. 64 wg + 63.
   const int wg = tid / 128;
-  Acc d[64];
+  WAcc d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0;
+  // K2: the f32 sum of the folded int8 partials, and the scale of the
+  // payload tile of the stage in hand and of the next one (its load in
+  // flight behind this stage's work).
+  float acc_f[C::kFold ? 64 : 1];
+#pragma unroll
+  for (int i = 0; i < (C::kFold ? 64 : 1); ++i) acc_f[i] = 0.f;
+  const float* ts_ptr = nullptr;
+  float ts_next = 0.f;
+  if constexpr (C::kPacked) {
+    if (pk.scales != nullptr && n_kt > 0) {
+      ts_ptr = pk.scales + static_cast<size_t>(g) * pk.nkb * pk.nnb + n0 / BN;
+      ts_next = __ldg(ts_ptr + static_cast<size_t>(kt0 / C::kSub) * pk.nnb);
+    }
+  }
   // Per k step (16 bf16 or 32 int8 values): 32 bytes along a K-major row,
   // 16 rows (2 KB) down a bf16 MN-major box.  Stride byte offset: the
   // next 8 rows (1 KB) either way; leading byte offset: the next 64-wide
@@ -359,6 +545,13 @@ mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   constexpr int kKSteps = kRowBytes / 32;
   for (int it = 0; it < n_kt; ++it) {
     const int st = it % kStages;
+    float ts = 0.f;
+    if constexpr (C::kPacked) {
+      ts = ts_next;
+      const int kt = kt0 + it + 1;
+      if (ts_ptr != nullptr && it + 1 < n_kt)
+        ts_next = __ldg(ts_ptr + static_cast<size_t>(kt / C::kSub) * pk.nnb);
+    }
     mbar_wait(&full[st], (it / kStages) & 1);
     uint8_t* a_tile = smem + st * C::kStageBytes;
     uint8_t* b_tile = a_tile + C::kABytes;
@@ -369,7 +562,13 @@ mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         a_tile = t;
         t += C::kABytes;
       }
-      if constexpr (C::kTransB) {
+      if constexpr (C::kPacked && C::kInt8) {   // K2: int8 / int4, K-major
+        transpose_tile<BN, kConsumerThreads, P == P_INT4>(b_tile, t, tid);
+        b_tile = t;
+      } else if constexpr (C::kDecode) {   // K2: bf16 A, decoded payload
+        decode_tile<P, kConsumerThreads>(b_tile, t, ts, tid);
+        b_tile = t;
+      } else if constexpr (C::kTransB) {
         transpose_tile<BN, kConsumerThreads>(b_tile, t, tid);
         b_tile = t;
       }
@@ -385,9 +584,29 @@ mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           d, smem_desc(a_s + kk * kStepA, kLboA, 1024),
           smem_desc(b_s + kk * kStepB, kLboB, 1024));
     wgmma_commit();
-    // The previous stage's products are done: release its buffers.
-    wgmma_wait<1>();
-    if (it > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+    if constexpr (C::kFold) {
+      // The stage is released once its products are done; at the last
+      // stage of a payload tile the tile's partial is folded in K-tile
+      // order: acc += float(partial) * tile_scale (int8 A, each step
+      // rounded as the reference rounds it) or acc += partial (bf16 A).
+      wgmma_wait<0>();
+      mbar_arrive(&empty[st]);
+      if ((kt0 + it) % C::kSub == C::kSub - 1 || it == n_kt - 1) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          if constexpr (C::kInt8)
+            acc_f[i] = __fadd_rn(acc_f[i],
+                                 __fmul_rn(static_cast<float>(d[i]), ts));
+          else
+            acc_f[i] = __fadd_rn(acc_f[i], d[i]);
+          d[i] = 0;
+        }
+      }
+    } else {
+      // The previous stage's products are done: release its buffers.
+      wgmma_wait<1>();
+      if (it > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+    }
   }
   wgmma_wait<0>();
 
@@ -396,15 +615,12 @@ mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   Acc* cs = reinterpret_cast<Acc*>(smem);
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int r0 = wg * 64 + warp * 16 + lane / 4;
-  using Acc2 = typename std::conditional<C::kInt8, int2, float2>::type;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = j * 8 + (lane % 4) * 2;
-    *reinterpret_cast<Acc2*>(&cs[r0 * kLd + col]) = Acc2{d[4 * j],
-                                                         d[4 * j + 1]};
-    *reinterpret_cast<Acc2*>(&cs[(r0 + 8) * kLd + col]) =
-        Acc2{d[4 * j + 2], d[4 * j + 3]};
-  }
+  using Acc2 = typename std::conditional<std::is_same<Acc, int>::value, int2,
+                                         float2>::type;
+  if constexpr (C::kFold)
+    stash_fragment<Acc, Acc2>(cs, acc_f, r0, lane);
+  else
+    stash_fragment<Acc, Acc2>(cs, d, r0, lane);
   named_sync(kConsumerThreads);
   const int rows = min(BM, M - m0);
   if (splits > 1) {
@@ -462,11 +678,11 @@ mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   // The one epilogue loop of the kernel, over the output tile: an int32
   // sum with no scale keeps the integer epilogue, every other sum runs in
   // f32 (an int32 sum converted as mpgemm.cu converts it).
-  const bool int_epilogue = C::kInt8 && e.scale == nullptr;
+  const bool int_epilogue = C::kInt8 && !C::kPacked && e.scale == nullptr;
   for (int el = tid; el < rows * BN; el += kConsumerThreads) {
     const int mm = el / BN, nn = el % BN;
     if (n0 + nn >= N) continue;
-    if constexpr (C::kInt8) {
+    if constexpr (std::is_same<Acc, int>::value) {
       if (int_epilogue) {
         epilogue_store_int(e, cs[mm * kLd + nn], g, M, N, m0 + mm, n0 + nn);
         continue;
@@ -477,11 +693,39 @@ mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// K1: the body over a dense B.
 template <int BM, typename T, bool TRANS_A, bool TRANS_B>
+__global__ void __launch_bounds__(Cfg<BM, T, TRANS_A, TRANS_B>::kThreads,
+                                  Cfg<BM, T, TRANS_A, TRANS_B>::kMinBlocks)
+mpgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    EPILOGUE_PARAMS, void* partial_raw, int* counters, int M,
+                    int N, int G, int k_tiles, int per_split, int splits) {
+  mpgemm_wgmma_body<BM, T, TRANS_A, TRANS_B, kDense>(
+      map_a, map_b, EPILOGUE_FROM_PARAMS, partial_raw, counters, M, N, G,
+      k_tiles, per_split, splits, PackedB{});
+}
+
+// K2: the body over a packed B of payload code P (A read (M, K)).
+template <int BM, typename T, int P>
+__global__ void __launch_bounds__(Cfg<BM, T, false, false, P>::kThreads,
+                                  Cfg<BM, T, false, false, P>::kMinBlocks)
+mpgemm_packed_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b,
+                           EPILOGUE_PARAMS, void* partial_raw, int* counters,
+                           int M, int N, int G, int k_tiles, int per_split,
+                           int splits, const PackedB pk) {
+  mpgemm_wgmma_body<BM, T, false, false, P>(
+      map_a, map_b, EPILOGUE_FROM_PARAMS, partial_raw, counters, M, N, G,
+      k_tiles, per_split, splits, pk);
+}
+
+template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P = kDense>
 cudaError_t launch(const void* a, const void* b, const Epilogue& e,
                    void* partial, int* counters, int g, int m, int n, int k,
-                   int splits, int per_split, cudaStream_t stream) {
-  using C = Cfg<BM, T, TRANS_A, TRANS_B>;
+                   int splits, int per_split, cudaStream_t stream,
+                   const PackedB& pk = PackedB{}) {
+  using C = Cfg<BM, T, TRANS_A, TRANS_B, P>;
   constexpr uint32_t esz = sizeof(T), bk = C::BK;
   CUtensorMap map_a, map_b;
   bool ok_a, ok_b;
@@ -489,20 +733,39 @@ cudaError_t launch(const void* a, const void* b, const Epilogue& e,
     // A: (K, M) boxes of 64 K rows x 64 M, or (M, K) boxes of BM x 64 K.
     ok_a = TRANS_A ? make_map(&map_a, a, m, k, g, 64, bk)
                    : make_map(&map_a, a, k, m, g, 64, BM);
+  } else {
+    // A: (K, M) unswizzled boxes of 128 K rows x BM, or (M, K) boxes of BM
+    // rows x 128 K.
+    ok_a = TRANS_A ? make_map(&map_a, a, m, k, g, BM, bk, esz, false)
+                   : make_map(&map_a, a, k, m, g, bk, BM, esz);
+  }
+  if constexpr (C::kDecode) {
+    // K2, a codec payload: bulk copies, no map.
+    map_b = map_a;
+    ok_b = true;
+  } else if constexpr (C::kPacked) {
+    // K2, a bf16 payload: (G * nkb * nnb) tiles of 128 K rows x BN, boxes
+    // of 64 K x 64 N, as a dense (K, N) B's.
+    ok_b = make_map(&map_b, b, BN, 128,
+                    static_cast<uint64_t>(g) * pk.nkb * pk.nnb, 64, bk);
+  } else if (!C::kInt8) {
     // B: (N, K) boxes of 128 rows x 64 K, or (K, N) boxes of 64 K x 64 N.
     ok_b = TRANS_B ? make_map(&map_b, b, k, n, g, 64, BN)
                    : make_map(&map_b, b, n, k, g, 64, bk);
   } else {
-    // A: (K, M) unswizzled boxes of 128 K rows x BM, or (M, K) boxes of BM
-    // rows x 128 K; B: (N, K) boxes of 128 x 128 K, or (K, N) unswizzled
-    // boxes of 128 K rows x 128 N.
-    ok_a = TRANS_A ? make_map(&map_a, a, m, k, g, BM, bk, esz, false)
-                   : make_map(&map_a, a, k, m, g, bk, BM, esz);
+    // B: (N, K) boxes of 128 x 128 K, or (K, N) unswizzled boxes of 128 K
+    // rows x 128 N.
     ok_b = TRANS_B ? make_map(&map_b, b, k, n, g, bk, BN, esz)
                    : make_map(&map_b, b, n, k, g, BN, bk, esz, false);
   }
   if (!ok_a || !ok_b) return cudaErrorInvalidValue;
-  auto kernel = mpgemm_wgmma_kernel<BM, T, TRANS_A, TRANS_B>;
+  const void* kernel;
+  if constexpr (C::kPacked)
+    kernel = reinterpret_cast<const void*>(
+        mpgemm_packed_wgmma_kernel<BM, T, P>);
+  else
+    kernel = reinterpret_cast<const void*>(
+        mpgemm_wgmma_kernel<BM, T, TRANS_A, TRANS_B>);
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t rc = cudaFuncSetAttribute(
@@ -513,9 +776,16 @@ cudaError_t launch(const void* a, const void* b, const Epilogue& e,
   const int tiles = ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
   const int k_tiles = (k + C::BK - 1) / C::BK;
   dim3 grid(tiles, 1, g * splits);
-  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      map_a, map_b, EPILOGUE_ARGS(e), partial, counters, m, n, g, k_tiles,
-      per_split, splits);
+  if constexpr (C::kPacked)
+    mpgemm_packed_wgmma_kernel<BM, T, P>
+        <<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+            map_a, map_b, EPILOGUE_ARGS(e), partial, counters, m, n, g,
+            k_tiles, per_split, splits, pk);
+  else
+    mpgemm_wgmma_kernel<BM, T, TRANS_A, TRANS_B>
+        <<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+            map_a, map_b, EPILOGUE_ARGS(e), partial, counters, m, n, g,
+            k_tiles, per_split, splits);
   return cudaGetLastError();
 }
 
@@ -569,6 +839,57 @@ int mpgemm_wgmma_launch_typed(const void* a, const void* b, void* out,
   if (bm == 128)
     return launch_trans<128, T>(trans_a, trans_b, a, b, e, partial, cnt, g,
                                 m, n, k, splits, per_split, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch of mpgemm_packed_wgmma.cu's and mpgemm_packed_wgmma_int8.cu's
+// C entry points (their comments give the contract): K2 with A of type T
+// against payload code `pcode`.
+template <typename T>
+int mpgemm_packed_wgmma_launch_typed(
+    const void* a, const void* payload, const void* tile_scales, void* out,
+    const void* bias, const void* extra, const void* c, const void* row_scale,
+    const void* scale, void* partial, void* counters, int g, int m, int n,
+    int k, int nkb, int nnb, int bias_stride, int pcode, int out_dtype,
+    int c_dtype, int kind, int act, float alpha, float beta, int bm,
+    int splits, int per_split, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Epilogue e = make_epilogue(out, bias, extra, c, row_scale, scale,
+                                   out_dtype, bias_stride, c_dtype, kind, act,
+                                   alpha, beta);
+  constexpr int bk = kRowBytes / sizeof(T);
+  const int k_tiles = (k + bk - 1) / bk;
+  const bool codec = pcode != P_BF16;
+  if (!epilogue_ok(e) || g <= 0 || m <= 0 || n <= 0 || k <= 0 ||
+      nkb != (k + 127) / 128 || nnb != (n + BN - 1) / BN ||
+      (codec && tile_scales == nullptr) || splits <= 0 ||
+      static_cast<long long>(g) * splits > 65535 || per_split <= 0 ||
+      (splits > 1 && (partial == nullptr || counters == nullptr)) ||
+      (splits - 1) * per_split >= k_tiles || splits * per_split < k_tiles ||
+      per_split % (128 / bk) != 0 ||
+      reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(payload) % 16 || (bm != 64 && bm != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PackedB pk{static_cast<const uint8_t*>(payload),
+                   static_cast<const float*>(tile_scales), nkb, nnb};
+  int* cnt = static_cast<int*>(counters);
+#define K2_LAUNCH(BM_, P_)                                                  \
+  return static_cast<int>(launch<BM_, T, false, false, P_>(                 \
+      a, payload, e, partial, cnt, g, m, n, k, splits, per_split, s, pk))
+#define K2_LAUNCH_BM(P_)     \
+  if (bm == 64) K2_LAUNCH(64, P_); \
+  K2_LAUNCH(128, P_)
+  if constexpr (std::is_same<T, int8_t>::value) {
+    if (pcode == P_INT8) { K2_LAUNCH_BM(P_INT8); }
+    if (pcode == P_INT4) { K2_LAUNCH_BM(P_INT4); }
+  } else {
+    if (pcode == P_BF16) { K2_LAUNCH_BM(P_BF16); }
+    if (pcode == P_INT8) { K2_LAUNCH_BM(P_INT8); }
+    if (pcode == P_INT4) { K2_LAUNCH_BM(P_INT4); }
+    if (pcode == P_FP8) { K2_LAUNCH_BM(P_FP8); }
+  }
+#undef K2_LAUNCH_BM
+#undef K2_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -41,12 +41,22 @@ zeroed before P·V.  Kernel and plain version agree on every query row whose
 position is below ``lengths[b]`` and on idle rows (``lengths[b] == 0``,
 output 0).  On a fully masked dead row (possible only past ``lengths[b]``
 under a window) each averages the V rows it visited, and the kernel visits
-fewer: such rows are padding that no caller reads.
+fewer: such rows are padding that no caller reads.  K5 runs the same two
+Hopper designs, picked by :func:`k5_design` (the same rule, plus page
+sizes that tile 64 keys), on the same bodies in
+``csrc/flash_attention_wgmma.cu`` with the keys gathered through the
+block table, the slices from :func:`k5_split`; f32 and the shapes the
+rule leaves out run ``csrc/paged_flash.cu``.  ``lengths`` and ``q_start``
+stay on the card: the kernels read them, the wrapper never does.  K5's
+wgmma design does not round P: it writes P as three bf16 terms (P to
+about 2**-24 of itself) and sums P·V over them, so that a served step
+through it stays as close to its plain version as the scalar kernel's
+(the MoE routers downstream turn small differences into other experts).
 
 ``flash_attention.launches`` and ``paged_flash_attention.launches`` count
-kernel launches (never plain-version calls); ``flash_attention.
-wgmma_launches`` and ``.split_launches`` those of K4 that ran the
-``"wgmma"`` and the ``"split"`` design.
+kernel launches (never plain-version calls); their ``wgmma_launches`` and
+``split_launches`` those that ran the ``"wgmma"`` and the ``"split"``
+design.
 """
 from __future__ import annotations
 
@@ -90,6 +100,46 @@ def k4_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
             or h % hkv):
         return "simt"
     return "split" if h // hkv * tq <= K4_SPLIT_ROWS else "wgmma"
+
+
+def _pages_tile(ps: int) -> bool:
+    """Do pages of ``ps`` rows tile the designs' 64-key tiles?  A page
+    size that divides 64 (whole 128-byte swizzle atoms: a multiple of 8)
+    or a multiple of 64, up to a TMA box's 256 rows."""
+    return 8 <= ps <= 256 and ps % 8 == 0 and (K4_BKV % ps == 0
+                                               or ps % K4_BKV == 0)
+
+
+def k5_design(q: torch.Tensor, k_pages: torch.Tensor,
+              v_pages: torch.Tensor) -> str:
+    """The K5 kernel that runs q (B, H, Tq, D) over the pools (P, Hkv, ps,
+    D) on the card: ``"split"`` (at most :data:`K4_SPLIT_ROWS` folded rows
+    G·Tq a kv head: decode) or ``"wgmma"`` (more: chunked prefill), the
+    bodies of ``csrc/flash_attention_wgmma.cu`` over the block table, when
+    q and both pools are bf16 and non-empty and :func:`k4_design`'s rule
+    holds for them; else ``"simt"`` (``csrc/paged_flash.cu``).  Left out:
+    f32 (and any other dtype), D % 8 != 0, D > :data:`K4_MAX_D`, a base
+    pointer off 16 bytes, more than 65535 requests or kv heads, and page
+    sizes that do not tile 64 keys (:func:`_pages_tile`: not a multiple of
+    8 that divides 64, nor a multiple of 64).  A rule on what the operands
+    are, not a fallback: a failed build or launch raises."""
+    b, h, tq, d = q.shape
+    hkv, ps = k_pages.shape[1], k_pages.shape[2]
+    if (any(t.dtype != torch.bfloat16 or t.data_ptr() % 16
+            or not t.numel() for t in (q, k_pages, v_pages))
+            or d % 8 or d > K4_MAX_D or b > 65535 or hkv > 65535
+            or h % hkv or not _pages_tile(ps)):
+        return "simt"
+    return "split" if h // hkv * tq <= K4_SPLIT_ROWS else "wgmma"
+
+
+def k5_split(rows: int, w: int, ps: int, b: int, hkv: int,
+             sms: int = H100_SMS) -> int:
+    """Slices of K5's keys: :func:`k4_split` over the block table's width
+    ``w · ps`` keys (the wrapper never reads ``lengths``; the kernel cuts
+    the live tiles of each request into that many slices, and a slice past
+    the length writes an empty partial)."""
+    return k4_split(rows, w * ps, b, hkv, sms)
 
 
 def k4_wgmma_bm(rows: int) -> int:
@@ -272,14 +322,18 @@ def _flash_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _wgmma_lib() -> ctypes.CDLL:
-    """The built library of K4's "wgmma" and "split" designs, with its C
-    signatures declared (once)."""
+    """The built library of K4's and K5's "wgmma" and "split" designs, with
+    its C signatures declared (once)."""
     lib = _build.load("flash_attention_wgmma")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_wgmma_launch.argtypes = [p] * 6 + [i] * 8 + [f, i, i, p]
     lib.flash_wgmma_launch.restype = i
     lib.flash_split_launch.argtypes = [p] * 6 + [i] * 8 + [f, i, p]
     lib.flash_split_launch.restype = i
+    lib.paged_wgmma_launch.argtypes = [p] * 9 + [i] * 10 + [f, i, i, p]
+    lib.paged_wgmma_launch.restype = i
+    lib.paged_split_launch.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
+    lib.paged_split_launch.restype = i
     lib.flash_wgmma_error_string.argtypes = [i]
     lib.flash_wgmma_error_string.restype = ctypes.c_char_p
     return lib
@@ -388,22 +442,57 @@ def _launch(q, k_pages, v_pages, block_tables, q_start, lengths, causal,
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else 1.0 / d ** 0.5
-    lib = _lib()
-    rc = lib.paged_flash_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        block_tables.data_ptr(), q_start.data_ptr(), lengths.data_ptr(),
-        b, h, hkv, tq, d, ps, w, int(causal),
-        int(window) if window is not None else 0, float(scale),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    window = int(window) if window is not None else 0
+    stream = _current_stream(q)
+    design = k5_design(q, k_pages, v_pages)
+    if design == "simt":
+        lib = _lib()
+        rc = lib.paged_flash_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            out.data_ptr(), block_tables.data_ptr(), q_start.data_ptr(),
+            lengths.data_ptr(), b, h, hkv, tq, d, ps, w, int(causal), window,
+            float(scale), _DTYPE_CODES[q.dtype], stream)
+        error = lib.paged_flash_error_string
+    else:
+        rows = h // hkv * tq
+        splits = k5_split(rows, w, ps, b, hkv, _sm_count(q.get_device()))
+        lib = _wgmma_lib()
+        ws = counters = None
+        args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                out.data_ptr())
+        tables = (block_tables.data_ptr(), q_start.data_ptr(),
+                  lengths.data_ptr(), b, h, hkv, tq, d, ps, w,
+                  k_pages.shape[0], int(causal), window, float(scale))
+        if design == "split":
+            if splits > 1:
+                ws, counters = _split_workspace(
+                    q.device, stream, b * hkv * splits * _SPLIT_WS, b * hkv)
+            rc = lib.paged_split_launch(*args, _ptr(ws), _ptr(counters),
+                                        *tables, splits, stream)
+        else:
+            bm = k4_wgmma_bm(rows)
+            dp = 64 if d <= 64 else 128
+            tiles = b * hkv * _cdiv(rows, bm)
+            if splits > 1:
+                ws, counters = _split_workspace(
+                    q.device, stream, tiles * splits * (bm * dp + 2 * bm),
+                    tiles)
+            rc = lib.paged_wgmma_launch(*args, _ptr(ws), _ptr(counters),
+                                        *tables, bm, splits, stream)
+        error = lib.flash_wgmma_error_string
     if rc != 0:
         raise RuntimeError(
-            f"paged flash kernel launch failed: CUDA error {rc} "
-            f"({lib.paged_flash_error_string(rc).decode()})")
+            f"paged flash kernel ({design}) launch failed: CUDA error {rc} "
+            f"({error(rc).decode()})")
     paged_flash_attention.launches += 1
+    paged_flash_attention.wgmma_launches += int(design == "wgmma")
+    paged_flash_attention.split_launches += int(design == "split")
     return out
 
 
 paged_flash_attention.launches = 0
+paged_flash_attention.wgmma_launches = 0
+paged_flash_attention.split_launches = 0
 
 
 @functools.lru_cache(maxsize=None)

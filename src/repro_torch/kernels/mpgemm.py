@@ -42,6 +42,14 @@ and gate / residual / C operands of the output's shape (G, M, N).  The
 ``quant_in`` kinds' row scale is an (M, 1) -- grouped (G, M, 1) -- f32
 operand, the first of their extras.
 
+K2 has two designs too, picked by :func:`k2_design`: bf16 A against a
+bf16, int8, int4 or fp8e4m3 payload and int8 A against an int8 or int4
+one, in 128 x 128 tiles with 16-byte aligned operands, run K1's template
+with a B stage that decodes the payload in shared memory
+(``csrc/mpgemm_packed_wgmma.cu``, ``_int8.cu``; split over the payload's
+K tiles by :func:`k2_split`); the rest -- f32 A, int8 A against
+fp8, other tile shapes -- runs ``csrc/mpgemm_packed.cu``.
+
 ``mpgemm.launches``, ``mpgemm_grouped.launches``,
 ``mpgemm_packed.launches``, ``mpgemm_packed_grouped.launches``,
 ``mpgemm_sparse.launches`` and ``mpgemm_sparse_grouped.launches`` count
@@ -49,9 +57,10 @@ kernel launches (never plain-version calls); ``mpgemm.trans_a_launches``,
 ``mpgemm.trans_b_launches`` and their ``mpgemm_grouped`` twins count the
 K1 launches of each transposed variant among them (a launch with both
 counts in both), and ``mpgemm.wgmma_launches`` / ``mpgemm_grouped.
-wgmma_launches`` those that ran the wgmma design (bf16 or int8); the K2
-and K3 wrappers'
-``trans_a_launches`` count their ``trans_a`` launches.
+wgmma_launches`` those that ran the wgmma design (bf16 or int8), as
+``mpgemm_packed.wgmma_launches`` and ``mpgemm_packed_grouped.
+wgmma_launches`` do for K2; the K2 and K3 wrappers' ``trans_a_launches``
+count their ``trans_a`` launches.
 """
 from __future__ import annotations
 
@@ -361,6 +370,23 @@ def k1_split(m: int, n: int, k: int, g: int = 1,
     return _cdiv(k_tiles, per), per
 
 
+@functools.lru_cache(maxsize=4096)
+def k2_split(m: int, n: int, k: int, g: int = 1,
+             sms: int = H100_SMS) -> tuple:
+    """(slices, payload tiles a slice) of K2's wgmma design: as
+    :func:`k1_split` over 128-deep payload tiles, but the grid never
+    passes one wave of ``sms`` blocks (a K2 block holds an SM: its decoded
+    tiles take the shared memory a second block would need), so the
+    slices are as many as fit in the SMs beside the output tiles, every
+    slice whole tiles and none empty; one slice when the output tiles
+    alone fill the card."""
+    tiles = g * _cdiv(m, k1_wgmma_bm(m)) * _cdiv(n, WGMMA_BN)
+    k_tiles = max(1, _cdiv(k, 128))
+    want = max(1, min(sms // tiles, k_tiles))
+    per = _cdiv(k_tiles, want)
+    return _cdiv(k_tiles, per), per
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -646,6 +672,35 @@ def _packed(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, *,
     return out
 
 
+# (A dtype, payload) pairs of K2's wgmma design, and its payload tile.
+_K2_WGMMA_PAIRS = {(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
+                   (torch.bfloat16, "int4"), (torch.bfloat16, "fp8e4m3"),
+                   (torch.int8, "int8"), (torch.int8, "int4")}
+K2_WGMMA_TILE = (128, 128)
+
+
+def k2_design(a: torch.Tensor, b: PackedOperand) -> str:
+    """The K2 kernel that runs ``a`` (the kernel's (M, K) or (G, M, K) A)
+    against the packed ``b`` on the card: ``"wgmma"``
+    (``csrc/mpgemm_packed_wgmma.cu`` for bf16 A, ``_int8.cu`` for int8 A)
+    for bf16 A against a bf16, int8, int4 or fp8e4m3 payload and int8 A
+    against an int8 or int4 one, in :data:`K2_WGMMA_TILE` tiles
+    (``packing/params.py::default_blocks`` wherever K and N reach 128),
+    with A's rows and base and the payload's base on 16 bytes and neither
+    empty; else ``"simt"`` (``csrc/mpgemm_packed.cu``): f32 A, int8 A
+    against fp8e4m3 (the reference's f32 int x float branch), other tile
+    shapes, misaligned operands.  A rule on what the operands are, not a
+    fallback: a failed build or launch raises."""
+    layout = b.layout
+    if ((a.dtype, layout.dtype) not in _K2_WGMMA_PAIRS
+            or (layout.bk, layout.bn) != K2_WGMMA_TILE
+            or (a.shape[-1] * a.element_size()) % 16
+            or a.data_ptr() % 16 or b.payload.data_ptr() % 16
+            or not a.numel() or not b.payload.numel()):
+        return "simt"
+    return "wgmma"
+
+
 def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
                    grouped):
     layout = b.layout
@@ -673,24 +728,50 @@ def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
                                   False)
     if out.numel() == 0:
         return out
-    lib = _packed_lib()
-    rc = lib.mpgemm_packed_launch(
-        a.data_ptr(), payload.data_ptr(),
-        _ptr(tile_scales) if layout.per_tile_scales else None,
-        out.data_ptr(), bi, ex, cp, rs, sc, layout.g, m, n, layout.k,
-        layout.bk, layout.bn, bias_stride, _DTYPE_CODES[a.dtype],
-        _PAYLOAD_CODES[layout.dtype], out_dt, c_dt, kind, act, alpha, beta,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    stream = _current_stream(a)
+    ts = _ptr(tile_scales) if layout.per_tile_scales else None
+    wgmma = k2_design(a, b) == "wgmma"
+    if wgmma:
+        g, k = layout.g, layout.k
+        int8 = a.dtype == torch.int8
+        bm = k1_wgmma_bm(m)
+        # Slices of whole payload tiles (128 deep), in stages of 128 bytes
+        # of K: two a tile for bf16 A.
+        splits, per = k2_split(m, n, k, g, _sm_count(a.get_device()))
+        per *= 128 // k1_wgmma_bk(a.dtype)
+        partial = counters = None
+        if splits > 1:
+            partial, counters = _split_workspace(
+                a.device, stream, splits * g * m * n,
+                g * _cdiv(m, bm) * _cdiv(n, WGMMA_BN))
+        name = "mpgemm_packed_wgmma_int8" if int8 else "mpgemm_packed_wgmma"
+        lib = _packed_wgmma_lib(name)
+        rc = getattr(lib, f"{name}_launch")(
+            a.data_ptr(), payload.data_ptr(), ts, out.data_ptr(), bi, ex, cp,
+            rs, sc, _ptr(partial), _ptr(counters), g, m, n, k, layout.nkb,
+            layout.nnb, bias_stride, _PAYLOAD_CODES[layout.dtype], out_dt,
+            c_dt, kind, act, alpha, beta, bm, splits, per, stream)
+        error = getattr(lib, f"{name}_error_string")
+    else:
+        lib = _packed_lib()
+        rc = lib.mpgemm_packed_launch(
+            a.data_ptr(), payload.data_ptr(), ts, out.data_ptr(), bi, ex, cp,
+            rs, sc, layout.g, m, n, layout.k, layout.bk, layout.bn,
+            bias_stride, _DTYPE_CODES[a.dtype], _PAYLOAD_CODES[layout.dtype],
+            out_dt, c_dt, kind, act, alpha, beta, stream)
+        error = lib.mpgemm_packed_error_string
     if rc != 0:
         raise RuntimeError(
-            f"mpgemm_packed kernel launch failed: CUDA error {rc} "
-            f"({lib.mpgemm_packed_error_string(rc).decode()})")
-    (mpgemm_packed_grouped if grouped else mpgemm_packed).launches += 1
+            f"mpgemm_packed kernel ({'wgmma' if wgmma else 'simt'}) launch "
+            f"failed: CUDA error {rc} ({error(rc).decode()})")
+    fn = mpgemm_packed_grouped if grouped else mpgemm_packed
+    fn.launches += 1
+    fn.wgmma_launches += int(wgmma)
     return out
 
 
 for _fn in (mpgemm_packed, mpgemm_packed_grouped):
-    _fn.launches = _fn.trans_a_launches = 0
+    _fn.launches = _fn.trans_a_launches = _fn.wgmma_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -701,6 +782,21 @@ def _packed_lib() -> ctypes.CDLL:
     lib.mpgemm_packed_launch.restype = i
     lib.mpgemm_packed_error_string.argtypes = [i]
     lib.mpgemm_packed_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_wgmma_lib(name: str) -> ctypes.CDLL:
+    """K2's wgmma library ``name`` (``mpgemm_packed_wgmma``: bf16 A,
+    ``mpgemm_packed_wgmma_int8``: int8 A) with its C signatures declared."""
+    lib = _build.load(name)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [p] * 11 + [i] * 12 + [f, f] + [i] * 3 + [p]
+    launch.restype = i
+    error = getattr(lib, f"{name}_error_string")
+    error.argtypes = [i]
+    error.restype = ctypes.c_char_p
     return lib
 
 

@@ -1349,3 +1349,175 @@ def test_flash_attention_new_designs_match_plain(gen, b, h, hkv, tq, tk, d,
     again = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert torch.equal(got, again), k4_split(h // hkv * tq, tk, b, hkv)
+
+
+# --- K5's and K2's Hopper designs ---------------------------------------------
+
+K5_NEW_CASES = [
+    # h, hkv, d, ps, w, tq, lengths, window: phi3-mini's decode and 16-token
+    # chunk (MHA, D 96, pages of 16: split), granite's decode (split) and
+    # chunk (32 folded rows: wgmma), a GQA 4:1 head of 120 with a window
+    # (decode: split; chunk: 64 rows, wgmma), pages of 8, 64 and 128, a
+    # long table (split over the keys) and a group that folds 128 rows.
+    (32, 32, 96, 16, 4, 1, [45, 30, 0], None),
+    (32, 32, 96, 16, 4, 16, [48, 9, 0], None),
+    (16, 8, 64, 16, 4, 1, [45, 30, 0], None),
+    (16, 8, 64, 16, 4, 16, [48, 9, 0], None),
+    (32, 8, 120, 16, 16, 1, [201, 64, 0, 9], 64),
+    (32, 8, 120, 16, 16, 16, [200, 70, 0, 16], 64),
+    (8, 2, 24, 8, 12, 3, [73, 1, 0], 6),
+    (4, 4, 64, 64, 5, 1, [300, 65, 0], None),
+    (8, 2, 128, 128, 3, 40, [383, 40, 0], 100),
+    (4, 1, 64, 16, 128, 1, [2000, 1, 0], None),
+    (16, 2, 64, 32, 8, 16, [250, 17, 0], None),
+]
+
+
+def _k5_inputs(gen, h, hkv, d, ps, w, tq, lengths):
+    """bf16 pools with a NaN scratch page 0 that every dead table slot
+    names, ragged lengths (an idle request last but one), each request's
+    chunk its last tq positions."""
+    b = len(lengths)
+    n_pages = 1 + b * w
+    kp = torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda")
+    vp = torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda")
+    kp[0], vp[0] = float("nan"), float("nan")
+    kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    bt = torch.zeros(b, w, dtype=torch.int32, device="cuda")
+    for i, ln in enumerate(lengths):
+        used = -(-ln // ps)
+        bt[i, :used] = perm[i * w:i * w + used].int()
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qs = (ln - tq).clamp_min(0).int()
+    q = torch.randn(b, h, tq, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return q, kp, vp, bt, qs, ln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,d,ps,w,tq,lengths,window", K5_NEW_CASES)
+def test_paged_flash_new_designs_match_plain(gen, h, hkv, d, ps, w, tq,
+                                             lengths, window):
+    """bf16 K5 on the design ``k5_design`` names, counted as such, within
+    bf16's tolerance of the plain version on live rows, idle rows exactly
+    0 (never NaN from the scratch page), and the same bits from a second
+    launch."""
+    from repro_torch.kernels.flash_attention import (
+        k5_design, paged_flash_attention, paged_flash_attention_plain,
+    )
+
+    q, kp, vp, bt, qs, ln = _k5_inputs(gen, h, hkv, d, ps, w, tq, lengths)
+    design = k5_design(q, kp, vp)
+    assert design == ("split" if h // hkv * tq <= 16 else "wgmma")
+    counter = f"{design}_launches"
+    before = getattr(paged_flash_attention, counter)
+    got = paged_flash_attention(q, kp, vp, bt, qs, ln, window=window)
+    torch.cuda.synchronize()
+    assert getattr(paged_flash_attention, counter) == before + 1
+    want = paged_flash_attention_plain(q, kp, vp, bt, qs, ln, window=window)
+    pos = qs[:, None].long() + torch.arange(tq, device="cuda")
+    live = (pos < ln[:, None])[:, None, :, None].expand_as(got)
+    torch.testing.assert_close(got.float()[live], want.float()[live],
+                               **TOL[torch.bfloat16])
+    idle = ln == 0
+    assert (got[idle] == 0).all()
+    again = paged_flash_attention(q, kp, vp, bt, qs, ln, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+K2_NEW_PAIRS = [(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
+                (torch.bfloat16, "int4"), (torch.bfloat16, "fp8e4m3"),
+                (torch.int8, "int8"), (torch.int8, "int4")]
+
+
+def _k2_case(gen, g, m, k, n, a_dtype, payload, kind, act, out_dtype):
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.packing.pack import pack_operand
+
+    lead = (g,) if g > 1 else ()
+    w = torch.randn(*lead, k, n, generator=gen, device="cuda") * 0.05
+    b = pack_operand(w, (128, 128), dtype=payload)
+    scale = None
+    if a_dtype == torch.int8:
+        a = torch.randint(-127, 128, (*lead, m, k), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        scale = torch.full((), 0.01, device="cuda")
+    else:
+        a = torch.randn(*lead, m, k, generator=gen, device="cuda").to(a_dtype)
+    bi = torch.randn(n, generator=gen, device="cuda")
+    extras = () if kind == "linear" else (
+        torch.randn(*lead, m, n, generator=gen, device="cuda").to(out_dtype),)
+    return a, b, dict(bias=bi, scale=scale, extras=extras,
+                      epilogue=EpilogueSpec(kind=kind, activation=act),
+                      out_dtype=out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype,payload", K2_NEW_PAIRS)
+@pytest.mark.parametrize("g,m,k,n,kind,act", [
+    (1, 2, 3072, 3072, "linear", None),       # phi3 decode (split over K)
+    (1, 32, 3072, 8192, "gated", "silu"),     # a phi3 prefill chunk
+    (1, 130, 304, 200, "residual", "gelu"),   # K and N tails, BM = 128
+    (4, 2, 1024, 512, "linear", None),        # granite's experts, grouped
+    (3, 37, 512, 1024, "gated", "silu"),
+])
+def test_mpgemm_packed_wgmma_matches_plain(gen, a_dtype, payload, g, m, k,
+                                           n, kind, act):
+    """K2 on its wgmma design (``k2_design``) against its plain version,
+    2-D and grouped, counted as such, and the same bits from a second
+    launch (split-K slices summed in slice order)."""
+    from repro_torch.kernels.mpgemm import (
+        k2_design, mpgemm_packed, mpgemm_packed_grouped, mpgemm_packed_plain,
+    )
+
+    out_dtype = torch.bfloat16 if g == 1 else torch.float32
+    a, b, kw = _k2_case(gen, g, m, k, n, a_dtype, payload, kind, act,
+                        out_dtype)
+    fn = mpgemm_packed_grouped if g > 1 else mpgemm_packed
+    assert k2_design(a, b) == "wgmma"
+    before = fn.wgmma_launches
+    got = fn(a, b, **kw)
+    torch.cuda.synchronize()
+    assert fn.wgmma_launches == before + 1
+    want = mpgemm_packed_plain(a, b, **kw)
+    assert got.dtype == out_dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+    again = fn(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", ["int8", "int4"])
+def test_mpgemm_packed_wgmma_quant_in_and_beta_c(gen, payload):
+    """The wgmma K2 runs gemm_epilogue.cuh's every kind: a quant_in row
+    scale with a residual, and beta · C."""
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import (
+        k2_design, mpgemm_packed, mpgemm_packed_plain,
+    )
+    from repro_torch.packing.pack import pack_operand
+
+    m, k, n = 32, 1024, 640
+    b = pack_operand(torch.randn(k, n, generator=gen, device="cuda") * 0.05,
+                     (128, 128), dtype=payload)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    rows = torch.rand(m, 1, generator=gen, device="cuda") * 1e-2
+    res = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    ep = EpilogueSpec(kind="quant_in_residual")
+    kw = dict(extras=(rows, res), epilogue=ep, out_dtype=torch.bfloat16)
+    assert k2_design(a, b) == "wgmma"
+    got = mpgemm_packed(a, b, **kw)
+    torch.testing.assert_close(got.float(),
+                               mpgemm_packed_plain(a, b, **kw).float(),
+                               **TOL[torch.bfloat16])
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    c = torch.randn(m, n, generator=gen, device="cuda")
+    kw = dict(c=c, epilogue=EpilogueSpec(alpha=1.5, beta=0.5),
+              out_dtype=torch.float32)
+    got = mpgemm_packed(x, b, **kw)
+    torch.testing.assert_close(got, mpgemm_packed_plain(x, b, **kw),
+                               **TOL[torch.float32])
