@@ -8,10 +8,12 @@ Each tree is a directory holding ``chip_smoke.py`` and ``src/repro_torch``
 (for instance the parent commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists).  Both trees' kernels are built first,
 in parallel.  Each run calls the named ``chip_smoke.py`` phases of its tree
-(default: ``phase_k1 phase_k1_int8 phase_k2 phase_k1_grouped
-phase_k2_grouped phase_k3 phase_k4``; a phase the old tree lacks is left
-out there, one the new tree lacks fails the run) and reports their
-per-decode-step kernel times.  A phase named ``serve:LABEL`` serves the
+(default: ``phase_k1 phase_k1_int8 phase_k5 phase_k2 phase_k1_grouped
+phase_k2_grouped phase_k3 phase_k4 phase_table3_f32``; a phase the old
+tree's script lacks runs from the new tree's script on the old tree's
+kernels, one the new tree lacks fails the run) and reports their
+per-decode-step kernel times (``phase_table3_f32``: the 24 Table III
+launches in f32).  A phase named ``serve:LABEL`` serves the
 new tree's ``chip_smoke.SERVE_PATHS[LABEL]`` (or ``NO_FUSE_PATHS[LABEL]``)
 path through each tree's ``phase_serve`` and reports the median decode
 step on the host clock, one two-row decode step's time until the device
@@ -40,12 +42,13 @@ from pathlib import Path
 
 DEFAULT_PHASES = ("phase_k1", "phase_k1_int8", "phase_k5", "phase_k2",
                   "phase_k1_grouped", "phase_k2_grouped", "phase_k3",
-                  "phase_k4")
+                  "phase_k4", "phase_table3_f32")
 
 # One run: the tree's chip_smoke phases, their step rows as one JSON line.
 RUN = r"""
 import importlib.util, json, os, sys
-tree, harness, phases = sys.argv[1], sys.argv[2], sys.argv[3:]
+tree, harness, newest, phases = (sys.argv[1], sys.argv[2], sys.argv[3],
+                                 sys.argv[4:])
 sys.path[:0] = [tree + "/src"]
 import torch
 
@@ -73,10 +76,13 @@ for name in phases:
                      "two-row decode step": r["step_ms"],
                      "two-row step, host enqueue": r["enqueue_ms"]}
         continue
-    if not hasattr(cs, name):
+    phase = getattr(cs, name, None)
+    if phase is None and harness != newest:
+        phase = getattr(script(newest, "newest_chip_smoke"), name, None)
+    if phase is None:
         print(f"AB-MISSING {name}")
         continue
-    rows = getattr(cs, name)(torch, timer)
+    rows = phase(torch, timer)
     if isinstance(rows, tuple):
         rows = rows[0]
     out[name] = {str(k): v["ms"] for k, v in rows.items()}
@@ -117,7 +123,7 @@ def main(argv):
     results = []
     for tree in order:
         harness = new if same_harness else tree
-        run = subprocess.run([sys.executable, "-c", RUN, tree, harness,
+        run = subprocess.run([sys.executable, "-c", RUN, tree, harness, new,
                               *phases],
                              capture_output=True, text=True, env=env)
         sys.stdout.write(run.stdout)

@@ -16,8 +16,10 @@ printing a result:
    the design that ran it (``kernels/mpgemm.py::k1_design``: bf16 or int8
    with 16-byte rows on the wgmma design, TMA and wgmma --
    ``kernels/csrc/mpgemm_wgmma.cu`` for bf16, ``mpgemm_wgmma_int8.cu``
-   for int8, whose MN-major operands are transposed in shared memory; the
-   rest on ``kernels/csrc/mpgemm.cu``'s scalar loops); then K1's int8
+   for int8, whose MN-major operands are transposed in shared memory; f32
+   operands on tf32x3, ``mpgemm_wgmma_f32.cu``, but those of the fp32
+   policy -- granite's router -- which keep f32 FMA arithmetic; they and
+   the rest on ``kernels/csrc/mpgemm.cu``'s scalar loops); then K1's int8
    variant (int8 operands, exact int32 sum, device scale) at the same
    shapes but the router, every launch on the wgmma design;
 3. K5 against its plain version at phi3-mini's and granite's attention
@@ -56,23 +58,30 @@ printing a result:
    int8 payloads under int8 A (the wgmma design, the same bits from two
    launches), each against its plain version; grouped K6
    packing every weight shape of the model (byte-equal), then all 72
-   expert stacks of a full-width model into int4, byte-equal; then K3
-   (``kernels/csrc/mpgemm_sparse.cu``) on tile-sparse weights built on the
-   card: phi3-mini's GEMMs at 50 % magnitude, bf16 A x bf16 tiles and
-   int8 A x int8 tiles with the activation scale, granite's attention
-   projections and (grouped) expert stacks under int8 N:M 2:4, and an
-   edge case with an empty column and a K tail, at M = 2 and 32;
+   expert stacks of a full-width model into int4, byte-equal; then K3 on
+   tile-sparse weights built on the card: phi3-mini's GEMMs at 50 %
+   magnitude, bf16 A x bf16 tiles and int8 A x int8 tiles with the
+   activation scale, granite's attention projections and (grouped) expert
+   stacks under int8 N:M 2:4, and an edge case with an empty column and a
+   K tail, at M = 2 and 32, each case on the design
+   ``kernels/mpgemm.py::k3_design`` names (the wgmma design,
+   ``kernels/csrc/mpgemm_sparse_wgmma.cu`` / ``_int8.cu``, walking each
+   column's stored tiles; the int8 edge case's rows of 3000 bytes on
+   ``mpgemm_sparse.cu``), the same bits from two launches, each weight's
+   largest and mean stored tiles a column printed;
    after them (in the run's order) K1 ``trans_a``, K7 and the packed
    backward of phase 8;
 7a. the op-level API (``phase_ops``) and the kernel variants only it
    reaches, each row driven once with every launch count at 0 and each
    case held against its plain version: the paper's 24 Table III GEMMs
    (``TABLE_III``, a copy of ``benchmarks/common.py``'s) through
-   ``kernels.ops.mpgemm`` in f32 -> f32, bf16 -> bf16 and int8 -> int32
-   (equal to the plain version; ``torch.matmul`` and ``torch._int_mm`` as
-   yardsticks), K1's beta·C and integer epilogues at W1, W13 and W19, int8
-   ``trans_a`` and f32 / bf16 ``trans_a`` + ``trans_b`` at W13 and W19
-   (each K1 case naming its design); K2 and K3 ``trans_a`` (A read (K,
+   ``kernels.ops.mpgemm`` in f32 -> f32 (tf32x3, held to the tf32 peak;
+   ``bound_f32_fma_ms`` and ``bound_3xtf32_ms`` beside it), bf16 -> bf16 and
+   int8 -> int32 (equal to the plain version; ``torch.matmul`` and
+   ``torch._int_mm`` as yardsticks), K1's beta·C and integer epilogues at
+   W1, W13 and W19, int8 ``trans_a`` and ``trans_a`` + ``trans_b`` at W13
+   and W19, a row per precision (each case naming its design); K2 and K3
+   ``trans_a`` (A read (K,
    M) at phi3-mini's ``w_up``, M = 2 and 32; the wrapper's copy of Aᵀ
    timed alone);
    ``mp_dot(..., quant_in=True)`` (silu, and a residual) at phi3-mini's
@@ -104,8 +113,10 @@ printing a result:
    K3, 36 grouped K3, 13 K1, 12 K5 per step), each sparsified from the
    f32 draw through K6 (113 and 84 launches at load).  Every launch
    count of each run is asserted, every bf16 and int8 K1 launch must have
-   run the wgmma design, every K2 and grouped K2 launch K2's wgmma design
-   and every K5 launch K5's split or wgmma design, every logit is finite,
+   run the wgmma design and none tf32x3 (the MoE routers keep the fp32
+   policy's f32 FMA), every K2, grouped K2, K3 and grouped K3 launch
+   its wgmma design and every K5 launch K5's split or wgmma design, every
+   logit is finite,
    and for each path
    one full-width mixed step through the kernels agrees with the same step
    through the plain versions; one two-row decode step of each path is
@@ -139,7 +150,7 @@ printing a result:
    plain versions, step time, tokens/s, peak memory, and one step traced
    with ``torch.profiler``;
 9. the script's wall time, one JSON line with every ported kernel's
-   launches (and, for K2, K5 and the op rows, the launches on each
+   launches (and, for K2, K3, K5 and the op rows, the launches on each
    design), error and times;
 10. the card line, then ``{"ok": true, "device": {...}}`` as the last
     line.
@@ -150,7 +161,11 @@ step).  A kernel's decode-step time is the sum over one full-width decode
 step's launches at M = 2, each timed alone.  ``bound_ms`` is the larger of
 bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16, 67 TFLOP/s f32,
 1979 TOP/s int8), counting each input read once and each output written
-once.  ``library_ms`` times one
+once; a launch on K1's f32 design (tf32x3) divides its 2·M·N·K by the
+tf32 tensor cores' 495 TFLOP/s, the peak it runs at, and its op row also
+carries ``bound_f32_fma_ms`` (the same work over the f32 CUDA cores' 67
+TFLOP/s, the scalar design's bound) and ``bound_3xtf32_ms`` (three tf32
+products a multiply-add: the design's own work).  ``library_ms`` times one
 PyTorch call of the same function as a yardstick; the port never calls it.
 """
 import contextlib
@@ -164,7 +179,10 @@ from pathlib import Path
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# Dense peaks of an H100 SXM (NVIDIA's data sheet): bf16, tf32 and int8 on
+# the tensor cores, f32 FMA on the CUDA cores.
+PEAK_OPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12,
+            "int8": 1979e12}
 FLUSH_BYTES = 256 << 20
 ITERS = 10
 
@@ -234,6 +252,14 @@ def _dtype_name(dt):
     return str(dt).replace("torch.", "")
 
 
+def _peak_of(design, dtype_name):
+    """The peak a launch's bound divides by: the tf32 tensor cores' for
+    K1's f32 design, which does its 2·M·N·K operations there (as three
+    products each, its own cost: ``bound_3xtf32_ms``), else the operands'
+    type's."""
+    return "tfloat32" if design == "tf32x3" else dtype_name
+
+
 # phi3-mini's GEMMs: (name, K, N, epilogue kind, activation, launches per
 # full-width decode step); 4 * 32 + 3 * 32 + 1 = 225.
 MAIN_SHAPES = [
@@ -266,6 +292,7 @@ class StepSum:
         self.ms = self.plain_ms = self.library_ms = self.bound_ms = 0.0
         self.launches = self.bytes = self.ops = 0
         self.max_abs_err = 0.0
+        self.designs = []      # the design of each case, where recorded
 
     def add(self, per_step, ms, plain_ms, library_ms, bound_ms, n_bytes,
             n_ops):
@@ -342,9 +369,10 @@ def phase_k1(torch, timer):
         ep = EpilogueSpec(kind=c["kind"], activation=c["act"])
         spec = GemmSpec(trans_b=c["trans_b"])
 
-        def kern():
+        def kern():     # granite's router: the fp32 policy's f32 FMA
             return mpgemm(a, w, bias=bias, extras=extras, spec=spec,
-                          epilogue=ep, out_dtype=dt)
+                          epilogue=ep, out_dtype=dt,
+                          f32_fma=c["model"] == "granite" and dt == f32)
 
         def plain():
             return mpgemm_plain(a, w, bias=bias, extras=extras,
@@ -370,7 +398,8 @@ def phase_k1(torch, timer):
         n_bytes = (m * k + k * n + m * n) * esz + m * n * esz * len(extras) \
             + (4 * n if bias is not None else 0)
         n_ops = 2 * m * n * k
-        bound, bound_by = _bound_ms(n_bytes, n_ops, _dtype_name(dt))
+        bound, bound_by = _bound_ms(n_bytes, n_ops,
+                                    _peak_of(design, _dtype_name(dt)))
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
         print(f"[k1] {c['name']:>10} {_dtype_name(dt):>8} {design:>5} "
               f"m={m:<3} k={k:<5} n={n:<6} trans_b={c['trans_b']:d} "
@@ -1252,14 +1281,18 @@ def _sparse_weight(torch, gen, shape, dtype, method):
 
 
 def phase_k3(torch, timer):
-    """K3 (``kernels/csrc/mpgemm_sparse.cu``) against its plain version:
-    phi3-mini's GEMMs at 50 % magnitude (bf16 A x bf16 tiles, and int8 A x
-    int8 tiles with the activation scale), granite's attention projections
-    and expert stacks (grouped) under int8 N:M 2:4, an empty column and a
-    K tail.  Times per launch on a cold L2; bound from the stored-tile, A
-    and output bytes or the stored tiles' operations; the library time is
-    ``torch.matmul`` on the weight densified beforehand, plus the
-    epilogue."""
+    """K3 against its plain version: phi3-mini's GEMMs at 50 % magnitude
+    (bf16 A x bf16 tiles, and int8 A x int8 tiles with the activation
+    scale), granite's attention projections and expert stacks (grouped)
+    under int8 N:M 2:4, an empty column and a K tail; every case on the
+    design ``kernels/mpgemm.py::k3_design`` names (all of them its wgmma
+    design, ``kernels/csrc/mpgemm_sparse_wgmma.cu`` / ``_int8.cu``), the
+    same bits from two launches, and each weight's largest and mean
+    stored tiles a column printed beside its time (a magnitude pattern is
+    skewed, N:M is not).  Times per launch on a cold L2; bound from the
+    stored-tile, A and output bytes or the stored tiles' operations; the
+    library time is ``torch.matmul`` on the weight densified beforehand,
+    plus the epilogue."""
     from repro_torch.core.gemm_spec import EpilogueSpec, apply_epilogue
     from repro_torch.core.policy import quantize_per_tensor
     from repro_torch.kernels.mpgemm import (
@@ -1267,6 +1300,7 @@ def phase_k3(torch, timer):
     )
     from repro_torch.sparse import densify_operand
 
+    k3_design = _rule("k3_design")
     gen = torch.Generator(device="cuda").manual_seed(9)
     bf16, f32 = torch.bfloat16, torch.float32
     g = GRANITE_EXPERTS
@@ -1294,6 +1328,8 @@ def phase_k3(torch, timer):
         dtype = "int8" if policy == "int8" else "bfloat16"
         b = _sparse_weight(torch, gen, shape, dtype, method)
         lay = b.layout
+        cols = (f"cols max {lay.max_column_tiles} mean "
+                f"{lay.nnz / (len(lay.indptr) - 1):.2f}")
         out_dtype = f32 if grouped else bf16
         w_lib = densify_operand(b, dtype=bf16)
         k, n = shape[-2:]
@@ -1321,10 +1357,16 @@ def phase_k3(torch, timer):
                 return apply_epilogue(ep, acc.float(),
                                       extras=extras).to(out_dtype)
 
-            got, ref = kern(), plain()
+            (got, design), again, ref = _k3_design_of(kern), kern(), plain()
             torch.cuda.synchronize()
             err = _check_close(torch, f"K3 {name} m={m} {policy}", got, ref,
                                TOL[_dtype_name(out_dtype)])
+            if not torch.equal(got, again):
+                raise AssertionError(f"K3 {name} m={m}: two launches differ")
+            if k3_design and design != k3_design(a, b):
+                raise AssertionError(f"K3 {name} m={m}: ran {design}, the "
+                                     f"rule says {k3_design(a, b)}")
+            del again
             esz = a.element_size()
             tile_bytes = lay.nnz * lay.bk * lay.bn * esz
             scale_bytes = 4 * lay.nnz if lay.per_tile_scales else 0
@@ -1336,12 +1378,13 @@ def phase_k3(torch, timer):
             bound, bound_by = _bound_ms(n_bytes, n_ops, peak)
             ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
             print(f"[k3] {name:>8} {'x'.join(map(str, shape)):>14} m={m:<3} "
-                  f"{policy:>4} d={lay.density:.3f}: err {err:.2e}  kernel "
-                  f"{ms:.4f} ms  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
-                  f"bound {bound:.4f} ({bound_by})  "
+                  f"{policy:>4} {design:>5} d={lay.density:.3f} {cols}: err "
+                  f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f}  "
+                  f"library {lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
                   f"{n_bytes / ms / 1e6:.1f} GB/s")
             if row:
                 steps[row].max_abs_err = max(steps[row].max_abs_err, err)
+                steps[row].designs.append(design)
                 if m == 2:
                     steps[row].add(per_step, ms, plain_ms, lib_ms, bound,
                                    n_bytes, n_ops)
@@ -1349,6 +1392,7 @@ def phase_k3(torch, timer):
     rows = {}
     for row, st in steps.items():
         r = rows[row] = st.row("int8" if "int8" in row else "bfloat16")
+        r["designs"] = st.designs
         print(f"[k3] one full-width decode step, {row} (M=2, {st.launches} "
               f"launches): kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms "
@@ -1382,9 +1426,10 @@ def _reset_counters():
         fn.launches = 0
     for name in ("k1", "k1g"):
         c[name].trans_b_launches = c[name].wgmma_launches = 0
+        c[name].tf32x3_launches = 0
     for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g"):
         c[name].trans_a_launches = 0
-    for name in ("k2", "k2g"):
+    for name in ("k2", "k2g", "k3", "k3g"):
         c[name].wgmma_launches = 0
     for name in ("k4", "k5"):
         c[name].wgmma_launches = c[name].split_launches = 0
@@ -1393,10 +1438,11 @@ def _reset_counters():
 def _read_counters():
     """Every launch count, K1's and grouped K1's ``trans_a`` and
     ``trans_b`` ones as ``k1_ta`` / ``k1_tb`` / ``k1g_ta`` / ``k1g_tb``,
-    those that ran the wgmma design of K1 and K2 as ``k1_wgmma`` /
-    ``k1g_wgmma`` / ``k2_wgmma`` / ``k2g_wgmma``, and K4's and K5's on
-    their wgmma and split designs as ``k4_wgmma`` / ``k4_split`` /
-    ``k5_wgmma`` / ``k5_split``."""
+    those that ran the wgmma design of K1, K2 and K3 as ``k1_wgmma`` /
+    ``k1g_wgmma`` / ``k2_wgmma`` / ``k2g_wgmma`` / ``k3_wgmma`` /
+    ``k3g_wgmma``, K1's f32 ones on the tensor cores as ``k1_tf32x3`` /
+    ``k1g_tf32x3``, and K4's and K5's on their wgmma and split designs as
+    ``k4_wgmma`` / ``k4_split`` / ``k5_wgmma`` / ``k5_split``."""
     c = _counters()
     out = {name: fn.launches for name, fn in c.items()}
     for name in ("k1", "k1g"):
@@ -1404,7 +1450,9 @@ def _read_counters():
         out[f"{name}_tb"] = c[name].trans_b_launches
         out[f"{name}_wgmma"] = c[name].wgmma_launches
     # (0 on a tree without them: chip_ab.py)
-    for name, designs in (("k2", ("wgmma",)), ("k2g", ("wgmma",)),
+    for name, designs in (("k1", ("tf32x3",)), ("k1g", ("tf32x3",)),
+                          ("k2", ("wgmma",)), ("k2g", ("wgmma",)),
+                          ("k3", ("wgmma",)), ("k3g", ("wgmma",)),
                           ("k4", ("wgmma", "split")),
                           ("k5", ("wgmma", "split"))):
         for design in designs:
@@ -1441,17 +1489,37 @@ def _k5_design_of(call):
                  "split" if count("split") > before[1] else "simt")
 
 
-def _k2_design_of(call):
-    """Run ``call`` (one K2 launch, 2-D or grouped) -> (its output, the
-    design that ran it: "wgmma" or "simt", read off the counters)."""
+def _design_of(call, kernels, designs=("wgmma",)):
+    """Run ``call`` (one launch of K1, K2 or K3, 2-D or grouped: the
+    counters ``kernels``) -> (its output, the design that ran it: one of
+    ``designs`` or "simt", read off the counters; 0 on a tree without the
+    design, for chip_ab.py)."""
     c = _counters()
 
-    def wgmma():      # (0 on a tree without the wgmma design: chip_ab.py)
-        return sum(getattr(c[k], "wgmma_launches", 0) for k in ("k2", "k2g"))
+    def count(design):
+        return sum(getattr(c[k], f"{design}_launches", 0) for k in kernels)
 
-    before = wgmma()
+    before = [count(d) for d in designs]
     out = call()
-    return out, "wgmma" if wgmma() > before else "simt"
+    return out, next((d for d, n in zip(designs, before) if count(d) > n),
+                     "simt")
+
+
+def _k2_design_of(call):
+    """Run ``call`` (one K2 launch) -> (its output, "wgmma" or "simt")."""
+    return _design_of(call, ("k2", "k2g"))
+
+
+def _k3_design_of(call):
+    """Run ``call`` (one K3 launch) -> (its output, "wgmma" or "simt")."""
+    return _design_of(call, ("k3", "k3g"))
+
+
+def _rule(name):
+    """The design rule ``name`` of ``kernels/mpgemm.py``, or None on a
+    tree without it (chip_ab.py runs these phases on older trees)."""
+    from repro_torch.kernels import mpgemm
+    return getattr(mpgemm, name, None)
 
 
 def _check_k4_designs(label, counts):
@@ -1466,29 +1534,24 @@ def _check_k4_designs(label, counts):
 
 
 def _k1_design_of(call):
-    """Run ``call`` (one K1 launch, 2-D or grouped) -> (its output, the
-    design that ran it: "wgmma" or "simt", read off the counters)."""
-    c = _counters()
-
-    def wgmma():      # (0 on a tree without the wgmma design: chip_ab.py)
-        return sum(getattr(c[k], "wgmma_launches", 0) for k in ("k1", "k1g"))
-
-    before = wgmma()
-    out = call()
-    return out, "wgmma" if wgmma() > before else "simt"
+    """Run ``call`` (one K1 launch) -> (its output, "wgmma", "tf32x3" or
+    "simt")."""
+    return _design_of(call, ("k1", "k1g"), ("wgmma", "tf32x3"))
 
 
 def _check_wgmma(label, got, want):
     """Every bf16 and int8 K1 launch of a path ran the wgmma design, every
-    K2 launch (2-D and grouped) K2's wgmma design, and every K5 launch one
-    of K5's Hopper designs (split or wgmma): ``got`` and ``want`` map
-    ``k1`` / ``k1g`` / ``k2`` / ``k2g`` / ``k5`` to the launches on those
-    designs and to the launches that must be."""
+    K2 and K3 launch (2-D and grouped) its wgmma design, and every K5
+    launch one of K5's Hopper designs (split or wgmma): ``got`` and
+    ``want`` map ``k1`` / ``k1g`` / ``k2`` / ``k2g`` / ``k3`` / ``k3g`` /
+    ``k5`` to the launches on those designs and to the launches that must
+    be."""
     print(f"[{label}] Hopper designs: K1 wgmma {got['k1']} of {want['k1']} "
           f"bf16 / int8 launches, grouped K1 {got['k1g']} of {want['k1g']}; "
           f"K2 wgmma {got['k2']} of {want['k2']}, grouped K2 {got['k2g']} "
-          f"of {want['k2g']}; K5 split + wgmma {got['k5']} of "
-          f"{want['k5']}")
+          f"of {want['k2g']}; K3 wgmma {got['k3']} of {want['k3']}, "
+          f"grouped K3 {got['k3g']} of {want['k3g']}; K5 split + wgmma "
+          f"{got['k5']} of {want['k5']}")
     if got != want:
         raise AssertionError(f"{label}: Hopper-design launches {got}, want "
                              f"{want}")
@@ -1596,9 +1659,10 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
     wgmma = {name: counters[name].wgmma_launches
-             for name in ("k1", "k1g", "k2", "k2g")}
+             for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g")}
     wgmma["k5"] = (counters["k5"].wgmma_launches
                    + counters["k5"].split_launches)
+    tf32x3 = counters["k1"].tf32x3_launches
     k5_designs = {d: getattr(counters["k5"], f"{d}_launches")
                   for d in ("split", "wgmma")}
     del model.paged_step
@@ -1626,14 +1690,19 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     # bf16 and int8 K1 launches: all of them but the MoE routers (f32),
     # under either policy (every width of both models is a multiple of 16);
     # every K2 launch (bf16 A x int4, int8 A x int8 payloads in 128 x 128
-    # tiles) and every K5 launch (bf16 pools of pages of 16).
+    # tiles), every K3 launch (bf16 A x bf16, int8 A x int8 tiles of 128 x
+    # 128) and every K5 launch (bf16 pools of pages of 16).
     routers = n_layers if cfg.family == "moe" else 0
     _check_wgmma(f"serve:{label}", wgmma, dict(
         k1=(per_step["k1"] - routers) * n_steps,
         k1g=per_step["k1g"] * n_steps, k2=counts["k2"], k2g=counts["k2g"],
-        k5=counts["k5"]))
+        k3=counts["k3"], k3g=counts["k3g"], k5=counts["k5"]))
     print(f"[serve:{label}] K5 designs: split {k5_designs['split']}, wgmma "
-          f"{k5_designs['wgmma']}")
+          f"{k5_designs['wgmma']}; K1 tf32x3 {tf32x3}")
+    if tf32x3:
+        raise AssertionError(f"serve:{label}: {tf32x3} K1 launches on "
+                             f"tf32x3; the f32 routers keep the fp32 "
+                             f"policy's f32 FMA")
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
@@ -1641,6 +1710,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
                  decode_step_ms=1e3 * float(np.median(decode)),
                  ttft_ms=1e3 * float(np.median(prefill)), **counts,
                  k2_wgmma=wgmma["k2"], k2g_wgmma=wgmma["k2g"],
+                 k3_wgmma=wgmma["k3"], k3g_wgmma=wgmma["k3g"],
                  k5_designs=k5_designs)
     serve["logit_err"] = _kernel_vs_plain_step(torch, model, params, label)
     if not fused:
@@ -1696,9 +1766,11 @@ def _leaves(tree):
     return (leaf for _, leaf in _tree_paths(tree))
 
 
-def _plain_gemm(a, b, *, spec, out_dtype=None, c=None, **kw):
+def _plain_gemm(a, b, *, spec, out_dtype=None, c=None, f32_fma=False,
+                **kw):
     """The plain version of a call ``core/gemm.py`` makes to its GEMM
-    wrappers (``mpgemm`` or ``mpgemm_grouped``), by the form of ``b``."""
+    wrappers (``mpgemm`` or ``mpgemm_grouped``), by the form of ``b``
+    (f32 FMA arithmetic whatever ``f32_fma`` asks)."""
     from repro_torch.kernels.mpgemm import (
         mpgemm_packed_plain, mpgemm_plain, mpgemm_sparse_plain,
     )
@@ -2017,7 +2089,7 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
     wgmma = {name: counters[name].wgmma_launches
-             for name in ("k1", "k1g", "k2", "k2g")}
+             for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g")}
     wgmma["k5"] = (counters["k5"].wgmma_launches
                    + counters["k5"].split_launches)
     del model.prefill, model.decode_step
@@ -2046,7 +2118,7 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
         raise AssertionError(f"launch counts {counts}, want {want}")
     # Dense bf16 and no router: every K1 launch is a bf16 one.
     _check_wgmma(f"wave:{label}", wgmma, dict(k1=counts["k1"], k1g=0, k2=0,
-                                               k2g=0, k5=0))
+                                               k2g=0, k3=0, k3g=0, k5=0))
     _check_k4_designs(f"wave:{label}", _read_counters())
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
@@ -2172,8 +2244,9 @@ def phase_k1_trans_a(torch, timer):
         fn = mpgemm_grouped if g else mpgemm
         spec = GemmSpec(grouped=bool(g), trans_a=True)
 
-        def kern():
-            return fn(a, b, spec=spec, out_dtype=torch.float32)
+        def kern():     # the router's dW: the fp32 policy's f32 FMA
+            return fn(a, b, spec=spec, out_dtype=torch.float32,
+                      f32_fma=dtype == torch.float32)
 
         def plain():
             return mpgemm_plain(a, b, trans_a=True, out_dtype=torch.float32)
@@ -2190,7 +2263,7 @@ def phase_k1_trans_a(torch, timer):
         groups = g or 1
         n_bytes = groups * (t * (m + n) * a.element_size() + m * n * 4)
         n_ops = 2 * groups * m * n * t
-        bound, bound_by = _bound_ms(n_bytes, n_ops, dt)
+        bound, bound_by = _bound_ms(n_bytes, n_ops, _peak_of(design, dt))
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
         print(f"[k1-trans_a] {name:>18} {dt:>8} {design:>5} G={g or 1:<2} "
               f"M={m:<5} "
@@ -2369,12 +2442,12 @@ def _ops_row(torch, timer, label, counter, cases):
     count at 0 just before and read just after: every launch must be
     ``counter``'s, one per case.  Then each case against its plain version
     (equal bits or the tolerance), and timed: kernel, plain, library.  ->
-    the row's numbers (times summed over its cases, one launch each); a
-    K1 case names the design it ran."""
+    the row's numbers (times summed over its cases, one launch each); each
+    case names the design it ran."""
     _reset_counters()
     design_of = {"k1": _k1_design_of, "k1g": _k1_design_of,
-                 "k2": _k2_design_of, "k2g": _k2_design_of}.get(
-                     counter, lambda call: (call(), "simt"))
+                 "k2": _k2_design_of, "k2g": _k2_design_of,
+                 "k3": _k3_design_of, "k3g": _k3_design_of}[counter]
     ran = [design_of(c["kern"]) for c in cases]
     torch.cuda.synchronize()
     counts = _read_counters()
@@ -2386,6 +2459,10 @@ def _ops_row(torch, timer, label, counter, cases):
     acc = StepSum()
     library = all(c["library"] is not None for c in cases)
     copy_ms = 0.0
+    # tf32x3 cases' side bounds: the f32 CUDA cores' (the scalar design's)
+    # and the design's own three products a multiply-add on the tensor
+    # cores.
+    fma_ms = three_ms = 0.0
     for c, (got, design) in zip(cases, ran):
         ref = c["plain"]()
         torch.cuda.synchronize()
@@ -2400,7 +2477,12 @@ def _ops_row(torch, timer, label, counter, cases):
             err = _check_close(torch, f"{label} {c['name']}", got, ref,
                                c["tol"])
         del ref
-        bound, bound_by = _bound_ms(c["n_bytes"], c["n_ops"], c["peak"])
+        bound, bound_by = _bound_ms(c["n_bytes"], c["n_ops"],
+                                    _peak_of(design, c["peak"]))
+        if design == "tf32x3":
+            fma_ms += _bound_ms(c["n_bytes"], c["n_ops"], "float32")[0]
+            three_ms += _bound_ms(c["n_bytes"], 3 * c["n_ops"],
+                                  "tfloat32")[0]
         ms = timer(c["kern"], OPS_ITERS)
         plain_ms = timer(c["plain"], OPS_ITERS)
         lib_ms = timer(c["library"], OPS_ITERS) if library else 0.0
@@ -2409,9 +2491,7 @@ def _ops_row(torch, timer, label, counter, cases):
         acc.max_abs_err = max(acc.max_abs_err, err)
         acc.add(1, ms, plain_ms, lib_ms, bound, c["n_bytes"], c["n_ops"])
         rate = c["n_ops"] / ms / 1e9
-        print(f"[ops:{label}] {c['name']:>24}"
-              + (f" {design:>5}" if counter in ("k1", "k1g", "k2", "k2g")
-                 else "") + ": "
+        print(f"[ops:{label}] {c['name']:>24} {design:>6}: "
               + ("equal" if c["exact"] else f"err {err:.2e}")
               + f"  kernel {ms:.4f} ms"
               + (f" (A copy {case_copy:.4f})" if case_copy else "")
@@ -2420,12 +2500,17 @@ def _ops_row(torch, timer, label, counter, cases):
               + f"  bound {bound:.4f} ({bound_by})  {rate:.2f} TOP/s")
     designs = [design for _, design in ran]
     del ran
-    row = acc.row(cases[0]["peak"])
+    row = acc.row(_peak_of(designs[0], cases[0]["peak"]))
     row["library_ms"] = row["library_ms"] if library else None
     row["launches"] = counts[counter]
     row["designs"] = designs
     if any(c["copy"] for c in cases):
         row["copy_ms"] = copy_ms
+    if "tf32x3" in designs:
+        row["bound_f32_fma_ms"], row["bound_3xtf32_ms"] = fma_ms, three_ms
+        print(f"[ops:{label}] tf32x3 cases' side bounds: f32 FMA on the "
+              f"CUDA cores {fma_ms:.3f} ms, three tf32 products a "
+              f"multiply-add {three_ms:.3f} ms")
     print(f"[ops:{label}] {len(cases)} launches of {counter}: kernel "
           f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
           + (f"{row['library_ms']:.3f} ms" if library else "none")
@@ -2453,65 +2538,89 @@ def _ops_plain(a, b, c=None, *, trans_a=False, trans_b=False, alpha=1.0,
     return mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b, **kw)
 
 
+def _table3_operands(torch, gen, m, n, k, dt, trans_a=False, trans_b=False):
+    """Table III operands: ints uniform in +-127, floats A ~ N(0, 1) and
+    B ~ N(0, 1/K) (outputs of unit scale, as a weight's init gives)."""
+    if dt == torch.int8:
+        a = torch.randint(-127, 128, (k, m) if trans_a else (m, k),
+                          generator=gen, device="cuda", dtype=dt)
+        b = torch.randint(-127, 128, (n, k) if trans_b else (k, n),
+                          generator=gen, device="cuda", dtype=dt)
+        return a, b
+    a = torch.randn(*((k, m) if trans_a else (m, k)), generator=gen,
+                    device="cuda").to(dt)
+    b = (torch.randn(*((n, k) if trans_b else (k, n)), generator=gen,
+                     device="cuda") * k ** -0.5).to(dt)
+    return a, b
+
+
+# The design the K1 rule gives every Table III shape, by operand dtype.
+TABLE_III_DESIGN = {"float32": "tf32x3", "bfloat16": "wgmma",
+                    "int8": "wgmma"}
+
+
+def _table3_row(torch, timer, gen, dt, check_design=True):
+    """The 24 Table III shapes through ``ops.mpgemm`` at ``dt`` (f32 ->
+    f32, bf16 -> bf16, int8 -> int32 equal to the plain version), one row;
+    every case on :data:`TABLE_III_DESIGN`'s design unless
+    ``check_design`` is off (chip_ab.py's older trees)."""
+    from repro_torch.kernels import ops
+
+    i8 = dt == torch.int8
+    label = "table3-" + {torch.float32: "f32", torch.bfloat16: "bf16",
+                         torch.int8: "int8"}[dt]
+    cases = []
+    for wid, m, n, k in TABLE_III:
+        a, b = _table3_operands(torch, gen, m, n, k, dt)
+        esz = a.element_size()
+        if i8:
+            library = (lambda a=a, b=b: torch._int_mm(a, b))
+        else:
+            library = (lambda a=a, b=b: torch.matmul(a, b))
+        cases.append(_ops_case(
+            f"W{wid} {m}x{n}x{k}",
+            lambda a=a, b=b: ops.mpgemm(a, b),
+            lambda a=a, b=b: _ops_plain(a, b),
+            library=library, exact=i8,
+            n_bytes=(m * k + k * n) * esz + m * n * (4 if i8 else esz),
+            n_ops=2 * m * n * k, peak=_dtype_name(dt)))
+    row = _ops_row(torch, timer, label, "k1", cases)
+    want = TABLE_III_DESIGN[_dtype_name(dt)]
+    if check_design and set(row["designs"]) != {want}:
+        raise AssertionError(f"{label}: designs {row['designs']}, want "
+                             f"{want}")
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_table3_f32(torch, timer):
+    """Table III in f32 alone (for chip_ab.py): -> {"table3-f32": row}."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    return {"table3-f32": _table3_row(torch, timer, gen, torch.float32,
+                                      check_design=False)}
+
+
 def _table3_rows(torch, timer, gen):
     """The paper's GEMMs: the 24 Table III shapes through ``ops.mpgemm`` in
     f32 -> f32, bf16 -> bf16 and int8 -> int32 (equal to the plain
     version); then the epilogue cases (W1, W13, W19) and the transposed
-    ones (W13, W19)."""
+    ones (W13, W19), one row per precision."""
     from repro_torch.kernels import ops
 
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
 
-    def operands(m, n, k, dt, trans_a=False, trans_b=False):
-        if dt == i8:
-            a = torch.randint(-127, 128, (k, m) if trans_a else (m, k),
-                              generator=gen, device="cuda", dtype=i8)
-            b = torch.randint(-127, 128, (n, k) if trans_b else (k, n),
-                              generator=gen, device="cuda", dtype=i8)
-            return a, b
-        a = torch.randn(*((k, m) if trans_a else (m, k)), generator=gen,
-                        device="cuda").to(dt)
-        # B ~ N(0, 1/K): outputs of unit scale, as a weight's init gives.
-        b = (torch.randn(*((n, k) if trans_b else (k, n)), generator=gen,
-                         device="cuda") * k ** -0.5).to(dt)
-        return a, b
-
     rows = {}
     for label, dt in (("f32", f32), ("bf16", bf16), ("int8", i8)):
-        cases = []
-        for wid, m, n, k in TABLE_III:
-            a, b = operands(m, n, k, dt)
-            esz = a.element_size()
-            out_esz = 4 if dt == i8 else esz
-            if dt == i8:
-                library = (lambda a=a, b=b: torch._int_mm(a, b))
-            else:
-                library = (lambda a=a, b=b: torch.matmul(a, b))
-            cases.append(_ops_case(
-                f"W{wid} {m}x{n}x{k}",
-                lambda a=a, b=b: ops.mpgemm(a, b),
-                lambda a=a, b=b: _ops_plain(a, b),
-                library=library, exact=dt == i8,
-                n_bytes=(m * k + k * n) * esz + m * n * out_esz,
-                n_ops=2 * m * n * k,
-                peak={f32: "float32", bf16: "bfloat16", i8: "int8"}[dt]))
-        rows[f"table3-{label}"] = _ops_row(torch, timer, f"table3-{label}",
-                                           "k1", cases)
-        # The rule sends every bf16 and int8 shape of the table to wgmma.
-        if dt != f32 and set(rows[f"table3-{label}"]["designs"]) != {
-                "wgmma"}:
-            raise AssertionError(f"table3-{label}: designs "
-                                 f"{rows[f'table3-{label}']['designs']}")
-        del cases
-        gc.collect()
-        torch.cuda.empty_cache()
+        rows[f"table3-{label}"] = _table3_row(torch, timer, gen, dt)
 
     shapes = {wid: (m, n, k) for wid, m, n, k in TABLE_III}
-    cases, int_cases = [], []
+    cases, int_cases = {f32: [], bf16: []}, []
     for wid in EPILOGUE_WORKLOADS:
         m, n, k = shapes[wid]
         for dt in (f32, bf16, i8):
-            a, b = operands(m, n, k, dt)
+            a, b = _table3_operands(torch, gen, m, n, k, dt)
             bias = torch.randn(n, generator=gen, device="cuda")
             if dt == i8:
                 bias = bias * 100
@@ -2535,15 +2644,16 @@ def _table3_rows(torch, timer, gen):
                 + m * n * c.element_size() + m * n * (4 if dt == i8 else esz),
                 n_ops=2 * m * n * k,
                 peak={f32: "float32", bf16: "bfloat16", i8: "int8"}[dt])
-            (int_cases if dt == i8 else cases).append(case)
-    rows["beta-c"] = _ops_row(torch, timer, "beta-c", "k1", cases)
+            (int_cases if dt == i8 else cases[dt]).append(case)
+    for dt, key in ((f32, "beta-c-f32"), (bf16, "beta-c-bf16")):
+        rows[key] = _ops_row(torch, timer, key, "k1", cases[dt])
     rows["int32-epilogue"] = _ops_row(torch, timer, "int32-epilogue", "k1",
                                       int_cases)
 
-    cases, int_cases = [], []
+    cases, int_cases = {f32: [], bf16: []}, []
     for wid in TRANS_WORKLOADS:
         m, n, k = shapes[wid]
-        a, b = operands(m, n, k, i8, trans_a=True)
+        a, b = _table3_operands(torch, gen, m, n, k, i8, trans_a=True)
         int_cases.append(_ops_case(
             f"W{wid} int8 trans_a",
             lambda a=a, b=b: ops.mpgemm(a, b, trans_a=True),
@@ -2552,9 +2662,10 @@ def _table3_rows(torch, timer, gen):
             exact=True, n_bytes=(m * k + k * n) + 4 * m * n,
             n_ops=2 * m * n * k, peak="int8"))
         for dt in (f32, bf16):
-            a, b = operands(m, n, k, dt, trans_a=True, trans_b=True)
+            a, b = _table3_operands(torch, gen, m, n, k, dt, trans_a=True,
+                                    trans_b=True)
             esz = a.element_size()
-            cases.append(_ops_case(
+            cases[dt].append(_ops_case(
                 f"W{wid} {_dtype_name(dt)} trans_a+b",
                 lambda a=a, b=b: ops.mpgemm(a, b, trans_a=True, trans_b=True),
                 lambda a=a, b=b: _ops_plain(a, b, trans_a=True,
@@ -2564,10 +2675,13 @@ def _table3_rows(torch, timer, gen):
                 peak="float32" if dt == f32 else "bfloat16"))
     rows["int8-trans_a"] = _ops_row(torch, timer, "int8-trans_a", "k1",
                                     int_cases)
-    for key in ("int32-epilogue", "int8-trans_a"):
-        if set(rows[key]["designs"]) != {"wgmma"}:
+    for dt, key in ((f32, "trans_a+b-f32"), (bf16, "trans_a+b-bf16")):
+        rows[key] = _ops_row(torch, timer, key, "k1", cases[dt])
+    for key in ("int32-epilogue", "int8-trans_a", "beta-c-f32",
+                "beta-c-bf16", "trans_a+b-f32", "trans_a+b-bf16"):
+        want = {TABLE_III_DESIGN["float32" if "f32" in key else "bfloat16"]}
+        if set(rows[key]["designs"]) != want:
             raise AssertionError(f"{key}: designs {rows[key]['designs']}")
-    rows["trans_a+b"] = _ops_row(torch, timer, "trans_a+b", "k1", cases)
     return rows
 
 
@@ -2973,7 +3087,9 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     SwiGLU GEMM; attention's backward is torch ops (no K4).  K7 never runs:
     the weights are dense.  The wgmma design runs every bf16 and int8 K1
     launch (``k1_wgmma``, ``k1g_wgmma``): all but the f32 routers'
-    (forward, dx, dW), under either policy.  K4 runs
+    (forward, dx, dW), under either policy; K1's f32 design
+    (``k1_tf32x3``) none: the routers run under the fp32 policy, which
+    keeps f32 FMA arithmetic (``k1_design``).  K4 runs
     its split design when a kv head's G·seq folded rows number at most 16
     (``k4_design``; the smoke configs), else its wgmma design (``k4_wgmma``,
     ``k4_split``)."""
@@ -2990,6 +3106,7 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     want["k1g_ta"] = want["k1g_tb"] = 3 * n if moe else 0
     want["k4"] = r * n
     want["k1_wgmma"] = want["k1g_wgmma"] = 0
+    want["k1_tf32x3"] = want["k1g_tf32x3"] = 0
     if policy in ("bf16", "int8"):
         want["k1_wgmma"] = want["k1"] - ((r + 2) * n if moe else 0)
         want["k1g_wgmma"] = want["k1g"]
@@ -3336,11 +3453,12 @@ def main():
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by")},
                     library_ms=numbers.get("library_ms"),
-                    **({"copy_ms": numbers["copy_ms"]}
-                       if "copy_ms" in numbers else {}),
+                    **({k: numbers[k] for k in (
+                        "copy_ms", "bound_f32_fma_ms", "bound_3xtf32_ms")
+                        if k in numbers}),
                     **({"designs": designs} if designs else {}))
 
-    def k2_designs(path, key):
+    def wgmma_designs(path, key):     # K2's or K3's launches by design
         return {"wgmma": serves[path][f"{key}_wgmma"],
                 "simt": serves[path][key] - serves[path][f"{key}_wgmma"]}
 
@@ -3355,10 +3473,10 @@ def main():
             k1_int8["phi3"]),
         row("K2 mpgemm_packed (int4 payload, bf16 A)",
             "mpgemm_packed_wgmma.cu", f"{mp}:106", serves["int4"]["k2"],
-            k2[("phi3", ("bf16", "int4"))], k2_designs("int4", "k2")),
+            k2[("phi3", ("bf16", "int4"))], wgmma_designs("int4", "k2")),
         row("K2 mpgemm_packed (int8 payload, int8 A)",
             "mpgemm_packed_wgmma_int8.cu", f"{mp}:106", serves["int8"]["k2"],
-            k2[("phi3", ("int8", "int8"))], k2_designs("int8", "k2")),
+            k2[("phi3", ("int8", "int8"))], wgmma_designs("int8", "k2")),
         row("K5 paged_flash (paged flash attention, phi3 decode step)",
             "flash_attention_wgmma.cu", fa, serves["bf16"]["k5"], k5["phi3"],
             serves["bf16"]["k5_designs"]),
@@ -3375,11 +3493,11 @@ def main():
         row("K2 mpgemm_packed at granite's attention (int4 payload, bf16 A)",
             "mpgemm_packed_wgmma.cu", f"{mp}:106",
             serves["granite-int4"]["k2"], k2[("granite", ("bf16", "int4"))],
-            k2_designs("granite-int4", "k2")),
+            wgmma_designs("granite-int4", "k2")),
         row("K2 mpgemm_packed at granite's attention (int8 payload, int8 A)",
             "mpgemm_packed_wgmma_int8.cu", f"{mp}:106",
             serves["granite-int8"]["k2"], k2[("granite", ("int8", "int8"))],
-            k2_designs("granite-int8", "k2")),
+            wgmma_designs("granite-int8", "k2")),
         row("K5 paged_flash at granite's attention (GQA 16:8, D 64, decode "
             "step)", "flash_attention_wgmma.cu", fa,
             serves["granite-bf16"]["k5"], k5["granite"],
@@ -3401,11 +3519,11 @@ def main():
         row("K2 mpgemm_packed_grouped (granite experts, int4 payload, bf16 "
             "A)", "mpgemm_packed_wgmma.cu", f"{mp}:250",
             serves["granite-int4"]["k2g"], k2g[("bf16", "int4")],
-            k2_designs("granite-int4", "k2g")),
+            wgmma_designs("granite-int4", "k2g")),
         row("K2 mpgemm_packed_grouped (granite experts, int8 payload, int8 "
             "A)", "mpgemm_packed_wgmma_int8.cu", f"{mp}:250",
             serves["granite-int8"]["k2g"], k2g[("int8", "int8")],
-            k2_designs("granite-int8", "k2g")),
+            wgmma_designs("granite-int8", "k2g")),
         row("K6 pack (granite, int4 payload: ms 96 2-D weights and 72 "
             "grouped expert stacks, launches a 12-layer load)", "pack.cu",
             "src/repro/packing/pack.py:280",
@@ -3422,15 +3540,18 @@ def main():
             "flash_attention_wgmma.cu", fa4, waves["phi3"]["k4"],
             k4["phi3-prefill"]),
         row("K3 mpgemm_sparse (phi3-mini, 50 % magnitude, bf16 A x bf16 "
-            "tiles)", "mpgemm_sparse.cu", f"{mp}:181",
-            serves["phi3-sparse-bf16"]["k3"], k3["phi3-bf16"]),
+            "tiles)", "mpgemm_sparse_wgmma.cu", f"{mp}:181",
+            serves["phi3-sparse-bf16"]["k3"], k3["phi3-bf16"],
+            wgmma_designs("phi3-sparse-bf16", "k3")),
         row("K3 mpgemm_sparse at granite's attention (N:M 2:4, int8 A x int8 "
-            "tiles)", "mpgemm_sparse.cu", f"{mp}:181",
-            serves["granite-sparse-int8"]["k3"], k3["granite-int8"]),
+            "tiles)", "mpgemm_sparse_wgmma_int8.cu", f"{mp}:181",
+            serves["granite-sparse-int8"]["k3"], k3["granite-int8"],
+            wgmma_designs("granite-sparse-int8", "k3")),
         row("K3 mpgemm_sparse_grouped (granite experts, N:M 2:4, int8 A x "
-            "int8 tiles)", "mpgemm_sparse.cu", f"{mp}:181",
+            "int8 tiles)", "mpgemm_sparse_wgmma_int8.cu", f"{mp}:181",
             serves["granite-sparse-int8"]["k3g"],
-            k3["granite-grouped-int8"]),
+            k3["granite-grouped-int8"],
+            wgmma_designs("granite-sparse-int8", "k3g")),
         row("K1 mpgemm trans_a (dW of a granite training step, 512 tokens: "
             "attention, f32 routers, tied embedding)", "mpgemm_wgmma.cu",
             f"{mp}:232", trains["granite-bf16"]["counts"]["k1_ta"],
@@ -3450,20 +3571,24 @@ def main():
     # run; ms, plain_ms, library_ms and bound_ms sum one launch a case.
     ops_rows = [
         ("K1 ops.mpgemm, paper Table III (24 shapes), f32 -> f32",
-         "mpgemm.cu", f"{mp}:232", "t3/table3-f32"),
+         "mpgemm_wgmma_f32.cu", f"{mp}:232", "t3/table3-f32"),
         ("K1 ops.mpgemm, paper Table III (24 shapes), bf16 -> bf16",
          "mpgemm_wgmma.cu", f"{mp}:232", "t3/table3-bf16"),
         ("K1 ops.mpgemm, paper Table III (24 shapes), int8 -> int32 "
          "(exact)", "mpgemm_wgmma_int8.cu", f"{mp}:232", "t3/table3-int8"),
-        ("K1 beta*C (W1, W13, W19: alpha 1.5, beta 2.0 * C, bias, gelu; "
-         "f32 and bf16)", "mpgemm.cu", f"{mp}:237", "t3/beta-c"),
+        ("K1 beta*C (W1, W13, W19: alpha 1.5, beta 2.0 * C, bias, gelu), "
+         "f32", "mpgemm_wgmma_f32.cu", f"{mp}:237", "t3/beta-c-f32"),
+        ("K1 beta*C (W1, W13, W19: alpha 1.5, beta 2.0 * C, bias, gelu), "
+         "bf16", "mpgemm_wgmma.cu", f"{mp}:237", "t3/beta-c-bf16"),
         ("K1 int8 -> int32 integer epilogue (W1, W13, W19: alpha 2, beta "
          "3 * C, bias)", "mpgemm_wgmma_int8.cu", f"{mp}:232",
          "t3/int32-epilogue"),
         ("K1 int8 trans_a (W13, W19, int32)", "mpgemm_wgmma_int8.cu",
          f"{mp}:232", "t3/int8-trans_a"),
-        ("K1 trans_a + trans_b (W13, W19, f32 and bf16)", "mpgemm.cu",
-         f"{mp}:232", "t3/trans_a+b"),
+        ("K1 trans_a + trans_b (W13, W19), f32", "mpgemm_wgmma_f32.cu",
+         f"{mp}:232", "t3/trans_a+b-f32"),
+        ("K1 trans_a + trans_b (W13, W19), bf16", "mpgemm_wgmma.cu",
+         f"{mp}:232", "t3/trans_a+b-bf16"),
         ("K1 quant_in tails (phi3 projections, int8 rows x int8 weight, "
          "silu / residual)", "mpgemm_wgmma_int8.cu", f"{mp}:232", "qi/dense"),
         ("K2 quant_in tails, int8 payload", "mpgemm_packed_wgmma_int8.cu",
@@ -3475,19 +3600,19 @@ def main():
         ("K2 quant_in tails, bf16 payload (int8 rows upcast)",
          "mpgemm_packed_wgmma.cu", f"{mp}:106", "qi/packed-bfloat16"),
         ("K3 quant_in tails, int8 tiles (phi3, 0.5 magnitude)",
-         "mpgemm_sparse.cu", f"{mp}:181", "qi/sparse-int8"),
+         "mpgemm_sparse_wgmma_int8.cu", f"{mp}:181", "qi/sparse-int8"),
         ("K3 bf16 A x int8 tiles (phi3 projections, M 2 and 32)",
-         "mpgemm_sparse.cu", f"{mp}:181", "k3-float"),
+         "mpgemm_sparse_wgmma.cu", f"{mp}:181", "k3-float"),
         ("K2 beta*C (phi3 w_up, int4 payload, bf16 A)",
          "mpgemm_packed_wgmma.cu", f"{mp}:106", "bc/k2"),
         ("K3 beta*C (phi3 w_up, bf16 tiles, 0.5 magnitude)",
-         "mpgemm_sparse.cu", f"{mp}:193", "bc/k3"),
+         "mpgemm_sparse_wgmma.cu", f"{mp}:193", "bc/k3"),
         ("K2 trans_a (phi3 w_up, int4 payload, bf16 A read (K, M); the "
          "wrapper copies A^T, copy_ms)", "mpgemm_packed_wgmma.cu",
          f"{mp}:669", "ta/k2"),
         ("K3 trans_a (phi3 w_up, bf16 tiles, 0.5 magnitude, A read (K, M); "
-         "the wrapper copies A^T, copy_ms)", "mpgemm_sparse.cu", f"{mp}:418",
-         "ta/k3"),
+         "the wrapper copies A^T, copy_ms)", "mpgemm_sparse_wgmma.cu",
+         f"{mp}:418", "ta/k3"),
         ("K1 mpgemm_grouped beta*C (granite experts, 2 A B + 0.5 C)",
          "mpgemm_wgmma.cu", f"{mp}:812", "g/beta-c"),
         ("K1 mpgemm_grouped quant_in (granite experts, dense bf16 stacks)",
@@ -3495,7 +3620,7 @@ def main():
         ("K2 mpgemm_packed_grouped quant_in (granite experts, int8 payload)",
          "mpgemm_packed_wgmma_int8.cu", f"{mp}:250", "g/packed-int8"),
         ("K3 mpgemm_sparse_grouped quant_in (granite experts, int8 N:M 2:4)",
-         "mpgemm_sparse.cu", f"{mp}:181", "g/sparse-int8"),
+         "mpgemm_sparse_wgmma_int8.cu", f"{mp}:181", "g/sparse-int8"),
         ("K1 mpgemm_grouped via mp_einsum('gmk,gkn->gmn') (granite experts)",
          "mpgemm_wgmma.cu", f"{mp}:812", "g/einsum"),
     ]

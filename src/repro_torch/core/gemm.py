@@ -159,8 +159,11 @@ def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
         wq, sw = quantize_per_tensor(w)
         return gemm(xq.contiguous(), wq.contiguous(), scale=sx * sw,
                     spec=spec, **kw)
+    # The fp32 policy keeps f32 FMA arithmetic (K1's scalar loop, not
+    # 3xTF32: kernels/mpgemm.py::k1_design).
     return gemm(x.to(policy.compute).contiguous(),
-                w.to(policy.compute).contiguous(), spec=spec, **kw)
+                w.to(policy.compute).contiguous(), spec=spec,
+                f32_fma=policy.compute == torch.float32, **kw)
 
 
 def _apply_quant_in(x, w, bias, extras, trans_w, epilogue, ed, policy,

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (git
 ignores ``build/``); the MPGEMM sources share ``csrc/gemm_epilogue.cuh``,
-the Hopper designs ``csrc/hopper.cuh``, and the K1 and K2 wgmma sources
-``csrc/mpgemm_wgmma.cuh``.
+the Hopper designs ``csrc/hopper.cuh``, and the K1, K2 and K3 wgmma
+sources ``csrc/mpgemm_wgmma.cuh``.
 The hash covers the source, the headers and the flags, so an edited
-source never loads a stale library.  Nothing here runs at import:
+source never loads a stale library.  :func:`current_stream` gives the
+stream handle each launch passes.  Nothing here runs at import:
 the first wrapper call on a CUDA tensor builds what it needs, and
 :func:`build_all` builds every kernel at once, one nvcc process per source,
 all started together.
@@ -26,10 +27,11 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("mpgemm", "mpgemm_wgmma", "mpgemm_wgmma_int8", "mpgemm_packed",
-           "mpgemm_packed_wgmma", "mpgemm_packed_wgmma_int8",
-           "mpgemm_sparse", "pack", "paged_flash", "flash_attention",
-           "flash_attention_wgmma")
+KERNELS = ("mpgemm", "mpgemm_wgmma", "mpgemm_wgmma_int8",
+           "mpgemm_wgmma_f32", "mpgemm_packed", "mpgemm_packed_wgmma",
+           "mpgemm_packed_wgmma_int8", "mpgemm_sparse",
+           "mpgemm_sparse_wgmma", "mpgemm_sparse_wgmma_int8", "pack",
+           "paged_flash", "flash_attention", "flash_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -101,6 +103,14 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, float]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds
+
+
+def current_stream(t) -> int:
+    """The raw handle of the current stream on tensor ``t``'s card, which
+    every launch passes its kernel (what ``torch.cuda.current_stream(
+    t.device).cuda_stream`` returns, at a tenth of its host cost)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def build_log(name: str) -> Optional[str]:

@@ -1,8 +1,10 @@
 // Device and host helpers of the Hopper (sm_90a) designs: mbarriers, TMA
 // loads, wgmma shared-memory descriptors and fences, and TMA tensor maps
 // encoded on the host and kept for the next launch with the same operand.
-// Shared by csrc/mpgemm_wgmma.cu and mpgemm_wgmma_int8.cu (K1),
-// mpgemm_packed_wgmma.cu and mpgemm_packed_wgmma_int8.cu (K2) and
+// Shared by csrc/mpgemm_wgmma.cu, mpgemm_wgmma_int8.cu and
+// mpgemm_wgmma_f32.cu (K1), mpgemm_packed_wgmma.cu and
+// mpgemm_packed_wgmma_int8.cu (K2), mpgemm_sparse_wgmma.cu and
+// mpgemm_sparse_wgmma_int8.cu (K3) and
 // csrc/flash_attention_wgmma.cu (K4, K5); each source compiles on its own
 // into a library, so each holds its own map cache.
 #pragma once
@@ -148,7 +150,7 @@ inline EncodeTiled encode_tiled() {
 }
 
 // What a map encodes: a contiguous (groups, rows, inner) tensor of
-// `elem_bytes`-byte elements (2: bf16, 1: 8-bit), boxes of (box_inner,
+// `elem_bytes`-byte elements (4: f32, 2: bf16, 1: 8-bit), boxes of (box_inner,
 // box_rows, 1), the 128-byte swizzle or none, zero fill out of bounds.
 struct MapKey {
   const void* ptr;
@@ -171,8 +173,9 @@ inline bool encode_map(CUtensorMap* map, const MapKey& k) {
   const cuuint32_t box[3] = {k.box_inner, k.box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map,
-                k.elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                  : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                k.elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : k.elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                 3, const_cast<void*>(k.ptr), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 k.swizzle ? CU_TENSOR_MAP_SWIZZLE_128B

@@ -1,8 +1,11 @@
 // K1: the dense mixed-precision GEMM with a fused epilogue, 2-D or grouped,
-// for sm_90a: the scalar design.  bf16 launches whose operands TMA can
-// describe run csrc/mpgemm_wgmma.cu instead (kernels/mpgemm.py::k1_design);
-// this file runs f32, int8 and the bf16 shapes that rule leaves out (rows
-// that are not a multiple of 16 bytes, a view off a 16-byte boundary).
+// for sm_90a: the scalar design.  bf16 and int8 launches whose operands TMA
+// can describe run csrc/mpgemm_wgmma.cu / mpgemm_wgmma_int8.cu instead, and
+// f32 ones csrc/mpgemm_wgmma_f32.cu (kernels/mpgemm.py::k1_design); this
+// file runs what that rule leaves out (rows that are not a multiple of 16
+// bytes, a view off a 16-byte boundary, and the f32 products whose caller
+// keeps f32 FMA arithmetic: the fp32 policy's, granite's router among
+// them).
 //
 // Replaces the TPU kernel src/repro/kernels/mpgemm.py::make_gemm_kernel
 // (dense body `kernel`), launched by mpgemm_pallas_spec for one GEMM and
@@ -65,8 +68,8 @@
 // 30 % slower on an H100 at M = 2 (with bit-equal outputs).  Known gaps,
 // for later work: no vectorised or asynchronous loads (cp.async / TMA), no
 // split-K for decode (N / 32 blocks cannot fill 132 SMs when N = 3072);
-// int8 has no tensor-core route here yet (wgmma's int8 form takes K-major
-// operands only), and f32 has none at its 1e-4 gate.
+// the tensor-core routes are the wgmma designs named above (f32 there as
+// 3xTF32: plain TF32 misses the 1e-4 gate).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 

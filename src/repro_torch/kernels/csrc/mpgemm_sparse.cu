@@ -1,5 +1,9 @@
 // K3: the tile-sparse mixed-precision GEMM with a fused epilogue, 2-D or
-// grouped, for sm_90a.
+// grouped, for sm_90a: the scalar design.  bf16 A against bf16 or int8
+// tiles and int8 A against int8 tiles, in 128 x 128 tiles with 16-byte
+// rows and bases, run csrc/mpgemm_sparse_wgmma.cu / _int8.cu instead
+// (kernels/mpgemm.py::k3_design); this file runs f32 A, other tile shapes
+// and misaligned views.
 //
 // Replaces the TPU kernel src/repro/kernels/mpgemm.py::make_gemm_kernel
 // (`sparse_kernel`), launched by _launch_sparse for a TileSparseOperand B
@@ -56,8 +60,8 @@
 //       back through shared memory to the epilogue; K2's loop would issue
 //       one global load of A per multiply-add at M = 32.
 //
-// Known gaps, for later work: no 16-byte loads, no tensor cores, no split
-// over a long column.
+// Known gaps of this design (the wgmma one has none of them): no 16-byte
+// loads, no tensor cores, no split over a long column.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 

@@ -1,10 +1,12 @@
-// K1 and K2 on Hopper's tensor cores: the dense MPGEMM with a fused
+// K1, K2 and K3 on Hopper's tensor cores: the dense MPGEMM with a fused
 // epilogue, 2-D or grouped, loaded by TMA and summed by wgmma, for sm_90a,
-// and the same with B read from a packed payload (K2, below).  One
-// template for both operand types; csrc/mpgemm_wgmma.cu instantiates it
-// for bf16 and csrc/mpgemm_wgmma_int8.cu for int8 (K1),
-// csrc/mpgemm_packed_wgmma.cu and mpgemm_packed_wgmma_int8.cu for K2, so
-// the four build in parallel.
+// and the same with B read from a packed payload (K2) or from the stored
+// tiles of a tile-sparse one (K3), below.  One template for every operand
+// type; csrc/mpgemm_wgmma.cu instantiates it for bf16,
+// csrc/mpgemm_wgmma_int8.cu for int8 and csrc/mpgemm_wgmma_f32.cu for f32
+// (K1), csrc/mpgemm_packed_wgmma.cu and mpgemm_packed_wgmma_int8.cu for
+// K2, csrc/mpgemm_sparse_wgmma.cu and mpgemm_sparse_wgmma_int8.cu for K3,
+// so the seven build in parallel.
 //
 // Replaces, with csrc/mpgemm.cu, the TPU kernel
 // src/repro/kernels/mpgemm.py::make_gemm_kernel (dense body `kernel`),
@@ -111,6 +113,28 @@
 //   tiles leave no room for a second on its SM.  The decode runs on the
 //   consumer warpgroups, as the int8 transposes do; the tile's scale is
 //   loaded one stage ahead.
+// * K1's f32 operands (kF32; csrc/mpgemm_wgmma_f32.cu): 32-deep stages
+//   (128 bytes of f32), read K-major as int8's are; the consumers split
+//   each value into tf32 hi and lo terms (split_tf32) -- a K-major tile's
+//   hi in place and its lo in a buffer, an MN-major tile's terms
+//   transposed into two buffers (split_transpose) -- and wgmma
+//   m64n128k8.f32.tf32.tf32 sums lo_a hi_b + hi_a lo_b + hi_a hi_b; the
+//   partial is folded into the f32 sum every 128 K values, as K2's tiles
+//   are.  The buffers take two stages' worth and the ring three or four
+//   stages (Cfg::kStages), within a block's 227 KB.
+// * K3 (SPARSE; csrc/mpgemm_sparse_wgmma.cu and _int8.cu): K2's B stage
+//   and fold over the payload's stored tiles.  A block owns one 128-wide
+//   tile column c = g * nnb + j and a slice of its stored tiles
+//   indptr[c] .. indptr[c + 1] (the split, kernels/mpgemm.py::k3_split,
+//   cuts the longest column into whole tiles and keeps one wave of
+//   blocks); the producer warp reads the slice's k-tile indices into
+//   shared memory at the start, then per stage loads A's k tile at
+//   indices[t] (TMA's zero fill covers the K tail, the payload's tiles are
+//   zero-padded) and tile t of the payload; each stored tile's partial is
+//   folded in payload order, as the reference's _accumulate adds a tile.
+//   A slice past its column's count sums nothing and counts itself in on
+//   the tile's counter with a zero partial, so the last block to arrive
+//   sums every slice; an empty column runs its epilogue on a zero sum.
 // Known gaps, for later work: no persistent blocks (a tile's epilogue does
 // not overlap the next tile's loads; the bf16 Table III shapes with K <=
 // 1536 and N >= 24576 run 2.5-4.2x cuBLAS on an H100 80GB HBM3 at 700 W,
@@ -143,7 +167,6 @@ using namespace hopper;
 
 constexpr int kRowBytes = 128;  // K bytes per stage: one 128-byte swizzle row
 constexpr int BN = 128;         // output columns a block
-constexpr int kStages = 4;
 constexpr int kLd = BN + 8;     // the output tile's row stride in smem
 constexpr int kGroupRows = 8;   // tile rows walked together (L2 reuse)
 constexpr uint32_t kBox = 64 * kRowBytes;   // one 64-row box: 8 KB
@@ -153,17 +176,29 @@ constexpr uint32_t kBox = 64 * kRowBytes;   // one 64-row box: 8 KB
 enum { kDense = -1, P_BF16 = 1, P_INT8 = 2, P_INT4 = 3, P_FP8 = 4 };
 
 // K2's packed B (P != kDense): payload[G][nkb][nnb][tk][BN] tiles of 128 K
-// rows, scales[G][nkb][nnb] f32 for the codecs.  K1 passes none.
+// rows, scales[G][nkb][nnb] f32 for the codecs; `tiles` the payload's tile
+// count (G * nkb * nnb).  K3's tile-sparse B: payload[nnz + 1][128][BN]
+// and scales[nnz + 1] (int8 tiles), `tiles` = nnz + 1, and the column
+// structure: column c = g * nnb + j stores the k tiles indices[indptr[c]
+// .. indptr[c + 1]) at the same payload positions
+// (repro_torch/sparse/layout.py).  K1 passes none.
 struct PackedB {
   const uint8_t* payload;
   const float* scales;
   int nkb, nnb;
+  long long tiles;
+  const int* indptr;
+  const int* indices;
 };
 
 template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P = kDense>
 struct Cfg {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  static constexpr int BK = kRowBytes / sizeof(T);          // 64 | 128
+  // K1's f32 operands, summed as 3xTF32 (split_tf32 below).
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  // wgmma reads int8 and tf32 K-major only; bf16 either way.
+  static constexpr bool kKMajorOnly = kInt8 || kF32;
+  static constexpr int BK = kRowBytes / sizeof(T);          // 32 | 64 | 128
   static constexpr int kConsumers = BM / 64;                // warpgroups
   static constexpr int kThreads = (kConsumers + 1) * 128;   // + producer
   // K2: a stage is BK rows of one 128-deep payload tile (bf16 A: half of
@@ -177,24 +212,38 @@ struct Cfg {
   // exact int32 partial times the tile's scale), as the reference adds a
   // tile's dot to its accumulator: the tensor cores' f32 sums then never
   // run longer than a tile.
-  static constexpr bool kFold = kPacked;
+  // K1's f32 path folds in the same way, every 128 K values (four
+  // 32-deep stages): the tensor cores' sums then never run longer.
+  static constexpr bool kFold = kPacked || kF32;
   static constexpr int kBBytes =
       kDecode ? (P == P_INT4 ? BK / 2 : BK) * BN : BN * kRowBytes;
   // bf16 at BM = 64 (decode) runs two blocks an SM: 2 x ~97 KB of shared
-  // memory; int8's transposed buffers leave room for one, and K2 keeps
-  // one so that its f32 fold's registers (64 a thread) do not spill.
-  static constexpr int kMinBlocks = BM == 64 && !kInt8 && !kPacked ? 2 : 1;
+  // memory; int8's transposed buffers leave room for one, and K2 and f32
+  // keep one so that their f32 fold's registers (64 a thread) do not
+  // spill.
+  static constexpr int kMinBlocks =
+      BM == 64 && !kInt8 && !kF32 && !kPacked ? 2 : 1;
   static constexpr int kABytes = BM * kRowBytes;
   static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kPipeBytes = kStages * kStageBytes;
   // int8's K-major copies of MN-major tiles and K2's decoded tiles, three
-  // of each.
+  // of each.  f32 (kF32): every stage's operands split into tf32 hi and lo
+  // terms -- a K-major tile's hi in place and its lo in a buffer, an
+  // MN-major tile's hi and lo both transposed into buffers -- two sets of
+  // buffers, enough since the fold waits for each stage's products before
+  // the next stage's barrier.
   static constexpr bool kTransA = kInt8 && TRANS_A;
   static constexpr bool kTransB = kInt8 && !TRANS_B;
   static constexpr bool kTranspose = kTransA || kTransB || kDecode;
-  static constexpr int kTBufs = 3;
-  static constexpr int kTBytes = (kTransA ? kABytes : 0) +
-                                 (kTransB || kDecode ? BN * kRowBytes : 0);
+  static constexpr int kTBufs = kF32 ? 2 : 3;
+  static constexpr int kTBytes =
+      kF32 ? (TRANS_A ? 2 : 1) * kABytes + (TRANS_B ? 1 : 2) * BN * kRowBytes
+           : (kTransA ? kABytes : 0) +
+                 (kTransB || kDecode ? BN * kRowBytes : 0);
+  // A ring of 4 stages, or 3 where 4 and the buffers pass the 227 KB of a
+  // block (f32 under trans_a at BM = 128).
+  static constexpr int kStages =
+      4 * kStageBytes + kTBufs * kTBytes + 2048 <= 232448 ? 4 : 3;
+  static constexpr int kPipeBytes = kStages * kStageBytes;
   static constexpr int kOutBytes = BM * kLd * 4;
   static_assert(kOutBytes <= kPipeBytes, "the output tile reuses the ring");
   // The ring, the transposed buffers, 2 * kStages mbarriers, and slack to
@@ -276,6 +325,105 @@ __device__ __forceinline__ void wgmma_m64n128(int (&d)[64], uint64_t desc_a,
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d += A (64 x 8) * B (8 x 128), tf32 in (f32 words whose low 13 bits are
+// zero: split_tf32), f32 accumulators; both operands K-major (the only
+// form wgmma takes for tf32).
+__device__ __forceinline__ void wgmma_m64n128_tf32(float (&d)[64],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// x = hi + lo + r: hi = x rounded to tf32 (to nearest, ties away), lo =
+// the rest rounded to tf32; |r| <= 2^-22 |x|.  hi * hi + hi * lo + lo * hi
+// on the tensor cores then misses a product by about 2^-21 of it (the
+// dropped lo * lo and the two r terms), where one tf32 product misses by
+// 2^-11.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
+  hi = __uint_as_float(h);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(__fsub_rn(x, hi)));
+  lo = __uint_as_float(l);
+}
+
+// K1 f32, a K-major tile (TMA wrote it swizzled): each value's hi term in
+// place, its lo term at the same offset of `lo`.
+template <int kBytes, int kThreads>
+__device__ __forceinline__ void split_in_place(uint8_t* tile, uint8_t* lo,
+                                               int tid) {
+  static_assert(kBytes % (16 * kThreads) == 0, "whole 16-byte chunks");
+#pragma unroll
+  for (int i = 0; i < kBytes / (16 * kThreads); ++i) {
+    const int off = (tid + i * kThreads) * 16;
+    const float4 x = *reinterpret_cast<const float4*>(tile + off);
+    float4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<float4*>(tile + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// K1 f32, an MN-major tile: `raw` holds 32 K rows of W f32 (W = the tile's
+// M or N extent, 64 or 128; unswizzled, as TMA wrote it); `hi` and `lo`
+// get W rows of 32 K values (128 bytes) in the 128-byte swizzle, the
+// K-major layout TMA would have written (16-byte chunk q of row r at chunk
+// q ^ (r % 8)).  A thread takes row r's chunk q: four loads down K rows
+// 4q..4q+3 (a warp's 32 consecutive r: one row of raw, no bank conflict),
+// one 16-byte store to each term (8 consecutive rows: 8 distinct chunks).
+template <int W, int kThreads>
+__device__ __forceinline__ void split_transpose(const uint8_t* raw,
+                                                uint8_t* hi, uint8_t* lo,
+                                                int tid) {
+  constexpr int kItems = W * (kRowBytes / 16);
+  static_assert(kItems % kThreads == 0, "every thread the same chunks");
+  const float* src = reinterpret_cast<const float*>(raw);
+#pragma unroll
+  for (int i = 0; i < kItems / kThreads; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e % W, q = e / W;
+    float4 h, l;
+    split_tf32(src[(4 * q) * W + r], h.x, l.x);
+    split_tf32(src[(4 * q + 1) * W + r], h.y, l.y);
+    split_tf32(src[(4 * q + 2) * W + r], h.z, l.z);
+    split_tf32(src[(4 * q + 3) * W + r], h.w, l.w);
+    const int off = r * kRowBytes + ((q ^ (r % 8)) * 16);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
 }
 
 // The four bytes of w with each one's low (high) nibble sign-extended.
@@ -422,13 +570,19 @@ __device__ __forceinline__ void stash_fragment(V* cs, const V (&d)[64],
 // and the last slice of the tile to arrive (counted on counters[g * tiles
 // + tile], zero between launches) sums them.  K2 (P != kDense) reads B
 // from the packed payload `pk` (map_b covers a bf16 payload as (BN, 128,
-// G * nkb * nnb) tiles; a codec payload comes by bulk copies).
-template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P>
+// pk.tiles) tiles; a codec payload comes by bulk copies).  K3 (SPARSE)
+// reads the payload's stored tiles of the block's column, slice s taking
+// its stored tiles s * per_split .. (s + 1) * per_split - 1 (per_split
+// counts stored tiles there, K stages everywhere else); a slice past the
+// column's count sums nothing and still counts itself in.
+template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P,
+          bool SPARSE = false>
 __device__ __forceinline__ void mpgemm_wgmma_body(
     const CUtensorMap& map_a, const CUtensorMap& map_b, const Epilogue& e,
     void* partial_raw, int* counters, int M, int N, int G, int k_tiles,
     int per_split, int splits, const PackedB& pk) {
   using C = Cfg<BM, T, TRANS_A, TRANS_B, P>;
+  constexpr int kStages = C::kStages;
   // The sum a block holds: int32 for K1's int8 product, f32 otherwise
   // (K2's int8 partials are folded into f32 a payload tile at a time).
   using Acc =
@@ -452,8 +606,18 @@ __device__ __forceinline__ void mpgemm_wgmma_body(
   const int m0 = (first_m + (pid % width) % rows_in_group) * BM;
   const int n0 = ((pid % width) / rows_in_group) * BN;
   const int g = blockIdx.z / splits, s = blockIdx.z % splits;
-  const int kt0 = s * per_split;
-  const int n_kt = min(k_tiles, kt0 + per_split) - kt0;
+  // K1, K2: the slice's K stages kt0 .. kt0 + n_kt - 1.  K3: its stored
+  // tiles t0 .. t0 + n_kt / kSub - 1, kSub stages each (kt0 = 0).
+  int kt0 = 0, n_kt, t0 = 0;
+  if constexpr (SPARSE) {
+    const int col = g * pk.nnb + n0 / BN;
+    const int hi = __ldg(pk.indptr + col + 1);
+    t0 = __ldg(pk.indptr + col) + s * per_split;
+    n_kt = max(0, min(hi, t0 + per_split) - t0) * C::kSub;
+  } else {
+    kt0 = s * per_split;
+    n_kt = min(k_tiles, kt0 + per_split) - kt0;
+  }
 
   const int tid = threadIdx.x;
   constexpr int kConsumerThreads = C::kConsumers * 128;
@@ -467,42 +631,66 @@ __device__ __forceinline__ void mpgemm_wgmma_body(
   __syncthreads();
 
   if (tid >= kConsumerThreads) {
-    // Producer: one thread keeps the ring full.
+    // Producer: one thread keeps the ring full.  K3's producer warp first
+    // reads the slice's k-tile indices into shared memory, a lane each, so
+    // that no TMA issue waits on a dependent load.
+    constexpr int kIdx = SPARSE ? 256 : 1;
+    __shared__ int idx_s[kIdx];
+    if constexpr (SPARSE) {
+      if (tid < kConsumerThreads + 32) {
+        for (int i = tid - kConsumerThreads; i < min(n_kt / C::kSub, kIdx);
+             i += 32)
+          idx_s[i] = __ldg(pk.indices + t0 + i);
+        __syncwarp();
+      }
+    }
     if (tid == kConsumerThreads) {
       for (int it = 0; it < n_kt; ++it) {
         const int st = it % kStages;
         if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
         uint8_t* a_s = smem + st * C::kStageBytes;
         uint8_t* b_s = a_s + C::kABytes;
-        const int k0 = (kt0 + it) * C::BK;
+        // The stage: A's K offset k0, and (K2, K3) payload tile `tile`,
+        // whose (sub)-th BK rows it is.
+        int k0, tile = 0, sub = 0;
+        if constexpr (SPARSE) {
+          const int i = it / C::kSub;
+          sub = it % C::kSub;
+          tile = t0 + i;
+          k0 = (i < kIdx ? idx_s[i] : __ldg(pk.indices + tile)) * 128 +
+               sub * C::BK;
+        } else {
+          const int kt = kt0 + it;
+          k0 = kt * C::BK;
+          if constexpr (C::kPacked) {
+            tile = (g * pk.nkb + kt / C::kSub) * pk.nnb + n0 / BN;
+            sub = kt % C::kSub;
+          }
+        }
         mbar_expect_tx(&full[st], C::kStageBytes);
-        if (TRANS_A && !C::kInt8) {   // (K, M): boxes of 64 M x 64 K
+        if (TRANS_A && !C::kKMajorOnly) {   // (K, M): boxes of 64 M x 64 K
 #pragma unroll
           for (int w = 0; w < C::kConsumers; ++w)
             tma_load(a_s + w * kBox, &map_a, &full[st], m0 + 64 * w, k0, g);
-        } else if (TRANS_A) {         // int8 (K, M): BM M bytes x 128 K
+        } else if (TRANS_A) {   // int8 / f32 (K, M): BM M values x BK K
           tma_load(a_s, &map_a, &full[st], m0, k0, g);
         } else {                      // (M, K): one box of BM rows x BK
           tma_load(a_s, &map_a, &full[st], k0, m0, g);
         }
         if constexpr (C::kPacked) {
-          // Payload tile (g, kt / kSub, n0 / BN); this stage is its
-          // (kt % kSub)-th BK rows.
-          const int kt = kt0 + it;
-          const int tile = (g * pk.nkb + kt / C::kSub) * pk.nnb + n0 / BN;
           if constexpr (C::kDecode) {
             bulk_load(b_s, pk.payload + (static_cast<size_t>(tile) * C::kSub +
-                                         kt % C::kSub) * C::kBBytes,
+                                         sub) * C::kBBytes,
                       C::kBBytes, &full[st]);
           } else {                    // bf16 payload: boxes of 64 N x 64 K
 #pragma unroll
             for (int w = 0; w < BN / 64; ++w)
               tma_load(b_s + w * kBox, &map_b, &full[st], 64 * w,
-                       (kt % C::kSub) * C::BK, tile);
+                       sub * C::BK, tile);
           }
         } else if (TRANS_B) {         // (N, K): one box of 128 rows x BK
           tma_load(b_s, &map_b, &full[st], k0, n0, g);
-        } else if (C::kInt8) {        // int8 (K, N): 128 N bytes x 128 K
+        } else if (C::kKMajorOnly) {  // int8 / f32 (K, N): 128 N x BK K
           tma_load(b_s, &map_b, &full[st], n0, k0, g);
         } else {                      // (K, N): boxes of 64 N x 64 K
 #pragma unroll
@@ -525,72 +713,40 @@ __device__ __forceinline__ void mpgemm_wgmma_body(
   float acc_f[C::kFold ? 64 : 1];
 #pragma unroll
   for (int i = 0; i < (C::kFold ? 64 : 1); ++i) acc_f[i] = 0.f;
+  // K2's scales step by nnb a K tile, K3's by one a stored tile.
   const float* ts_ptr = nullptr;
   float ts_next = 0.f;
+  const int ts_stride = SPARSE ? 1 : pk.nnb;
   if constexpr (C::kPacked) {
     if (pk.scales != nullptr && n_kt > 0) {
-      ts_ptr = pk.scales + static_cast<size_t>(g) * pk.nkb * pk.nnb + n0 / BN;
-      ts_next = __ldg(ts_ptr + static_cast<size_t>(kt0 / C::kSub) * pk.nnb);
+      ts_ptr = SPARSE ? pk.scales + t0
+                      : pk.scales + static_cast<size_t>(g) * pk.nkb * pk.nnb +
+                            n0 / BN;
+      ts_next =
+          __ldg(ts_ptr + static_cast<size_t>(kt0 / C::kSub) * ts_stride);
     }
   }
   // Per k step (16 bf16 or 32 int8 values): 32 bytes along a K-major row,
   // 16 rows (2 KB) down a bf16 MN-major box.  Stride byte offset: the
   // next 8 rows (1 KB) either way; leading byte offset: the next 64-wide
   // MN box (8 KB) of an MN-major tile, unused (16 bytes) by a K-major one.
-  constexpr bool kMnA = TRANS_A && !C::kInt8, kMnB = !TRANS_B && !C::kInt8;
+  constexpr bool kMnA = TRANS_A && !C::kKMajorOnly;
+  constexpr bool kMnB = !TRANS_B && !C::kKMajorOnly;
   constexpr uint32_t kStepA = kMnA ? 16 * 128 : 32;
   constexpr uint32_t kStepB = kMnB ? 16 * 128 : 32;
   constexpr uint32_t kLboA = kMnA ? kBox : 16;
   constexpr uint32_t kLboB = kMnB ? kBox : 16;
   constexpr int kKSteps = kRowBytes / 32;
-  for (int it = 0; it < n_kt; ++it) {
-    const int st = it % kStages;
-    float ts = 0.f;
-    if constexpr (C::kPacked) {
-      ts = ts_next;
-      const int kt = kt0 + it + 1;
-      if (ts_ptr != nullptr && it + 1 < n_kt)
-        ts_next = __ldg(ts_ptr + static_cast<size_t>(kt / C::kSub) * pk.nnb);
-    }
-    mbar_wait(&full[st], (it / kStages) & 1);
-    uint8_t* a_tile = smem + st * C::kStageBytes;
-    uint8_t* b_tile = a_tile + C::kABytes;
-    if constexpr (C::kTranspose) {
-      uint8_t* t = tbuf + (it % C::kTBufs) * C::kTBytes;
-      if constexpr (C::kTransA) {
-        transpose_tile<BM, kConsumerThreads>(a_tile, t, tid);
-        a_tile = t;
-        t += C::kABytes;
-      }
-      if constexpr (C::kPacked && C::kInt8) {   // K2: int8 / int4, K-major
-        transpose_tile<BN, kConsumerThreads, P == P_INT4>(b_tile, t, tid);
-        b_tile = t;
-      } else if constexpr (C::kDecode) {   // K2: bf16 A, decoded payload
-        decode_tile<P, kConsumerThreads>(b_tile, t, ts, tid);
-        b_tile = t;
-      } else if constexpr (C::kTransB) {
-        transpose_tile<BN, kConsumerThreads>(b_tile, t, tid);
-        b_tile = t;
-      }
-      fence_async_smem();
-      named_sync(kConsumerThreads);
-    }
-    const uint32_t a_s = smem_u32(a_tile) + wg * kBox;
-    const uint32_t b_s = smem_u32(b_tile);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk)
-      wgmma_m64n128<kMnA ? 1 : 0, kMnB ? 1 : 0>(
-          d, smem_desc(a_s + kk * kStepA, kLboA, 1024),
-          smem_desc(b_s + kk * kStepB, kLboB, 1024));
-    wgmma_commit();
+  // A folding design's step after stage it's products were issued: wait
+  // for them, release the stage to the producer, and at the last stage of
+  // a 128-deep K tile (a payload tile for K2 and K3) fold the tile's
+  // partial into the f32 sum in K-tile order: acc += float(partial) *
+  // tile_scale (int8 A, each step rounded as the reference rounds it) or
+  // acc += partial (bf16 A, and f32's three products).
+  auto release_and_fold = [&](int it, float ts) {
     if constexpr (C::kFold) {
-      // The stage is released once its products are done; at the last
-      // stage of a payload tile the tile's partial is folded in K-tile
-      // order: acc += float(partial) * tile_scale (int8 A, each step
-      // rounded as the reference rounds it) or acc += partial (bf16 A).
       wgmma_wait<0>();
-      mbar_arrive(&empty[st]);
+      mbar_arrive(&empty[it % kStages]);
       if ((kt0 + it) % C::kSub == C::kSub - 1 || it == n_kt - 1) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
@@ -602,10 +758,127 @@ __device__ __forceinline__ void mpgemm_wgmma_body(
           d[i] = 0;
         }
       }
-    } else {
-      // The previous stage's products are done: release its buffers.
-      wgmma_wait<1>();
-      if (it > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+    }
+  };
+  if constexpr (C::kF32) {
+    // K1 f32 (3xTF32).  Stage it's hi and lo terms: a K-major tile's hi in
+    // place in its ring stage, the lo terms and an MN-major tile's hi in
+    // buffer it % kTBufs.
+    auto terms = [&](int it, uint8_t*& ah, uint8_t*& al, uint8_t*& bh,
+                     uint8_t*& bl) {
+      uint8_t* t = tbuf + (it % C::kTBufs) * C::kTBytes;
+      ah = smem + (it % kStages) * C::kStageBytes;
+      bh = ah + C::kABytes;
+      if constexpr (TRANS_A) {
+        ah = t;
+        al = t + C::kABytes;
+        t += 2 * C::kABytes;
+      } else {
+        al = t;
+        t += C::kABytes;
+      }
+      if constexpr (TRANS_B) {
+        bl = t;
+      } else {
+        bh = t;
+        bl = t + BN * kRowBytes;
+      }
+    };
+    auto split_stage = [&](int it) {
+      uint8_t* a_tile = smem + (it % kStages) * C::kStageBytes;
+      uint8_t* b_tile = a_tile + C::kABytes;
+      uint8_t *ah, *al, *bh, *bl;
+      terms(it, ah, al, bh, bl);
+      mbar_wait(&full[it % kStages], (it / kStages) & 1);
+      if constexpr (TRANS_A)
+        split_transpose<BM, kConsumerThreads>(a_tile, ah, al, tid);
+      else
+        split_in_place<C::kABytes, kConsumerThreads>(a_tile, al, tid);
+      if constexpr (TRANS_B)
+        split_in_place<BN * kRowBytes, kConsumerThreads>(b_tile, bl, tid);
+      else
+        split_transpose<BN, kConsumerThreads>(b_tile, bh, bl, tid);
+      fence_async_smem();
+    };
+    // Stage it + 1 is split while stage it's products run on the tensor
+    // cores: its terms go to buffer (it + 1) % 2, which stage it - 1's
+    // products read last, and every consumer waited for those before the
+    // barrier that ended iteration it - 1.
+    if (n_kt > 0) {
+      split_stage(0);
+      named_sync(kConsumerThreads);
+    }
+    for (int it = 0; it < n_kt; ++it) {
+      uint8_t *ah, *al, *bh, *bl;
+      terms(it, ah, al, bh, bl);
+      const uint32_t a_h = smem_u32(ah) + wg * kBox;
+      const uint32_t a_l = smem_u32(al) + wg * kBox;
+      const uint32_t b_h = smem_u32(bh), b_l = smem_u32(bl);
+      wgmma_fence();
+      // The small products first, then hi * hi, into one sum.
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        const uint64_t dah = smem_desc(a_h + kk * 32, 16, 1024);
+        const uint64_t dbh = smem_desc(b_h + kk * 32, 16, 1024);
+        wgmma_m64n128_tf32(d, smem_desc(a_l + kk * 32, 16, 1024), dbh);
+        wgmma_m64n128_tf32(d, dah, smem_desc(b_l + kk * 32, 16, 1024));
+        wgmma_m64n128_tf32(d, dah, dbh);
+      }
+      wgmma_commit();
+      if (it + 1 < n_kt) split_stage(it + 1);
+      release_and_fold(it, 0.f);
+      named_sync(kConsumerThreads);
+    }
+  } else {
+    for (int it = 0; it < n_kt; ++it) {
+      const int st = it % kStages;
+      float ts = 0.f;
+      if constexpr (C::kPacked) {
+        ts = ts_next;
+        const int kt = kt0 + it + 1;
+        if (ts_ptr != nullptr && it + 1 < n_kt)
+          ts_next =
+              __ldg(ts_ptr + static_cast<size_t>(kt / C::kSub) * ts_stride);
+      }
+      mbar_wait(&full[st], (it / kStages) & 1);
+      uint8_t* a_tile = smem + st * C::kStageBytes;
+      uint8_t* b_tile = a_tile + C::kABytes;
+      if constexpr (C::kTranspose) {
+        uint8_t* t = tbuf + (it % C::kTBufs) * C::kTBytes;
+        if constexpr (C::kTransA) {
+          transpose_tile<BM, kConsumerThreads>(a_tile, t, tid);
+          a_tile = t;
+          t += C::kABytes;
+        }
+        if constexpr (C::kPacked && C::kInt8) {   // K2: int8 / int4, K-major
+          transpose_tile<BN, kConsumerThreads, P == P_INT4>(b_tile, t, tid);
+          b_tile = t;
+        } else if constexpr (C::kDecode) {   // K2: bf16 A, decoded payload
+          decode_tile<P, kConsumerThreads>(b_tile, t, ts, tid);
+          b_tile = t;
+        } else if constexpr (C::kTransB) {
+          transpose_tile<BN, kConsumerThreads>(b_tile, t, tid);
+          b_tile = t;
+        }
+        fence_async_smem();
+        named_sync(kConsumerThreads);
+      }
+      const uint32_t a_s = smem_u32(a_tile) + wg * kBox;
+      const uint32_t b_s = smem_u32(b_tile);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        wgmma_m64n128<kMnA ? 1 : 0, kMnB ? 1 : 0>(
+            d, smem_desc(a_s + kk * kStepA, kLboA, 1024),
+            smem_desc(b_s + kk * kStepB, kLboB, 1024));
+      wgmma_commit();
+      if constexpr (C::kFold) {
+        release_and_fold(it, ts);
+      } else {
+        // The previous stage's products are done: release its buffers.
+        wgmma_wait<1>();
+        if (it > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
     }
   }
   wgmma_wait<0>();
@@ -720,7 +993,23 @@ mpgemm_packed_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       k_tiles, per_split, splits, pk);
 }
 
-template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P = kDense>
+// K3: the body over the stored tiles of a tile-sparse B of payload code P
+// (A read (M, K)).
+template <int BM, typename T, int P>
+__global__ void __launch_bounds__(Cfg<BM, T, false, false, P>::kThreads,
+                                  Cfg<BM, T, false, false, P>::kMinBlocks)
+mpgemm_sparse_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b,
+                           EPILOGUE_PARAMS, void* partial_raw, int* counters,
+                           int M, int N, int G, int per_split, int splits,
+                           const PackedB pk) {
+  mpgemm_wgmma_body<BM, T, false, false, P, true>(
+      map_a, map_b, EPILOGUE_FROM_PARAMS, partial_raw, counters, M, N, G, 0,
+      per_split, splits, pk);
+}
+
+template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P = kDense,
+          bool SPARSE = false>
 cudaError_t launch(const void* a, const void* b, const Epilogue& e,
                    void* partial, int* counters, int g, int m, int n, int k,
                    int splits, int per_split, cudaStream_t stream,
@@ -729,13 +1018,13 @@ cudaError_t launch(const void* a, const void* b, const Epilogue& e,
   constexpr uint32_t esz = sizeof(T), bk = C::BK;
   CUtensorMap map_a, map_b;
   bool ok_a, ok_b;
-  if (!C::kInt8) {
+  if (!C::kKMajorOnly) {
     // A: (K, M) boxes of 64 K rows x 64 M, or (M, K) boxes of BM x 64 K.
     ok_a = TRANS_A ? make_map(&map_a, a, m, k, g, 64, bk)
                    : make_map(&map_a, a, k, m, g, 64, BM);
   } else {
-    // A: (K, M) unswizzled boxes of 128 K rows x BM, or (M, K) boxes of BM
-    // rows x 128 K.
+    // A (int8, f32): (K, M) unswizzled boxes of BK K rows x BM, or (M, K)
+    // boxes of BM rows x BK K.
     ok_a = TRANS_A ? make_map(&map_a, a, m, k, g, BM, bk, esz, false)
                    : make_map(&map_a, a, k, m, g, bk, BM, esz);
   }
@@ -744,23 +1033,26 @@ cudaError_t launch(const void* a, const void* b, const Epilogue& e,
     map_b = map_a;
     ok_b = true;
   } else if constexpr (C::kPacked) {
-    // K2, a bf16 payload: (G * nkb * nnb) tiles of 128 K rows x BN, boxes
+    // K2 and K3, a bf16 payload: pk.tiles tiles of 128 K rows x BN, boxes
     // of 64 K x 64 N, as a dense (K, N) B's.
-    ok_b = make_map(&map_b, b, BN, 128,
-                    static_cast<uint64_t>(g) * pk.nkb * pk.nnb, 64, bk);
-  } else if (!C::kInt8) {
+    ok_b = make_map(&map_b, b, BN, 128, static_cast<uint64_t>(pk.tiles), 64,
+                    bk);
+  } else if (!C::kKMajorOnly) {
     // B: (N, K) boxes of 128 rows x 64 K, or (K, N) boxes of 64 K x 64 N.
     ok_b = TRANS_B ? make_map(&map_b, b, k, n, g, 64, BN)
                    : make_map(&map_b, b, n, k, g, 64, bk);
   } else {
-    // B: (N, K) boxes of 128 x 128 K, or (K, N) unswizzled boxes of 128 K
-    // rows x 128 N.
+    // B (int8, f32): (N, K) boxes of 128 x BK K, or (K, N) unswizzled
+    // boxes of BK K rows x 128 N.
     ok_b = TRANS_B ? make_map(&map_b, b, k, n, g, bk, BN, esz)
                    : make_map(&map_b, b, n, k, g, BN, bk, esz, false);
   }
   if (!ok_a || !ok_b) return cudaErrorInvalidValue;
   const void* kernel;
-  if constexpr (C::kPacked)
+  if constexpr (SPARSE)
+    kernel = reinterpret_cast<const void*>(
+        mpgemm_sparse_wgmma_kernel<BM, T, P>);
+  else if constexpr (C::kPacked)
     kernel = reinterpret_cast<const void*>(
         mpgemm_packed_wgmma_kernel<BM, T, P>);
   else
@@ -776,7 +1068,12 @@ cudaError_t launch(const void* a, const void* b, const Epilogue& e,
   const int tiles = ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
   const int k_tiles = (k + C::BK - 1) / C::BK;
   dim3 grid(tiles, 1, g * splits);
-  if constexpr (C::kPacked)
+  if constexpr (SPARSE)
+    mpgemm_sparse_wgmma_kernel<BM, T, P>
+        <<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+            map_a, map_b, EPILOGUE_ARGS(e), partial, counters, m, n, g,
+            per_split, splits, pk);
+  else if constexpr (C::kPacked)
     mpgemm_packed_wgmma_kernel<BM, T, P>
         <<<grid, C::kThreads, C::kSmemBytes, stream>>>(
             map_a, map_b, EPILOGUE_ARGS(e), partial, counters, m, n, g,
@@ -871,7 +1168,12 @@ int mpgemm_packed_wgmma_launch_typed(
       reinterpret_cast<uintptr_t>(payload) % 16 || (bm != 64 && bm != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const PackedB pk{static_cast<const uint8_t*>(payload),
-                   static_cast<const float*>(tile_scales), nkb, nnb};
+                   static_cast<const float*>(tile_scales),
+                   nkb,
+                   nnb,
+                   static_cast<long long>(g) * nkb * nnb,
+                   nullptr,
+                   nullptr};
   int* cnt = static_cast<int*>(counters);
 #define K2_LAUNCH(BM_, P_)                                                  \
   return static_cast<int>(launch<BM_, T, false, false, P_>(                 \
@@ -890,6 +1192,57 @@ int mpgemm_packed_wgmma_launch_typed(
   }
 #undef K2_LAUNCH_BM
 #undef K2_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch of mpgemm_sparse_wgmma.cu's and mpgemm_sparse_wgmma_int8.cu's
+// C entry points (their comments give the contract): K3 with A of type T
+// against payload code `pcode`, `splits` slices of `per_split` stored
+// tiles of each column.
+template <typename T>
+int mpgemm_sparse_wgmma_launch_typed(
+    const void* a, const void* payload, const void* tile_scales,
+    const void* indptr, const void* indices, void* out, const void* bias,
+    const void* extra, const void* c, const void* row_scale,
+    const void* scale, void* partial, void* counters, int g, int m, int n,
+    int k, int nnz, int bias_stride, int pcode, int out_dtype, int c_dtype,
+    int kind, int act, float alpha, float beta, int bm, int splits,
+    int per_split, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Epilogue e = make_epilogue(out, bias, extra, c, row_scale, scale,
+                                   out_dtype, bias_stride, c_dtype, kind, act,
+                                   alpha, beta);
+  const bool codec = pcode != P_BF16;
+  if (!epilogue_ok(e) || g <= 0 || m <= 0 || n <= 0 || k <= 0 || nnz < 0 ||
+      indptr == nullptr || (nnz > 0 && indices == nullptr) ||
+      (codec && tile_scales == nullptr) || splits <= 0 ||
+      static_cast<long long>(g) * splits > 65535 || per_split <= 0 ||
+      (splits > 1 && (partial == nullptr || counters == nullptr)) ||
+      reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(payload) % 16 || (bm != 64 && bm != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PackedB pk{static_cast<const uint8_t*>(payload),
+                   static_cast<const float*>(tile_scales),
+                   (k + 127) / 128,
+                   (n + BN - 1) / BN,
+                   static_cast<long long>(nnz) + 1,
+                   static_cast<const int*>(indptr),
+                   static_cast<const int*>(indices)};
+  int* cnt = static_cast<int*>(counters);
+#define K3_LAUNCH(BM_, P_)                                                  \
+  return static_cast<int>(launch<BM_, T, false, false, P_, true>(           \
+      a, payload, e, partial, cnt, g, m, n, k, splits, per_split, s, pk))
+#define K3_LAUNCH_BM(P_)     \
+  if (bm == 64) K3_LAUNCH(64, P_); \
+  K3_LAUNCH(128, P_)
+  if constexpr (std::is_same<T, int8_t>::value) {
+    if (pcode == P_INT8) { K3_LAUNCH_BM(P_INT8); }
+  } else {
+    if (pcode == P_BF16) { K3_LAUNCH_BM(P_BF16); }
+    if (pcode == P_INT8) { K3_LAUNCH_BM(P_INT8); }
+  }
+#undef K3_LAUNCH_BM
+#undef K3_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -68,7 +68,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mpgemm import (
-    H100_SMS, _cdiv, _current_stream, _ptr, _sm_count, _split_workspace,
+    H100_SMS, _cdiv, _ptr, _sm_count, _split_workspace,
 )
 
 NEG_INF = -1e30
@@ -258,7 +258,7 @@ def _launch_flash(q, k, v, causal, window, scale):
         return out
     scale = scale if scale is not None else 1.0 / d ** 0.5
     window = int(window) if window is not None else 0
-    stream = _current_stream(q)
+    stream = _build.current_stream(q)
     design = k4_design(q, k, v)
     if design == "simt":
         lib = _flash_lib()
@@ -443,7 +443,7 @@ def _launch(q, k_pages, v_pages, block_tables, q_start, lengths, causal,
         return out
     scale = scale if scale is not None else 1.0 / d ** 0.5
     window = int(window) if window is not None else 0
-    stream = _current_stream(q)
+    stream = _build.current_stream(q)
     design = k5_design(q, k_pages, v_pages)
     if design == "simt":
         lib = _lib()

@@ -18,16 +18,20 @@ or together, for every operand dtype.  K2 and K3 take ``trans_a`` too:
 their wrappers hand the kernel the contiguous Aᵀ (one copy of M·K
 elements, no arithmetic), and their plain versions read A transposed.
 
-K1 has two designs on the card, and :func:`k1_design` picks one by a rule
-(never by trying): bf16 or int8 operands whose row strides and base
+K1 has three designs on the card, and :func:`k1_design` picks one by a
+rule (never by trying): bf16 or int8 operands whose row strides and base
 pointers are multiples of 16 bytes (TMA's rule) run the ``wgmma`` design
 (``csrc/mpgemm_wgmma.cuh``: TMA, ``wgmma``, split-K by :func:`k1_split`
 when the output has fewer tiles than the card has SMs; built as
 ``csrc/mpgemm_wgmma.cu`` for bf16 and ``csrc/mpgemm_wgmma_int8.cu`` for
-int8, whose MN-major operands are transposed in shared memory); everything
-else -- f32, odd shapes such as rows of 101 values -- runs
-``csrc/mpgemm.cu``'s scalar loops.  An int8 product sums exactly in int32
-while K <= :data:`INT8_MAX_K`; the card path refuses a deeper one.
+int8, whose MN-major operands are transposed in shared memory); f32
+operands under the same rule run ``tf32x3``, the same template built as
+``csrc/mpgemm_wgmma_f32.cu``, each value split into tf32 hi and lo terms
+and three products summed on the tensor cores, unless the caller keeps
+f32 FMA arithmetic (``f32_fma``: the fp32 policy's products);
+everything else -- those, odd shapes such as rows of 101 values -- runs
+``csrc/mpgemm.cu``'s scalar loops.  An int8 product sums exactly in int32 while K <=
+:data:`INT8_MAX_K`; the card path refuses a deeper one.
 
 K1 takes bf16 or f32 operands summed in f32, or int8 operands summed
 exactly in int32 (the int8 policy, and the paper's INT8 -> INT32 GEMM,
@@ -50,6 +54,13 @@ with a B stage that decodes the payload in shared memory
 K tiles by :func:`k2_split`); the rest -- f32 A, int8 A against
 fp8, other tile shapes -- runs ``csrc/mpgemm_packed.cu``.
 
+K3 has two designs, picked by :func:`k3_design`: bf16 A against bf16 or
+int8 tiles and int8 A against int8 tiles, 128 x 128 tiles, 16-byte aligned
+operands, run K2's template walking each column's stored tiles
+(``csrc/mpgemm_sparse_wgmma.cu``, ``_int8.cu``; split over a column's
+stored tiles by :func:`k3_split`); the rest -- f32 A, other tiles,
+misaligned views -- runs ``csrc/mpgemm_sparse.cu``.
+
 ``mpgemm.launches``, ``mpgemm_grouped.launches``,
 ``mpgemm_packed.launches``, ``mpgemm_packed_grouped.launches``,
 ``mpgemm_sparse.launches`` and ``mpgemm_sparse_grouped.launches`` count
@@ -59,8 +70,10 @@ K1 launches of each transposed variant among them (a launch with both
 counts in both), and ``mpgemm.wgmma_launches`` / ``mpgemm_grouped.
 wgmma_launches`` those that ran the wgmma design (bf16 or int8), as
 ``mpgemm_packed.wgmma_launches`` and ``mpgemm_packed_grouped.
-wgmma_launches`` do for K2; the K2 and K3 wrappers' ``trans_a_launches``
-count their ``trans_a`` launches.
+wgmma_launches`` do for K2 and ``mpgemm_sparse(_grouped).wgmma_launches``
+for K3; ``mpgemm(_grouped).tf32x3_launches`` count K1's f32 launches on
+the tensor cores; the K2 and K3 wrappers' ``trans_a_launches`` count their
+``trans_a`` launches.
 """
 from __future__ import annotations
 
@@ -157,17 +170,20 @@ def mpgemm(a: torch.Tensor, b, *,
            extras: Sequence[torch.Tensor] = (),
            spec: GemmSpec = GemmSpec(),
            epilogue: EpilogueSpec = LINEAR,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None,
+           f32_fma: bool = False) -> torch.Tensor:
     """``out = tail(alpha · (op(a) @ op(b)) · scale + bias) + beta · c`` for
     a (M, K), or (K, M) under ``spec.trans_a``, and b (K, N), or (N, K)
     under ``spec.trans_b``, or a packed operand (K2), or a tile-sparse one
     (K3); ``extras`` are the epilogue's operands in registry order.  Output
     dtype: ``out_dtype``, else ``spec.out_dtype``, else int32 for int8
-    operands and ``a.dtype`` otherwise."""
+    operands and ``a.dtype`` otherwise.  ``f32_fma``: f32 operands keep
+    f32 FMA arithmetic (K1's scalar loop, the fp32 policy's contract)
+    rather than 3xTF32 (:func:`k1_design`)."""
     if spec.grouped:
         raise ValueError("a grouped GemmSpec goes to mpgemm_grouped")
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
-                   grouped=False)
+                   f32_fma, grouped=False)
 
 
 def mpgemm_grouped(a: torch.Tensor, b, *,
@@ -177,19 +193,20 @@ def mpgemm_grouped(a: torch.Tensor, b, *,
                    extras: Sequence[torch.Tensor] = (),
                    spec: GemmSpec = GemmSpec(grouped=True),
                    epilogue: EpilogueSpec = LINEAR,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   out_dtype: Optional[torch.dtype] = None,
+                   f32_fma: bool = False) -> torch.Tensor:
     """G GEMMs in one launch: ``out[g] = tail(alpha · (op(a[g]) @
     op(b[g])) · scale + bias[g]) + beta · c[g]`` for a (G, M, K) and b
     (G, K, N) (transposes as in :func:`mpgemm`), or a grouped packed (K2)
     or tile-sparse (K3) operand.  ``bias`` is (G, N) or a shared (N,);
     ``c`` and the extras are (G, M, N) (a row scale (G, M, 1)); ``scale``
-    is one value for every group."""
+    is one value for every group; ``f32_fma`` as :func:`mpgemm`'s."""
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
-                   grouped=True)
+                   f32_fma, grouped=True)
 
 
-def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
-            grouped):
+def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
+            f32_fma, *, grouped):
     out_dtype = out_dtype or spec.out_dtype
     if isinstance(b, TileSparseOperand):
         if spec.trans_b or spec.packed:
@@ -223,7 +240,7 @@ def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype, *,
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm: unsupported device {a.device}")
     return _launch(a, b, c, bias, scale, extras, spec.trans_a, spec.trans_b,
-                   epilogue, out_dtype, grouped)
+                   epilogue, out_dtype, grouped, f32_fma)
 
 
 # --- shared argument checks --------------------------------------------------
@@ -311,9 +328,9 @@ def _ptr(t):
 # --- K1's two designs --------------------------------------------------------
 
 # The wgmma design's tile (csrc/mpgemm_wgmma.cuh): BK deep (128 bytes of
-# K: 64 bf16, 128 int8), BN wide, BM 64 or 128 rows; and the SMs of an
-# H100 SXM, split-K's target.
-WGMMA_BK, WGMMA_BK_INT8, WGMMA_BN = 64, 128, 128
+# K: 32 f32, 64 bf16, 128 int8), BN wide, BM 64 or 128 rows; and the SMs
+# of an H100 SXM, split-K's target.
+WGMMA_BK, WGMMA_BK_INT8, WGMMA_BK_F32, WGMMA_BN = 64, 128, 32, 128
 H100_SMS = 132
 # The deepest int8 product whose int32 sum is exact for every int8 input:
 # 128 * 128 * K < 2 ** 31.
@@ -324,28 +341,59 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def k1_design(a: torch.Tensor, b: torch.Tensor) -> str:
-    """The K1 kernel that runs ``a`` against dense ``b`` on the card:
-    ``"wgmma"`` (``csrc/mpgemm_wgmma.cuh``) when both are bf16 or both
-    int8, neither is empty, and each operand's base pointer and row stride
-    (its stored rows, whichever way it is read; the operands are
-    contiguous) are multiples of 16 bytes, as TMA needs -- rows of a
-    multiple of 8 bf16 or 16 int8 values; else ``"simt"``
-    (``csrc/mpgemm.cu``).  A rule on what the operands are, not a
-    fallback: a failed wgmma build or launch raises."""
-    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.int8):
+def k1_design(a: torch.Tensor, b: torch.Tensor,
+              f32_fma: bool = False) -> str:
+    """The K1 kernel that runs ``a`` against dense ``b`` on the card, when
+    neither is empty and each operand's base pointer and row stride (its
+    stored rows, whichever way it is read; the operands are contiguous)
+    are multiples of 16 bytes, as TMA needs: ``"wgmma"``
+    (``csrc/mpgemm_wgmma.cuh``) when both are bf16 (rows of a multiple of
+    8 values) or both int8 (16 values); ``"tf32x3"`` (the same template,
+    ``csrc/mpgemm_wgmma_f32.cu``) when both are f32 (4 values), unless the
+    caller keeps f32 FMA arithmetic (``f32_fma``); else ``"simt"``
+    (``csrc/mpgemm.cu``).
+
+    The f32 choice is one of precision, not of size: 3xTF32 misses an f32
+    product by about 2^-21 of it (``tests/test_torch_k1_design.py``),
+    eight times f32's own rounding and far inside the 1e-4 gate of an f32
+    output -- the op-level API's f32 GEMM (``ops.mpgemm``, Table III) and
+    direct calls run it.  ``mp_dot`` under the fp32 policy passes
+    ``f32_fma``: that policy's products (granite's routers, its backward)
+    keep f32's roundings, because a bf16 rounding downstream turns
+    3xTF32's error into whole bf16 ulps -- with the fp32 backward's
+    products on tf32x3 (all of them, or only those into f32 outputs), 29
+    and 44 of the 245,760 bf16 payload-gradient values of
+    ``test_mp_dot_backward_on_the_card_matches_the_cpu[packed_bf16-
+    fp32]`` came one ulp off a CPU f32 run, none on the scalar loop (H100
+    80GB HBM3).  What that costs: granite's
+    router at decode (2 x 1024 x 32) takes 0.038 ms on the scalar loop
+    against 0.018 on tf32x3, its weight gradient (1024 x 32 x 512) 0.050
+    against 0.059; Table III's 24 shapes take 29.8 ms on tf32x3 against
+    104.3.  A rule on what the operands are and what the caller asks,
+    not a fallback: a failed build or launch raises."""
+    if a.dtype != b.dtype or a.dtype not in _K1_DESIGNS:
         return "simt"
     row = 16 // a.element_size()
     if (a.shape[-1] % row or b.shape[-1] % row
             or a.data_ptr() % 16 or b.data_ptr() % 16
             or not a.numel() or not b.numel()):
         return "simt"
-    return "wgmma"
+    if a.dtype == torch.float32 and f32_fma:
+        return "simt"
+    return _K1_DESIGNS[a.dtype]
+
+
+# K1's tensor-core designs by operand dtype, and their libraries.
+_K1_DESIGNS = {torch.bfloat16: "wgmma", torch.int8: "wgmma",
+               torch.float32: "tf32x3"}
+_K1_LIBS = {torch.bfloat16: "mpgemm_wgmma", torch.int8: "mpgemm_wgmma_int8",
+            torch.float32: "mpgemm_wgmma_f32"}
 
 
 def k1_wgmma_bk(dtype: torch.dtype) -> int:
     """The wgmma design's K tile for operands of ``dtype``: 128 bytes."""
-    return WGMMA_BK_INT8 if dtype == torch.int8 else WGMMA_BK
+    return {torch.int8: WGMMA_BK_INT8,
+            torch.float32: WGMMA_BK_F32}.get(dtype, WGMMA_BK)
 
 
 def k1_wgmma_bm(m: int) -> int:
@@ -387,6 +435,23 @@ def k2_split(m: int, n: int, k: int, g: int = 1,
     return _cdiv(k_tiles, per), per
 
 
+@functools.lru_cache(maxsize=4096)
+def k3_split(m: int, n: int, max_count: int, g: int = 1,
+             sms: int = H100_SMS) -> tuple:
+    """(slices, stored tiles a slice) of K3's wgmma design: as
+    :func:`k2_split` with ``max_count``, the most stored tiles of any
+    output column (``TileSparseLayout.max_column_tiles``), in place of the
+    K tiles -- one wave of ``sms`` blocks, every slice whole stored tiles,
+    the last slice of the longest column not empty.  A column with fewer
+    tiles leaves its later slices empty: they count themselves in with a
+    zero partial."""
+    tiles = g * _cdiv(m, k1_wgmma_bm(m)) * _cdiv(n, WGMMA_BN)
+    count = max(1, max_count)
+    want = max(1, min(sms // tiles, count))
+    per = _cdiv(count, want)
+    return _cdiv(count, per), per
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -415,17 +480,10 @@ def _split_workspace(device: torch.device, stream: int, n_partial: int,
     return partial, counters
 
 
-def _current_stream(t: torch.Tensor) -> int:
-    """The raw handle of the current stream on ``t``'s card (what
-    ``torch.cuda.current_stream(t.device).cuda_stream`` returns, at a tenth
-    of its host cost)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
-
-
 # --- K1 launch ---------------------------------------------------------------
 
 def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
-            out_dtype, grouped):
+            out_dtype, grouped, f32_fma=False):
     rank = 3 if grouped else 2
     if b.dim() != rank:
         raise ValueError(f"mpgemm: B must have rank {rank}, got "
@@ -454,28 +512,32 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
                                   _int_epilogue(a, scale))
     if out.numel() == 0:
         return out
-    stream = _current_stream(a)
-    wgmma = k1_design(a, b) == "wgmma"
-    if wgmma:
+    stream = _build.current_stream(a)
+    design = k1_design(a, b, f32_fma)
+    if design != "simt":
         bm = k1_wgmma_bm(m)
-        int8 = a.dtype == torch.int8
-        splits, per = k1_split(m, n, k, g, _sm_count(a.get_device()),
-                               k1_wgmma_bk(a.dtype))
+        sms = _sm_count(a.get_device())
+        if design == "tf32x3":
+            # A tf32x3 block holds an SM (its split terms take the shared
+            # memory a second block would need): K2's slices, whole
+            # 128-deep folds within one wave, in stages of 32 K.
+            splits, per = k2_split(m, n, k, g, sms)
+            per *= 128 // WGMMA_BK_F32
+        else:
+            splits, per = k1_split(m, n, k, g, sms, k1_wgmma_bk(a.dtype))
         partial = counters = None
         if splits > 1:
             partial, counters = _split_workspace(
                 a.device, stream, splits * g * m * n,
                 g * _cdiv(m, bm) * _cdiv(n, WGMMA_BN))
-        lib = _wgmma_lib("mpgemm_wgmma_int8" if int8 else "mpgemm_wgmma")
-        launch = (lib.mpgemm_wgmma_int8_launch if int8
-                  else lib.mpgemm_wgmma_launch)
-        rc = launch(
+        name = _K1_LIBS[a.dtype]
+        lib = _wgmma_lib(name)
+        rc = getattr(lib, f"{name}_launch")(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc,
             _ptr(partial), _ptr(counters), g, m, n, k, bias_stride, out_dt,
             c_dt, int(trans_a), int(trans_b), kind, act, alpha, beta, bm,
             splits, per, stream)
-        error = (lib.mpgemm_wgmma_int8_error_string if int8
-                 else lib.mpgemm_wgmma_error_string)
+        error = getattr(lib, f"{name}_error_string")
     else:
         lib = _lib()
         rc = lib.mpgemm_launch(
@@ -488,7 +550,8 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
                            f"({error(rc).decode()})")
     fn = mpgemm_grouped if grouped else mpgemm
     fn.launches += 1
-    fn.wgmma_launches += int(wgmma)
+    fn.wgmma_launches += int(design == "wgmma")
+    fn.tf32x3_launches += int(design == "tf32x3")
     fn.trans_a_launches += int(trans_a)
     fn.trans_b_launches += int(trans_b)
     return out
@@ -496,7 +559,7 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
 
 for _fn in (mpgemm, mpgemm_grouped):
     _fn.launches = _fn.trans_a_launches = _fn.trans_b_launches = 0
-    _fn.wgmma_launches = 0
+    _fn.wgmma_launches = _fn.tf32x3_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -511,14 +574,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# The pointers and the ints before alpha and beta of each wgmma design's
+# launch (then alpha, beta, bm, splits, per_split, the stream), by the
+# library's name less its ``_int8`` / ``_f32`` suffix: K1, K2, K3.
+_WGMMA_ARGS = {"mpgemm_wgmma": (10, 11), "mpgemm_packed_wgmma": (11, 12),
+               "mpgemm_sparse_wgmma": (13, 11)}
+
+
 @functools.lru_cache(maxsize=None)
 def _wgmma_lib(name: str) -> ctypes.CDLL:
-    """The wgmma design's library ``name`` (``mpgemm_wgmma``: bf16,
-    ``mpgemm_wgmma_int8``: int8) with its C signatures declared."""
+    """A wgmma design's library ``name`` (K1: ``mpgemm_wgmma`` for bf16,
+    ``_int8``, ``_f32``; K2: ``mpgemm_packed_wgmma``, ``_int8``; K3:
+    ``mpgemm_sparse_wgmma``, ``_int8``) with its C signatures declared."""
     lib = _build.load(name)
+    n_ptr, n_int = _WGMMA_ARGS[name.removesuffix("_int8").removesuffix(
+        "_f32")]
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = [p] * 10 + [i] * 11 + [f, f] + [i] * 3 + [p]
+    launch.argtypes = [p] * n_ptr + [i] * n_int + [f, f] + [i] * 3 + [p]
     launch.restype = i
     error = getattr(lib, f"{name}_error_string")
     error.argtypes = [i]
@@ -728,7 +801,7 @@ def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
                                   False)
     if out.numel() == 0:
         return out
-    stream = _current_stream(a)
+    stream = _build.current_stream(a)
     ts = _ptr(tile_scales) if layout.per_tile_scales else None
     wgmma = k2_design(a, b) == "wgmma"
     if wgmma:
@@ -745,7 +818,7 @@ def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
                 a.device, stream, splits * g * m * n,
                 g * _cdiv(m, bm) * _cdiv(n, WGMMA_BN))
         name = "mpgemm_packed_wgmma_int8" if int8 else "mpgemm_packed_wgmma"
-        lib = _packed_wgmma_lib(name)
+        lib = _wgmma_lib(name)
         rc = getattr(lib, f"{name}_launch")(
             a.data_ptr(), payload.data_ptr(), ts, out.data_ptr(), bi, ex, cp,
             rs, sc, _ptr(partial), _ptr(counters), g, m, n, k, layout.nkb,
@@ -782,21 +855,6 @@ def _packed_lib() -> ctypes.CDLL:
     lib.mpgemm_packed_launch.restype = i
     lib.mpgemm_packed_error_string.argtypes = [i]
     lib.mpgemm_packed_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _packed_wgmma_lib(name: str) -> ctypes.CDLL:
-    """K2's wgmma library ``name`` (``mpgemm_packed_wgmma``: bf16 A,
-    ``mpgemm_packed_wgmma_int8``: int8 A) with its C signatures declared."""
-    lib = _build.load(name)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = [p] * 11 + [i] * 12 + [f, f] + [i] * 3 + [p]
-    launch.restype = i
-    error = getattr(lib, f"{name}_error_string")
-    error.argtypes = [i]
-    error.restype = ctypes.c_char_p
     return lib
 
 
@@ -945,6 +1003,32 @@ def _check_on(name, t, shape, dtype, device):
                          f"{got}")
 
 
+# (A dtype, payload) pairs of K3's wgmma design, and its tile.
+_K3_WGMMA_PAIRS = {(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
+                   (torch.int8, "int8")}
+K3_WGMMA_TILE = (128, 128)
+
+
+def k3_design(a: torch.Tensor, b: TileSparseOperand) -> str:
+    """The K3 kernel that runs ``a`` (the kernel's (M, K) or (G, M, K) A)
+    against the tile-sparse ``b`` on the card: ``"wgmma"``
+    (``csrc/mpgemm_sparse_wgmma.cu`` for bf16 A, ``_int8.cu`` for int8 A)
+    for bf16 A against bf16 or int8 tiles and int8 A against int8 tiles,
+    in :data:`K3_WGMMA_TILE` tiles (``sparse/params.py``'s default), with
+    A's rows and base and the payload's base on 16 bytes and neither
+    empty; else ``"simt"`` (``csrc/mpgemm_sparse.cu``): f32 A, other tile
+    shapes, misaligned operands.  A rule on what the operands are, not a
+    fallback: a failed build or launch raises."""
+    layout = b.layout
+    if ((a.dtype, layout.dtype) not in _K3_WGMMA_PAIRS
+            or (layout.bk, layout.bn) != K3_WGMMA_TILE
+            or (a.shape[-1] * a.element_size()) % 16
+            or a.data_ptr() % 16 or b.payload.data_ptr() % 16
+            or not a.numel() or not b.payload.numel()):
+        return "simt"
+    return "wgmma"
+
+
 def _launch_sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
                    grouped):
     layout, dev = b.layout, a.device
@@ -963,25 +1047,50 @@ def _launch_sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
                                   False)
     if out.numel() == 0:
         return out
-    lib = _sparse_lib()
-    rc = lib.mpgemm_sparse_launch(
-        a.data_ptr(), b.payload.data_ptr(),
-        _ptr(b.scales) if layout.per_tile_scales else None,
-        b.indptr.data_ptr(), b.indices.data_ptr(), out.data_ptr(), bi, ex,
-        cp, rs, sc, layout.g, m, n, layout.k, layout.bk, layout.bn,
-        bias_stride, _DTYPE_CODES[a.dtype], _DTYPE_CODES[p_dtype], out_dt,
-        c_dt, kind, act, alpha, beta,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = _build.current_stream(a)
+    ts = _ptr(b.scales) if layout.per_tile_scales else None
+    wgmma = k3_design(a, b) == "wgmma"
+    if wgmma:
+        g = layout.g
+        bm = k1_wgmma_bm(m)
+        splits, per = k3_split(m, n, layout.max_column_tiles, g,
+                               _sm_count(a.get_device()))
+        partial = counters = None
+        if splits > 1:
+            partial, counters = _split_workspace(
+                dev, stream, splits * g * m * n,
+                g * _cdiv(m, bm) * _cdiv(n, WGMMA_BN))
+        name = ("mpgemm_sparse_wgmma_int8" if a.dtype == torch.int8
+                else "mpgemm_sparse_wgmma")
+        lib = _wgmma_lib(name)
+        rc = getattr(lib, f"{name}_launch")(
+            a.data_ptr(), b.payload.data_ptr(), ts, b.indptr.data_ptr(),
+            b.indices.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc,
+            _ptr(partial), _ptr(counters), g, m, n, layout.k, layout.nnz,
+            bias_stride, _PAYLOAD_CODES[layout.dtype], out_dt, c_dt, kind,
+            act, alpha, beta, bm, splits, per, stream)
+        error = getattr(lib, f"{name}_error_string")
+    else:
+        lib = _sparse_lib()
+        rc = lib.mpgemm_sparse_launch(
+            a.data_ptr(), b.payload.data_ptr(), ts, b.indptr.data_ptr(),
+            b.indices.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc,
+            layout.g, m, n, layout.k, layout.bk, layout.bn, bias_stride,
+            _DTYPE_CODES[a.dtype], _DTYPE_CODES[p_dtype], out_dt, c_dt, kind,
+            act, alpha, beta, stream)
+        error = lib.mpgemm_sparse_error_string
     if rc != 0:
         raise RuntimeError(
-            f"mpgemm_sparse kernel launch failed: CUDA error {rc} "
-            f"({lib.mpgemm_sparse_error_string(rc).decode()})")
-    (mpgemm_sparse_grouped if grouped else mpgemm_sparse).launches += 1
+            f"mpgemm_sparse kernel ({'wgmma' if wgmma else 'simt'}) launch "
+            f"failed: CUDA error {rc} ({error(rc).decode()})")
+    fn = mpgemm_sparse_grouped if grouped else mpgemm_sparse
+    fn.launches += 1
+    fn.wgmma_launches += int(wgmma)
     return out
 
 
 for _fn in (mpgemm_sparse, mpgemm_sparse_grouped):
-    _fn.launches = _fn.trans_a_launches = 0
+    _fn.launches = _fn.trans_a_launches = _fn.wgmma_launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -211,7 +211,7 @@ def _launch(w: torch.Tensor, layout: PackedLayout):
         _SRC_CODES[w.dtype], _PAYLOAD_CODES[layout.dtype],
         layout.g, layout.k, layout.n, layout.bk, layout.bn,
         int(layout.trans_w),
-        torch.cuda.current_stream(w.device).cuda_stream)
+        _build.current_stream(w))
     if rc != 0:
         raise RuntimeError(f"pack kernel launch failed: CUDA error {rc} "
                            f"({lib.pack_error_string(rc).decode()})")
@@ -259,7 +259,7 @@ def _launch_unpack(p: PackedOperand, dtype: torch.dtype) -> torch.Tensor:
         scales.data_ptr() if layout.per_tile_scales else None,
         out.data_ptr(), _PAYLOAD_CODES[layout.dtype], _OUT_CODES[dtype],
         layout.g, layout.k, layout.n, layout.bk, layout.bn,
-        torch.cuda.current_stream(payload.device).cuda_stream)
+        _build.current_stream(payload))
     if rc != 0:
         raise RuntimeError(f"unpack kernel launch failed: CUDA error {rc} "
                            f"({lib.pack_error_string(rc).decode()})")

@@ -104,6 +104,15 @@ class TileSparseLayout:
         """Stored tiles across all groups and columns."""
         return len(self.indices)
 
+    @functools.cached_property
+    def max_column_tiles(self) -> int:
+        """The most stored tiles of any output column (K3's wgmma split,
+        ``kernels/mpgemm.py::k3_split``), from the host-side ``indptr``:
+        computed once a layout, so that no launch reads the device copy
+        or walks the tuple."""
+        return max((self.indptr[c + 1] - self.indptr[c]
+                    for c in range(len(self.indptr) - 1)), default=0)
+
     @property
     def ntiles(self) -> int:
         """Tiles of the dense lattice."""

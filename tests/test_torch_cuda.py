@@ -767,6 +767,68 @@ def test_mp_dot_backward_on_the_card_matches_the_cpu(gen, policy, weight):
         0 if weight == "dense" else 1 + unpacked_fwd)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+def test_fp32_policy_keeps_f32_fma_where_tf32x3_would_run(gen, grouped):
+    """The fp32 policy's forward and backward over a dense f32 weight, with
+    a gated epilogue and a bias, at sizes where K1's f32 products would
+    otherwise run tf32x3 (2-D M 256, K 2048, N 1024; granite's 32 experts
+    of M 64, K 1024, N 512): every K1 launch (the forward, the recompute
+    of z, dx and dW) keeps f32 FMA on the scalar loop, and the step
+    matches the same step on CPU copies at f32's tolerance.  Then each of
+    those four products, made again as a direct call, runs tf32x3 within
+    the same tolerance of its fp32-policy result."""
+    from repro_torch.core.gemm import mp_dot, mp_dot_grouped
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
+    lead, m, k, n = ((32,), 64, 1024, 512) if grouped else ((), 256, 2048,
+                                                             1024)
+    x = torch.randn(*lead, m, k, generator=gen, device="cuda")
+    w = torch.randn(*lead, k, n, generator=gen, device="cuda") * k ** -0.5
+    bias = torch.randn(n, generator=gen, device="cuda")
+    gate = torch.randn(*lead, m, n, generator=gen, device="cuda")
+    dy = torch.randn(*lead, m, n, generator=gen, device="cuda")
+    op = mp_dot_grouped if grouped else mp_dot
+    fn = mpgemm_grouped if grouped else mpgemm
+
+    def run(dev):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (x, w, bias, gate)]
+        xx, ww, bb, gg = leaves
+        y = op(xx, ww, bb, policy="fp32", activation="silu", gate=gg)
+        (y * dy.to(dev)).sum().backward()
+        return [y.detach()] + [t.grad for t in leaves]
+
+    handed = []
+    real = fn
+
+    def recorded(a, b, **kw):
+        out = real(a, b, **kw)
+        handed.append((a, b, kw, out))
+        return out
+
+    import repro_torch.core.gemm as gemm_mod
+    name = "mpgemm_grouped" if grouped else "mpgemm"
+    setattr(gemm_mod, name, recorded)
+    try:
+        before = (fn.launches, fn.tf32x3_launches)
+        got = run("cuda")
+        torch.cuda.synchronize()
+        # forward, z again, dx (trans_b) and dW (trans_a): f32 FMA.
+        assert (fn.launches - before[0], fn.tf32x3_launches - before[1]) \
+            == (4, 0)
+    finally:
+        setattr(gemm_mod, name, real)
+    want = run("cpu")
+    for gk, gp in zip(got, want):
+        torch.testing.assert_close(gk.cpu(), gp, **TOL[torch.float32])
+    assert len(handed) == 4 and all(h[2]["f32_fma"] for h in handed)
+    for a, b, kw, exact in handed:
+        rest = {k: v for k, v in kw.items() if k not in ("spec", "f32_fma")}
+        fast, design = _run_k1_f32(a, b, kw["spec"], **rest)
+        assert design == "tf32x3"
+        torch.testing.assert_close(fast, exact, **TOL[torch.float32])
+
+
 # --- the op-level API's variants (K1-K3) -------------------------------------
 
 def _int8(gen, *shape):
@@ -1521,3 +1583,258 @@ def test_mpgemm_packed_wgmma_quant_in_and_beta_c(gen, payload):
     got = mpgemm_packed(x, b, **kw)
     torch.testing.assert_close(got, mpgemm_packed_plain(x, b, **kw),
                                **TOL[torch.float32])
+
+
+# --- K3's wgmma design (csrc/mpgemm_sparse_wgmma.cu, _int8.cu) ---------------
+
+K3_NEW_PAIRS = [("bfloat16", "bfloat16"), ("bfloat16", "int8"),
+                ("int8", "int8")]
+
+
+def _k3_case(gen, lead, m, k, n, a_dtype, payload, mask):
+    """A tile-sparse (K, N) operand in 128 x 128 tiles (column tile 1
+    empty, the K- and N-tail tile stored; ``mask == "empty"``: none) and
+    A of ``a_dtype`` with the int8 policy's scale."""
+    b = _sparse_operand(gen, (*lead, k, n), (128, 128), payload, mask)
+    a, scale = _sparse_a(gen, (*lead, m, k), a_dtype)
+    return a, b, scale
+
+
+def _run_k3(a, b, grouped, **kw):
+    """One K3 launch; -> (output, the design it ran)."""
+    from repro_torch.kernels.mpgemm import mpgemm_sparse, \
+        mpgemm_sparse_grouped
+    fn = mpgemm_sparse_grouped if grouped else mpgemm_sparse
+    before = (fn.launches, fn.wgmma_launches)
+    out = fn(a, b, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before[0] + 1
+    return out, "wgmma" if fn.wgmma_launches > before[1] else "simt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype,payload", K3_NEW_PAIRS)
+@pytest.mark.parametrize("g,m,k,n,kind,act,mask", [
+    (1, 2, 3072, 3072, "linear", None, "half"),    # phi3 decode, split
+    (1, 32, 3072, 8192, "gated", "silu", "half"),  # a phi3 prefill chunk
+    (1, 130, 2960, 200, "residual", "gelu", "half"),  # K, N tails, BM 128
+    (1, 5, 256, 384, "linear", "relu", "empty"),   # no stored tile
+    (4, 2, 1024, 512, "linear", None, "half"),     # granite experts
+    (3, 37, 512, 1024, "gated", "silu", "half"),
+])
+def test_mpgemm_sparse_wgmma_matches_plain(gen, a_dtype, payload, g, m, k,
+                                           n, kind, act, mask):
+    """K3 on its wgmma design (``k3_design``) against its plain version,
+    2-D and grouped, counted as such; an empty column (and an operand with
+    no stored tile) gets its epilogue on a zero sum; a second launch gives
+    the same bits (the slices summed in slice order)."""
+    from repro_torch.core.gemm_spec import EpilogueSpec
+    from repro_torch.kernels.mpgemm import k3_design, mpgemm_sparse_plain
+    lead = (g,) if g > 1 else ()
+    a, b, scale = _k3_case(gen, lead, m, k, n, a_dtype, payload, mask)
+    out_dtype = torch.bfloat16 if g == 1 else torch.float32
+    extras = () if kind == "linear" else (
+        torch.randn(*lead, m, n, generator=gen, device="cuda").to(out_dtype),)
+    kw = dict(bias=torch.randn(n, generator=gen, device="cuda"),
+              scale=scale, extras=extras, out_dtype=out_dtype,
+              epilogue=EpilogueSpec(kind=kind, activation=act))
+    assert k3_design(a, b) == "wgmma"
+    got, design = _run_k3(a, b, bool(lead), **kw)
+    assert design == "wgmma"
+    want = mpgemm_sparse_plain(a, b, **kw)
+    assert got.dtype == out_dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+    again, _ = _run_k3(a, b, bool(lead), **kw)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("a_dtype,payload", K3_NEW_PAIRS)
+def test_mpgemm_sparse_wgmma_beta_c_quant_in_and_trans_a(gen, a_dtype,
+                                                         payload, grouped):
+    """The wgmma K3 runs gemm_epilogue.cuh's every kind: beta · C, a
+    quant_in row scale with a residual; and ``trans_a`` (the wrapper's
+    copy of Aᵀ) on the same design."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec
+    from repro_torch.kernels.mpgemm import (
+        mpgemm, mpgemm_grouped, mpgemm_sparse, mpgemm_sparse_grouped,
+        mpgemm_sparse_plain,
+    )
+    lead = (3,) if grouped else ()
+    m, k, n = 32, 1024, 640
+    a, b, scale = _k3_case(gen, lead, m, k, n, a_dtype, payload, "half")
+    c = torch.randn(*lead, m, n, generator=gen, device="cuda")
+    kw = dict(c=c, scale=scale, out_dtype=torch.float32,
+              epilogue=EpilogueSpec(alpha=1.5, beta=0.5, activation="relu"))
+    got, design = _run_k3(a, b, grouped, **kw)
+    assert design == "wgmma"
+    torch.testing.assert_close(got, mpgemm_sparse_plain(a, b, **kw),
+                               **TOL[torch.float32])
+    if a_dtype == "int8":
+        rows = torch.rand(*lead, m, 1, generator=gen, device="cuda") * 1e-2
+        res = torch.randn(*lead, m, n, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        kw = dict(extras=(rows, res), out_dtype=torch.bfloat16,
+                  epilogue=EpilogueSpec(kind="quant_in_residual"))
+        got, design = _run_k3(a, b, grouped, **kw)
+        assert design == "wgmma"
+        torch.testing.assert_close(
+            got.float(), mpgemm_sparse_plain(a, b, **kw).float(),
+            **TOL[torch.bfloat16])
+    at = a.transpose(-1, -2).contiguous()
+    counter = mpgemm_sparse_grouped if grouped else mpgemm_sparse
+    before = (counter.trans_a_launches, counter.wgmma_launches)
+    fn = mpgemm_grouped if grouped else mpgemm
+    got = fn(at, b, scale=scale, out_dtype=torch.float32,
+             spec=GemmSpec(grouped=grouped, trans_a=True))
+    torch.cuda.synchronize()
+    assert (counter.trans_a_launches, counter.wgmma_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = mpgemm_sparse_plain(at, b, scale=scale, out_dtype=torch.float32,
+                               trans_a=True)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_mpgemm_sparse_wgmma_skewed_columns(gen):
+    """A pattern with one full column and the rest one tile each: the
+    split cuts the longest column, the short columns' later slices count
+    themselves in with zero partials, and the result matches."""
+    import numpy as np
+
+    from repro_torch.kernels.mpgemm import k3_split, mpgemm_sparse_plain
+    from repro_torch.sparse import sparsify_with_mask
+    k, n = 4096, 1024
+    keep = np.zeros((k // 128, n // 128), bool)
+    keep[:, 3] = True
+    keep[5, :] = True
+    w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
+    b = sparsify_with_mask(w, (128, 128), keep, dtype="bfloat16")
+    assert b.layout.max_column_tiles == k // 128
+    assert k3_split(2, n, b.layout.max_column_tiles)[0] > 1
+    a = torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
+    got, design = _run_k3(a, b, False, out_dtype=torch.float32)
+    assert design == "wgmma"
+    torch.testing.assert_close(
+        got, mpgemm_sparse_plain(a, b, out_dtype=torch.float32),
+        **TOL[torch.float32])
+
+
+# --- K1's f32 design, 3xTF32 (csrc/mpgemm_wgmma_f32.cu) ---------------------
+
+def _f32_operands(gen, lead, m, n, k, trans_a, trans_b):
+    a = torch.randn(*lead, *((k, m) if trans_a else (m, k)), generator=gen,
+                    device="cuda")
+    b = torch.randn(*lead, *((n, k) if trans_b else (k, n)), generator=gen,
+                    device="cuda") * k ** -0.5
+    return a, b
+
+
+def _run_k1_f32(a, b, spec, **kw):
+    """One f32 K1 launch; -> (output, the design it ran)."""
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
+    fn = mpgemm_grouped if spec.grouped else mpgemm
+    before = (fn.launches, fn.tf32x3_launches)
+    out = fn(a, b, spec=spec, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before[0] + 1
+    return out, "tf32x3" if fn.tf32x3_launches > before[1] else "simt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", TRANSPOSES)
+@pytest.mark.parametrize("lead,m,n,k", [
+    ((), 1, 40000, 1024), ((), 16, 3072, 3072), ((), 64, 1032, 1024),
+    ((), 65, 1000, 1024), ((), 130, 264, 1000), ((32,), 2, 512, 1024),
+    ((4,), 72, 136, 1040), ((), 2, 3072, 3072), ((), 2, 32, 1024)])
+def test_mpgemm_tf32x3_matches_plain(gen, lead, m, n, k, trans_a, trans_b):
+    """f32 K1 on the tensor cores (``k1_design``: rows of a multiple of 4
+    values, an f32 output) in all four transposes, 2-D and grouped,
+    split-K at M = 16, at phi3's decode width (M = 2) and at granite's
+    experts (M = 2, 32 groups), granite's router (N = 32), M, N and K
+    tails, within 1e-4 of the plain version; ``trans_a`` with M off a
+    multiple of 4 is the scalar K1's, and so is every shape whose caller
+    keeps f32 FMA arithmetic (``f32_fma``, the fp32 policy's)."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import k1_design, mpgemm_plain
+    a, b = _f32_operands(gen, lead, m, n, k, trans_a, trans_b)
+    spec = GemmSpec(grouped=bool(lead), trans_a=trans_a, trans_b=trans_b)
+    got, design = _run_k1_f32(a, b, spec)
+    assert design == k1_design(a, b)
+    assert design == ("simt" if trans_a and m % 4 else "tf32x3")
+    want = mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    got, design = _run_k1_f32(a, b, spec, f32_fma=True)
+    assert design == "simt" == k1_design(a, b, f32_fma=True)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wid,m,n,k", [(4, 64, 7168, 16384),
+                                       (24, 5120, 256, 13824),
+                                       (10, 128, 7168, 16384)])
+def test_mpgemm_tf32x3_holds_the_gate_at_table_iii_depth(gen, wid, m, n, k):
+    """Table III's deepest K (W4, W10: 16384, W24: 13824), A ~ N(0, 1) and
+    B ~ N(0, 1/K) as chip_smoke.py draws them: within atol = rtol = 1e-4
+    of the plain version (f32 on the card, TF32 off)."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm_plain
+    a, b = _f32_operands(gen, (), m, n, k, False, False)
+    got, design = _run_k1_f32(a, b, GemmSpec())
+    assert design == "tf32x3"
+    want = mpgemm_plain(a, b)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,act", [
+    ("linear", "gelu"), ("gated", "silu"), ("residual", None),
+    ("quant_in", "silu"), ("quant_in_residual", "relu")])
+@pytest.mark.parametrize("m,n,k,grouped", [(2, 4104, 4096, False),
+                                           (100, 264, 2048, False),
+                                           (2, 2056, 2048, True)])
+def test_mpgemm_tf32x3_epilogues_match_plain(gen, kind, act, m, n, k,
+                                             grouped):
+    """Every epilogue kind on the f32 design, with alpha, a bias and
+    beta · C; M = 2 runs split-K."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
+        get_epilogue
+    from repro_torch.kernels.mpgemm import mpgemm_plain
+    lead = (4,) if grouped else ()
+    a, b = _f32_operands(gen, lead, m, n, k, False, False)
+    ed = get_epilogue(kind)
+    extras = tuple(
+        torch.rand(*lead, m, 1, generator=gen, device="cuda") + 0.5
+        if name in ed.row_operands else
+        torch.randn(*lead, m, n, generator=gen, device="cuda")
+        for name in ed.extra_operands)
+    kw = dict(c=torch.randn(*lead, m, n, generator=gen, device="cuda"),
+              bias=torch.randn(n, generator=gen, device="cuda"),
+              extras=extras, epilogue=EpilogueSpec(
+                  kind=kind, activation=act, alpha=1.5, beta=0.5))
+    got, design = _run_k1_f32(a, b, GemmSpec(grouped=grouped), **kw)
+    assert design == "tf32x3"
+    torch.testing.assert_close(got, mpgemm_plain(a, b, **kw),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["split-k", "dw", "grouped", "router-dw"])
+def test_mpgemm_tf32x3_is_deterministic(gen, case):
+    """Two launches give the same bits: split-K at phi3's width (M = 16),
+    a weight gradient (A read (K, M): 512 tokens, 1024 x 1024), which a
+    resumed training run must repeat bit for bit, granite's experts, and
+    the router's weight gradient (1024 x 32 x 512)."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    lead, m, n, k, ta, want = {
+        "split-k": ((), 16, 3072, 3072, False, "tf32x3"),
+        "dw": ((), 1024, 1024, 512, True, "tf32x3"),
+        "grouped": ((32,), 2, 512, 1024, False, "tf32x3"),
+        "router-dw": ((), 1024, 32, 512, True, "tf32x3")}[case]
+    a, b = _f32_operands(gen, lead, m, n, k, ta, False)
+    spec = GemmSpec(grouped=bool(lead), trans_a=ta)
+    first, design = _run_k1_f32(a, b, spec)
+    again, _ = _run_k1_f32(a, b, spec)
+    assert design == want
+    assert torch.equal(first, again)

@@ -30,6 +30,8 @@ import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 
 from repro import sparse as js  # noqa: E402
+from repro.core import config as jcfg  # noqa: E402
+from repro.core.gemm import mp_dot as jax_mp_dot  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.mpgemm import mpgemm_grouped_pallas  # noqa: E402
 from repro.packing import pack_operand as jax_pack  # noqa: E402
@@ -86,15 +88,49 @@ def test_k1_design_by_shape(case, a, b, want):
 
 
 @pytest.mark.parametrize("a_dtype,b_dtype,want", [
-    (torch.float32, torch.float32, "simt"), (torch.int8, torch.int8, "wgmma"),
+    (torch.float32, torch.float32, "tf32x3"),
+    (torch.int8, torch.int8, "wgmma"),
     (BF, torch.float32, "simt"), (torch.float16, torch.float16, "simt"),
     (torch.int8, BF, "simt"), (BF, BF, "wgmma")])
 def test_k1_design_takes_bf16_only(a_dtype, b_dtype, want):
     """The operand types the wgmma design takes: bf16 x bf16 and (since
-    its int8 instantiation) int8 x int8; f32, fp16 and mixed pairs stay
-    scalar."""
+    its int8 instantiation) int8 x int8; f32 x f32 runs the same template
+    as tf32x3; fp16 and mixed pairs stay scalar."""
     assert k1_design(_aligned(64, 64, dtype=a_dtype),
                      _aligned(64, 64, dtype=b_dtype)) == want
+
+
+F4 = torch.float32
+
+
+@pytest.mark.parametrize("case,a,b,fma,want", [
+    ("Table III W1", (64, 7168), (7168, 2112), False, "tf32x3"),
+    ("phase_k1's f32 case", (32, 3072), (3072, 3072), False, "tf32x3"),
+    ("trans_b: B (N, K)", (64, 7168), (2112, 7168), False, "tf32x3"),
+    ("one row, 2^25 multiply-adds", (1, 1024), (1024, 32768), False,
+     "tf32x3"),
+    ("granite's router's shape", (2, 1024), (1024, 32), False, "tf32x3"),
+    ("grouped, every group small", (32, 2, 1024), (32, 1024, 512), False,
+     "tf32x3"),
+    ("the fp32 policy's router", (2, 1024), (1024, 32), True, "simt"),
+    ("the fp32 policy's dW", (512, 1024), (512, 32), True, "simt"),
+    ("the fp32 policy, Table III W1", (64, 7168), (7168, 2112), True,
+     "simt"),
+    ("rows of 7170 values", (64, 7170), (7170, 2112), False, "simt"),
+    ("B rows of 2110", (64, 7168), (7168, 2110), False, "simt"),
+])
+def test_k1_design_f32_rule(case, a, b, fma, want):
+    """f32 operands go to tf32x3 when their rows are 16-byte aligned
+    (multiples of 4 values), whatever the size and however many groups,
+    unless the caller keeps f32 FMA arithmetic (``f32_fma``: the fp32
+    policy's products, granite's router among them), which the scalar
+    loop gives."""
+    assert not hasattr(tk, "TF32X3_MIN_MACS")
+    def shaped(shape):        # the rule reads shapes and addresses only
+        return torch.empty(1, dtype=F4).expand(shape)
+
+    got = k1_design(shaped(a), shaped(b), fma)
+    assert got == want, case
 
 
 I8 = torch.int8
@@ -226,22 +262,26 @@ def _chip_smoke():
 def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
     """One CPU training step with remat: the K1 wrapper calls that
     :func:`k1_design` sends to wgmma (every bf16 and int8 one of the smoke
-    model, whose widths are multiples of 16) and the K4 calls that
+    model, whose widths are multiples of 16) and to tf32x3 (none: the MoE
+    routers run under the fp32 policy, which keeps f32 FMA) and the K4
+    calls that
     :func:`k4_design` sends to its wgmma and split designs number what
     ``chip_smoke.py`` asserts on the card."""
-    counts = {"k1_wgmma": 0, "k1g_wgmma": 0, "k4_wgmma": 0, "k4_split": 0}
+    counts = {"k1_wgmma": 0, "k1g_wgmma": 0, "k1_tf32x3": 0,
+              "k1g_tf32x3": 0, "k4_wgmma": 0, "k4_split": 0}
 
     def gemm(name, inner):
         def call(a, b, *, spec, **kw):
-            if isinstance(b, torch.Tensor) and k1_design(a, b) == "wgmma":
-                counts[name] += 1
+            if isinstance(b, torch.Tensor):
+                design = k1_design(a, b, kw.get("f32_fma", False))
+                if design != "simt":
+                    counts[f"{name}_{design}"] += 1
             return inner(a, b, spec=spec, **kw)
         return call
 
-    monkeypatch.setattr(gemm_mod, "mpgemm", gemm("k1_wgmma",
-                                                 gemm_mod.mpgemm))
+    monkeypatch.setattr(gemm_mod, "mpgemm", gemm("k1", gemm_mod.mpgemm))
     monkeypatch.setattr(gemm_mod, "mpgemm_grouped",
-                        gemm("k1g_wgmma", gemm_mod.mpgemm_grouped))
+                        gemm("k1g", gemm_mod.mpgemm_grouped))
     attention = attn_mod.flash_attention
 
     def flash(q, k, v, **kw):
@@ -339,3 +379,84 @@ def test_sparse_trans_a_matches_reference(payload, grouped):
                                np.asarray(want).astype(np.float32),
                                **(BF16 if bf16 else F32))
     assert (got[..., 16:32] == 0).all()          # the empty column tile
+
+
+# --- K1's f32 design: split-precision products on the tensor cores ----------
+
+def _tf32(x):
+    """x rounded to tf32 (10 stored mantissa bits), to nearest with ties
+    away from zero: what ``cvt.rna.tf32.f32`` gives."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """3xTF32's terms: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _split_bf16(x):
+    """The bf16-term route's terms: x = b0 + b1 + b2, each rounded to bf16
+    (exact at these magnitudes: 3 x 8 significant bits)."""
+    b0 = x.to(torch.bfloat16).float()
+    b1 = (x - b0).to(torch.bfloat16).float()
+    return b0, b1, (x - b0 - b1).to(torch.bfloat16).float()
+
+
+def _emulate_split(a, b, route, fold=128):
+    """A split-precision product summed as the tensor-core design sums it:
+    per ``fold``-deep K chunk, the chunk's products (each exact in f32, as
+    tf32 x tf32 and bf16 x bf16 products are) summed in f32, then folded
+    into an f32 accumulator in K order.  ``route``: "tf32x3" (lo_a hi_b +
+    hi_a lo_b + hi_a hi_b) or "bf16x6" (b_i b_j for i + j <= 2)."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], fold):
+        ac, bc = a[:, k0:k0 + fold], b[k0:k0 + fold]
+        if route == "tf32x3":
+            (ah, al), (bh, bl) = _split_tf32(ac), _split_tf32(bc)
+            part = al @ bh + ah @ bl + ah @ bh
+        else:
+            at, bt = _split_bf16(ac), _split_bf16(bc)
+            part = torch.zeros_like(acc)
+            for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+                part = part + at[i] @ bt[j]
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("route", ["tf32x3", "bf16x6", "tf32"])
+@pytest.mark.parametrize("wid,m,n,k", [(4, 64, 256, 16384),
+                                       (16, 64, 256, 16384),
+                                       (24, 64, 256, 13824)])
+def test_f32_split_routes_against_the_gate(route, wid, m, n, k, capsys):
+    """Table III's deepest K (W4, W10 and W16: 16384; W24: 13824) at a
+    reduced M and N, A ~ N(0, 1) and B ~ N(0, 1/K) as chip_smoke.py draws
+    them: both split routes hold chip_smoke.py's f32 gate (atol = rtol =
+    1e-4) against the f64 product and against the reference's ``xla``
+    f32 ``mp_dot``; plain TF32 (one product of the rounded operands) does
+    not.  The margin (largest |error| over atol + rtol·|ref|) is
+    printed."""
+    rng = np.random.default_rng(wid)
+    a = _f32(rng, (m, k))
+    b = (_f32(rng, (k, n)) * k ** -0.5).astype(np.float32)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    if route == "tf32":
+        got = _tf32(at) @ _tf32(bt)
+    else:
+        got = _emulate_split(at, bt, route)
+    exact = torch.from_numpy(a.astype(np.float64) @ b.astype(np.float64))
+    with jcfg.gemm_backend("xla"):
+        ref = torch.from_numpy(np.array(
+            jax_mp_dot(jnp.asarray(a), jnp.asarray(b), policy="fp32")))
+    for name, want in (("f64", exact), ("xla f32", ref.double())):
+        err = (got.double() - want).abs()
+        margin = (err / (1e-4 + 1e-4 * want.abs())).max().item()
+        with capsys.disabled():
+            print(f"\n[f32 gate] {route} W{wid} {m}x{n}x{k} vs {name}: "
+                  f"max |err| {err.max().item():.3e}, {margin:.3f} of the "
+                  f"gate")
+        if route == "tf32":
+            assert margin > 1.0, "plain TF32 was expected to miss the gate"
+        else:
+            assert margin < 0.1, name
