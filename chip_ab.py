@@ -17,21 +17,26 @@ launches in f32).  A phase named ``serve:LABEL`` serves the
 new tree's ``chip_smoke.SERVE_PATHS[LABEL]`` (or ``NO_FUSE_PATHS[LABEL]``)
 path through each tree's ``phase_serve`` and reports the median decode
 step on the host clock, one two-row decode step's time until the device
-is done, and the host's time to enqueue that step (the wrappers' host
-cost); ``serve:LABEL+fused`` serves the same path with its MLPs fused,
-for an A/B of ``--no-fuse`` at the same depth.  ``--turns N`` repeats
+is done, and the host's time to enqueue that step, all through the
+engine's CUDA graphs (a replayed step; a tree without them serves
+eagerly); ``serve:LABEL+eager`` reads the same run's eager step
+(``cuda_graphs=False``: the wrappers' host cost), so that captured and
+eager steps of one tree compare in turns; ``serve:LABEL+fused`` serves
+the same path with its MLPs fused, for an A/B of ``--no-fuse`` at the
+same depth.  A label's rows share one serve a run.  ``--turns N`` repeats
 the four runs N times (old, new, new, old, old, new, ...).  ``--harness
 new`` runs the new tree's ``chip_smoke.py`` kernel phases in every run,
 each on its own tree's kernels and wrappers: the same cases and timing on
 both sides, and rows the old tree's script did not report (``serve:``
 rows always run each tree's own script, whose checks hold its own
-kernels).  The last lines
-print one row per result (marked ``new only`` or ``old only`` where one
-tree lacks it): its times in run order, the change of the new tree's mean
-against the old one's, and the verdict against the spread: ``faster``
-when every new run beats every old one, ``slower`` when every old run
-beats every new one, else ``within the spread``.  Needs the card: single
-launches are timed with CUDA events on a cold L2, as in
+kernels; the new script reads the launch counts through
+``repro_torch/kernels/counters.py``, so the old tree must have it).  The
+last lines print one row per result (marked ``new only`` or ``old only``
+where one tree lacks it): its times in run order, the change of the new
+tree's mean against the old one's, and the verdict against the spread:
+``faster`` when every new run beats every old one, ``slower`` when every
+old run beats every new one, else ``within the spread``.  Needs the card:
+single launches are timed with CUDA events on a cold L2, as in
 ``chip_smoke.py``.
 """
 import json
@@ -66,15 +71,23 @@ own = cs if harness == tree else script(tree, "own_chip_smoke")
 torch.backends.cuda.matmul.allow_tf32 = False
 timer = cs.Timer(torch)
 serve = json.loads(os.environ.get("AB_SERVE", "{}"))
-out = {}
+served, out = {}, {}
 for name in phases:
     if name.startswith("serve:"):
-        label, _, fused = name[6:].partition("+")
-        kw = dict(serve[label], **({"fused": True} if fused else {}))
-        r = own.phase_serve(torch, label=name[6:], **kw)
-        out[name] = {"median decode step": r["decode_step_ms"],
-                     "two-row decode step": r["step_ms"],
-                     "two-row step, host enqueue": r["enqueue_ms"]}
+        label, _, mode = name[6:].partition("+")
+        fused = mode == "fused"
+        if (label, fused) not in served:
+            kw = dict(serve[label], **({"fused": True} if fused else {}))
+            served[label, fused] = own.phase_serve(
+                torch, label=label + ("+fused" if fused else ""), **kw)
+        r = served[label, fused]
+        # A tree without captured steps serves eagerly under either name.
+        has_graphs = "graph_step_ms" in r
+        pick = "eager_" if mode == "eager" and has_graphs else ""
+        two = "graph_" if mode != "eager" and has_graphs else ""
+        out[name] = {"median decode step": r[pick + "decode_step_ms"],
+                     "two-row decode step": r[two + "step_ms"],
+                     "two-row step, host enqueue": r[two + "enqueue_ms"]}
         continue
     phase = getattr(cs, name, None)
     if phase is None and harness != newest:
@@ -137,6 +150,7 @@ def main(argv):
             return 1
         line = [ln for ln in lines if ln.startswith("AB ")]
         results.append(json.loads(line[-1][3:]))
+    print(f"[ab] card: {chip_smoke._card_line()}")
     print(f"[ab] old {old}, new {new}; ms per decode step, runs "
           + ", ".join("old" if t == old else "new" for t in order))
     for phase in dict.fromkeys([*results[1], *results[0]]):

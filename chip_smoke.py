@@ -111,17 +111,21 @@ printing a result:
    and half depth: phi3-mini under bf16 at sparsity 0.5 by magnitude (113
    K3, 16 K5 and 0 K1 per step) and granite under int8 with N:M 2:4 (48
    K3, 36 grouped K3, 13 K1, 12 K5 per step), each sparsified from the
-   f32 draw through K6 (113 and 84 launches at load).  Every launch
-   count of each run is asserted, every bf16 and int8 K1 launch must have
-   run the wgmma design and none tf32x3 (the MoE routers keep the fp32
-   policy's f32 FMA), every K2, grouped K2, K3 and grouped K3 launch
-   its wgmma design and every K5 launch K5's split or wgmma design, every
-   logit is finite,
-   and for each path
-   one full-width mixed step through the kernels agrees with the same step
-   through the plain versions; one two-row decode step of each path is
-   timed on the host clock and traced with ``torch.profiler`` (the
-   device's busy time and idle share, its ops by kind); then the wave
+   f32 draw through K6 (113 and 84 launches at load).  Each path serves
+   through the engine's CUDA graphs (one a chunk width, the decode graph
+   replayed; the graphs, replays, capture seconds and pool MB printed),
+   then the same requests on the eager step (``cuda_graphs=False``),
+   which must give the same tokens.  Every launch count of each run is
+   asserted (a replay counts its graph's launches), every bf16 and int8
+   K1 launch must have run the wgmma design and none tf32x3 (the MoE
+   routers keep the fp32 policy's f32 FMA), every K2, grouped K2, K3 and
+   grouped K3 launch its wgmma design and every K5 launch K5's split or
+   wgmma design, every step's logits are finite, and for each path one
+   full-width mixed step through the kernels agrees with the same step
+   through the plain versions; one replayed two-row decode step's logits
+   equal the eager step's bit for bit, and both are timed on the host
+   clock and traced with ``torch.profiler`` (the device's busy time and
+   idle share, its ops by kind); then the wave
    engine (``ServeEngine(batch_size=2)``) over the same traffic, dense
    bf16: full-width whisper-medium (24 encoder and 24 decoder layers, 385
    K1 and 72 K4 per prefill, 193 K1 and 24 K4 per decode step) and
@@ -1404,61 +1408,29 @@ def phase_k3(torch, timer):
 # ------------------------------------------------------------------ phase 7
 
 def _counters():
-    from repro_torch.kernels.flash_attention import (
-        flash_attention, paged_flash_attention,
-    )
-    from repro_torch.kernels.mpgemm import (
-        mpgemm, mpgemm_grouped, mpgemm_packed, mpgemm_packed_grouped,
-        mpgemm_sparse, mpgemm_sparse_grouped,
-    )
-    from repro_torch.packing.pack import pack_operand, unpack_operand
-    return dict(k1=mpgemm, k1g=mpgemm_grouped, k2=mpgemm_packed,
-                k2g=mpgemm_packed_grouped, k3=mpgemm_sparse,
-                k3g=mpgemm_sparse_grouped, k4=flash_attention,
-                k5=paged_flash_attention, k6=pack_operand, k7=unpack_operand)
+    """The counted kernel wrappers by kernel (``k1`` ... ``k7``)."""
+    from repro_torch.kernels.counters import wrappers
+    return wrappers()
 
 
 def _reset_counters():
     """Every launch count to 0 (the per-variant and per-design counts
     too)."""
-    c = _counters()
-    for fn in c.values():
-        fn.launches = 0
-    for name in ("k1", "k1g"):
-        c[name].trans_b_launches = c[name].wgmma_launches = 0
-        c[name].tf32x3_launches = 0
-    for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g"):
-        c[name].trans_a_launches = 0
-    for name in ("k2", "k2g", "k3", "k3g"):
-        c[name].wgmma_launches = 0
-    for name in ("k4", "k5"):
-        c[name].wgmma_launches = c[name].split_launches = 0
+    from repro_torch.kernels.counters import reset_launch_counts
+    reset_launch_counts()
 
 
 def _read_counters():
-    """Every launch count, K1's and grouped K1's ``trans_a`` and
-    ``trans_b`` ones as ``k1_ta`` / ``k1_tb`` / ``k1g_ta`` / ``k1g_tb``,
-    those that ran the wgmma design of K1, K2 and K3 as ``k1_wgmma`` /
-    ``k1g_wgmma`` / ``k2_wgmma`` / ``k2g_wgmma`` / ``k3_wgmma`` /
+    """Every launch count (``repro_torch.kernels.counters``): ``k1`` ...
+    ``k7``, K1's and grouped K1's ``trans_a`` and ``trans_b`` ones as
+    ``k1_ta`` / ``k1_tb`` / ``k1g_ta`` / ``k1g_tb``, K2's and K3's
+    ``trans_a`` ones as ``k2_ta`` / ``k2g_ta`` / ``k3_ta`` / ``k3g_ta``,
+    those that ran the wgmma design of K1, K2 and K3 as ``k1_wgmma`` ...
     ``k3g_wgmma``, K1's f32 ones on the tensor cores as ``k1_tf32x3`` /
     ``k1g_tf32x3``, and K4's and K5's on their wgmma and split designs as
     ``k4_wgmma`` / ``k4_split`` / ``k5_wgmma`` / ``k5_split``."""
-    c = _counters()
-    out = {name: fn.launches for name, fn in c.items()}
-    for name in ("k1", "k1g"):
-        out[f"{name}_ta"] = c[name].trans_a_launches
-        out[f"{name}_tb"] = c[name].trans_b_launches
-        out[f"{name}_wgmma"] = c[name].wgmma_launches
-    # (0 on a tree without them: chip_ab.py)
-    for name, designs in (("k1", ("tf32x3",)), ("k1g", ("tf32x3",)),
-                          ("k2", ("wgmma",)), ("k2g", ("wgmma",)),
-                          ("k3", ("wgmma",)), ("k3g", ("wgmma",)),
-                          ("k4", ("wgmma", "split")),
-                          ("k5", ("wgmma", "split"))):
-        for design in designs:
-            out[f"{name}_{design}"] = getattr(c[name],
-                                              f"{design}_launches", 0)
-    return out
+    from repro_torch.kernels.counters import launch_counts
+    return launch_counts()
 
 
 def _k4_design_of(call):
@@ -1637,26 +1609,28 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
           f"{dense / 1e9:.3f} GB dense tensors, initialised on the card in "
           f"{t_init:.3f} s ({peak:.2f} GB allocated at the peak)")
 
-    step_calls, finite = [], []
-    inner = model.paged_step
-
-    def counted_step(*args):
-        logits, caches = inner(*args)
-        step_calls.append(1)
-        finite.append(bool(torch.isfinite(logits.float()).all()))
-        return logits, caches
-
-    model.paged_step = counted_step
-    eng = ServeEngine(model, params, max_len=64, max_batch=2, page_size=16)
     rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=rng.integers(
-        2, cfg.vocab, (int(rng.integers(4, 33)),)).astype(np.int32),
-        max_new_tokens=16) for i in range(4)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prompts = [rng.integers(2, cfg.vocab, (int(rng.integers(4, 33)),))
+               .astype(np.int32) for _ in range(4)]
+
+    def serve_once(cuda_graphs):
+        """The four requests through a fresh engine -> (tokens, engine,
+        wall s); every step's logits must be finite."""
+        eng = ServeEngine(model, params, max_len=64, max_batch=2,
+                          page_size=16, cuda_graphs=cuda_graphs)
+        finite = _finite_samples(torch, eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate([Request(uid=i, prompt=p, max_new_tokens=16)
+                            for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(finite) != len(eng.step_telemetry) or not all(finite):
+            raise AssertionError(f"serve:{label}: non-finite logits during "
+                                 f"serving ({finite})")
+        return out, eng, wall
+
+    out, eng, wall = serve_once(None)
     counts = {name: fn.launches for name, fn in counters.items()}
     wgmma = {name: counters[name].wgmma_launches
              for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g")}
@@ -1665,18 +1639,31 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     tf32x3 = counters["k1"].tf32x3_launches
     k5_designs = {d: getattr(counters["k5"], f"{d}_launches")
                   for d in ("split", "wgmma")}
-    del model.paged_step
-    n_steps = len(step_calls)
+    n_steps = len(eng.step_telemetry)
     want, per_step = _want_launches(cfg, pack, n_steps, sparse=sparsity > 0)
     n_tok = sum(len(v) for v in out.values())
     decode = [s.wall_s for s in eng.step_telemetry if s.phase == "decode"]
     prefill = [s.wall_s for s in eng.step_telemetry if s.phase != "decode"]
+    graphs = eng.graphs
+    replays = sum(g.replays for g in graphs.values())
+    decode_replays = graphs[1].replays if 1 in graphs else 0
+    capture_s = sum(g.capture_s for g in graphs.values())
+    pool_mb = eng.graph_pool_bytes() / 2**20
     print(f"[serve:{label}] 4 requests (prompts "
-          f"{[len(r.prompt) for r in reqs]}), {n_tok} tokens in {wall:.3f} s "
-          f"= {n_tok / wall:.2f} tok/s; {n_steps} paged_step calls "
-          f"({len(prefill)} with prefill, median "
-          f"{1e3 * np.median(prefill):.2f} ms); median decode step "
-          f"{1e3 * np.median(decode):.2f} ms")
+          f"{[len(p) for p in prompts]}), {n_tok} tokens in {wall:.3f} s "
+          f"= {n_tok / wall:.2f} tok/s; {n_steps} steps ({len(prefill)} "
+          f"with prefill, median {1e3 * np.median(prefill):.2f} ms); median "
+          f"decode step {1e3 * np.median(decode):.2f} ms")
+    print(f"[serve:{label}] CUDA graphs: {len(graphs)} captured (chunk "
+          f"widths {sorted(graphs)}), {replays} replays ({decode_replays} of "
+          f"width 1), {capture_s:.3f} s "
+          f"capturing in all, pool {pool_mb:.2f} MB")
+    if not decode_replays:
+        raise AssertionError(f"serve:{label}: no replay of the decode "
+                             f"graph (width 1)")
+    if len(graphs) + replays != n_steps:
+        raise AssertionError(f"serve:{label}: {len(graphs)} captures + "
+                             f"{replays} replays for {n_steps} steps")
     print(f"[serve:{label}] launches: K1 {counts['k1']}, grouped K1 "
           f"{counts['k1g']}, K2 {counts['k2']}, grouped K2 {counts['k2g']}, "
           f"K3 {counts['k3']}, grouped K3 {counts['k3g']}, "
@@ -1703,15 +1690,41 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
         raise AssertionError(f"serve:{label}: {tf32x3} K1 launches on "
                              f"tf32x3; the f32 routers keep the fp32 "
                              f"policy's f32 FMA")
-    if not all(finite):
-        raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                  steps=n_steps, payload_gb=payload / 1e9,
                  decode_step_ms=1e3 * float(np.median(decode)),
                  ttft_ms=1e3 * float(np.median(prefill)), **counts,
                  k2_wgmma=wgmma["k2"], k2g_wgmma=wgmma["k2g"],
                  k3_wgmma=wgmma["k3"], k3g_wgmma=wgmma["k3g"],
-                 k5_designs=k5_designs)
+                 k5_designs=k5_designs, graphs=len(graphs), replays=replays,
+                 capture_s=capture_s, pool_mb=pool_mb)
+    del eng, graphs
+    # The same requests on the eager step: the same tokens, and the
+    # wrappers' own counts (no K6: the weights are loaded).
+    _reset_counters()
+    out_eager, eager, wall_eager = serve_once(False)
+    counts = {name: fn.launches for name, fn in counters.items()}
+    want, _ = _want_launches(cfg, pack, len(eager.step_telemetry),
+                             sparse=sparsity > 0)
+    want["k6"] = 0
+    decode = [s.wall_s for s in eager.step_telemetry if s.phase == "decode"]
+    prefill = [s.wall_s for s in eager.step_telemetry
+               if s.phase != "decode"]
+    serve.update(eager_tok_per_s=n_tok / wall_eager,
+                 eager_decode_step_ms=1e3 * float(np.median(decode)),
+                 eager_ttft_ms=1e3 * float(np.median(prefill)))
+    print(f"[serve:{label}] eager step (cuda_graphs=False): "
+          f"{n_tok / wall_eager:.2f} tok/s, median decode step "
+          f"{serve['eager_decode_step_ms']:.2f} ms, first-token steps "
+          f"{serve['eager_ttft_ms']:.2f} ms; tokens "
+          f"{'identical to' if out_eager == out else 'DIFFER from'} the "
+          f"captured run's")
+    if out_eager != out:
+        raise AssertionError(f"serve:{label}: eager tokens {out_eager}, "
+                             f"captured {out}")
+    if counts != want:
+        raise AssertionError(f"serve:{label}: eager launch counts {counts}, "
+                             f"want {want}")
     serve["logit_err"] = _kernel_vs_plain_step(torch, model, params, label)
     if not fused:
         serve["fused_logit_err"] = _kernel_vs_plain_step(
@@ -1720,14 +1733,70 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     args = _decode_args(torch, model)
 
     def step():
-        return model.paged_step(params, *args)
+        return model.paged_step(params, *args)[0]
 
-    serve["enqueue_ms"], serve["step_ms"] = _decode_step_times(torch, step)
-    print(f"[serve:{label}] one two-row decode step: the host enqueues it "
-          f"in {serve['enqueue_ms']:.2f} ms, the device is done after "
-          f"{serve['step_ms']:.2f} ms")
-    _profile_decode_step(torch, step, label, serve["step_ms"])
+    replay = _captured_step(torch, model, params, args)
+    eager_logits, replayed = step().clone(), replay().clone()
+    torch.cuda.synchronize()
+    if not torch.equal(eager_logits, replayed):
+        diff = (eager_logits.float() - replayed.float()).abs().max().item()
+        raise AssertionError(f"serve:{label}: a replayed decode step's "
+                             f"logits differ from the eager step's by {diff}")
+    print(f"[serve:{label}] one replayed two-row decode step: logits "
+          f"bit-equal to the eager step's")
+    for key, what, fn, tag in (("", "eager", step, label),
+                               ("graph_", "replayed", replay,
+                                f"{label}+graph")):
+        enqueue, done = _decode_step_times(torch, fn)
+        print(f"[serve:{label}] one {what} two-row decode step: the host "
+              f"enqueues it in {enqueue:.2f} ms, the device is done after "
+              f"{done:.2f} ms")
+        busy, idle = _profile_decode_step(
+            torch, fn, tag, done, what=f"one {what} two-row decode step")
+        serve.update({f"{key}enqueue_ms": enqueue, f"{key}step_ms": done,
+                      f"{key}busy_ms": busy, f"{key}idle": idle})
     return serve
+
+
+def _finite_samples(torch, eng):
+    """Check every step's logits for finite values where the engine samples
+    them, after the step (after a replay; never inside a capture) -> the
+    list of each step's result."""
+    finite, sample = [], eng._sample
+
+    def checked(logits):
+        finite.append(bool(torch.isfinite(logits.float()).all()))
+        return sample(logits)
+
+    eng._sample = checked
+    return finite
+
+
+def _captured_step(torch, model, params, args):
+    """``model.paged_step(params, *args)`` (``_decode_args``' inputs)
+    captured as the engine captures it: one eager warm-up on a stream of
+    its own, then :class:`StepGraph` -> a function that replays it on that
+    stream, ordered after the current stream's work and before its next,
+    and returns the logits."""
+    from repro_torch.serve.engine import StepGraph
+
+    tokens, caches, bt, q_start, n_valid = args
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.inference_mode():
+        model.paged_step(params, *args)
+        graph = StepGraph(model, params, caches,
+                          [tokens, bt, q_start, n_valid], stream=stream,
+                          pool=torch.cuda.graph_pool_handle())
+
+    def replay():
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            logits = graph.replay()
+        torch.cuda.current_stream().wait_stream(stream)
+        return logits
+
+    return replay
 
 
 # The serve paths of phase 7, by label: phase_serve's arguments.  The
@@ -1934,7 +2003,9 @@ def _profile_decode_step(torch, step, label, step_ms,
     against the traced step's span (from the step's first host op to its
     last device op) and against ``step_ms``, the same step's time untraced
     (tracing slows the host, not the kernels); the device's ops by kind,
-    and the host calls in the step that copy or wait."""
+    and the host calls in the step that copy or wait.  -> (device busy ms,
+    its idle share of the untraced step), or Nones when the profiler saw
+    no device op."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1949,15 +2020,19 @@ def _profile_decode_step(torch, step, label, step_ms,
     step = next(e for e in events if e.name == "traced_step"
                 and e.device_type == DeviceType.CPU)
     t0, t_host = step.time_range.start, step.time_range.end
-    # Kernels, copies and sets; the trace also mirrors the "traced_step"
+    # Kernels, copies and sets (the device was idle when tracing began, so
+    # all are the step's); the trace also mirrors the "traced_step"
     # annotation on the device, which is no work of the device.
     dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                  and e.name != "traced_step" and e.time_range.end >= t0),
+                  and e.name != "traced_step"),
                  key=lambda e: e.time_range.start)
     if not dev:
         print(f"[profile:{label}] the profiler saw no device activity: "
               f"device busy time not measured")
-        return
+        return None, None
+    # A replayed graph's first kernels start within microseconds of the
+    # host's call, and the trace's device clock can read them earlier.
+    t0 = min(t0, dev[0].time_range.start)
     busy, lo, hi = 0.0, None, None
     for e in dev:                      # union of the device spans
         s0, s1 = e.time_range.start, e.time_range.end
@@ -2009,6 +2084,7 @@ def _profile_decode_step(torch, step, label, step_ms,
           "; ".join(f"{name[:90]} {n} {ms:.3f}" for name, (n, ms) in top))
     print(f"[profile:{label}] host calls in the step that copy or wait "
           f"(with their callers): {waits or 'none'}")
+    return busy_ms, max(0.0, 1 - busy_ms / step_ms)
 
 
 # ----------------------------------------------------------------- phase 7b

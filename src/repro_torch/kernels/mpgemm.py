@@ -480,6 +480,14 @@ def _split_workspace(device: torch.device, stream: int, n_partial: int,
     return partial, counters
 
 
+def split_workspaces() -> list:
+    """Every split buffer now kept, on any stream.  A CUDA graph holds
+    the raw pointers of those its launches read, and a later growth
+    replaces the kept pair, which would free memory the graph still
+    writes: whoever captures a graph holds these as long as the graph."""
+    return [t for pair in _split_buffers.values() for t in pair]
+
+
 # --- K1 launch ---------------------------------------------------------------
 
 def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,

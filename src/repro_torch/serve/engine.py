@@ -16,6 +16,14 @@ greedy: ``np.argmax`` of the logits, which takes the first index among
 ties.  Every step runs under ``torch.inference_mode()`` and emits a
 :class:`StepTelemetry` record.
 
+On the card the continuous engine captures each step in a CUDA graph, the
+counterpart of the reference's ``jax.jit(model.paged_step)``: the first
+step of each chunk width runs eagerly (it loads the kernels, encodes their
+TMA maps and sizes their split workspaces) and is then captured
+(:class:`StepGraph`); later steps of that width copy their inputs into the
+graph's static buffers and replay it.  ``cuda_graphs=False`` keeps the
+eager step; a CPU model always runs it.
+
 ``ServeEngine(batch_size=)`` selects the wave engine instead (deprecated,
 as in the reference, but the only serving path of the block kinds without
 a paged step, such as whisper's enc-dec): requests run in static waves of
@@ -123,16 +131,74 @@ def _kv_token_bytes(model) -> int:
     return 2 * cfg.n_kv_heads * cfg.head_dim * itemsize * len(cfg.pattern)
 
 
+class StepGraph:
+    """``model.paged_step`` captured in one CUDA graph.
+
+    ``inputs`` are the step's device inputs (tokens (B, c), block tables,
+    q_start, n_valid): the graph reads them, the params and the KV pools
+    ``caches`` at their captured addresses, so the caller fills them in
+    place before each :meth:`replay`, which returns the graph's static
+    logits (read them before another replay).  The caller has run one
+    eager step of the same shapes on ``stream`` first: kernels loaded,
+    TMA maps encoded, split workspaces at their final size.
+
+    The capture executes nothing, so it rolls back the launch counts it
+    ticked and keeps their delta (``launches``); each replay adds it.  It
+    holds what the graph reads or writes by address as long as itself:
+    the inputs, params and pools, and every split workspace alive at the
+    capture (a later growth of one replaces it, which would free memory
+    the graph still writes).
+    """
+
+    def __init__(self, model, params, caches, inputs, *, stream, pool):
+        from repro_torch.kernels import counters
+        from repro_torch.kernels.mpgemm import split_workspaces
+
+        self.graph = torch.cuda.CUDAGraph()
+        pools = [t.data_ptr() for c in caches for t in c.values()]
+        before = counters.launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), torch.cuda.graph(self.graph, pool=pool,
+                                                      stream=stream):
+            self.logits, out = model.paged_step(params, inputs[0], caches,
+                                                *inputs[1:])
+        self.capture_s = time.perf_counter() - t0
+        self.launches = counters.count_delta(counters.launch_counts(),
+                                             before)
+        counters.add_launch_counts(self.launches, times=-1)
+        if out is not caches or pools != [t.data_ptr() for c in caches
+                                          for t in c.values()]:
+            raise RuntimeError("paged_step rebound a KV pool during the "
+                               "capture; a graph writes the pools in place")
+        self._held = (inputs, params, caches, split_workspaces())
+        self.replays = 0
+
+    def replay(self) -> torch.Tensor:
+        """Run the captured step on the current stream; -> its logits."""
+        from repro_torch.kernels import counters
+
+        self.graph.replay()
+        counters.add_launch_counts(self.launches)
+        self.replays += 1
+        return self.logits
+
+
 class ServeEngine:
     """Continuous-batching engine over paged KV, on the model's device.  The
     deprecated ``batch_size=`` keyword selects the wave engine (static
-    batch, ring caches)."""
+    batch, ring caches).
+
+    ``cuda_graphs``: capture the continuous engine's step in CUDA graphs,
+    one a chunk width (``graphs``); ``None`` means on for a CUDA model and
+    off for a CPU one, ``True`` on a CPU model or the wave engine raises.
+    """
 
     def __init__(self, model, params, *, max_len: int,
                  max_batch: Optional[int] = None, page_size: int = 16,
                  max_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 eos_id: int = 1, batch_size: Optional[int] = None):
+                 eos_id: int = 1, batch_size: Optional[int] = None,
+                 cuda_graphs: Optional[bool] = None):
         self.model = model
         self.params = params
         self.max_len = max_len
@@ -141,6 +207,17 @@ class ServeEngine:
         self.step_telemetry: List[StepTelemetry] = []
         self._token_bytes = _kv_token_bytes(model)
         self._wave_mode = batch_size is not None
+        on_card = torch.device(model.device).type == "cuda"
+        if cuda_graphs and not on_card:
+            raise ValueError(f"cuda_graphs=True needs a CUDA model, this one "
+                             f"is on {model.device}")
+        if cuda_graphs and self._wave_mode:
+            raise ValueError("cuda_graphs=True: the wave engine's step is "
+                             "not captured (its position is a host int)")
+        # Captured steps by chunk width; None runs every step eagerly.
+        self.graphs: Optional[Dict[int, StepGraph]] = (
+            {} if on_card and cuda_graphs is not False and not
+            self._wave_mode else None)
         if self._wave_mode:
             warnings.warn(
                 "ServeEngine(batch_size=) selects the deprecated wave "
@@ -170,6 +247,60 @@ class ServeEngine:
         self._step_counter = 0
         self._uid_counter = 0
         self._preempted_now = 0
+        if self.graphs is not None:
+            self._init_graph_inputs()
+
+    def _init_graph_inputs(self) -> None:
+        """The captured steps' stream, memory pool and static inputs: one
+        device buffer each for tokens (a (B, c) view of it a width), block
+        tables, q_start and n_valid, filled from pinned host twins."""
+        dev = torch.device(self.model.device)
+        self._stream = torch.cuda.Stream(dev)
+        # The params and the pools were made on the current stream.
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        self._pool = torch.cuda.graph_pool_handle()
+        b = self.max_batch
+        sizes = dict(tokens=b * self.prefill_chunk,
+                     block_tables=b * self.bt_width, q_start=b, n_valid=b)
+        self._host = {k: torch.zeros(n, dtype=torch.int32, pin_memory=True)
+                      for k, n in sizes.items()}
+        self._static = {k: torch.zeros(n, dtype=torch.int32, device=dev)
+                        for k, n in sizes.items()}
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes of the card's memory the captured steps' pool holds."""
+        pool = tuple(self._pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s["segment_pool_id"]) == pool)
+
+    def _sample(self, logits) -> np.ndarray:
+        """Greedy tokens of (B, Vp) logits on the host (the copy waits for
+        the device)."""
+        return np.argmax(logits.float().cpu().numpy(), axis=-1)
+
+    def _graph_step(self, tokens, bt, q_start, n_valid) -> np.ndarray:
+        """One step through the captured graph of its chunk width: the
+        inputs go to the static buffers by pinned non-blocking copies, then
+        the graph replays; a width's first step runs eagerly and is then
+        captured.  -> the greedy tokens."""
+        ins = []
+        for name, arr in (("tokens", tokens), ("block_tables", bt),
+                          ("q_start", q_start), ("n_valid", n_valid)):
+            host = self._host[name][:arr.size].view(arr.shape)
+            host.numpy()[...] = arr
+            dev = self._static[name][:arr.size].view(arr.shape)
+            dev.copy_(host, non_blocking=True)
+            ins.append(dev)
+        c = tokens.shape[1]
+        graph = self.graphs.get(c)
+        if graph is not None:
+            return self._sample(graph.replay())
+        logits, self.caches = self.model.paged_step(
+            self.params, ins[0], self.caches, *ins[1:])
+        sampled = self._sample(logits)
+        self.graphs[c] = StepGraph(self.model, self.params, self.caches,
+                                   ins, stream=self._stream, pool=self._pool)
+        return sampled
 
     def _require_continuous(self, what: str):
         if self._wave_mode:
@@ -299,15 +430,18 @@ class ServeEngine:
             q_start[i] = s.length
             n_valid[i] = n
             bt[i] = self.kv.block_table_row(s.req.uid, self.bt_width)
-        dev = self.model.device
-        with torch.inference_mode():
-            logits, self.caches = self.model.paged_step(
-                self.params, torch.from_numpy(tokens).to(dev), self.caches,
-                torch.from_numpy(bt).to(dev),
-                torch.from_numpy(q_start).to(dev),
-                torch.from_numpy(n_valid).to(dev))
-            # The copy to the host waits for the device.
-            sampled = np.argmax(logits.float().cpu().numpy(), axis=-1)
+        if self.graphs is not None:
+            with torch.inference_mode(), torch.cuda.stream(self._stream):
+                sampled = self._graph_step(tokens, bt, q_start, n_valid)
+        else:
+            dev = self.model.device
+            with torch.inference_mode():
+                logits, self.caches = self.model.paged_step(
+                    self.params, torch.from_numpy(tokens).to(dev),
+                    self.caches, torch.from_numpy(bt).to(dev),
+                    torch.from_numpy(q_start).to(dev),
+                    torch.from_numpy(n_valid).to(dev))
+                sampled = self._sample(logits)
         finished: List[Request] = []
         emitted = 0
         for i, s in enumerate(self._slots):
@@ -444,11 +578,6 @@ class ServeEngine:
             kv_bytes=dense, kv_bytes_dense=dense, prefix_hit_tokens=0,
             wall_s=wall, tokens_per_s=tokens / wall if wall > 0 else 0.0))
         self._wave_step += 1
-
-    def _sample(self, logits) -> np.ndarray:
-        """Greedy tokens of (B, Vp) logits on the host (the copy waits for
-        the device)."""
-        return np.argmax(logits.float().cpu().numpy(), axis=-1)
 
     def _run_wave(self, wave: List[Request], queue_depth: int):
         """One wave: left-padded prefill, then decode steps at the wave's

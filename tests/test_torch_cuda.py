@@ -1838,3 +1838,149 @@ def test_mpgemm_tf32x3_is_deterministic(gen, case):
     again, _ = _run_k1_f32(a, b, spec)
     assert design == want
     assert torch.equal(first, again)
+
+
+# --- the continuous engine's step captured in CUDA graphs --------------------
+
+# Smoke-size models (2 layers, 96 wide) on every weight form the captured
+# step serves: dense bf16, packed int8 under the int8 policy, tile-sparse
+# bf16 and the MoE model.
+GRAPH_CASES = {
+    "phi3-bf16": ("phi3-mini-3.8b", "bf16", {}),
+    "phi3-int8-packed": ("phi3-mini-3.8b", "int8", dict(pack=True)),
+    "phi3-sparse": ("phi3-mini-3.8b", "bf16", dict(sparsity=0.5)),
+    "granite-bf16": ("granite-moe-1b-a400m", "bf16", {}),
+}
+
+
+def _graph_model(case):
+    from repro_torch.configs import base as cb
+    from repro_torch.models.transformer import build_model
+    arch, policy, kw = GRAPH_CASES[case]
+    model = build_model(cb.get(arch, smoke=True), policy=policy,
+                        device="cuda")
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0),
+                             **kw)
+
+
+def _decode_inputs(model, params, gen, caches):
+    """A two-row decode step (contexts of 20 and 9 tokens, written by one
+    eager chunk first) -> its inputs (tokens, block tables, q_start,
+    n_valid)."""
+    i32 = dict(dtype=torch.int32, device="cuda")
+    bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], **i32)
+    vocab = model.cfg.vocab
+    with torch.inference_mode():
+        model.paged_step(params, torch.randint(
+            2, vocab, (2, 20), generator=gen, device="cuda",
+            dtype=torch.int32), caches, bt, torch.tensor([0, 0], **i32),
+            torch.tensor([20, 9], **i32))
+    return [torch.randint(2, vocab, (2, 1), generator=gen, device="cuda",
+                          dtype=torch.int32), bt,
+            torch.tensor([20, 9], **i32), torch.tensor([1, 1], **i32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_captured_serving_matches_eager(gen, case):
+    """Four requests served with and without capture: the same greedy
+    tokens, the same steps, the same launch counts; each step either
+    captured its width (the first of it) or replayed, and the decode graph
+    replayed."""
+    import numpy as np
+
+    from repro_torch.kernels import counters
+    from repro_torch.serve.engine import Request, ServeEngine
+    model, params = _graph_model(case)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(2, model.cfg.vocab, (n,)).astype(np.int32)
+               for n in (5, 19, 12, 30)]
+    runs = []
+    for graphs in (False, None):
+        counters.reset_launch_counts()
+        eng = ServeEngine(model, params, max_len=48, max_batch=2,
+                          page_size=8, cuda_graphs=graphs)
+        out = eng.generate([Request(uid=i, prompt=p, max_new_tokens=6)
+                            for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        runs.append((out, counters.launch_counts(), eng))
+    (want, want_counts, eager), (got, counts, eng) = runs
+    assert eager.graphs is None and eng.graphs
+    assert eng.graphs[1].replays > 0 and len(eng.graphs) >= 2
+    assert (len(eng.graphs) + sum(g.replays for g in eng.graphs.values())
+            == len(eng.step_telemetry))
+    assert got == want and sorted(got) == [0, 1, 2, 3]
+    assert len(eng.step_telemetry) == len(eager.step_telemetry)
+    assert counts == want_counts
+    assert counts["k5"] == model.cfg.n_layers * len(eng.step_telemetry)
+    assert eng.graph_pool_bytes() > 0
+
+
+def _captured_decode(case, gen):
+    """A smoke model, its pools after one eager chunk, a decode step's
+    inputs, a stream, and that step captured on the stream after one eager
+    warm-up there."""
+    from repro_torch.serve.engine import StepGraph
+    model, params = _graph_model(case)
+    caches = model.init_paged_caches(9, 8)
+    ins = _decode_inputs(model, params, gen, caches)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.inference_mode():
+        model.paged_step(params, ins[0], caches, *ins[1:])
+        graph = StepGraph(model, params, caches, ins, stream=stream,
+                          pool=torch.cuda.graph_pool_handle())
+    return model, params, caches, ins, stream, graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_replayed_step_logits_equal_the_eager_step(gen, case):
+    """A replay on new tokens gives the eager step's logits bit for bit (a
+    launch that escaped the graph would keep the capture's inputs), and
+    counts the eager step's launches."""
+    from repro_torch.kernels import counters
+    model, params, caches, ins, stream, graph = _captured_decode(case, gen)
+    new = torch.randint(2, model.cfg.vocab, (2, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    with torch.cuda.stream(stream), torch.inference_mode():
+        ins[0].copy_(new)
+        before = counters.launch_counts()
+        got = graph.replay().clone()
+        replayed = counters.count_delta(counters.launch_counts(), before)
+        before = counters.launch_counts()
+        want, _ = model.paged_step(params, ins[0], caches, *ins[1:])
+        eager = counters.count_delta(counters.launch_counts(), before)
+    torch.cuda.synchronize()
+    assert replayed == eager == graph.launches
+    assert eager["k5"] == model.cfg.n_layers
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_workspace_grown_after_a_capture_keeps_the_replay(gen, case):
+    """A larger eager launch on the capture stream grows the split
+    workspace the graph captured (the kept pair is replaced; a case whose
+    launches do not split has none, and gets one after the capture);
+    tensors allocated after it on that stream are not written by the next
+    replay, whose logits stay those of the replay before."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import _split_buffers, mpgemm
+    model, params, caches, ins, stream, graph = _captured_decode(case, gen)
+    key = (torch.device("cuda", torch.cuda.current_device()),
+           stream.cuda_stream)
+    with torch.cuda.stream(stream), torch.inference_mode():
+        ref = graph.replay().clone()
+        held = [(t.numel(), t.dtype) for t in _split_buffers.get(key, ())]
+        # 2 output tiles x 86 slices of K: 2.8 M f32 partials.
+        a = torch.randn(128, 16384, generator=gen, device="cuda").bfloat16()
+        b = torch.randn(16384, 256, generator=gen, device="cuda").bfloat16()
+        mpgemm(a, b, spec=GemmSpec())
+        assert _split_buffers[key][0].numel() > (held[0][0] if held else 0)
+        junk = [torch.full((n,), 7, dtype=dt, device="cuda")
+                for n, dt in held for _ in range(4)]
+        got = graph.replay().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert all(bool((j == 7).all()) for j in junk)
