@@ -23,7 +23,12 @@ eagerly); ``serve:LABEL+eager`` reads the same run's eager step
 (``cuda_graphs=False``: the wrappers' host cost), so that captured and
 eager steps of one tree compare in turns; ``serve:LABEL+fused`` serves
 the same path with its MLPs fused, for an A/B of ``--no-fuse`` at the
-same depth.  A label's rows share one serve a run.  ``--turns N`` repeats
+same depth.  A label's rows share one serve a run.  A phase named
+``train:LABEL`` trains the new tree's ``chip_smoke.TRAIN_PATHS[LABEL]``
+path through each tree's ``phase_train`` and reports the median training
+step on the host clock, with the step captured in a CUDA graph (a tree
+without the capture trains eagerly); ``train:LABEL+eager`` reads the same
+run's eager loop (``Trainer(cuda_graphs=False)``).  ``--turns N`` repeats
 the four runs N times (old, new, new, old, old, new, ...).  ``--harness
 new`` runs the new tree's ``chip_smoke.py`` kernel phases in every run,
 each on its own tree's kernels and wrappers: the same cases and timing on
@@ -71,8 +76,20 @@ own = cs if harness == tree else script(tree, "own_chip_smoke")
 torch.backends.cuda.matmul.allow_tf32 = False
 timer = cs.Timer(torch)
 serve = json.loads(os.environ.get("AB_SERVE", "{}"))
-served, out = {}, {}
+train = json.loads(os.environ.get("AB_TRAIN", "{}"))
+served, trained, out = {}, {}, {}
 for name in phases:
+    if name.startswith("train:"):
+        label, _, mode = name[6:].partition("+")
+        if label not in trained:
+            trained[label] = own.phase_train(torch, label=label,
+                                             **train[label])
+        r = trained[label]
+        # A tree without the captured step trains eagerly under either name.
+        key = ("eager_step_ms" if mode == "eager" and "eager_step_ms" in r
+               else "step_ms")
+        out[name] = {"median training step": r[key]}
+        continue
     if name.startswith("serve:"):
         label, _, mode = name[6:].partition("+")
         fused = mode == "fused"
@@ -131,7 +148,8 @@ def main(argv):
     import chip_smoke
     env = dict(os.environ, AB_SERVE=json.dumps(
         {**getattr(chip_smoke, "SERVE_PATHS", {}),
-         **getattr(chip_smoke, "NO_FUSE_PATHS", {})}))
+         **getattr(chip_smoke, "NO_FUSE_PATHS", {})}),
+        AB_TRAIN=json.dumps(getattr(chip_smoke, "TRAIN_PATHS", {})))
     order = (old, new, new, old) * turns
     results = []
     for tree in order:
@@ -151,7 +169,8 @@ def main(argv):
         line = [ln for ln in lines if ln.startswith("AB ")]
         results.append(json.loads(line[-1][3:]))
     print(f"[ab] card: {chip_smoke._card_line()}")
-    print(f"[ab] old {old}, new {new}; ms per decode step, runs "
+    print(f"[ab] old {old}, new {new}; ms per decode step (train: rows "
+          f"per training step), runs "
           + ", ".join("old" if t == old else "new" for t in order))
     for phase in dict.fromkeys([*results[1], *results[0]]):
         keys = dict.fromkeys([*results[1].get(phase, {}),

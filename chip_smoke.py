@@ -143,16 +143,25 @@ printing a result:
    backward on a packed phi3 ``w_up`` (bf16: K2, K7, K1 trans_b and
    trans_a, K6; int4: frozen, dx only) and a bf16 payload's forward under
    int8 (K7, int8 K1), against the plain versions; then
-   ``repro_torch.launch.train.main``: full-width granite-moe-1b-a400m, all
-   24 layers, bf16, batch 4 x seq 128, remat, 3 steps with a checkpoint,
-   and phi3-mini at full width cut to 4 layers under int8 (the STE), 2
-   steps -- finite loss and grad norm, exact launch counts a step
+   ``repro_torch.launch.train.main`` (``TRAIN_PATHS``): full-width
+   granite-moe-1b-a400m, all 24 layers, bf16, batch 4 x seq 128, remat, 4
+   steps with a checkpoint, and phi3-mini at full width cut to 4 layers
+   under int8 (the STE), 4 steps -- each with the step captured in a CUDA
+   graph (the CLI's default: the first step eager, then replays; the
+   ``CUDA graphs:`` line) and again on the eager loop
+   (``Trainer(cuda_graphs=False)``) from the same seed and batches:
+   finite loss and grad norm, exact launch counts a step
    (``_want_train_launches``; the wgmma designs' among them: every bf16
-   and int8 K1 launch, every K4 launch), ``--resume`` restoring
-   bit-identical
-   parameters and AdamW state, one step's loss and gradients against the
-   plain versions, step time, tokens/s, peak memory, and one step traced
-   with ``torch.profiler``;
+   and int8 K1 launch, every K4 launch), the captured run's losses, grad
+   norms and final parameters, AdamW moments and step equal to the eager
+   run's (bit for bit, or, where the eager step does not repeat itself,
+   by ``_check_same_run``'s rule, with the op that differs named and the
+   capture held bit for bit under deterministic algorithms),
+   ``--resume`` restoring bit-identical parameters and AdamW state, a
+   run resumed after its first step reaching the uninterrupted run's
+   state, one step's loss and gradients against the plain versions, step
+   time, tokens/s, peak memory and the graph pool, and one eager and one
+   replayed step traced with ``torch.profiler``;
 9. the script's wall time, one JSON line with every ported kernel's
    launches (and, for K2, K3, K5 and the op rows, the launches on each
    design), error and times;
@@ -173,6 +182,7 @@ products a multiply-add: the design's own work).  ``library_ms`` times one
 PyTorch call of the same function as a yardstick; the port never calls it.
 """
 import contextlib
+import faulthandler
 import gc
 import json
 import subprocess
@@ -3326,14 +3336,200 @@ def _ckpt_dir(need_bytes):
                        " GB free for the checkpoint")
 
 
+# The training paths of phase 8, by label: phase_train's arguments.  phi3
+# runs at 4 of its 32 layers under int8 to keep the script's time (every
+# layer is the same, so the launch counts per layer and the shapes stay).
+TRAIN_PATHS = {
+    "granite-bf16": dict(arch="granite-moe-1b-a400m", policy="bf16",
+                         steps=4),
+    "phi3-int8-4-layers": dict(arch="phi3-mini-3.8b", policy="int8",
+                               steps=4, n_layers=4),
+}
+# A run whose eager step does not repeat itself bit for bit is held to the
+# eager run by TRAIN_TOL's loss and grad-norm bounds at every step, and by
+# its distance over the final state against a second eager run's from the
+# first (the eager step's own spread): the RMS of the difference over the
+# whole state (parameters, both moments) within NOISE_FACTOR of it.  No
+# bound on single leaves: TRAIN_TOL's leaf bound is one step's gradients'
+# (kernels against plain versions, held by ``_train_kernel_vs_plain``), and
+# the final state of two runs of a step that sums in no fixed order
+# differs by 0.28-0.76 of a leaf's largest value, eager against eager (up
+# to 1.0 for a resumed run), after 4 steps on the card: a layer's norm
+# scale starts at 0 and Adam moves it by about lr an element whatever the
+# gradient's size, so an element whose gradient is noise moves either
+# way, and the worst such leaf is a draw.  Over granite's 4 billion
+# values the RMS is an average: in six runs of this phase on the card the
+# eager loop against itself read 1.97e-5 to 2.42e-5, the captured run
+# against it 2.00e-5 to 2.35e-5 and a resumed run against the
+# uninterrupted one 2.19e-5 to 2.40e-5; a capture that computed anything
+# else would not stay within 1.5x of it.
+NOISE_FACTOR = 1.5
+
+
+@contextlib.contextmanager
+def _deterministic_algorithms(torch):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
+    block, the setting before restored after it."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _train_eager(torch, model, steps):
+    """The training CLI's run (seed 0, batch 4 x seq 128, lr 1e-3,
+    ``steps`` steps from a fresh state) through ``Trainer(cuda_graphs=
+    False)``, the eager loop -> (trainer, params, opt)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(model, ShapeConfig("cli", 128, 4, "train"),
+                      TrainerConfig(steps=steps, opt=AdamWConfig(lr=1e-3)),
+                      seed=0, cuda_graphs=False)
+    params, opt = trainer.run()
+    return trainer, params, opt
+
+
+def _run_record(trainer, params, opt, host=False):
+    """A finished run as its metrics log and final state (``host``: a copy
+    of the state in host memory, which later steps on the trees leave
+    alone)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    def keep(leaves):
+        return [t.detach().cpu() for t in leaves] if host else leaves
+
+    return dict(log=list(trainer.metrics_log),
+                params=keep(tree_leaves(params)), opt=keep(tree_leaves(opt)),
+                names=["/".join(map(str, path))
+                       for path, _ in _tree_paths(params)])
+
+
+def _train_distance(torch, got, want):
+    """How far run ``got`` is from run ``want`` (``_run_record``'s): bit
+    equality of every step's loss and grad norm and of the final state;
+    the largest |loss difference| of a step and relative grad-norm
+    difference; the worst max |diff| / max |want| over the leaves of the
+    final parameters; the RMS of the difference over the whole final state
+    (parameters, m, v, step) over the RMS of ``want``'s."""
+    if len(got["log"]) != len(want["log"]):
+        raise AssertionError(f"{len(got['log'])} steps against "
+                             f"{len(want['log'])}")
+    logs = list(zip(got["log"], want["log"]))
+    equal = all((a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+                for a, b in logs)
+    loss = max(abs(a["loss"] - b["loss"]) for a, b in logs)
+    gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                for a, b in logs)
+    leaf, num, den = (0.0, 0), 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got["params"] + got["opt"],
+                                   want["params"] + want["opt"])):
+        dev = b.device if a.device.type == "cpu" else a.device
+        a, b = a.detach().to(dev), b.detach().to(dev)   # a host copy: one leaf
+        equal = equal and torch.equal(a, b)
+        if i < len(want["params"]):
+            leaf = max(leaf, ((a.float() - b.float()).abs().max().item()
+                              / max(b.float().abs().max().item(), 1e-30), i))
+        num += float(((a.double() - b.double()) ** 2).sum())
+        den += float((b.double() ** 2).sum())
+    return dict(equal=equal, loss=loss, gnorm=gnorm, leaf=leaf[0],
+                leaf_at=want["names"][leaf[1]], rms=(num / den) ** 0.5)
+
+
+def _fmt_distance(d):
+    return (f"{'bit-equal' if d['equal'] else 'not bit-equal'} (step loss "
+            f"|diff| <= {d['loss']:.3e}, grad norm rel <= {d['gnorm']:.3e}, "
+            f"final params per leaf max |diff| / max |p| <= {d['leaf']:.3e} "
+            f"at {d['leaf_at']}, RMS of the state's difference / RMS of "
+            f"the state {d['rms']:.3e})")
+
+
+def _check_same_run(label, what, d, noise, tol):
+    """Hold ``d`` (``_train_distance`` of a run against the eager run) to
+    bit equality when the eager step repeats itself (``noise`` None),
+    else to ``tol``'s loss and grad-norm bounds and, in RMS, to
+    ``NOISE_FACTOR`` times ``noise`` (a second eager run against the
+    first)."""
+    print(f"[train:{label}] {what}: {_fmt_distance(d)}")
+    if noise is None:
+        if not d["equal"]:
+            raise AssertionError(f"train {label}: {what}: not bit-equal, "
+                                 f"and the eager step repeats itself")
+        return
+    bad = [name for name, ok in (
+        ("loss", d["loss"] <= tol["loss"]),
+        ("grad norm", d["gnorm"] <= tol["gnorm"]),
+        ("RMS", d["rms"] <= NOISE_FACTOR * noise["rms"])) if not ok]
+    print(f"[train:{label}] {what}, against the eager step's own spread "
+          f"(x {NOISE_FACTOR}): RMS {d['rms']:.3e} vs {noise['rms']:.3e} "
+          f"(worst leaf {d['leaf']:.3e} vs {noise['leaf']:.3e}); bounds loss "
+          f"{tol['loss']}, grad norm {tol['gnorm']}: "
+          f"{'held' if not bad else f'BEYOND {bad}'}")
+    if bad:
+        raise AssertionError(f"train {label}: {what} beyond {bad}")
+
+
+def _nondeterministic_ops(torch, model):
+    """The backward ops of a training step that sum into rows several
+    tokens share, each run twice on the same inputs at this model's
+    training shapes (batch 4 x seq 128) -> {op: repeats bit for bit}: the
+    embedding gather's (``index_put_`` with accumulate into the (V, d)
+    table) and, for an MoE model, the dispatch gather's (``scatter_add``
+    into the (b, s + 1, d) bf16 tokens, each read by up to k expert slots
+    and the pad row by every empty one)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import MOE_TRAIN_CAPACITY
+
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, s, d = 4, 128, cfg.d_model
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device=dev)
+    table = torch.randn(cfg.vocab, d, generator=gen, device=dev,
+                        requires_grad=True)
+    dy = torch.randn(b, s, d, generator=gen, device=dev)
+    cases = {"embedding gather backward (index_put_, accumulate)":
+             lambda: torch.autograd.grad(table[tokens], table, dy)[0]}
+    if cfg.family == "moe":
+        e, k = cfg.n_experts, cfg.experts_per_token
+        gates = torch.softmax(torch.randn(b, s, e, generator=gen,
+                                          device=dev), dim=-1)
+        _, topi = blocks.moe_topk(gates, k)
+        cap = blocks.moe_capacity(MOE_TRAIN_CAPACITY, k, s, e)
+        src, _ = blocks.moe_dispatch(topi, e, cap)
+        x = torch.randn(b, s + 1, d, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+        idx = src[..., None].expand(b, e * cap, d)
+        dbuf = torch.randn(b, e * cap, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        cases["MoE dispatch gather backward (scatter_add, bf16)"] = (
+            lambda: torch.autograd.grad(torch.gather(x, 1, idx), x,
+                                        dbuf)[0])
+    return {name: torch.equal(fn(), fn()) for name, fn in cases.items()}
+
+
 def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
     """Train through ``repro_torch.launch.train.main``: ``steps`` steps of
-    batch 4 x seq 128 with remat, a checkpoint after the last step, then
+    batch 4 x seq 128 with remat, the step captured in a CUDA graph after
+    the first (the CLI's default), a checkpoint after the last step, then
     ``--resume`` (which restores it and has no step left to run): finite
-    loss and grad norm, exact launch counts of every step, restored
-    parameters and AdamW state bit-equal to the run's, and one step
-    through the kernels against the same step through the plain
-    versions; then one step traced with ``torch.profiler``."""
+    loss and grad norm, exact launch counts of every step (a replay counts
+    its graph's launches), restored parameters and AdamW state bit-equal
+    to the run's.  Then the same run on the eager loop
+    (``Trainer(cuda_graphs=False)``) with the same counts, and one eager
+    and one replayed step traced with ``torch.profiler``.  Then the
+    captured run's step metrics and final state against the eager run's
+    (``_check_same_run``; where the eager step does not repeat itself bit
+    for bit, a second eager run measures its spread, the ops that sum in
+    no fixed order are named, and the captured and eager runs are held
+    bit-equal under deterministic algorithms); a run stopped after its
+    first step with a checkpoint and resumed (captured) to ``steps``, held
+    to the uninterrupted captured run by the same rule; one step through
+    the kernels against the same step through the plain versions."""
     import dataclasses
     import shutil
 
@@ -3349,9 +3545,11 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
             "128", "--seed", "0"]
     if n_layers is not None:
         argv += ["--layers", str(n_layers)]
+    tol = TRAIN_TOL["int8" if policy == "int8" else "bf16"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     _reset_counters()
     ckpt = None
     try:
@@ -3365,29 +3563,39 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _read_counters()
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         model = trainer.model
         want = {key: v * steps for key, v in _want_train_launches(
             model.cfg, policy=policy).items()}
         log = trainer.metrics_log
+        graph = trainer.graph
+        pool_mb = trainer.graph_pool_bytes() / 2**20
         n_params = sum(p.numel() for p in tree_leaves(params))
         times = [r["time_s"] for r in log]
-        step_ms = 1e3 * float(np.median(times[1:])) if len(times) > 1 \
-            else 1e3 * times[0]
+        step_ms = 1e3 * float(np.median(times[1:]))
         print(f"[train:{label}] {model.cfg.name}, {model.cfg.n_layers} "
               f"layers, {n_params / 1e9:.3f} B f32 params, policy {policy}, "
-              f"remat, batch 4 x seq 128: {steps} steps in {wall:.2f} s "
-              f"(checkpoint included); losses "
+              f"remat, batch 4 x seq 128, captured: {steps} steps in "
+              f"{wall:.2f} s (checkpoint included); losses "
               f"{[round(r['loss'], 5) for r in log]}, grad norms "
               f"{[round(r['grad_norm'], 5) for r in log]}, step times (ms) "
               f"{[round(1e3 * t, 2) for t in times]}; median of steps 2.. "
-              f"{step_ms:.2f} ms = {TRAIN_TOKENS / step_ms * 1e3:.1f} "
-              f"tokens/s; peak {peak:.2f} GB allocated")
+              f"(replays) {step_ms:.2f} ms = "
+              f"{TRAIN_TOKENS / step_ms * 1e3:.1f} tokens/s; peak "
+              f"{peak:.2f} GB allocated")
+        print(f"[train:{label}] CUDA graphs: "
+              f"{0 if graph is None else 1} captured, "
+              f"{0 if graph is None else graph.replays} replays, "
+              f"{0.0 if graph is None else graph.capture_s:.3f} s "
+              f"capturing, pool {pool_mb:.2f} MB")
         print(f"[train:{label}] launches over {steps} steps: {counts}")
         if not all(np.isfinite(r["loss"]) and r["loss"] > 0
                    and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
                    for r in log) or len(log) != steps:
             raise AssertionError(f"train {label}: bad metrics {log}")
+        if graph is None or graph.replays != steps - 1:
+            raise AssertionError(f"train {label}: want one capture and "
+                                 f"{steps - 1} replays")
         if counts != {**{k: 0 for k in counts}, **want}:
             raise AssertionError(f"train {label}: launch counts {counts}, "
                                  f"want {want}")
@@ -3411,25 +3619,131 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
         del p_res, o_res
         gc.collect()
 
+        # (a) the same run on the eager loop; the captured run's final
+        # state kept on the host, since (c) runs on before the comparisons.
+        captured = _run_record(trainer, params, opt, host=True)
+        _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eager = _run_record(*_train_eager(torch, model, steps))
+        torch.cuda.synchronize()
+        eager_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        eager_counts = _read_counters()
+        eager_ms = 1e3 * float(np.median([r["time_s"]
+                                          for r in eager["log"][1:]]))
+        print(f"[train:{label}] eager loop (cuda_graphs=False): losses "
+              f"{[round(r['loss'], 5) for r in eager['log']]}, step times "
+              f"(ms) {[round(1e3 * r['time_s'], 2) for r in eager['log']]};"
+              f" median of steps 2.. {eager_ms:.2f} ms = "
+              f"{TRAIN_TOKENS / eager_ms * 1e3:.1f} tokens/s; peak "
+              f"{eager_peak:.2f} GB allocated above the captured run's "
+              f"state")
+        if eager_counts != counts:
+            raise AssertionError(f"train {label}: eager launch counts "
+                                 f"{eager_counts}, captured {counts}")
+
+        # (c) one eager and one replayed step, timed and traced before this
+        # process captures another graph: a replay traced after other
+        # graphs were captured and destroyed died on the card in the
+        # traced ``cudaGraphLaunch`` (a segmentation fault), where the same
+        # replay untraced, just before, had run.
         batch = device_batch(SyntheticLM(model.cfg.vocab, 4, 128,
                                          seed=7).next_batch(), "cuda")
-        errs = _train_kernel_vs_plain(torch, model, params, batch, label)
 
         def step():
             trainer.step_fn(params, opt, batch)
             torch.cuda.synchronize()
 
-        _profile_decode_step(torch, step, f"train:{label}", step_ms,
-                             what="one training step")
+        def replay():
+            graph.replay()
+            torch.cuda.synchronize()
+
+        traced = {}
+        for key, what, fn, tag, ms in (
+                ("eager_", "eager", step, label, eager_ms),
+                ("", "replayed", replay, f"{label}+graph", step_ms)):
+            busy, idle = _profile_decode_step(
+                torch, fn, f"train:{tag}", ms,
+                what=f"one {what} training step")
+            traced.update({f"{key}busy_ms": busy, f"{key}idle": idle})
+
+        d_eager = _train_distance(torch, captured, eager)
+        noise = ops = None
+        if not d_eager["equal"]:
+            again = _run_record(*_train_eager(torch, model, steps))
+            noise = _train_distance(torch, again, eager)
+            del again
+            print(f"[train:{label}] the eager loop against itself: "
+                  f"{_fmt_distance(noise)}")
+            ops = _nondeterministic_ops(torch, model)
+            print(f"[train:{label}] backward ops that repeat bit for bit "
+                  f"at this path's shapes: {ops}")
+        _check_same_run(label, "captured run vs eager run", d_eager, noise,
+                        tol)
+        del eager
+        gc.collect()
+        det = None
+        if noise is not None:
+            # Under deterministic algorithms the captured run must equal
+            # the eager run bit for bit: what differed was the eager step.
+            with _deterministic_algorithms(torch):
+                eager_det = _run_record(*_train_eager(torch, model, steps))
+                _reset_counters()
+                tr_det, p_det, o_det = train_cli.main(
+                    argv + ["--steps", str(steps)])
+                det = _train_distance(torch, _run_record(tr_det, p_det,
+                                                         o_det), eager_det)
+                det_ms = 1e3 * float(np.median([
+                    r["time_s"] for r in tr_det.metrics_log[1:]]))
+            del eager_det, tr_det, p_det, o_det
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[train:{label}] under deterministic algorithms, "
+                  f"captured (median step {det_ms:.2f} ms) vs eager: "
+                  f"{_fmt_distance(det)}")
+            if not det["equal"]:
+                raise AssertionError(f"train {label}: under deterministic "
+                                     f"algorithms the captured run differs "
+                                     f"from the eager run")
+
+        # (b) a resume in the middle of a captured run.
+        shutil.rmtree(ckpt)
+        Path(ckpt).mkdir()
+        train_cli.main(argv + ["--steps", "1", "--ckpt", ckpt,
+                               "--ckpt-every", "1"])
+        gc.collect()
+        tr_mid, p_mid, o_mid = train_cli.main(
+            argv + ["--steps", str(steps), "--ckpt", ckpt, "--resume"])
+        mid = _run_record(tr_mid, p_mid, o_mid)
+        if tr_mid.graph is None or tr_mid.graph.replays != steps - 2:
+            raise AssertionError(f"train {label}: the resumed run did not "
+                                 f"replay its steps")
+        tail = dict(captured, log=captured["log"][1:])
+        d_mid = _train_distance(torch, mid, tail)
+        _check_same_run(label, f"resumed after step 1 (captured, "
+                        f"{tr_mid.graph.replays} replays) vs the "
+                        f"uninterrupted captured run", d_mid, noise, tol)
+        del tr_mid, p_mid, o_mid, mid, tail, captured
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        errs = _train_kernel_vs_plain(torch, model, params, batch, label)
     finally:
         if ckpt:
             shutil.rmtree(ckpt, ignore_errors=True)
     return dict(counts=counts, step_ms=step_ms, wall_s=wall, peak_gb=peak,
-                tokens_per_s=TRAIN_TOKENS / step_ms * 1e3, **errs)
+                tokens_per_s=TRAIN_TOKENS / step_ms * 1e3,
+                eager_step_ms=eager_ms, eager_peak_gb=eager_peak,
+                eager_tokens_per_s=TRAIN_TOKENS / eager_ms * 1e3,
+                pool_mb=pool_mb, capture_s=graph.capture_s,
+                bit_equal=d_eager["equal"], eager_spread=noise,
+                nondeterministic_ops=ops, deterministic=det, resumed=d_mid,
+                **traced, **errs)
 
 
 def main():
     t_start = time.perf_counter()
+    faulthandler.enable()        # a crash in native code prints the stack
     try:
         import torch
     except ImportError:
@@ -3504,13 +3818,8 @@ def main():
         torch.cuda.empty_cache()
     print(f"[time] serve phases: {time.perf_counter() - t_phases:.1f} s")
     t_phases = time.perf_counter()
-    granite = "granite-moe-1b-a400m"
     trains = {}
-    for label, kw in (("granite-bf16", dict(arch=granite, policy="bf16",
-                                             steps=3)),
-                      ("phi3-int8-4-layers", dict(arch="phi3-mini-3.8b",
-                                                  policy="int8", steps=2,
-                                                  n_layers=4))):
+    for label, kw in TRAIN_PATHS.items():
         trains[label] = phase_train(torch, label=label, **kw)
         gc.collect()
         torch.cuda.empty_cache()

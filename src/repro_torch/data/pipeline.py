@@ -70,3 +70,37 @@ def device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
     """A host batch as torch tensors on ``device``."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+class StaticBatch:
+    """Device tensors at fixed addresses that take every host batch of one
+    shape in place, for a step that reads its batch by address (a captured
+    one: ``train.train_step.TrainStepGraph``).  Each batch goes through a
+    host twin, pinned on the card, by a non-blocking copy on the current
+    stream: the caller reads each step's result (which waits for the
+    copy) before it fills the next batch."""
+
+    def __init__(self, like: Dict[str, np.ndarray], device):
+        device = torch.device(device)
+        pin = device.type == "cuda"
+        like = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in like.items()}
+        self.host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                     for k, t in like.items()}
+        self.tensors = {k: torch.empty(t.shape, dtype=t.dtype, device=device)
+                        for k, t in like.items()}
+
+    def fill(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Copy ``batch`` into :attr:`tensors` (the same tensors every
+        call) and return them."""
+        if batch.keys() != self.tensors.keys():
+            raise ValueError(f"batch holds {sorted(batch)}, the static one "
+                             f"{sorted(self.tensors)}")
+        for k, arr in batch.items():
+            host = self.host[k]
+            if tuple(arr.shape) != tuple(host.shape):
+                raise ValueError(f"batch[{k!r}] has shape {arr.shape}, the "
+                                 f"static one {tuple(host.shape)}")
+            host.numpy()[...] = arr
+            self.tensors[k].copy_(host, non_blocking=True)
+        return self.tensors

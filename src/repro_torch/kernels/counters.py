@@ -15,7 +15,8 @@ docstrings of ``kernels/mpgemm.py``, ``kernels/flash_attention.py`` and
 A captured CUDA graph launches its kernels without their wrappers, so
 whoever captures one takes the counts' delta over the capture
 (:func:`count_delta`), rolls them back by it and adds it on each replay
-(:func:`add_launch_counts`): the counts stay launches executed.
+(:func:`add_launch_counts`): the counts stay launches executed
+(``core/cuda_graphs.py::CapturedStep`` does).
 """
 from __future__ import annotations
 

@@ -10,7 +10,10 @@ batches come from the seeded synthetic pipeline.  ``--ckpt DIR`` saves
 every ``--ckpt-every`` steps (in the background); ``--resume`` restores
 the latest checkpoint there and runs on to ``--steps``.  Without a card,
 leave ``--device cuda`` (the default) and the command exits non-zero;
-``--device cpu`` runs the plain PyTorch path.
+``--device cpu`` runs the plain PyTorch path.  On the card the step runs
+in a CUDA graph after its first eager step (``Trainer``); the ``CUDA
+graphs:`` line says how many were captured and replayed, the seconds the
+capture took and the MB its memory pool holds.
 """
 import argparse
 import dataclasses
@@ -73,6 +76,15 @@ def main(argv=None):
         params, opt, start = trainer.restore(params, opt)
         print(f"[train] resumed from step {start}")
     params, opt = trainer.run(params, opt, start_step=start)
+    graph = trainer.graph
+    if graph is not None:
+        print(f"[train] CUDA graphs: 1 captured, {graph.replays} replays, "
+              f"{graph.capture_s:.3f} s capturing, pool "
+              f"{trainer.graph_pool_bytes() / 2**20:.2f} MB")
+    else:
+        why = ("fewer than two steps to run" if trainer.cuda_graphs
+               else "off, the eager loop")
+        print(f"[train] CUDA graphs: none captured ({why})")
     print("[train] done; final loss",
           trainer.metrics_log[-1]["loss"] if trainer.metrics_log else "n/a")
     return trainer, params, opt

@@ -2,7 +2,8 @@
 chunked over the sequence so that the (B, S, V) logits are never held
 whole: each chunk's head GEMM (``mp_dot``, K1) and softmax run under
 ``torch.utils.checkpoint``, so the backward recomputes the chunk's logits,
-as the reference's checkpointed scan does."""
+as the reference's checkpointed scan does (without an RNG state: nothing
+here draws random numbers; ``LM._layer`` says why that matters)."""
 from __future__ import annotations
 
 import torch
@@ -45,5 +46,6 @@ def chunked_softmax_xent(hidden, head, labels, *, tied: bool = False,
         sl = slice(c0, c0 + chunk)
         total = total + checkpoint(
             _chunk_nll, hidden[:, sl], head, labels[:, sl], mask[:, sl],
-            tied, policy, valid_vocab, use_reentrant=False)
+            tied, policy, valid_vocab, use_reentrant=False,
+            preserve_rng_state=False)
     return total / mask.sum().clamp_min(1.0)

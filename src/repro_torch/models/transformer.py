@@ -323,9 +323,16 @@ class LM:
 
     def _layer(self, fn, *args):
         """``fn(*args)``, rematerialised in the backward when ``remat``
-        holds and autograd records the call."""
+        holds and autograd records the call.  The checkpoint keeps no RNG
+        state (``preserve_rng_state=False``): a training step draws no
+        random numbers (only the init does), so the recompute is exact
+        without it; and saving the card's generator state in the forward
+        and setting it again in the backward is host work that a captured
+        step (``train.train_step.TrainStepGraph``) would not repeat on a
+        replay."""
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         return fn(*args)
 
     def _encode(self, params, audio_embeds):

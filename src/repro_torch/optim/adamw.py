@@ -2,12 +2,14 @@
 ``repro.optim.adamw``).
 
 Parameters, gradients and both moments are nested dicts / lists of
-tensors; the moments are f32.  :func:`adamw_update` updates the parameters
-and the moments IN PLACE (the reference returns new trees): a checkpoint
-must copy them to the host before it hands them to a background writer
-(``checkpoint.Checkpointer.save`` does).  Every scalar (step, norm, scale,
-learning rate) stays a device tensor, so an update never waits on the
-host.
+tensors; the moments are f32.  :func:`adamw_update` updates the parameters,
+the moments and the step counter IN PLACE (the reference returns new
+trees): a checkpoint must copy them to the host before it hands them to a
+background writer (``checkpoint.Checkpointer.save`` does), and a captured
+step (``train.train_step.TrainStepGraph``) reads and writes each of them at
+one address, so the step count, the bias corrections and the schedule move
+on every replay.  Every scalar (step, norm, scale, learning rate) stays a
+device tensor, so an update never waits on the host.
 
 **Which leaves decay.**  The reference decays a leaf when ``p.ndim >= 2``,
 and it stacks each unit's layers (and the encoder) along a leading axis,
@@ -106,14 +108,14 @@ def global_norm(tree) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
                  decay, lr_scale=1.0):
-    """-> (params, state, metrics), parameters and moments updated in
-    place.  ``decay`` is :func:`decay_mask`'s tree; ``lr_scale`` a float
-    or a device tensor (:func:`cosine_schedule`)."""
+    """-> (params, state, metrics): the same trees, the parameters, the
+    moments and ``state.step`` updated in place.  ``decay`` is
+    :func:`decay_mask`'s tree; ``lr_scale`` a float or a device tensor
+    (:func:`cosine_schedule`)."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    step = state.step + 1
-    stepf = step.float()
+    stepf = state.step.add_(1).float()
     b1c = 1.0 - cfg.b1 ** stepf          # a Python base: no host copy
     b2c = 1.0 - cfg.b2 ** stepf
     lr = cfg.lr * lr_scale
@@ -129,7 +131,7 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
             delta = delta + cfg.weight_decay * p32
         p.copy_(p32 - lr * delta)
     metrics = {"grad_norm": gnorm, "clip_scale": scale}
-    return params, AdamWState(step, state.m, state.v), metrics
+    return params, state, metrics
 
 
 def cosine_schedule(step, *, base_lr=1.0, warmup=100, total=10000,

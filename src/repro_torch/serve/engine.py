@@ -43,6 +43,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.cuda_graphs import CapturedStep, pool_bytes
 from repro_torch.serve.kv_cache import PagedKVCache, cdiv
 
 
@@ -131,56 +132,35 @@ def _kv_token_bytes(model) -> int:
     return 2 * cfg.n_kv_heads * cfg.head_dim * itemsize * len(cfg.pattern)
 
 
-class StepGraph:
-    """``model.paged_step`` captured in one CUDA graph.
+class StepGraph(CapturedStep):
+    """``model.paged_step`` captured in one CUDA graph
+    (:class:`~repro_torch.core.cuda_graphs.CapturedStep`).
 
     ``inputs`` are the step's device inputs (tokens (B, c), block tables,
     q_start, n_valid): the graph reads them, the params and the KV pools
     ``caches`` at their captured addresses, so the caller fills them in
     place before each :meth:`replay`, which returns the graph's static
     logits (read them before another replay).  The caller has run one
-    eager step of the same shapes on ``stream`` first: kernels loaded,
-    TMA maps encoded, split workspaces at their final size.
-
-    The capture executes nothing, so it rolls back the launch counts it
-    ticked and keeps their delta (``launches``); each replay adds it.  It
-    holds what the graph reads or writes by address as long as itself:
-    the inputs, params and pools, and every split workspace alive at the
-    capture (a later growth of one replaces it, which would free memory
-    the graph still writes).
+    eager step of the same shapes on ``stream`` first.  A step that
+    rebinds a KV pool raises.
     """
 
     def __init__(self, model, params, caches, inputs, *, stream, pool):
-        from repro_torch.kernels import counters
-        from repro_torch.kernels.mpgemm import split_workspaces
-
-        self.graph = torch.cuda.CUDAGraph()
         pools = [t.data_ptr() for c in caches for t in c.values()]
-        before = counters.launch_counts()
-        t0 = time.perf_counter()
-        with torch.inference_mode(), torch.cuda.graph(self.graph, pool=pool,
-                                                      stream=stream):
-            self.logits, out = model.paged_step(params, inputs[0], caches,
-                                                *inputs[1:])
-        self.capture_s = time.perf_counter() - t0
-        self.launches = counters.count_delta(counters.launch_counts(),
-                                             before)
-        counters.add_launch_counts(self.launches, times=-1)
+
+        def step():
+            with torch.inference_mode():
+                return model.paged_step(params, inputs[0], caches,
+                                        *inputs[1:])
+
+        super().__init__(step, stream=stream, pool=pool,
+                         held=(inputs, params, caches))
+        self.logits, out = self.out
+        self.out = self.logits
         if out is not caches or pools != [t.data_ptr() for c in caches
                                           for t in c.values()]:
             raise RuntimeError("paged_step rebound a KV pool during the "
                                "capture; a graph writes the pools in place")
-        self._held = (inputs, params, caches, split_workspaces())
-        self.replays = 0
-
-    def replay(self) -> torch.Tensor:
-        """Run the captured step on the current stream; -> its logits."""
-        from repro_torch.kernels import counters
-
-        self.graph.replay()
-        counters.add_launch_counts(self.launches)
-        self.replays += 1
-        return self.logits
 
 
 class ServeEngine:
@@ -269,9 +249,7 @@ class ServeEngine:
 
     def graph_pool_bytes(self) -> int:
         """Bytes of the card's memory the captured steps' pool holds."""
-        pool = tuple(self._pool)
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s["segment_pool_id"]) == pool)
+        return pool_bytes(self._pool)
 
     def _sample(self, logits) -> np.ndarray:
         """Greedy tokens of (B, Vp) logits on the host (the copy waits for

@@ -1,10 +1,13 @@
 """Training step (port of ``repro.train.train_step``): gradients summed in
 f32 over microbatches, then one AdamW update (in place) with the cosine
-schedule."""
+schedule.  :class:`TrainStepGraph` captures the step in one CUDA graph, the
+port's counterpart of the reference's ``jax.jit(step_fn,
+donate_argnums=(0, 1))``: the state is updated in place either way."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.cuda_graphs import CapturedStep
 from repro_torch.optim.adamw import (
     AdamWConfig, AdamWState, adamw_update, cosine_schedule, decay_mask,
     tree_leaves, tree_map,
@@ -67,6 +70,43 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
         return params, opt_state, metrics
 
     return train_step
+
+
+class TrainStepGraph(CapturedStep):
+    """``train_step(params, opt, batch)`` (:func:`make_train_step`)
+    captured in one CUDA graph
+    (:class:`~repro_torch.core.cuda_graphs.CapturedStep`).
+
+    The graph reads and writes the parameters, the AdamW moments and step
+    counter, and reads ``batch`` (a dict of device tensors), all at their
+    captured addresses: the caller fills ``batch`` in place before each
+    :meth:`replay`, which updates the state in place and returns the
+    step's metrics (loss, grad norm, clip scale, lr scale) as static
+    device tensors that the next replay overwrites.  The caller has run
+    one eager step of the same shapes on ``stream`` first.  The backward
+    runs on autograd's device thread, on the stream of each op's forward:
+    the capture stream, so its launches land in the graph too.  A step
+    that rebinds a leaf of the state instead of writing it in place
+    raises (the graph would write a tensor nobody holds).
+    """
+
+    def __init__(self, train_step, params, opt: AdamWState, batch, *,
+                 stream, pool):
+        def addresses(*trees):
+            return [t.data_ptr() for tree in trees
+                    for t in tree_leaves(tree)]
+
+        state = addresses(params, opt)
+        super().__init__(lambda: train_step(params, opt, batch),
+                         stream=stream, pool=pool,
+                         held=(params, opt, batch))
+        p_out, o_out, self.metrics = self.out
+        self.out = self.metrics
+        if state != addresses(p_out, o_out) or state != addresses(params,
+                                                                  opt):
+            raise RuntimeError("the train step rebound a leaf of the "
+                               "parameters or the AdamW state during the "
+                               "capture; a graph updates them in place")
 
 
 def make_eval_step(model):

@@ -1984,3 +1984,136 @@ def test_workspace_grown_after_a_capture_keeps_the_replay(gen, case):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert all(bool((j == 7).all()) for j in junk)
+
+
+# --- the training step captured in a CUDA graph -------------------------------
+
+# Smoke-size models (2 layers, 96 wide): a dense one and the MoE one, whose
+# backward sums the dispatch gather's rows with bf16 atomics (in no fixed
+# order: its eager step need not repeat itself bit for bit).
+TRAIN_GRAPH_CASES = {"phi3-bf16": "phi3-mini-3.8b",
+                     "granite-bf16": "granite-moe-1b-a400m"}
+
+
+@pytest.fixture
+def deterministic():
+    """Deterministic algorithms for the test (warnings, not errors, where
+    an op has none), the setting before restored after it."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _trainer(case, graphs, steps=4, microbatches=1, ckpt=None):
+    from repro_torch.configs import base as cb
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    model = build_model(cb.get(TRAIN_GRAPH_CASES[case], smoke=True),
+                        policy="bf16", device="cuda")
+    return Trainer(model, ShapeConfig("t", 64, 4, "train"), TrainerConfig(
+        steps=steps, microbatches=microbatches, log_every=1000,
+        checkpoint_every=1, checkpoint_dir=ckpt,
+        opt=AdamWConfig(lr=1e-2)), seed=1, cuda_graphs=graphs)
+
+
+def _train(case, graphs, **kw):
+    """-> (trainer, the step metrics, the final state's leaves: params,
+    then the AdamW step, m and v; the step count, the launch counts of
+    the run)."""
+    from repro_torch.kernels import counters
+    from repro_torch.optim.adamw import tree_leaves
+    tr = _trainer(case, graphs, **kw)
+    counters.reset_launch_counts()
+    params, opt = tr.run()
+    torch.cuda.synchronize()
+    log = [(r["loss"], r["grad_norm"]) for r in tr.metrics_log]
+    return (tr, log, tree_leaves(params) + tree_leaves(opt), int(opt.step),
+            counters.launch_counts())
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("case", list(TRAIN_GRAPH_CASES))
+def test_captured_training_matches_eager(gen, case, microbatches):
+    """Four steps captured (the first eager, three replays) against the
+    eager loop: the same launch counts, and the same losses, grad norms
+    and final parameters, moments and step bit for bit -- or, where the
+    eager loop does not repeat itself, losses within 1e-2 and grad norms
+    within 5 % (the training gates), the bits held under deterministic
+    algorithms by the next test."""
+    tr, log, state, step, counts = _train(case, None,
+                                          microbatches=microbatches)
+    _, want_log, want, _, want_counts = _train(case, False,
+                                               microbatches=microbatches)
+    assert tr.graph is not None and tr.graph.replays == 3 and step == 4
+    assert tr.graph_pool_bytes() > 0
+    assert counts == want_counts and counts["k1"] > 0
+    if log == want_log and _same(state, want):
+        return
+    _, again_log, again, _, _ = _train(case, False,
+                                       microbatches=microbatches)
+    assert not (again_log == want_log and _same(again, want)), \
+        "the eager loop repeats itself and the captured run differs"
+    for (loss, gn), (wl, wg) in zip(log, want_log):
+        assert abs(loss - wl) <= 1e-2 and abs(gn - wg) <= 0.05 * wg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("case", list(TRAIN_GRAPH_CASES))
+def test_captured_training_matches_eager_deterministically(
+        gen, deterministic, case, microbatches):
+    """Under deterministic algorithms the captured run and the eager loop
+    agree bit for bit on every case."""
+    tr, log, state, step, counts = _train(case, None,
+                                          microbatches=microbatches)
+    _, want_log, want, _, want_counts = _train(case, False,
+                                               microbatches=microbatches)
+    assert tr.graph.replays == 3 and step == 4 and counts == want_counts
+    assert log == want_log and _same(state, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TRAIN_GRAPH_CASES))
+def test_captured_training_resumed_in_the_middle(gen, deterministic, case,
+                                                 tmp_path):
+    """A run stopped after its first step with a checkpoint, restored and
+    run on (captured: its first step eager, two replays) reaches the
+    uninterrupted captured run's metrics and state bit for bit."""
+    from repro_torch.optim.adamw import tree_leaves
+    _, log, want, _, _ = _train(case, None)
+    first = _trainer(case, None, steps=1, ckpt=str(tmp_path))
+    first.run()
+    assert first.graph is None                   # no step after the first
+    tr = _trainer(case, None, ckpt=str(tmp_path))
+    params, opt, start = tr.restore(*tr.init_state())
+    assert start == 1
+    params, opt = tr.run(params, opt, start_step=start)
+    torch.cuda.synchronize()
+    assert tr.graph.replays == 2 and int(opt.step) == 4
+    assert [(r["loss"], r["grad_norm"]) for r in tr.metrics_log] == log[1:]
+    assert _same(tree_leaves(params) + tree_leaves(opt), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TRAIN_GRAPH_CASES))
+def test_replays_count_the_eager_steps_launches(gen, case):
+    """The capture rolls its counts back and each replay adds the graph's:
+    after the eager first step and four replays the counts are five eager
+    steps', and the graph's delta is one eager step's."""
+    from repro_torch.kernels import counters
+    tr, _, _, _, counts = _train(case, None, steps=5)
+    per_step = tr.graph.launches
+    assert per_step["k1"] > 0 and per_step["k4"] > 0
+    assert counters.count_delta(counts, {k: 0 for k in counts}) == {
+        k: 5 * n for k, n in per_step.items()}
+    _, _, _, _, eager = _train(case, False, steps=1)
+    assert counters.count_delta(eager, {k: 0 for k in eager}) == per_step
