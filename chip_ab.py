@@ -25,16 +25,19 @@ eager steps of one tree compare in turns; ``serve:LABEL+fused`` serves
 the same path with its MLPs fused, for an A/B of ``--no-fuse`` at the
 same depth.  A label's rows share one serve a run.  A phase named
 ``train:LABEL`` trains the new tree's ``chip_smoke.TRAIN_PATHS[LABEL]``
-path through each tree's ``phase_train`` and reports the median training
-step on the host clock, with the step captured in a CUDA graph (a tree
-without the capture trains eagerly); ``train:LABEL+eager`` reads the same
-run's eager loop (``Trainer(cuda_graphs=False)``).  ``--turns N`` repeats
-the four runs N times (old, new, new, old, old, new, ...).  ``--harness
-new`` runs the new tree's ``chip_smoke.py`` kernel phases in every run,
-each on its own tree's kernels and wrappers: the same cases and timing on
-both sides, and rows the old tree's script did not report (``serve:``
-rows always run each tree's own script, whose checks hold its own
-kernels; the new script reads the launch counts through
+path through each tree's ``phase_train`` (under ``--harness new``, the
+new tree's ``phase_train`` on each tree's code: for a path the old script
+cannot check, such as ``granite-fp32``, whose f32 attention and fma
+launch counts an older script does not expect) and reports the median
+training step on the host clock, with the step captured in a CUDA graph
+(a tree without the capture trains eagerly); ``train:LABEL+eager`` reads
+the same run's eager loop (``Trainer(cuda_graphs=False)``).  ``--turns N``
+repeats the four runs N times (old, new, new, old, old, new, ...).
+``--harness new`` runs the new tree's ``chip_smoke.py`` kernel phases in
+every run, each on its own tree's kernels and wrappers: the same cases and
+timing on both sides, and rows the old tree's script did not report
+(``serve:`` rows always run each tree's own script, whose checks hold its
+own kernels; the new script reads the launch counts through
 ``repro_torch/kernels/counters.py``, so the old tree must have it).  The
 last lines print one row per result (marked ``new only`` or ``old only``
 where one tree lacks it): its times in run order, the change of the new
@@ -82,8 +85,8 @@ for name in phases:
     if name.startswith("train:"):
         label, _, mode = name[6:].partition("+")
         if label not in trained:
-            trained[label] = own.phase_train(torch, label=label,
-                                             **train[label])
+            trained[label] = cs.phase_train(torch, label=label,
+                                            **train[label])
         r = trained[label]
         # A tree without the captured step trains eagerly under either name.
         key = ("eager_step_ms" if mode == "eager" and "eager_step_ms" in r

@@ -18,8 +18,10 @@ printing a result:
    ``kernels/csrc/mpgemm_wgmma.cu`` for bf16, ``mpgemm_wgmma_int8.cu``
    for int8, whose MN-major operands are transposed in shared memory; f32
    operands on tf32x3, ``mpgemm_wgmma_f32.cu``, but those of the fp32
-   policy -- granite's router -- which keep f32 FMA arithmetic; they and
-   the rest on ``kernels/csrc/mpgemm.cu``'s scalar loops); then K1's int8
+   policy -- granite's router -- which keep f32 FMA arithmetic on the fma
+   design, ``mpgemm_fma.cu``, held bit for bit to the scalar loop and
+   timed beside it; the rest on ``kernels/csrc/mpgemm.cu``'s scalar
+   loops); then K1's int8
    variant (int8 operands, exact int32 sum, device scale) at the same
    shapes but the router, every launch on the wgmma design;
 3. K5 against its plain version at phi3-mini's and granite's attention
@@ -69,14 +71,22 @@ printing a result:
    column's stored tiles; the int8 edge case's rows of 3000 bytes on
    ``mpgemm_sparse.cu``), the same bits from two launches, each weight's
    largest and mean stored tiles a column printed;
-   after them (in the run's order) K1 ``trans_a``, K7 and the packed
-   backward of phase 8;
+   after them (in the run's order) K1 ``trans_a``, K1's fma design
+   (``phase_k1_fma``: every product of a granite fp32 training step --
+   forward, dX, dW, 2-D and grouped, the tied head -- the router at M =
+   1, 2, 16, 17, 32 and 512, ragged M, N and K of every transpose pair
+   and each epilogue kind, each case bit-equal to the scalar loop, the
+   same bits twice, within 1e-4 of the plain version, timed beside the
+   scalar loop, the plain version and ``torch.matmul``), K7 and the
+   packed backward of phase 8;
 7a. the op-level API (``phase_ops``) and the kernel variants only it
    reaches, each row driven once with every launch count at 0 and each
    case held against its plain version: the paper's 24 Table III GEMMs
    (``TABLE_III``, a copy of ``benchmarks/common.py``'s) through
    ``kernels.ops.mpgemm`` in f32 -> f32 (tf32x3, held to the tf32 peak;
-   ``bound_f32_fma_ms`` and ``bound_3xtf32_ms`` beside it), bf16 -> bf16 and
+   ``bound_f32_fma_ms`` and ``bound_3xtf32_ms`` beside it; and again on
+   the fma design, ``mpgemm(..., f32_fma=True)``, each shape first held
+   bit for bit to the scalar loop), bf16 -> bf16 and
    int8 -> int32 (equal to the plain version; ``torch.matmul`` and
    ``torch._int_mm`` as yardsticks), K1's beta·C and integer epilogues at
    W1, W13 and W19, int8 ``trans_a`` and ``trans_a`` + ``trans_b`` at W13
@@ -118,7 +128,8 @@ printing a result:
    which must give the same tokens.  Every launch count of each run is
    asserted (a replay counts its graph's launches), every bf16 and int8
    K1 launch must have run the wgmma design and none tf32x3 (the MoE
-   routers keep the fp32 policy's f32 FMA), every K2, grouped K2, K3 and
+   routers keep the fp32 policy's f32 FMA: every router launch on the fma
+   design), every K2, grouped K2, K3 and
    grouped K3 launch its wgmma design and every K5 launch K5's split or
    wgmma design, every step's logits are finite, and for each path one
    full-width mixed step through the kernels agrees with the same step
@@ -145,14 +156,18 @@ printing a result:
    int8 (K7, int8 K1), against the plain versions; then
    ``repro_torch.launch.train.main`` (``TRAIN_PATHS``): full-width
    granite-moe-1b-a400m, all 24 layers, bf16, batch 4 x seq 128, remat, 4
-   steps with a checkpoint, and phi3-mini at full width cut to 4 layers
-   under int8 (the STE), 4 steps -- each with the step captured in a CUDA
+   steps with a checkpoint, the same at 12 layers under fp32 (every
+   product on K1's fma design, attention on K4's f32 kernel), and
+   phi3-mini at full width cut
+   to 4 layers under int8 (the STE), 4 steps -- each with the step
+   captured in a CUDA
    graph (the CLI's default: the first step eager, then replays; the
    ``CUDA graphs:`` line) and again on the eager loop
    (``Trainer(cuda_graphs=False)``) from the same seed and batches:
    finite loss and grad norm, exact launch counts a step
    (``_want_train_launches``; the wgmma designs' among them: every bf16
-   and int8 K1 launch, every K4 launch), the captured run's losses, grad
+   and int8 K1 launch and every K4 launch under bf16 and int8; the fma
+   design every f32 one), the captured run's losses, grad
    norms and final parameters, AdamW moments and step equal to the eager
    run's (bit for bit, or, where the eager step does not repeat itself,
    by ``_check_same_run``'s rule, with the op that differs named and the
@@ -170,7 +185,8 @@ printing a result:
 
 Times come from CUDA events around single launches, each after a 256 MiB
 write that evicts the 50 MB L2 (serving reads every weight cold once per
-step).  A kernel's decode-step time is the sum over one full-width decode
+step) and a spin of the card that hides the wrapper's host work
+(``Timer``).  A kernel's decode-step time is the sum over one full-width decode
 step's launches at M = 2, each timed alone.  ``bound_ms`` is the larger of
 bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16, 67 TFLOP/s f32,
 1979 TOP/s int8), counting each input read once and each output written
@@ -231,7 +247,16 @@ def _card_line():
 
 
 class Timer:
-    """Mean device milliseconds of single launches, each on a cold L2."""
+    """Mean device milliseconds of single launches, each on a cold L2.
+
+    The card spins for ``SPIN_CYCLES`` after the flush, before the start
+    event: the host's work in ``fn`` before its launch (a wrapper's
+    checks, some tens of microseconds) then runs while the card is busy,
+    and the events time the launch alone.  Without it, a wrapper slower
+    than the flush left the card idle inside the timed span, and a
+    launch of a few microseconds read up to 50 % high, at random."""
+
+    SPIN_CYCLES = 1_000_000      # about 0.5 ms at an H100's clock
 
     def __init__(self, torch):
         self.torch = torch
@@ -245,6 +270,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -366,9 +392,14 @@ def phase_k1(torch, timer):
                       per_step=0, model=None))
 
     # Decode steps (M = 2) by model, and the same launches at M = 32 (a
-    # 32-token chunk of prefill).
+    # 32-token chunk of prefill); granite's routers alone (the fp32
+    # policy's f32 FMA: the fma design, held to the scalar loop bit for
+    # bit, whose time is kept beside it).
     steps = {"phi3": StepSum(), "granite": StepSum(),
-             "phi3-m32": StepSum(), "granite-m32": StepSum()}
+             "phi3-m32": StepSum(), "granite-m32": StepSum(),
+             "granite-router": StepSum(), "granite-router-m32": StepSum()}
+    scalar_ms = {"granite-router": 0.0, "granite-router-m32": 0.0}
+    has_fma = _rule("k1_fma_tile") is not None
     for c in cases:
         m, k, n, dt = c["m"], c["k"], c["n"], c["dtype"]
         a = torch.randn(m, k, generator=gen, device="cuda").to(dt)
@@ -400,11 +431,20 @@ def phase_k1(torch, timer):
                 bias=None if bias is None else bias.reshape(1, -1),
                 extras=extras).to(dt)
 
+        def scalar():
+            return _k1_scalar(torch, a, w, trans_b=c["trans_b"], bias=bias,
+                              extras=extras, epilogue=ep, out_dtype=dt)
+
+        label = f"K1 {c['name']} m={m} k={k} n={n}"
         (got, design), ref = _k1_design_of(kern), plain()
+        router = c["model"] == "granite" and dt == f32
+        if router and has_fma and design != "fma":
+            raise AssertionError(f"{label}: ran {design}, want fma")
+        if design == "fma":
+            _check_fma_bits(torch, label, got, kern(), scalar())
         torch.cuda.synchronize()
         tol = TOL[_dtype_name(dt)]
-        err = _check_close(torch, f"K1 {c['name']} m={m} k={k} n={n}", got,
-                           ref, tol)
+        err = _check_close(torch, label, got, ref, tol)
         for model in ([c["model"], f"{c['model']}-m32"] if c["model"]
                       else steps):
             steps[model].max_abs_err = max(steps[model].max_abs_err, err)
@@ -415,26 +455,45 @@ def phase_k1(torch, timer):
         bound, bound_by = _bound_ms(n_bytes, n_ops,
                                     _peak_of(design, _dtype_name(dt)))
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+        sc_ms = timer(scalar) if router else None
         print(f"[k1] {c['name']:>10} {_dtype_name(dt):>8} {design:>5} "
               f"m={m:<3} k={k:<5} n={n:<6} trans_b={c['trans_b']:d} "
               f"{c['kind']:>8}/{c['act']}: "
-              f"err {err:.2e} (rtol {tol['rtol']}, atol {tol['atol']})  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
+              f"err {err:.2e} (rtol {tol['rtol']}, atol {tol['atol']})"
+              + ("  bit-equal to the scalar loop, deterministic"
+                 if design == "fma" else "")
+              + f"  kernel {ms:.4f} ms"
+              + (f"  scalar loop {sc_ms:.4f}" if router else "")
+              + f"  plain {plain_ms:.4f}  library "
               f"{lib_ms:.4f}  bound {bound:.4f} ({bound_by})  "
               f"{n_bytes / ms / 1e6:.1f} GB/s")
         if c["per_step"]:
             key = c["model"] if m == 2 else f"{c['model']}-m32"
             steps[key].add(c["per_step"], ms, plain_ms, lib_ms, bound,
                            n_bytes, n_ops)
+            if router:
+                key = key.replace("granite", "granite-router")
+                steps[key].add(c["per_step"], ms, plain_ms, lib_ms, bound,
+                               n_bytes, n_ops)
+                steps[key].max_abs_err = max(steps[key].max_abs_err, err)
+                scalar_ms[key] += c["per_step"] * sc_ms
     rows = {}
     for model, step in steps.items():
-        row = rows[model] = step.row("bfloat16")
+        router = model.startswith("granite-router")
+        row = rows[model] = step.row("float32" if router else "bfloat16")
         what = ("M=32 chunk of prefill" if model.endswith("-m32") else
                 "decode step (M=2)")
+        if router:
+            row["scalar_ms"] = scalar_ms[model]
         print(f"[k1] one full-width {model.split('-')[0]} {what}, "
-              f"{step.launches} launches: kernel {row['ms']:.3f} ms, plain "
-              f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} "
-              f"ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+              f"{step.launches} "
+              + ("router " if router else "")
+              + f"launches: kernel {row['ms']:.3f} ms, "
+              + (f"scalar loop {row['scalar_ms']:.3f} ms, " if router
+                 else "")
+              + f"plain {row['plain_ms']:.3f} ms, library "
+              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
     return rows
 
 
@@ -716,6 +775,9 @@ K4_CASES = [
     ("phi3-prefill", 2, 32, 32, 32, 32, 96, True, None, "bfloat16"),
     ("gqa-window", 2, 32, 8, 64, 600, 120, True, 256, "bfloat16"),
     ("f32-gqa", 2, 8, 2, 48, 300, 64, True, None, "float32"),
+    # granite's attention in an fp32 training step (batch 4 x seq 128,
+    # GQA 16:8, D 64, causal): K4's f32 kernel.
+    ("granite-train-f32", 4, 16, 8, 128, 128, 64, True, None, "float32"),
 ]
 WHISPER_LAYERS = 24
 PHI3_LAYERS = 32
@@ -804,13 +866,13 @@ def phase_k4(torch, timer):
               f"bound {bound:.4f} ({bound_by})  "
               f"{n_ops / ms / 1e9:.1f} TFLOP/s")
 
-    def total(label, parts):
+    def total(label, parts, peak="bfloat16"):
         """Times of the launches ``parts`` = {case: launches} summed."""
         out = {key: sum(n * rows[c][key] for c, n in parts.items())
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         n_bytes = sum(n * rows[c]["bytes"] for c, n in parts.items())
         n_ops = sum(n * rows[c]["ops"] for c, n in parts.items())
-        out["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")[1]
+        out["bound_by"] = _bound_ms(n_bytes, n_ops, peak)[1]
         out["max_abs_err"] = max(rows[c]["max_abs_err"] for c in rows)
         print(f"[k4] {label} ({sum(parts.values())} launches): kernel "
               f"{out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, library "
@@ -828,6 +890,10 @@ def phase_k4(torch, timer):
                                 {"whisper-decode-cross": L}),
         "phi3-prefill": total("one phi3-mini wave prefill of 32 tokens",
                               {"phi3-prefill": PHI3_LAYERS}),
+        "granite-train-f32": total(
+            "the forward and remat launches of one full-depth granite fp32 "
+            "training step", {"granite-train-f32": 2 * GRANITE_LAYERS},
+            "float32"),
     }
 
 
@@ -1516,9 +1582,55 @@ def _check_k4_designs(label, counts):
 
 
 def _k1_design_of(call):
-    """Run ``call`` (one K1 launch) -> (its output, "wgmma", "tf32x3" or
-    "simt")."""
-    return _design_of(call, ("k1", "k1g"), ("wgmma", "tf32x3"))
+    """Run ``call`` (one K1 launch) -> (its output, "wgmma", "tf32x3",
+    "fma" or "simt")."""
+    return _design_of(call, ("k1", "k1g"), ("wgmma", "tf32x3", "fma"))
+
+
+def _k1_scalar(torch, a, b, *, trans_a=False, trans_b=False, bias=None,
+               extras=(), c=None, epilogue=None, out_dtype=None):
+    """K1's scalar loop (``csrc/mpgemm.cu``) on these operands, launched
+    through its library (``_lib().mpgemm_launch``) whatever ``k1_design``
+    says: the oracle the fma design is held to bit for bit.  Counts no
+    launch."""
+    from repro_torch.core.gemm_spec import LINEAR
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mpgemm as mk
+
+    epilogue = epilogue or LINEAR
+    g = a.shape[0] if a.dim() == 3 else 1
+    m, k = a.shape[-2:][::-1] if trans_a else a.shape[-2:]
+    n = b.shape[-2] if trans_b else b.shape[-1]
+    out = torch.empty(*a.shape[:-2], m, n, dtype=out_dtype or a.dtype,
+                      device=a.device)
+    kept, (bi, ex, cp, rs, sc, out_dt, c_dt, bias_stride, kind, act, alpha,
+           beta) = mk._epilogue_args(a, out, c, bias, None, tuple(extras),
+                                     epilogue, False)
+    lib = mk._lib()
+    rc = lib.mpgemm_launch(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc, g, m,
+        n, k, bias_stride, mk._DTYPE_CODES[a.dtype], out_dt, c_dt,
+        int(trans_a), int(trans_b), kind, act, alpha, beta,
+        _build.current_stream(a))
+    if rc != 0:
+        raise RuntimeError(f"scalar K1 launch failed: CUDA error {rc} "
+                           f"({lib.mpgemm_error_string(rc).decode()})")
+    del kept
+    return out
+
+
+def _check_fma_bits(torch, label, got, again, scalar):
+    """The fma design's output ``got`` against a second launch's
+    (``again``) and the scalar loop's (``scalar``), bit for bit; -> the
+    scalar loop's max |diff| (0.0)."""
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches of the fma design "
+                             f"differ")
+    if not torch.equal(got, scalar):
+        diff = (got.float() - scalar.float()).abs().max().item()
+        raise AssertionError(f"{label}: the fma design is not bit-equal to "
+                             f"the scalar loop (max |diff| {diff:.3e})")
+    return 0.0
 
 
 def _check_wgmma(label, got, want):
@@ -1647,6 +1759,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     wgmma["k5"] = (counters["k5"].wgmma_launches
                    + counters["k5"].split_launches)
     tf32x3 = counters["k1"].tf32x3_launches
+    fma = getattr(counters["k1"], "fma_launches", None)
     k5_designs = {d: getattr(counters["k5"], f"{d}_launches")
                   for d in ("split", "wgmma")}
     n_steps = len(eng.step_telemetry)
@@ -1695,19 +1808,24 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
         k1g=per_step["k1g"] * n_steps, k2=counts["k2"], k2g=counts["k2g"],
         k3=counts["k3"], k3g=counts["k3g"], k5=counts["k5"]))
     print(f"[serve:{label}] K5 designs: split {k5_designs['split']}, wgmma "
-          f"{k5_designs['wgmma']}; K1 tf32x3 {tf32x3}")
+          f"{k5_designs['wgmma']}; K1 tf32x3 {tf32x3}, fma {fma} (the f32 "
+          f"routers)")
     if tf32x3:
         raise AssertionError(f"serve:{label}: {tf32x3} K1 launches on "
                              f"tf32x3; the f32 routers keep the fp32 "
                              f"policy's f32 FMA")
+    if fma is not None and fma != routers * n_steps:
+        raise AssertionError(f"serve:{label}: {fma} K1 launches on the fma "
+                             f"design, want every router's "
+                             f"({routers * n_steps})")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                  steps=n_steps, payload_gb=payload / 1e9,
                  decode_step_ms=1e3 * float(np.median(decode)),
                  ttft_ms=1e3 * float(np.median(prefill)), **counts,
                  k2_wgmma=wgmma["k2"], k2g_wgmma=wgmma["k2g"],
                  k3_wgmma=wgmma["k3"], k3g_wgmma=wgmma["k3g"],
-                 k5_designs=k5_designs, graphs=len(graphs), replays=replays,
-                 capture_s=capture_s, pool_mb=pool_mb)
+                 k1_fma=fma, k5_designs=k5_designs, graphs=len(graphs),
+                 replays=replays, capture_s=capture_s, pool_mb=pool_mb)
     del eng, graphs
     # The same requests on the eager step: the same tokens, and the
     # wrappers' own counts (no K6: the weights are loaded).
@@ -1996,6 +2114,7 @@ def _decode_step_times(torch, step, steps=5):
 TRACE_KERNELS = (("mpgemm_sparse", "K3"),
                  ("mpgemm_packed_wgmma_kernel", "K2 wgmma"),
                  ("mpgemm_packed_kernel", "K2"), ("mpgemm_int8_kernel", "K1"),
+                 ("mpgemm_fma_kernel", "K1 fma"),
                  ("mpgemm_kernel", "K1"), ("mpgemm_wgmma_kernel", "K1 wgmma"),
                  ("paged_flash_kernel", "K5"),
                  ("paged_wgmma_kernel", "K5 wgmma"),
@@ -2320,7 +2439,9 @@ def phase_k1_trans_a(torch, timer):
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     steps = {"granite": StepSum(), "granite-grouped": StepSum(),
-             "phi3": StepSum()}
+             "phi3": StepSum(), "granite-router": StepSum()}
+    router_scalar_ms = 0.0
+    has_fma = _rule("k1_fma_tile") is not None
     for name, model, m, n, dt, per_step, g in TRANS_A_CASES:
         dtype = getattr(torch, dt)
         t = GRANITE_TRAIN_ROWS if g else TRAIN_TOKENS
@@ -2340,7 +2461,18 @@ def phase_k1_trans_a(torch, timer):
         def library():
             return torch.matmul(a.transpose(-1, -2), b).float()
 
+        def scalar():
+            return _k1_scalar(torch, a, b, trans_a=True,
+                              out_dtype=torch.float32)
+
         (got, design), again, ref = _k1_design_of(kern), kern(), plain()
+        router = dtype == torch.float32
+        if router and has_fma and design != "fma":
+            raise AssertionError(f"K1 trans_a {name}: ran {design}, want "
+                                 f"fma")
+        if design == "fma":
+            _check_fma_bits(torch, f"K1 trans_a {name}", got, again,
+                            scalar())
         torch.cuda.synchronize()
         err = _check_close(torch, f"K1 trans_a {name}", got, ref,
                            TOL["float32"])
@@ -2351,22 +2483,252 @@ def phase_k1_trans_a(torch, timer):
         n_ops = 2 * groups * m * n * t
         bound, bound_by = _bound_ms(n_bytes, n_ops, _peak_of(design, dt))
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+        sc_ms = timer(scalar) if router else None
         print(f"[k1-trans_a] {name:>18} {dt:>8} {design:>5} G={g or 1:<2} "
               f"M={m:<5} "
               f"N={n:<5} K={t}: err {err:.2e} (f32 out, rtol 1e-4, atol "
-              f"1e-4), deterministic  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f}  library {lib_ms:.4f}  bound {bound:.4f} "
-              f"({bound_by})  {n_ops / ms / 1e9:.1f} TFLOP/s")
+              f"1e-4), deterministic"
+              + (", bit-equal to the scalar loop" if design == "fma" else "")
+              + f"  kernel {ms:.4f} ms"
+              + (f"  scalar loop {sc_ms:.4f}" if router else "")
+              + f"  plain {plain_ms:.4f}  library {lib_ms:.4f}  bound "
+              f"{bound:.4f} ({bound_by})  {n_ops / ms / 1e9:.1f} TFLOP/s")
         key = f"{model}-grouped" if g else model
-        steps[key].max_abs_err = max(steps[key].max_abs_err, err)
-        steps[key].add(per_step, ms, plain_ms, lib_ms, bound, n_bytes, n_ops)
+        for key in (key, "granite-router") if router else (key,):
+            steps[key].max_abs_err = max(steps[key].max_abs_err, err)
+            steps[key].add(per_step, ms, plain_ms, lib_ms, bound, n_bytes,
+                           n_ops)
+        if router:
+            router_scalar_ms += per_step * sc_ms
     rows = {}
     for key, acc in steps.items():
-        rows[key] = acc.row("bfloat16")
+        rows[key] = acc.row("float32" if key == "granite-router"
+                            else "bfloat16")
+        if key == "granite-router":
+            rows[key]["scalar_ms"] = router_scalar_ms
         print(f"[k1-trans_a] the dW GEMMs of one {key} training step "
-              f"({acc.launches} launches): kernel {acc.ms:.3f} ms, plain "
-              f"{acc.plain_ms:.3f} ms, library {acc.library_ms:.3f} ms, "
-              f"bound {acc.bound_ms:.3f} ms ({rows[key]['bound_by']})")
+              f"({acc.launches} launches): kernel {acc.ms:.3f} ms, "
+              + (f"scalar loop {router_scalar_ms:.3f} ms, "
+                 if key == "granite-router" else "")
+              + f"plain {acc.plain_ms:.3f} ms, library {acc.library_ms:.3f} "
+              f"ms, bound {acc.bound_ms:.3f} ms ({rows[key]['bound_by']})")
+    return rows
+
+
+# K1's fma design (the fp32 policy's f32 FMA) at the shapes of a granite
+# training step under ``--policy fp32`` (512 tokens, 24 layers, remat; 32
+# experts of 160 rows): (name, G, M, N, K, trans_a, trans_b, epilogue
+# kind, activation, launches per step).  Forward (twice: remat), dX
+# (``trans_b``) and dW (``trans_a``) of wq/wo (1024 x 1024), wk/wv (1024 x
+# 512) and the router (1024 x 32); the tied head (the (49280, 1024)
+# embedding read as B^T), its dX and dW; the expert stacks' up/gate (the
+# gate fused, and its z again in the backward) and down.  The launches add
+# up to ``_want_train_launches``' 484 2-D and 312 grouped K1 launches a
+# step.
+L_, T_, E_ = GRANITE_LAYERS, TRAIN_TOKENS, GRANITE_EXPERTS
+R_, V_ = GRANITE_TRAIN_ROWS, GRANITE_VOCAB_PADDED
+FMA_TRAIN_CASES = [
+    ("wq/wo", 1, T_, 1024, 1024, False, False, "linear", None, 4 * L_),
+    ("wk/wv", 1, T_, 512, 1024, False, False, "linear", None, 4 * L_),
+    ("router", 1, T_, 32, 1024, False, False, "linear", None, 2 * L_),
+    ("wq/wo dX", 1, T_, 1024, 1024, False, True, "linear", None, 2 * L_),
+    ("wk/wv dX", 1, T_, 1024, 512, False, True, "linear", None, 2 * L_),
+    ("router dX", 1, T_, 1024, 32, False, True, "linear", None, L_),
+    ("wq/wo dW", 1, 1024, 1024, T_, True, False, "linear", None, 2 * L_),
+    ("wk/wv dW", 1, 1024, 512, T_, True, False, "linear", None, 2 * L_),
+    ("router dW", 1, 1024, 32, T_, True, False, "linear", None, L_),
+    ("head", 1, T_, V_, 1024, False, True, "linear", None, 2),
+    ("head dX", 1, T_, 1024, V_, False, False, "linear", None, 1),
+    ("head dW", 1, V_, 1024, T_, True, False, "linear", None, 1),
+    ("experts up/gate", E_, R_, 512, 1024, False, False, "gated", "silu",
+     5 * L_),
+    ("experts down", E_, R_, 1024, 512, False, False, "linear", None,
+     2 * L_),
+    ("experts up/gate dX", E_, R_, 1024, 512, False, True, "linear", None,
+     2 * L_),
+    ("experts down dX", E_, R_, 512, 1024, False, True, "linear", None, L_),
+    ("experts up/gate dW", E_, 1024, 512, R_, True, False, "linear", None,
+     2 * L_),
+    ("experts down dW", E_, 512, 1024, R_, True, False, "linear", None, L_),
+]
+# The router at every M a step gives it (decode, chunks, 17 rows: the
+# first ragged M past the 16-row tile; 512 tokens), ragged M, N and K
+# edges of every transpose pair (K not a multiple of the stage, M and N
+# not of the tile), and each epilogue kind, 2-D and grouped: (name, G, M,
+# N, K, trans_a, trans_b, kind, activation, bias, beta, output dtype).
+FMA_EDGE_CASES = [
+    (f"router m={m}", 1, m, 32, 1024, False, False, "linear", None, False,
+     0.0, "float32") for m in (1, 2, 16, 17, 32, 512)
+] + [
+    ("ragged", 3, 37, 44, 1004, False, False, "linear", None, False, 0.0,
+     "float32"),
+    ("ragged trans_a", 3, 36, 44, 999, True, False, "linear", None, False,
+     0.0, "float32"),
+    ("ragged trans_b", 3, 37, 45, 1004, False, True, "linear", None, False,
+     0.0, "float32"),
+    ("ragged trans_a+b", 3, 36, 45, 1004, True, True, "linear", None, False,
+     0.0, "float32"),
+    ("K 9, trans_a", 1, 20, 12, 9, True, False, "linear", None, False, 0.0,
+     "float32"),
+    ("bias gelu", 1, 33, 40, 200, False, False, "linear", "gelu", True, 0.0,
+     "float32"),
+    ("gated silu, bf16 out", 2, 6, 40, 200, False, False, "gated", "silu",
+     False, 0.0, "bfloat16"),
+    ("residual", 1, 130, 136, 72, False, True, "residual", None, True, 0.0,
+     "float32"),
+    ("quant_in", 2, 40, 36, 64, False, False, "quant_in", "silu", False,
+     0.0, "float32"),
+    ("quant_in residual", 1, 8, 36, 64, True, False, "quant_in_residual",
+     None, False, 0.0, "bfloat16"),
+    ("beta*C", 2, 200, 264, 300, False, False, "linear", None, True, 0.5,
+     "float32"),
+]
+del L_, T_, E_, R_, V_
+
+
+def phase_k1_fma(torch, timer):
+    """K1's fma design (``csrc/mpgemm_fma.cu``, what ``mpgemm(...,
+    f32_fma=True)`` runs for aligned f32 operands: the fp32 policy's
+    products) at the shapes of a granite training step under fp32
+    (``FMA_TRAIN_CASES``) and at ``FMA_EDGE_CASES``: each case bit-equal
+    to the scalar loop (``csrc/mpgemm.cu``, launched directly), the same
+    bits from two launches, within f32's 1e-4 of the plain version (bf16
+    outputs: the bf16 tolerance), timed beside the scalar loop, the plain
+    version and ``torch.matmul`` (f32 with TF32 off; the epilogue, where
+    there is one, in torch ops after it), with its tile
+    (``k1_fma_tile``).  -> rows: one granite fp32 training step's 2-D and
+    grouped products (each case weighted by its launches a step), the
+    routers' forward, dX and dW of a training step (the f32 products of a
+    bf16 step), the router at decode (M = 2) and the edge cases."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
+        apply_epilogue
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped, \
+        mpgemm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tile_of = _rule("k1_fma_tile")
+    cases = [dict(name=name, g=g, m=m, n=n, k=k, ta=ta, tb=tb, kind=kind,
+                  act=act, bias=False, beta=0.0, out="float32",
+                  per_step=per_step, train=True)
+             for name, g, m, n, k, ta, tb, kind, act, per_step
+             in FMA_TRAIN_CASES]
+    cases += [dict(name=name, g=g, m=m, n=n, k=k, ta=ta, tb=tb, kind=kind,
+                   act=act, bias=bias, beta=beta, out=out, per_step=0,
+                   train=False)
+              for name, g, m, n, k, ta, tb, kind, act, bias, beta, out
+              in FMA_EDGE_CASES]
+    sums = {"granite-fp32-train-2d": StepSum(),
+            "granite-fp32-train-grouped": StepSum(),
+            "granite-routers-train": StepSum(),
+            "router-decode": StepSum(), "edges": StepSum()}
+    scalar_sums = dict.fromkeys(sums, 0.0)
+    f32 = torch.float32
+    for c in cases:
+        g, m, n, k, ta, tb = c["g"], c["m"], c["n"], c["k"], c["ta"], c["tb"]
+        grouped = g > 1 or c["train"] and c["name"].startswith("experts")
+        lead = (g,) if grouped else ()
+        out_dtype = getattr(torch, c["out"])
+        a = torch.randn(*lead, *((k, m) if ta else (m, k)), generator=gen,
+                        device="cuda")
+        b = torch.randn(*lead, *((n, k) if tb else (k, n)), generator=gen,
+                        device="cuda") * k ** -0.5
+        bias = (torch.randn(*lead, n, generator=gen, device="cuda")
+                if c["bias"] else None)
+        extras = ()
+        if c["kind"].startswith("quant_in"):
+            extras = (torch.rand(*lead, m, 1, generator=gen, device="cuda")
+                      + 0.5,)
+        if c["kind"] in ("gated", "residual", "quant_in_residual"):
+            extras += (torch.randn(*lead, m, n, generator=gen,
+                                   device="cuda").to(out_dtype),)
+        cc = (torch.randn(*lead, m, n, generator=gen, device="cuda")
+              if c["beta"] else None)
+        ep = EpilogueSpec(kind=c["kind"], activation=c["act"],
+                          alpha=1.5 if c["beta"] else 1.0, beta=c["beta"])
+        fn = mpgemm_grouped if grouped else mpgemm
+        spec = GemmSpec(grouped=grouped, trans_a=ta, trans_b=tb)
+        kw = dict(bias=bias, extras=extras, c=cc, epilogue=ep,
+                  out_dtype=out_dtype)
+        at = a.transpose(-1, -2) if ta else a
+        bt = b.transpose(-1, -2) if tb else b
+
+        def kern():
+            return fn(a, b, spec=spec, f32_fma=True, **kw)
+
+        def scalar():
+            return _k1_scalar(torch, a, b, trans_a=ta, trans_b=tb, **kw)
+
+        def plain():
+            return mpgemm_plain(a, b, trans_a=ta, trans_b=tb, **kw)
+
+        def library():
+            acc = torch.matmul(at, bt)
+            if c["kind"] == "linear" and bias is None and cc is None:
+                return acc
+            return apply_epilogue(
+                ep, acc, c=cc, extras=extras,
+                bias=None if bias is None else bias.unsqueeze(-2)).to(
+                    out_dtype)
+
+        label = f"K1 fma {c['name']}"
+        (got, design), ref = _k1_design_of(kern), plain()
+        if tile_of is not None and design != "fma":
+            raise AssertionError(f"{label}: ran {design}, want fma")
+        if design == "fma":
+            _check_fma_bits(torch, label, got, kern(), scalar())
+        torch.cuda.synchronize()
+        tol = TOL[c["out"]]
+        err = _check_close(torch, label, got, ref, tol)
+        del got, ref
+        esz = out_dtype.itemsize
+        n_bytes = 4 * g * (m * k + k * n) + g * m * n * esz * (
+            1 + sum(t.shape[-1] == n for t in extras)) + 4 * g * m * sum(
+            t.shape[-1] == 1 for t in extras) + (
+            4 * bias.numel() if bias is not None else 0) + (
+            4 * cc.numel() if cc is not None else 0)
+        n_ops = 2 * g * m * n * k
+        bound, bound_by = _bound_ms(n_bytes, n_ops, "float32")
+        ms, sc_ms = timer(kern), timer(scalar)
+        plain_ms, lib_ms = timer(plain), timer(library)
+        tile = tile_of(m, n, k, g) if tile_of else None
+        print(f"[k1-fma] {c['name']:>22} {design:>4} "
+              + (f"{tile[0]}x{tile[1]} " if tile else "")
+              + f"G={g:<2} M={m:<5} N={n:<5} K={k:<5} ta={ta:d} tb={tb:d} "
+              f"{c['kind']}/{c['act']} -> {c['out']}: err {err:.2e} (rtol "
+              f"{tol['rtol']}, atol {tol['atol']}), bit-equal to the scalar "
+              f"loop, deterministic  kernel {ms:.4f} ms  scalar loop "
+              f"{sc_ms:.4f}  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
+              f"bound {bound:.4f} ({bound_by})  {n_ops / ms / 1e9:.2f} "
+              f"TFLOP/s")
+        if c["train"]:
+            key = ("granite-fp32-train-grouped" if grouped
+                   else "granite-fp32-train-2d")
+            per = c["per_step"]
+        else:
+            key, per = ("router-decode" if c["name"] == "router m=2"
+                        else "edges"), 1
+        keys = (key,)
+        if key == "router-decode":
+            keys = (key, "edges")
+        elif c["train"] and c["name"].startswith("router"):
+            keys = (key, "granite-routers-train")   # bf16 training's too
+        for k_ in keys:
+            sums[k_].add(per, ms, plain_ms, lib_ms, bound, n_bytes, n_ops)
+            sums[k_].max_abs_err = max(sums[k_].max_abs_err, err)
+            scalar_sums[k_] += per * sc_ms
+        del a, b, bias, extras, cc, at, bt
+    rows = {}
+    for key, acc in sums.items():
+        row = rows[key] = acc.row("float32")
+        row["scalar_ms"] = scalar_sums[key]
+        row["launches_per_step"] = acc.launches
+        print(f"[k1-fma] {key} ({acc.launches} launches): kernel "
+              f"{row['ms']:.3f} ms, scalar loop {row['scalar_ms']:.3f} ms, "
+              f"plain {row['plain_ms']:.3f} ms, library "
+              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']})")
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2645,16 +3007,21 @@ TABLE_III_DESIGN = {"float32": "tf32x3", "bfloat16": "wgmma",
                     "int8": "wgmma"}
 
 
-def _table3_row(torch, timer, gen, dt, check_design=True):
+def _table3_row(torch, timer, gen, dt, check_design=True, f32_fma=False):
     """The 24 Table III shapes through ``ops.mpgemm`` at ``dt`` (f32 ->
     f32, bf16 -> bf16, int8 -> int32 equal to the plain version), one row;
     every case on :data:`TABLE_III_DESIGN`'s design unless
-    ``check_design`` is off (chip_ab.py's older trees)."""
+    ``check_design`` is off (chip_ab.py's older trees).  ``f32_fma``: the
+    f32 shapes through ``mpgemm(a, b, f32_fma=True)`` instead, K1's fma
+    design (the fp32 policy's arithmetic), each case first held bit for
+    bit to the scalar loop."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.mpgemm import mpgemm
 
     i8 = dt == torch.int8
     label = "table3-" + {torch.float32: "f32", torch.bfloat16: "bf16",
-                         torch.int8: "int8"}[dt]
+                         torch.int8: "int8"}[dt] + ("-fma" if f32_fma
+                                                    else "")
     cases = []
     for wid, m, n, k in TABLE_III:
         a, b = _table3_operands(torch, gen, m, n, k, dt)
@@ -2663,15 +3030,23 @@ def _table3_row(torch, timer, gen, dt, check_design=True):
             library = (lambda a=a, b=b: torch._int_mm(a, b))
         else:
             library = (lambda a=a, b=b: torch.matmul(a, b))
+        if f32_fma:
+            kern = (lambda a=a, b=b: mpgemm(a, b, f32_fma=True))
+            got, design = _k1_design_of(kern)
+            if design == "fma":
+                _check_fma_bits(torch, f"{label} W{wid}", got, kern(),
+                                _k1_scalar(torch, a, b))
+            del got
+        else:
+            kern = (lambda a=a, b=b: ops.mpgemm(a, b))
         cases.append(_ops_case(
-            f"W{wid} {m}x{n}x{k}",
-            lambda a=a, b=b: ops.mpgemm(a, b),
+            f"W{wid} {m}x{n}x{k}", kern,
             lambda a=a, b=b: _ops_plain(a, b),
             library=library, exact=i8,
             n_bytes=(m * k + k * n) * esz + m * n * (4 if i8 else esz),
             n_ops=2 * m * n * k, peak=_dtype_name(dt)))
     row = _ops_row(torch, timer, label, "k1", cases)
-    want = TABLE_III_DESIGN[_dtype_name(dt)]
+    want = "fma" if f32_fma else TABLE_III_DESIGN[_dtype_name(dt)]
     if check_design and set(row["designs"]) != {want}:
         raise AssertionError(f"{label}: designs {row['designs']}, want "
                              f"{want}")
@@ -2682,10 +3057,15 @@ def _table3_row(torch, timer, gen, dt, check_design=True):
 
 
 def phase_table3_f32(torch, timer):
-    """Table III in f32 alone (for chip_ab.py): -> {"table3-f32": row}."""
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    return {"table3-f32": _table3_row(torch, timer, gen, torch.float32,
-                                      check_design=False)}
+    """Table III in f32 alone (for chip_ab.py), on 3xTF32 (``ops.mpgemm``)
+    and on the fma design (``f32_fma``; the scalar loop on a tree without
+    it): -> {"table3-f32": row, "table3-f32-fma": row}."""
+    rows = {}
+    for key, fma in (("table3-f32", False), ("table3-f32-fma", True)):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        rows[key] = _table3_row(torch, timer, gen, torch.float32,
+                                check_design=False, f32_fma=fma)
+    return rows
 
 
 def _table3_rows(torch, timer, gen):
@@ -2768,6 +3148,11 @@ def _table3_rows(torch, timer, gen):
         want = {TABLE_III_DESIGN["float32" if "f32" in key else "bfloat16"]}
         if set(rows[key]["designs"]) != want:
             raise AssertionError(f"{key}: designs {rows[key]['designs']}")
+    # The f32 shapes again on the fma design, from the f32 row's seed: the
+    # same operands as the tf32x3 row.
+    rows["table3-f32-fma"] = _table3_row(
+        torch, timer, torch.Generator(device="cuda").manual_seed(11), f32,
+        f32_fma=True)
     return rows
 
 
@@ -3171,14 +3556,16 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     weight; a tied head's dx reads the (V, d) embedding as it is) and dW
     (``trans_a``) for every GEMM, plus the recompute of z for the gated
     SwiGLU GEMM; attention's backward is torch ops (no K4).  K7 never runs:
-    the weights are dense.  The wgmma design runs every bf16 and int8 K1
-    launch (``k1_wgmma``, ``k1g_wgmma``): all but the f32 routers'
-    (forward, dx, dW), under either policy; K1's f32 design
-    (``k1_tf32x3``) none: the routers run under the fp32 policy, which
-    keeps f32 FMA arithmetic (``k1_design``).  K4 runs
+    the weights are dense.  Under bf16 and int8 the wgmma design runs
+    every bf16 and int8 K1 launch (``k1_wgmma``, ``k1g_wgmma``): all but
+    the f32 routers' (forward, dx, dW), which run under the fp32 policy and
+    so on K1's f32 FMA design (``k1_fma``); under fp32 every K1 launch,
+    2-D and grouped, runs the fma design (``k1_fma``, ``k1g_fma``).  K1's
+    3xTF32 design (``k1_tf32x3``) runs none (``k1_design``).  K4 runs
     its split design when a kv head's G·seq folded rows number at most 16
     (``k4_design``; the smoke configs), else its wgmma design (``k4_wgmma``,
-    ``k4_split``)."""
+    ``k4_split``); under fp32 it runs its f32 kernel
+    (``csrc/flash_attention.cu``), neither."""
     n, moe, tied = cfg.n_layers, cfg.family == "moe", cfg.tie_embeddings
     r = 2 if remat else 1
     chunks = -(-seq // 512)
@@ -3191,14 +3578,19 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     want["k1g"] = n * (r * 3 + 7) if moe else 0   # gate: z again
     want["k1g_ta"] = want["k1g_tb"] = 3 * n if moe else 0
     want["k4"] = r * n
-    want["k1_wgmma"] = want["k1g_wgmma"] = 0
     want["k1_tf32x3"] = want["k1g_tf32x3"] = 0
-    if policy in ("bf16", "int8"):
-        want["k1_wgmma"] = want["k1"] - ((r + 2) * n if moe else 0)
+    routers = (r + 2) * n if moe else 0
+    if policy == "fp32":
+        want["k1_wgmma"] = want["k1g_wgmma"] = 0
+        want["k1_fma"], want["k1g_fma"] = want["k1"], want["k1g"]
+    else:
+        want["k1_wgmma"] = want["k1"] - routers
         want["k1g_wgmma"] = want["k1g"]
+        want["k1_fma"], want["k1g_fma"] = routers, 0
     split = cfg.n_heads // cfg.n_kv_heads * seq <= 16
-    want["k4_split"] = want["k4"] if split else 0
-    want["k4_wgmma"] = 0 if split else want["k4"]
+    f32 = policy == "fp32"
+    want["k4_split"] = want["k4"] if split and not f32 else 0
+    want["k4_wgmma"] = 0 if split or f32 else want["k4"]
     return want
 
 
@@ -3339,9 +3731,14 @@ def _ckpt_dir(need_bytes):
 # The training paths of phase 8, by label: phase_train's arguments.  phi3
 # runs at 4 of its 32 layers under int8 to keep the script's time (every
 # layer is the same, so the launch counts per layer and the shapes stay).
+# granite under fp32 runs every product of its step on K1's fma design
+# (the fp32 policy's f32 FMA) and attention on K4's f32 kernel, at 12 of
+# its 24 layers: at all 24 the path added 120 s to the script.
 TRAIN_PATHS = {
     "granite-bf16": dict(arch="granite-moe-1b-a400m", policy="bf16",
                          steps=4),
+    "granite-fp32": dict(arch="granite-moe-1b-a400m", policy="fp32",
+                         steps=4, n_layers=12),
     "phi3-int8-4-layers": dict(arch="phi3-mini-3.8b", policy="int8",
                                steps=4, n_layers=4),
 }
@@ -3566,7 +3963,8 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         model = trainer.model
         want = {key: v * steps for key, v in _want_train_launches(
-            model.cfg, policy=policy).items()}
+            model.cfg, policy=policy).items()
+            if key in counts}    # a tree without the fma design: no k1_fma
         log = trainer.metrics_log
         graph = trainer.graph
         pool_mb = trainer.graph_pool_bytes() / 2**20
@@ -3601,8 +3999,14 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
                                  f"want {want}")
         print(f"[train:{label}] wgmma design: K1 {counts['k1_wgmma']} of "
               f"{counts['k1']} launches, grouped K1 {counts['k1g_wgmma']} "
-              f"of {counts['k1g']} (every bf16 and int8 one)")
-        _check_k4_designs(f"train:{label}", counts)
+              f"of {counts['k1g']} (every bf16 and int8 one); fma design: K1 "
+              f"{counts.get('k1_fma')}, grouped K1 {counts.get('k1g_fma')} "
+              f"(every f32 one)")
+        if policy == "fp32":     # f32 attention: K4's f32 kernel
+            print(f"[train:{label}] K4: {counts['k4']} launches of the f32 "
+                  f"kernel (csrc/flash_attention.cu)")
+        else:
+            _check_k4_designs(f"train:{label}", counts)
 
         t0 = time.perf_counter()
         _, p_res, o_res = train_cli.main(
@@ -3792,6 +4196,7 @@ def main():
     k6g = phase_k6_grouped(torch, timer)
     k3 = phase_k3(torch, timer)
     k1ta = phase_k1_trans_a(torch, timer)
+    k1fma = phase_k1_fma(torch, timer)
     k7 = phase_k7(torch, timer)
     packed_grad = phase_packed_grad(torch)
     print(f"[time] kernel phases: {time.perf_counter() - t_phases:.1f} s")
@@ -3839,8 +4244,8 @@ def main():
                         "bound_by")},
                     library_ms=numbers.get("library_ms"),
                     **({k: numbers[k] for k in (
-                        "copy_ms", "bound_f32_fma_ms", "bound_3xtf32_ms")
-                        if k in numbers}),
+                        "copy_ms", "bound_f32_fma_ms", "bound_3xtf32_ms",
+                        "scalar_ms") if k in numbers}),
                     **({"designs": designs} if designs else {}))
 
     def wgmma_designs(path, key):     # K2's or K3's launches by design
@@ -3951,12 +4356,38 @@ def main():
         row("K7 unpack (phi3-mini w_up 3072x8192, bf16 payload, the packed "
             "backward)", "pack.cu", "src/repro/packing/pack.py:242",
             packed_grad["k7"], dict(k7["up-bf16"], library_ms=None)),
+        row("K1 f32 FMA design (granite's routers in a bf16 decode step, "
+            "the fp32 policy: 24 at M = 2; scalar_ms the scalar loop's)",
+            "mpgemm_fma.cu", f"{mp}:232", serves["granite-bf16"]["k1_fma"],
+            k1["granite-router"]),
+        row("K1 f32 FMA design (the routers of a granite bf16 training step: "
+            "forward twice, dX, dW at 512 tokens)", "mpgemm_fma.cu",
+            f"{mp}:232", trains["granite-bf16"]["counts"]["k1_fma"],
+            k1fma["granite-routers-train"]),
+        row("K1 f32 FMA design (every 2-D product of a granite fp32 training "
+            "step: forward twice, dX, dW, the tied head; ms at full depth, "
+            "24 layers; launches of the 12-layer path)", "mpgemm_fma.cu",
+            f"{mp}:232", trains["granite-fp32"]["counts"]["k1_fma"],
+            k1fma["granite-fp32-train-2d"]),
+        row("K1 f32 FMA design grouped (granite's expert stacks in an fp32 "
+            "training step, 160 rows each; ms at full depth, launches of the "
+            "12-layer path)", "mpgemm_fma.cu", f"{mp}:812",
+            trains["granite-fp32"]["counts"]["k1g_fma"],
+            k1fma["granite-fp32-train-grouped"]),
+        row("K4 flash_attention f32 (granite fp32 training: forward and "
+            "remat, GQA 16:8, D 64, causal 128 x 128; ms at full depth, "
+            "launches of the 12-layer path)", "flash_attention.cu",
+            fa4, trains["granite-fp32"]["counts"]["k4"],
+            k4["granite-train-f32"]),
     ]
     # The op-level API's rows (phase_ops): launches are each row's driven
     # run; ms, plain_ms, library_ms and bound_ms sum one launch a case.
     ops_rows = [
         ("K1 ops.mpgemm, paper Table III (24 shapes), f32 -> f32",
          "mpgemm_wgmma_f32.cu", f"{mp}:232", "t3/table3-f32"),
+        ("K1 mpgemm(f32_fma=True), paper Table III (24 shapes), f32 FMA "
+         "(the fp32 policy's design)", "mpgemm_fma.cu", f"{mp}:232",
+         "t3/table3-f32-fma"),
         ("K1 ops.mpgemm, paper Table III (24 shapes), bf16 -> bf16",
          "mpgemm_wgmma.cu", f"{mp}:232", "t3/table3-bf16"),
         ("K1 ops.mpgemm, paper Table III (24 shapes), int8 -> int32 "

@@ -159,7 +159,7 @@ def _apply_gemm(x, w, bias, extras, trans_w: bool, epilogue: EpilogueSpec,
         wq, sw = quantize_per_tensor(w)
         return gemm(xq.contiguous(), wq.contiguous(), scale=sx * sw,
                     spec=spec, **kw)
-    # The fp32 policy keeps f32 FMA arithmetic (K1's scalar loop, not
+    # The fp32 policy keeps f32 FMA arithmetic (K1's fma design, not
     # 3xTF32: kernels/mpgemm.py::k1_design).
     return gemm(x.to(policy.compute).contiguous(),
                 w.to(policy.compute).contiguous(), spec=spec,

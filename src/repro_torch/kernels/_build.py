@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("mpgemm", "mpgemm_wgmma", "mpgemm_wgmma_int8",
+KERNELS = ("mpgemm", "mpgemm_fma", "mpgemm_wgmma", "mpgemm_wgmma_int8",
            "mpgemm_wgmma_f32", "mpgemm_packed", "mpgemm_packed_wgmma",
            "mpgemm_packed_wgmma_int8", "mpgemm_sparse",
            "mpgemm_sparse_wgmma", "mpgemm_sparse_wgmma_int8", "pack",

@@ -8,9 +8,10 @@ docstrings of ``kernels/mpgemm.py``, ``kernels/flash_attention.py`` and
   ``k3g``: the grouped wrappers);
 * ``<k>_ta`` / ``<k>_tb``: K1's, K2's and K3's ``trans_a`` launches and
   K1's ``trans_b`` ones;
-* ``<k>_wgmma``, ``<k>_tf32x3``, ``<k>_split``: the launches that ran
-  that design (K1, K2, K3 wgmma; K1 f32 on the tensor cores; K4's and
-  K5's wgmma and split designs).
+* ``<k>_wgmma``, ``<k>_tf32x3``, ``<k>_fma``, ``<k>_split``: the
+  launches that ran that design (K1, K2, K3 wgmma; K1 f32 on the tensor
+  cores; K1 f32 on the CUDA cores' FMA; K4's and K5's wgmma and split
+  designs).
 
 A captured CUDA graph launches its kernels without their wrappers, so
 whoever captures one takes the counts' delta over the capture
@@ -46,7 +47,8 @@ def wrappers() -> dict:
 # The variant and design counts of each wrapper: (suffix, attribute).
 _EXTRA = {
     "k1": (("ta", "trans_a_launches"), ("tb", "trans_b_launches"),
-           ("wgmma", "wgmma_launches"), ("tf32x3", "tf32x3_launches")),
+           ("wgmma", "wgmma_launches"), ("tf32x3", "tf32x3_launches"),
+           ("fma", "fma_launches")),
     "k2": (("ta", "trans_a_launches"), ("wgmma", "wgmma_launches")),
     "k3": (("ta", "trans_a_launches"), ("wgmma", "wgmma_launches")),
     "k4": (("wgmma", "wgmma_launches"), ("split", "split_launches")),

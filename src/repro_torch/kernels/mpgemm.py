@@ -18,7 +18,7 @@ or together, for every operand dtype.  K2 and K3 take ``trans_a`` too:
 their wrappers hand the kernel the contiguous Aᵀ (one copy of M·K
 elements, no arithmetic), and their plain versions read A transposed.
 
-K1 has three designs on the card, and :func:`k1_design` picks one by a
+K1 has four designs on the card, and :func:`k1_design` picks one by a
 rule (never by trying): bf16 or int8 operands whose row strides and base
 pointers are multiples of 16 bytes (TMA's rule) run the ``wgmma`` design
 (``csrc/mpgemm_wgmma.cuh``: TMA, ``wgmma``, split-K by :func:`k1_split`
@@ -28,10 +28,13 @@ int8, whose MN-major operands are transposed in shared memory); f32
 operands under the same rule run ``tf32x3``, the same template built as
 ``csrc/mpgemm_wgmma_f32.cu``, each value split into tf32 hi and lo terms
 and three products summed on the tensor cores, unless the caller keeps
-f32 FMA arithmetic (``f32_fma``: the fp32 policy's products);
-everything else -- those, odd shapes such as rows of 101 values -- runs
-``csrc/mpgemm.cu``'s scalar loops.  An int8 product sums exactly in int32 while K <=
-:data:`INT8_MAX_K`; the card path refuses a deeper one.
+f32 FMA arithmetic (``f32_fma``: the fp32 policy's products), when they
+run ``fma`` (``csrc/mpgemm_fma.cu``: f32 FMA on the CUDA cores, register
+tiles from a ring of ``cp.async`` stages, the tile by
+:func:`k1_fma_tile`; the same bits as the scalar loop); everything else
+-- odd shapes such as rows of 101 values, views off a 16-byte boundary --
+runs ``csrc/mpgemm.cu``'s scalar loops.  An int8 product sums exactly in
+int32 while K <= :data:`INT8_MAX_K`; the card path refuses a deeper one.
 
 K1 takes bf16 or f32 operands summed in f32, or int8 operands summed
 exactly in int32 (the int8 policy, and the paper's INT8 -> INT32 GEMM,
@@ -72,7 +75,8 @@ wgmma_launches`` those that ran the wgmma design (bf16 or int8), as
 ``mpgemm_packed.wgmma_launches`` and ``mpgemm_packed_grouped.
 wgmma_launches`` do for K2 and ``mpgemm_sparse(_grouped).wgmma_launches``
 for K3; ``mpgemm(_grouped).tf32x3_launches`` count K1's f32 launches on
-the tensor cores; the K2 and K3 wrappers' ``trans_a_launches`` count their
+the tensor cores and ``mpgemm(_grouped).fma_launches`` those on the f32
+FMA design; the K2 and K3 wrappers' ``trans_a_launches`` count their
 ``trans_a`` launches.
 """
 from __future__ import annotations
@@ -178,8 +182,8 @@ def mpgemm(a: torch.Tensor, b, *,
     (K3); ``extras`` are the epilogue's operands in registry order.  Output
     dtype: ``out_dtype``, else ``spec.out_dtype``, else int32 for int8
     operands and ``a.dtype`` otherwise.  ``f32_fma``: f32 operands keep
-    f32 FMA arithmetic (K1's scalar loop, the fp32 policy's contract)
-    rather than 3xTF32 (:func:`k1_design`)."""
+    f32 FMA arithmetic (K1's ``fma`` design, the scalar loop's bits: the
+    fp32 policy's contract) rather than 3xTF32 (:func:`k1_design`)."""
     if spec.grouped:
         raise ValueError("a grouped GemmSpec goes to mpgemm_grouped")
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
@@ -350,8 +354,9 @@ def k1_design(a: torch.Tensor, b: torch.Tensor,
     (``csrc/mpgemm_wgmma.cuh``) when both are bf16 (rows of a multiple of
     8 values) or both int8 (16 values); ``"tf32x3"`` (the same template,
     ``csrc/mpgemm_wgmma_f32.cu``) when both are f32 (4 values), unless the
-    caller keeps f32 FMA arithmetic (``f32_fma``); else ``"simt"``
-    (``csrc/mpgemm.cu``).
+    caller keeps f32 FMA arithmetic (``f32_fma``), then ``"fma"``
+    (``csrc/mpgemm_fma.cu``, the same bits as the scalar loop, which it
+    replaces for those operands); else ``"simt"`` (``csrc/mpgemm.cu``).
 
     The f32 choice is one of precision, not of size: 3xTF32 misses an f32
     product by about 2^-21 of it (``tests/test_torch_k1_design.py``),
@@ -359,18 +364,17 @@ def k1_design(a: torch.Tensor, b: torch.Tensor,
     output -- the op-level API's f32 GEMM (``ops.mpgemm``, Table III) and
     direct calls run it.  ``mp_dot`` under the fp32 policy passes
     ``f32_fma``: that policy's products (granite's routers, its backward)
-    keep f32's roundings, because a bf16 rounding downstream turns
+    keep f32 FMA's roundings, because a bf16 rounding downstream turns
     3xTF32's error into whole bf16 ulps -- with the fp32 backward's
     products on tf32x3 (all of them, or only those into f32 outputs), 29
     and 44 of the 245,760 bf16 payload-gradient values of
     ``test_mp_dot_backward_on_the_card_matches_the_cpu[packed_bf16-
     fp32]`` came one ulp off a CPU f32 run, none on the scalar loop (H100
-    80GB HBM3).  What that costs: granite's
-    router at decode (2 x 1024 x 32) takes 0.038 ms on the scalar loop
-    against 0.018 on tf32x3, its weight gradient (1024 x 32 x 512) 0.050
-    against 0.059; Table III's 24 shapes take 29.8 ms on tf32x3 against
-    104.3.  A rule on what the operands are and what the caller asks,
-    not a fallback: a failed build or launch raises."""
+    80GB HBM3).  The scalar loop took 0.038 ms for granite's router at
+    decode (2 x 1024 x 32, 0.018 on tf32x3) and 104.3 ms for Table III's
+    24 shapes (29.8 on tf32x3), which the ``fma`` design now runs with the
+    scalar loop's bits.  A rule on what the operands are and what the
+    caller asks, not a fallback: a failed build or launch raises."""
     if a.dtype != b.dtype or a.dtype not in _K1_DESIGNS:
         return "simt"
     row = 16 // a.element_size()
@@ -379,7 +383,7 @@ def k1_design(a: torch.Tensor, b: torch.Tensor,
             or not a.numel() or not b.numel()):
         return "simt"
     if a.dtype == torch.float32 and f32_fma:
-        return "simt"
+        return "fma"
     return _K1_DESIGNS[a.dtype]
 
 
@@ -388,6 +392,41 @@ _K1_DESIGNS = {torch.bfloat16: "wgmma", torch.int8: "wgmma",
                torch.float32: "tf32x3"}
 _K1_LIBS = {torch.bfloat16: "mpgemm_wgmma", torch.int8: "mpgemm_wgmma_int8",
             torch.float32: "mpgemm_wgmma_f32"}
+
+
+# The fma design's tiles (csrc/mpgemm_fma.cu), from the largest: (BM, BN)
+# -> (TM, TN, BK, stages, rate): the outputs a thread computes, the depth
+# of a stage, the stages of the ring, and the outputs an SM finishes in a
+# unit of time, relative to the 64 x 64 tile's, when it holds enough
+# blocks of the tile: the 128-row tile reuses each value over more
+# outputs, the small ones spread a small output over more SMs.  The rates
+# make k1_fma_tile pick, at Table III's and granite's training shapes,
+# the tile that ran fastest when each tile was timed at each shape on an
+# H100.
+FMA_TILES = {(128, 128): (8, 8, 16, 3, 1.3), (64, 64): (4, 4, 16, 4, 1.0),
+             (32, 32): (2, 2, 16, 4, 0.6), (16, 4): (1, 1, 128, 4, 0.2)}
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_fma_tile(m: int, n: int, k: int, g: int = 1,
+                sms: int = H100_SMS) -> tuple:
+    """(BM, BN) of the ``fma`` design for an (M, N) output over K of
+    ``g`` groups, from the shape alone: 16 x 4 for M <= 16 (decode and
+    short chunks: one output a thread, so that a narrow output still
+    spreads over many SMs -- granite's router, N = 32, over 8 blocks);
+    else the tile of :data:`FMA_TILES` whose grid the ``sms`` SMs finish
+    first: the blocks an SM takes (rounded up) times a block's outputs
+    over the tile's rate, the larger tile on a tie.  No tile splits K:
+    each output is one thread's chain."""
+    if m <= 16:
+        return 16, 4
+
+    def cost(tile):
+        bm, bn = tile
+        blocks = g * _cdiv(m, bm) * _cdiv(n, bn)
+        return _cdiv(blocks, sms) * bm * bn / FMA_TILES[tile][-1]
+
+    return min(FMA_TILES, key=cost)
 
 
 def k1_wgmma_bk(dtype: torch.dtype) -> int:
@@ -522,7 +561,15 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
         return out
     stream = _build.current_stream(a)
     design = k1_design(a, b, f32_fma)
-    if design != "simt":
+    if design == "fma":
+        bm, bn = k1_fma_tile(m, n, k, g, _sm_count(a.get_device()))
+        lib = _fma_lib()
+        rc = lib.mpgemm_fma_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc,
+            g, m, n, k, bias_stride, out_dt, c_dt, int(trans_a),
+            int(trans_b), kind, act, alpha, beta, bm, bn, stream)
+        error = lib.mpgemm_fma_error_string
+    elif design != "simt":
         bm = k1_wgmma_bm(m)
         sms = _sm_count(a.get_device())
         if design == "tf32x3":
@@ -560,6 +607,7 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
     fn.launches += 1
     fn.wgmma_launches += int(design == "wgmma")
     fn.tf32x3_launches += int(design == "tf32x3")
+    fn.fma_launches += int(design == "fma")
     fn.trans_a_launches += int(trans_a)
     fn.trans_b_launches += int(trans_b)
     return out
@@ -567,7 +615,7 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
 
 for _fn in (mpgemm, mpgemm_grouped):
     _fn.launches = _fn.trans_a_launches = _fn.trans_b_launches = 0
-    _fn.wgmma_launches = _fn.tf32x3_launches = 0
+    _fn.wgmma_launches = _fn.tf32x3_launches = _fn.fma_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -579,6 +627,18 @@ def _lib() -> ctypes.CDLL:
     lib.mpgemm_launch.restype = i
     lib.mpgemm_error_string.argtypes = [i]
     lib.mpgemm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fma_lib() -> ctypes.CDLL:
+    """The ``fma`` design's library with its C signatures declared."""
+    lib = _build.load("mpgemm_fma")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mpgemm_fma_launch.argtypes = [p] * 8 + [i] * 11 + [f, f, i, i, p]
+    lib.mpgemm_fma_launch.restype = i
+    lib.mpgemm_fma_error_string.argtypes = [i]
+    lib.mpgemm_fma_error_string.restype = ctypes.c_char_p
     return lib
 
 

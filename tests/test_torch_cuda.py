@@ -10,6 +10,10 @@ atol = rtol = 1.6e-2 (one bf16 rounding of the f32 result may land on
 either side).  The packer (K6) has none: its payload and scales must be
 byte-identical to its plain version's.
 """
+import functools
+import importlib.util
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -774,10 +778,11 @@ def test_fp32_policy_keeps_f32_fma_where_tf32x3_would_run(gen, grouped):
     a gated epilogue and a bias, at sizes where K1's f32 products would
     otherwise run tf32x3 (2-D M 256, K 2048, N 1024; granite's 32 experts
     of M 64, K 1024, N 512): every K1 launch (the forward, the recompute
-    of z, dx and dW) keeps f32 FMA on the scalar loop, and the step
-    matches the same step on CPU copies at f32's tolerance.  Then each of
-    those four products, made again as a direct call, runs tf32x3 within
-    the same tolerance of its fp32-policy result."""
+    of z, dx and dW) keeps f32 FMA on the fma design, bit-equal to the
+    scalar loop, and the step matches the same step on CPU copies at f32's
+    tolerance.  Then each of those four products, made again as a direct
+    call, runs tf32x3 within the same tolerance of its fp32-policy
+    result."""
     from repro_torch.core.gemm import mp_dot, mp_dot_grouped
     from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
     lead, m, k, n = ((32,), 64, 1024, 512) if grouped else ((), 256, 2048,
@@ -810,12 +815,12 @@ def test_fp32_policy_keeps_f32_fma_where_tf32x3_would_run(gen, grouped):
     name = "mpgemm_grouped" if grouped else "mpgemm"
     setattr(gemm_mod, name, recorded)
     try:
-        before = (fn.launches, fn.tf32x3_launches)
+        before = (fn.launches, fn.tf32x3_launches, fn.fma_launches)
         got = run("cuda")
         torch.cuda.synchronize()
         # forward, z again, dx (trans_b) and dW (trans_a): f32 FMA.
-        assert (fn.launches - before[0], fn.tf32x3_launches - before[1]) \
-            == (4, 0)
+        assert (fn.launches - before[0], fn.tf32x3_launches - before[1],
+                fn.fma_launches - before[2]) == (4, 0, 4)
     finally:
         setattr(gemm_mod, name, real)
     want = run("cpu")
@@ -824,9 +829,102 @@ def test_fp32_policy_keeps_f32_fma_where_tf32x3_would_run(gen, grouped):
     assert len(handed) == 4 and all(h[2]["f32_fma"] for h in handed)
     for a, b, kw, exact in handed:
         rest = {k: v for k, v in kw.items() if k not in ("spec", "f32_fma")}
+        spec = kw["spec"]
+        assert torch.equal(exact, _k1_scalar(
+            a, b, trans_a=spec.trans_a, trans_b=spec.trans_b, **rest))
         fast, design = _run_k1_f32(a, b, kw["spec"], **rest)
         assert design == "tf32x3"
         torch.testing.assert_close(fast, exact, **TOL[torch.float32])
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _k1_scalar(a, b, **kw):
+    """K1's scalar loop on these operands through its library, whatever
+    ``k1_design`` says: the fma design's oracle (``chip_smoke.py``'s)."""
+    return _chip_smoke()._k1_scalar(torch, a, b, **kw)
+
+
+# The fma design's cases: (G, M, N, K, the tile k1_fma_tile gives).  M, N
+# and K are off every tile's and stage's multiple (the last K stage
+# partial; K not a multiple of the scalar loop's 16 or 64, so that it pads
+# K); M = 2 (4 under trans_a, whose A rows must hold a multiple of 4).
+FMA_BIT_CASES = [(1, 2, 32, 1024, (16, 4)), (3, 36, 44, 1004, (16, 4)),
+                 (2, 200, 300, 1004, (32, 32)), (1, 520, 1040, 68, (64, 64)),
+                 (1, 2040, 2044, 36, (128, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (True, False),
+                                             (False, True), (True, True)])
+@pytest.mark.parametrize("kind", ["linear", "bias_gelu", "gated_silu",
+                                  "residual", "quant_in", "quant_in_residual",
+                                  "beta_c", "bf16_out"])
+@pytest.mark.parametrize("case", FMA_BIT_CASES,
+                         ids=[f"g{c[0]}m{c[1]}n{c[2]}k{c[3]}"
+                              for c in FMA_BIT_CASES])
+def test_k1_fma_design_is_bit_equal_to_the_scalar_loop(gen, case, kind,
+                                                       trans_a, trans_b):
+    """K1's fma design (``mpgemm(..., f32_fma=True)`` on aligned f32
+    operands, 2-D and grouped, every transpose pair, every tile, each
+    epilogue kind) gives the scalar loop's bits, the same bits from two
+    launches, and the plain version's result within f32's 1e-4 (bf16
+    outputs: one bf16 rounding)."""
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec
+    from repro_torch.kernels.mpgemm import (
+        k1_fma_tile, mpgemm, mpgemm_grouped, mpgemm_plain,
+    )
+
+    g, m, n, k, tile = case
+    m = 4 if trans_a and m == 2 else m
+    assert k1_fma_tile(m, n, k, g) == tile
+    lead = (g,) if g > 1 else ()
+    a = torch.randn(*lead, *((k, m) if trans_a else (m, k)), generator=gen,
+                    device="cuda")
+    b = torch.randn(*lead, *((n, k) if trans_b else (k, n)), generator=gen,
+                    device="cuda") * k ** -0.5
+    out_dtype = torch.bfloat16 if kind == "bf16_out" else torch.float32
+
+    def rand(*shape):
+        return torch.randn(*lead, *shape, generator=gen, device="cuda")
+
+    kw = dict(out_dtype=out_dtype, epilogue=EpilogueSpec(
+        kind=kind if kind in ("residual", "quant_in", "quant_in_residual")
+        else "gated" if kind == "gated_silu" else "linear",
+        activation={"bias_gelu": "gelu", "gated_silu": "silu",
+                    "quant_in": "silu"}.get(kind),
+        alpha=1.5 if kind == "beta_c" else 1.0,
+        beta=0.5 if kind == "beta_c" else 0.0))
+    if kind in ("bias_gelu", "residual", "beta_c"):
+        kw["bias"] = rand(n)
+    extras = ()
+    if kind.startswith("quant_in"):
+        extras = (rand(m, 1).abs() + 0.5,)
+    if kind in ("gated_silu", "residual", "quant_in_residual"):
+        extras += (rand(m, n).to(out_dtype),)
+    kw["extras"] = extras
+    if kind == "beta_c":
+        kw["c"] = rand(m, n)
+    fn = mpgemm_grouped if lead else mpgemm
+    before = (fn.launches, fn.fma_launches)
+    got = fn(a, b, spec=GemmSpec(grouped=bool(lead), trans_a=trans_a,
+                                 trans_b=trans_b), f32_fma=True, **kw)
+    again = fn(a, b, spec=GemmSpec(grouped=bool(lead), trans_a=trans_a,
+                                   trans_b=trans_b), f32_fma=True, **kw)
+    scalar = _k1_scalar(a, b, trans_a=trans_a, trans_b=trans_b, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.fma_launches - before[1]) == (2, 2)
+    assert torch.equal(got, again)
+    assert torch.equal(got, scalar)
+    want = mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
 
 
 # --- the op-level API's variants (K1-K3) -------------------------------------
@@ -1735,11 +1833,12 @@ def _run_k1_f32(a, b, spec, **kw):
     """One f32 K1 launch; -> (output, the design it ran)."""
     from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
     fn = mpgemm_grouped if spec.grouped else mpgemm
-    before = (fn.launches, fn.tf32x3_launches)
+    before = (fn.launches, fn.tf32x3_launches, fn.fma_launches)
     out = fn(a, b, spec=spec, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before[0] + 1
-    return out, "tf32x3" if fn.tf32x3_launches > before[1] else "simt"
+    return out, ("tf32x3" if fn.tf32x3_launches > before[1] else
+                 "fma" if fn.fma_launches > before[2] else "simt")
 
 
 @pytest.mark.cuda
@@ -1754,8 +1853,9 @@ def test_mpgemm_tf32x3_matches_plain(gen, lead, m, n, k, trans_a, trans_b):
     split-K at M = 16, at phi3's decode width (M = 2) and at granite's
     experts (M = 2, 32 groups), granite's router (N = 32), M, N and K
     tails, within 1e-4 of the plain version; ``trans_a`` with M off a
-    multiple of 4 is the scalar K1's, and so is every shape whose caller
-    keeps f32 FMA arithmetic (``f32_fma``, the fp32 policy's)."""
+    multiple of 4 is the scalar K1's; a caller that keeps f32 FMA
+    arithmetic (``f32_fma``, the fp32 policy's) gets the fma design on
+    the same rule, bit-equal to the scalar loop."""
     from repro_torch.core.gemm_spec import GemmSpec
     from repro_torch.kernels.mpgemm import k1_design, mpgemm_plain
     a, b = _f32_operands(gen, lead, m, n, k, trans_a, trans_b)
@@ -1766,7 +1866,10 @@ def test_mpgemm_tf32x3_matches_plain(gen, lead, m, n, k, trans_a, trans_b):
     want = mpgemm_plain(a, b, trans_a=trans_a, trans_b=trans_b)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
     got, design = _run_k1_f32(a, b, spec, f32_fma=True)
-    assert design == "simt" == k1_design(a, b, f32_fma=True)
+    assert design == k1_design(a, b, f32_fma=True)
+    assert design == ("simt" if trans_a and m % 4 else "fma")
+    assert torch.equal(got, _k1_scalar(a, b, trans_a=trans_a,
+                                       trans_b=trans_b))
     torch.testing.assert_close(got, want, **TOL[torch.float32])
 
 

@@ -1,9 +1,12 @@
-"""K1's two designs and the rules around them, on the CPU.
+"""K1's designs and the rules around them, on the CPU.
 
 * :func:`k1_design` picks the wgmma kernel (``csrc/mpgemm_wgmma.cuh``,
-  built for bf16 and for int8) or the scalar one (``csrc/mpgemm.cu``)
-  from the operands alone: both bf16 or both int8, no empty extent, every
-  row stride and base pointer a multiple of 16 bytes.
+  built for bf16 and for int8; f32 on 3xTF32), the f32 FMA one
+  (``csrc/mpgemm_fma.cu``, for the fp32 policy's products) or the scalar
+  one (``csrc/mpgemm.cu``) from the operands alone: both bf16, both int8
+  or both f32, no empty extent, every row stride and base pointer a
+  multiple of 16 bytes.
+* :func:`k1_fma_tile` picks the fma design's tile from the shape alone.
 * :func:`k1_split` cuts K for the wgmma kernel when the output has fewer
   tiles than the card has SMs, in K tiles of 128 bytes (64 bf16, 128
   int8).
@@ -112,25 +115,102 @@ F4 = torch.float32
     ("granite's router's shape", (2, 1024), (1024, 32), False, "tf32x3"),
     ("grouped, every group small", (32, 2, 1024), (32, 1024, 512), False,
      "tf32x3"),
-    ("the fp32 policy's router", (2, 1024), (1024, 32), True, "simt"),
-    ("the fp32 policy's dW", (512, 1024), (512, 32), True, "simt"),
+    ("the fp32 policy's router", (2, 1024), (1024, 32), True, "fma"),
+    ("the fp32 policy's dW", (512, 1024), (512, 32), True, "fma"),
     ("the fp32 policy, Table III W1", (64, 7168), (7168, 2112), True,
-     "simt"),
+     "fma"),
     ("rows of 7170 values", (64, 7170), (7170, 2112), False, "simt"),
     ("B rows of 2110", (64, 7168), (7168, 2110), False, "simt"),
+    ("the fp32 policy, grouped experts", (32, 160, 1024), (32, 1024, 512),
+     True, "fma"),
+    ("the fp32 policy, rows of 1026 values", (2, 1026), (1026, 32), True,
+     "simt"),
+    ("the fp32 policy, B rows of 30", (2, 1024), (1024, 30), True, "simt"),
+    ("the fp32 policy, A 4 bytes off", (2, 1024), (1024, 32), True, "simt"),
+    ("the fp32 policy, B 4 bytes off", (2, 1024), (1024, 32), True, "simt"),
+    ("the fp32 policy, empty K", (2, 0), (0, 32), True, "simt"),
 ])
 def test_k1_design_f32_rule(case, a, b, fma, want):
     """f32 operands go to tf32x3 when their rows are 16-byte aligned
     (multiples of 4 values), whatever the size and however many groups,
     unless the caller keeps f32 FMA arithmetic (``f32_fma``: the fp32
-    policy's products, granite's router among them), which the scalar
-    loop gives."""
+    policy's products, granite's router among them), which the fma design
+    gives; rows or views off that rule stay on the scalar loop either
+    way."""
     assert not hasattr(tk, "TF32X3_MIN_MACS")
-    def shaped(shape):        # the rule reads shapes and addresses only
+    def shaped(shape, off=False):   # the rule reads shapes and addresses
+        if off:                     # a view 4 bytes past an aligned base
+            base = torch.zeros(int(np.prod(shape)) + 1, dtype=F4)
+            return base[1:].view(shape)
         return torch.empty(1, dtype=F4).expand(shape)
 
-    got = k1_design(shaped(a), shaped(b), fma)
+    got = k1_design(shaped(a, case.endswith("A 4 bytes off")),
+                    shaped(b, case.endswith("B 4 bytes off")), fma)
     assert got == want, case
+
+
+@pytest.mark.parametrize("case,m,n,k,g", [
+    ("granite's router at decode", 2, 32, 1024, 1),
+    ("one row", 1, 32, 1024, 1),
+    ("a 16-token chunk's router", 16, 32, 1024, 1),
+    ("17 rows", 17, 32, 1024, 1),
+    ("the router at 512 tokens", 512, 32, 1024, 1),
+    ("the router's dX", 512, 1024, 32, 1),
+    ("the router's dW", 1024, 32, 512, 1),
+    ("wq at 512 tokens", 512, 1024, 1024, 1),
+    ("the tied head", 512, 49280, 1024, 1),
+    ("the head's dW", 49280, 1024, 512, 1),
+    ("granite's experts, 160 rows", 160, 512, 1024, 32),
+    ("the experts' dW", 1024, 512, 160, 32),
+    ("Table III W4", 64, 7168, 16384, 1),
+    ("Table III W16", 4096, 7168, 16384, 1),
+    ("Table III W19", 4096, 256, 4096, 1),
+])
+def test_k1_fma_tile(case, m, n, k, g):
+    """The fma design's tile: one of ``FMA_TILES``, chosen from the shape
+    alone (the same answer every call); a (BM, BN) tile of the output,
+    never of K (each output is one thread's chain over all of K); granite's
+    router at M <= 16 on at least 8 blocks; every tile's four stages and
+    its output pass within the 227 KB of shared memory a block of an H100
+    may take, whichever operands are K-major, and its threads a whole
+    number of warps up to 256."""
+    bm, bn = tk.k1_fma_tile(m, n, k, g)
+    assert (bm, bn) in tk.FMA_TILES
+    assert tk.k1_fma_tile(m, n, k, g) == (bm, bn)
+    blocks = g * -(-m // bm) * -(-n // bn)
+    if m <= 16:
+        assert (bm, bn) == (16, 4) and blocks >= 8
+    if case.startswith("Table III W16"):
+        assert (bm, bn) == (128, 128)
+    for (tbm, tbn), (tm, tn, bk, stages, _) in tk.FMA_TILES.items():
+        # Either operand kept MN-major ([BK][BMN + 4]) or K-major
+        # ([BMN][BK + 4]): the larger a stage, and the output's first pass.
+        stage = sum(max(bk * (bmn + 4), bmn * (bk + 4))
+                    for bmn in (tbm, tbn))
+        out = tbm // (2 if tm >= 8 else 1) * (tbn + 1)
+        assert 4 * max(stages * stage, out) <= 227 * 1024
+        threads = (tbm // tm) * (tbn // tn)
+        assert threads % 32 == 0 and threads <= 256
+
+
+def test_fma_counters_start_at_zero():
+    """The fma design's launch counts exist beside the other designs',
+    start at 0 on the CPU (the plain versions launch nothing) and go back
+    to 0 with the rest."""
+    from repro_torch.kernels import counters
+
+    counts = counters.launch_counts()
+    assert counts["k1_fma"] == counts["k1g_fma"] == 0
+    assert tk.mpgemm.fma_launches == tk.mpgemm_grouped.fma_launches == 0
+    a, b = torch.randn(2, 8), torch.randn(8, 4)
+    tk.mpgemm(a, b, f32_fma=True)
+    tk.mpgemm_grouped(a[None], b[None], f32_fma=True)
+    assert counters.launch_counts()["k1_fma"] == 0
+    tk.mpgemm.fma_launches = 3
+    counters.add_launch_counts({"k1g_fma": 2})
+    assert counters.launch_counts()["k1g_fma"] == 2
+    counters.reset_launch_counts()
+    assert tk.mpgemm.fma_launches == tk.mpgemm_grouped.fma_launches == 0
 
 
 I8 = torch.int8
@@ -258,17 +338,19 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("arch,policy", [
     ("phi3-mini-3.8b", "bf16"), ("granite-moe-1b-a400m", "bf16"),
-    ("phi3-mini-3.8b", "int8"), ("granite-moe-1b-a400m", "int8")])
+    ("phi3-mini-3.8b", "int8"), ("granite-moe-1b-a400m", "int8"),
+    ("phi3-mini-3.8b", "fp32"), ("granite-moe-1b-a400m", "fp32")])
 def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
     """One CPU training step with remat: the K1 wrapper calls that
     :func:`k1_design` sends to wgmma (every bf16 and int8 one of the smoke
-    model, whose widths are multiples of 16) and to tf32x3 (none: the MoE
-    routers run under the fp32 policy, which keeps f32 FMA) and the K4
-    calls that
-    :func:`k4_design` sends to its wgmma and split designs number what
-    ``chip_smoke.py`` asserts on the card."""
+    model, whose widths are multiples of 16), to fma (the MoE routers,
+    which run under the fp32 policy, and every product of an fp32 step)
+    and to tf32x3 (none), and the K4 calls that
+    :func:`k4_design` sends to its wgmma and split designs (none in f32)
+    number what ``chip_smoke.py`` asserts on the card."""
     counts = {"k1_wgmma": 0, "k1g_wgmma": 0, "k1_tf32x3": 0,
-              "k1g_tf32x3": 0, "k4_wgmma": 0, "k4_split": 0}
+              "k1g_tf32x3": 0, "k1_fma": 0, "k1g_fma": 0, "k4_wgmma": 0,
+              "k4_split": 0}
 
     def gemm(name, inner):
         def call(a, b, *, spec, **kw):
@@ -300,7 +382,7 @@ def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
     want = _chip_smoke()._want_train_launches(model.cfg, seq=16,
                                               policy=policy)
     assert counts == {k: want[k] for k in counts}
-    assert counts["k1_wgmma"] > 0
+    assert counts["k1_fma" if policy == "fp32" else "k1_wgmma"] > 0
 
 
 # --- trans_a against a packed or sparse B ------------------------------------
