@@ -35,12 +35,16 @@ printing a result:
    K4 at whisper-medium's shapes (the encoder's 1500 x 1500 non-causal
    self-attention, the decoder's causal prefill, cross-attention at
    prefill and at decode), phi3-mini's causal prefill, a GQA 32:8 head of
-   120 with a window and tq < tk, and an f32 case, each on the design
+   120 with a window and tq < tk, and three f32 cases (one granite's
+   fp32 training attention), each on the design
    ``kernels/flash_attention.py::k4_design`` names (bf16: the wgmma or
    the split design of ``kernels/csrc/flash_attention_wgmma.cu``; f32:
-   ``kernels/csrc/flash_attention.cu``), the same bits from two
-   launches, beside SDPA (no mask where every key is seen,
-   ``is_causal`` for a causal square, else the mask);
+   the tf32x3 design of ``kernels/csrc/flash_attention_tf32x3.cu``, or
+   at 16 folded rows the first scalar kernel
+   ``kernels/csrc/flash_attention.cu``, which every f32 case also holds
+   against the plain version),
+   the same bits from two launches, beside SDPA (no mask where every key
+   is seen, ``is_causal`` for a causal square, else the mask);
 4. K6 (``kernels/csrc/pack.cu``) packing every full-width phi3-mini weight
    shape and a ragged ``trans_w`` one into bf16, int8, int4 and fp8
    payloads: payload and scales byte-equal to its plain version;
@@ -157,7 +161,7 @@ printing a result:
    ``repro_torch.launch.train.main`` (``TRAIN_PATHS``): full-width
    granite-moe-1b-a400m, all 24 layers, bf16, batch 4 x seq 128, remat, 4
    steps with a checkpoint, the same at 12 layers under fp32 (every
-   product on K1's fma design, attention on K4's f32 kernel), and
+   product on K1's fma design, attention on K4's tf32x3 design), and
    phi3-mini at full width cut
    to 4 layers under int8 (the STE), 4 steps -- each with the step
    captured in a CUDA
@@ -167,14 +171,14 @@ printing a result:
    finite loss and grad norm, exact launch counts a step
    (``_want_train_launches``; the wgmma designs' among them: every bf16
    and int8 K1 launch and every K4 launch under bf16 and int8; the fma
-   design every f32 one), the captured run's losses, grad
-   norms and final parameters, AdamW moments and step equal to the eager
-   run's (bit for bit, or, where the eager step does not repeat itself,
-   by ``_check_same_run``'s rule, with the op that differs named and the
-   capture held bit for bit under deterministic algorithms),
+   design every f32 K1 one, the tf32x3 design every f32 K4 one), the
+   backward ops that sum rows several tokens share repeating themselves,
+   the captured run's losses, grad norms and final parameters, AdamW
+   moments and step equal to the eager run's bit for bit (granite's bf16
+   run also under deterministic algorithms, once),
    ``--resume`` restoring bit-identical parameters and AdamW state, a
    run resumed after its first step reaching the uninterrupted run's
-   state, one step's loss and gradients against the plain versions, step
+   state bit for bit, one step's loss and gradients against the plain versions, step
    time, tokens/s, peak memory and the graph pool, and one eager and one
    replayed step traced with ``torch.profiler``;
 9. the script's wall time, one JSON line with every ported kernel's
@@ -279,6 +283,16 @@ class Timer:
             end.synchronize()
             total += start.elapsed_time(end)
         return total / iters
+
+
+def _sha1(*arrays):
+    """The sha1 of the arrays' bytes, in order: equal digests, equal
+    bits."""
+    import hashlib
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
 
 
 def _bound_ms(n_bytes, n_ops, dtype):
@@ -765,7 +779,8 @@ def phase_k5(torch, timer):
 # 32-token prefill, its cross-attention over the encoder states at prefill
 # and at every decode step; phi3-mini's causal prefill (32 heads of 96); a
 # danube3-like GQA 32:8 head of 120 with a window shorter than tk and
-# tq < tk; an f32 case.
+# tq < tk; f32 cases: two on K4's tf32x3 design, one of 16 folded rows on
+# its first scalar kernel, which k4_design keeps for so few rows.
 K4_CASES = [
     ("whisper-encoder", 2, 16, 16, 1500, 1500, 64, False, None, "bfloat16"),
     ("whisper-dec-self", 2, 16, 16, 32, 32, 64, True, None, "bfloat16"),
@@ -775,8 +790,9 @@ K4_CASES = [
     ("phi3-prefill", 2, 32, 32, 32, 32, 96, True, None, "bfloat16"),
     ("gqa-window", 2, 32, 8, 64, 600, 120, True, 256, "bfloat16"),
     ("f32-gqa", 2, 8, 2, 48, 300, 64, True, None, "float32"),
+    ("f32-gqa-16-rows", 2, 8, 2, 4, 300, 64, True, None, "float32"),
     # granite's attention in an fp32 training step (batch 4 x seq 128,
-    # GQA 16:8, D 64, causal): K4's f32 kernel.
+    # GQA 16:8, D 64, causal): K4's tf32x3 design.
     ("granite-train-f32", 4, 16, 8, 128, 128, 64, True, None, "float32"),
 ]
 WHISPER_LAYERS = 24
@@ -794,16 +810,42 @@ def _k4_pairs(tq, tk, causal, window):
     return pairs
 
 
+def _k4_scalar(torch, q, k, v, causal, window):
+    """K4's first scalar kernel (``csrc/flash_attention.cu``) on q, k and v
+    through its C entry point, whatever design ``k4_design`` picks: held
+    against the plain version in every f32 case, and the "was" of the
+    cases its tf32x3 design took over."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import _DTYPE_CODES, _flash_lib
+
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    rc = _flash_lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
+        tq, tk, d, int(causal), int(window or 0), float(d ** -0.5),
+        _DTYPE_CODES[q.dtype], _build.current_stream(q))
+    if rc:
+        raise AssertionError(f"the scalar K4 kernel failed: CUDA error {rc}")
+    return out
+
+
 def phase_k4(torch, timer):
     """K4 against its plain version at the wave path's shapes, each launch
     timed alone on a cold L2, beside the plain version, SDPA (K/V repeated
     for GQA beforehand, not timed) and the bound; each case names the
-    design ``k4_design`` ran (bf16: "wgmma" or "split", f32: "simt") and
-    the slices over the keys (``k4_split``).  SDPA gets no mask where every
-    key is visible, ``is_causal`` for a causal square without a window
-    (both keep its flash backend open), else the explicit mask."""
+    design ``k4_design`` ran (bf16: "wgmma" or "split" at most 16 folded
+    rows; f32: "tf32x3", or "simt" at most 16 folded rows) and the slices
+    over the keys (``k4_split``); every f32 case also holds the first
+    scalar kernel (``_k4_scalar``) against the plain version on its inputs
+    and times it (``scalar_ms``).
+    SDPA gets no mask where every key is visible, ``is_causal`` for a
+    causal square without a window (both keep its flash backend open),
+    else the explicit mask.  A tf32x3 case's bound divides its operations
+    by the tf32 tensor cores' peak (``_peak_of``)."""
     from repro_torch.kernels.flash_attention import (
-        _attention_mask, flash_attention, flash_attention_plain, k4_split,
+        _attention_mask, flash_attention, flash_attention_plain, k4_design,
+        k4_split,
     )
     F = torch.nn.functional
     rng = np.random.default_rng(5)
@@ -838,8 +880,10 @@ def phase_k4(torch, timer):
 
         (got, design), ref = _k4_design_of(kern), plain()
         torch.cuda.synchronize()
-        if design != ("simt" if dt == "float32" else
-                      "split" if g * tq <= 16 else "wgmma"):
+        small = g * tq <= 16
+        want = (("simt" if small else "tf32x3") if dt == "float32" else
+                "split" if small else "wgmma")
+        if design != want or design != k4_design(q, k, v):
             raise AssertionError(f"K4 {name}: ran the {design} design")
         again = kern()
         torch.cuda.synchronize()
@@ -851,12 +895,24 @@ def phase_k4(torch, timer):
         esz = q.element_size()
         n_bytes = 2 * q.numel() * esz + 2 * k.numel() * esz
         n_ops = 4 * b * h * d * _k4_pairs(tq, tk, causal, window)
-        bound, bound_by = _bound_ms(n_bytes, n_ops, dt)
+        bound, bound_by = _bound_ms(n_bytes, n_ops, _peak_of(design, dt))
         ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms, bound_ms=bound,
                           bound_by=bound_by, bytes=n_bytes, ops=n_ops)
-        slices = k4_split(g * tq, tk, b, hkv) if design != "simt" else 1
+        was = ""
+        if dt == "float32":
+            scalar = _k4_scalar(torch, q, k, v, causal, window)
+            torch.cuda.synchronize()
+            s_err = _check_close(torch, f"K4 {name} scalar kernel", scalar,
+                                 ref, tol)
+            del scalar
+            rows[name]["scalar_ms"] = timer(
+                lambda: _k4_scalar(torch, q, k, v, causal, window))
+            was = (f"  scalar kernel {rows[name]['scalar_ms']:.4f} (err "
+                   f"{s_err:.2e})")
+        slices = (k4_split(g * tq, tk, b, hkv) if design in ("wgmma", "split")
+                  else 1)
         print(f"[k4] {name:>20} {dt:>8} {design:>5} x{slices:<2} B={b} "
               f"H={h} Hkv={hkv} D={d} "
               f"tq={tq} tk={tk} causal={causal:d} window={window}: err "
@@ -864,16 +920,19 @@ def phase_k4(torch, timer):
               f"{ms:.4f} ms  plain {plain_ms:.4f}  library (SDPA) "
               f"{lib_ms:.4f} {sdpa and next(iter(sdpa)) or 'no mask'}  "
               f"bound {bound:.4f} ({bound_by})  "
-              f"{n_ops / ms / 1e9:.1f} TFLOP/s")
+              f"{n_ops / ms / 1e9:.1f} TFLOP/s{was}")
 
     def total(label, parts, peak="bfloat16"):
         """Times of the launches ``parts`` = {case: launches} summed."""
+        keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
+        if all("scalar_ms" in rows[c] for c in parts):
+            keys.append("scalar_ms")
         out = {key: sum(n * rows[c][key] for c, n in parts.items())
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for key in keys}
         n_bytes = sum(n * rows[c]["bytes"] for c, n in parts.items())
         n_ops = sum(n * rows[c]["ops"] for c, n in parts.items())
         out["bound_by"] = _bound_ms(n_bytes, n_ops, peak)[1]
-        out["max_abs_err"] = max(rows[c]["max_abs_err"] for c in rows)
+        out["max_abs_err"] = max(rows[c]["max_abs_err"] for c in parts)
         print(f"[k4] {label} ({sum(parts.values())} launches): kernel "
               f"{out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, library "
               f"{out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
@@ -893,7 +952,7 @@ def phase_k4(torch, timer):
         "granite-train-f32": total(
             "the forward and remat launches of one full-depth granite fp32 "
             "training step", {"granite-train-f32": 2 * GRANITE_LAYERS},
-            "float32"),
+            "tfloat32"),
     }
 
 
@@ -1503,24 +1562,17 @@ def _read_counters():
     ``trans_a`` ones as ``k2_ta`` / ``k2g_ta`` / ``k3_ta`` / ``k3g_ta``,
     those that ran the wgmma design of K1, K2 and K3 as ``k1_wgmma`` ...
     ``k3g_wgmma``, K1's f32 ones on the tensor cores as ``k1_tf32x3`` /
-    ``k1g_tf32x3``, and K4's and K5's on their wgmma and split designs as
-    ``k4_wgmma`` / ``k4_split`` / ``k5_wgmma`` / ``k5_split``."""
+    ``k1g_tf32x3``, K4's and K5's on their wgmma and split designs as
+    ``k4_wgmma`` / ``k4_split`` / ``k5_wgmma`` / ``k5_split``, and K4's f32
+    ones on its tf32x3 design as ``k4_tf32x3``."""
     from repro_torch.kernels.counters import launch_counts
     return launch_counts()
 
 
 def _k4_design_of(call):
     """Run ``call`` (one K4 launch) -> (its output, the design that ran it:
-    "wgmma", "split" or "simt", read off the counters)."""
-    fn = _counters()["k4"]
-
-    def count(design):
-        return getattr(fn, f"{design}_launches", 0)
-
-    before = (count("wgmma"), count("split"))
-    out = call()
-    return out, ("wgmma" if count("wgmma") > before[0] else
-                 "split" if count("split") > before[1] else "simt")
+    "wgmma", "split", "tf32x3" or "simt", read off the counters)."""
+    return _design_of(call, ("k4",), ("wgmma", "split", "tf32x3"))
 
 
 def _k5_design_of(call):
@@ -1572,10 +1624,13 @@ def _rule(name):
 
 def _check_k4_designs(label, counts):
     """Every K4 launch of a path ran a Hopper design (``k4_design``): its
-    operands are bf16 with head widths the rule takes."""
-    new = counts["k4_wgmma"] + counts["k4_split"]
+    operands are bf16 or f32 with head widths the rule takes (f32: more
+    than 16 folded rows a kv head)."""
+    tf32x3 = counts.get("k4_tf32x3", 0)
+    new = counts["k4_wgmma"] + counts["k4_split"] + tf32x3
     print(f"[{label}] K4 designs: wgmma {counts['k4_wgmma']}, split "
-          f"{counts['k4_split']} of {counts['k4']} launches")
+          f"{counts['k4_split']}, tf32x3 {tf32x3} of {counts['k4']} "
+          f"launches")
     if new != counts["k4"]:
         raise AssertionError(f"{label}: {counts['k4'] - new} K4 launches "
                              f"ran the scalar kernel, want none")
@@ -1765,6 +1820,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
     n_steps = len(eng.step_telemetry)
     want, per_step = _want_launches(cfg, pack, n_steps, sparse=sparsity > 0)
     n_tok = sum(len(v) for v in out.values())
+    tokens_sha1 = _sha1(*(np.asarray(out[uid]) for uid in sorted(out)))
     decode = [s.wall_s for s in eng.step_telemetry if s.phase == "decode"]
     prefill = [s.wall_s for s in eng.step_telemetry if s.phase != "decode"]
     graphs = eng.graphs
@@ -1776,7 +1832,8 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
           f"{[len(p) for p in prompts]}), {n_tok} tokens in {wall:.3f} s "
           f"= {n_tok / wall:.2f} tok/s; {n_steps} steps ({len(prefill)} "
           f"with prefill, median {1e3 * np.median(prefill):.2f} ms); median "
-          f"decode step {1e3 * np.median(decode):.2f} ms")
+          f"decode step {1e3 * np.median(decode):.2f} ms; tokens sha1 "
+          f"{tokens_sha1}")
     print(f"[serve:{label}] CUDA graphs: {len(graphs)} captured (chunk "
           f"widths {sorted(graphs)}), {replays} replays ({decode_replays} of "
           f"width 1), {capture_s:.3f} s "
@@ -1818,8 +1875,9 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
         raise AssertionError(f"serve:{label}: {fma} K1 launches on the fma "
                              f"design, want every router's "
                              f"({routers * n_steps})")
-    serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
-                 steps=n_steps, payload_gb=payload / 1e9,
+    serve = dict(tokens=n_tok, tokens_sha1=tokens_sha1, wall_s=wall,
+                 tok_per_s=n_tok / wall, steps=n_steps,
+                 payload_gb=payload / 1e9,
                  decode_step_ms=1e3 * float(np.median(decode)),
                  ttft_ms=1e3 * float(np.median(prefill)), **counts,
                  k2_wgmma=wgmma["k2"], k2g_wgmma=wgmma["k2g"],
@@ -2074,7 +2132,8 @@ def _kernel_vs_plain_step(torch, model, params, label, against=None):
     print(f"[serve:{label}] one full-width mixed step, {what}: max |logit "
           f"diff| {err:.3e}, mean "
           f"{diff.mean().item():.3e} (bound {rel} x max |logit| = "
-          f"{rel * scale:.3e}), argmax agreement {top_agree:.2f}")
+          f"{rel * scale:.3e}), argmax agreement {top_agree:.2f}; the "
+          f"kernels' logits sha1 {_sha1(lk.cpu().numpy())}")
     if not (err <= rel * scale and torch.isfinite(lk).all()):
         raise AssertionError(f"{what}: the logits differ by {err:.3e}")
     return err
@@ -2120,7 +2179,8 @@ TRACE_KERNELS = (("mpgemm_sparse", "K3"),
                  ("paged_wgmma_kernel", "K5 wgmma"),
                  ("paged_split_kernel", "K5 split"),
                  ("flash_wgmma_kernel", "K4 wgmma"),
-                 ("flash_split_kernel", "K4 split"), ("flash_kernel", "K4"),
+                 ("flash_split_kernel", "K4 split"),
+                 ("flash_tf32x3_kernel", "K4 tf32x3"), ("flash_kernel", "K4"),
                  ("pack_kernel", "K6"))
 
 
@@ -3564,8 +3624,8 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     3xTF32 design (``k1_tf32x3``) runs none (``k1_design``).  K4 runs
     its split design when a kv head's G·seq folded rows number at most 16
     (``k4_design``; the smoke configs), else its wgmma design (``k4_wgmma``,
-    ``k4_split``); under fp32 it runs its f32 kernel
-    (``csrc/flash_attention.cu``), neither."""
+    ``k4_split``); under fp32 its tf32x3 design above 16 folded rows
+    (``k4_tf32x3``), else its scalar kernel (none of the three)."""
     n, moe, tied = cfg.n_layers, cfg.family == "moe", cfg.tie_embeddings
     r = 2 if remat else 1
     chunks = -(-seq // 512)
@@ -3591,6 +3651,7 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     f32 = policy == "fp32"
     want["k4_split"] = want["k4"] if split and not f32 else 0
     want["k4_wgmma"] = 0 if split or f32 else want["k4"]
+    want["k4_tf32x3"] = want["k4"] if f32 and not split else 0
     return want
 
 
@@ -3742,25 +3803,9 @@ TRAIN_PATHS = {
     "phi3-int8-4-layers": dict(arch="phi3-mini-3.8b", policy="int8",
                                steps=4, n_layers=4),
 }
-# A run whose eager step does not repeat itself bit for bit is held to the
-# eager run by TRAIN_TOL's loss and grad-norm bounds at every step, and by
-# its distance over the final state against a second eager run's from the
-# first (the eager step's own spread): the RMS of the difference over the
-# whole state (parameters, both moments) within NOISE_FACTOR of it.  No
-# bound on single leaves: TRAIN_TOL's leaf bound is one step's gradients'
-# (kernels against plain versions, held by ``_train_kernel_vs_plain``), and
-# the final state of two runs of a step that sums in no fixed order
-# differs by 0.28-0.76 of a leaf's largest value, eager against eager (up
-# to 1.0 for a resumed run), after 4 steps on the card: a layer's norm
-# scale starts at 0 and Adam moves it by about lr an element whatever the
-# gradient's size, so an element whose gradient is noise moves either
-# way, and the worst such leaf is a draw.  Over granite's 4 billion
-# values the RMS is an average: in six runs of this phase on the card the
-# eager loop against itself read 1.97e-5 to 2.42e-5, the captured run
-# against it 2.00e-5 to 2.35e-5 and a resumed run against the
-# uninterrupted one 2.19e-5 to 2.40e-5; a capture that computed anything
-# else would not stay within 1.5x of it.
-NOISE_FACTOR = 1.5
+# The path whose run is repeated once under deterministic algorithms, as a
+# cross-check that the default run computes the same bits.
+DETERMINISM_CHECK_PATH = "granite-bf16"
 
 
 @contextlib.contextmanager
@@ -3845,43 +3890,28 @@ def _fmt_distance(d):
             f"the state {d['rms']:.3e})")
 
 
-def _check_same_run(label, what, d, noise, tol):
-    """Hold ``d`` (``_train_distance`` of a run against the eager run) to
-    bit equality when the eager step repeats itself (``noise`` None),
-    else to ``tol``'s loss and grad-norm bounds and, in RMS, to
-    ``NOISE_FACTOR`` times ``noise`` (a second eager run against the
-    first)."""
+def _check_same_run(label, what, d):
+    """Hold ``d`` (``_train_distance`` of one run against another) to bit
+    equality."""
     print(f"[train:{label}] {what}: {_fmt_distance(d)}")
-    if noise is None:
-        if not d["equal"]:
-            raise AssertionError(f"train {label}: {what}: not bit-equal, "
-                                 f"and the eager step repeats itself")
-        return
-    bad = [name for name, ok in (
-        ("loss", d["loss"] <= tol["loss"]),
-        ("grad norm", d["gnorm"] <= tol["gnorm"]),
-        ("RMS", d["rms"] <= NOISE_FACTOR * noise["rms"])) if not ok]
-    print(f"[train:{label}] {what}, against the eager step's own spread "
-          f"(x {NOISE_FACTOR}): RMS {d['rms']:.3e} vs {noise['rms']:.3e} "
-          f"(worst leaf {d['leaf']:.3e} vs {noise['leaf']:.3e}); bounds loss "
-          f"{tol['loss']}, grad norm {tol['gnorm']}: "
-          f"{'held' if not bad else f'BEYOND {bad}'}")
-    if bad:
-        raise AssertionError(f"train {label}: {what} beyond {bad}")
+    if not d["equal"]:
+        raise AssertionError(f"train {label}: {what}: not bit-equal")
 
 
 def _nondeterministic_ops(torch, model):
-    """The backward ops of a training step that sum into rows several
-    tokens share, each run twice on the same inputs at this model's
-    training shapes (batch 4 x seq 128) -> {op: repeats bit for bit}: the
-    embedding gather's (``index_put_`` with accumulate into the (V, d)
-    table) and, for an MoE model, the dispatch gather's (``scatter_add``
-    into the (b, s + 1, d) bf16 tokens, each read by up to k expert slots
-    and the pad row by every empty one)."""
+    """The backward ops of a training step that sum rows several tokens
+    share, as the port runs them, each run twice on the same inputs at
+    this model's training shapes (batch 4 x seq 128) -> {op: repeats bit
+    for bit}: the embedding gather's (``F.embedding``, ``LM._embed``, into
+    the f32 (V, d) table) and, for an MoE model, the dispatch gather's
+    (``blocks.DispatchGather`` into the (b, s, d) tokens of the model's
+    activation dtype, each read by up to k expert slots).  autograd through
+    indexing and through ``torch.gather`` (``index_put_`` with accumulate,
+    ``scatter_add``), which these replace, did not repeat themselves."""
     from repro_torch.models import blocks
     from repro_torch.models.transformer import MOE_TRAIN_CAPACITY
 
-    cfg, dev = model.cfg, model.device
+    cfg, dev, act = model.cfg, model.device, model.act_dtype
     gen = torch.Generator(device=dev).manual_seed(0)
     b, s, d = 4, 128, cfg.d_model
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
@@ -3889,23 +3919,23 @@ def _nondeterministic_ops(torch, model):
     table = torch.randn(cfg.vocab, d, generator=gen, device=dev,
                         requires_grad=True)
     dy = torch.randn(b, s, d, generator=gen, device=dev)
-    cases = {"embedding gather backward (index_put_, accumulate)":
-             lambda: torch.autograd.grad(table[tokens], table, dy)[0]}
+    cases = {"embedding gather backward (F.embedding)":
+             lambda: torch.autograd.grad(torch.nn.functional.embedding(
+                 tokens, table), table, dy)[0]}
     if cfg.family == "moe":
         e, k = cfg.n_experts, cfg.experts_per_token
         gates = torch.softmax(torch.randn(b, s, e, generator=gen,
                                           device=dev), dim=-1)
         _, topi = blocks.moe_topk(gates, k)
         cap = blocks.moe_capacity(MOE_TRAIN_CAPACITY, k, s, e)
-        src, _ = blocks.moe_dispatch(topi, e, cap)
-        x = torch.randn(b, s + 1, d, generator=gen, device=dev).to(
-            torch.bfloat16).requires_grad_(True)
-        idx = src[..., None].expand(b, e * cap, d)
-        dbuf = torch.randn(b, e * cap, d, generator=gen, device=dev).to(
-            torch.bfloat16)
-        cases["MoE dispatch gather backward (scatter_add, bf16)"] = (
-            lambda: torch.autograd.grad(torch.gather(x, 1, idx), x,
-                                        dbuf)[0])
+        src, dest_tok = blocks.moe_dispatch(topi, e, cap)
+        x = torch.randn(b, s, d, generator=gen, device=dev).to(
+            act).requires_grad_(True)
+        dbuf = torch.randn(b, e * cap, d, generator=gen, device=dev).to(act)
+        cases[f"MoE dispatch gather backward (DispatchGather, "
+              f"{_dtype_name(act)})"] = (
+            lambda: torch.autograd.grad(blocks.DispatchGather.apply(
+                x, src, dest_tok, k), x, dbuf)[0])
     return {name: torch.equal(fn(), fn()) for name, fn in cases.items()}
 
 
@@ -3919,14 +3949,17 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
     to the run's.  Then the same run on the eager loop
     (``Trainer(cuda_graphs=False)``) with the same counts, and one eager
     and one replayed step traced with ``torch.profiler``.  Then the
-    captured run's step metrics and final state against the eager run's
-    (``_check_same_run``; where the eager step does not repeat itself bit
-    for bit, a second eager run measures its spread, the ops that sum in
-    no fixed order are named, and the captured and eager runs are held
-    bit-equal under deterministic algorithms); a run stopped after its
-    first step with a checkpoint and resumed (captured) to ``steps``, held
-    to the uninterrupted captured run by the same rule; one step through
-    the kernels against the same step through the plain versions."""
+    backward ops that sum rows several tokens share, each twice
+    (``_nondeterministic_ops``: every one must repeat itself), and the
+    captured run's step metrics and final state against the eager run's,
+    bit for bit (where they differ, a second eager run tells whether the
+    eager loop repeats itself: an error either way); on
+    ``DETERMINISM_CHECK_PATH`` the captured run once more under
+    deterministic algorithms, bit-equal to the default one; a run stopped
+    after its first step with a checkpoint and resumed (captured) to
+    ``steps``, bit-equal to the uninterrupted captured run; one step
+    through the kernels against the same step through the plain
+    versions."""
     import dataclasses
     import shutil
 
@@ -3942,7 +3975,6 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
             "128", "--seed", "0"]
     if n_layers is not None:
         argv += ["--layers", str(n_layers)]
-    tol = TRAIN_TOL["int8" if policy == "int8" else "bf16"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4002,11 +4034,7 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
               f"of {counts['k1g']} (every bf16 and int8 one); fma design: K1 "
               f"{counts.get('k1_fma')}, grouped K1 {counts.get('k1g_fma')} "
               f"(every f32 one)")
-        if policy == "fp32":     # f32 attention: K4's f32 kernel
-            print(f"[train:{label}] K4: {counts['k4']} launches of the f32 "
-                  f"kernel (csrc/flash_attention.cu)")
-        else:
-            _check_k4_designs(f"train:{label}", counts)
+        _check_k4_designs(f"train:{label}", counts)
 
         t0 = time.perf_counter()
         _, p_res, o_res = train_cli.main(
@@ -4048,9 +4076,12 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
 
         # (c) one eager and one replayed step, timed and traced before this
         # process captures another graph: a replay traced after other
-        # graphs were captured and destroyed died on the card in the
+        # graphs were captured and destroyed once died on the card in the
         # traced ``cudaGraphLaunch`` (a segmentation fault), where the same
-        # replay untraced, just before, had run.
+        # replay untraced, just before, had run.  ``phase_trace_replay``
+        # rebuilds that order (``chip_ab.py . . phase_trace_replay``); it
+        # has not faulted since (ROADMAP C), so the cause is not known and
+        # the order stays.
         batch = device_batch(SyntheticLM(model.cfg.vocab, 4, 128,
                                          seed=7).next_batch(), "cuda")
 
@@ -4071,44 +4102,46 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
                 what=f"one {what} training step")
             traced.update({f"{key}busy_ms": busy, f"{key}idle": idle})
 
+        ops = _nondeterministic_ops(torch, model)
+        print(f"[train:{label}] backward ops that repeat bit for bit at "
+              f"this path's shapes: {ops}")
+        if not all(ops.values()):
+            raise AssertionError(f"train {label}: backward ops that do not "
+                                 f"repeat themselves: "
+                                 f"{[op for op, ok in ops.items() if not ok]}")
         d_eager = _train_distance(torch, captured, eager)
-        noise = ops = None
         if not d_eager["equal"]:
-            again = _run_record(*_train_eager(torch, model, steps))
-            noise = _train_distance(torch, again, eager)
-            del again
+            # A capture that computes something else, or an eager loop
+            # that does not repeat itself: a second eager run tells.
+            again = _train_distance(
+                torch, _run_record(*_train_eager(torch, model, steps)), eager)
             print(f"[train:{label}] the eager loop against itself: "
-                  f"{_fmt_distance(noise)}")
-            ops = _nondeterministic_ops(torch, model)
-            print(f"[train:{label}] backward ops that repeat bit for bit "
-                  f"at this path's shapes: {ops}")
-        _check_same_run(label, "captured run vs eager run", d_eager, noise,
-                        tol)
+                  f"{_fmt_distance(again)}")
+            if not again["equal"]:
+                raise AssertionError(f"train {label}: the eager loop does "
+                                     f"not repeat itself")
+        _check_same_run(label, "captured run vs eager run", d_eager)
         del eager
         gc.collect()
         det = None
-        if noise is not None:
-            # Under deterministic algorithms the captured run must equal
-            # the eager run bit for bit: what differed was the eager step.
+        if label == DETERMINISM_CHECK_PATH:
+            # Once, as a cross-check: under deterministic algorithms the
+            # captured run computes the default run's bits, at its cost.
             with _deterministic_algorithms(torch):
-                eager_det = _run_record(*_train_eager(torch, model, steps))
                 _reset_counters()
                 tr_det, p_det, o_det = train_cli.main(
                     argv + ["--steps", str(steps)])
                 det = _train_distance(torch, _run_record(tr_det, p_det,
-                                                         o_det), eager_det)
+                                                         o_det), captured)
                 det_ms = 1e3 * float(np.median([
                     r["time_s"] for r in tr_det.metrics_log[1:]]))
-            del eager_det, tr_det, p_det, o_det
+            del tr_det, p_det, o_det
             gc.collect()
             torch.cuda.empty_cache()
-            print(f"[train:{label}] under deterministic algorithms, "
-                  f"captured (median step {det_ms:.2f} ms) vs eager: "
-                  f"{_fmt_distance(det)}")
-            if not det["equal"]:
-                raise AssertionError(f"train {label}: under deterministic "
-                                     f"algorithms the captured run differs "
-                                     f"from the eager run")
+            _check_same_run(label, f"captured under deterministic algorithms "
+                            f"(median step {det_ms:.2f} ms, default "
+                            f"{step_ms:.2f} ms) vs the default captured run",
+                            det)
 
         # (b) a resume in the middle of a captured run.
         shutil.rmtree(ckpt)
@@ -4126,7 +4159,7 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
         d_mid = _train_distance(torch, mid, tail)
         _check_same_run(label, f"resumed after step 1 (captured, "
                         f"{tr_mid.graph.replays} replays) vs the "
-                        f"uninterrupted captured run", d_mid, noise, tol)
+                        f"uninterrupted captured run", d_mid)
         del tr_mid, p_mid, o_mid, mid, tail, captured
         gc.collect()
         torch.cuda.empty_cache()
@@ -4140,9 +4173,82 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
                 eager_step_ms=eager_ms, eager_peak_gb=eager_peak,
                 eager_tokens_per_s=TRAIN_TOKENS / eager_ms * 1e3,
                 pool_mb=pool_mb, capture_s=graph.capture_s,
-                bit_equal=d_eager["equal"], eager_spread=noise,
-                nondeterministic_ops=ops, deterministic=det, resumed=d_mid,
+                bit_equal=d_eager["equal"], repeating_ops=ops,
+                deterministic=det, resumed=d_mid,
                 **traced, **errs)
+
+
+# The traced-replay fault: a traced replay of granite's training graph
+# once died of a segmentation fault in ``cudaGraphLaunch`` after other
+# graphs had been captured and destroyed (phase_train's order then: the
+# serve phases traced first, the captured run, a run under deterministic
+# algorithms and a resumed run each captured and destroyed, then the
+# trace).  phase_trace_replay rebuilds that order; not in the default
+# run: ``python3 chip_ab.py . . phase_trace_replay`` runs it alone.
+def phase_trace_replay(torch, timer=None):
+    """The traced-replay fault's reproducer: trace one step of plain torch
+    ops first (the profiler, once started, tracks the graphs made after
+    it); capture graph A -- granite's training step at full width and
+    depth through the training CLI; capture, replay and destroy a second
+    training graph -- the training CLI run stopped after its first step
+    with a checkpoint and resumed to its fourth, as phase_train's resumed
+    run, in a pool of its own -- and a trivial graph of plain torch ops;
+    run A once untraced; trace one replay of A with
+    ``_profile_decode_step``.  -> {"port": {"ms": the untraced replay's
+    ms, "busy_ms": the traced one's device busy time}}; a fault ends the
+    process."""
+    import shutil
+
+    from repro_torch.launch import train as train_cli
+
+    label = "trace-replay"
+    faulthandler.enable()
+    x = torch.ones(1 << 20, device="cuda")
+    _profile_decode_step(torch, lambda: (x * 2).sum().item(), label, 1.0,
+                         what="a step of plain torch ops, before any graph")
+    del x
+    argv = ["--arch", "granite-moe-1b-a400m", "--policy", "bf16", "--batch",
+            "4", "--seq", "128", "--seed", "0"]
+    trainer, _, _ = train_cli.main(argv + ["--steps", "2"])
+    graph = trainer.graph.graph
+    graph.replay()
+    torch.cuda.synchronize()
+    print(f"[{label}] graph A captured and replayed")
+
+    ckpt = _ckpt_dir(12 * _n_params(trainer.model.cfg))
+    try:
+        train_cli.main(argv + ["--steps", "1", "--ckpt", ckpt,
+                               "--ckpt-every", "1"])
+        held, _, _ = train_cli.main(argv + ["--steps", "4", "--ckpt", ckpt,
+                                            "--resume"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    del held
+    x = torch.ones(1 << 20, device="cuda")
+    g3 = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g3):
+        y = x * 2 + 1
+    g3.replay()
+    torch.cuda.synchronize()
+    del g3, x, y
+    gc.collect()
+    print(f"[{label}] the resumed trainer's graph and a trivial graph "
+          f"captured, replayed and destroyed")
+
+    def replay():
+        graph.replay()
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    replay()
+    ms = 1e3 * (time.perf_counter() - t0)
+    print(f"[{label}] graph A replayed untraced: {ms:.2f} ms")
+    busy, _ = _profile_decode_step(
+        torch, replay, label, ms, what="one replay of graph A after another "
+        "graph was captured and destroyed")
+    print(f"[{label}] traced replay ran")
+    return {"port": dict(ms=ms, busy_ms=busy)}
 
 
 def main():
@@ -4374,11 +4480,13 @@ def main():
             "12-layer path)", "mpgemm_fma.cu", f"{mp}:812",
             trains["granite-fp32"]["counts"]["k1g_fma"],
             k1fma["granite-fp32-train-grouped"]),
-        row("K4 flash_attention f32 (granite fp32 training: forward and "
-            "remat, GQA 16:8, D 64, causal 128 x 128; ms at full depth, "
-            "launches of the 12-layer path)", "flash_attention.cu",
+        row("K4 flash_attention f32, tf32x3 design (granite fp32 training: "
+            "forward and remat, GQA 16:8, D 64, causal 128 x 128; ms at full "
+            "depth, launches of the 12-layer path; scalar_ms the first "
+            "scalar kernel's)", "flash_attention_tf32x3.cu",
             fa4, trains["granite-fp32"]["counts"]["k4"],
-            k4["granite-train-f32"]),
+            k4["granite-train-f32"],
+            {"tf32x3": trains["granite-fp32"]["counts"]["k4_tf32x3"]}),
     ]
     # The op-level API's rows (phase_ops): launches are each row's driven
     # run; ms, plain_ms, library_ms and bound_ms sum one launch a case.

@@ -31,7 +31,8 @@ KERNELS = ("mpgemm", "mpgemm_fma", "mpgemm_wgmma", "mpgemm_wgmma_int8",
            "mpgemm_wgmma_f32", "mpgemm_packed", "mpgemm_packed_wgmma",
            "mpgemm_packed_wgmma_int8", "mpgemm_sparse",
            "mpgemm_sparse_wgmma", "mpgemm_sparse_wgmma_int8", "pack",
-           "paged_flash", "flash_attention", "flash_attention_wgmma")
+           "paged_flash", "flash_attention", "flash_attention_wgmma",
+           "flash_attention_tf32x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

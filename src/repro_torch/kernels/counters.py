@@ -11,7 +11,7 @@ docstrings of ``kernels/mpgemm.py``, ``kernels/flash_attention.py`` and
 * ``<k>_wgmma``, ``<k>_tf32x3``, ``<k>_fma``, ``<k>_split``: the
   launches that ran that design (K1, K2, K3 wgmma; K1 f32 on the tensor
   cores; K1 f32 on the CUDA cores' FMA; K4's and K5's wgmma and split
-  designs).
+  designs; K4's f32 design on the tensor cores).
 
 A captured CUDA graph launches its kernels without their wrappers, so
 whoever captures one takes the counts' delta over the capture
@@ -51,10 +51,11 @@ _EXTRA = {
            ("fma", "fma_launches")),
     "k2": (("ta", "trans_a_launches"), ("wgmma", "wgmma_launches")),
     "k3": (("ta", "trans_a_launches"), ("wgmma", "wgmma_launches")),
-    "k4": (("wgmma", "wgmma_launches"), ("split", "split_launches")),
+    "k4": (("wgmma", "wgmma_launches"), ("split", "split_launches"),
+           ("tf32x3", "tf32x3_launches")),
+    "k5": (("wgmma", "wgmma_launches"), ("split", "split_launches")),
 }
-_EXTRA.update(k1g=_EXTRA["k1"], k2g=_EXTRA["k2"], k3g=_EXTRA["k3"],
-              k5=_EXTRA["k4"])
+_EXTRA.update(k1g=_EXTRA["k1"], k2g=_EXTRA["k2"], k3g=_EXTRA["k3"])
 
 
 def _table() -> Dict[str, Tuple[object, str]]:

@@ -222,31 +222,6 @@ __device__ __forceinline__ void take_bf16_residue(float (&p)[4]) {
   }
 }
 
-// Is key j visible to query position qi (j <= j_hi, the last key of the
-// block's range, already holds j < the live keys)?
-__device__ __forceinline__ bool visible(int j, int j_hi, int qi, int causal,
-                                        int window) {
-  return j <= j_hi && (!causal || j <= qi) && (window <= 0 || j > qi - window);
-}
-
-// The keys [j_lo, j_hi] any of the folded rows [r_lo, r_hi] can see, of
-// n_keys live keys, when row r sits at position r % Tq + qi_off (K4: Tk -
-// Tq, right-aligned; K5: q_start[b]).
-__device__ __forceinline__ void key_range(int r_lo, int r_hi, int Tq,
-                                          int n_keys, int qi_off, int causal,
-                                          int window, int& j_lo, int& j_hi) {
-  // Folded rows past one head's Tq wrap around to t = 0.
-  const int t_lo = r_hi - r_lo + 1 >= Tq ? 0 : r_lo % Tq;
-  const int t_hi = r_hi - r_lo + 1 >= Tq ? Tq - 1 : r_hi % Tq;
-  const bool wraps = t_hi < t_lo;
-  const int qi_lo = (wraps ? 0 : t_lo) + qi_off;
-  const int qi_hi = (wraps ? Tq - 1 : t_hi) + qi_off;
-  j_lo = 0;
-  j_hi = n_keys - 1;
-  if (causal) j_hi = min(j_hi, qi_hi);
-  if (window > 0) j_lo = max(0, qi_lo - window + 1);
-}
-
 // K5's key source: request b's keys j live at row j % ps of page
 // block_tables[b * W + j / ps] of a (P, Hkv, ps, D) pool; its rows sit at
 // q_start[b] + t; min(lengths[b], W * ps) keys are live.  K4 passes none.

@@ -1,12 +1,14 @@
 // Device and host helpers of the Hopper (sm_90a) designs: mbarriers, TMA
-// loads, wgmma shared-memory descriptors and fences, and TMA tensor maps
-// encoded on the host and kept for the next launch with the same operand.
+// loads, wgmma shared-memory descriptors and fences, TMA tensor maps
+// encoded on the host and kept for the next launch with the same operand,
+// the tf32 split and tf32 wgmma of 3xTF32, and attention's key ranges
+// and masks.
 // Shared by csrc/mpgemm_wgmma.cu, mpgemm_wgmma_int8.cu and
 // mpgemm_wgmma_f32.cu (K1), mpgemm_packed_wgmma.cu and
 // mpgemm_packed_wgmma_int8.cu (K2), mpgemm_sparse_wgmma.cu and
-// mpgemm_sparse_wgmma_int8.cu (K3) and
-// csrc/flash_attention_wgmma.cu (K4, K5); each source compiles on its own
-// into a library, so each holds its own map cache.
+// mpgemm_sparse_wgmma_int8.cu (K3), csrc/flash_attention_wgmma.cu (K4,
+// K5) and flash_attention_tf32x3.cu (K4 f32); each source compiles on its
+// own into a library, so each holds its own map cache.
 #pragma once
 
 #include <cuda.h>
@@ -220,6 +222,174 @@ inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t inner,
   if (!encode_map(map, key)) return false;
   slot = MapEntry{key, *map, true};
   return true;
+}
+
+// ------------------------------------------- 3xTF32 (K1 f32, K4 f32)
+
+// x = hi + lo + r: hi = x rounded to tf32 (to nearest, ties away), lo =
+// the rest rounded to tf32; |r| <= 2^-22 |x|.  hi * hi + hi * lo + lo * hi
+// on the tensor cores then misses a product by about 2^-21 of it (the
+// dropped lo * lo and the two r terms), where one tf32 product misses by
+// 2^-11.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
+  hi = __uint_as_float(h);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(__fsub_rn(x, hi)));
+  lo = __uint_as_float(l);
+}
+
+// An f32 tile of kBytes (a K-major tile as TMA wrote it, swizzled or not:
+// the split is elementwise): each value's hi term in place, its lo term at
+// the same offset of `lo`.
+template <int kBytes, int kThreads>
+__device__ __forceinline__ void split_in_place(uint8_t* tile, uint8_t* lo,
+                                               int tid) {
+  static_assert(kBytes % (16 * kThreads) == 0, "whole 16-byte chunks");
+#pragma unroll
+  for (int i = 0; i < kBytes / (16 * kThreads); ++i) {
+    const int off = (tid + i * kThreads) * 16;
+    const float4 x = *reinterpret_cast<const float4*>(tile + off);
+    float4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<float4*>(tile + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// d += A (64 x 8) * B (8 x N), tf32 in (f32 words whose low 13 bits are
+// zero: split_tf32's terms), f32 accumulators; both operands read K-major
+// from shared memory (the only form wgmma takes for tf32); N = 128 (d[64]),
+// 64 (d[32]) or 32 (d[16]).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d += A (64 x 8, registers: rows r and r + 8, columns c and c + 4 of
+// quad lane c, in the order (r, c), (r + 8, c), (r, c + 4), (r + 8, c + 4))
+// * B (8 x 64, shared, K-major), tf32 in, f32 sums.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// --------------------------------------------- attention (K4, K5)
+
+// Is key j visible to query position qi (j <= j_hi, the last key of the
+// block's range, already holds j < the live keys)?
+__device__ __forceinline__ bool visible(int j, int j_hi, int qi, int causal,
+                                        int window) {
+  return j <= j_hi && (!causal || j <= qi) && (window <= 0 || j > qi - window);
+}
+
+// The keys [j_lo, j_hi] any of the folded rows [r_lo, r_hi] can see, of
+// n_keys live keys, when row r sits at position r % Tq + qi_off (K4: Tk -
+// Tq, right-aligned; K5: q_start[b]).
+__device__ __forceinline__ void key_range(int r_lo, int r_hi, int Tq,
+                                          int n_keys, int qi_off, int causal,
+                                          int window, int& j_lo, int& j_hi) {
+  // Folded rows past one head's Tq wrap around to t = 0.
+  const int t_lo = r_hi - r_lo + 1 >= Tq ? 0 : r_lo % Tq;
+  const int t_hi = r_hi - r_lo + 1 >= Tq ? Tq - 1 : r_hi % Tq;
+  const bool wraps = t_hi < t_lo;
+  const int qi_lo = (wraps ? 0 : t_lo) + qi_off;
+  const int qi_hi = (wraps ? Tq - 1 : t_hi) + qi_off;
+  j_lo = 0;
+  j_hi = n_keys - 1;
+  if (causal) j_hi = min(j_hi, qi_hi);
+  if (window > 0) j_lo = max(0, qi_lo - window + 1);
 }
 
 }  // namespace hopper

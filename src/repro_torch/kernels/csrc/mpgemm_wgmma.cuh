@@ -194,7 +194,7 @@ struct PackedB {
 template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P = kDense>
 struct Cfg {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  // K1's f32 operands, summed as 3xTF32 (split_tf32 below).
+  // K1's f32 operands, summed as 3xTF32 (hopper.cuh::split_tf32).
   static constexpr bool kF32 = std::is_same<T, float>::value;
   // wgmma reads int8 and tf32 K-major only; bf16 either way.
   static constexpr bool kKMajorOnly = kInt8 || kF32;
@@ -325,76 +325,6 @@ __device__ __forceinline__ void wgmma_m64n128(int (&d)[64], uint64_t desc_a,
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// d += A (64 x 8) * B (8 x 128), tf32 in (f32 words whose low 13 bits are
-// zero: split_tf32), f32 accumulators; both operands K-major (the only
-// form wgmma takes for tf32).
-__device__ __forceinline__ void wgmma_m64n128_tf32(float (&d)[64],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// x = hi + lo + r: hi = x rounded to tf32 (to nearest, ties away), lo =
-// the rest rounded to tf32; |r| <= 2^-22 |x|.  hi * hi + hi * lo + lo * hi
-// on the tensor cores then misses a product by about 2^-21 of it (the
-// dropped lo * lo and the two r terms), where one tf32 product misses by
-// 2^-11.
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  uint32_t h, l;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
-  hi = __uint_as_float(h);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(__fsub_rn(x, hi)));
-  lo = __uint_as_float(l);
-}
-
-// K1 f32, a K-major tile (TMA wrote it swizzled): each value's hi term in
-// place, its lo term at the same offset of `lo`.
-template <int kBytes, int kThreads>
-__device__ __forceinline__ void split_in_place(uint8_t* tile, uint8_t* lo,
-                                               int tid) {
-  static_assert(kBytes % (16 * kThreads) == 0, "whole 16-byte chunks");
-#pragma unroll
-  for (int i = 0; i < kBytes / (16 * kThreads); ++i) {
-    const int off = (tid + i * kThreads) * 16;
-    const float4 x = *reinterpret_cast<const float4*>(tile + off);
-    float4 h, l;
-    split_tf32(x.x, h.x, l.x);
-    split_tf32(x.y, h.y, l.y);
-    split_tf32(x.z, h.z, l.z);
-    split_tf32(x.w, h.w, l.w);
-    *reinterpret_cast<float4*>(tile + off) = h;
-    *reinterpret_cast<float4*>(lo + off) = l;
-  }
 }
 
 // K1 f32, an MN-major tile: `raw` holds 32 K rows of W f32 (W = the tile's
@@ -820,9 +750,9 @@ __device__ __forceinline__ void mpgemm_wgmma_body(
       for (int kk = 0; kk < kKSteps; ++kk) {
         const uint64_t dah = smem_desc(a_h + kk * 32, 16, 1024);
         const uint64_t dbh = smem_desc(b_h + kk * 32, 16, 1024);
-        wgmma_m64n128_tf32(d, smem_desc(a_l + kk * 32, 16, 1024), dbh);
-        wgmma_m64n128_tf32(d, dah, smem_desc(b_l + kk * 32, 16, 1024));
-        wgmma_m64n128_tf32(d, dah, dbh);
+        wgmma_tf32(d, smem_desc(a_l + kk * 32, 16, 1024), dbh);
+        wgmma_tf32(d, dah, smem_desc(b_l + kk * 32, 16, 1024));
+        wgmma_tf32(d, dah, dbh);
       }
       wgmma_commit();
       if (it + 1 < n_kt) split_stage(it + 1);

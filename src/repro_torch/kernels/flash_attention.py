@@ -11,7 +11,7 @@ falls back.  Both compute the reference kernels' math: logical positions,
 ``-1e30`` (finite) masking, f32 scores, softmax and P·V, ``acc / max(l,
 1e-30)`` in q's dtype.
 
-K4 has three designs on the card, and :func:`k4_design` picks one by a
+K4 has four designs on the card, and :func:`k4_design` picks one by a
 rule on the operands (never by trying): bf16 q, k and v with 16-byte
 aligned bases, a head width D % 8 == 0 and D <= 128 run
 ``csrc/flash_attention_wgmma.cu`` -- ``"wgmma"`` (TMA, ``wgmma`` for
@@ -20,11 +20,15 @@ folded rows of a kv head number more than 16, ``"split"`` (CUDA cores,
 16-byte loads) at most 16 (decode) -- and both cut the keys into
 :func:`k4_split` slices when there are fewer blocks than SMs, combined
 in slice order by the last block of a tile (one launch, the same bits
-every run); everything else (f32, other head widths) runs the scalar
-``csrc/flash_attention.cu``.  The wgmma design rounds P to bf16 before
-P·V (a relative error of at most 2⁻⁹ an element; the plain version and
-the other designs keep P in f32), and the two new designs take ``exp2``
-of scores scaled by ``scale · log2(e)``.
+every run); f32 q, k and v under the same rule with more than 16 folded
+rows run ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``: TMA, both
+products on ``wgmma`` as 3xTF32, blocks of 64 folded rows, no split);
+everything else (f32 decode, other head widths, unaligned operands) runs
+the scalar ``csrc/flash_attention.cu``.  The wgmma design rounds P to
+bf16 before P·V (a relative error of at most 2⁻⁹ an element; the plain
+version and the other designs keep P in f32; tf32x3 carries P as two
+tf32 terms, to about 2⁻²¹ a product), and the three new designs take
+``exp2`` of scores scaled by ``scale · log2(e)``.
 
 K4 (:func:`flash_attention`): the causal mask is right-aligned (query row t
 sits at position ``t + tk - tq``), an optional window keeps keys with
@@ -56,7 +60,7 @@ through it stays as close to its plain version as the scalar kernel's
 ``flash_attention.launches`` and ``paged_flash_attention.launches`` count
 kernel launches (never plain-version calls); their ``wgmma_launches`` and
 ``split_launches`` those that ran the ``"wgmma"`` and the ``"split"``
-design.
+design, and ``flash_attention.tf32x3_launches`` K4's ``"tf32x3"`` ones.
 """
 from __future__ import annotations
 
@@ -84,22 +88,30 @@ _SPLIT_WS = K4_SPLIT_ROWS * K4_MAX_D + 2 * K4_SPLIT_ROWS
 
 def k4_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The K4 kernel that runs q (B, H, Tq, D) over k/v (B, Hkv, Tk, D) on
-    the card: ``"wgmma"`` or ``"split"`` (``csrc/flash_attention_wgmma.
-    cu``) when all three are bf16 and non-empty, D % 8 == 0, D <=
-    :data:`K4_MAX_D`, B and Hkv <= 65535 and every base pointer is a
-    multiple of 16 bytes (rows of D bf16 values are then 16-byte aligned,
-    as TMA needs) -- ``"split"`` when the G·Tq folded rows of a kv head
-    number at most :data:`K4_SPLIT_ROWS`, else ``"wgmma"``; else
-    ``"simt"`` (``csrc/flash_attention.cu``).  A rule on what the operands
-    are, not a fallback: a failed build or launch raises."""
+    the card.  When all three are bf16, or all three f32, non-empty, D % 8
+    == 0, D <= :data:`K4_MAX_D`, B and Hkv <= 65535, H % Hkv == 0 and
+    every base pointer is a multiple of 16 bytes (rows of D values are
+    then 16-byte aligned, as TMA needs): bf16 runs ``"split"`` when the
+    G·Tq folded rows of a kv head number at most :data:`K4_SPLIT_ROWS`,
+    else ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``); f32 runs
+    ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``) above
+    :data:`K4_SPLIT_ROWS` folded rows.  Everything else -- f32 at most
+    :data:`K4_SPLIT_ROWS` folded rows (decode), D > 128, unaligned
+    operands -- runs ``"simt"`` (``csrc/flash_attention.cu``).  A rule on
+    what the operands are, not a fallback: a failed build or launch
+    raises."""
     b, h, tq, d = q.shape
     hkv = k.shape[1]
-    if (any(t.dtype != torch.bfloat16 or t.data_ptr() % 16
-            or not t.numel() for t in (q, k, v))
+    if (q.dtype not in (torch.bfloat16, torch.float32)
+            or any(t.dtype != q.dtype or t.data_ptr() % 16
+                   or not t.numel() for t in (q, k, v))
             or d % 8 or d > K4_MAX_D or b > 65535 or hkv > 65535
             or h % hkv):
         return "simt"
-    return "split" if h // hkv * tq <= K4_SPLIT_ROWS else "wgmma"
+    small = h // hkv * tq <= K4_SPLIT_ROWS
+    if q.dtype == torch.float32:
+        return "simt" if small else "tf32x3"
+    return "split" if small else "wgmma"
 
 
 def _pages_tile(ps: int) -> bool:
@@ -267,6 +279,12 @@ def _launch_flash(q, k, v, causal, window, scale):
             hkv, tq, tk, d, int(causal), window, float(scale),
             _DTYPE_CODES[q.dtype], stream)
         error = lib.flash_attention_error_string
+    elif design == "tf32x3":
+        lib = _tf32x3_lib()
+        rc = lib.flash_tf32x3_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            hkv, tq, tk, d, int(causal), window, float(scale), stream)
+        error = lib.flash_tf32x3_error_string
     else:
         rows = h // hkv * tq
         splits = k4_split(rows, tk, b, hkv, _sm_count(q.get_device()))
@@ -300,11 +318,13 @@ def _launch_flash(q, k, v, causal, window, scale):
     flash_attention.launches += 1
     flash_attention.wgmma_launches += int(design == "wgmma")
     flash_attention.split_launches += int(design == "split")
+    flash_attention.tf32x3_launches += int(design == "tf32x3")
     return out
 
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = flash_attention.split_launches = 0
+flash_attention.tf32x3_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,6 +337,20 @@ def _flash_lib() -> ctypes.CDLL:
     lib.flash_attention_launch.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32x3_lib() -> ctypes.CDLL:
+    """The built library of K4's "tf32x3" design, with its C signature
+    declared (once)."""
+    lib = _build.load("flash_attention_tf32x3")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_tf32x3_launch.argtypes = [p] * 4 + [i] * 8 + [
+        ctypes.c_float, p]
+    lib.flash_tf32x3_launch.restype = i
+    lib.flash_tf32x3_error_string.argtypes = [i]
+    lib.flash_tf32x3_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -296,6 +296,43 @@ def moe_dispatch(topi: torch.Tensor, e: int, cap: int):
     return src, dest_tok
 
 
+class DispatchGather(torch.autograd.Function):
+    """``apply(x, src, dest_tok, k)``: the capacity buffer (b, e·cap, d)
+    of the tokens ``x`` (b, s, d) padded with one zero row, slot i reading
+    token ``src[b, i]`` (``s``: the zero row), as ``torch.gather`` reads
+    it.  Its backward scatters nothing: ``dest_tok`` (b, s·k), the inverse
+    map of :func:`moe_dispatch`, names the slot of each (token, choice)
+    pair (``e·cap`` for a dropped one), so a token's gradient is the
+    gradient rows of its k slots, gathered from ``grad`` padded with one
+    zero row at ``e·cap``, summed in choice order j = 0..k-1 in f32 and
+    rounded once to ``x``'s dtype.  autograd through ``torch.gather``
+    would ``scatter_add`` the rows into the tokens, on the card in no
+    fixed order, so that a training step would not repeat itself bit for
+    bit.  The pad row takes no gradient: it is ``new_zeros``."""
+
+    @staticmethod
+    def forward(ctx, x, src, dest_tok, k):
+        b, _, d = x.shape
+        ctx.save_for_backward(dest_tok)
+        ctx.k = k
+        tok_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
+        return torch.gather(tok_pad, 1,
+                            src[..., None].expand(b, src.shape[1], d))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest_tok,) = ctx.saved_tensors
+        b, _, d = grad.shape
+        k, n = ctx.k, dest_tok.shape[1]
+        g_pad = torch.cat([grad, grad.new_zeros(b, 1, d)], dim=1)
+        rows = torch.gather(g_pad, 1, dest_tok[..., None].expand(b, n, d))
+        rows = rows.float().reshape(b, n // k, k, d)
+        acc = rows[:, :, 0]
+        for j in range(1, k):
+            acc = acc + rows[:, :, j]
+        return acc.to(grad.dtype), None, None, None
+
+
 def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25,
             return_aux: bool = False, fused: bool = True):
     """Top-k MoE with per-sequence capacity dispatch (the reference's
@@ -304,7 +341,8 @@ def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25,
     which serves training; the serve path drops it.
 
     The router runs in f32 (K1).  Each expert's capacity slots are
-    gathered into one (E, b·cap, d) buffer, and the SwiGLU experts run as
+    gathered into one (E, b·cap, d) buffer (:class:`DispatchGather`, whose
+    backward sums in a fixed order), and the SwiGLU experts run as
     three grouped GEMMs with f32 outputs (group = expert): up, then gate
     with ``silu(·) · up`` fused into its store (unless ``fused`` is off:
     then a plain gate GEMM and the f32 product), then down.  The combine
@@ -321,8 +359,7 @@ def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25,
     cap = moe_capacity(capacity_factor, k, s, e)
     src, dest_tok = moe_dispatch(topi, e, cap)
 
-    tok_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)     # (b, s+1, d)
-    buf = torch.gather(tok_pad, 1, src[..., None].expand(b, e * cap, d))
+    buf = DispatchGather.apply(x, src, dest_tok, k)           # (b, e·cap, d)
     ebuf = buf.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
     f32 = torch.float32
     h_up = mp_dot_grouped(ebuf, params["w_up"], policy=policy, out_dtype=f32)
@@ -336,6 +373,9 @@ def moe_mlp(params, x, cfg, policy, capacity_factor: float = 1.25,
     y = mp_dot_grouped(h, params["w_down"], policy=policy, out_dtype=f32)
     y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
 
+    # The combine gather's backward scatters too, but its only repeated
+    # index is the dropped pairs' slot e·cap, whose gradient the pad row
+    # cuts off: every slot it keeps takes one row, in any order.
     y_pad = torch.cat([y, y.new_zeros(b, 1, d)], dim=1)
     contrib = torch.gather(y_pad, 1, dest_tok[..., None].expand(b, s * k, d))
     kept = (dest_tok < e * cap).reshape(b, s, k)

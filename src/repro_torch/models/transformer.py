@@ -315,7 +315,12 @@ class LM:
         return ctx
 
     def _embed(self, params, tokens):
-        x = params["embed"][tokens.long()].to(self.act_dtype)
+        """The token rows, plus the learned positions' (a slice).  The
+        gather is ``F.embedding``: its backward sums each id's rows in a
+        fixed order on the card, where indexing's (``index_put_`` with
+        accumulate) promises none."""
+        x = torch.nn.functional.embedding(tokens.long(), params["embed"]).to(
+            self.act_dtype)
         if self.cfg.pos_embed == "learned":
             x = x + params["pos_embed"][:tokens.shape[1]][None].to(
                 self.act_dtype)

@@ -346,11 +346,12 @@ def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
     model, whose widths are multiples of 16), to fma (the MoE routers,
     which run under the fp32 policy, and every product of an fp32 step)
     and to tf32x3 (none), and the K4 calls that
-    :func:`k4_design` sends to its wgmma and split designs (none in f32)
-    number what ``chip_smoke.py`` asserts on the card."""
+    :func:`k4_design` sends to its wgmma and split designs (bf16 and int8)
+    and to tf32x3 (f32) number what ``chip_smoke.py`` asserts on the
+    card."""
     counts = {"k1_wgmma": 0, "k1g_wgmma": 0, "k1_tf32x3": 0,
               "k1g_tf32x3": 0, "k1_fma": 0, "k1g_fma": 0, "k4_wgmma": 0,
-              "k4_split": 0}
+              "k4_split": 0, "k4_tf32x3": 0}
 
     def gemm(name, inner):
         def call(a, b, *, spec, **kw):

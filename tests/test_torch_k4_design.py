@@ -1,10 +1,12 @@
 """K4's designs and the rules around them, on the CPU.
 
 * :func:`k4_design` picks the wgmma or split kernel
-  (``csrc/flash_attention_wgmma.cu``) or the scalar one
-  (``csrc/flash_attention.cu``) from the operands alone: bf16, D % 8 == 0,
-  D <= 128, 16-byte aligned bases; at most 16 folded rows (G·Tq) a kv head
-  take the split design.
+  (``csrc/flash_attention_wgmma.cu``), the tf32x3 kernel
+  (``csrc/flash_attention_tf32x3.cu``) or the scalar one
+  (``csrc/flash_attention.cu``) from the operands alone: bf16 or f32, D %
+  8 == 0, D <= 128, 16-byte aligned bases; at most 16 folded rows (G·Tq) a
+  kv head take the split design in bf16 and the scalar kernel in f32, more
+  the wgmma design in bf16 and tf32x3 in f32.
 * :func:`k4_split` cuts the keys into slices when the grid has fewer
   blocks than the card has SMs.
 * A plain-torch emulation of the new designs' arithmetic -- folded rows in
@@ -17,6 +19,12 @@
   rtol = 1.6e-2, the card's bf16 gate: P rounded to bf16 moves each term
   of P·V by at most 2**-9 of itself, and the output is rounded to bf16
   (2**-8) in both.
+* The same for the tf32x3 design's arithmetic -- blocks of 64 folded rows,
+  keys in tiles of 64 (32 above D = 64), every product as 3xTF32 (the
+  operands and P split into tf32 hi and lo terms, lo·hi + hi·lo + hi·hi),
+  keys past the block's last visible one at -inf -- against the reference
+  kernel in f32, at the f32 gate: atol = rtol = 1e-4.  One tf32 product
+  in place of three misses that gate.
 """
 import importlib.util
 import math
@@ -68,12 +76,13 @@ def _misaligned(*shape):
 def test_k4_design_of_every_chip_smoke_case(case):
     """chip_smoke.py's K4 cases: bf16 ones take the split design at most
     16 folded rows (whisper's decode cross-attention), the wgmma design
-    above; the f32 case the scalar kernel."""
+    above; the f32 ones (more than 16 folded rows) the tf32x3 design."""
     row = {c[0]: c for c in _chip_smoke().K4_CASES}[case]
     _, b, h, hkv, tq, tk, d, _, _, dt = row
     q, k, v = _qkv(b, h, hkv, tq, tk, d, getattr(torch, dt))
-    want = ("simt" if dt == "float32" else
-            "split" if h // hkv * tq <= K4_SPLIT_ROWS else "wgmma")
+    small = h // hkv * tq <= K4_SPLIT_ROWS
+    want = (("simt" if small else "tf32x3") if dt == "float32" else
+            "split" if small else "wgmma")
     assert k4_design(q, k, v) == want
 
 
@@ -92,6 +101,37 @@ def test_k4_design_of_every_chip_smoke_case(case):
 ])
 def test_k4_design_by_shape(case, shape, want):
     assert k4_design(*_qkv(*shape)) == want, case
+
+
+@pytest.mark.parametrize("case,shape,want", [
+    ("granite training", (4, 16, 8, 128, 128, 64), "tf32x3"),
+    ("f32-gqa", (2, 8, 2, 48, 300, 64), "tf32x3"),
+    ("decode, MHA", (2, 16, 16, 1, 1500, 64), "simt"),
+    ("16 folded rows", (2, 4, 1, 4, 300, 72), "simt"),
+    ("17 folded rows", (1, 17, 1, 1, 30, 64), "tf32x3"),
+    ("cross, tq < tk", (2, 4, 4, 32, 1500, 64), "tf32x3"),
+    ("D 96", (2, 8, 8, 40, 40, 96), "tf32x3"),
+    ("D 128", (1, 4, 4, 200, 700, 128), "tf32x3"),
+    ("D 24", (3, 6, 3, 64, 64, 24), "tf32x3"),
+    ("D 20: rows of 80 bytes", (2, 4, 2, 7, 45, 20), "simt"),
+    ("D 136 > 128", (1, 2, 2, 8, 8, 136), "simt"),
+    ("D 256", (1, 4, 1, 5, 9, 256), "simt"),
+    ("H % Hkv != 0", (1, 3, 2, 40, 40, 64), "simt"),
+])
+def test_k4_design_f32_rule(case, shape, want):
+    assert k4_design(*_qkv(*shape, dtype=torch.float32)) == want, case
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_k4_design_sends_a_misaligned_f32_view_to_simt(which):
+    shapes = dict(q=(2, 4, 33, 64), k=(2, 4, 70, 64), v=(2, 4, 70, 64))
+    ops = {n: torch.zeros(s) for n, s in shapes.items()}
+    base = torch.zeros(int(np.prod(shapes[which])) + 1)
+    assert base.data_ptr() % 16 == 0
+    ops[which] = base[1:].view(*shapes[which])
+    assert ops[which].is_contiguous() and ops[which].data_ptr() % 16
+    assert k4_design(ops["q"], ops["k"], ops["v"]) == "simt"
+    assert k4_design(*_qkv(2, 4, 4, 33, 70, 64, torch.float32)) == "tf32x3"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
@@ -241,3 +281,120 @@ def test_new_designs_arithmetic_matches_reference(case, b, h, hkv, tq, tk, d,
                    splits=splits)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want).astype(np.float32), **BF16)
+
+
+# --- the tf32x3 design's arithmetic against the reference -------------------
+
+def _tf32(x):
+    """x rounded to tf32 (10 bits of mantissa), to nearest with ties away
+    from zero: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return ((bits & ~0x7FFFFFFF) | mag).view(torch.float32)
+
+
+def _mm3(a, b, terms):
+    """a @ b as the tensor cores sum it: 3xTF32 (lo·hi + hi·lo + hi·hi) or
+    one tf32 product (``terms`` 1)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _emulate_tf32x3(q, k, v, *, causal, window, terms=3):
+    """The tf32x3 design's arithmetic in plain torch: see the module
+    docstring."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    rows, bm, bkv = h // hkv * tq, 64, 64 if d <= 64 else 32
+    sl = d ** -0.5 * math.log2(math.e)
+    qf = q.reshape(b, hkv, rows, d)
+    out = torch.empty(b, hkv, rows, d)
+    for m0 in range(0, rows, bm):
+        r = torch.arange(m0, min(m0 + bm, rows))
+        qi = r % tq + tk - tq
+        j_hi = min(tk - 1, int(qi.max())) if causal else tk - 1
+        j_lo = max(0, int(qi.min()) - window + 1) if window else 0
+        n_tiles = -(-(j_hi - j_lo + 1) // bkv) if j_hi >= j_lo else 0
+        m = torch.full((b, hkv, len(r)), NEG_INF)
+        l = torch.zeros(b, hkv, len(r))
+        acc = torch.zeros(b, hkv, len(r), d)
+        for it in range(n_tiles):
+            keys = j_lo + it * bkv + torch.arange(bkv)
+            seen = (keys <= j_hi)[None, :].expand(len(r), -1)
+            if causal:
+                seen = seen & (keys[None, :] <= qi[:, None])
+            if window:
+                seen = seen & (keys[None, :] > qi[:, None] - window)
+            inside = keys.clamp(max=tk - 1)
+            vk = torch.where((keys < tk)[:, None], v[:, :, inside], 0.0)
+            sc = _mm3(qf[:, :, r], k[:, :, inside].transpose(-1, -2),
+                      terms) * sl
+            sc = torch.where(seen, sc, NEG_INF)
+            sc = torch.where((keys > j_hi)[None, :], -math.inf, sc)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + _mm3(p, vk, terms)
+            m = m_new
+        out[:, :, r] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, tq, d)
+
+
+TF32X3_CASES = [
+    ("granite-train-like", 2, 4, 2, 128, 128, 64, True, None),
+    ("f32-gqa-like", 1, 8, 2, 48, 300, 64, True, None),
+    ("cross, tq < tk", 2, 2, 2, 24, 300, 64, False, None),
+    ("D 96, causal", 1, 2, 2, 40, 40, 96, True, None),
+    ("D 128, ragged tk", 1, 2, 2, 70, 133, 128, False, None),
+    ("gqa-window, D 120", 1, 8, 2, 20, 150, 120, True, 37),
+]
+
+
+def _f32_inputs(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return [(jnp.asarray(a), torch.from_numpy(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("case,b,h,hkv,tq,tk,d,causal,window", TF32X3_CASES)
+def test_tf32x3_arithmetic_matches_reference(case, b, h, hkv, tq, tk, d,
+                                             causal, window):
+    (jq, q), (jk, k), (jv, v) = _f32_inputs(
+        8, (b, h, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))
+    want = np.asarray(jfa.flash_attention(jq, jk, jv, causal=causal,
+                                          window=window, interpret=True))
+    got = _emulate_tf32x3(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_one_tf32_product_misses_the_f32_gate():
+    """Why three products: the same arithmetic with one tf32 product (P
+    and the operands rounded to tf32) is off the reference by more than
+    the f32 gate at a training shape."""
+    _, b, h, hkv, tq, tk, d, causal, window = TF32X3_CASES[0]
+    (jq, q), (jk, k), (jv, v) = _f32_inputs(
+        8, (b, h, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))
+    want = np.asarray(jfa.flash_attention(jq, jk, jv, causal=causal,
+                                          window=window, interpret=True))
+    got = _emulate_tf32x3(q, k, v, causal=causal, window=window,
+                          terms=1).numpy()
+    assert not np.allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_tf32x3_rows_without_a_key_average_the_blocks_keys():
+    """tq > tk under causal: a row that sees no key averages the keys of
+    its block's range (all tk here, so the plain version's mean of V);
+    keys past the range (the tile's zero-filled tail) count for nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    (_, q), (_, k), (_, v) = _f32_inputs(9, (1, 2, 40, 64), (1, 2, 8, 64),
+                                         (1, 2, 8, 64))
+    got = _emulate_tf32x3(q, k, v, causal=True, window=None)
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got[:, :, 0], v.mean(2), atol=1e-5,
+                               rtol=1e-5)

@@ -48,7 +48,8 @@ NAMES = (["k1", "k1g", "k2", "k2g", "k3", "k3g", "k4", "k5", "k6", "k7"]
                                                         "tf32x3", "fma")]
          + [f"{k}_{s}" for k in ("k2", "k2g", "k3", "k3g")
             for s in ("ta", "wgmma")]
-         + [f"{k}_{s}" for k in ("k4", "k5") for s in ("wgmma", "split")])
+         + [f"{k}_{s}" for k in ("k4", "k5") for s in ("wgmma", "split")]
+         + ["k4_tf32x3"])
 
 
 def _attr(name):
