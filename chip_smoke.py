@@ -47,7 +47,10 @@ printing a result:
    is seen, ``is_causal`` for a causal square, else the mask);
 4. K6 (``kernels/csrc/pack.cu``) packing every full-width phi3-mini weight
    shape and a ragged ``trans_w`` one into bf16, int8, int4 and fp8
-   payloads: payload and scales byte-equal to its plain version;
+   payloads on its stream design (``packing/pack.py::k6_design``) and on
+   its first scalar kernel (timed beside it), and a case whose rows the
+   stream design does not take through the wrapper on the scalar one:
+   payload and scales byte-equal to its plain version;
 5. K2 at phi3-mini's shapes, M = 2 and 32, for every payload under the
    bf16 policy (bf16 A) and the int8 and int4 payloads under the int8
    policy (int8 A and its scale), and at granite's attention projections
@@ -63,7 +66,8 @@ printing a result:
    the gate GEMM), grouped K2 with int4 and bf16 payloads under bf16 A and
    int8 payloads under int8 A (the wgmma design, the same bits from two
    launches), each against its plain version; grouped K6
-   packing every weight shape of the model (byte-equal), then all 72
+   packing every weight shape of the model (byte-equal, the stream design
+   and the scalar kernel, both timed), then all 72
    expert stacks of a full-width model into int4, byte-equal; then K3 on
    tile-sparse weights built on the card: phi3-mini's GEMMs at 50 %
    magnitude, bf16 A x bf16 tiles and int8 A x int8 tiles with the
@@ -125,7 +129,8 @@ printing a result:
    and half depth: phi3-mini under bf16 at sparsity 0.5 by magnitude (113
    K3, 16 K5 and 0 K1 per step) and granite under int8 with N:M 2:4 (48
    K3, 36 grouped K3, 13 K1, 12 K5 per step), each sparsified from the
-   f32 draw through K6 (113 and 84 launches at load).  Each path serves
+   f32 draw through K6 (113 and 84 launches at load; every K6 launch of
+   a load on the stream design).  Each path serves
    through the engine's CUDA graphs (one a chunk width, the decode graph
    replayed; the graphs, replays, capture seconds and pool MB printed),
    then the same requests on the eager step (``cuda_graphs=False``),
@@ -154,10 +159,14 @@ printing a result:
    projections and head -- against its plain version and deterministic;
    K7 (the unpacker, ``kernels/csrc/pack.cu``) bit-equal to its plain
    version on every full-width phi3-mini weight packed bf16, int8, int4
-   and fp8 and on granite's expert stacks; ``mp_dot`` forward and
+   and fp8 and on granite's expert stacks, on its stream design
+   (``k7_design``) and on its scalar kernel, both timed (a bf16 payload
+   also beside the one PyTorch copy that computes the same function);
+   ``mp_dot`` forward and
    backward on a packed phi3 ``w_up`` (bf16: K2, K7, K1 trans_b and
    trans_a, K6; int4: frozen, dx only) and a bf16 payload's forward under
-   int8 (K7, int8 K1), against the plain versions; then
+   int8 (K7, int8 K1), against the plain versions, every K6 and K7 launch
+   on the stream design; then
    ``repro_torch.launch.train.main`` (``TRAIN_PATHS``): full-width
    granite-moe-1b-a400m, all 24 layers, bf16, batch 4 x seq 128, remat, 4
    steps with a checkpoint, the same at 12 layers under fp32 (every
@@ -347,9 +356,10 @@ class StepSum:
         self.launches = self.bytes = self.ops = 0
         self.max_abs_err = 0.0
         self.designs = []      # the design of each case, where recorded
+        self.scalar_ms = None  # the first scalar kernel's, where timed
 
     def add(self, per_step, ms, plain_ms, library_ms, bound_ms, n_bytes,
-            n_ops):
+            n_ops, scalar_ms=None):
         self.ms += per_step * ms
         self.plain_ms += per_step * plain_ms
         self.library_ms += per_step * library_ms
@@ -357,12 +367,17 @@ class StepSum:
         self.launches += per_step
         self.bytes += per_step * n_bytes
         self.ops += per_step * n_ops
+        if scalar_ms is not None:
+            self.scalar_ms = (self.scalar_ms or 0.0) + per_step * scalar_ms
 
     def row(self, peak_dtype):
         _, bound_by = _bound_ms(self.bytes, self.ops, peak_dtype)
-        return dict(ms=self.ms, plain_ms=self.plain_ms,
-                    library_ms=self.library_ms, bound_ms=self.bound_ms,
-                    bound_by=bound_by, max_abs_err=self.max_abs_err)
+        row = dict(ms=self.ms, plain_ms=self.plain_ms,
+                   library_ms=self.library_ms, bound_ms=self.bound_ms,
+                   bound_by=bound_by, max_abs_err=self.max_abs_err)
+        if self.scalar_ms is not None:
+            row["scalar_ms"] = self.scalar_ms
+        return row
 
 
 def _check_close(torch, label, got, ref, tol):
@@ -961,60 +976,158 @@ def phase_k4(torch, timer):
 PAYLOADS = ("bfloat16", "int8", "int4", "fp8e4m3")
 
 
+def _pack_rule(name):
+    """The design rule ``name`` of ``packing/pack.py`` (``k6_design``,
+    ``k7_design``), or None on a tree without it (chip_ab.py runs these
+    phases on older trees, whose kernels are all "simt")."""
+    from repro_torch.packing import pack
+    return getattr(pack, name, None)
+
+
+def _stream_design_of(call, key):
+    """Run ``call`` (one K6 or K7 launch: ``key`` "k6" or "k7") -> (its
+    output, "stream" or "simt", read off the counters)."""
+    return _design_of(call, (key,), ("stream",))
+
+
+def _k6_scalar(torch, w, layout):
+    """K6's first, scalar kernel (``csrc/pack.cu::pack_kernel``, the
+    "simt" design) on ``w`` through its C entry point, whatever design
+    the wrapper would pick -> (payload, scales)."""
+    from repro_torch.kernels import _build
+    from repro_torch.packing import pack as pk
+    payload = torch.empty(layout.payload_shape, dtype=layout.storage_dtype,
+                          device=w.device)
+    scales = (torch.empty(layout.scales_shape, dtype=torch.float32,
+                          device=w.device)
+              if layout.per_tile_scales else None)
+    lib = pk._lib()
+    rc = lib.pack_launch(
+        w.data_ptr(), payload.data_ptr(),
+        None if scales is None else scales.data_ptr(),
+        pk._SRC_CODES[w.dtype], pk._PAYLOAD_CODES[layout.dtype], layout.g,
+        layout.k, layout.n, layout.bk, layout.bn, int(layout.trans_w),
+        _build.current_stream(w))
+    if rc:
+        raise RuntimeError(f"K6 scalar kernel: CUDA error {rc} "
+                           f"({lib.pack_error_string(rc).decode()})")
+    return payload, scales
+
+
+def _k7_scalar(torch, p, dtype):
+    """K7's first, scalar kernel (``csrc/pack.cu::unpack_kernel``) on the
+    packed ``p`` through its C entry point -> the dense operand."""
+    from repro_torch.kernels import _build
+    from repro_torch.packing import pack as pk
+    layout = p.layout
+    shape = ((layout.g,) if layout.g != 1 else ()) + (layout.k, layout.n)
+    out = torch.empty(shape, dtype=dtype, device=p.payload.device)
+    lib = pk._lib()
+    rc = lib.unpack_launch(
+        p.payload.data_ptr(),
+        p.scales.data_ptr() if layout.per_tile_scales else None,
+        out.data_ptr(), pk._PAYLOAD_CODES[layout.dtype],
+        pk._OUT_CODES[dtype], layout.g, layout.k, layout.n, layout.bk,
+        layout.bn, _build.current_stream(p.payload))
+    if rc:
+        raise RuntimeError(f"K7 scalar kernel: CUDA error {rc} "
+                           f"({lib.pack_error_string(rc).decode()})")
+    return out
+
+
+def _same_pack(torch, got, want):
+    """Payload and scales byte for byte (``got``, ``want``: (payload,
+    scales) pairs)."""
+    ok = torch.equal(got[0].contiguous().view(torch.uint8),
+                     want[0].contiguous().view(torch.uint8))
+    if want[1] is not None:
+        ok = ok and torch.equal(got[1].view(torch.int32),
+                                want[1].view(torch.int32))
+    return ok
+
+
+def _k6_case(torch, timer, label, w, blocks, trans_w, fmt, want_design):
+    """One K6 case: the wrapper's launch (its design read off the
+    counters, which must be ``k6_design``'s, and ``want_design`` where
+    given) and the scalar kernel, both byte-equal to the plain version;
+    each timed -> (layout, design, ms, scalar_ms, plain_ms, bound_ms,
+    bound_by, bytes)."""
+    from repro_torch.packing.pack import _layout_for, pack_operand, \
+        pack_reference
+
+    def kern():
+        return pack_operand(w, blocks, trans_w=trans_w, dtype=fmt)
+
+    layout = _layout_for(w, *blocks, trans_w=trans_w, dtype=fmt)
+    rule = _pack_rule("k6_design")
+    got, design = _stream_design_of(kern, "k6")
+    if design != (rule(w, layout) if rule else "simt") or (
+            rule and want_design not in (None, design)):
+        raise AssertionError(f"K6 {label} {fmt}: ran the {design} design")
+
+    def plain():
+        return pack_reference(w, layout)
+
+    def scalar():
+        return _k6_scalar(torch, w, layout)
+
+    want, old = plain(), scalar()
+    torch.cuda.synchronize()
+    if not _same_pack(torch, (got.payload, got.scales), want):
+        raise AssertionError(f"K6 {label} {fmt}: the {design} design's "
+                             "payload or scales differ from the plain "
+                             "version")
+    if not _same_pack(torch, old, want):
+        raise AssertionError(f"K6 {label} {fmt}: the scalar kernel's "
+                             "payload or scales differ from the plain "
+                             "version")
+    n_bytes = w.numel() * w.element_size() + got.nbytes
+    bound, bound_by = _bound_ms(n_bytes, 0, "float32")
+    ms, scalar_ms, plain_ms = timer(kern), timer(scalar), timer(plain)
+    return layout, design, ms, scalar_ms, plain_ms, bound, bound_by, n_bytes
+
+
 def phase_k6(torch, timer):
-    """K6 against its plain version: byte-equal payload and scales; each
-    pack timed against its bytes bound (source read once, payload and
-    scales written once)."""
-    from repro_torch.packing.pack import pack_operand, pack_reference
+    """K6 against its plain version: byte-equal payload and scales, on the
+    design ``k6_design`` picks (every phi3-mini weight: "stream") and on
+    the scalar kernel (the "was" column, ``_k6_scalar``); a case of its
+    own ("simt-pitch": rows of 12008 bytes) runs the scalar kernel
+    through the wrapper.  Each pack timed against its bytes bound (source
+    read once, payload and scales written once)."""
     from repro_torch.packing.params import default_blocks
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    # (name, source shape, trans_w, packs per full-width model)
-    shapes = [(name, (k, n), False, per_step)
+    # (name, source shape, trans_w, packs per full-width model, design)
+    shapes = [(name, (k, n), False, per_step, "stream")
               for name, k, n, _, _, per_step in MAIN_SHAPES if name != "gate"]
-    shapes = [(nm, sh, tw, 2 * c if nm == "up" else c)
-              for nm, sh, tw, c in shapes]       # up and gate: one shape
-    shapes.append(("ragged-trans_w", (1000, 3000), True, 0))
+    shapes = [(nm, sh, tw, 2 * c if nm == "up" else c, d)
+              for nm, sh, tw, c, d in shapes]       # up and gate: one shape
+    shapes += [("ragged-trans_w", (1000, 3000), True, 0, "stream"),
+               ("simt-pitch", (1000, 3002), False, 0, "simt")]
     model = {fmt: StepSum() for fmt in PAYLOADS}
-    for name, shape, trans_w, per_model in shapes:
+    for name, shape, trans_w, per_model, want in shapes:
         w = torch.randn(*shape, generator=gen, device="cuda") * \
             (2.0 / sum(shape)) ** 0.5
         k, n = shape[::-1] if trans_w else shape
         for fmt in PAYLOADS:
-            def kern():
-                return pack_operand(w, default_blocks(k, n), trans_w=trans_w,
-                                    dtype=fmt)
-
-            got = kern()
-            layout = got.layout
-
-            def plain():
-                return pack_reference(w, layout)
-
-            payload, scales = plain()
-            torch.cuda.synchronize()
-            same = torch.equal(got.payload.contiguous().view(torch.uint8),
-                               payload.contiguous().view(torch.uint8))
-            if scales is not None:
-                same = same and torch.equal(got.scales.view(torch.int32),
-                                            scales.view(torch.int32))
-            if not same:
-                raise AssertionError(f"K6 {name} {fmt}: payload or scales "
-                                     "differ from the plain version")
-            n_bytes = w.numel() * w.element_size() + got.nbytes
-            bound, bound_by = _bound_ms(n_bytes, 0, "float32")
-            ms, plain_ms = timer(kern), timer(plain)
+            (layout, design, ms, scalar_ms, plain_ms, bound, bound_by,
+             n_bytes) = _k6_case(torch, timer, name, w, default_blocks(k, n),
+                                 trans_w, fmt, want)
             print(f"[k6] {name:>14} {str(shape):>13} trans_w={trans_w:d} "
-                  f"-> {fmt:>8} {tuple(layout.payload_shape)}: byte-equal  "
-                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  bound "
-                  f"{bound:.4f} ({bound_by})  {n_bytes / ms / 1e6:.1f} GB/s")
-            model[fmt].add(per_model, ms, plain_ms, 0.0, bound, n_bytes, 0)
+                  f"-> {fmt:>8} {tuple(layout.payload_shape)} {design:>6}: "
+                  f"byte-equal  kernel {ms:.4f} ms  scalar kernel "
+                  f"{scalar_ms:.4f}  plain {plain_ms:.4f}  bound "
+                  f"{bound:.4f} ({bound_by})  {n_bytes / ms / 1e6:.1f} GB/s "
+                  f"({100 * bound / ms:.0f} % of the bound)")
+            model[fmt].add(per_model, ms, plain_ms, 0.0, bound, n_bytes, 0,
+                           scalar_ms)
     rows = {}
     for fmt, acc in model.items():
         rows[fmt] = acc.row("float32")
         print(f"[k6] packing a full-width phi3-mini ({acc.launches} weights) "
-              f"into {fmt}: kernel {acc.ms:.3f} ms, plain "
-              f"{acc.plain_ms:.3f} ms, bound {acc.bound_ms:.3f} ms")
+              f"into {fmt}: kernel {acc.ms:.3f} ms, scalar kernel "
+              f"{acc.scalar_ms:.3f} ms, plain {acc.plain_ms:.3f} ms, bound "
+              f"{acc.bound_ms:.3f} ms")
     return rows
 
 
@@ -1324,10 +1437,11 @@ def phase_k2_grouped(torch, timer):
 
 def phase_k6_grouped(torch, timer):
     """K6 packing granite at full width: each weight shape (attention
-    projections 2-D, expert stacks grouped in one launch) timed and
-    byte-equal to its plain version, summed over the model; then every one
-    of the model's 72 expert stacks, freshly drawn, packed into int4 and
-    checked byte for byte."""
+    projections 2-D, expert stacks grouped in one launch) on the design
+    ``k6_design`` picks ("stream" for all) and on the scalar kernel, both
+    timed and byte-equal to the plain version, summed over the model;
+    then every one of the model's 72 expert stacks, freshly drawn, packed
+    into int4 and checked byte for byte."""
     from repro_torch.packing.pack import pack_operand, pack_reference
     from repro_torch.packing.params import default_blocks
 
@@ -1339,50 +1453,30 @@ def phase_k6_grouped(torch, timer):
               ("experts up/gate", (g, 1024, 512), 2 * layers),
               ("experts down", (g, 512, 1024), layers)]
     model = {fmt: StepSum() for fmt in PAYLOADS}
-
-    def same(got, want):
-        payload, scales = want
-        ok = torch.equal(got.payload.contiguous().view(torch.uint8),
-                         payload.contiguous().view(torch.uint8))
-        if scales is not None:
-            ok = ok and torch.equal(got.scales.view(torch.int32),
-                                    scales.view(torch.int32))
-        return ok
-
     for name, shape, per_model in shapes:
         w = torch.randn(*shape, generator=gen, device="cuda") * \
             (2.0 / sum(shape[-2:])) ** 0.5
         k, n = shape[-2:]
         for fmt in PAYLOADS:
-            def kern():
-                return pack_operand(w, default_blocks(k, n), dtype=fmt)
-
-            got = kern()
-            layout = got.layout
-
-            def plain():
-                return pack_reference(w, layout)
-
-            want = plain()
-            torch.cuda.synchronize()
-            if not same(got, want):
-                raise AssertionError(f"K6 granite {name} {fmt}: payload or "
-                                     "scales differ from the plain version")
-            n_bytes = w.numel() * w.element_size() + got.nbytes
-            bound, bound_by = _bound_ms(n_bytes, 0, "float32")
-            ms, plain_ms = timer(kern), timer(plain)
+            (layout, design, ms, scalar_ms, plain_ms, bound, bound_by,
+             n_bytes) = _k6_case(torch, timer, f"granite {name}", w,
+                                 default_blocks(k, n), False, fmt, "stream")
             print(f"[k6-grouped] {name:>15} {str(shape):>16} -> {fmt:>8} "
-                  f"{tuple(layout.payload_shape)}: byte-equal  kernel "
-                  f"{ms:.4f} ms  plain {plain_ms:.4f}  bound {bound:.4f} "
-                  f"({bound_by})  {n_bytes / ms / 1e6:.1f} GB/s")
-            model[fmt].add(per_model, ms, plain_ms, 0.0, bound, n_bytes, 0)
+                  f"{tuple(layout.payload_shape)} {design:>6}: byte-equal  "
+                  f"kernel {ms:.4f} ms  scalar kernel {scalar_ms:.4f}  plain "
+                  f"{plain_ms:.4f}  bound {bound:.4f} ({bound_by})  "
+                  f"{n_bytes / ms / 1e6:.1f} GB/s ({100 * bound / ms:.0f} % "
+                  f"of the bound)")
+            model[fmt].add(per_model, ms, plain_ms, 0.0, bound, n_bytes, 0,
+                           scalar_ms)
     t0 = time.perf_counter()
     for i in range(3 * layers):
         k, n = (512, 1024) if i % 3 == 2 else (1024, 512)
         w = torch.randn(g, k, n, generator=gen, device="cuda") * \
             (2.0 / (k + n)) ** 0.5
         got = pack_operand(w, default_blocks(k, n), dtype="int4")
-        if not same(got, pack_reference(w, got.layout)):
+        if not _same_pack(torch, (got.payload, got.scales),
+                          pack_reference(w, got.layout)):
             raise AssertionError(f"K6 granite expert stack {i} int4: payload "
                                  "or scales differ from the plain version")
     torch.cuda.synchronize()
@@ -1393,8 +1487,9 @@ def phase_k6_grouped(torch, timer):
     for fmt, acc in model.items():
         rows[fmt] = acc.row("float32")
         print(f"[k6-grouped] packing a full-width granite-moe ({acc.launches} "
-              f"launches) into {fmt}: kernel {acc.ms:.3f} ms, plain "
-              f"{acc.plain_ms:.3f} ms, bound {acc.bound_ms:.3f} ms")
+              f"launches) into {fmt}: kernel {acc.ms:.3f} ms, scalar kernel "
+              f"{acc.scalar_ms:.3f} ms, plain {acc.plain_ms:.3f} ms, bound "
+              f"{acc.bound_ms:.3f} ms")
     return rows
 
 
@@ -1815,6 +1910,7 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
                    + counters["k5"].split_launches)
     tf32x3 = counters["k1"].tf32x3_launches
     fma = getattr(counters["k1"], "fma_launches", None)
+    k6_stream = getattr(counters["k6"], "stream_launches", None)
     k5_designs = {d: getattr(counters["k5"], f"{d}_launches")
                   for d in ("split", "wgmma")}
     n_steps = len(eng.step_telemetry)
@@ -1848,7 +1944,8 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
           f"{counts['k1g']}, K2 {counts['k2']}, grouped K2 {counts['k2g']}, "
           f"K3 {counts['k3']}, grouped K3 {counts['k3g']}, "
           f"K5 {counts['k5']} ({n_steps} steps x {per_step} and "
-          f"{n_layers} attention layers), K6 {counts['k6']} at load")
+          f"{n_layers} attention layers), K6 {counts['k6']} at load "
+          f"({k6_stream} on the stream design)")
     # eos (id 1) may end a request early; every request must finish.
     if sorted(out) != [0, 1, 2, 3] or not all(out.values()):
         raise AssertionError(f"served {sorted(out)} of 4 requests")
@@ -1871,6 +1968,10 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
         raise AssertionError(f"serve:{label}: {tf32x3} K1 launches on "
                              f"tf32x3; the f32 routers keep the fp32 "
                              f"policy's f32 FMA")
+    if k6_stream is not None and k6_stream != counts["k6"]:
+        raise AssertionError(f"serve:{label}: {counts['k6'] - k6_stream} of "
+                             f"the load's {counts['k6']} K6 launches ran "
+                             f"the scalar kernel, want none")
     if fma is not None and fma != routers * n_steps:
         raise AssertionError(f"serve:{label}: {fma} K1 launches on the fma "
                              f"design, want every router's "
@@ -1882,7 +1983,8 @@ def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
                  ttft_ms=1e3 * float(np.median(prefill)), **counts,
                  k2_wgmma=wgmma["k2"], k2g_wgmma=wgmma["k2g"],
                  k3_wgmma=wgmma["k3"], k3g_wgmma=wgmma["k3g"],
-                 k1_fma=fma, k5_designs=k5_designs, graphs=len(graphs),
+                 k1_fma=fma, k6_stream=k6_stream, k5_designs=k5_designs,
+                 graphs=len(graphs),
                  replays=replays, capture_s=capture_s, pool_mb=pool_mb)
     del eng, graphs
     # The same requests on the eager step: the same tokens, and the
@@ -2793,56 +2895,96 @@ def phase_k1_fma(torch, timer):
 
 
 def phase_k7(torch, timer):
-    """K7 (the tile unpacker) against its plain version, bit for bit:
-    every full-width phi3-mini weight shape packed as int4, int8, fp8 and
-    bf16 (each unpacked to bf16), and granite's expert stacks; each timed
-    against its bytes bound (payload and scales read once, the dense
-    operand written once)."""
+    """K7 (the tile unpacker) against its plain version, bit for bit, on
+    the design ``k7_design`` picks ("stream" for every model weight) and
+    on the scalar kernel (``_k7_scalar``, the "was" column): every
+    full-width phi3-mini weight shape packed as int4, int8, fp8 and bf16
+    (each unpacked to bf16), and granite's expert stacks; a case of its
+    own ("simt-rows": rows of 3004 columns) runs the scalar kernel through
+    the wrapper.  Each timed against its bytes bound (payload and scales
+    read once, the dense operand written once); a bf16 payload also
+    against the one PyTorch copy that computes the same function (the
+    tiles' transposed view reshaped: ``library_ms``)."""
     from repro_torch.packing.pack import (
         pack_operand, unpack_operand, unpack_reference,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    shapes = [(nm, (k, n), 2 * c if nm == "up" else c)
+    bf16 = torch.bfloat16
+    shapes = [(nm, (k, n), 2 * c if nm == "up" else c, "stream")
               for nm, k, n, _, _, c in MAIN_SHAPES if nm != "gate"]
-    shapes += [("g-experts-up/gate", (GRANITE_EXPERTS, 1024, 512), 0),
-               ("g-experts-down", (GRANITE_EXPERTS, 512, 1024), 0)]
+    shapes += [("g-experts-up/gate", (GRANITE_EXPERTS, 1024, 512), 0,
+                "stream"),
+               ("g-experts-down", (GRANITE_EXPERTS, 512, 1024), 0, "stream"),
+               ("simt-rows", (1000, 3004), 0, "simt")]
     model = {fmt: StepSum() for fmt in PAYLOADS}
     rows = {}
-    for name, shape, per_model in shapes:
+    rule = _pack_rule("k7_design")
+    for name, shape, per_model, want in shapes:
         w = torch.randn(*shape, generator=gen, device="cuda") * 0.02
         for fmt in PAYLOADS:
             p = pack_operand(w, (128, 128), dtype=fmt)
+            layout = p.layout
 
             def kern():
                 return unpack_operand(p, dtype="bfloat16")
 
             def plain():
-                return unpack_reference(p.payload, p.scales, p.layout,
+                return unpack_reference(p.payload, p.scales, layout,
                                         "bfloat16")
 
-            got, ref = kern(), plain()
+            def scalar():
+                return _k7_scalar(torch, p, bf16)
+
+            (got, design), ref, old = _stream_design_of(kern, "k7"), \
+                plain(), scalar()
             torch.cuda.synchronize()
-            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-                raise AssertionError(f"K7 {name} {fmt}: output differs from "
-                                     "the plain version")
+            if design != (rule(p, bf16) if rule else "simt") or (
+                    rule and design != want):
+                raise AssertionError(f"K7 {name} {fmt}: ran the {design} "
+                                     "design")
+            for what, out in ((design, got), ("scalar", old)):
+                if not torch.equal(out.view(torch.int16),
+                                   ref.view(torch.int16)):
+                    raise AssertionError(f"K7 {name} {fmt}: the {what} "
+                                         "kernel's output differs from the "
+                                         "plain version")
             n_bytes = p.nbytes + got.numel() * got.element_size()
             bound, bound_by = _bound_ms(n_bytes, 0, "float32")
-            ms, plain_ms = timer(kern), timer(plain)
-            print(f"[k7] {name:>18} {str(shape):>16} {fmt:>8} -> bf16: "
-                  f"bit-equal  kernel {ms:.4f} ms  plain {plain_ms:.4f}  "
-                  f"bound {bound:.4f} ({bound_by})  "
-                  f"{n_bytes / ms / 1e6:.1f} GB/s")
-            model[fmt].add(per_model, ms, plain_ms, 0.0, bound, n_bytes, 0)
+            ms, scalar_ms, plain_ms = timer(kern), timer(scalar), \
+                timer(plain)
+            lib_ms = 0.0
+            whole = layout.k % layout.bk == 0 and layout.n % layout.bn == 0
+            if fmt == "bfloat16" and whole:
+                # One copy: the (.., nkb, bk, nnb, bn) view reshaped.
+                def library():
+                    return p.payload.transpose(-3, -2).reshape(got.shape)
+
+                if not torch.equal(library().view(torch.int16),
+                                   ref.view(torch.int16)):
+                    raise AssertionError(f"K7 {name}: the library copy "
+                                         "differs from the plain version")
+                lib_ms = timer(library)
+            print(f"[k7] {name:>18} {str(shape):>16} {fmt:>8} -> bf16 "
+                  f"{design:>6}: bit-equal  kernel {ms:.4f} ms  scalar "
+                  f"kernel {scalar_ms:.4f}  plain {plain_ms:.4f}"
+                  + (f"  library (one copy) {lib_ms:.4f}" if lib_ms else "")
+                  + f"  bound {bound:.4f} ({bound_by})  "
+                  f"{n_bytes / ms / 1e6:.1f} GB/s ({100 * bound / ms:.0f} % "
+                  f"of the bound)")
+            model[fmt].add(per_model, ms, plain_ms, lib_ms, bound, n_bytes, 0,
+                           scalar_ms)
             if name == "up" and fmt == "bfloat16":
                 rows["up-bf16"] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib_ms, scalar_ms=scalar_ms,
                                        bound_ms=bound, bound_by=bound_by,
                                        max_abs_err=0.0)
     for fmt, acc in model.items():
         rows[fmt] = acc.row("float32")
         print(f"[k7] unpacking a full-width phi3-mini ({acc.launches} "
-              f"weights) from {fmt}: kernel {acc.ms:.3f} ms, plain "
-              f"{acc.plain_ms:.3f} ms, bound {acc.bound_ms:.3f} ms")
+              f"weights) from {fmt}: kernel {acc.ms:.3f} ms, scalar kernel "
+              f"{acc.scalar_ms:.3f} ms, plain {acc.plain_ms:.3f} ms, bound "
+              f"{acc.bound_ms:.3f} ms")
     return rows
 
 
@@ -2893,8 +3035,10 @@ def phase_packed_grad(torch):
                   f"{tuple(g.shape)} {_dtype_name(g.dtype)}, max |kernel - "
                   f"plain| {err:.3e} (atol = rtol = 1.6e-2)")
     # bf16/bf16: K2 fwd, K7, dx (trans_b), dW (trans_a), K6; int4/bf16: K2
-    # fwd, K7, dx; bf16/int8: K7, then int8 K1.
-    want_counts = dict(k2=2, k7=3, k1=4, k1_tb=2, k1_ta=1, k6=1)
+    # fwd, K7, dx; bf16/int8: K7, then int8 K1.  Every K6 and K7 launch on
+    # the stream design.
+    want_counts = dict(k2=2, k7=3, k1=4, k1_tb=2, k1_ta=1, k6=1, k6_stream=1,
+                       k7_stream=3)
     seen = {key: counts[key] for key in want_counts}
     print(f"[packed-grad] launches: {seen}")
     if seen != want_counts:
@@ -4358,6 +4502,10 @@ def main():
         return {"wgmma": serves[path][f"{key}_wgmma"],
                 "simt": serves[path][key] - serves[path][f"{key}_wgmma"]}
 
+    def stream_designs(counts, key):  # K6's or K7's launches by design
+        return {"stream": counts[f"{key}_stream"],
+                "simt": counts[key] - counts[f"{key}_stream"]}
+
     mp = "src/repro/kernels/mpgemm.py"
     fa = "src/repro/kernels/flash_attention.py:154"
     fa4 = "src/repro/kernels/flash_attention.py:31"
@@ -4402,10 +4550,12 @@ def main():
             "a launch a layer)", "flash_attention_wgmma.cu", fa,
             serves["granite-bf16"]["k5"], k5["granite-chunk"],
             serves["granite-bf16"]["k5_designs"]),
-        row("K6 pack (tile packing, int4 payload: ms a whole phi3-mini, "
-            "launches a 16-layer load)", "pack.cu",
+        row("K6 pack, stream design (tile packing, int4 payload: ms a "
+            "whole phi3-mini, launches a 16-layer load; scalar_ms the "
+            "scalar kernel's)", "pack.cu",
             "src/repro/packing/pack.py:221", serves["int4"]["k6"],
-            dict(k6["int4"], library_ms=None)),
+            dict(k6["int4"], library_ms=None),
+            stream_designs(serves["int4"], "k6")),
         row("K1 mpgemm_grouped (granite expert GEMMs, bf16 A, f32 out, "
             "fused SwiGLU gate)", "mpgemm_wgmma.cu", f"{mp}:812",
             serves["granite-bf16"]["k1g"], k1g["bfloat16"]),
@@ -4420,11 +4570,13 @@ def main():
             "A)", "mpgemm_packed_wgmma_int8.cu", f"{mp}:250",
             serves["granite-int8"]["k2g"], k2g[("int8", "int8")],
             wgmma_designs("granite-int8", "k2g")),
-        row("K6 pack (granite, int4 payload: ms 96 2-D weights and 72 "
-            "grouped expert stacks, launches a 12-layer load)", "pack.cu",
+        row("K6 pack, stream design (granite, int4 payload: ms 96 2-D "
+            "weights and 72 grouped expert stacks, launches a 12-layer load; "
+            "scalar_ms the scalar kernel's)", "pack.cu",
             "src/repro/packing/pack.py:280",
             serves["granite-int4"]["k6"],
-            dict(k6g["int4"], library_ms=None)),
+            dict(k6g["int4"], library_ms=None),
+            stream_designs(serves["granite-int4"], "k6")),
         row("K4 flash_attention (whisper-medium wave prefill: 24 encoder "
             "1500x1500, 24 causal, 24 cross 32x1500)",
             "flash_attention_wgmma.cu",
@@ -4459,9 +4611,12 @@ def main():
         row("K1 mpgemm trans_a (dW of a phi3-mini int8 training step, 4 "
             "layers, 512 tokens)", "mpgemm_wgmma.cu", f"{mp}:232",
             trains["phi3-int8-4-layers"]["counts"]["k1_ta"], k1ta["phi3"]),
-        row("K7 unpack (phi3-mini w_up 3072x8192, bf16 payload, the packed "
-            "backward)", "pack.cu", "src/repro/packing/pack.py:242",
-            packed_grad["k7"], dict(k7["up-bf16"], library_ms=None)),
+        row("K7 unpack, stream design (phi3-mini w_up 3072x8192, bf16 "
+            "payload, the packed backward; library_ms one PyTorch copy of "
+            "the tiles' transposed view, scalar_ms the scalar kernel's)",
+            "pack.cu", "src/repro/packing/pack.py:242",
+            packed_grad["k7"], k7["up-bf16"],
+            stream_designs(packed_grad, "k7")),
         row("K1 f32 FMA design (granite's routers in a bf16 decode step, "
             "the fp32 policy: 24 at M = 2; scalar_ms the scalar loop's)",
             "mpgemm_fma.cu", f"{mp}:232", serves["granite-bf16"]["k1_fma"],

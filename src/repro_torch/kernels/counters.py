@@ -8,10 +8,11 @@ docstrings of ``kernels/mpgemm.py``, ``kernels/flash_attention.py`` and
   ``k3g``: the grouped wrappers);
 * ``<k>_ta`` / ``<k>_tb``: K1's, K2's and K3's ``trans_a`` launches and
   K1's ``trans_b`` ones;
-* ``<k>_wgmma``, ``<k>_tf32x3``, ``<k>_fma``, ``<k>_split``: the
-  launches that ran that design (K1, K2, K3 wgmma; K1 f32 on the tensor
-  cores; K1 f32 on the CUDA cores' FMA; K4's and K5's wgmma and split
-  designs; K4's f32 design on the tensor cores).
+* ``<k>_wgmma``, ``<k>_tf32x3``, ``<k>_fma``, ``<k>_split``,
+  ``<k>_stream``: the launches that ran that design (K1, K2, K3 wgmma; K1
+  f32 on the tensor cores; K1 f32 on the CUDA cores' FMA; K4's and K5's
+  wgmma and split designs; K4's f32 design on the tensor cores; K6's and
+  K7's stream designs).
 
 A captured CUDA graph launches its kernels without their wrappers, so
 whoever captures one takes the counts' delta over the capture
@@ -54,6 +55,8 @@ _EXTRA = {
     "k4": (("wgmma", "wgmma_launches"), ("split", "split_launches"),
            ("tf32x3", "tf32x3_launches")),
     "k5": (("wgmma", "wgmma_launches"), ("split", "split_launches")),
+    "k6": (("stream", "stream_launches"),),
+    "k7": (("stream", "stream_launches"),),
 }
 _EXTRA.update(k1g=_EXTRA["k1"], k2g=_EXTRA["k2"], k3g=_EXTRA["k3"])
 

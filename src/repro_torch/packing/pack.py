@@ -17,8 +17,14 @@ plain version's.  :func:`unpack_operand` is the inverse: a CPU payload
 runs :func:`unpack_reference`, a CUDA payload launches K7 (the tile
 unpacker, in the same source), bit-equal to it.
 
+Each kernel has two designs, picked from the operands by
+:func:`k6_design` and :func:`k7_design`: ``"stream"`` (16-byte vectors
+in and out, a tile read once) for the aligned operands that every packed
+and sparse load of the ported models gives, ``"simt"`` (the first, scalar
+kernels) for the rest.  Both run the same operations on every element.
+
 ``pack_operand.launches`` counts K6 launches, ``unpack_operand.launches``
-K7 launches.
+K7 launches; ``.stream_launches`` those that ran the stream design.
 """
 from __future__ import annotations
 
@@ -181,12 +187,74 @@ def unpack_operand(p: PackedOperand, *, dtype=None) -> torch.Tensor:
     return _launch_unpack(p, torch_dtype(dtype))
 
 
-# --- K6 launch ---------------------------------------------------------------
+# --- the design rules --------------------------------------------------------
 
 _SRC_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Payload codes of csrc/pack.cu: float payloads by dtype, then the codecs.
 _PAYLOAD_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3,
                   "fp8e4m3": 4}
+# Payload bytes a tile column takes in one payload row (int4: a byte holds
+# rows 2r and 2r + 1).
+_PAYLOAD_COLUMN_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1, "int4": 1,
+                         "fp8e4m3": 1}
+# The stream packer holds a tile in shared memory as f32, rows rounded up to
+# 32 floats: at most 128 x 128 of them (64 KiB).
+K6_STREAM_MAX_FLOATS = 128 * 128
+# A grid's y (tile rows) and z (groups) extents.
+_GRID_YZ = 65535
+# K7's output dtypes.
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def k6_design(w: torch.Tensor, layout: PackedLayout) -> str:
+    """The K6 kernel that packs ``w`` into ``layout`` on the card:
+    ``"stream"`` (``csrc/pack.cu::pack_stream_kernel``) for an f32 or bf16
+    source that is contiguous, 16-byte aligned and non-empty, whose
+    contiguous axis (n, or k under ``trans_w``) and the tile's span along
+    it (bn, or bk) are multiples of 16 bytes, whose payload rows (bn
+    columns) are multiples of 16 bytes, and whose tile fits the design's
+    shared memory (bk x bn rounded up to 32 at most 128 x 128) --
+    every weight that ``packing/params.py::pack_params`` and
+    ``sparse/sparsify.py`` pack for the ported models at their default
+    blocks, edge tiles included (an odd bk of an int4 payload too: the
+    last high nibble is zero); else ``"simt"`` (``pack_kernel``).  A
+    rule on what the operands are, not a fallback: a failed build or
+    launch raises."""
+    if w.dtype not in _SRC_CODES or layout.dtype not in _PAYLOAD_CODES:
+        return "simt"
+    esz = w.element_size()
+    pitch, span = ((layout.k, layout.bk) if layout.trans_w
+                   else (layout.n, layout.bn))
+    if (not w.is_contiguous() or w.data_ptr() % 16 or not w.numel()
+            or (pitch * esz) % 16 or (span * esz) % 16
+            or (layout.bn * _PAYLOAD_COLUMN_BYTES[layout.dtype]) % 16
+            or layout.bk * -(-layout.bn // 32) * 32 > K6_STREAM_MAX_FLOATS
+            or layout.nkb > _GRID_YZ or layout.g > _GRID_YZ):
+        return "simt"
+    return "stream"
+
+
+def k7_design(p: PackedOperand, dtype) -> str:
+    """The K7 kernel that unpacks ``p`` into ``dtype`` on the card:
+    ``"stream"`` (``csrc/pack.cu::unpack_stream_kernel``) for an f32 or
+    bf16 output of a contiguous, 16-byte-aligned, non-empty payload whose
+    tile rows and whose logical rows (bn and n) are multiples of 8 columns
+    -- every packed weight of the ported models at their default blocks,
+    which ``core/gemm.py`` unpacks in a packed weight's backward and in a
+    float payload's forward under the int8 policy; else ``"simt"``
+    (``unpack_kernel``).  A rule on what the operands are, not a
+    fallback."""
+    layout, payload = p.layout, p.payload
+    if (torch_dtype(dtype) not in _OUT_CODES
+            or layout.dtype not in _PAYLOAD_CODES
+            or not payload.is_contiguous() or payload.data_ptr() % 16
+            or not payload.numel() or layout.bn % 8 or layout.n % 8
+            or layout.nkb > _GRID_YZ or layout.g > _GRID_YZ):
+        return "simt"
+    return "stream"
+
+
+# --- K6 launch ---------------------------------------------------------------
 
 
 def _launch(w: torch.Tensor, layout: PackedLayout):
@@ -205,7 +273,8 @@ def _launch(w: torch.Tensor, layout: PackedLayout):
     if payload.numel() == 0:
         return payload, scales
     lib = _lib()
-    rc = lib.pack_launch(
+    stream = k6_design(w, layout) == "stream"
+    rc = (lib.pack_stream_launch if stream else lib.pack_launch)(
         w.data_ptr(), payload.data_ptr(),
         scales.data_ptr() if scales is not None else None,
         _SRC_CODES[w.dtype], _PAYLOAD_CODES[layout.dtype],
@@ -216,15 +285,15 @@ def _launch(w: torch.Tensor, layout: PackedLayout):
         raise RuntimeError(f"pack kernel launch failed: CUDA error {rc} "
                            f"({lib.pack_error_string(rc).decode()})")
     pack_operand.launches += 1
+    pack_operand.stream_launches += int(stream)
     return payload, scales
 
 
 pack_operand.launches = 0
+pack_operand.stream_launches = 0
 
 
 # --- K7 launch ---------------------------------------------------------------
-
-_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _launch_unpack(p: PackedOperand, dtype: torch.dtype) -> torch.Tensor:
@@ -254,7 +323,8 @@ def _launch_unpack(p: PackedOperand, dtype: torch.dtype) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _lib()
-    rc = lib.unpack_launch(
+    stream = k7_design(p, dtype) == "stream"
+    rc = (lib.unpack_stream_launch if stream else lib.unpack_launch)(
         payload.data_ptr(),
         scales.data_ptr() if layout.per_tile_scales else None,
         out.data_ptr(), _PAYLOAD_CODES[layout.dtype], _OUT_CODES[dtype],
@@ -264,10 +334,12 @@ def _launch_unpack(p: PackedOperand, dtype: torch.dtype) -> torch.Tensor:
         raise RuntimeError(f"unpack kernel launch failed: CUDA error {rc} "
                            f"({lib.pack_error_string(rc).decode()})")
     unpack_operand.launches += 1
+    unpack_operand.stream_launches += int(stream)
     return out
 
 
 unpack_operand.launches = 0
+unpack_operand.stream_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,8 +348,12 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pack_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pack_launch.restype = i
+    lib.pack_stream_launch.argtypes = lib.pack_launch.argtypes
+    lib.pack_stream_launch.restype = i
     lib.unpack_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.unpack_launch.restype = i
+    lib.unpack_stream_launch.argtypes = lib.unpack_launch.argtypes
+    lib.unpack_stream_launch.restype = i
     lib.pack_error_string.argtypes = [i]
     lib.pack_error_string.restype = ctypes.c_char_p
     return lib

@@ -152,11 +152,34 @@ PACK_SHAPES = [  # (source shape, blocks, trans_w)
     ((48, 101), (17, 16), True),
     ((300, 260), (128, 128), False),
     ((129, 33), (33, 128), False),
+    # K6's stream design (``k6_design``) for both source dtypes: ragged
+    # edge tiles, an odd bk (int4's last high nibble), narrow tiles,
+    # trans_w with ragged tiles on both axes.
+    ((300, 256), (128, 128), False),
+    ((97, 160), (128, 128), False),
+    ((64, 96), (32, 32), False),
+    ((264, 1000), (128, 128), True),
+    ((48, 80), (16, 48), True),
 ]
 
 
 def _bytes(t):
     return t.contiguous().view(torch.uint8).cpu()
+
+
+def _pack_design_launch(w, blocks, trans_w, dtype):
+    """One ``pack_operand`` on the card -> (the packed operand, the design
+    ``k6_design`` gives it); the launch counts must have moved by one, the
+    stream count by one exactly when the design is "stream"."""
+    from repro_torch.packing.pack import _layout_for, k6_design, pack_operand
+    design = k6_design(w, _layout_for(w, *blocks, trans_w=trans_w,
+                                      dtype=dtype))
+    before = (pack_operand.launches, pack_operand.stream_launches)
+    got = pack_operand(w, blocks, trans_w=trans_w, dtype=dtype)
+    torch.cuda.synchronize()
+    assert (pack_operand.launches, pack_operand.stream_launches) == (
+        before[0] + 1, before[1] + (design == "stream"))
+    return got, design
 
 
 @pytest.mark.cuda
@@ -167,16 +190,16 @@ def _bytes(t):
 def test_pack_kernel_is_byte_identical_to_plain(gen, src_dtype, dtype, shape,
                                                 blocks, trans_w):
     """K6 against its plain version on the card and on the CPU: payload and
-    scales byte for byte (no tolerance)."""
-    from repro_torch.packing.pack import pack_operand, pack_reference
+    scales byte for byte (no tolerance), whichever design ``k6_design``
+    picks; the shapes added for the stream design take it."""
+    from repro_torch.packing.pack import pack_reference
 
     w = (torch.randn(*shape, generator=gen, device="cuda") * 0.05).to(
         src_dtype)
     w[-1, -1] = 0.37
-    before = pack_operand.launches
-    got = pack_operand(w, blocks, trans_w=trans_w, dtype=dtype)
-    torch.cuda.synchronize()
-    assert pack_operand.launches == before + 1
+    got, design = _pack_design_launch(w, blocks, trans_w, dtype)
+    if PACK_SHAPES.index((shape, blocks, trans_w)) >= 4:
+        assert design == "stream", (shape, blocks, trans_w)
     for want in (pack_reference(w, got.layout),
                  pack_reference(w.cpu(), got.layout)):
         assert got.payload.dtype == want[0].dtype
@@ -365,25 +388,26 @@ def test_mpgemm_packed_grouped_kernel_matches_plain(gen, m, a_dtype,
 @pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8", "int4",
                                    "fp8e4m3"])
-@pytest.mark.parametrize("shape,blocks,trans_w", [
-    ((3, 100, 70), (32, 32), False),
-    ((4, 48, 101), (17, 16), True),
-    ((32, 1024, 512), (128, 128), False),
+@pytest.mark.parametrize("shape,blocks,trans_w,design", [
+    ((3, 100, 70), (32, 32), False, None),
+    ((4, 48, 101), (17, 16), True, None),
+    ((32, 1024, 512), (128, 128), False, "stream"),
+    ((3, 136, 264), (128, 128), False, "stream"),
+    ((2, 264, 136), (128, 128), True, "stream"),
 ])
 def test_pack_kernel_grouped_is_byte_identical_to_plain(gen, src_dtype, dtype,
                                                         shape, blocks,
-                                                        trans_w):
+                                                        trans_w, design):
     """Grouped K6: one launch packs the whole stack, byte-equal to the
-    plain version on the card and on the CPU."""
-    from repro_torch.packing.pack import pack_operand, pack_reference
+    plain version on the card and on the CPU; ``design`` is the one
+    ``k6_design`` must give (None: whichever)."""
+    from repro_torch.packing.pack import pack_reference
 
     w = (torch.randn(*shape, generator=gen, device="cuda") * 0.05).to(
         src_dtype)
     w[-1, -1, -1] = 0.37
-    before = pack_operand.launches
-    got = pack_operand(w, blocks, trans_w=trans_w, dtype=dtype)
-    torch.cuda.synchronize()
-    assert pack_operand.launches == before + 1
+    got, ran = _pack_design_launch(w, blocks, trans_w, dtype)
+    assert design in (None, ran)
     assert got.layout.g == shape[0]
     for want in (pack_reference(w, got.layout),
                  pack_reference(w.cpu(), got.layout)):
@@ -686,25 +710,80 @@ def test_mpgemm_trans_a_refuses_what_it_does_not_take(gen):
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("payload", ["float32", "bfloat16", "int8", "int4",
                                      "fp8e4m3"])
-@pytest.mark.parametrize("shape,blocks,trans_w", [
-    ((100, 70), (32, 32), False), ((48, 101), (17, 16), True),
-    ((3, 40, 24), (16, 8), False), ((2, 30, 52), (15, 16), True),
-    ((3072, 8192), (128, 128), False),
+@pytest.mark.parametrize("shape,blocks,trans_w,design", [
+    ((100, 70), (32, 32), False, "simt"),
+    ((48, 101), (17, 16), True, "stream"),
+    ((3, 40, 24), (16, 8), False, "stream"),
+    ((2, 30, 52), (15, 16), True, "simt"),
+    ((3072, 8192), (128, 128), False, "stream"),
+    # The stream design's edges: ragged tiles on both axes, an odd bk
+    # (int4: the last payload row holds one row), a grouped stack.
+    ((300, 264), (128, 128), False, "stream"),
+    ((97, 160), (128, 128), False, "stream"),
+    ((3, 136, 264), (128, 128), False, "stream"),
 ])
 def test_unpack_kernel_is_bit_equal_to_plain(gen, payload, out, shape,
-                                             blocks, trans_w):
+                                             blocks, trans_w, design):
     """K7: the dense operand of every payload, 2-D and grouped, both
-    orientations, ragged edges -- bit-equal to ``unpack_reference``."""
+    orientations, ragged edges -- bit-equal to ``unpack_reference``, on
+    the design ``k7_design`` gives (``design``)."""
     from repro_torch.packing import pack as tpack
     w = torch.randn(*shape, generator=gen, device="cuda") * 0.3
     p = tpack.pack_operand(w, blocks, trans_w=trans_w, dtype=payload)
-    before = tpack.unpack_operand.launches
+    assert tpack.k7_design(p, out) == design
+    before = (tpack.unpack_operand.launches,
+              tpack.unpack_operand.stream_launches)
     got = tpack.unpack_operand(p, dtype=out)
     torch.cuda.synchronize()
-    assert tpack.unpack_operand.launches == before + 1
+    assert (tpack.unpack_operand.launches,
+            tpack.unpack_operand.stream_launches) == (
+        before[0] + 1, before[1] + (design == "stream"))
     want = tpack.unpack_reference(p.payload, p.scales, p.layout, out)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", ["bfloat16", "int4", "fp8e4m3"])
+def test_pack_and_unpack_replay_in_a_cuda_graph(gen, payload):
+    """A stream pack followed by a stream unpack captured in one CUDA graph
+    (the wrappers allocate from the graph's pool, the kernels launch on
+    the capturing stream and never synchronise), replayed on new source
+    values: payload, scales and the dense operand byte for byte those of
+    an eager run on the same values."""
+    from repro_torch.packing import pack as tpack
+    src = torch.randn(3, 256, 384, generator=gen, device="cuda")
+    w = torch.empty_like(src)
+
+    def step():
+        p = tpack.pack_operand(w, (128, 128), dtype=payload)
+        return p, tpack.unpack_operand(p, dtype=torch.bfloat16)
+
+    w.copy_(src * 0.1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up: build, load, launch
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (tpack.pack_operand.stream_launches,
+              tpack.unpack_operand.stream_launches)
+    with torch.cuda.graph(graph):
+        p_g, out_g = step()
+    assert (tpack.pack_operand.stream_launches,
+            tpack.unpack_operand.stream_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    for scale in (0.3, 2.0):
+        w.copy_(src * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        p_e, out_e = step()
+        torch.cuda.synchronize()
+        assert torch.equal(_bytes(p_g.payload), _bytes(p_e.payload))
+        if p_e.scales is not None:
+            assert torch.equal(_bytes(p_g.scales), _bytes(p_e.scales))
+        assert torch.equal(_bytes(out_g), _bytes(out_e))
+    del graph
 
 
 @pytest.mark.cuda

@@ -42,14 +42,15 @@ ROOT = Path(__file__).resolve().parents[1]
 # Every count chip_smoke.py reads, by name -> (kernel, wrapper attribute).
 ATTRS = {"ta": "trans_a_launches", "tb": "trans_b_launches",
          "wgmma": "wgmma_launches", "tf32x3": "tf32x3_launches",
-         "fma": "fma_launches", "split": "split_launches"}
+         "fma": "fma_launches", "split": "split_launches",
+         "stream": "stream_launches"}
 NAMES = (["k1", "k1g", "k2", "k2g", "k3", "k3g", "k4", "k5", "k6", "k7"]
          + [f"{k}_{s}" for k in ("k1", "k1g") for s in ("ta", "tb", "wgmma",
                                                         "tf32x3", "fma")]
          + [f"{k}_{s}" for k in ("k2", "k2g", "k3", "k3g")
             for s in ("ta", "wgmma")]
          + [f"{k}_{s}" for k in ("k4", "k5") for s in ("wgmma", "split")]
-         + ["k4_tf32x3"])
+         + ["k4_tf32x3", "k6_stream", "k7_stream"])
 
 
 def _attr(name):
