@@ -24,8 +24,10 @@ printing a result:
    loops); then K1's int8
    variant (int8 operands, exact int32 sum, device scale) at the same
    shapes but the router, every launch on the wgmma design;
-3. K5 against its plain version at phi3-mini's and granite's attention
-   shapes (decode and 16-token chunked prefill) and at a GQA +
+3. K5 against its plain version at phi3-mini's, granite's,
+   starcoder2-3b's (GQA 12:1), phi3-medium-14b's (4:1) and mixtral-8x22b's
+   (6:1, window 4096; also past the window, 4600 keys) attention shapes
+   (decode and 16-token chunked prefill) and at a GQA +
    sliding-window shape, with ragged lengths, dead block-table slots over
    a NaN-filled scratch page and one idle row, each case on the design
    ``kernels/flash_attention.py::k5_design`` names (bf16: the split or
@@ -35,7 +37,12 @@ printing a result:
    K4 at whisper-medium's shapes (the encoder's 1500 x 1500 non-causal
    self-attention, the decoder's causal prefill, cross-attention at
    prefill and at decode), phi3-mini's causal prefill, a GQA 32:8 head of
-   120 with a window and tq < tk, and three f32 cases (one granite's
+   120 with a window and tq < tk, llama-3.2-vision-11b's (GQA 4:1, D 128:
+   causal prefill, cross-attention over 1600 image keys at prefill and at
+   decode), recurrentgemma-2b's local attention (MQA 10:1, D 256 -- above
+   K4_MAX_D, so the first scalar kernel by the rule -- at a 32-token
+   prefill, a 2560-token one its window of 2048 cuts, and one query row
+   over a full 2048-slot ring), and three f32 cases (one granite's
    fp32 training attention), each on the design
    ``kernels/flash_attention.py::k4_design`` names (bf16: the wgmma or
    the split design of ``kernels/csrc/flash_attention_wgmma.cu``; f32:
@@ -85,8 +92,13 @@ printing a result:
    1, 2, 16, 17, 32 and 512, ragged M, N and K of every transpose pair
    and each epilogue kind, each case bit-equal to the scalar loop, the
    same bits twice, within 1e-4 of the plain version, timed beside the
-   scalar loop, the plain version and ``torch.matmul``), K7 and the
-   packed backward of phase 8;
+   scalar loop, the plain version and ``torch.matmul``), K1 at every GEMM
+   shape of one decode step of the six architectures phase 7 adds
+   (``phase_k1_archs``, from each config's block kinds: bf16 on the wgmma
+   design -- among them mixtral's 8 grouped experts, d 6144 -> 16384 --
+   and the fp32 policy's products on the fma design, bit-equal to the
+   scalar loop: mixtral's routers, the RWKV LoRA as 5 groups of K 32, the
+   RG-LRU gates at 2560 x 2560), K7 and the packed backward of phase 8;
 7a. the op-level API (``phase_ops``) and the kernel variants only it
    reaches, each row driven once with every launch count at 0 and each
    case held against its plain version: the paper's 24 Table III GEMMs
@@ -130,7 +142,11 @@ printing a result:
    K3, 16 K5 and 0 K1 per step) and granite under int8 with N:M 2:4 (48
    K3, 36 grouped K3, 13 K1, 12 K5 per step), each sparsified from the
    f32 draw through K6 (113 and 84 launches at load; every K6 launch of
-   a load on the stream design).  Each path serves
+   a load on the stream design); then dense bf16 at full width
+   starcoder2-3b (30 layers: 6 K1 a layer, GELU MLP with biases),
+   phi3-medium-14b (40 layers) and mixtral-8x22b at 8 of its 56 layers
+   (all 56 hold ~280 GB of bf16 weights; 5 K1, 3 grouped K1 a layer).
+   Each path serves
    through the engine's CUDA graphs (one a chunk width, the decode graph
    replayed; the graphs, replays, capture seconds and pool MB printed),
    then the same requests on the eager step (``cuda_graphs=False``),
@@ -150,8 +166,16 @@ printing a result:
    bf16: full-width whisper-medium (24 encoder and 24 decoder layers, 385
    K1 and 72 K4 per prefill, 193 K1 and 24 K4 per decode step) and
    full-width phi3-mini (225 K1 and 32 K4 per prefill, 225 K1 per decode
-   step), with the same checks (every K4 launch on the wgmma or split
-   design), one prefill and one decode step against the plain versions;
+   step), full-width llama-3.2-vision-11b (40 layers, 8 of them gated
+   cross-attention over 1600 zero image embeddings, as the engine stubs
+   them), rwkv6-1.6b (24 layers, its grouped f32 LoRA on the fma design)
+   and recurrentgemma-2b (18 RG-LRU layers, their f32 gates on the fma
+   design, and 8 local-attention layers of D 256 on K4's first scalar
+   kernel), with the same checks (every K4 launch on the wgmma or split
+   design but those D 256 ones, each launch count by block kind:
+   ``_want_wave_launches``), one prefill and one decode step against the
+   plain versions (the VLM's with image embeddings drawn from a seed and
+   its cross gates opened to 0.5);
 8. the training path: K1 ``trans_a`` (A read (K, M), the weight
    gradients) at a 512-token training step's dW shapes -- granite's
    attention projections, f32 router, tied embedding (49280 x 1024) and
@@ -339,6 +363,8 @@ MAIN_SHAPES = [
 # 2 * 24 + 2 * 24 + 24 + 1 = 121 in a dense bf16 step; under the int8
 # policy the router stays f32 and the other 97 are int8.
 GRANITE_LAYERS = 24
+# mixtral-8x22b's served depth: 8 of its 56 layers (phase 7 says why).
+MIXTRAL_LAYERS = 8
 GRANITE_2D_SHAPES = [
     ("wq/wo", 1024, 1024, "bfloat16", False, 2 * GRANITE_LAYERS),
     ("wk/wv", 1024, 512, "bfloat16", False, 2 * GRANITE_LAYERS),
@@ -665,7 +691,34 @@ K5_CASES = [
          tq=16, lengths=[200, 70, 0, 16], window=64, dtype="bfloat16"),
     dict(name="f32-gqa-prefill16", h=8, hkv=2, d=64, ps=16, w=8, tq=16,
          lengths=[40, 100, 0, 3], window=None, dtype="float32"),
+    # The other continuous paths, as phase 7 serves them (pages and
+    # lengths as phi3's): starcoder2-3b GQA 12:1 (24 heads, 2 KV heads),
+    # phi3-medium-14b 4:1 (40:10), mixtral-8x22b 6:1 (48:8) with its window
+    # of 4096, all D = 128; and mixtral past its window, where the window
+    # cuts the keys (block tables 288 pages wide, 4608 keys).
+    dict(name="starcoder2-decode", h=24, hkv=2, d=128, ps=16, w=4, tq=1,
+         lengths=[45, 30, 0], window=None, dtype="bfloat16"),
+    dict(name="starcoder2-prefill16", h=24, hkv=2, d=128, ps=16, w=4,
+         tq=16, lengths=[48, 9, 0], window=None, dtype="bfloat16"),
+    dict(name="phi3-medium-decode", h=40, hkv=10, d=128, ps=16, w=4, tq=1,
+         lengths=[45, 30, 0], window=None, dtype="bfloat16"),
+    dict(name="phi3-medium-prefill16", h=40, hkv=10, d=128, ps=16, w=4,
+         tq=16, lengths=[48, 9, 0], window=None, dtype="bfloat16"),
+    dict(name="mixtral-decode", h=48, hkv=8, d=128, ps=16, w=4, tq=1,
+         lengths=[45, 30, 0], window=4096, dtype="bfloat16"),
+    dict(name="mixtral-prefill16", h=48, hkv=8, d=128, ps=16, w=4,
+         tq=16, lengths=[48, 9, 0], window=4096, dtype="bfloat16"),
+    dict(name="mixtral-window-decode", h=48, hkv=8, d=128, ps=16, w=288,
+         tq=1, lengths=[4600, 4200, 0], window=4096, dtype="bfloat16"),
+    dict(name="mixtral-window-prefill16", h=48, hkv=8, d=128, ps=16,
+         w=288, tq=16, lengths=[4608, 4111, 0], window=4096,
+         dtype="bfloat16"),
 ]
+# Full-width depths of the served models whose K5 times phase_k5 sums.
+K5_MODEL_LAYERS = {"phi3": 32, "granite": GRANITE_LAYERS,
+                   "starcoder2": 30, "phi3-medium": 40,
+                   "mixtral": MIXTRAL_LAYERS,
+                   "mixtral-window": MIXTRAL_LAYERS}
 
 
 def phase_k5(torch, timer):
@@ -769,7 +822,7 @@ def phase_k5(torch, timer):
     # launches.
     by_name = {r["case"]: r for r in rows}
     steps = {}
-    for model, layers in (("phi3", 32), ("granite", GRANITE_LAYERS)):
+    for model, layers in K5_MODEL_LAYERS.items():
         for key, case, what in ((model, f"{model}-decode", "decode step"),
                                 (f"{model}-chunk", f"{model}-prefill16",
                                  "16-token chunk")):
@@ -809,9 +862,25 @@ K4_CASES = [
     # granite's attention in an fp32 training step (batch 4 x seq 128,
     # GQA 16:8, D 64, causal): K4's tf32x3 design.
     ("granite-train-f32", 4, 16, 8, 128, 128, 64, True, None, "float32"),
+    # llama-3.2-vision-11b on the wave path (GQA 32:8, D 128): the causal
+    # self-attention of a 32-token prefill, the cross-attention over its
+    # 1600 image keys at that prefill and at a decode step.
+    ("vision-prefill", 2, 32, 8, 32, 32, 128, True, None, "bfloat16"),
+    ("vision-cross", 2, 32, 8, 32, 1600, 128, False, None, "bfloat16"),
+    ("vision-decode-cross", 2, 32, 8, 1, 1600, 128, False, None,
+     "bfloat16"),
+    # recurrentgemma-2b's local attention (MQA 10:1, D 256, window 2048):
+    # a 32-token prefill, a prefill the window cuts, and one query row
+    # over a full ring cache of 2048 slots -- D > K4_MAX_D, so the first
+    # scalar kernel by the rule.
+    ("rgemma-prefill", 2, 10, 1, 32, 32, 256, True, 2048, "bfloat16"),
+    ("rgemma-window", 1, 10, 1, 2560, 2560, 256, True, 2048, "bfloat16"),
+    ("rgemma-ring", 2, 10, 1, 1, 2048, 256, False, None, "bfloat16"),
 ]
 WHISPER_LAYERS = 24
 PHI3_LAYERS = 32
+VISION_LAYERS, VISION_CROSS = 40, 8       # llama-vision: 8 cross of 40
+RGEMMA_LOCAL = 8                          # recurrentgemma: local attention
 
 
 def _k4_pairs(tq, tk, causal, window):
@@ -896,7 +965,8 @@ def phase_k4(torch, timer):
         (got, design), ref = _k4_design_of(kern), plain()
         torch.cuda.synchronize()
         small = g * tq <= 16
-        want = (("simt" if small else "tf32x3") if dt == "float32" else
+        want = ("simt" if d > _k4_max_d() else
+                ("simt" if small else "tf32x3") if dt == "float32" else
                 "split" if small else "wgmma")
         if design != want or design != k4_design(q, k, v):
             raise AssertionError(f"K4 {name}: ran the {design} design")
@@ -968,6 +1038,15 @@ def phase_k4(torch, timer):
             "the forward and remat launches of one full-depth granite fp32 "
             "training step", {"granite-train-f32": 2 * GRANITE_LAYERS},
             "tfloat32"),
+        "vision-prefill": total(
+            "one llama-3.2-vision-11b wave prefill of 32 tokens",
+            {"vision-prefill": VISION_LAYERS - VISION_CROSS,
+             "vision-cross": VISION_CROSS}),
+        "vision-decode": total("one llama-3.2-vision-11b decode step",
+                               {"vision-decode-cross": VISION_CROSS}),
+        "rgemma-prefill": total(
+            "one recurrentgemma-2b wave prefill of 32 tokens",
+            {"rgemma-prefill": RGEMMA_LOCAL}),
     }
 
 
@@ -1717,18 +1796,25 @@ def _rule(name):
     return getattr(mpgemm, name, None)
 
 
-def _check_k4_designs(label, counts):
+def _check_k4_designs(label, counts, simt=0):
     """Every K4 launch of a path ran a Hopper design (``k4_design``): its
     operands are bf16 or f32 with head widths the rule takes (f32: more
-    than 16 folded rows a kv head)."""
+    than 16 folded rows a kv head) -- but ``simt`` of them, which must run
+    the first scalar kernel (head widths above ``K4_MAX_D``)."""
     tf32x3 = counts.get("k4_tf32x3", 0)
     new = counts["k4_wgmma"] + counts["k4_split"] + tf32x3
     print(f"[{label}] K4 designs: wgmma {counts['k4_wgmma']}, split "
-          f"{counts['k4_split']}, tf32x3 {tf32x3} of {counts['k4']} "
-          f"launches")
-    if new != counts["k4"]:
+          f"{counts['k4_split']}, tf32x3 {tf32x3}, scalar "
+          f"{counts['k4'] - new} of {counts['k4']} launches")
+    if counts["k4"] - new != simt:
         raise AssertionError(f"{label}: {counts['k4'] - new} K4 launches "
-                             f"ran the scalar kernel, want none")
+                             f"ran the scalar kernel, want {simt}")
+
+
+def _k4_max_d():
+    """The widest head K4's Hopper designs take."""
+    from repro_torch.kernels.flash_attention import K4_MAX_D
+    return K4_MAX_D
 
 
 def _k1_design_of(call):
@@ -1803,13 +1889,13 @@ def _check_wgmma(label, got, want):
 
 def _want_launches(cfg, pack, n_steps, sparse=False):
     """Every launch count of a serve run: per ``paged_step`` each layer has
-    4 attention projections, then 3 dense MLP GEMMs or (MoE) 1 f32 router
-    GEMM and 3 grouped expert GEMMs, plus the head.  Packing (K2) or
-    sparsifying (K3) covers every projection, MLP weight and expert stack
-    and an untied head, never the router or a tied head (the embedding),
-    and takes one K6 pack launch per weight at load."""
+    4 attention projections, then 3 dense MLP GEMMs (2 for a GELU MLP) or
+    (MoE) 1 f32 router GEMM and 3 grouped expert GEMMs, plus the head.
+    Packing (K2) or sparsifying (K3) covers every projection, MLP weight
+    and expert stack and an untied head, never the router or a tied head
+    (the embedding), and takes one K6 pack launch per weight at load."""
     n_layers, moe = cfg.n_layers, cfg.family == "moe"
-    dense_2d = 1 if moe else 3            # router | gate, up, down
+    dense_2d = 1 if moe else _mlp_mats(cfg)   # router | [gate,] up, down
     grouped = 3 if moe else 0             # expert gate, up, down
     head_done = (pack or sparse) and not cfg.tie_embeddings
     per_step = dict(k1=0, k1g=0, k2=0, k2g=0, k3=0, k3g=0)
@@ -1828,6 +1914,11 @@ def _want_launches(cfg, pack, n_steps, sparse=False):
     want["k6"] = (n_layers * (4 + (3 if moe else dense_2d)) + int(head_done)
                   if pack or sparse else 0)
     return want, per_step
+
+
+def _mlp_mats(cfg):
+    """GEMMs of a dense MLP: up and down, and the gate of a SwiGLU."""
+    return 2 if cfg.mlp == "gelu" else 3
 
 
 def phase_serve(torch, *, label, arch="phi3-mini-3.8b", policy="bf16",
@@ -2108,6 +2199,14 @@ SERVE_PATHS = {
     "granite-sparse-int8": dict(arch="granite-moe-1b-a400m", policy="int8",
                                 sparsity=0.5, sparsity_method="nm",
                                 n_layers=12),
+    # The dense and MoE architectures the port serves besides phi3-mini and
+    # granite, bf16 at full width: starcoder2-3b (30 layers, ~6.4 GB) and
+    # phi3-medium-14b (40 layers, ~29 GB) at full depth, mixtral-8x22b at
+    # MIXTRAL_LAYERS of its 56 (a layer holds ~4.9 GB of bf16 weights, so
+    # all 56 would need ~280 GB: the card holds 80).
+    "starcoder2-bf16": dict(arch="starcoder2-3b"),
+    "phi3-medium-bf16": dict(arch="phi3-medium-14b"),
+    "mixtral-bf16": dict(arch="mixtral-8x22b", n_layers=MIXTRAL_LAYERS),
 }
 # --no-fuse (the unfused MLPs), served right after the op-level phase: cut
 # to 8 of phi3's 32 layers and 6 of granite's 24 to keep the script's time
@@ -2121,6 +2220,22 @@ NO_FUSE_PATHS = {
 
 def _leaves(tree):
     return (leaf for _, leaf in _tree_paths(tree))
+
+
+def _exact_gemm(a, b, *, spec, out_dtype=None, c=None, f32_fma=False,
+                **kw):
+    """A dense float GEMM of ``core/gemm.py`` with its sum in f64 (then the
+    plain epilogue in f32 and the output cast): the plain version's
+    function without its f32 rounding, the yardstick of how far a model's
+    logits move with the order of an f32 sum."""
+    from repro_torch.kernels import mpgemm as mk
+    aw, bw = a.double(), b.double()
+    acc = ((aw.transpose(-1, -2) if spec.trans_a else aw)
+           @ (bw.transpose(-1, -2) if spec.trans_b else bw)).float()
+    return mk._epilogue_plain(kw.get("epilogue", mk.LINEAR), acc,
+                              kw.get("bias"), kw.get("scale"), c,
+                              kw.get("extras", ()),
+                              out_dtype or spec.out_dtype or a.dtype)
 
 
 def _plain_gemm(a, b, *, spec, out_dtype=None, c=None, f32_fma=False,
@@ -2146,11 +2261,12 @@ def _plain_gemm(a, b, *, spec, out_dtype=None, c=None, f32_fma=False,
 
 
 @contextlib.contextmanager
-def _plain_versions(enabled=True):
+def _plain_versions(enabled=True, exact=False):
     """Within the block, every GEMM, attention, unpack (K7) and pack (K6)
     wrapper the model and its backward call is its plain version (the
     plain versions are rank-generic: they stand in for the 2-D and the
-    grouped GEMM wrappers alike, ``trans_a`` and ``trans_b`` included)."""
+    grouped GEMM wrappers alike, ``trans_a`` and ``trans_b`` included);
+    ``exact`` sums the dense GEMMs in f64 (``_exact_gemm``)."""
     from repro_torch.core import gemm as gemm_mod
     from repro_torch.kernels.flash_attention import (
         flash_attention_plain, paged_flash_attention_plain,
@@ -2179,8 +2295,8 @@ def _plain_versions(enabled=True):
     names = ("mpgemm", "mpgemm_grouped", "unpack_operand", "pack_operand")
     saved = ([getattr(gemm_mod, n) for n in names],
              attn_mod.paged_flash_attention, attn_mod.flash_attention)
-    for n, fn in zip(names, (_plain_gemm, _plain_gemm, plain_unpack,
-                             plain_pack)):
+    gemm = _exact_gemm if exact else _plain_gemm
+    for n, fn in zip(names, (gemm, gemm, plain_unpack, plain_pack)):
         setattr(gemm_mod, n, fn)
     attn_mod.paged_flash_attention = paged_flash_attention_plain
     attn_mod.flash_attention = flash_attention_plain
@@ -2380,22 +2496,64 @@ def _profile_decode_step(torch, step, label, step_ms,
 
 # ----------------------------------------------------------------- phase 7b
 
-def _want_wave_launches(cfg):
-    """K1 and K4 launches per prefill and per decode step of the wave path.
+# The wave path's launches a layer by block kind, at a prefill and at a
+# decode step: (2-D K1 in all, of them on K1's fma design, grouped K1 in
+# all, of them on the fma design, K4).  m is the MLP's GEMMs (2 GELU, 3
+# SwiGLU).
+#   dense / attn_local: 4 attention projections and the MLP, a causal K4
+#     at prefill; a decode step's attention against the ring cache is
+#     plain torch ops (as in the reference), so no K4.
+#   moe: the 4 projections, the f32 router (fma) and 3 grouped bf16
+#     expert GEMMs.
+#   cross (VLM): q, k and v of the image states, o and the MLP, a
+#     non-causal K4 over the image keys; at decode the K/V come from the
+#     cache: q, o, the MLP and K4 at one query row.
+#   encdec (whisper's decoder): self q, k, v, o, cross q, k, v, o and the
+#     MLP, a causal and a cross K4; at decode 4 + 2 + m GEMMs and the
+#     cross K4.
+#   rwkv: lora_a, w_lora_a, wr, wk, wv, wg, wo, ck, cv, cr (bf16) and the
+#     grouped f32 LoRA (5 streams, the fma design), no attention.
+#   rglru: w_y, w_x, w_out, the SwiGLU MLP (bf16) and the two f32 gates
+#     (the fma design).
+_WAVE_LAUNCHES = {
+    "dense": lambda m: ((4 + m, 0, 0, 0, 1), (4 + m, 0, 0, 0, 0)),
+    "moe": lambda m: ((5, 1, 3, 0, 1), (5, 1, 3, 0, 0)),
+    "cross": lambda m: ((4 + m, 0, 0, 0, 1), (2 + m, 0, 0, 0, 1)),
+    "encdec": lambda m: ((8 + m, 0, 0, 0, 2), (6 + m, 0, 0, 0, 1)),
+    "rwkv": lambda m: ((10, 0, 1, 1, 0),) * 2,
+    "rglru": lambda m: ((8, 2, 0, 0, 0),) * 2,
+}
+_WAVE_LAUNCHES["attn_local"] = _WAVE_LAUNCHES["dense"]
 
-    Whisper (enc-dec): each encoder layer runs 4 attention projections and
-    2 MLP GEMMs and one non-causal K4; each decoder layer at prefill 4
-    self-attention projections, 4 cross-attention ones (q, k and v of the
-    encoder states, o) and 2 MLP GEMMs, with a causal K4 and a cross K4; at
-    a decode step the cross K/V come from the cache, so 4 + 2 + 2 GEMMs and
-    one cross K4 (the self-attention against the ring cache is plain torch
-    ops, as in the reference).  A dense decoder: 7 GEMMs a layer, one
-    causal K4 a layer at prefill.  Both add the head."""
-    n, enc = cfg.n_layers, cfg.encoder_layers
-    if cfg.family == "audio":
-        return (dict(k1=enc * 6 + n * 10 + 1, k4=enc + 2 * n),
-                dict(k1=n * 8 + 1, k4=n))
-    return dict(k1=n * 7 + 1, k4=n), dict(k1=n * 7 + 1, k4=0)
+
+def _want_wave_launches(cfg):
+    """Launches per prefill and per decode step of the wave path, as dicts
+    of ``k1``, ``k1_fma``, ``k1g``, ``k1g_fma`` and ``k4``: each
+    layer's by its kind (``_WAVE_LAUNCHES``), whisper's encoder layers (4 +
+    2 GEMMs and a non-causal K4 each, at prefill), and the head."""
+    m = _mlp_mats(cfg)
+    keys = ("k1", "k1_fma", "k1g", "k1g_fma", "k4")
+    prefill, decode = dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)
+    for kind in cfg.pattern:
+        for want, counts in zip((prefill, decode), _WAVE_LAUNCHES[kind](m)):
+            for key, n in zip(keys, counts):
+                want[key] += n
+    prefill["k1"] += cfg.encoder_layers * (4 + m) + 1
+    prefill["k4"] += cfg.encoder_layers
+    decode["k1"] += 1
+    return prefill, decode
+
+
+# The wave paths of phase 7, by label: the architecture, at full width and
+# depth (bf16).  The last three serve only here: their cross and recurrent
+# caches are not paged, as in the reference.
+WAVE_PATHS = {
+    "whisper": "whisper-medium",
+    "phi3": "phi3-mini-3.8b",
+    "llama-vision": "llama-3.2-vision-11b",
+    "rwkv6": "rwkv6-1.6b",
+    "recurrentgemma": "recurrentgemma-2b",
+}
 
 
 def phase_wave_serve(torch, *, label, arch, n_layers=None):
@@ -2459,12 +2617,15 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
              for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g")}
     wgmma["k5"] = (counters["k5"].wgmma_launches
                    + counters["k5"].split_launches)
+    design_counts = _read_counters()
     del model.prefill, model.decode_step
     per_prefill, per_decode = _want_wave_launches(cfg)
     want = {k: 0 for k in counters}
-    for key in ("k1", "k4"):
-        want[key] = (calls["prefill"] * per_prefill[key]
-                     + calls["decode"] * per_decode[key])
+    fma = {}
+    for key in per_prefill:
+        n = (calls["prefill"] * per_prefill[key]
+             + calls["decode"] * per_decode[key])
+        (fma if key.endswith("_fma") else want)[key] = n
     n_tok = sum(len(v) for v in out.values())
     decode = [s.wall_s for s in eng.step_telemetry if s.phase == "decode"]
     prefill = [w.prefill_s for w in eng.telemetry]
@@ -2483,20 +2644,33 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
         raise AssertionError(f"served {sorted(out)} of 4 requests")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
-    # Dense bf16 and no router: every K1 launch is a bf16 one.
-    _check_wgmma(f"wave:{label}", wgmma, dict(k1=counts["k1"], k1g=0, k2=0,
-                                               k2g=0, k3=0, k3g=0, k5=0))
-    _check_k4_designs(f"wave:{label}", _read_counters())
+    # Every K1 launch is a bf16 one on the wgmma design but the f32 ones of
+    # the fp32 policy (MoE routers; the RWKV LoRA, grouped; the RG-LRU
+    # gates), each on the fma design.
+    got_fma = {k: design_counts[k] for k in fma}
+    print(f"[wave:{label}] K1 fma design: {got_fma['k1_fma']} 2-D, "
+          f"{got_fma['k1g_fma']} grouped (want {fma})")
+    if got_fma != fma:
+        raise AssertionError(f"wave:{label}: fma-design launches "
+                             f"{got_fma}, want {fma}")
+    _check_wgmma(f"wave:{label}", wgmma, dict(
+        k1=counts["k1"] - fma["k1_fma"], k1g=counts["k1g"] - fma["k1g_fma"],
+        k2=0, k2g=0, k3=0, k3g=0, k5=0))
+    # K4's Hopper designs take head widths up to K4_MAX_D; recurrentgemma's
+    # 256 run the first scalar kernel, by the rule.
+    _check_k4_designs(f"wave:{label}", design_counts,
+                      simt=counts["k4"] if cfg.head_dim > _k4_max_d() else 0)
     if not all(finite):
         raise AssertionError("non-finite logits during serving")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                  weights_gb=weights / 1e9, prefills=calls["prefill"],
                  decode_steps=calls["decode"], prefill_ms=[
                      1e3 * p for p in prefill],
-                 decode_step_ms=1e3 * float(np.median(decode)), **counts)
+                 decode_step_ms=1e3 * float(np.median(decode)), **counts,
+                 **got_fma)
     batch = _wave_batch(torch, model)
-    serve["logit_err"] = _wave_kernel_vs_plain(torch, model, params, label,
-                                               batch)
+    serve["logit_err"] = _wave_kernel_vs_plain(
+        torch, model, _open_gates(torch, params), label, batch)
     _, caches = model.prefill(params, batch, max_len=64)
     pos = batch["tokens"].shape[1]
     token = torch.tensor([[5], [7]], device="cuda")
@@ -2514,7 +2688,9 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
 
 def _wave_batch(torch, model):
     """A two-row prefill batch, 16 tokens and a row left-padded to 16 from
-    9 (stubbed zero audio frames for whisper)."""
+    9 (stubbed zero audio frames for whisper; for a VLM image embeddings
+    drawn from a seed, not the engine's zeros, so that its cross blocks see
+    states)."""
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(3)
     toks = torch.randint(2, cfg.vocab, (2, 16), generator=gen,
@@ -2525,38 +2701,123 @@ def _wave_batch(torch, model):
         batch["audio_embeds"] = torch.zeros(
             (2, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16,
             device="cuda")
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (2, cfg.n_image_tokens, cfg.d_model), generator=gen,
+            device="cuda").to(torch.bfloat16)
     return batch
 
 
+def _open_gates(torch, params):
+    """``params`` with every cross block's gates at 0.5 (the init draws
+    them 0, and a closed gate hides its branch from a comparison)."""
+    half = torch.tensor(0.5, device="cuda")
+    return dict(params, layers=[
+        dict(layer, gate_attn=half, gate_mlp=half) if "gate_attn" in layer
+        else layer for layer in params["layers"]])
+
+
+# A recurrent model's logits can move with the order of an f32 sum by
+# more than LOGIT_REL_TOL: with random weights, rwkv6-1.6b's moved by 9.5
+# (prefill) and 11.1 % (decode) of its largest |logit|, and
+# recurrentgemma-2b's by 2.1 %, between the plain versions and the same
+# function summed in f64 (whisper's 1.2 %, phi3's 1.7 %).  A path whose
+# plain version misses the bound so in its prefill or its decode step is
+# held to the model's own spread instead: the kernels' logits no farther
+# from the f64 sums than EXACT_SPREAD times the plain version's (both are
+# f32 sums, one bf16 rounding an output, in another order), and each
+# layer, fed the plain run's input, within LOGIT_REL_TOL of its plain
+# output's largest |value|.
+EXACT_SPREAD = 1.5
+
+
 def _wave_kernel_vs_plain(torch, model, params, label, batch):
-    """One full-width prefill and one decode step through the kernels and
-    through the plain versions; both logits within the bf16 bound."""
+    """One full-width prefill and one decode step through the kernels,
+    through the plain versions and through the plain versions summed in
+    f64: the kernels' logits within the bf16 bound of the plain version's,
+    or, on a path where the plain version misses that bound against the
+    f64 sums, held to the model's spread (``EXACT_SPREAD``) and layer by
+    layer."""
     token = torch.tensor([[11], [13]], device="cuda")
     pos = batch["tokens"].shape[1]
+    v = model.cfg.vocab
     runs = []
-    for plain in (False, True):
-        with _plain_versions(enabled=plain):
+    for plain, exact in ((False, False), (True, False), (True, True)):
+        with _plain_versions(enabled=plain, exact=exact):
             logits, caches = model.prefill(params, batch, max_len=64)
             step, _ = model.decode_step(params, token, caches, pos)
-        runs.append((logits.float()[:, :model.cfg.vocab],
-                     step.float()[:, :model.cfg.vocab]))
+        runs.append((logits.float()[:, :v], step.float()[:, :v]))
         del caches
-    errs = []
-    for what, lk, lp in (("prefill", runs[0][0], runs[1][0]),
-                         ("decode step", runs[0][1], runs[1][1])):
+    rel = LOGIT_REL_TOL["bf16"]
+    rows = []
+    for i, what in enumerate(("prefill", "decode step")):
+        lk, lp, lx = runs[0][i], runs[1][i], runs[2][i]
         diff = (lk - lp).abs()
         err, scale = diff.max().item(), lp.abs().max().item()
-        rel = LOGIT_REL_TOL["bf16"]
+        plain_x = (lp - lx).abs().max().item()
+        kern_x = (lk - lx).abs().max().item()
         agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
         print(f"[wave:{label}] one full-width {what}, kernels vs plain "
               f"versions: max |logit diff| {err:.3e}, mean "
               f"{diff.mean().item():.3e} (bound {rel} x max |logit| = "
-              f"{rel * scale:.3e}), argmax agreement {agree:.2f}")
-        if not (err <= rel * scale and torch.isfinite(lk).all()):
+              f"{rel * scale:.3e}), argmax agreement {agree:.2f}; against "
+              f"the f64 sums: plain {plain_x:.3e} ({plain_x / scale:.4f} "
+              f"x max |logit|), kernels {kern_x:.3e}")
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"{what}: non-finite kernel logits")
+        rows.append((what, err, scale, plain_x, kern_x))
+    spread = any(plain_x > rel * scale for _, _, scale, plain_x, _ in rows)
+    for what, err, scale, plain_x, kern_x in rows:
+        if not spread and err > rel * scale:
             raise AssertionError(f"{what}: kernel and plain logits differ "
                                  f"by {err:.3e}")
-        errs.append(err)
-    return max(errs)
+        if spread and kern_x > EXACT_SPREAD * plain_x:
+            raise AssertionError(
+                f"{what}: the kernels' logits are {kern_x:.3e} from the "
+                f"f64 sums, the plain version's {plain_x:.3e}")
+    if spread:
+        print(f"[wave:{label}] the plain version's own logits move by more "
+              f"than {rel} x max |logit| with the order of its f32 sums: "
+              f"the kernels are held to {EXACT_SPREAD} x its distance from "
+              f"the f64 sums (" + ", ".join(
+                  f"{what} {kern_x:.3e} <= {EXACT_SPREAD * plain_x:.3e}"
+                  for what, _, _, plain_x, kern_x in rows) + ")")
+        _layers_vs_plain(torch, model, params, label, batch)
+    return max(err for _, err, _, _, _ in rows)
+
+
+def _layers_vs_plain(torch, model, params, label, batch):
+    """Each layer of one full-width prefill, fed the plain run's input to
+    it, through the kernels and through the plain versions: outputs within
+    LOGIT_REL_TOL of the plain output's largest |value|."""
+    from repro_torch.models import transformer as T
+
+    inputs, inner = [], T._block_fwd
+
+    def record(kind, layer, x, ctx):
+        inputs.append((kind, layer, x, dict(ctx, collect_cache=False)))
+        return inner(kind, layer, x, ctx)
+
+    T._block_fwd = record
+    try:
+        with _plain_versions():
+            model.prefill(params, batch, max_len=64)
+    finally:
+        T._block_fwd = inner
+    rel, worst = LOGIT_REL_TOL["bf16"], 0.0
+    for i, (kind, layer, x, ctx) in enumerate(inputs):
+        got, _, _ = inner(kind, layer, x, ctx)
+        with _plain_versions():
+            want, _, _ = inner(kind, layer, x, ctx)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        worst = max(worst, err / scale)
+        if not err <= rel * scale:
+            raise AssertionError(f"wave:{label}: layer {i} ({kind}) differs "
+                                 f"by {err:.3e} of {scale:.3e}")
+    print(f"[wave:{label}] each of the {len(inputs)} layers fed the plain "
+          f"run's input: kernels vs plain within {worst:.3e} x the layer "
+          f"output's max |value| (bound {rel})")
 
 
 # ------------------------------------------------------------------ main
@@ -2891,6 +3152,202 @@ def phase_k1_fma(torch, timer):
               f"({row['bound_by']})")
     gc.collect()
     torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------------------------------------- phase 6c
+
+# The six architectures the port serves besides phi3-mini, granite and
+# whisper (phase 7's paths): label -> (architecture, depth served).
+ARCH_K1_PATHS = {
+    "starcoder2": ("starcoder2-3b", None),
+    "phi3-medium": ("phi3-medium-14b", None),
+    "mixtral": ("mixtral-8x22b", MIXTRAL_LAYERS),
+    "vision": ("llama-3.2-vision-11b", None),
+    "rwkv6": ("rwkv6-1.6b", None),
+    "rgemma": ("recurrentgemma-2b", None),
+}
+
+
+def _decode_gemms(cfg, n_layers):
+    """The K1 launches of one decode step of ``cfg`` cut to ``n_layers``,
+    from its block kinds: {(G, K, N, epilogue kind, activation, bias,
+    trans_b, f32): launches}.  ``f32`` marks the fp32 policy's products
+    (MoE routers, the RWKV LoRA, the RG-LRU gates: f32 operands and output
+    on K1's fma design); the expert GEMMs and the LoRA are grouped (G > 1,
+    f32 outputs).  The dense block's residual rides its down projection;
+    a cross block's and the recurrent blocks' MLPs carry none."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    gelu = cfg.mlp == "gelu"
+    out = {}
+
+    def add(g, k, n, kind="linear", act=None, bias=False, tb=False,
+            f32=False):
+        key = (g, k, n, kind, act, bias, tb, f32)
+        out[key] = out.get(key, 0) + 1
+
+    def mlp(residual):
+        down = "residual" if residual else "linear"
+        if gelu:
+            add(1, d, f, act="gelu", bias=True)
+            add(1, f, d, down, bias=True)
+        else:
+            add(1, d, f)
+            add(1, d, f, "gated", "silu")
+            add(1, f, d, down)
+
+    for kind in cfg.pattern[:n_layers]:
+        if kind in ("dense", "attn_local", "moe"):
+            add(1, d, q)
+            add(1, d, kv)
+            add(1, d, kv)
+            add(1, q, d)
+            if kind != "moe":
+                mlp(residual=True)
+                continue
+            e = cfg.n_experts
+            add(1, d, e, f32=True)
+            add(e, d, f)
+            add(e, d, f, "gated", "silu")
+            add(e, f, d)
+        elif kind == "cross":
+            add(1, d, q)
+            add(1, q, d)
+            mlp(residual=False)
+        elif kind == "rwkv":
+            for n in (5 * 32, 64, d, d, d, d, d, f, d):
+                add(1, d, n)           # lora_a, w_lora_a, wr..wg, wo, ck, cr
+            add(1, f, d)               # cv
+            add(5, 32, d, f32=True)    # the LoRA's five streams
+        elif kind == "rglru":
+            w = cfg.lru_width or d
+            add(1, d, w)
+            add(1, d, w)
+            add(1, w, w, f32=True)
+            add(1, w, w, f32=True)
+            add(1, w, d)
+            mlp(residual=False)
+        else:
+            raise ValueError(kind)
+    vp = -(-cfg.vocab // 128) * 128
+    add(1, d, vp, tb=cfg.tie_embeddings)
+    return out
+
+
+def phase_k1_archs(torch, timer):
+    """K1 at every GEMM shape of one full-width decode step (M = 2 rows) of
+    the six newer architectures (``_decode_gemms``): bf16 on the wgmma
+    design; the fp32 policy's products on the fma design, bit-equal to the
+    scalar loop (``_k1_scalar``) and to a second launch; every case within
+    its tolerance of the plain version, timed beside it, one
+    ``torch.matmul`` (f32 with TF32 off; the epilogue in torch ops after
+    it) and the bound.  -> rows by model: ``LABEL`` (the 2-D launches,
+    the f32 ones among them), ``LABEL-fma`` (the 2-D f32 ones alone) and
+    ``LABEL-grouped``, each one decode step's launches weighted."""
+    from repro_torch.configs import base as cb
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
+        apply_epilogue
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped, \
+        mpgemm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f32, bf16, m = torch.float32, torch.bfloat16, 2
+    rows = {}
+    for label, (arch, n_layers) in ARCH_K1_PATHS.items():
+        cfg = cb.get(arch)
+        steps = {key: StepSum() for key in (label, f"{label}-fma",
+                                            f"{label}-grouped")}
+        scalar_ms = dict.fromkeys(steps, 0.0)
+        for (g, k, n, kind, act, has_bias, tb, fp32), per_step in \
+                _decode_gemms(cfg, n_layers or cfg.n_layers).items():
+            dt = f32 if fp32 else bf16
+            out_dtype = f32 if fp32 or g > 1 else bf16
+            lead = (g,) if g > 1 else ()
+            a = torch.randn(*lead, m, k, generator=gen, device="cuda").to(dt)
+            w = (torch.randn(*lead, *((n, k) if tb else (k, n)),
+                             generator=gen, device="cuda")
+                 * (2.0 / (k + n)) ** 0.5).to(dt)
+            bias = (torch.randn(n, generator=gen, device="cuda")
+                    if has_bias else None)
+            extras = () if kind == "linear" else (
+                torch.randn(*lead, m, n, generator=gen,
+                            device="cuda").to(out_dtype),)
+            ep = EpilogueSpec(kind=kind, activation=act)
+            fn = mpgemm_grouped if g > 1 else mpgemm
+            kw = dict(bias=bias, extras=extras, epilogue=ep,
+                      out_dtype=out_dtype)
+
+            def kern():
+                return fn(a, w, spec=GemmSpec(grouped=g > 1, trans_b=tb),
+                          f32_fma=fp32, **kw)
+
+            def plain():
+                return mpgemm_plain(a, w, trans_b=tb, **kw)
+
+            def library():
+                acc = torch.matmul(a, w.transpose(-1, -2) if tb else w)
+                return apply_epilogue(
+                    ep, acc.float(), extras=extras,
+                    bias=None if bias is None else bias.reshape(1, -1)).to(
+                        out_dtype)
+
+            def scalar():
+                return _k1_scalar(torch, a, w, trans_b=tb, **kw)
+
+            what = (f"K1 {label} G={g} k={k} n={n} {kind}/{act}"
+                    f"{' bias' if has_bias else ''}{' trans_b' if tb else ''}"
+                    f" {_dtype_name(dt)}")
+            (got, design), ref = _k1_design_of(kern), plain()
+            want = "fma" if fp32 else "wgmma"
+            if design != want:
+                raise AssertionError(f"{what}: ran {design}, want {want}")
+            if fp32:
+                _check_fma_bits(torch, what, got, kern(), scalar())
+            torch.cuda.synchronize()
+            err = _check_close(torch, what, got, ref,
+                               TOL[_dtype_name(out_dtype)])
+            esz = a.element_size()
+            n_bytes = (g * (m * k + k * n) * esz
+                       + g * m * n * out_dtype.itemsize * (1 + len(extras))
+                       + (4 * n if bias is not None else 0))
+            n_ops = 2 * g * m * n * k
+            bound, bound_by = _bound_ms(n_bytes, n_ops, _dtype_name(dt))
+            ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+            sc_ms = timer(scalar) if fp32 else None
+            print(f"[k1-archs] {what:>58} x{per_step:<3} {design:>5}: err "
+                  f"{err:.2e}  kernel {ms:.4f} ms"
+                  + (f"  scalar loop {sc_ms:.4f}" if fp32 else "")
+                  + f"  plain {plain_ms:.4f}  library {lib_ms:.4f}  bound "
+                  f"{bound:.4f} ({bound_by})")
+            keys = ([f"{label}-grouped"] if g > 1 else
+                    [label, f"{label}-fma"] if fp32 else [label])
+            for key in keys:
+                steps[key].add(per_step, ms, plain_ms, lib_ms, bound,
+                               n_bytes, n_ops)
+                steps[key].max_abs_err = max(steps[key].max_abs_err, err)
+                if fp32:
+                    scalar_ms[key] += per_step * sc_ms
+            del a, w, bias, extras, got, ref
+        for key, step in steps.items():
+            if not step.launches:
+                continue
+            # f32 rows: the 2-D fma launches, and grouped ones on fma.
+            on_fma = key.endswith("-fma") or (key.endswith("-grouped")
+                                              and scalar_ms[key] > 0)
+            row = rows[key] = step.row("float32" if on_fma else "bfloat16")
+            if on_fma:
+                row["scalar_ms"] = scalar_ms[key]
+            print(f"[k1-archs] one full-width {key} decode step "
+                  f"({step.launches} launches"
+                  + (f", {n_layers} of {cfg.n_layers} layers" if n_layers
+                     else "")
+                  + f"): kernel {row['ms']:.3f} ms, plain "
+                  f"{row['plain_ms']:.3f} ms, library "
+                  f"{row['library_ms']:.3f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4447,6 +4904,7 @@ def main():
     k3 = phase_k3(torch, timer)
     k1ta = phase_k1_trans_a(torch, timer)
     k1fma = phase_k1_fma(torch, timer)
+    k1a = phase_k1_archs(torch, timer)
     k7 = phase_k7(torch, timer)
     packed_grad = phase_packed_grad(torch)
     print(f"[time] kernel phases: {time.perf_counter() - t_phases:.1f} s")
@@ -4466,8 +4924,7 @@ def main():
         gc.collect()              # free each path's weights before the next
         torch.cuda.empty_cache()
     waves = {}
-    for label, arch in (("whisper", "whisper-medium"),
-                        ("phi3", "phi3-mini-3.8b")):
+    for label, arch in WAVE_PATHS.items():
         waves[label] = phase_wave_serve(torch, label=label, arch=arch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4635,6 +5092,78 @@ def main():
             "12-layer path)", "mpgemm_fma.cu", f"{mp}:812",
             trains["granite-fp32"]["counts"]["k1g_fma"],
             k1fma["granite-fp32-train-grouped"]),
+        row("K1 mpgemm at starcoder2-3b's 2-D shapes (decode step: "
+            "attention, GELU MLP with biases, head)", "mpgemm_wgmma.cu",
+            f"{mp}:232", serves["starcoder2-bf16"]["k1"], k1a["starcoder2"]),
+        row("K1 mpgemm at phi3-medium-14b's 2-D shapes (decode step)",
+            "mpgemm_wgmma.cu", f"{mp}:232", serves["phi3-medium-bf16"]["k1"],
+            k1a["phi3-medium"]),
+        row(f"K1 mpgemm at mixtral-8x22b's 2-D shapes (decode step at "
+            f"{MIXTRAL_LAYERS} of 56 layers: attention, head; the launches "
+            f"and times include the f32 routers)", "mpgemm_wgmma.cu",
+            f"{mp}:232", serves["mixtral-bf16"]["k1"], k1a["mixtral"]),
+        row("K1 f32 FMA design (mixtral's routers, the fp32 policy; "
+            "scalar_ms the scalar loop's)", "mpgemm_fma.cu", f"{mp}:232",
+            serves["mixtral-bf16"]["k1_fma"], k1a["mixtral-fma"]),
+        row("K1 mpgemm_grouped (mixtral experts, 8 of them top-2, d 6144 "
+            "-> 16384, bf16 A, f32 out, fused SwiGLU gate)",
+            "mpgemm_wgmma.cu", f"{mp}:812", serves["mixtral-bf16"]["k1g"],
+            k1a["mixtral-grouped"]),
+        row("K1 mpgemm at llama-3.2-vision-11b's 2-D shapes (wave decode "
+            "step: 32 dense and 8 cross layers, head)", "mpgemm_wgmma.cu",
+            f"{mp}:232", waves["llama-vision"]["k1"], k1a["vision"]),
+        row("K1 mpgemm at rwkv6-1.6b's 2-D shapes (wave decode step: time "
+            "and channel mix, head)", "mpgemm_wgmma.cu", f"{mp}:232",
+            waves["rwkv6"]["k1"], k1a["rwkv6"]),
+        row("K1 f32 FMA design grouped (rwkv6's LoRA: 5 streams, K 32 -> "
+            "2048, the fp32 policy; scalar_ms the scalar loop's)",
+            "mpgemm_fma.cu", f"{mp}:812", waves["rwkv6"]["k1g"],
+            k1a["rwkv6-grouped"]),
+        row("K1 mpgemm at recurrentgemma-2b's 2-D shapes (wave decode step: "
+            "RG-LRU and local-attention layers, tied head; the launches and "
+            "times include the f32 gates)", "mpgemm_wgmma.cu", f"{mp}:232",
+            waves["recurrentgemma"]["k1"], k1a["rgemma"]),
+        row("K1 f32 FMA design (recurrentgemma's RG-LRU gates, 2560 x 2560, "
+            "the fp32 policy; scalar_ms the scalar loop's)", "mpgemm_fma.cu",
+            f"{mp}:232", waves["recurrentgemma"]["k1_fma"],
+            k1a["rgemma-fma"]),
+        row("K5 paged_flash at starcoder2-3b (GQA 12:1, D 128, decode step)",
+            "flash_attention_wgmma.cu", fa, serves["starcoder2-bf16"]["k5"],
+            k5["starcoder2"], serves["starcoder2-bf16"]["k5_designs"]),
+        row("K5 paged_flash at starcoder2-3b (16-token prefill chunk)",
+            "flash_attention_wgmma.cu", fa, serves["starcoder2-bf16"]["k5"],
+            k5["starcoder2-chunk"], serves["starcoder2-bf16"]["k5_designs"]),
+        row("K5 paged_flash at phi3-medium-14b (GQA 4:1, D 128, decode "
+            "step)", "flash_attention_wgmma.cu", fa,
+            serves["phi3-medium-bf16"]["k5"], k5["phi3-medium"],
+            serves["phi3-medium-bf16"]["k5_designs"]),
+        row("K5 paged_flash at phi3-medium-14b (16-token prefill chunk)",
+            "flash_attention_wgmma.cu", fa, serves["phi3-medium-bf16"]["k5"],
+            k5["phi3-medium-chunk"],
+            serves["phi3-medium-bf16"]["k5_designs"]),
+        row("K5 paged_flash at mixtral-8x22b (GQA 6:1, D 128, window 4096, "
+            "decode step)", "flash_attention_wgmma.cu", fa,
+            serves["mixtral-bf16"]["k5"], k5["mixtral"],
+            serves["mixtral-bf16"]["k5_designs"]),
+        row("K5 paged_flash at mixtral-8x22b (16-token prefill chunk)",
+            "flash_attention_wgmma.cu", fa, serves["mixtral-bf16"]["k5"],
+            k5["mixtral-chunk"], serves["mixtral-bf16"]["k5_designs"]),
+        row("K5 paged_flash at mixtral-8x22b past its window (4600-key "
+            "context, decode step; times of that context, launches of the "
+            "served path)", "flash_attention_wgmma.cu", fa,
+            serves["mixtral-bf16"]["k5"], k5["mixtral-window"],
+            serves["mixtral-bf16"]["k5_designs"]),
+        row("K4 flash_attention (llama-3.2-vision-11b wave prefill: 32 "
+            "causal, 8 cross 32 x 1600 image keys, GQA 4:1, D 128)",
+            "flash_attention_wgmma.cu", fa4, waves["llama-vision"]["k4"],
+            k4["vision-prefill"]),
+        row("K4 flash_attention (llama-3.2-vision-11b decode step: 8 cross "
+            "1 x 1600)", "flash_attention_wgmma.cu", fa4,
+            waves["llama-vision"]["k4"], k4["vision-decode"]),
+        row("K4 flash_attention, first scalar kernel (recurrentgemma-2b wave "
+            "prefill: 8 local causal, MQA 10:1, D 256 > K4_MAX_D, window "
+            "2048)", "flash_attention.cu", fa4,
+            waves["recurrentgemma"]["k4"], k4["rgemma-prefill"]),
         row("K4 flash_attention f32, tf32x3 design (granite fp32 training: "
             "forward and remat, GQA 16:8, D 64, causal 128 x 128; ms at full "
             "depth, launches of the 12-layer path; scalar_ms the first "

@@ -8,6 +8,8 @@ by default.
         --arch granite-moe-1b-a400m [--pack --pack-format int4]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-medium --engine wave
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6-1.6b --engine wave
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --sparsity 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -17,9 +19,12 @@ by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --no-fuse
 
-The default ``--engine continuous`` runs the paged-KV continuous-batching
+``--arch`` takes every architecture of ``configs/base.py::ARCH_IDS``.  The
+default ``--engine continuous`` runs the paged-KV continuous-batching
 engine; ``--engine wave`` the static-batch wave engine, the only one that
-serves whisper-medium (its enc-dec blocks have no paged step).
+serves whisper-medium, llama-3.2-vision-11b, rwkv6-1.6b and
+recurrentgemma-2b (their enc-dec, cross-attention and recurrent blocks
+have no paged step: the continuous engine raises for them).
 
 Weights are random (drawn from a seeded ``torch.Generator`` on the target
 device).  ``--pack`` packs them from their f32 draw; under bf16 a packed
@@ -55,8 +60,8 @@ def main(argv=None):
     ap.add_argument("--engine", default="continuous",
                     choices=["continuous", "wave"],
                     help="continuous: paged-KV continuous batching; wave: "
-                         "the static-batch wave engine (whisper's only "
-                         "path)")
+                         "the static-batch wave engine (the only path of "
+                         "whisper, llama-vision, rwkv6, recurrentgemma)")
     ap.add_argument("--max-batch", type=int, default=None,
                     help="concurrent sequence slots (default 2); the wave "
                          "width under --engine wave")

@@ -1,11 +1,14 @@
-"""Per-layer blocks (port of ``repro.models.blocks``): dense, MoE and the
-whisper enc-dec decoder block, each on the wave path (``<kind>_fwd`` over a
-whole prompt, ``<kind>_decode`` one token against a ring cache) and, for
-dense and MoE, on the paged-KV serving path (``<kind>_paged_step``).
+"""Per-layer blocks (port of ``repro.models.blocks``): dense, MoE, the
+gated cross-attention block of a VLM and the whisper enc-dec decoder
+block, each on the wave path (``<kind>_fwd`` over a whole prompt,
+``<kind>_decode`` one token against its cache) and, for dense and MoE, on
+the paged-KV serving path (``<kind>_paged_step``).  The recurrent kinds
+live in ``models/recurrent.py``.
 
 ``ctx`` keys: cfg, policy, rope=(cos, sin) | None, positions (B, C),
 causal, collect_cache, cache_len, cache_dtype, pos (decode: the wave's
-shared position, a Python int), cross_states (B, Tsrc, d) for enc-dec,
+shared position, a Python int), cross_states (B, Tsrc, d) for the cross
+and enc-dec kinds,
 moe_capacity, and paged = {block_tables, q_start, n_valid, lengths} on the
 paged path.  Every matmul routes through mp_dot, every expert GEMM through
 mp_dot_grouped; every prefill and cross-attention through attention_core
@@ -441,8 +444,8 @@ def init_encdec(cfg, *, generator, device):
 
 
 def _cross_attention(params, h, ctx, kv=None):
-    """Non-causal attention of ``h``'s queries over the encoder states
-    (``ctx["cross_states"]``, projected here) or over cached ``kv``.
+    """Non-causal attention of ``h``'s queries over the encoder or image
+    states (``ctx["cross_states"]``, projected here) or over cached ``kv``.
     -> (output, (k, v))."""
     cfg = ctx["cfg"]
     if kv is None:
@@ -497,3 +500,56 @@ def encdec_init_cache(cfg, batch, max_len, dtype, *, device):
                                     device=device),
             "cross": {"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+# ============================== cross (VLM) ==================================
+
+def init_cross(cfg, *, generator, device):
+    """A gated cross-attention block: norms, the attention over the image
+    states, the MLP, and two f32 scalar gates drawn as 0 (the block starts
+    as the identity)."""
+    kw = dict(generator=generator, device=device)
+    return {"ln1": init_norm(cfg, device=device),
+            "xattn": init_attn(cfg, **kw),
+            "ln2": init_norm(cfg, device=device),
+            "mlp": _init_mlp(cfg, **kw),
+            "gate_attn": torch.zeros((), device=device),
+            "gate_mlp": torch.zeros((), device=device)}
+
+
+def _gated(x, gate, y):
+    """``x + tanh(gate) · y``, the gate's tanh cast to y's dtype first."""
+    return x + torch.tanh(gate).to(y.dtype) * y
+
+
+def cross_fwd(params, x, ctx):
+    """-> (x, aux = 0.0, {"k", "v"} of the image states | None): the
+    cross-attention's K/V are computed here once and cached for decode.
+    Neither residual rides an epilogue: each is gated."""
+    cfg = ctx["cfg"]
+    o, kv = _cross_attention(params["xattn"], norm(params["ln1"], x, cfg),
+                             ctx)
+    x = _gated(x, params["gate_attn"], o)
+    x = _gated(x, params["gate_mlp"],
+               _mlp(params["mlp"], norm(params["ln2"], x, cfg), ctx))
+    cache = None
+    if ctx.get("collect_cache"):
+        dt = ctx["cache_dtype"]
+        cache = {"k": kv[0].to(dt), "v": kv[1].to(dt)}
+    return x, 0.0, cache
+
+
+def cross_decode(params, x, cache, ctx):
+    """One token against the cached image K/V (never recomputed)."""
+    cfg = ctx["cfg"]
+    o, _ = _cross_attention(params["xattn"], norm(params["ln1"], x, cfg),
+                            ctx, kv=(cache["k"], cache["v"]))
+    x = _gated(x, params["gate_attn"], o)
+    return _gated(x, params["gate_mlp"],
+                  _mlp(params["mlp"], norm(params["ln2"], x, cfg), ctx))
+
+
+def cross_init_cache(cfg, batch, max_len, dtype, *, device):
+    shape = (batch, cfg.n_kv_heads, cfg.n_image_tokens, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

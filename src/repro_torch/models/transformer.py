@@ -3,9 +3,9 @@
 parameters, ``loss_fn`` with per-layer rematerialisation), the wave path
 (``prefill`` over left-padded prompts and ``decode_step`` against
 per-layer ring caches, with whisper's encoder stack) and the paged path
-(``init_paged_caches``, ``paged_step``), and :func:`params_from_jax`,
-which carries a reference parameter tree across so both packages compute
-the same function.
+(``init_paged_caches``, ``paged_step``; dense and MoE kinds only), and
+:func:`params_from_jax`, which carries a reference parameter tree across
+so both packages compute the same function.
 
 Parameters are a plain dict: ``embed`` (Vp, d), ``final_norm``, ``head``
 (d, Vp) when untied, ``pos_embed`` (32776, d) for learned positions, and
@@ -15,10 +15,12 @@ stacks them per unit kind for ``lax.scan``).  An audio (enc-dec) model adds
 leading layer axis), ``enc_norm`` and ``enc_pos`` (encoder_seq, d).  A
 dense layer keeps its projections in the ``attn`` and ``mlp`` sub-dicts
 (a GELU MLP also its f32 biases ``b_up``, ``b_down``); an enc-dec layer
-adds ``lnx`` and the cross-attention ``xattn``; an MoE layer keeps
-``attn`` and, at its top level, the f32 ``router`` (d, E) and the (E, .,
-.) expert stacks ``w_gate``, ``w_up``, ``w_down``.  A GEMM weight is a
-dense tensor or, once packed (``LM.init(pack=True)`` or
+adds ``lnx`` and the cross-attention ``xattn``; a VLM's cross layer keeps
+``xattn``, ``mlp`` and the f32 scalar gates ``gate_attn``, ``gate_mlp``;
+an MoE layer keeps ``attn`` and, at its top level, the f32 ``router`` (d,
+E) and the (E, ., .) expert stacks ``w_gate``, ``w_up``, ``w_down``; the
+recurrent layers keep the leaves of ``models/recurrent.py``.  A GEMM
+weight is a dense tensor or, once packed (``LM.init(pack=True)`` or
 ``packing.params.pack_params``), a
 :class:`~repro_torch.packing.layout.PackedOperand`, or once sparsified
 (``LM.init(sparsity=...)`` or ``sparse.params.sparsify_params``), a
@@ -38,6 +40,7 @@ from repro_torch.configs.base import ArchConfig, segment_pattern
 from repro_torch.core.codecs import dtype_name
 from repro_torch.core.policy import get_policy
 from repro_torch.models import blocks as B
+from repro_torch.models import recurrent as R
 from repro_torch.models.layers import (
     embed_init, logits_from_hidden, rope_frequencies,
 )
@@ -47,11 +50,14 @@ from repro_torch.packing.params import pack_params
 from repro_torch.sparse.layout import TileSparseLayout, TileSparseOperand
 from repro_torch.sparse.params import nm_for_sparsity, sparsify_params
 
-# Block kinds the port's paged-KV serving path runs; the wave path also
-# runs whisper's enc-dec decoder block.  Cross-attention (VLM) and the
-# recurrent kinds are not ported yet.
+# Block kinds the port's paged-KV serving path runs; the wave path runs
+# every kind: also whisper's enc-dec decoder block, a VLM's cross block and
+# the recurrent kinds (their caches are not paged, as in the reference).
 PAGED_KINDS = ("dense", "attn_local", "moe")
-WAVE_KINDS = PAGED_KINDS + ("encdec",)
+WAVE_KINDS = PAGED_KINDS + ("encdec", "cross", "rwkv", "rglru")
+# Kinds whose training, packing, sparsity and int8 policy are checked
+# against the reference; the others refuse them.
+CHECKED_KINDS = PAGED_KINDS + ("encdec",)
 
 # Rows of the learned decoder position table (the reference's 32768 + 8).
 POS_EMBED_ROWS = 32768 + 8
@@ -80,29 +86,36 @@ def _window(cfg, kind):
 
 
 _INIT = {"dense": B.init_dense, "attn_local": B.init_dense,
-         "moe": B.init_moe, "encdec": B.init_encdec}
+         "moe": B.init_moe, "cross": B.init_cross, "encdec": B.init_encdec,
+         "rwkv": R.init_rwkv, "rglru": R.init_rglru}
+# The wave path's blocks by kind: over a prompt, at a decode step, and
+# their caches' init (the windowed attention kinds are the default).
+_FWD = {"cross": B.cross_fwd, "encdec": B.encdec_fwd, "rwkv": R.rwkv_fwd,
+        "rglru": R.rglru_fwd}
+_DECODE = {"moe": B.moe_decode, "cross": B.cross_decode,
+           "encdec": B.encdec_decode, "rwkv": R.rwkv_decode,
+           "rglru": R.rglru_decode}
+_INIT_CACHE = {"cross": B.cross_init_cache, "encdec": B.encdec_init_cache,
+               "rwkv": R.rwkv_init_cache, "rglru": R.rglru_init_cache}
 
 
 def _block_fwd(kind, layer, x, ctx):
     """-> (x, aux, cache | None) of one block over a whole prompt."""
     if kind == "moe":
         return B.moe_fwd(layer, x, ctx, window=ctx["cfg"].window)
-    if kind == "encdec":
-        return B.encdec_fwd(layer, x, ctx)
+    if kind in _FWD:
+        return _FWD[kind](layer, x, ctx)
     return B.dense_fwd(layer, x, ctx, window=_window(ctx["cfg"], kind))
 
 
 def _block_decode(kind, layer, x, cache, ctx):
-    if kind == "moe":
-        return B.moe_decode(layer, x, cache, ctx)
-    if kind == "encdec":
-        return B.encdec_decode(layer, x, cache, ctx)
-    return B.dense_decode(layer, x, cache, ctx)
+    """-> x of one block at one token; ``cache`` is updated in place."""
+    return _DECODE.get(kind, B.dense_decode)(layer, x, cache, ctx)
 
 
 def _block_init_cache(kind, cfg, batch, max_len, dtype, device):
-    if kind == "encdec":
-        return B.encdec_init_cache(cfg, batch, max_len, dtype, device=device)
+    if kind in _INIT_CACHE:
+        return _INIT_CACHE[kind](cfg, batch, max_len, dtype, device=device)
     return B.attn_init_cache(cfg, batch, max_len, dtype,
                              window=_window(cfg, kind), device=device)
 
@@ -113,8 +126,11 @@ def _block_init_cache(kind, cfg, batch, max_len, dtype, device):
 # f32, as in the reference, and mp_dot quantizes them per call.  Packed
 # weights, norm scales and the MoE router (an f32 GEMM under every policy)
 # are left as they are.
+# The recurrent kinds' f32-policy weights (``lora_b``, ``w_gate_r``,
+# ``w_gate_i``) and the plain f32 ``w_lora_b`` stay f32.
 _GEMM_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
-                           "w_down"})
+                           "w_down", "wr", "wg", "lora_a", "w_lora_a", "ck",
+                           "cv", "cr", "w_x", "w_y", "w_out"})
 
 
 @dataclasses.dataclass
@@ -135,19 +151,32 @@ class LM:
     def __post_init__(self):
         bad = sorted({k for k in self.cfg.pattern if k not in WAVE_KINDS})
         if bad:
-            raise NotImplementedError(
-                f"block kinds {bad} are not ported yet (ported: "
-                f"{WAVE_KINDS})")
-        if self.cfg.pos_embed not in ("rope", "learned"):
-            raise NotImplementedError(
-                f"position embedding {self.cfg.pos_embed!r} is not ported")
+            raise ValueError(f"unknown block kinds {bad} (the kinds: "
+                             f"{WAVE_KINDS})")
+        if self.cfg.pos_embed not in ("rope", "learned", "none"):
+            raise ValueError(
+                f"unknown position embedding {self.cfg.pos_embed!r}")
         self.device = resolve_device(self.device)
         pol = get_policy(self.policy)
+        if pol.quantized:
+            self._refuse_unchecked(f"the {self.policy} policy")
         self.compute_dtype = pol.compute
         self.act_dtype = pol.out
         # The dtype dense GEMM weights are stored in: the compute dtype, or
         # f32 under the int8 policy (quantized per call).
         self.weight_dtype = torch.float32 if pol.quantized else pol.compute
+
+    def _refuse_unchecked(self, what: str) -> None:
+        """Raise for ``what`` on a model with a kind outside
+        :data:`CHECKED_KINDS`: its counterpart in the port is not yet held
+        to the reference (a later slice's work)."""
+        new = sorted({k for k in self.cfg.pattern
+                      if k not in CHECKED_KINDS})
+        if new:
+            raise NotImplementedError(
+                f"{what} on block kinds {new} is not ported yet: a later "
+                f"slice holds their training, packing, sparsity and int8 "
+                f"policy to the reference")
 
     @property
     def vocab_padded(self) -> int:
@@ -181,6 +210,8 @@ class LM:
         if pack and sparsity > 0:
             raise ValueError("pack and sparsity are mutually exclusive (a "
                              "weight is stored packed-dense or tile-sparse)")
+        if pack or sparsity > 0:
+            self._refuse_unchecked("packing" if pack else "sparsity")
         if not 0.0 <= sparsity < 1.0:
             raise ValueError(f"sparsity must be in [0, 1), got {sparsity}")
         def prepare(tree):
@@ -212,6 +243,7 @@ class LM:
         distributions of :meth:`init` and no cast: training keeps f32
         weights and ``mp_dot`` casts them per call, as the reference
         does."""
+        self._refuse_unchecked("training")
         return self._draw(generator, lambda tree: tree, lambda head: head)
 
     def _draw(self, generator, prepare, prepare_head) -> Dict[str, Any]:
@@ -351,6 +383,8 @@ class LM:
         return B.norm(params["enc_norm"], x, self.cfg)
 
     def _cross_states(self, params, batch):
+        if self.cfg.family == "vlm":
+            return batch["image_embeds"].to(self.act_dtype)
         if self.cfg.family == "audio":
             return self._encode(params, batch["audio_embeds"])
         return None
@@ -373,6 +407,7 @@ class LM:
         is rematerialised under ``remat``; MoE layers route at the
         training capacity (1.25)."""
         cfg = self.cfg
+        self._refuse_unchecked("training")
         tokens = batch["tokens"]
         x = self._embed(params, tokens[:, :-1])
         labels = tokens[:, 1:]
@@ -408,8 +443,10 @@ class LM:
     @torch.inference_mode()
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """Run whole (left-padded) prompts: ``batch["tokens"]`` (B, S) and,
-        for audio, ``batch["audio_embeds"]`` (B, encoder_seq, d).  Every row
-        sits at positions 0..S-1, pads included, as in the reference.
+        for audio, ``batch["audio_embeds"]`` (B, encoder_seq, d), for a VLM
+        ``batch["image_embeds"]`` (B, n_image_tokens, d).  Every row sits
+        at positions 0..S-1, pads included (their tokens enter a recurrent
+        state too), as in the reference.
         -> (last-token logits (B, Vp), per-layer caches of ``max_len``
         slots)."""
         cfg = self.cfg

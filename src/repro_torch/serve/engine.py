@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cuda_graphs import CapturedStep, pool_bytes
+from repro_torch.models.transformer import PAGED_KINDS
 from repro_torch.serve.kv_cache import PagedKVCache, cdiv
 
 
@@ -126,10 +127,12 @@ class _Slot:
 
 
 def _kv_token_bytes(model) -> int:
-    """KV bytes ONE token holds across all attention layers."""
+    """Modeled KV bytes ONE token holds across the paged-kind layers (at
+    least one), as the reference models them."""
     cfg = model.cfg
+    layers = sum(1 for k in cfg.pattern if k in PAGED_KINDS)
     itemsize = torch.empty((), dtype=model.act_dtype).element_size()
-    return 2 * cfg.n_kv_heads * cfg.head_dim * itemsize * len(cfg.pattern)
+    return 2 * cfg.n_kv_heads * cfg.head_dim * itemsize * max(layers, 1)
 
 
 class StepGraph(CapturedStep):
@@ -569,10 +572,14 @@ class ServeEngine:
             toks[i, plen - len(r.prompt):] = r.prompt       # left-pad
         batch = {"tokens": torch.from_numpy(toks).to(dev)}
         cfg = model.cfg
+        # The stubbed modality frontends: zero frame or patch embeddings.
         if cfg.family == "audio":
-            # The stubbed audio frontend: zero frame embeddings.
             batch["audio_embeds"] = torch.zeros(
                 (b, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16,
+                device=dev)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros(
+                (b, cfg.n_image_tokens, cfg.d_model), dtype=torch.bfloat16,
                 device=dev)
         t_pf = time.perf_counter()
         logits, caches = model.prefill(self.params, batch,

@@ -1554,6 +1554,10 @@ K4_NEW_CASES = [
     (2, 4, 1, 4, 300, 72, False, None),
     (1, 2, 2, 100, 3, 64, False, None),
     (3, 6, 2, 70, 333, 96, True, 20),
+    # llama-3.2-vision-11b's cross-attention over its 1600 image keys (GQA
+    # 4:1, D 128) at a 32-token prefill and at decode.
+    (2, 32, 8, 32, 1600, 128, False, None),
+    (2, 32, 8, 1, 1600, 128, False, None),
 ]
 
 
@@ -1654,6 +1658,17 @@ K5_NEW_CASES = [
     (8, 2, 128, 128, 3, 40, [383, 40, 0], 100),
     (4, 1, 64, 16, 128, 1, [2000, 1, 0], None),
     (16, 2, 64, 32, 8, 16, [250, 17, 0], None),
+    # starcoder2-3b (GQA 12:1), phi3-medium-14b (4:1) and mixtral-8x22b
+    # (6:1, window 4096) at decode and in a 16-token chunk, D 128, and
+    # mixtral past its window.
+    (24, 2, 128, 16, 4, 1, [45, 30, 0], None),
+    (24, 2, 128, 16, 4, 16, [48, 9, 0], None),
+    (40, 10, 128, 16, 4, 1, [45, 30, 0], None),
+    (40, 10, 128, 16, 4, 16, [48, 9, 0], None),
+    (48, 8, 128, 16, 4, 1, [45, 30, 0], 4096),
+    (48, 8, 128, 16, 4, 16, [48, 9, 0], 4096),
+    (48, 8, 128, 16, 288, 1, [4600, 4200, 0], 4096),
+    (48, 8, 128, 16, 288, 16, [4608, 4111, 0], 4096),
 ]
 
 
@@ -2427,3 +2442,74 @@ def test_embedding_backward_repeats_itself(gen, dtype):
             tokens, table), table, dy)[0]
 
     assert torch.equal(grad(), grad())
+
+
+# --- recurrentgemma's attention and the recurrent kinds' f32 products -------
+
+WIDE_HEAD_CASES = [
+    # b, h, hkv, tq, tk, d, causal, window: recurrentgemma-2b's local
+    # attention (MQA 10:1, D 256 > K4_MAX_D: the first scalar kernel) at a
+    # prefill its window of 2048 cuts, and one query row over a full
+    # 2048-slot ring cache.
+    (1, 10, 1, 2300, 2300, 256, True, 2048),
+    (2, 10, 1, 1, 2048, 256, False, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,tq,tk,d,causal,window", WIDE_HEAD_CASES)
+def test_flash_attention_wide_heads_match_plain(gen, b, h, hkv, tq, tk, d,
+                                                causal, window):
+    """bf16 K4 at D 256 runs the first scalar kernel (``k4_design``:
+    "simt"), counted by no Hopper design, within bf16's tolerance of the
+    plain version, the same bits from a second launch."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain, k4_design,
+    )
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+    assert k4_design(q, k, v) == "simt"
+    before = (flash_attention.launches, flash_attention.wgmma_launches,
+              flash_attention.split_launches)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.wgmma_launches,
+            flash_attention.split_launches) == (before[0] + 1, *before[1:])
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,n,k", [(5, 2, 2048, 32), (5, 64, 2048, 32),
+                                     (1, 2, 2560, 2560),
+                                     (1, 64, 2560, 2560)])
+def test_k1_fma_design_at_the_recurrent_shapes(gen, g, m, n, k):
+    """The fp32 policy's products of the recurrent kinds on K1's fma
+    design: rwkv6's LoRA as 5 groups (streams) of K 32 -> 2048 and
+    recurrentgemma's RG-LRU gates, 2560 x 2560, at decode and prefill
+    rows; bit-equal to the scalar loop and to a second launch, within
+    f32's tolerance of the plain version."""
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped, \
+        mpgemm_plain
+
+    lead = (g,) if g > 1 else ()
+    a = torch.randn(*lead, m, k, generator=gen, device="cuda")
+    b = torch.randn(*lead, k, n, generator=gen, device="cuda") * k ** -0.5
+    fn = mpgemm_grouped if lead else mpgemm
+    before = fn.fma_launches
+    got = fn(a, b, spec=GemmSpec(grouped=bool(lead)), f32_fma=True)
+    again = fn(a, b, spec=GemmSpec(grouped=bool(lead)), f32_fma=True)
+    scalar = _k1_scalar(a, b)
+    torch.cuda.synchronize()
+    assert fn.fma_launches == before + 2
+    assert torch.equal(got, again) and torch.equal(got, scalar)
+    torch.testing.assert_close(got, mpgemm_plain(a, b), **TOL[torch.float32])

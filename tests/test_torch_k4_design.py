@@ -40,7 +40,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash_attention as jfa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    K4_BKV, K4_SPLIT_ROWS, NEG_INF, k4_design, k4_split, k4_wgmma_bm,
+    K4_BKV, K4_MAX_D, K4_SPLIT_ROWS, NEG_INF, k4_design, k4_split,
+    k4_wgmma_bm,
 )
 from repro_torch.kernels.mpgemm import H100_SMS  # noqa: E402
 
@@ -75,13 +76,16 @@ def _misaligned(*shape):
 @pytest.mark.parametrize("case", [c[0] for c in _chip_smoke().K4_CASES])
 def test_k4_design_of_every_chip_smoke_case(case):
     """chip_smoke.py's K4 cases: bf16 ones take the split design at most
-    16 folded rows (whisper's decode cross-attention), the wgmma design
-    above; the f32 ones (more than 16 folded rows) the tf32x3 design."""
+    16 folded rows (whisper's and llama-vision's decode cross-attention),
+    the wgmma design above; the f32 ones (more than 16 folded rows) the
+    tf32x3 design; heads wider than K4_MAX_D (recurrentgemma's 256) the
+    first scalar kernel."""
     row = {c[0]: c for c in _chip_smoke().K4_CASES}[case]
     _, b, h, hkv, tq, tk, d, _, _, dt = row
     q, k, v = _qkv(b, h, hkv, tq, tk, d, getattr(torch, dt))
     small = h // hkv * tq <= K4_SPLIT_ROWS
-    want = (("simt" if small else "tf32x3") if dt == "float32" else
+    want = ("simt" if d > K4_MAX_D else
+            ("simt" if small else "tf32x3") if dt == "float32" else
             "split" if small else "wgmma")
     assert k4_design(q, k, v) == want
 

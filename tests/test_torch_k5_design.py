@@ -67,9 +67,11 @@ def _pools(b, h, hkv, tq, d, ps, n_pages=3, dtype=BF):
 @pytest.mark.parametrize("case", [c["name"] for c in _chip_smoke().K5_CASES])
 def test_k5_design_of_every_chip_smoke_case(case):
     """chip_smoke.py's K5 cases: bf16 decode (phi3, granite, the GQA
-    window) and phi3's 16-token chunk (16 folded rows) take the split
-    design, granite's chunk (32 rows) and the GQA chunk (64) the wgmma
-    design, the f32 case the scalar kernel."""
+    window, starcoder2's 12, phi3-medium's 4 and mixtral's 6 folded rows)
+    and phi3's 16-token chunk (16 folded rows) take the split design,
+    granite's chunk (32 rows), the GQA chunk (64) and the newer models'
+    chunks (192, 64, 96) the wgmma design, the f32 case the scalar
+    kernel."""
     c = {c["name"]: c for c in _chip_smoke().K5_CASES}[case]
     q, kp, vp = _pools(len(c["lengths"]), c["h"], c["hkv"], c["tq"], c["d"],
                        c["ps"], dtype=getattr(torch, c["dtype"]))
@@ -81,7 +83,15 @@ def test_k5_design_of_every_chip_smoke_case(case):
                     "granite-decode": "split", "granite-prefill16": "wgmma",
                     "gqa-window-decode": "split",
                     "gqa-window-prefill16": "wgmma",
-                    "f32-gqa-prefill16": "simt"}[case]
+                    "f32-gqa-prefill16": "simt",
+                    "starcoder2-decode": "split",
+                    "starcoder2-prefill16": "wgmma",
+                    "phi3-medium-decode": "split",
+                    "phi3-medium-prefill16": "wgmma",
+                    "mixtral-decode": "split",
+                    "mixtral-prefill16": "wgmma",
+                    "mixtral-window-decode": "split",
+                    "mixtral-window-prefill16": "wgmma"}[case]
 
 
 @pytest.mark.parametrize("ps,want", [

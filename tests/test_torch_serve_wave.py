@@ -277,9 +277,15 @@ def test_whisper_refuses_the_continuous_engine():
 
 
 def test_unported_block_kinds_raise():
+    """Every kind of the reference is ported; a kind neither package has
+    still raises, and so does an unknown position embedding."""
     cfg = dataclasses.replace(tcb.get("phi3-mini-3.8b", smoke=True),
-                              block_pattern=("dense", "cross"))
-    with pytest.raises(NotImplementedError, match="cross"):
+                              block_pattern=("dense", "mamba"))
+    with pytest.raises(ValueError, match="mamba"):
+        tbuild(cfg, device="cpu")
+    cfg = dataclasses.replace(tcb.get("phi3-mini-3.8b", smoke=True),
+                              pos_embed="alibi")
+    with pytest.raises(ValueError, match="alibi"):
         tbuild(cfg, device="cpu")
 
 
