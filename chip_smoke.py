@@ -175,7 +175,16 @@ printing a result:
    design but those D 256 ones, each launch count by block kind:
    ``_want_wave_launches``), one prefill and one decode step against the
    plain versions (the VLM's with image embeddings drawn from a seed and
-   its cross gates opened to 0.5);
+   its cross gates opened to 0.5); each wave path is served through the
+   wave engine's CUDA graph (its first decode step eager and captured,
+   every later one replayed; the graphs, replays, capture seconds and
+   pool MB printed) and again on the eager step (``cuda_graphs=False``),
+   both after an untimed eager warm-up:
+   the same tokens, exact launch counts in both runs (decode steps are
+   the telemetry's: the capture's eager step plus the replays), one
+   replayed two-row decode step's logits equal the eager step's bit for
+   bit (the caches restored before each), and both steps timed and
+   traced;
 8. the training path: K1 ``trans_a`` (A read (K, M), the weight
    gradients) at a 512-token training step's dW shapes -- granite's
    attention projections, f32 router, tied embedding (49280 x 1024) and
@@ -2167,7 +2176,13 @@ def _captured_step(torch, model, params, args):
         graph = StepGraph(model, params, caches,
                           [tokens, bt, q_start, n_valid], stream=stream,
                           pool=torch.cuda.graph_pool_handle())
+    return _replay_on(torch, stream, graph)
 
+
+def _replay_on(torch, stream, graph):
+    """-> a function that replays ``graph`` on ``stream``, ordered after
+    the current stream's work and before its next, and returns the
+    logits."""
     def replay():
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
@@ -2558,8 +2573,12 @@ WAVE_PATHS = {
 
 def phase_wave_serve(torch, *, label, arch, n_layers=None):
     """Serve 4 requests through the wave engine (``ServeEngine(batch_size=
-    2)``); every launch count of the run must be what its prefills and
-    decode steps need."""
+    2)``), captured (its default on the card) and again eagerly
+    (``cuda_graphs=False``), after an untimed eager warm-up: the same
+    tokens, and every launch count of each run what its prefills and
+    decode steps need.  Then the kernels
+    against the plain versions, and one replayed two-row decode step
+    against the eager step, bit for bit, both timed and traced."""
     import dataclasses
     import warnings
 
@@ -2585,105 +2604,206 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
     print(f"[wave:{label}] {cfg.name}, {cfg.n_layers} decoder layers{enc}, "
           f"dense bf16: {weights / 1e9:.3f} GB of weights, initialised on "
           f"the card in {t_init:.3f} s")
-
-    calls = {"prefill": 0, "decode": 0}
-    finite = []
-    inner_prefill, inner_decode = model.prefill, model.decode_step
-
-    def counted(kind, fn):
-        def call(*args, **kw):
-            logits, caches = fn(*args, **kw)
-            calls[kind] += 1
-            finite.append(bool(torch.isfinite(logits.float()).all()))
-            return logits, caches
-        return call
-
-    model.prefill = counted("prefill", inner_prefill)
-    model.decode_step = counted("decode", inner_decode)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        eng = ServeEngine(model, params, batch_size=2, max_len=64)
     rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=rng.integers(
-        2, cfg.vocab, (int(rng.integers(4, 33)),)).astype(np.int32),
-        max_new_tokens=16) for i in range(4)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in counters.items()}
-    wgmma = {name: counters[name].wgmma_launches
-             for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g")}
-    wgmma["k5"] = (counters["k5"].wgmma_launches
-                   + counters["k5"].split_launches)
-    design_counts = _read_counters()
-    del model.prefill, model.decode_step
+    prompts = [rng.integers(2, cfg.vocab, (int(rng.integers(4, 33)),))
+               .astype(np.int32) for _ in range(4)]
     per_prefill, per_decode = _want_wave_launches(cfg)
-    want = {k: 0 for k in counters}
-    fma = {}
-    for key in per_prefill:
-        n = (calls["prefill"] * per_prefill[key]
-             + calls["decode"] * per_decode[key])
-        (fma if key.endswith("_fma") else want)[key] = n
-    n_tok = sum(len(v) for v in out.values())
-    decode = [s.wall_s for s in eng.step_telemetry if s.phase == "decode"]
-    prefill = [w.prefill_s for w in eng.telemetry]
-    print(f"[wave:{label}] 4 requests (prompts "
-          f"{[len(r.prompt) for r in reqs]}) in {len(eng.telemetry)} waves "
-          f"of 2, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; "
-          f"{calls['prefill']} prefills ("
-          + ", ".join(f"{1e3 * p:.2f}" for p in prefill) + " ms), "
-          f"{calls['decode']} decode steps (median "
-          f"{1e3 * np.median(decode):.2f} ms)")
-    print(f"[wave:{label}] launches: K1 {counts['k1']}, K4 {counts['k4']} "
-          f"({calls['prefill']} prefills x {per_prefill} + "
-          f"{calls['decode']} decode steps x {per_decode}), K5 "
-          f"{counts['k5']}, K2 {counts['k2']}, grouped K1 {counts['k1g']}")
-    if sorted(out) != [0, 1, 2, 3] or not all(out.values()):
-        raise AssertionError(f"served {sorted(out)} of 4 requests")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, want {want}")
-    # Every K1 launch is a bf16 one on the wgmma design but the f32 ones of
-    # the fp32 policy (MoE routers; the RWKV LoRA, grouped; the RG-LRU
-    # gates), each on the fma design.
-    got_fma = {k: design_counts[k] for k in fma}
-    print(f"[wave:{label}] K1 fma design: {got_fma['k1_fma']} 2-D, "
-          f"{got_fma['k1g_fma']} grouped (want {fma})")
-    if got_fma != fma:
-        raise AssertionError(f"wave:{label}: fma-design launches "
-                             f"{got_fma}, want {fma}")
-    _check_wgmma(f"wave:{label}", wgmma, dict(
-        k1=counts["k1"] - fma["k1_fma"], k1g=counts["k1g"] - fma["k1g_fma"],
-        k2=0, k2g=0, k3=0, k3g=0, k5=0))
-    # K4's Hopper designs take head widths up to K4_MAX_D; recurrentgemma's
-    # 256 run the first scalar kernel, by the rule.
-    _check_k4_designs(f"wave:{label}", design_counts,
-                      simt=counts["k4"] if cfg.head_dim > _k4_max_d() else 0)
-    if not all(finite):
-        raise AssertionError("non-finite logits during serving")
+
+    def serve_once(cuda_graphs):
+        """The four requests through a fresh wave engine, the launch counts
+        reset first -> a dict of the run: tokens, engine, wall s, counts,
+        design counts, prefills and decode steps (from the telemetry: a
+        replay bypasses ``model.decode_step``), the counts they need."""
+        _reset_counters()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = ServeEngine(model, params, batch_size=2, max_len=64,
+                              cuda_graphs=cuda_graphs)
+        finite = _finite_samples(torch, eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate([Request(uid=i, prompt=p, max_new_tokens=16)
+                            for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(finite) != len(eng.telemetry) + sum(
+                s.phase == "decode" for s in eng.step_telemetry) or not all(
+                    finite):
+            raise AssertionError(f"wave:{label}: non-finite logits during "
+                                 f"serving ({finite})")
+        if sorted(out) != [0, 1, 2, 3] or not all(out.values()):
+            raise AssertionError(f"served {sorted(out)} of 4 requests")
+        run = dict(out=out, eng=eng, wall=wall,
+                   counts={name: fn.launches for name, fn in counters.items()},
+                   designs=_read_counters(),
+                   prefills=len(eng.telemetry),
+                   decode=sum(s.phase == "decode"
+                              for s in eng.step_telemetry))
+        want = {k: 0 for k in counters}
+        fma = {}
+        for key in per_prefill:
+            n = (run["prefills"] * per_prefill[key]
+                 + run["decode"] * per_decode[key])
+            (fma if key.endswith("_fma") else want)[key] = n
+        run["want"], run["fma"] = want, fma
+        return run
+
+    def check_counts(run, what):
+        counts, fma, designs = run["counts"], run["fma"], run["designs"]
+        print(f"[wave:{label}] {what}: launches K1 {counts['k1']}, K4 "
+              f"{counts['k4']} ({run['prefills']} prefills x {per_prefill} "
+              f"+ {run['decode']} decode steps x {per_decode}), K5 "
+              f"{counts['k5']}, K2 {counts['k2']}, grouped K1 "
+              f"{counts['k1g']}")
+        if counts != run["want"]:
+            raise AssertionError(f"wave:{label}, {what}: launch counts "
+                                 f"{counts}, want {run['want']}")
+        # Every K1 launch is a bf16 one on the wgmma design but the f32
+        # ones of the fp32 policy (MoE routers; the RWKV LoRA, grouped;
+        # the RG-LRU gates), each on the fma design.
+        got_fma = {k: designs[k] for k in fma}
+        print(f"[wave:{label}] {what}: K1 fma design {got_fma['k1_fma']} "
+              f"2-D, {got_fma['k1g_fma']} grouped (want {fma})")
+        if got_fma != fma:
+            raise AssertionError(f"wave:{label}, {what}: fma-design "
+                                 f"launches {got_fma}, want {fma}")
+        wgmma = {name: designs[f"{name}_wgmma"]
+                 for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g")}
+        wgmma["k5"] = designs["k5_wgmma"] + designs["k5_split"]
+        _check_wgmma(f"wave:{label}, {what}", wgmma, dict(
+            k1=counts["k1"] - fma["k1_fma"],
+            k1g=counts["k1g"] - fma["k1g_fma"], k2=0, k2g=0, k3=0, k3g=0,
+            k5=0))
+        # K4's Hopper designs take head widths up to K4_MAX_D;
+        # recurrentgemma's 256 run the first scalar kernel, by the rule.
+        _check_k4_designs(
+            f"wave:{label}, {what}", designs,
+            simt=counts["k4"] if cfg.head_dim > _k4_max_d() else 0)
+        return got_fma
+
+    def summary(run, what):
+        eng, wall = run["eng"], run["wall"]
+        n_tok = sum(len(v) for v in run["out"].values())
+        decode = [s.wall_s for s in eng.step_telemetry
+                  if s.phase == "decode"]
+        prefill = [w.prefill_s for w in eng.telemetry]
+        out = run["out"]
+        sha1 = _sha1(*(np.asarray(out[uid]) for uid in sorted(out)))
+        print(f"[wave:{label}] {what}: 4 requests (prompts "
+              f"{[len(p) for p in prompts]}) in {len(eng.telemetry)} waves "
+              f"of 2, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} "
+              f"tok/s; {run['prefills']} prefills ("
+              + ", ".join(f"{1e3 * p:.2f}" for p in prefill) + " ms), "
+              f"{run['decode']} decode steps (median "
+              f"{1e3 * np.median(decode):.2f} ms); tokens sha1 {sha1}")
+        return n_tok, wall, prefill, 1e3 * float(np.median(decode))
+
+    # An untimed eager serve of the same requests first, so that neither
+    # measured run pays the first use of these shapes (the allocator's
+    # blocks, the kernels' tensor maps): both runs' prefills are the same
+    # code on the caller's stream, and compare only so.
+    serve_once(False)
+    run = serve_once(None)
+    n_tok, wall, prefill, decode_ms = summary(run, "captured")
+    graphs = run["eng"].graphs
+    replays = sum(g.replays for g in graphs.values())
+    capture_s = sum(g.capture_s for g in graphs.values())
+    pool_mb = run["eng"].graph_pool_bytes() / 2**20
+    print(f"[wave:{label}] CUDA graphs: {len(graphs)} captured (chunk "
+          f"widths {sorted(graphs)}), {replays} replays of "
+          f"{run['decode']} decode steps, {capture_s:.3f} s capturing, "
+          f"pool {pool_mb:.2f} MB")
+    if sorted(graphs) != [1] or 1 + replays != run["decode"]:
+        raise AssertionError(f"wave:{label}: graphs {sorted(graphs)} and "
+                             f"{replays} replays for {run['decode']} decode "
+                             f"steps; want one graph, every step but the "
+                             f"first replayed")
+    got_fma = check_counts(run, "captured")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
-                 weights_gb=weights / 1e9, prefills=calls["prefill"],
-                 decode_steps=calls["decode"], prefill_ms=[
-                     1e3 * p for p in prefill],
-                 decode_step_ms=1e3 * float(np.median(decode)), **counts,
-                 **got_fma)
+                 weights_gb=weights / 1e9, prefills=run["prefills"],
+                 decode_steps=run["decode"],
+                 prefill_ms=[1e3 * p for p in prefill],
+                 decode_step_ms=decode_ms, **run["counts"], **got_fma,
+                 graphs=len(graphs), replays=replays, capture_s=capture_s,
+                 pool_mb=pool_mb)
+    out = run["out"]
+    del run, graphs
+    eager = serve_once(False)
+    n_tok_e, wall_e, prefill_e, decode_ms_e = summary(eager, "eager step")
+    check_counts(eager, "eager step")
+    same = eager["out"] == out
+    print(f"[wave:{label}] eager step (cuda_graphs=False): tokens "
+          f"{'identical to' if same else 'DIFFER from'} the captured run's")
+    if not same:
+        raise AssertionError(f"wave:{label}: eager tokens {eager['out']}, "
+                             f"captured {out}")
+    serve.update(eager_tok_per_s=n_tok_e / wall_e,
+                 eager_decode_step_ms=decode_ms_e,
+                 eager_prefill_ms=[1e3 * p for p in prefill_e])
+    del eager
     batch = _wave_batch(torch, model)
     serve["logit_err"] = _wave_kernel_vs_plain(
         torch, model, _open_gates(torch, params), label, batch)
+    _wave_step_vs_replay(torch, model, params, label, batch, serve)
+    return serve
+
+
+def _wave_step_vs_replay(torch, model, params, label, batch, serve):
+    """One two-row decode step after ``batch``'s prefill, eager and
+    replayed from a :class:`WaveGraph` captured as the engine captures it:
+    logits equal bit for bit, each from the same caches (saved after the
+    prefill and copied back before each step: the recurrent states advance
+    with every step); both timed and traced, into ``serve``."""
+    from repro_torch.serve.engine import WaveGraph, _cache_tensors
+
     _, caches = model.prefill(params, batch, max_len=64)
-    pos = batch["tokens"].shape[1]
     token = torch.tensor([[5], [7]], device="cuda")
+    pos = torch.tensor(batch["tokens"].shape[1], device="cuda")
+    tensors = _cache_tensors(caches)
+    saved = [t.clone() for t in tensors]
+
+    def restore():
+        with torch.inference_mode():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
 
     def step():
-        return model.decode_step(params, token, caches, pos)
+        return model.decode_step(params, token, caches, pos)[0]
 
-    serve["enqueue_ms"], serve["step_ms"] = _decode_step_times(torch, step)
-    print(f"[wave:{label}] one two-row decode step: the host enqueues it "
-          f"in {serve['enqueue_ms']:.2f} ms, the device is done after "
-          f"{serve['step_ms']:.2f} ms")
-    _profile_decode_step(torch, step, f"wave:{label}", serve["step_ms"])
-    return serve
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.inference_mode():
+        step()
+        graph = WaveGraph(model, params, caches, token, pos, stream=stream,
+                          pool=torch.cuda.graph_pool_handle())
+    replay = _replay_on(torch, stream, graph)
+    restore()
+    eager = step().clone()
+    after_eager = [t.clone() for t in tensors]
+    restore()
+    replayed = replay().clone()
+    torch.cuda.synchronize()
+    if not torch.equal(eager, replayed):
+        diff = (eager.float() - replayed.float()).abs().max().item()
+        raise AssertionError(f"wave:{label}: a replayed decode step's "
+                             f"logits differ from the eager step's by {diff}")
+    if not all(torch.equal(a, b) for a, b in zip(after_eager, tensors)):
+        raise AssertionError(f"wave:{label}: a replayed decode step left "
+                             f"other caches than the eager step")
+    print(f"[wave:{label}] one replayed two-row decode step: logits and "
+          f"caches bit-equal to the eager step's")
+    for key, what, fn, tag in (("", "eager", step, f"wave:{label}"),
+                               ("graph_", "replayed", replay,
+                                f"wave:{label}+graph")):
+        enqueue, done = _decode_step_times(torch, fn)
+        print(f"[wave:{label}] one {what} two-row decode step: the host "
+              f"enqueues it in {enqueue:.2f} ms, the device is done after "
+              f"{done:.2f} ms")
+        busy, idle = _profile_decode_step(
+            torch, fn, tag, done, what=f"one {what} two-row decode step")
+        serve.update({f"{key}enqueue_ms": enqueue, f"{key}step_ms": done,
+                      f"{key}busy_ms": busy, f"{key}idle": idle})
+    del graph, replay
 
 
 def _wave_batch(torch, model):

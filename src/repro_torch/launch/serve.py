@@ -24,7 +24,10 @@ default ``--engine continuous`` runs the paged-KV continuous-batching
 engine; ``--engine wave`` the static-batch wave engine, the only one that
 serves whisper-medium, llama-3.2-vision-11b, rwkv6-1.6b and
 recurrentgemma-2b (their enc-dec, cross-attention and recurrent blocks
-have no paged step: the continuous engine raises for them).
+have no paged step: the continuous engine raises for them).  On the card
+both engines run their steps in CUDA graphs (the wave engine its decode
+step; prefill stays eager), and the ``[serve] CUDA graphs:`` line counts
+them.
 
 Weights are random (drawn from a seeded ``torch.Generator`` on the target
 device).  ``--pack`` packs them from their f32 draw; under bf16 a packed
@@ -226,6 +229,16 @@ def main(argv=None):
               f"({sum(1 for s in steps if s.phase != 'decode')} with "
               f"prefill), peak {peak_pages} pages, {preempt} preemptions, "
               f"{shared} prompt tokens prefix-shared")
+    graphs = eng.graphs
+    if graphs:
+        print(f"[serve] CUDA graphs: {len(graphs)} captured, "
+              f"{sum(g.replays for g in graphs.values())} replays, "
+              f"{sum(g.capture_s for g in graphs.values()):.3f} s "
+              f"capturing, pool {eng.graph_pool_bytes() / 2**20:.2f} MB")
+    else:
+        why = ("a CPU model runs the eager step" if graphs is None
+               else "no decode step ran")
+        print(f"[serve] CUDA graphs: none captured ({why})")
     for uid in sorted(out):
         print(f"  req{uid}: {out[uid][:10]}")
     return 0

@@ -99,16 +99,17 @@ def attention_core(q, k, v, *, causal: bool = True,
                            causal=causal, window=window, scale=scale)
 
 
-def decode_attention(q, k_cache, v_cache, length: int, *, scale=None):
+def decode_attention(q, k_cache, v_cache, length, *, scale=None):
     """One-token attention against a (possibly ring-buffered) KV cache.
 
     q: (B, H, 1, D); caches (B, Hkv, S, D); ``length``: the valid slots of
-    every row (the wave path's rows share one position).  GQA in grouped
-    form (q as (B, Hkv, G, D), the cache never repeated); f32 scores, slots
-    at or past the length masked with -1e30, f32 softmax, and P rounded to
-    the cache dtype before P·V, as the reference does.  A ring cache that
-    has wrapped holds only the window, so the mask is on slot validity,
-    not recency.
+    every row (the wave path's rows share one position), an int or a 0-d
+    device tensor (the wave step's, so that no host read waits).  GQA in
+    grouped form (q as (B, Hkv, G, D), the cache never repeated); f32
+    scores, slots at or past the length masked with -1e30, f32 softmax, and
+    P rounded to the cache dtype before P·V, as the reference does.  A ring
+    cache that has wrapped holds only the window, so the mask is on slot
+    validity, not recency.
     """
     b, h, _, d = q.shape
     hkv, s_max = k_cache.shape[1], k_cache.shape[2]

@@ -7,7 +7,7 @@ live in ``models/recurrent.py``.
 
 ``ctx`` keys: cfg, policy, rope=(cos, sin) | None, positions (B, C),
 causal, collect_cache, cache_len, cache_dtype, pos (decode: the wave's
-shared position, a Python int), cross_states (B, Tsrc, d) for the cross
+shared position, a 0-d device tensor), cross_states (B, Tsrc, d) for the cross
 and enc-dec kinds,
 moe_capacity, and paged = {block_tables, q_start, n_valid, lengths} on the
 paged path.  Every matmul routes through mp_dot, every expert GEMM through
@@ -148,7 +148,8 @@ def attn_init_cache(cfg, batch, max_len, dtype, window=None, *, device):
 
 def attn_decode(params, x, cache, ctx):
     """x: (B, 1, d) normed input -> attention output; the new K/V row is
-    written into ``cache``'s ring slot ``pos % S`` in place."""
+    written into ``cache``'s ring slot ``pos % S`` in place.  ``pos`` is a
+    0-d device tensor: the slot and the valid length are device ops."""
     cfg = ctx["cfg"]
     pos = ctx["pos"]
     q, k, v = attn_qkv(params, x, cfg, ctx)
@@ -157,10 +158,11 @@ def attn_decode(params, x, cache, ctx):
         q = apply_rope(q, cos, sin, ctx["positions"])
         k = apply_rope(k, cos, sin, ctx["positions"])
     s_max = cache["k"].shape[2]
-    slot = pos % s_max
-    cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
-    o = attn.decode_attention(q, cache["k"], cache["v"], min(pos + 1, s_max))
+    slot = (pos % s_max).reshape(1)
+    cache["k"].index_copy_(2, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, slot, v.to(cache["v"].dtype))
+    o = attn.decode_attention(q, cache["k"], cache["v"],
+                              (pos + 1).clamp(max=s_max))
     return mp_dot(_merge_heads(o), params["wo"], policy=ctx["policy"])
 
 

@@ -463,25 +463,31 @@ class LM:
         x, _, caches = self._run_stack(params, x, ctx)
         return self._head_logits(params, x[:, -1:])[:, 0], caches
 
-    def _decode_rope(self, pos: int):
-        """Single-row (cos, sin) tables at ``pos`` (1, hd / 2), f32."""
+    def _decode_rope(self, pos):
+        """Single-row (cos, sin) tables at ``pos`` (a 0-d device tensor),
+        (1, hd / 2) f32: the angle is the reference's f32 product."""
         hd, theta = self.cfg.head_dim, self.cfg.rope_theta
         inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                             device=self.device) / hd))
-        ang = inv * float(pos)
+        ang = inv * pos.float()
         return torch.cos(ang)[None], torch.sin(ang)[None]
 
     @torch.inference_mode()
-    def decode_step(self, params, token, caches, pos: int):
+    def decode_step(self, params, token, caches, pos):
         """token: (B, 1) int; ``pos``: the count of tokens every row has
-        seen (a Python int, shared by the wave).  The caches are updated in
+        seen, shared by the wave: a 0-d integer tensor on the model's
+        device (an int is moved there).  Nothing here reads ``pos`` on the
+        host, so a captured step (``serve.engine.WaveGraph``) replays at
+        whatever position its buffer holds.  The caches are updated in
         place.  -> (logits (B, Vp), caches)."""
         cfg = self.cfg
         b = token.shape[0]
+        pos = torch.as_tensor(pos, device=self.device).long()
         x = params["embed"][token.long()].to(self.act_dtype)
         if cfg.pos_embed == "learned":
             pe = params["pos_embed"]
-            x = x + pe[min(pos, pe.shape[0] - 1)][None, None]
+            row = pe.index_select(0, pos.clamp(max=pe.shape[0] - 1).reshape(1))
+            x = x + row[None]
         ctx = self._ctx(pos=pos)
         if cfg.pos_embed == "rope":
             ctx["rope"] = self._decode_rope(pos)

@@ -26,11 +26,20 @@ eager step; a CPU model always runs it.
 
 ``ServeEngine(batch_size=)`` selects the wave engine instead (deprecated,
 as in the reference, but the only serving path of the block kinds without
-a paged step, such as whisper's enc-dec): requests run in static waves of
-``batch_size`` left-padded prompts, one ``LM.prefill`` each, then
-``LM.decode_step`` against per-layer ring caches until every row of the
-wave is done.  Its per-phase StepTelemetry records fold into one
-:class:`WaveTelemetry` per wave.
+a paged step: whisper's enc-dec, a VLM's cross blocks, the recurrent
+kinds): requests run in static waves of ``batch_size`` left-padded
+prompts, one ``LM.prefill`` each, then ``LM.decode_step`` against
+per-layer caches until every row of the wave is done.  The caches are
+allocated once (``LM.init_caches``) and each prefill's are copied into
+them, so they keep their addresses.  On the card the decode step is
+captured in one CUDA graph per engine (:class:`WaveGraph`, the
+counterpart of the reference's ``jax.jit(model.decode_step)``, whose
+position is a traced scalar): the engine's first decode step runs eagerly
+and is captured, and every later step, in every wave, copies its tokens
+and position into the graph's buffers and replays it, on a stream of the
+engine's own.  Prefill stays eager, on the caller's stream.  Its
+per-phase StepTelemetry records fold into one :class:`WaveTelemetry` per
+wave.
 """
 from __future__ import annotations
 
@@ -135,45 +144,98 @@ def _kv_token_bytes(model) -> int:
     return 2 * cfg.n_kv_heads * cfg.head_dim * itemsize * max(layers, 1)
 
 
-class StepGraph(CapturedStep):
-    """``model.paged_step`` captured in one CUDA graph
-    (:class:`~repro_torch.core.cuda_graphs.CapturedStep`).
+def _cache_tensors(caches) -> List[torch.Tensor]:
+    """Every tensor of per-layer caches, nested dicts (whisper's wave
+    cache ``{"self", "cross"}``) walked in order."""
+    out: List[torch.Tensor] = []
 
-    ``inputs`` are the step's device inputs (tokens (B, c), block tables,
-    q_start, n_valid): the graph reads them, the params and the KV pools
-    ``caches`` at their captured addresses, so the caller fills them in
-    place before each :meth:`replay`, which returns the graph's static
-    logits (read them before another replay).  The caller has run one
-    eager step of the same shapes on ``stream`` first.  A step that
-    rebinds a KV pool raises.
-    """
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            out.append(node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        else:
+            for v in node:
+                walk(v)
 
-    def __init__(self, model, params, caches, inputs, *, stream, pool):
-        pools = [t.data_ptr() for c in caches for t in c.values()]
+    walk(caches)
+    return out
 
-        def step():
+
+def _copy_caches(dst, src) -> None:
+    """Copy a prefill's caches ``src`` into the engine's ``dst`` in place:
+    the same structure and, tensor by tensor, the same shape and dtype."""
+    dst_t, src_t = _cache_tensors(dst), _cache_tensors(src)
+    if len(dst_t) != len(src_t) or any(
+            d.shape != t.shape or d.dtype != t.dtype
+            for d, t in zip(dst_t, src_t)):
+        raise ValueError("the prefill's caches do not match the engine's")
+    for d, t in zip(dst_t, src_t):
+        d.copy_(t)
+
+
+class _ModelStepGraph(CapturedStep):
+    """A model step ``step() -> (logits, caches)`` captured in one CUDA
+    graph (:class:`~repro_torch.core.cuda_graphs.CapturedStep`): the graph
+    reads its inputs, the params and ``caches`` at their captured
+    addresses and writes the caches in place, so the caller fills the
+    inputs in place before each :meth:`replay`, which returns the graph's
+    static logits (read them before another replay).  The caller has run
+    one eager step of the same shapes on ``stream`` first.  A step that
+    rebinds a cache tensor raises ``RuntimeError(rebound)``."""
+
+    def __init__(self, step, caches, held, *, stream, pool, rebound):
+        ptrs = [t.data_ptr() for t in _cache_tensors(caches)]
+
+        def fn():
             with torch.inference_mode():
-                return model.paged_step(params, inputs[0], caches,
-                                        *inputs[1:])
+                return step()
 
-        super().__init__(step, stream=stream, pool=pool,
-                         held=(inputs, params, caches))
+        super().__init__(fn, stream=stream, pool=pool, held=held)
         self.logits, out = self.out
         self.out = self.logits
-        if out is not caches or pools != [t.data_ptr() for c in caches
-                                          for t in c.values()]:
-            raise RuntimeError("paged_step rebound a KV pool during the "
-                               "capture; a graph writes the pools in place")
+        if out is not caches or ptrs != [t.data_ptr()
+                                         for t in _cache_tensors(caches)]:
+            raise RuntimeError(rebound)
+
+
+class StepGraph(_ModelStepGraph):
+    """``model.paged_step`` captured in one CUDA graph: ``inputs`` are the
+    step's device inputs (tokens (B, c), block tables, q_start, n_valid),
+    ``caches`` the KV pools."""
+
+    def __init__(self, model, params, caches, inputs, *, stream, pool):
+        super().__init__(
+            lambda: model.paged_step(params, inputs[0], caches, *inputs[1:]),
+            caches, (inputs, params, caches), stream=stream, pool=pool,
+            rebound="paged_step rebound a KV pool during the capture; a "
+                    "graph writes the pools in place")
+
+
+class WaveGraph(_ModelStepGraph):
+    """The wave engine's ``model.decode_step`` captured in one CUDA graph:
+    ``token`` (B, 1) and ``pos`` (0-d) are the step's device inputs,
+    ``caches`` the per-layer caches (nested dicts)."""
+
+    def __init__(self, model, params, caches, token, pos, *, stream, pool):
+        super().__init__(
+            lambda: model.decode_step(params, token, caches, pos),
+            caches, ((token, pos), params, caches), stream=stream,
+            pool=pool, rebound="decode_step rebound a cache tensor during "
+                               "the capture; a graph writes the caches in "
+                               "place")
 
 
 class ServeEngine:
     """Continuous-batching engine over paged KV, on the model's device.  The
     deprecated ``batch_size=`` keyword selects the wave engine (static
-    batch, ring caches).
+    batch, per-layer caches allocated once: ``caches``).
 
-    ``cuda_graphs``: capture the continuous engine's step in CUDA graphs,
-    one a chunk width (``graphs``); ``None`` means on for a CUDA model and
-    off for a CPU one, ``True`` on a CPU model or the wave engine raises.
+    ``cuda_graphs``: capture the step in CUDA graphs (``graphs``, by
+    chunk width: one a width on the continuous engine, the decode step's
+    width 1 on the wave engine); ``None`` means on for a CUDA model and off
+    for a CPU one, ``True`` on a CPU model raises.
     """
 
     def __init__(self, model, params, *, max_len: int,
@@ -194,19 +256,19 @@ class ServeEngine:
         if cuda_graphs and not on_card:
             raise ValueError(f"cuda_graphs=True needs a CUDA model, this one "
                              f"is on {model.device}")
-        if cuda_graphs and self._wave_mode:
-            raise ValueError("cuda_graphs=True: the wave engine's step is "
-                             "not captured (its position is a host int)")
         # Captured steps by chunk width; None runs every step eagerly.
-        self.graphs: Optional[Dict[int, StepGraph]] = (
-            {} if on_card and cuda_graphs is not False and not
-            self._wave_mode else None)
+        self.graphs: Optional[Dict[int, CapturedStep]] = (
+            {} if on_card and cuda_graphs is not False else None)
         if self._wave_mode:
             warnings.warn(
                 "ServeEngine(batch_size=) selects the deprecated wave "
                 "engine; use max_batch= for continuous batching",
                 DeprecationWarning, stacklevel=2)
             self.batch_size = batch_size
+            self.caches = model.init_caches(batch_size, max_len)
+            if self.graphs is not None:
+                self._init_graph_inputs(
+                    dict(tokens=batch_size, pos=1), torch.int64)
             return
         reason = model.paged_unsupported_reason()
         if reason:
@@ -231,28 +293,41 @@ class ServeEngine:
         self._uid_counter = 0
         self._preempted_now = 0
         if self.graphs is not None:
-            self._init_graph_inputs()
+            b = self.max_batch
+            self._init_graph_inputs(
+                dict(tokens=b * self.prefill_chunk,
+                     block_tables=b * self.bt_width, q_start=b, n_valid=b),
+                torch.int32)
 
-    def _init_graph_inputs(self) -> None:
+    def _init_graph_inputs(self, sizes: Dict[str, int], dtype) -> None:
         """The captured steps' stream, memory pool and static inputs: one
-        device buffer each for tokens (a (B, c) view of it a width), block
-        tables, q_start and n_valid, filled from pinned host twins."""
+        ``dtype`` device buffer of ``sizes[name]`` values each (continuous:
+        tokens, a (B, c) view of it a width, block tables, q_start and
+        n_valid; wave: tokens and the position), filled from pinned host
+        twins."""
         dev = torch.device(self.model.device)
         self._stream = torch.cuda.Stream(dev)
-        # The params and the pools were made on the current stream.
+        # The params and the caches were made on the current stream.
         self._stream.wait_stream(torch.cuda.current_stream(dev))
         self._pool = torch.cuda.graph_pool_handle()
-        b = self.max_batch
-        sizes = dict(tokens=b * self.prefill_chunk,
-                     block_tables=b * self.bt_width, q_start=b, n_valid=b)
-        self._host = {k: torch.zeros(n, dtype=torch.int32, pin_memory=True)
+        self._host = {k: torch.zeros(n, dtype=dtype, pin_memory=True)
                       for k, n in sizes.items()}
-        self._static = {k: torch.zeros(n, dtype=torch.int32, device=dev)
+        self._static = {k: torch.zeros(n, dtype=dtype, device=dev)
                         for k, n in sizes.items()}
 
     def graph_pool_bytes(self) -> int:
         """Bytes of the card's memory the captured steps' pool holds."""
         return pool_bytes(self._pool)
+
+    def _stage(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` into the static input ``name`` by its pinned host twin
+        and a non-blocking copy -> the device buffer's view of its
+        shape."""
+        host = self._host[name][:arr.size].view(arr.shape)
+        host.numpy()[...] = arr
+        dev = self._static[name][:arr.size].view(arr.shape)
+        dev.copy_(host, non_blocking=True)
+        return dev
 
     def _sample(self, logits) -> np.ndarray:
         """Greedy tokens of (B, Vp) logits on the host (the copy waits for
@@ -264,14 +339,9 @@ class ServeEngine:
         inputs go to the static buffers by pinned non-blocking copies, then
         the graph replays; a width's first step runs eagerly and is then
         captured.  -> the greedy tokens."""
-        ins = []
-        for name, arr in (("tokens", tokens), ("block_tables", bt),
-                          ("q_start", q_start), ("n_valid", n_valid)):
-            host = self._host[name][:arr.size].view(arr.shape)
-            host.numpy()[...] = arr
-            dev = self._static[name][:arr.size].view(arr.shape)
-            dev.copy_(host, non_blocking=True)
-            ins.append(dev)
+        ins = [self._stage(name, arr) for name, arr in (
+            ("tokens", tokens), ("block_tables", bt), ("q_start", q_start),
+            ("n_valid", n_valid))]
         c = tokens.shape[1]
         graph = self.graphs.get(c)
         if graph is not None:
@@ -540,7 +610,8 @@ class ServeEngine:
             queue = queue[self.batch_size:]
             t0 = time.perf_counter()
             n_steps0 = len(self.step_telemetry)
-            out = self._run_wave(wave, len(queue))
+            with torch.inference_mode():
+                out = self._run_wave(wave, len(queue))
             wall = time.perf_counter() - t0
             self.telemetry.append(WaveTelemetry.from_steps(
                 wave_idx, len(wave), len(queue),
@@ -584,6 +655,8 @@ class ServeEngine:
         t_pf = time.perf_counter()
         logits, caches = model.prefill(self.params, batch,
                                        max_len=self.max_len)
+        _copy_caches(self.caches, caches)
+        del caches
         tok = self._sample(logits)
         self._wave_record("prefill", len(wave), queue_depth, 0,
                           time.perf_counter() - t_pf)
@@ -609,11 +682,45 @@ class ServeEngine:
                 self._wave_record("emit", n_live, queue_depth, emitted,
                                   time.perf_counter() - t_it)
                 break
-            token = torch.from_numpy(tok.astype(np.int64))[:, None].to(dev)
-            logits, caches = model.decode_step(self.params, token, caches,
-                                               pos)
-            tok = self._sample(logits)
+            tok = self._wave_decode(tok, pos)
             pos += 1
             self._wave_record("decode", n_live, queue_depth, emitted,
                               time.perf_counter() - t_it)
         return out
+
+    def _wave_decode(self, tok: np.ndarray, pos: int) -> np.ndarray:
+        """One decode step of the wave at position ``pos`` on the greedy
+        tokens ``tok`` (B,) -> the next greedy tokens.  With graphs, the
+        step runs on the graphs' stream, ordered after the current
+        stream's work (the prefill that filled the caches) and before its
+        next: the inputs go to the static buffers by pinned non-blocking
+        copies and the graph replays; the engine's first step runs eagerly
+        and is then captured.  The prefill stays on the current stream,
+        whose cached memory it reuses."""
+        model = self.model
+        if self.graphs is None:
+            token = torch.from_numpy(tok.astype(np.int64))[:, None].to(
+                model.device)
+            logits, _ = model.decode_step(self.params, token, self.caches,
+                                          pos)
+            return self._sample(logits)
+        current = torch.cuda.current_stream(model.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            sampled = self._graph_decode(tok, pos)
+        current.wait_stream(self._stream)
+        return sampled
+
+    def _graph_decode(self, tok: np.ndarray, pos: int) -> np.ndarray:
+        token = self._stage("tokens", tok.reshape(self.batch_size, 1))
+        pos_t = self._stage("pos", np.asarray(pos))
+        graph = self.graphs.get(1)
+        if graph is not None:
+            return self._sample(graph.replay())
+        logits, _ = self.model.decode_step(self.params, token, self.caches,
+                                           pos_t)
+        sampled = self._sample(logits)
+        self.graphs[1] = WaveGraph(self.model, self.params, self.caches,
+                                   token, pos_t, stream=self._stream,
+                                   pool=self._pool)
+        return sampled

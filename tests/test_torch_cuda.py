@@ -2228,6 +2228,130 @@ def test_workspace_grown_after_a_capture_keeps_the_replay(gen, case):
     assert all(bool((j == 7).all()) for j in junk)
 
 
+# --- the wave engine's decode step captured in a CUDA graph ------------------
+
+# Each wave block kind by the smoke model that runs it, bf16: recurrentgemma
+# with a local window of 5, which the 12-token prompt and the steps wrap.
+WAVE_GRAPH_CASES = {
+    "dense": ("phi3-mini-3.8b", {}),
+    "attn_local": ("recurrentgemma-2b", dict(local_attn_window=5)),
+    "moe": ("granite-moe-1b-a400m", {}),
+    "encdec": ("whisper-medium", {}),
+    "cross": ("llama-3.2-vision-11b", {}),
+    "rwkv": ("rwkv6-1.6b", {}),
+    "rglru": ("recurrentgemma-2b", {}),
+}
+
+
+def _wave_model(case):
+    """A smoke model of the case and its params, the cross gates opened to
+    0.5 (drawn 0, a closed gate hides its branch)."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.models.transformer import build_model
+    arch, changes = WAVE_GRAPH_CASES[case]
+    model = build_model(dataclasses.replace(cb.get(arch, smoke=True),
+                                            **changes), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    half = torch.tensor(0.5, device="cuda")
+    params["layers"] = [dict(layer, gate_attn=half, gate_mlp=half)
+                        if "gate_attn" in layer else layer
+                        for layer in params["layers"]]
+    return model, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WAVE_GRAPH_CASES))
+def test_replayed_wave_step_equals_the_eager_step(gen, case):
+    """A two-row decode step captured after one eager warm-up, replayed at
+    a later position and on new tokens from the caches the prefill left
+    (copied back before each step: the recurrent states advance): logits
+    and caches equal to the eager step's bit for bit, and its launches."""
+    from repro_torch.kernels import counters
+    from repro_torch.serve.engine import WaveGraph, _cache_tensors
+    model, params = _wave_model(case)
+    cfg = model.cfg
+    toks = torch.randint(2, cfg.vocab, (2, 12), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    toks[1, :4] = 0
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.randn(
+            2, cfg.encoder_seq, cfg.d_model, generator=gen, device="cuda")
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            2, cfg.n_image_tokens, cfg.d_model, generator=gen, device="cuda")
+    _, caches = model.prefill(params, batch, max_len=24)
+    tensors = _cache_tensors(caches)
+    saved = [t.clone() for t in tensors]
+    token = torch.randint(2, cfg.vocab, (2, 1), generator=gen, device="cuda")
+    pos = torch.tensor(12, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.inference_mode():
+        model.decode_step(params, token, caches, pos)
+        graph = WaveGraph(model, params, caches, token, pos, stream=stream,
+                          pool=torch.cuda.graph_pool_handle())
+        token.copy_(torch.randint(2, cfg.vocab, (2, 1), generator=gen,
+                                  device="cuda"))
+        pos.fill_(17)
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+        before = counters.launch_counts()
+        got = graph.replay().clone()
+        replayed = counters.count_delta(counters.launch_counts(), before)
+        after_replay = [t.clone() for t in tensors]
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+        before = counters.launch_counts()
+        want, _ = model.decode_step(params, token, caches, pos)
+        eager = counters.count_delta(counters.launch_counts(), before)
+    torch.cuda.synchronize()
+    assert replayed == eager == graph.launches
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(after_replay, tensors))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WAVE_GRAPH_CASES))
+def test_captured_wave_serving_matches_eager(gen, case):
+    """Five requests in waves of two (prompt widths 12, 9 and a short last
+    wave) served captured (the default) and eagerly: the same tokens and
+    launch counts; one graph, every decode step but the first replayed,
+    every cache tensor where the engine allocated it."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.kernels import counters
+    from repro_torch.serve.engine import Request, ServeEngine, _cache_tensors
+    model, params = _wave_model(case)
+    spec = [(7, 6), (12, 4), (5, 6), (9, 3), (4, 5)]
+    runs = []
+    for graphs in (False, None):
+        counters.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = ServeEngine(model, params, batch_size=2, max_len=48,
+                              cuda_graphs=graphs)
+        ptrs = [t.data_ptr() for t in _cache_tensors(eng.caches)]
+        rng = np.random.default_rng(1)
+        out = eng.generate([Request(uid=i, prompt=rng.integers(
+            2, model.cfg.vocab, (n,)).astype(np.int32), max_new_tokens=m)
+            for i, (n, m) in enumerate(spec)])
+        torch.cuda.synchronize()
+        assert ptrs == [t.data_ptr() for t in _cache_tensors(eng.caches)]
+        runs.append((out, counters.launch_counts(), eng))
+    (want, want_counts, eager), (got, counts, eng) = runs
+    decode = sum(s.phase == "decode" for s in eng.step_telemetry)
+    assert eager.graphs is None and sorted(eng.graphs) == [1]
+    assert 1 + eng.graphs[1].replays == decode > 1
+    assert got == want and sorted(got) == [0, 1, 2, 3, 4]
+    assert counts == want_counts
+    assert eng.graph_pool_bytes() > 0
+
+
 # --- the training step captured in a CUDA graph -------------------------------
 
 # Smoke-size models (2 layers, 96 or 128 wide): a dense one and the MoE

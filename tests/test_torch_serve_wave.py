@@ -395,3 +395,13 @@ def test_cli_warm_prefix_refuses_the_wave_engine():
     with pytest.raises(SystemExit, match="--engine continuous"):
         tserve.main(["--smoke", "--device", "cpu", "--engine", "wave",
                      "--warm-prefix", "16"])
+
+
+@pytest.mark.parametrize("engine", ["wave", "continuous"])
+def test_cli_prints_the_cuda_graphs_line(engine, capsys):
+    """Both engines print one ``CUDA graphs:`` line; a CPU model captures
+    nothing."""
+    out = _cli(capsys, "--engine", engine)
+    lines = [ln for ln in out.splitlines() if "CUDA graphs:" in ln]
+    assert lines == ["[serve] CUDA graphs: none captured (a CPU model runs "
+                     "the eager step)"]
