@@ -2237,16 +2237,67 @@ def _leaves(tree):
     return (leaf for _, leaf in _tree_paths(tree))
 
 
+def _exact_operand(b, a_dtype):
+    """The f64 weight a packed or tile-sparse ``b`` holds, (k, n) or (g, k,
+    n), as its plain version reads it against A of ``a_dtype``: each tile
+    decoded and times its scale -- then rounded to A's dtype for float A,
+    as the plain version rounds it --, zeros at a sparse operand's pruned
+    tiles."""
+    import torch
+
+    from repro_torch.packing.layout import PackedOperand
+    from repro_torch.packing.pack import decode_payload_tiles
+
+    lay = b.layout
+    g, nkb, nnb, bk, bn = lay.g, lay.nkb, lay.nnb, lay.bk, lay.bn
+    scales = b.scales
+    if isinstance(b, PackedOperand):
+        tiles = decode_payload_tiles(
+            b.payload.reshape(g, nkb, nnb, *lay.payload_tile), lay)
+        if scales is not None:
+            scales = scales.reshape(g, nkb, nnb)
+    else:
+        counts = (b.indptr[1:] - b.indptr[:-1]).long()
+        col = torch.repeat_interleave(
+            torch.arange(g * nnb, device=b.payload.device), counts,
+            output_size=lay.nnz)
+        at = (col // nnb, b.indices.long(), col % nnb)
+        tiles = torch.zeros(g, nkb, nnb, bk, bn, dtype=b.payload.dtype,
+                            device=b.payload.device)
+        tiles[at] = b.payload[:lay.nnz]
+        if scales is not None:
+            full = torch.zeros(g, nkb, nnb, device=b.payload.device)
+            full[at] = scales[:lay.nnz].float().reshape(-1)
+            scales = full
+    if scales is None:
+        w = tiles.double()
+    elif a_dtype == torch.int8:
+        w = tiles.double() * scales.double()[..., None, None]
+    else:
+        w = (tiles.float() * scales[..., None, None]).to(a_dtype).double()
+    w = w.permute(0, 1, 3, 2, 4).reshape(g, nkb * bk, nnb * bn)
+    w = w[:, :lay.k, :lay.n]
+    return w if g > 1 else w[0]
+
+
 def _exact_gemm(a, b, *, spec, out_dtype=None, c=None, f32_fma=False,
                 **kw):
-    """A dense float GEMM of ``core/gemm.py`` with its sum in f64 (then the
-    plain epilogue in f32 and the output cast): the plain version's
-    function without its f32 rounding, the yardstick of how far a model's
-    logits move with the order of an f32 sum."""
+    """A GEMM of ``core/gemm.py`` with its sum in f64 (then the plain
+    epilogue in f32 and the output cast): the plain version's function
+    without its f32 rounding, the yardstick of how far a model's logits
+    move with the order of an f32 sum.  A packed or tile-sparse ``b`` is
+    decoded first (``_exact_operand``)."""
     from repro_torch.kernels import mpgemm as mk
-    aw, bw = a.double(), b.double()
+    from repro_torch.packing.layout import PackedOperand
+    from repro_torch.sparse import TileSparseOperand
+
+    aw = a.double()
+    if isinstance(b, (PackedOperand, TileSparseOperand)):
+        bw, trans_b = _exact_operand(b, a.dtype), False
+    else:
+        bw, trans_b = b.double(), spec.trans_b
     acc = ((aw.transpose(-1, -2) if spec.trans_a else aw)
-           @ (bw.transpose(-1, -2) if spec.trans_b else bw)).float()
+           @ (bw.transpose(-1, -2) if trans_b else bw)).float()
     return mk._epilogue_plain(kw.get("epilogue", mk.LINEAR), acc,
                               kw.get("bias"), kw.get("scale"), c,
                               kw.get("extras", ()),
@@ -2511,103 +2562,185 @@ def _profile_decode_step(torch, step, label, step_ms,
 
 # ----------------------------------------------------------------- phase 7b
 
-# The wave path's launches a layer by block kind, at a prefill and at a
-# decode step: (2-D K1 in all, of them on K1's fma design, grouped K1 in
-# all, of them on the fma design, K4).  m is the MLP's GEMMs (2 GELU, 3
-# SwiGLU).
+# The wave path's GEMMs and K4 launches a layer by block kind, at a
+# prefill and at a decode step, by what each GEMM's weight is: ``proj``
+# a weight the reference packs and sparsifies (``QUANT_LEAVES``) used
+# under the model's policy; ``gate`` such a weight under the fp32 policy
+# (f32 operands: K1's fma design dense, K2's or K3's f32-A route packed or
+# sparse); ``lora`` a weight it never packs, under the model's policy;
+# ``router`` the MoE router (never packed, fp32 policy); ``experts`` the
+# grouped expert stacks (packed and sparsified grouped); ``lora_b`` the
+# RWKV LoRA's grouped f32 product (never packed, the fma design); ``k4``.
+# m is the MLP's GEMMs (2 GELU, 3 SwiGLU).
 #   dense / attn_local: 4 attention projections and the MLP, a causal K4
 #     at prefill; a decode step's attention against the ring cache is
 #     plain torch ops (as in the reference), so no K4.
-#   moe: the 4 projections, the f32 router (fma) and 3 grouped bf16
-#     expert GEMMs.
+#   moe: the 4 projections, the f32 router and 3 grouped expert GEMMs.
 #   cross (VLM): q, k and v of the image states, o and the MLP, a
 #     non-causal K4 over the image keys; at decode the K/V come from the
 #     cache: q, o, the MLP and K4 at one query row.
 #   encdec (whisper's decoder): self q, k, v, o, cross q, k, v, o and the
 #     MLP, a causal and a cross K4; at decode 4 + 2 + m GEMMs and the
 #     cross K4.
-#   rwkv: lora_a, w_lora_a, wr, wk, wv, wg, wo, ck, cv, cr (bf16) and the
-#     grouped f32 LoRA (5 streams, the fma design), no attention.
-#   rglru: w_y, w_x, w_out, the SwiGLU MLP (bf16) and the two f32 gates
-#     (the fma design).
+#   rwkv: wr, wk, wv, wg, wo, ck, cv, cr; lora_a and w_lora_a; the
+#     grouped f32 LoRA (5 streams), no attention.
+#   rglru: w_y, w_x, w_out and the SwiGLU MLP; the two f32 gates.
+_WAVE_KEYS = ("proj", "gate", "lora", "router", "experts", "lora_b", "k4")
 _WAVE_LAUNCHES = {
-    "dense": lambda m: ((4 + m, 0, 0, 0, 1), (4 + m, 0, 0, 0, 0)),
-    "moe": lambda m: ((5, 1, 3, 0, 1), (5, 1, 3, 0, 0)),
-    "cross": lambda m: ((4 + m, 0, 0, 0, 1), (2 + m, 0, 0, 0, 1)),
-    "encdec": lambda m: ((8 + m, 0, 0, 0, 2), (6 + m, 0, 0, 0, 1)),
-    "rwkv": lambda m: ((10, 0, 1, 1, 0),) * 2,
-    "rglru": lambda m: ((8, 2, 0, 0, 0),) * 2,
+    "dense": lambda m: ((4 + m, 0, 0, 0, 0, 0, 1), (4 + m, 0, 0, 0, 0, 0, 0)),
+    "moe": lambda m: ((4, 0, 0, 1, 3, 0, 1), (4, 0, 0, 1, 3, 0, 0)),
+    "cross": lambda m: ((4 + m, 0, 0, 0, 0, 0, 1), (2 + m, 0, 0, 0, 0, 0, 1)),
+    "encdec": lambda m: ((8 + m, 0, 0, 0, 0, 0, 2),
+                         (6 + m, 0, 0, 0, 0, 0, 1)),
+    "rwkv": lambda m: ((8, 0, 2, 0, 0, 1, 0),) * 2,
+    "rglru": lambda m: ((3 + m, 2, 0, 0, 0, 0, 0),) * 2,
 }
 _WAVE_LAUNCHES["attn_local"] = _WAVE_LAUNCHES["dense"]
 
 
-def _want_wave_launches(cfg):
+def _want_wave_launches(cfg, pack=False, sparse=False):
     """Launches per prefill and per decode step of the wave path, as dicts
-    of ``k1``, ``k1_fma``, ``k1g``, ``k1g_fma`` and ``k4``: each
-    layer's by its kind (``_WAVE_LAUNCHES``), whisper's encoder layers (4 +
-    2 GEMMs and a non-causal K4 each, at prefill), and the head."""
+    of ``k1``, ``k1_fma``, ``k1g``, ``k1g_fma`` and ``k4`` -- and, for a
+    packed (``pack``) or tile-sparse (``sparse``) model, ``k2``, ``k2g``
+    and ``k2_f32`` (of the K2 launches, those of f32 A: the gates) or the
+    same of K3: each layer's by its kind (``_WAVE_LAUNCHES``), whisper's
+    encoder layers (4 + 2 GEMMs and a non-causal K4 each, at prefill), and
+    the head (packed or sparsified when untied).  The packed or sparse
+    kernel takes every ``proj``, ``gate`` and ``experts`` GEMM; K1 the
+    rest."""
     m = _mlp_mats(cfg)
-    keys = ("k1", "k1_fma", "k1g", "k1g_fma", "k4")
-    prefill, decode = dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)
-    for kind in cfg.pattern:
-        for want, counts in zip((prefill, decode), _WAVE_LAUNCHES[kind](m)):
-            for key, n in zip(keys, counts):
-                want[key] += n
-    prefill["k1"] += cfg.encoder_layers * (4 + m) + 1
-    prefill["k4"] += cfg.encoder_layers
-    decode["k1"] += 1
-    return prefill, decode
+    fmt = "k2" if pack else "k3" if sparse else None
+    runs = []
+    for step in (0, 1):
+        n = dict.fromkeys(_WAVE_KEYS, 0)
+        for kind in cfg.pattern:
+            for key, c in zip(_WAVE_KEYS, _WAVE_LAUNCHES[kind](m)[step]):
+                n[key] += c
+        if step == 0:
+            n["proj"] += cfg.encoder_layers * (4 + m)
+            n["k4"] += cfg.encoder_layers
+        head = 0 if fmt and not cfg.tie_embeddings else 1
+        if fmt:
+            n["proj"] += 1 - head
+        want = dict(k1=n["lora"] + n["router"] + head,
+                    k1_fma=n["router"], k1g=n["lora_b"],
+                    k1g_fma=n["lora_b"], k4=n["k4"])
+        if fmt:
+            want.update({fmt: n["proj"] + n["gate"], f"{fmt}g": n["experts"],
+                         f"{fmt}_f32": n["gate"]})
+        else:
+            want["k1"] += n["proj"] + n["gate"]
+            want["k1_fma"] += n["gate"]
+            want["k1g"] += n["experts"]
+        runs.append(want)
+    return tuple(runs)
 
 
-# The wave paths of phase 7, by label: the architecture, at full width and
-# depth (bf16).  The last three serve only here: their cross and recurrent
-# caches are not paged, as in the reference.
+def _wave_weights(cfg):
+    """The GEMM weights the reference packs or sparsifies in ``cfg``: one
+    K6 launch each at a packed or sparse load (a grouped expert stack is
+    one).  A prefill reads each of them once, an untied head too."""
+    prefill, _ = _want_wave_launches(cfg, pack=True)
+    return prefill["k2"] + prefill["k2g"]
+
+
+# The wave paths of phase 7, by label: phase_wave_serve's arguments, the
+# architecture at full width and depth.  The first five are dense bf16;
+# the cross and recurrent architectures serve only here (their caches are
+# not paged, as in the reference), and each serves once more in one of
+# the other forms: llama-vision under the int8 policy packed (int8
+# payload), rwkv6 under the int8 policy dense (f32 weights quantized per
+# call), recurrentgemma bf16 tile-sparse (magnitude, 50 %).
 WAVE_PATHS = {
-    "whisper": "whisper-medium",
-    "phi3": "phi3-mini-3.8b",
-    "llama-vision": "llama-3.2-vision-11b",
-    "rwkv6": "rwkv6-1.6b",
-    "recurrentgemma": "recurrentgemma-2b",
+    "whisper": dict(arch="whisper-medium"),
+    "phi3": dict(arch="phi3-mini-3.8b"),
+    "llama-vision": dict(arch="llama-3.2-vision-11b"),
+    "rwkv6": dict(arch="rwkv6-1.6b"),
+    "recurrentgemma": dict(arch="recurrentgemma-2b"),
+    "llama-vision-pack-int8": dict(arch="llama-3.2-vision-11b",
+                                   policy="int8", pack=True),
+    "rwkv6-int8": dict(arch="rwkv6-1.6b", policy="int8"),
+    "recurrentgemma-sparse": dict(arch="recurrentgemma-2b", sparsity=0.5),
 }
 
 
-def phase_wave_serve(torch, *, label, arch, n_layers=None):
+def phase_wave_serve(torch, *, label, arch, n_layers=None, policy="bf16",
+                     pack=False, pack_format=None, sparsity=0.0,
+                     sparsity_method="magnitude"):
     """Serve 4 requests through the wave engine (``ServeEngine(batch_size=
     2)``), captured (its default on the card) and again eagerly
     (``cuda_graphs=False``), after an untimed eager warm-up: the same
     tokens, and every launch count of each run what its prefills and
-    decode steps need.  Then the kernels
-    against the plain versions, and one replayed two-row decode step
-    against the eager step, bit for bit, both timed and traced."""
+    decode steps need (a packed or sparse load's K6 launches too).  Then
+    the kernels against the plain versions, and one replayed two-row
+    decode step against the eager step, bit for bit, both timed and
+    traced.  ``policy``, ``pack``, ``pack_format``, ``sparsity`` and
+    ``sparsity_method`` are ``LM.init``'s, as the serve CLI passes
+    them."""
     import dataclasses
     import warnings
 
     from repro_torch.configs import base as cb
     from repro_torch.models.transformer import build_model
+    from repro_torch.packing.params import packed_param_bytes
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sparse import sparse_param_bytes, sparse_param_density
 
     cfg = cb.get(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    model = build_model(cfg, policy="bf16", device="cuda")
+    model = build_model(cfg, policy=policy, device="cuda")
     cfg = model.cfg
+    sparse = sparsity > 0
     counters = _counters()
     _reset_counters()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        pack=pack, pack_format=pack_format, sparsity=sparsity,
+                        sparsity_method=sparsity_method)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    load = _read_counters()
+    dense = sum(t.numel() * t.element_size() for t in _leaves(params)
+                if isinstance(t, torch.Tensor))
+    payload = packed_param_bytes(params) + sparse_param_bytes(params)
+    weights = dense + payload
     enc = (f" + {cfg.encoder_layers} encoder layers over "
            f"{cfg.encoder_seq} frames" if cfg.encoder_layers else "")
+    how = "dense"
+    if pack:
+        how = f"packed {pack_format or 'at the policy dtype'}"
+    elif sparse:
+        how = (f"tile-sparse {sparsity_method} at sparsity {sparsity} (tile "
+               f"density {sparse_param_density(params, cfg):.4f}, "
+               f"{SPARSE_BLOCKS[0]} x {SPARSE_BLOCKS[1]} tiles)")
     print(f"[wave:{label}] {cfg.name}, {cfg.n_layers} decoder layers{enc}, "
-          f"dense bf16: {weights / 1e9:.3f} GB of weights, initialised on "
-          f"the card in {t_init:.3f} s")
+          f"{how} {policy}: {weights / 1e9:.3f} GB of weights ("
+          f"{payload / 1e9:.3f} GB {'sparse' if sparse else 'packed'} "
+          f"payload + {dense / 1e9:.3f} GB dense tensors), initialised on "
+          f"the card in {t_init:.3f} s "
+          f"({torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated at "
+          f"the peak)")
+    # A packed or sparse load packs every weight the reference does, each
+    # once, on K6's stream design; a dense load launches nothing.
+    want_k6 = _wave_weights(cfg) if pack or sparse else 0
+    print(f"[wave:{label}] load: K6 {load['k6']} launches ("
+          f"{load['k6_stream']} on the stream design), want {want_k6}")
+    busy = {k: n for k, n in load.items() if n and k not in ("k6",
+                                                              "k6_stream")}
+    if load["k6"] != want_k6 or load["k6_stream"] != want_k6 \
+            or busy:
+        raise AssertionError(f"wave:{label}: the load launched {load}, want "
+                             f"{want_k6} K6 launches on the stream design "
+                             f"and nothing else")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab, (int(rng.integers(4, 33)),))
                .astype(np.int32) for _ in range(4)]
-    per_prefill, per_decode = _want_wave_launches(cfg)
+    per_prefill, per_decode = _want_wave_launches(cfg, pack=pack,
+                                                  sparse=sparse)
+    fmt = "k2" if pack else "k3" if sparse else None
 
     def serve_once(cuda_graphs):
         """The four requests through a fresh wave engine, the launch counts
@@ -2640,27 +2773,31 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
                    decode=sum(s.phase == "decode"
                               for s in eng.step_telemetry))
         want = {k: 0 for k in counters}
-        fma = {}
+        fma, f32 = {}, {}
         for key in per_prefill:
             n = (run["prefills"] * per_prefill[key]
                  + run["decode"] * per_decode[key])
-            (fma if key.endswith("_fma") else want)[key] = n
-        run["want"], run["fma"] = want, fma
+            (fma if key.endswith("_fma") else f32 if key.endswith("_f32")
+             else want)[key] = n
+        run["want"], run["fma"], run["f32"] = want, fma, f32
         return run
 
     def check_counts(run, what):
         counts, fma, designs = run["counts"], run["fma"], run["designs"]
-        print(f"[wave:{label}] {what}: launches K1 {counts['k1']}, K4 "
-              f"{counts['k4']} ({run['prefills']} prefills x {per_prefill} "
-              f"+ {run['decode']} decode steps x {per_decode}), K5 "
-              f"{counts['k5']}, K2 {counts['k2']}, grouped K1 "
-              f"{counts['k1g']}")
+        print(f"[wave:{label}] {what}: launches K1 {counts['k1']}, K2 "
+              f"{counts['k2']}, K3 {counts['k3']}, K4 {counts['k4']} ("
+              f"{run['prefills']} prefills x {per_prefill} + "
+              f"{run['decode']} decode steps x {per_decode}), K5 "
+              f"{counts['k5']}, grouped K1 {counts['k1g']}, K6 "
+              f"{counts['k6']}, K7 {counts['k7']}")
         if counts != run["want"]:
             raise AssertionError(f"wave:{label}, {what}: launch counts "
                                  f"{counts}, want {run['want']}")
-        # Every K1 launch is a bf16 one on the wgmma design but the f32
-        # ones of the fp32 policy (MoE routers; the RWKV LoRA, grouped;
-        # the RG-LRU gates), each on the fma design.
+        # Every K1 launch is a bf16 or int8 one on the wgmma design but the
+        # f32 ones of the fp32 policy (MoE routers; the RWKV LoRA, grouped;
+        # the dense RG-LRU gates), each on the fma design; every K2 or K3
+        # launch is on the wgmma design but the f32-A ones (the packed or
+        # sparse gates), which stay on the first kernel.
         got_fma = {k: designs[k] for k in fma}
         print(f"[wave:{label}] {what}: K1 fma design {got_fma['k1_fma']} "
               f"2-D, {got_fma['k1g_fma']} grouped (want {fma})")
@@ -2670,10 +2807,16 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
         wgmma = {name: designs[f"{name}_wgmma"]
                  for name in ("k1", "k1g", "k2", "k2g", "k3", "k3g")}
         wgmma["k5"] = designs["k5_wgmma"] + designs["k5_split"]
-        _check_wgmma(f"wave:{label}, {what}", wgmma, dict(
-            k1=counts["k1"] - fma["k1_fma"],
-            k1g=counts["k1g"] - fma["k1g_fma"], k2=0, k2g=0, k3=0, k3g=0,
-            k5=0))
+        want_wgmma = dict(k1=counts["k1"] - fma["k1_fma"],
+                          k1g=counts["k1g"] - fma["k1g_fma"], k2=0, k2g=0,
+                          k3=0, k3g=0, k5=0)
+        if fmt:
+            want_wgmma[fmt] = counts[fmt] - run["f32"][f"{fmt}_f32"]
+            want_wgmma[f"{fmt}g"] = counts[f"{fmt}g"]
+            print(f"[wave:{label}] {what}: {run['f32'][f'{fmt}_f32']} of "
+                  f"the {counts[fmt]} {fmt.upper()} launches take f32 A "
+                  f"(the fp32 policy's gates) on the first kernel")
+        _check_wgmma(f"wave:{label}, {what}", wgmma, want_wgmma)
         # K4's Hopper designs take head widths up to K4_MAX_D;
         # recurrentgemma's 256 run the first scalar kernel, by the rule.
         _check_k4_designs(
@@ -2720,10 +2863,13 @@ def phase_wave_serve(torch, *, label, arch, n_layers=None):
                              f"first replayed")
     got_fma = check_counts(run, "captured")
     serve = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
-                 weights_gb=weights / 1e9, prefills=run["prefills"],
+                 weights_gb=weights / 1e9, payload_gb=payload / 1e9,
+                 init_s=t_init, k6_load=load["k6"],
+                 k6_stream=load["k6_stream"], prefills=run["prefills"],
                  decode_steps=run["decode"],
                  prefill_ms=[1e3 * p for p in prefill],
                  decode_step_ms=decode_ms, **run["counts"], **got_fma,
+                 **run["f32"],
                  graphs=len(graphs), replays=replays, capture_s=capture_s,
                  pool_mb=pool_mb)
     out = run["out"]
@@ -2854,10 +3000,11 @@ EXACT_SPREAD = 1.5
 def _wave_kernel_vs_plain(torch, model, params, label, batch):
     """One full-width prefill and one decode step through the kernels,
     through the plain versions and through the plain versions summed in
-    f64: the kernels' logits within the bf16 bound of the plain version's,
-    or, on a path where the plain version misses that bound against the
-    f64 sums, held to the model's spread (``EXACT_SPREAD``) and layer by
-    layer."""
+    f64: the kernels' logits within the policy's bound (``LOGIT_REL_TOL``)
+    of the plain version's, or, on a path where the plain version misses
+    that bound against the f64 sums, held to the model's spread
+    (``EXACT_SPREAD``); a recurrent model's or a spread path's layers also
+    one by one (``_layers_vs_plain``)."""
     token = torch.tensor([[11], [13]], device="cuda")
     pos = batch["tokens"].shape[1]
     v = model.cfg.vocab
@@ -2868,7 +3015,7 @@ def _wave_kernel_vs_plain(torch, model, params, label, batch):
             step, _ = model.decode_step(params, token, caches, pos)
         runs.append((logits.float()[:, :v], step.float()[:, :v]))
         del caches
-    rel = LOGIT_REL_TOL["bf16"]
+    rel = LOGIT_REL_TOL["int8" if model.policy == "int8" else "bf16"]
     rows = []
     for i, what in enumerate(("prefill", "decode step")):
         lk, lp, lx = runs[0][i], runs[1][i], runs[2][i]
@@ -2902,6 +3049,8 @@ def _wave_kernel_vs_plain(torch, model, params, label, batch):
               f"the f64 sums (" + ", ".join(
                   f"{what} {kern_x:.3e} <= {EXACT_SPREAD * plain_x:.3e}"
                   for what, _, _, plain_x, kern_x in rows) + ")")
+    # The recurrent kinds' paths are held layer by layer in every form.
+    if spread or {"rwkv", "rglru"} & set(model.cfg.pattern):
         _layers_vs_plain(torch, model, params, label, batch)
     return max(err for _, err, _, _, _ in rows)
 
@@ -2909,7 +3058,7 @@ def _wave_kernel_vs_plain(torch, model, params, label, batch):
 def _layers_vs_plain(torch, model, params, label, batch):
     """Each layer of one full-width prefill, fed the plain run's input to
     it, through the kernels and through the plain versions: outputs within
-    LOGIT_REL_TOL of the plain output's largest |value|."""
+    the policy's LOGIT_REL_TOL of the plain output's largest |value|."""
     from repro_torch.models import transformer as T
 
     inputs, inner = [], T._block_fwd
@@ -2924,7 +3073,8 @@ def _layers_vs_plain(torch, model, params, label, batch):
             model.prefill(params, batch, max_len=64)
     finally:
         T._block_fwd = inner
-    rel, worst = LOGIT_REL_TOL["bf16"], 0.0
+    rel = LOGIT_REL_TOL["int8" if model.policy == "int8" else "bf16"]
+    worst = 0.0
     for i, (kind, layer, x, ctx) in enumerate(inputs):
         got, _, _ = inner(kind, layer, x, ctx)
         with _plain_versions():
@@ -3468,6 +3618,198 @@ def phase_k1_archs(torch, timer):
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         gc.collect()
         torch.cuda.empty_cache()
+    return rows
+
+
+# The kernels of the three wave paths served in another form than dense
+# bf16 (WAVE_PATHS), at their shapes: (row, architecture, kernel, A dtype,
+# weight form).  K1 int8 at rwkv6's decode step (every 2-D product: the
+# projections and lora_a, w_lora_a); K2 int8 A x int8 tiles at
+# llama-vision's (every projection, the untied head); K3 bf16 A x bf16
+# tiles at recurrentgemma's (every projection but the tied head); K3 f32 A
+# x f32 tiles at recurrentgemma's RG-LRU gates (the fp32 policy's products
+# against the bf16 sparse payload cast to f32 per call, as the reference
+# casts it).
+WAVE_FORM_ROWS = [
+    ("rwkv6-int8", "rwkv6-1.6b", "k1", "int8", "dense"),
+    ("vision-k2-int8", "llama-3.2-vision-11b", "k2", "int8", "int8"),
+    ("rgemma-k3-bf16", "recurrentgemma-2b", "k3", "bf16", "magnitude"),
+    ("rgemma-k3-f32", "recurrentgemma-2b", "k3", "f32", "magnitude"),
+]
+
+
+def phase_wave_forms(torch, timer):
+    """The kernels of the wave paths served packed, sparse or under the
+    int8 policy, at every GEMM shape of one full-width decode step (M = 2;
+    ``_decode_gemms``) and, printed beside it, a 32-row prefill
+    (``WAVE_FORM_ROWS``); llama-vision's cross K/V over the image states
+    (M = 2 x 1600 rows, a prefill's 16 launches); K6 packing every
+    llama-vision weight into int8.  Each case on the design the rule names,
+    within its tolerance of the plain version (K6 byte for byte), timed
+    beside it, the bound and one PyTorch call (``torch.matmul`` on the
+    weight decoded beforehand) -> rows by label, each a decode step's (or
+    a prefill's, or a load's) launches weighted."""
+    from repro_torch.configs import base as cb
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
+        apply_epilogue
+    from repro_torch.core.policy import quantize_per_tensor
+    from repro_torch.kernels.mpgemm import (
+        mpgemm, mpgemm_packed, mpgemm_packed_plain, mpgemm_plain,
+        mpgemm_sparse, mpgemm_sparse_plain,
+    )
+    from repro_torch.packing.pack import pack_operand, unpack_reference
+    from repro_torch.packing.params import default_blocks
+    from repro_torch.sparse import densify_operand, sparsify_magnitude
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {}
+
+    def case(what, kernel, a_dt, fmt, k, n, kind, act, m, extras_dt):
+        """One case -> (err, ms, plain_ms, library_ms, bound_ms, bytes,
+        ops, design)."""
+        w = torch.randn(k, n, generator=gen, device="cuda") * \
+            (2.0 / (k + n)) ** 0.5
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        ep = EpilogueSpec(kind=kind, activation=act)
+        out_dt = f32 if a_dt == "f32" else bf16
+        extras = () if kind == "linear" else (
+            torch.randn(m, n, generator=gen, device="cuda").to(extras_dt),)
+        kw = dict(extras=extras, epilogue=ep, out_dtype=out_dt)
+        if kernel == "k1":
+            a, sx = quantize_per_tensor(x.to(bf16))
+            b, sw = quantize_per_tensor(w)
+            kw["scale"] = lib_scale = sx * sw
+            w_lib, x_lib = b.to(bf16), a.to(bf16)     # exact: |q| <= 127
+
+            def kern():
+                return mpgemm(a, b, spec=GemmSpec(), **kw)
+
+            def plain():
+                return mpgemm_plain(a, b, **kw)
+            w_bytes, design_of = b.numel(), _k1_design_of
+        elif kernel == "k2":
+            a, kw["scale"] = quantize_per_tensor(x.to(bf16))
+            b = pack_operand(w, default_blocks(k, n), dtype=fmt)
+            # The library's weight, dequantized beforehand.
+            w_lib = unpack_reference(b.payload, b.scales, b.layout,
+                                     "bfloat16")
+            x_lib, lib_scale = x.to(bf16), None
+
+            def kern():
+                return mpgemm_packed(a, b, **kw)
+
+            def plain():
+                return mpgemm_packed_plain(a, b, **kw)
+            w_bytes, design_of = b.nbytes, _k2_design_of
+        else:
+            dt = f32 if a_dt == "f32" else bf16
+            # As served: a bf16 payload, cast to f32 per call for f32 A.
+            b = sparsify_magnitude(w, SPARSE_BLOCKS, density=0.5,
+                                   dtype="bfloat16").astype(dt)
+            a = x.to(dt)
+            w_lib, x_lib, lib_scale = densify_operand(b, dtype=dt), a, None
+
+            def kern():
+                return mpgemm_sparse(a, b, **kw)
+
+            def plain():
+                return mpgemm_sparse_plain(a, b, **kw)
+            w_bytes, design_of = b.nbytes, _k3_design_of
+
+        def library():
+            acc = torch.matmul(x_lib, w_lib)
+            return apply_epilogue(ep, acc.float(), scale=lib_scale,
+                                  extras=extras).to(out_dt)
+
+        (got, design), again, ref = design_of(kern), kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two launches differ")
+        err = _check_close(torch, what, got, ref, TOL[_dtype_name(out_dt)])
+        esz = a.element_size()
+        n_bytes = (w_bytes + m * k * esz
+                   + m * n * out_dt.itemsize * (1 + len(extras)))
+        n_ops = 2 * m * (b.layout.nnz * b.layout.bk * b.layout.bn
+                         if kernel == "k3" else n * k)
+        bound, bound_by = _bound_ms(n_bytes, n_ops, {
+            "int8": "int8", "bf16": "bfloat16", "f32": "float32"}[a_dt])
+        ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+        print(f"[wave-forms] {what:>62} {design:>5}: err {err:.2e}  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
+              f"bound {bound:.4f} ({bound_by})")
+        del a, b, w, x, got, again, ref, w_lib
+        return err, ms, plain_ms, lib_ms, bound, n_bytes, n_ops, design
+
+    for label, arch, kernel, a_dt, fmt in WAVE_FORM_ROWS:
+        cfg = cb.get(arch)
+        step = StepSum()
+        for (g, k, n, kind, act, _, tb, fp32), per_step in \
+                _decode_gemms(cfg, cfg.n_layers).items():
+            if g > 1 or fp32 != (a_dt == "f32") or (tb and kernel != "k1"):
+                continue        # grouped, another policy, the tied head
+            for m in (2, 32):
+                what = (f"{kernel.upper()} {label} m={m} k={k} n={n} "
+                        f"{kind}/{act}")
+                err, ms, plain_ms, lib_ms, bound, n_bytes, n_ops, design = \
+                    case(what, kernel, a_dt, fmt, k, n, kind, act, m,
+                         f32 if a_dt == "f32" else bf16)
+                want = "simt" if a_dt == "f32" else "wgmma"
+                if design != want:
+                    raise AssertionError(f"{what}: ran {design}, want {want}")
+                step.max_abs_err = max(step.max_abs_err, err)
+                step.designs.append(design)
+                if m == 2:
+                    step.add(per_step, ms, plain_ms, lib_ms, bound, n_bytes,
+                             n_ops)
+        rows[label] = step.row({"int8": "int8", "bf16": "bfloat16",
+                                "f32": "float32"}[a_dt])
+        rows[label]["designs"] = step.designs
+    # llama-vision's cross K/V: each cross layer's wk and wv over the image
+    # states of both rows at prefill.
+    cfg = cb.get("llama-3.2-vision-11b")
+    kv = cfg.n_kv_heads * cfg.head_dim
+    n_cross = sum(kind == "cross" for kind in cfg.pattern)
+    step = StepSum()
+    what = f"K2 vision cross K/V m={2 * cfg.n_image_tokens} k={cfg.d_model} " \
+        f"n={kv}"
+    err, ms, plain_ms, lib_ms, bound, n_bytes, n_ops, design = case(
+        what, "k2", "int8", "int8", cfg.d_model, kv, "linear", None,
+        2 * cfg.n_image_tokens, bf16)
+    if design != "wgmma":
+        raise AssertionError(f"{what}: ran {design}")
+    step.max_abs_err = err
+    step.add(2 * n_cross, ms, plain_ms, lib_ms, bound, n_bytes, n_ops)
+    rows["vision-k2-cross-kv"] = step.row("int8")
+    # K6: every llama-vision weight into int8, each distinct shape once,
+    # weighted by its count in the model.
+    d, f, q = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
+    vp = -(-cfg.vocab // 128) * 128
+    load = StepSum()
+    for name, shape, count in (("wq/wo", (d, q), 2 * cfg.n_layers),
+                               ("wk/wv", (d, kv), 2 * cfg.n_layers),
+                               ("gate/up", (d, f), 2 * cfg.n_layers),
+                               ("down", (f, d), cfg.n_layers),
+                               ("head", (d, vp), 1)):
+        w = torch.randn(*shape, generator=gen, device="cuda") * \
+            (2.0 / sum(shape)) ** 0.5
+        (layout, design, ms, scalar_ms, plain_ms, bound, bound_by,
+         n_bytes) = _k6_case(torch, timer, f"vision {name}", w,
+                             default_blocks(*shape), False, "int8", "stream")
+        print(f"[wave-forms] K6 vision {name:>7} {str(shape):>14} -> int8 "
+              f"{design}: byte-equal  kernel {ms:.4f} ms  scalar kernel "
+              f"{scalar_ms:.4f}  plain {plain_ms:.4f}  bound {bound:.4f} "
+              f"({bound_by}), x{count}")
+        load.add(count, ms, plain_ms, 0.0, bound, n_bytes, 0, scalar_ms)
+        del w
+    rows["vision-k6"] = dict(load.row("float32"), library_ms=None)
+    for label, row in rows.items():
+        print(f"[wave-forms] {label}: kernel {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, library {row['library_ms']} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), max err "
+              f"{row['max_abs_err']:.2e}")
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -5025,6 +5367,7 @@ def main():
     k1ta = phase_k1_trans_a(torch, timer)
     k1fma = phase_k1_fma(torch, timer)
     k1a = phase_k1_archs(torch, timer)
+    wf = phase_wave_forms(torch, timer)
     k7 = phase_k7(torch, timer)
     packed_grad = phase_packed_grad(torch)
     print(f"[time] kernel phases: {time.perf_counter() - t_phases:.1f} s")
@@ -5044,8 +5387,8 @@ def main():
         gc.collect()              # free each path's weights before the next
         torch.cuda.empty_cache()
     waves = {}
-    for label, arch in WAVE_PATHS.items():
-        waves[label] = phase_wave_serve(torch, label=label, arch=arch)
+    for label, kw in WAVE_PATHS.items():
+        waves[label] = phase_wave_serve(torch, label=label, **kw)
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[time] serve phases: {time.perf_counter() - t_phases:.1f} s")
@@ -5284,6 +5627,34 @@ def main():
             "prefill: 8 local causal, MQA 10:1, D 256 > K4_MAX_D, window "
             "2048)", "flash_attention.cu", fa4,
             waves["recurrentgemma"]["k4"], k4["rgemma-prefill"]),
+        row("K1 mpgemm int8 at rwkv6-1.6b's 2-D shapes (wave decode step "
+            "under the int8 policy: time and channel mix, lora_a, w_lora_a, "
+            "head; f32 weights quantized per call)", "mpgemm_wgmma_int8.cu",
+            f"{mp}:232", waves["rwkv6-int8"]["k1"], wf["rwkv6-int8"]),
+        row("K2 mpgemm_packed at llama-3.2-vision-11b's 2-D shapes (int8 "
+            "payload, int8 A: wave decode step, 32 dense and 8 cross layers, "
+            "head)", "mpgemm_packed_wgmma_int8.cu", f"{mp}:106",
+            waves["llama-vision-pack-int8"]["k2"], wf["vision-k2-int8"]),
+        row("K2 mpgemm_packed, llama-3.2-vision-11b's cross K/V over the "
+            "image states at prefill (M = 2 x 1600, int8 payload, int8 A; a "
+            "prefill's 16 launches)", "mpgemm_packed_wgmma_int8.cu",
+            f"{mp}:106", waves["llama-vision-pack-int8"]["k2"],
+            wf["vision-k2-cross-kv"]),
+        row("K6 pack, stream design (llama-3.2-vision-11b into int8 at load: "
+            "ms a whole model, 281 weights; scalar_ms the scalar kernel's)",
+            "pack.cu", "src/repro/packing/pack.py:221",
+            waves["llama-vision-pack-int8"]["k6_load"], wf["vision-k6"],
+            {"stream": waves["llama-vision-pack-int8"]["k6_stream"],
+             "simt": waves["llama-vision-pack-int8"]["k6_load"]
+             - waves["llama-vision-pack-int8"]["k6_stream"]}),
+        row("K3 mpgemm_sparse at recurrentgemma-2b's 2-D shapes (50 % "
+            "magnitude, bf16 A x bf16 tiles: wave decode step; the launches "
+            "include the f32 gates)", "mpgemm_sparse_wgmma.cu", f"{mp}:181",
+            waves["recurrentgemma-sparse"]["k3"], wf["rgemma-k3-bf16"]),
+        row("K3 mpgemm_sparse f32 A x f32 tiles (recurrentgemma-2b's RG-LRU "
+            "gates under the fp32 policy, 2560 x 2560, the bf16 payload cast "
+            "per call)", "mpgemm_sparse.cu", f"{mp}:181",
+            waves["recurrentgemma-sparse"]["k3_f32"], wf["rgemma-k3-f32"]),
         row("K4 flash_attention f32, tf32x3 design (granite fp32 training: "
             "forward and remat, GQA 16:8, D 64, causal 128 x 128; ms at full "
             "depth, launches of the 12-layer path; scalar_ms the first "

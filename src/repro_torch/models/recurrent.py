@@ -6,8 +6,9 @@ state, ``<kind>_decode`` one token against the carried state).
 The reference runs both recurrences with ``lax.scan`` and no Pallas
 kernel, so the port runs them as plain torch ops on the tensors' device,
 one step a token.  Every projection still goes through ``mp_dot`` or
-``mp_dot_grouped`` (K1); the RWKV decay's low-rank f32 product
-(``w_lora_b``) is a plain ``@``, as in the reference.  Decode updates the
+``mp_dot_grouped`` (K1; K2 or K3 for a packed or tile-sparse weight,
+under every policy); the RWKV decay's low-rank f32 product (``w_lora_b``)
+is a plain ``@``, as in the reference.  Decode updates the
 cache's tensors in place (the reference returns new ones).
 """
 from __future__ import annotations
@@ -240,7 +241,10 @@ def _causal_conv(x, w, b, conv_state=None):
 def rglru_scan(params, u, h0):
     """The RG-LRU recurrence.  u: (B, T, W) conv output; h0: (B, W) f32 ->
     (hidden states (B, T, W) in u's dtype, last state f32).  Both gates
-    are f32 GEMMs (the fp32 policy: K1's f32 FMA)."""
+    are f32 GEMMs under the fp32 policy whatever the model's: K1's f32 FMA
+    on a dense weight; on a packed or tile-sparse one K2's or K3's f32-A
+    route, a bf16 payload cast to f32 at each call and a scaled one (int8,
+    int4, fp8) read as it is, as in the reference."""
     f32 = torch.float32
     r = torch.sigmoid(mp_dot(u, params["w_gate_r"], policy="fp32"))
     i = torch.sigmoid(mp_dot(u, params["w_gate_i"], policy="fp32"))

@@ -55,9 +55,10 @@ from repro_torch.sparse.params import nm_for_sparsity, sparsify_params
 # the recurrent kinds (their caches are not paged, as in the reference).
 PAGED_KINDS = ("dense", "attn_local", "moe")
 WAVE_KINDS = PAGED_KINDS + ("encdec", "cross", "rwkv", "rglru")
-# Kinds whose training, packing, sparsity and int8 policy are checked
-# against the reference; the others refuse them.
-CHECKED_KINDS = PAGED_KINDS + ("encdec",)
+# Kinds whose training (``init_train``, ``loss_fn``) is held to the
+# reference's gradients; the others refuse training.  Every kind serves
+# under every policy, packed and tile-sparse.
+TRAINED_KINDS = PAGED_KINDS + ("encdec",)
 
 # Rows of the learned decoder position table (the reference's 32768 + 8).
 POS_EMBED_ROWS = 32768 + 8
@@ -158,25 +159,22 @@ class LM:
                 f"unknown position embedding {self.cfg.pos_embed!r}")
         self.device = resolve_device(self.device)
         pol = get_policy(self.policy)
-        if pol.quantized:
-            self._refuse_unchecked(f"the {self.policy} policy")
         self.compute_dtype = pol.compute
         self.act_dtype = pol.out
         # The dtype dense GEMM weights are stored in: the compute dtype, or
         # f32 under the int8 policy (quantized per call).
         self.weight_dtype = torch.float32 if pol.quantized else pol.compute
 
-    def _refuse_unchecked(self, what: str) -> None:
-        """Raise for ``what`` on a model with a kind outside
-        :data:`CHECKED_KINDS`: its counterpart in the port is not yet held
-        to the reference (a later slice's work)."""
+    def _refuse_untrained(self) -> None:
+        """Raise for training a model with a kind outside
+        :data:`TRAINED_KINDS`: its gradients are not yet held to the
+        reference's."""
         new = sorted({k for k in self.cfg.pattern
-                      if k not in CHECKED_KINDS})
+                      if k not in TRAINED_KINDS})
         if new:
             raise NotImplementedError(
-                f"{what} on block kinds {new} is not ported yet: a later "
-                f"slice holds their training, packing, sparsity and int8 "
-                f"policy to the reference")
+                f"training on block kinds {new} is not ported yet: their "
+                f"gradients are not held to the reference's")
 
     @property
     def vocab_padded(self) -> int:
@@ -210,8 +208,6 @@ class LM:
         if pack and sparsity > 0:
             raise ValueError("pack and sparsity are mutually exclusive (a "
                              "weight is stored packed-dense or tile-sparse)")
-        if pack or sparsity > 0:
-            self._refuse_unchecked("packing" if pack else "sparsity")
         if not 0.0 <= sparsity < 1.0:
             raise ValueError(f"sparsity must be in [0, 1), got {sparsity}")
         def prepare(tree):
@@ -243,7 +239,7 @@ class LM:
         distributions of :meth:`init` and no cast: training keeps f32
         weights and ``mp_dot`` casts them per call, as the reference
         does."""
-        self._refuse_unchecked("training")
+        self._refuse_untrained()
         return self._draw(generator, lambda tree: tree, lambda head: head)
 
     def _draw(self, generator, prepare, prepare_head) -> Dict[str, Any]:
@@ -407,7 +403,7 @@ class LM:
         is rematerialised under ``remat``; MoE layers route at the
         training capacity (1.25)."""
         cfg = self.cfg
-        self._refuse_unchecked("training")
+        self._refuse_untrained()
         tokens = batch["tokens"]
         x = self._embed(params, tokens[:, :-1])
         labels = tokens[:, 1:]

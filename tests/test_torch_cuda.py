@@ -2243,17 +2243,42 @@ WAVE_GRAPH_CASES = {
 }
 
 
+# The cross and recurrent kinds in the other serving forms: (architecture,
+# policy, LM.init's form arguments).  The sparse forms prune 32 x 32 tiles
+# (a smoke weight holds one tile of 128 x 128).
+_SPARSE = dict(sparsity=0.5, sparsity_blocks=(32, 32))
+WAVE_FORM_CASES = {
+    f"{kind}-{form}": (arch, policy, init)
+    for kind, arch in (("cross", "llama-3.2-vision-11b"),
+                       ("rwkv", "rwkv6-1.6b"),
+                       ("rglru", "recurrentgemma-2b"))
+    for form, policy, init in (
+        ("int8", "int8", {}),
+        ("int8-pack", "int8", dict(pack=True)),
+        ("pack-int4", "bf16", dict(pack=True, pack_format="int4")),
+        ("pack-fp8", "bf16", dict(pack=True, pack_format="fp8")),
+        ("sparse", "bf16", _SPARSE),
+        ("int8-sparse-nm", "int8", dict(_SPARSE, sparsity_method="nm")))}
+
+
 def _wave_model(case):
-    """A smoke model of the case and its params, the cross gates opened to
-    0.5 (drawn 0, a closed gate hides its branch)."""
+    """A smoke model of the case (``WAVE_GRAPH_CASES``, bf16 and dense, or
+    ``WAVE_FORM_CASES``) and its params, the cross gates opened to 0.5
+    (drawn 0, a closed gate hides its branch)."""
     import dataclasses
 
     from repro_torch.configs import base as cb
     from repro_torch.models.transformer import build_model
-    arch, changes = WAVE_GRAPH_CASES[case]
+    if case in WAVE_FORM_CASES:
+        arch, policy, init = WAVE_FORM_CASES[case]
+        changes = {}
+    else:
+        (arch, changes), policy, init = WAVE_GRAPH_CASES[case], "bf16", {}
     model = build_model(dataclasses.replace(cb.get(arch, smoke=True),
-                                            **changes), device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+                                            **changes), policy=policy,
+                        device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        **init)
     half = torch.tensor(0.5, device="cuda")
     params["layers"] = [dict(layer, gate_attn=half, gate_mlp=half)
                         if "gate_attn" in layer else layer
@@ -2262,7 +2287,8 @@ def _wave_model(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(WAVE_GRAPH_CASES))
+@pytest.mark.parametrize("case", list(WAVE_GRAPH_CASES)
+                         + list(WAVE_FORM_CASES))
 def test_replayed_wave_step_equals_the_eager_step(gen, case):
     """A two-row decode step captured after one eager warm-up, replayed at
     a later position and on new tokens from the caches the prefill left
@@ -2314,7 +2340,8 @@ def test_replayed_wave_step_equals_the_eager_step(gen, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(WAVE_GRAPH_CASES))
+@pytest.mark.parametrize("case", list(WAVE_GRAPH_CASES)
+                         + list(WAVE_FORM_CASES))
 def test_captured_wave_serving_matches_eager(gen, case):
     """Five requests in waves of two (prompt widths 12, 9 and a short last
     wave) served captured (the default) and eagerly: the same tokens and
@@ -2350,6 +2377,49 @@ def test_captured_wave_serving_matches_eager(gen, case):
     assert got == want and sorted(got) == [0, 1, 2, 3, 4]
     assert counts == want_counts
     assert eng.graph_pool_bytes() > 0
+
+
+# The RG-LRU gates' products on the fp32 policy against a packed or sparse
+# weight, at recurrentgemma-2b's width (2560 x 2560), a decode step's two
+# rows and a 32-row prefill: K2's and K3's f32-A routes (the first
+# kernels), with every payload the reference lets reach them -- a bf16
+# payload cast to f32 per call, or the scaled int8, int4 and fp8 ones
+# (sparse: int8) read against f32 A.
+GATE_ROUTES = [("packed", "bfloat16"), ("packed", "int8"),
+               ("packed", "int4"), ("packed", "fp8e4m3"),
+               ("sparse", "bfloat16"), ("sparse", "int8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 32])
+@pytest.mark.parametrize("form,payload", GATE_ROUTES)
+def test_gate_f32a_routes_match_plain(gen, form, payload, m):
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.mpgemm import (
+        mpgemm_packed, mpgemm_packed_plain, mpgemm_sparse,
+        mpgemm_sparse_plain,
+    )
+    from repro_torch.packing.pack import pack_operand
+    from repro_torch.sparse import sparsify_magnitude
+    k = n = 2560
+    w = torch.randn(k, n, generator=gen, device="cuda") / 50.0
+    a = torch.randn(m, k, generator=gen, device="cuda")
+    if form == "packed":
+        b = pack_operand(w, (128, 128), dtype=payload).astype(torch.float32)
+        kern, plain = mpgemm_packed, mpgemm_packed_plain
+    else:
+        b = sparsify_magnitude(w, (128, 128), density=0.5,
+                               dtype=payload).astype(torch.float32)
+        kern, plain = mpgemm_sparse, mpgemm_sparse_plain
+    before = counters.launch_counts()
+    got = kern(a, b, out_dtype=torch.float32)
+    ran = counters.count_delta(counters.launch_counts(), before)
+    want = plain(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    key = "k2" if form == "packed" else "k3"
+    assert ran[key] == 1 and ran.get(f"{key}_wgmma", 0) == 0
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
 
 
 # --- the training step captured in a CUDA graph -------------------------------
