@@ -5,8 +5,14 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 2 \
         --device cpu
 
-Weights are random f32 masters drawn from ``--seed`` on the device; the
-batches come from the seeded synthetic pipeline.  ``--ckpt DIR`` saves
+Every architecture trains, the cross and recurrent kinds too
+(llama-3.2-vision-11b, rwkv6-1.6b, recurrentgemma-2b).  Weights are random
+f32 masters drawn from ``--seed`` on the device; the batches come from the
+seeded synthetic pipeline (a VLM's with random ``image_embeds``, an audio
+model's with ``audio_embeds``, as the reference's).  ``--layers N`` keeps
+the first N layers of the architecture's pattern: llama-3.2-vision-11b at
+5 is four dense layers and a cross one, recurrentgemma-2b at 5 is
+``rglru, rglru, attn_local, rglru, rglru``.  ``--ckpt DIR`` saves
 every ``--ckpt-every`` steps (in the background); ``--resume`` restores
 the latest checkpoint there and runs on to ``--steps``.  Without a card,
 leave ``--device cuda`` (the default) and the command exits non-zero;
@@ -24,6 +30,14 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.transformer import build_model, resolve_device
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def cut_layers(cfg, n_layers: int):
+    """``cfg`` cut to the first ``n_layers`` layers of its pattern: an
+    explicit ``block_pattern`` is sliced, a derived one (a VLM's cross
+    layer every ``cross_attn_every``, rwkv's, MoE's) is derived again."""
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               block_pattern=cfg.block_pattern[:n_layers])
 
 
 def main(argv=None):
@@ -56,9 +70,7 @@ def main(argv=None):
 
     cfg = cb.get(args.arch, smoke=args.smoke)
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers,
-                                  block_pattern=cfg.block_pattern[
-                                      :args.layers])
+        cfg = cut_layers(cfg, args.layers)
     model = build_model(cfg, policy=args.policy, device=device)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     tcfg = TrainerConfig(steps=args.steps, microbatches=args.microbatches,

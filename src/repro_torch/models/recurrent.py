@@ -1,7 +1,8 @@
 """Recurrent blocks (port of ``repro.models.recurrent``): RWKV-6 ("Finch")
 time and channel mix, and RecurrentGemma's RG-LRU + causal-conv Griffin
-block, on the wave path (``<kind>_fwd`` over a whole prompt from a fresh
-state, ``<kind>_decode`` one token against the carried state).
+block: ``<kind>_fwd`` over a whole prompt or training sequence from a
+fresh state (differentiable: the chunked scan rematerialises each chunk
+in the backward), ``<kind>_decode`` one token against the carried state.
 
 The reference runs both recurrences with ``lax.scan`` and no Pallas
 kernel, so the port runs them as plain torch ops on the tensors' device,
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gemm import mp_dot, mp_dot_grouped
 from repro_torch.core.gemm_spec import ACTIVATIONS
@@ -23,22 +25,45 @@ from repro_torch.models.layers import dense_init, rmsnorm, swiglu_mlp
 CHUNK = 128
 
 
+def _steps(step_fn, state, xs):
+    """``step_fn`` over every step of the chunk ``xs`` -> (final state, the
+    outputs stacked on a leading time axis)."""
+    ys = []
+    for i in range(xs[0].shape[0]):
+        state, y = step_fn(state, tuple(a[i] for a in xs))
+        ys.append(y)
+    return state, torch.stack(ys)
+
+
 def _chunk_scan(step_fn, state, xs, chunk: int):
     """``step_fn`` over the leading time axis of the tensors ``xs``, chunk
     by chunk: -> (final state, the steps' outputs stacked on a leading
     time axis).  The ``T % chunk`` tail runs as a shorter, unpadded chunk:
     a zero-padded tail would run extra recurrence steps and corrupt the
-    carried state.  (The reference checkpoints each chunk for its
-    backward; the port serves only, so a chunk bounds nothing but the
-    list of outputs it stacks at once.)"""
+    carried state.
+
+    When autograd records the call, each full chunk is rematerialised in
+    the backward (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` of its chunk body): the forward keeps only the
+    chunk's inputs -- the state at its boundary and its slice of ``xs``
+    --, so a layer's backward holds O(T / chunk) states instead of every
+    step's.  The tail runs unchecked, as in the reference.  No RNG state
+    is kept (``preserve_rng_state=False``): a step draws no random
+    numbers.  With grad off (serving) every chunk runs as it is."""
     t = xs[0].shape[0]
+    chunk = min(chunk, t)
+    remat = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (state, *xs))
     parts = []
-    for start in range(0, t, min(chunk, t)):
-        ys = []
-        for i in range(start, min(start + chunk, t)):
-            state, y = step_fn(state, tuple(a[i] for a in xs))
-            ys.append(y)
-        parts.append(torch.stack(ys))
+    for start in range(0, t, chunk):
+        part = tuple(a[start:start + chunk] for a in xs)
+        if remat and part[0].shape[0] == chunk:
+            state, ys = checkpoint(_steps, step_fn, state, part,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            state, ys = _steps(step_fn, state, part)
+        parts.append(ys)
     return state, torch.cat(parts) if len(parts) > 1 else parts[0]
 
 

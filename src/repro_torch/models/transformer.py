@@ -1,6 +1,7 @@
 """Model assembly (port of ``repro.models.transformer``): :class:`LM` with
-``init``, training (``init_train`` / ``train_params`` for the f32 master
-parameters, ``loss_fn`` with per-layer rematerialisation), the wave path
+``init``, training of every block kind (``init_train`` / ``train_params``
+for the f32 master parameters, ``loss_fn`` with per-layer
+rematerialisation), the wave path
 (``prefill`` over left-padded prompts and ``decode_step`` against
 per-layer ring caches, with whisper's encoder stack) and the paged path
 (``init_paged_caches``, ``paged_step``; dense and MoE kinds only), and
@@ -53,12 +54,10 @@ from repro_torch.sparse.params import nm_for_sparsity, sparsify_params
 # Block kinds the port's paged-KV serving path runs; the wave path runs
 # every kind: also whisper's enc-dec decoder block, a VLM's cross block and
 # the recurrent kinds (their caches are not paged, as in the reference).
+# Every kind serves under every policy, packed and tile-sparse, and trains
+# (``init_train``, ``loss_fn``).
 PAGED_KINDS = ("dense", "attn_local", "moe")
 WAVE_KINDS = PAGED_KINDS + ("encdec", "cross", "rwkv", "rglru")
-# Kinds whose training (``init_train``, ``loss_fn``) is held to the
-# reference's gradients; the others refuse training.  Every kind serves
-# under every policy, packed and tile-sparse.
-TRAINED_KINDS = PAGED_KINDS + ("encdec",)
 
 # Rows of the learned decoder position table (the reference's 32768 + 8).
 POS_EMBED_ROWS = 32768 + 8
@@ -165,17 +164,6 @@ class LM:
         # f32 under the int8 policy (quantized per call).
         self.weight_dtype = torch.float32 if pol.quantized else pol.compute
 
-    def _refuse_untrained(self) -> None:
-        """Raise for training a model with a kind outside
-        :data:`TRAINED_KINDS`: its gradients are not yet held to the
-        reference's."""
-        new = sorted({k for k in self.cfg.pattern
-                      if k not in TRAINED_KINDS})
-        if new:
-            raise NotImplementedError(
-                f"training on block kinds {new} is not ported yet: their "
-                f"gradients are not held to the reference's")
-
     @property
     def vocab_padded(self) -> int:
         """Vocab rounded up to 128; the padded logits are masked."""
@@ -239,7 +227,6 @@ class LM:
         distributions of :meth:`init` and no cast: training keeps f32
         weights and ``mp_dot`` casts them per call, as the reference
         does."""
-        self._refuse_untrained()
         return self._draw(generator, lambda tree: tree, lambda head: head)
 
     def _draw(self, generator, prepare, prepare_head) -> Dict[str, Any]:
@@ -399,11 +386,12 @@ class LM:
     def loss_fn(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy plus the MoE auxiliary loss of
         ``batch["tokens"]`` (B, S + 1) (and ``audio_embeds`` for an audio
-        model): an f32 0-d tensor that autograd differentiates.  Each layer
-        is rematerialised under ``remat``; MoE layers route at the
+        model, ``image_embeds`` (B, n_image_tokens, d) for a VLM): an f32
+        0-d tensor that autograd differentiates.  Each layer is
+        rematerialised under ``remat`` (a recurrence's scan also each
+        chunk, ``models.recurrent._chunk_scan``); MoE layers route at the
         training capacity (1.25)."""
         cfg = self.cfg
-        self._refuse_untrained()
         tokens = batch["tokens"]
         x = self._embed(params, tokens[:, :-1])
         labels = tokens[:, 1:]

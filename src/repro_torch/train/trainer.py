@@ -56,6 +56,9 @@ class Trainer:
         self.tcfg = tcfg
         self.seed = seed
         extra = {}
+        if self.cfg.family == "vlm":
+            extra["image_embeds"] = ((self.cfg.n_image_tokens,
+                                      self.cfg.d_model), "float32")
         if self.cfg.family == "audio":
             extra["audio_embeds"] = ((self.cfg.encoder_seq,
                                       self.cfg.d_model), "float32")

@@ -339,7 +339,9 @@ def _chip_smoke():
 @pytest.mark.parametrize("arch,policy", [
     ("phi3-mini-3.8b", "bf16"), ("granite-moe-1b-a400m", "bf16"),
     ("phi3-mini-3.8b", "int8"), ("granite-moe-1b-a400m", "int8"),
-    ("phi3-mini-3.8b", "fp32"), ("granite-moe-1b-a400m", "fp32")])
+    ("phi3-mini-3.8b", "fp32"), ("granite-moe-1b-a400m", "fp32"),
+    ("llama-3.2-vision-11b", "bf16"), ("rwkv6-1.6b", "bf16"),
+    ("recurrentgemma-2b", "bf16")])
 def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
     """One CPU training step with remat: the K1 wrapper calls that
     :func:`k1_design` sends to wgmma (every bf16 and int8 one of the smoke
@@ -348,7 +350,8 @@ def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
     and to tf32x3 (none), and the K4 calls that
     :func:`k4_design` sends to its wgmma and split designs (bf16 and int8)
     and to tf32x3 (f32) number what ``chip_smoke.py`` asserts on the
-    card."""
+    card -- for the cross and recurrent kinds too (rwkv6's LoRA and the
+    RG-LRU gates are fp32-policy products: fma)."""
     counts = {"k1_wgmma": 0, "k1g_wgmma": 0, "k1_tf32x3": 0,
               "k1g_tf32x3": 0, "k1_fma": 0, "k1g_fma": 0, "k4_wgmma": 0,
               "k4_split": 0, "k4_tf32x3": 0}
@@ -377,8 +380,10 @@ def test_chip_smoke_wgmma_counts_match_the_rule(arch, policy, monkeypatch):
     cfg = tcb.get(arch, smoke=True)
     model = build_model(cfg, policy=policy, device="cpu")
     params = model.init_train(torch.Generator().manual_seed(0))
-    batch = device_batch(SyntheticLM(model.cfg.vocab, 2, 16).next_batch(),
-                         "cpu")
+    extra = ({"image_embeds": ((cfg.n_image_tokens, cfg.d_model),
+                               "float32")} if cfg.family == "vlm" else {})
+    batch = device_batch(SyntheticLM(model.cfg.vocab, 2, 16,
+                                     extra_specs=extra).next_batch(), "cpu")
     make_train_step(model, AdamWConfig())(params, adamw_init(params), batch)
     want = _chip_smoke()._want_train_launches(model.cfg, seq=16,
                                               policy=policy)

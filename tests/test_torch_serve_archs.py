@@ -7,8 +7,8 @@ recurrentgemma-2b (RG-LRU blocks and local attention, a unit of 3 with a
 remainder of 2, tied embeddings).  ``LM.prefill`` then
 ``LM.decode_step`` logits, the wave engine's tokens for all six, the
 continuous engine's tokens for the three with paged kinds, the
-refusals of the continuous engine and of training the new kinds, and the
-serve CLI.
+refusals of the continuous engine, that training the new kinds no longer
+refuses, and the serve CLI.
 
 ``params_from_jax`` carries a JAX parameter tree across.  The reference
 draws many leaves as constants (biases and norm shifts 0, norm scales 0 or
@@ -41,6 +41,7 @@ from repro_torch.configs import base as tcb  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mpgemm import mpgemm  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     build_model as tbuild, params_from_jax,
 )
@@ -181,16 +182,30 @@ def test_wave_only_kinds_refuse_the_continuous_engine(arch):
 
 @pytest.mark.parametrize("arch", WAVE_ONLY)
 def test_new_kinds_refuse_what_is_not_ported(arch):
-    """Training on the cross and recurrent kinds raises, naming training
-    (their gradients are not yet held to the reference's); serving them
-    under every policy, packed and tile-sparse, does not."""
+    """Nothing is left unported for the cross and recurrent kinds, so
+    nothing refuses: under the int8 policy each kind's ``init_train``
+    draws f32 masters and ``loss_fn`` (a VLM's batch with image
+    embeddings) gives a finite loss and finite, non-zero gradients for
+    every leaf that reaches it.  Their gradients are held to the
+    reference's in ``test_torch_train_kinds.py`` and
+    ``test_torch_train.py``."""
     cfg = tcb.get(arch, smoke=True)
     gen = torch.Generator().manual_seed(0)
     tm = tbuild(cfg, policy="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        tm.init_train(gen)
-    with pytest.raises(NotImplementedError, match="training"):
-        tm.loss_fn({}, {"tokens": torch.zeros(1, 3, dtype=torch.long)})
+    params = tm.init_train(gen)
+    leaves = tree_leaves(params)
+    assert all(p.dtype == torch.float32 for p in leaves)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 9), generator=gen)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(2, cfg.n_image_tokens,
+                                            cfg.d_model, generator=gen)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = tm.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in grads if g is not None)
+    assert sum(float(g.abs().sum()) for g in grads if g is not None) > 0
 
 
 def test_every_reference_arch_builds():

@@ -71,10 +71,21 @@ def _tiny_shape():
     return ShapeConfig("tiny", seq_len=32, global_batch=4, kind="train")
 
 
+NEW_KINDS = ["llama-3.2-vision-11b", "rwkv6-1.6b", "recurrentgemma-2b"]
+
+
 def _pair(arch, policy="fp32", seed=0):
+    """The reference's model and draw, the port's model and the same
+    weights as f32 masters.  A VLM's cross gates are drawn 0, which closes
+    both branches of its cross block (every gradient there exactly 0):
+    both packages start from gates 0.7 and -0.4 instead."""
     jc, tc = jcb.get(arch, smoke=True), tcb.get(arch, smoke=True)
     jm = jbuild(jc, policy=policy)
     jp = jm.init(jax.random.PRNGKey(seed))
+    for unit in jp["stack"] + jp["tail"]:
+        if "gate_attn" in unit:
+            unit["gate_attn"] = jnp.full_like(unit["gate_attn"], 0.7)
+            unit["gate_mlp"] = jnp.full_like(unit["gate_mlp"], -0.4)
     tm = tbuild(tc, policy=policy, device="cpu")
     tp = tm.train_params(params_from_jax(
         jax.tree_util.tree_map(np.asarray, jp), tc))
@@ -83,6 +94,15 @@ def _pair(arch, policy="fp32", seed=0):
 
 def _port_tree(jp, cfg):
     return params_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg)
+
+
+def _extra(cfg):
+    """The synthetic pipeline's extra inputs of ``cfg``'s family, as the
+    reference's trainer asks for them."""
+    if cfg.family == "vlm":
+        return {"image_embeds": ((cfg.n_image_tokens, cfg.d_model),
+                                 "float32")}
+    return {}
 
 
 def _close_rel(got, want, label, rtol=1e-3, atol=1e-5):
@@ -98,21 +118,39 @@ def _counts():
             tpack.unpack_operand.launches)
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "granite-moe-1b-a400m"]
+                         + NEW_KINDS)
 def test_train_step_matches_reference_fp32(arch):
     """One step's loss and every gradient, then loss, grad norm and
     parameters over 3 steps of AdamW, against the reference's jitted
-    ``make_train_step`` on its ``xla`` backend."""
+    ``make_train_step`` on its ``xla`` backend (a VLM's batches carry
+    image embeddings, its gates open: ``_pair``)."""
     jm, jp, tm, tp = _pair(arch)
-    pipe_j = JSyntheticLM(jm.cfg.vocab, 4, 32, seed=3)
-    pipe_t = SyntheticLM(tm.cfg.vocab, 4, 32, seed=3)
+    extra = _extra(tm.cfg)
+    pipe_j = JSyntheticLM(jm.cfg.vocab, 4, 32, seed=3, extra_specs=extra)
+    pipe_t = SyntheticLM(tm.cfg.vocab, 4, 32, seed=3, extra_specs=extra)
     batches = [pipe_j.next_batch() for _ in range(3)]
     for b in batches:
-        assert np.array_equal(b["tokens"], pipe_t.next_batch()["tokens"])
+        t = pipe_t.next_batch()
+        assert b.keys() == t.keys()
+        assert all(np.array_equal(b[k], t[k]) for k in b)
 
+    def jbatch(b):
+        return {k: jnp.asarray(v) for k, v in b.items()}
+
+    # One compile: the first batch's loss and gradients beside the step.
+    jstep = jmake_step(jm, JAdamWConfig(lr=LR), total_steps=3, warmup=1)
     with jcfg.gemm_backend("xla"):
-        want_loss, want_g = jax.jit(jax.value_and_grad(jm.loss_fn))(
-            jp, {"tokens": jnp.asarray(batches[0]["tokens"])})
+        jfn = jax.jit(lambda p, o, b: (jax.value_and_grad(jm.loss_fn)(p, b),
+                                       jstep(p, o, b)))
+        jo = jadamw_init(jp)
+        steps = []
+        for b in batches:
+            (want_loss, want_g), (jp, jo, jmet) = jfn(jp, jo, jbatch(b))
+            steps.append(jmet)
+            if len(steps) == 1:
+                first = want_loss, want_g
+    want_loss, want_g = first
     before = _counts()
     loss, grads = _value_and_grad(
         tm, tp, device_batch(batches[0], "cpu"))
@@ -122,21 +160,22 @@ def test_train_step_matches_reference_fp32(arch):
     flat_g = dict(_paths(grads))
     for path, wg in _paths(want_g):
         _close_rel(flat_g[path], wg.numpy(), f"d{path}")
+    if tm.cfg.family == "vlm":        # the open gates reach the cross K/V
+        for i, kind in enumerate(tm.cfg.pattern):
+            if kind == "cross":
+                assert all(flat_g[("layers", i, "xattn", w)].abs().max() > 0
+                           for w in ("wq", "wk", "wv", "wo"))
 
-    jstep = jmake_step(jm, JAdamWConfig(lr=LR), total_steps=3, warmup=1)
     tstep = make_train_step(tm, AdamWConfig(lr=LR), total_steps=3, warmup=1)
-    jo, to = jadamw_init(jp), adamw_init(tp)
-    with jcfg.gemm_backend("xla"):
-        jfn = jax.jit(jstep)
-        for b in batches:
-            jp, jo, jmet = jfn(jp, jo, {"tokens": jnp.asarray(b["tokens"])})
-            tp, to, tmet = tstep(tp, to, device_batch(b, "cpu"))
-            np.testing.assert_allclose(float(tmet["loss"]),
-                                       float(jmet["loss"]), rtol=1e-5)
-            np.testing.assert_allclose(float(tmet["grad_norm"]),
-                                       float(jmet["grad_norm"]), rtol=1e-4)
-            np.testing.assert_allclose(float(tmet["lr_scale"]),
-                                       float(jmet["lr_scale"]), rtol=1e-6)
+    to = adamw_init(tp)
+    for b, jmet in zip(batches, steps):
+        tp, to, tmet = tstep(tp, to, device_batch(b, "cpu"))
+        np.testing.assert_allclose(float(tmet["loss"]),
+                                   float(jmet["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(tmet["grad_norm"]),
+                                   float(jmet["grad_norm"]), rtol=1e-4)
+        np.testing.assert_allclose(float(tmet["lr_scale"]),
+                                   float(jmet["lr_scale"]), rtol=1e-6)
     assert int(to.step) == int(jo.step) == 3
     flat_p = dict(_paths(tp))
     for path, wp in _paths(_port_tree(jp, tm.cfg)):
@@ -155,17 +194,23 @@ def _paths(tree, prefix=()):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("policy", ["bf16", "int8"])
-def test_train_step_runs_under_bf16_and_int8(policy):
+@pytest.mark.parametrize("arch,policy", [
+    pytest.param("phi3-mini-3.8b", "bf16", id="bf16"),
+    pytest.param("phi3-mini-3.8b", "int8", id="int8")] + [
+    pytest.param(arch, policy, id=f"{arch}-{policy}")
+    for arch in NEW_KINDS for policy in ("bf16", "int8")])
+def test_train_step_runs_under_bf16_and_int8(arch, policy):
     """Under bf16 and int8 (STE) the step is held against the reference's
     xla step with a looser tolerance: the reference's xla backward sums in
     bf16, the port's kernels in f32, and the forward rounds every GEMM
     output to bf16.  The loss within 2 % and the grad norm within 10 %."""
-    jm, jp, tm, tp = _pair("phi3-mini-3.8b", policy=policy)
-    batch = SyntheticLM(tm.cfg.vocab, 4, 32, seed=1).next_batch()
+    jm, jp, tm, tp = _pair(arch, policy=policy)
+    batch = SyntheticLM(tm.cfg.vocab, 4, 32, seed=1,
+                        extra_specs=_extra(tm.cfg)).next_batch()
     with jcfg.gemm_backend("xla"):
         _, _, jmet = jax.jit(jmake_step(jm, JAdamWConfig(lr=LR)))(
-            jp, jadamw_init(jp), {"tokens": jnp.asarray(batch["tokens"])})
+            jp, jadamw_init(jp), {k: jnp.asarray(v) for k, v in
+                                  batch.items()})
     _, _, tmet = make_train_step(tm, AdamWConfig(lr=LR))(
         tp, adamw_init(tp), device_batch(batch, "cpu"))
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
@@ -421,7 +466,8 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "granite-moe-1b-a400m"]
+                         + NEW_KINDS)
 def test_chip_smoke_train_launch_counts_match_the_dispatch(arch,
                                                            monkeypatch):
     """The per-step launch counts ``chip_smoke.py`` asserts on the card
@@ -455,7 +501,8 @@ def test_chip_smoke_train_launch_counts_match_the_dispatch(arch,
     monkeypatch.setattr(attn_mod, "flash_attention",
                         once("k4", attn_mod.flash_attention))
     _, _, tm, tp = _pair(arch, policy="bf16")
-    batch = device_batch(SyntheticLM(tm.cfg.vocab, 2, 16).next_batch(),
+    batch = device_batch(SyntheticLM(tm.cfg.vocab, 2, 16,
+                                     extra_specs=_extra(tm.cfg)).next_batch(),
                          "cpu")
     make_train_step(tm, AdamWConfig())(tp, adamw_init(tp), batch)
     want = _chip_smoke()._want_train_launches(tm.cfg, seq=16)
