@@ -223,6 +223,21 @@ printing a result:
    state bit for bit, one step's loss and gradients against the plain versions, step
    time, tokens/s, peak memory and the graph pool, and one eager and one
    replayed step traced with ``torch.profiler``;
+8b. the block planner (``phase_plans``): every K1, K2 and K3 launch shape
+   the phases above ran on a design that takes a plan (all but simt) took
+   the analytic plan, which equals the design
+   rules (``k1_wgmma_bm``, ``k1_split``, ``k2_split``, ``k3_split``,
+   ``k1_fma_tile``); the plan cache's lookup counts and the host
+   microseconds a launch spends resolving its plan; then three groups of
+   shapes where K1 ran behind the library -- phi3-mini's projections at
+   M = 32, granite's training dW (``trans_a``), mixtral's grouped experts
+   at decode -- tuned on the card (``tuning.tune_gemm`` /
+   ``tune_grouped_gemm``, ``"cuda"`` mode) into a temporary
+   ``REPRO_TORCH_PLAN_CACHE`` file: every candidate's time, the winner
+   against the analytic plan, the library call and the bound, each tuned
+   plan launched through ``mpgemm`` (a ``hit_tuned`` lookup) and held to
+   the plain version, and cached plans outside the kernel's limits
+   raising at launch;
 9. the script's wall time, one JSON line with every ported kernel's
    launches (and, for K2, K3, K5 and the op rows, the launches on each
    design), error and times;
@@ -5460,6 +5475,259 @@ def phase_train(torch, *, label, arch, policy, steps, n_layers=None):
 # algorithms and a resumed run each captured and destroyed, then the
 # trace).  phase_trace_replay rebuilds that order; not in the default
 # run: ``python3 chip_ab.py . . phase_trace_replay`` runs it alone.
+# ------------------------------------------------------------------ phase 8b
+
+# phase_plans' sweep: the tile rows within 2 steps of the rule's and the
+# 4 split-ladder counts either side of its split (up to 18 candidates).
+PLAN_RADIUS = 2
+
+
+def _plan_cases(torch):
+    """``phase_plans``' tuned shapes, where ``PERF.md`` §6 has K1 behind
+    the library: (group, name, G, M, N, K, dtype, trans_a, epilogue kind,
+    activation, out dtype, f32_fma, launches a step) -- phi3-mini's
+    projections at M = 32 (``MAIN_SHAPES``), granite's 2-D training dW at
+    512 tokens (``TRANS_A_CASES``; the router's on the fma design) and
+    mixtral's grouped experts at a decode step (M = 2 rows an expert,
+    ``_decode_gemms``, 8 layers)."""
+    from repro_torch.configs import base as cb
+    cases = [("phi3-m32", name, 1, 32, n, k, "bfloat16", False, kind, act,
+              "bfloat16", False, per_step)
+             for name, k, n, kind, act, per_step in MAIN_SHAPES]
+    cases += [("granite-dW", name, 1, m, n, TRAIN_TOKENS, dt, True,
+               "linear", None, "float32", dt == "float32", per_step)
+              for name, model, m, n, dt, per_step, g in TRANS_A_CASES
+              if model == "granite" and g is None]
+    cases += [("mixtral-experts", f"{kind}/{act}-{k}x{n}", g, 2, n, k,
+               "bfloat16", False, kind, act, "float32", False, per_step)
+              for (g, k, n, kind, act, bias, tb, f32), per_step in
+              _decode_gemms(cb.get("mixtral-8x22b"), MIXTRAL_LAYERS).items()
+              if g > 1]
+    return cases
+
+
+def _check_analytic_plans(torch):
+    """Every plan the launches so far resolved (the kernel layer's memo,
+    ``kernels/mpgemm.py::_plans``; the simt kernels take none) against the
+    design rules -> counts of checked launch shapes by kernel and
+    design."""
+    from repro_torch.kernels import mpgemm as K
+    counts = collections.Counter()
+    for key, (plan, result) in list(K._plans.items()):
+        design, dev, m, n, k, g, a_dtype = key[:7]
+        lay, max_count = key[-3], key[-1]
+        sms = K.device_spec(dev).sms
+        kernel = {"": "K1", "packed": "K2", "sparse": "K3"}[lay]
+        if result != "hit_analytic":
+            raise AssertionError(f"{kernel} {plan.describe()}: resolved as "
+                                 f"{result} before any tuning")
+        if design == "wgmma" and kernel == "K1":
+            want = ((K.k1_wgmma_bm(m),)
+                    + K.k1_split(m, n, k, g, sms, K.k1_wgmma_bk(a_dtype)))
+        elif design == "wgmma" and kernel == "K2":
+            want = (K.k1_wgmma_bm(m),) + K.k2_split(m, n, k, g, sms)
+        elif design == "wgmma":
+            want = (K.k1_wgmma_bm(m),) + K.k3_split(m, n, max_count, g, sms)
+        elif design == "tf32x3":
+            splits, per = K.k2_split(m, n, k, g, sms)
+            want = (K.k1_wgmma_bm(m), splits, per * 4)
+        got = (plan.bm, plan.splits, plan.per)
+        if design == "fma":
+            want, got = K.k1_fma_tile(m, n, k, g, sms), (plan.bm, plan.bn)
+        if got != want:
+            raise AssertionError(f"{kernel} {plan.describe()}: analytic "
+                                 f"{got}, the design rules {want}")
+        counts[(kernel, design)] += 1
+    return counts
+
+
+def _resolve_us(torch):
+    """Host microseconds of a launch's plan resolution: a repeated launch
+    (the memo) and a first one (cache lookup and analytic solve), with
+    the rule calls the memo replaced beside them."""
+    from repro_torch.core.gemm_spec import LINEAR
+    from repro_torch.kernels import mpgemm as K
+    bf16 = torch.bfloat16
+    a = torch.empty(32, 3072, dtype=bf16, device="cuda")
+
+    def resolve(m):
+        return K._resolve_plan(None, "wgmma", a, bf16, m, 3072, 3072, 1,
+                               False, False, bf16, LINEAR)
+
+    resolve(32)
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        resolve(32)
+    memo_us = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        K.k1_wgmma_bm(32)
+        K.k1_split(32, 3072, 3072, 1, K.H100_SMS, K.k1_wgmma_bk(bf16))
+    rules_us = (time.perf_counter() - t0) / n * 1e6
+    fresh = range(100_001, 100_201)
+    t0 = time.perf_counter()
+    for m in fresh:
+        resolve(m)
+    first_us = (time.perf_counter() - t0) / len(fresh) * 1e6
+    return memo_us, rules_us, first_us
+
+
+def phase_plans(torch):
+    """The block planner on the card (module docstring, 8b).  Runs after
+    every other phase: its tuning writes a plan cache the earlier phases
+    must not see (they run with the empty in-memory default).  -> rows by
+    group: the tuned and analytic plans' step sums."""
+    import dataclasses
+    import os
+    import tempfile
+    from repro_torch.core.gemm_spec import EpilogueSpec, GemmSpec, \
+        apply_epilogue
+    from repro_torch.kernels import mpgemm as K
+    from repro_torch.tuning import microbench as mb
+    from repro_torch.tuning import plan_cache as pc
+
+    t_phase = time.perf_counter()
+    checked = _check_analytic_plans(torch)
+    print(f"[plans] analytic plan = the design rules at "
+          f"{sum(checked.values())} launch shapes of this run ("
+          + ", ".join(f"{k} {d} {n}" for (k, d), n in sorted(checked.items()))
+          + f"); lookups so far {pc.lookup_counts()}")
+    memo_us, rules_us, first_us = _resolve_us(torch)
+    print(f"[plans] host us a launch spends on its plan: {memo_us:.3f} "
+          f"(memo hit; the rule calls it replaced: {rules_us:.3f}), a "
+          f"first launch of a shape {first_us:.1f} (lookup + analytic "
+          f"solve)")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    env_before = os.environ.get(pc.ENV)
+    rows = collections.defaultdict(lambda: collections.defaultdict(float))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plans.json")
+        os.environ[pc.ENV] = path
+        pc.reset_plan_cache()
+        try:
+            cases = _plan_cases(torch)
+            for (group, name, g, m, n, k, dt, ta, kind, act, out_dt, fma,
+                 per_step) in cases:
+                ep = EpilogueSpec(kind=kind, activation=act)
+                tune_kw = dict(out_dtype=out_dt, trans_a=ta, mode="cuda",
+                               epilogue=None if kind == "linear" else ep,
+                               f32_fma=fma, seed=33, radius=PLAN_RADIUS)
+                res = (mb.tune_grouped_gemm(g, m, n, k, dt, **tune_kw)
+                       if g > 1 else mb.tune_gemm(m, n, k, dt, **tune_kw))
+                dtype, out = getattr(torch, dt), getattr(torch, out_dt)
+                lead = (g,) if g > 1 else ()
+                a = torch.randn(*lead, *((k, m) if ta else (m, k)),
+                                generator=gen, device="cuda").to(dtype)
+                w = (torch.randn(*lead, k, n, generator=gen, device="cuda")
+                     * (2.0 / (k + n)) ** 0.5).to(dtype)
+                extras = () if kind == "linear" else (torch.randn(
+                    *lead, m, n, generator=gen, device="cuda").to(out),)
+                spec = GemmSpec(grouped=g > 1, trans_a=ta)
+                fn = K.mpgemm_grouped if g > 1 else K.mpgemm
+                kw = dict(extras=extras, epilogue=ep, out_dtype=out,
+                          f32_fma=fma)
+
+                def kern(plan=None):
+                    return fn(a, w, spec=spec, plan=plan, **kw)
+
+                def plain():
+                    return K.mpgemm_plain(a, w, trans_a=ta, extras=extras,
+                                          epilogue=ep, out_dtype=out)
+
+                def library():
+                    acc = torch.matmul(a.transpose(-1, -2) if ta else a, w)
+                    return apply_epilogue(ep, acc.float(),
+                                          extras=extras).to(out)
+
+                hits = pc.lookup_counts()["hit_tuned"]
+                got = kern()
+                if pc.lookup_counts()["hit_tuned"] != hits + 1:
+                    raise AssertionError(f"[plans] {group} {name}: the "
+                                         "launch did not read the tuned plan")
+                torch.cuda.synchronize()
+                err = _check_close(torch, f"tuned {group} {name}", got,
+                                   plain(), TOL[out_dt])
+                best, ana = res.best.plan, res.analytic.plan
+                tuned_ms, ana_ms = timer(kern), timer(lambda: kern(ana))
+                lib_ms = timer(library)
+                n_bytes = g * (m * k * a.element_size()
+                               + k * n * w.element_size()
+                               + m * n * out.itemsize * (1 + len(extras)))
+                n_ops = 2 * g * m * n * k
+                bound, bound_by = _bound_ms(n_bytes, n_ops,
+                                            _peak_of(best.design, dt))
+                cands = "; ".join(
+                    f"{_plan_tag(x.plan)} {x.wall_us / 1e3:.4f}"
+                    for x in res.measurements)
+                print(f"[plans] {group} {name} G={g} M={m} N={n} K={k} "
+                      f"{dt}{' trans_a' if ta else ''} {best.design}: "
+                      f"candidates (ms, best of 5 cold) {cands}")
+                print(f"[plans] {group} {name}: winner {_plan_tag(best)}"
+                      f"{'' if res.tuned_differs else ' (= analytic)'} "
+                      f"{tuned_ms:.4f} ms, analytic {_plan_tag(ana)} "
+                      f"{ana_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({bound_by}); tuned vs plain "
+                      f"{err:.2e} (rtol {TOL[out_dt]['rtol']}) x{per_step}")
+                for key, v in (("tuned_ms", tuned_ms), ("analytic_ms", ana_ms),
+                               ("library_ms", lib_ms), ("bound_ms", bound)):
+                    rows[group][key] += per_step * v
+                rows[group]["launches"] += per_step
+                rows[group]["moved"] += int(res.tuned_differs)
+                rows[group]["shapes"] += 1
+            # A tuned plan survives in the file; one outside the kernel's
+            # limits raises at launch, whether cached or given (the last
+            # case's ``kern`` and ``res``).
+            disk = pc.PlanCache(path).get(res.key)
+            if disk != res.best.plan:
+                raise AssertionError(f"[plans] {res.key}: the file holds "
+                                     f"{disk}, the tuner chose "
+                                     f"{res.best.plan}")
+            best = res.best.plan
+            total = best.splits * best.per
+            bad = {"bm 96": dataclasses.replace(best, bm=96),
+                   "an empty slice": dataclasses.replace(
+                       best, splits=total + 1, per=1)}
+            for why, plan in bad.items():
+                for how in ("cached", "given"):
+                    if how == "cached":
+                        pc.get_plan_cache().put(res.key, plan)
+                    try:
+                        kern(None if how == "cached" else plan)
+                    except ValueError as e:
+                        if "outside the kernel's limits" not in str(e):
+                            raise
+                    else:
+                        raise AssertionError(f"[plans] a {how} plan with "
+                                             f"{why} launched")
+            pc.get_plan_cache().put(res.key, best)
+            print(f"[plans] a cached or given plan with {' / '.join(bad)} "
+                  f"raises at launch; the file kept the tuned plan; "
+                  f"lookups {pc.lookup_counts()}")
+        finally:
+            if env_before is None:
+                os.environ.pop(pc.ENV, None)
+            else:
+                os.environ[pc.ENV] = env_before
+            pc.reset_plan_cache()
+    for group, r in rows.items():
+        print(f"[plans] {group} ({int(r['shapes'])} shapes, "
+              f"{int(r['launches'])} launches a step, the plan moved on "
+              f"{int(r['moved'])}): tuned {r['tuned_ms']:.3f} ms, analytic "
+              f"{r['analytic_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms")
+    print(f"[time] plans phase: {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _plan_tag(plan):
+    """A plan's decisions in a few characters: blocks and the split."""
+    return (f"{plan.bm}x{plan.bn}x{plan.bk} s{plan.splits}x{plan.per}")
+
+
 def phase_trace_replay(torch, timer=None):
     """The traced-replay fault's reproducer: trace one step of plain torch
     ops first (the profiler, once started, tracks the graphs made after
@@ -5611,6 +5879,7 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[time] train phases: {time.perf_counter() - t_phases:.1f} s")
+    phase_plans(torch)
 
     def row(name, source, replaces, launches, numbers, designs=None):
         """One kernel's entry; ``designs`` (or an op row's list of the

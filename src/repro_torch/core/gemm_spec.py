@@ -142,6 +142,18 @@ class EpilogueSpec:
     def extra_operands(self) -> Tuple[str, ...]:
         return get_epilogue(self.kind).extra_operands
 
+    @property
+    def tag(self) -> str:
+        """Plan-cache namespace tag (``tuning/plan_cache.py::make_key(...,
+        epilogue=...)``), the reference's: empty for the ``linear`` family,
+        the kind (and its activation) for a fusion, whose extra streamed
+        operands move the measured optimum."""
+        if self.kind == "linear":
+            return ""
+        if self.activation in (None, "none"):
+            return self.kind
+        return f"{self.kind}-{self.activation}"
+
 
 @dataclasses.dataclass(frozen=True)
 class GemmSpec:

@@ -47,6 +47,13 @@ int mpgemm_packed_wgmma_launch(
       c_dtype, kind, act, alpha, beta, bm, splits, per_split, stream);
 }
 
+// The ring's stages (Cfg::kStages) of the instantiation a launch with
+// `bm` against payload code `pcode` runs, 0 for one it does not take;
+// writes its shared memory (Cfg::kSmemBytes) to `smem_bytes`.
+int mpgemm_packed_wgmma_stages(int bm, int pcode, int* smem_bytes) {
+  return mpgemm_packed_wgmma_stages_typed<__nv_bfloat16>(bm, pcode, smem_bytes);
+}
+
 const char* mpgemm_packed_wgmma_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

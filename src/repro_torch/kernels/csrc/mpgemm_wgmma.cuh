@@ -1176,4 +1176,56 @@ int mpgemm_sparse_wgmma_launch_typed(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The ring's stages and the shared memory of one instantiation
+// (Cfg::kStages, Cfg::kSmemBytes), for the C entry points' *_stages
+// functions: the planner's shared-memory model
+// (repro_torch/core/blocking.py::wgmma_stages, vmem_working_set) is held
+// to these by a card test.
+template <int BM, typename T, bool TRANS_A, bool TRANS_B, int P>
+int cfg_stages(int* smem_bytes) {
+  *smem_bytes = Cfg<BM, T, TRANS_A, TRANS_B, P>::kSmemBytes;
+  return Cfg<BM, T, TRANS_A, TRANS_B, P>::kStages;
+}
+
+// K1's instantiation of type T for (bm, trans_a, trans_b): its stages, or
+// 0 for a bm the kernel does not take.
+template <typename T>
+int mpgemm_wgmma_stages_typed(int bm, int trans_a, int trans_b,
+                              int* smem_bytes) {
+#define K1_STAGES(BM_)                                                    \
+  return trans_a ? (trans_b ? cfg_stages<BM_, T, true, true, kDense>(      \
+                                  smem_bytes)                            \
+                            : cfg_stages<BM_, T, true, false, kDense>(     \
+                                  smem_bytes))                           \
+                 : (trans_b ? cfg_stages<BM_, T, false, true, kDense>(     \
+                                  smem_bytes)                            \
+                            : cfg_stages<BM_, T, false, false, kDense>(    \
+                                  smem_bytes))
+  if (bm == 64) { K1_STAGES(64); }
+  if (bm == 128) { K1_STAGES(128); }
+#undef K1_STAGES
+  return 0;
+}
+
+// K2's and K3's instantiation with A of type T against payload code
+// `pcode`: its stages, or 0 for a (bm, pcode) the kernel does not take.
+template <typename T>
+int mpgemm_packed_wgmma_stages_typed(int bm, int pcode, int* smem_bytes) {
+  if (bm != 64 && bm != 128) return 0;
+#define K2_STAGES(P_)                                                     \
+  return bm == 64 ? cfg_stages<64, T, false, false, P_>(smem_bytes)        \
+                  : cfg_stages<128, T, false, false, P_>(smem_bytes)
+  if constexpr (std::is_same<T, int8_t>::value) {
+    if (pcode == P_INT8) { K2_STAGES(P_INT8); }
+    if (pcode == P_INT4) { K2_STAGES(P_INT4); }
+  } else {
+    if (pcode == P_BF16) { K2_STAGES(P_BF16); }
+    if (pcode == P_INT8) { K2_STAGES(P_INT8); }
+    if (pcode == P_INT4) { K2_STAGES(P_INT4); }
+    if (pcode == P_FP8) { K2_STAGES(P_FP8); }
+  }
+#undef K2_STAGES
+  return 0;
+}
+
 }  // namespace

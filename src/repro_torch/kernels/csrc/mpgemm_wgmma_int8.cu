@@ -30,6 +30,13 @@ int mpgemm_wgmma_int8_launch(const void* a, const void* b, void* out,
       alpha, beta, bm, splits, per_split, stream);
 }
 
+// The ring's stages (Cfg::kStages) of the instantiation a launch with
+// `bm`, `trans_a`, `trans_b` runs, 0 for a bm it does not take; writes
+// its shared memory (Cfg::kSmemBytes) to `smem_bytes`.
+int mpgemm_wgmma_int8_stages(int bm, int trans_a, int trans_b, int* smem_bytes) {
+  return mpgemm_wgmma_stages_typed<int8_t>(bm, trans_a, trans_b, smem_bytes);
+}
+
 const char* mpgemm_wgmma_int8_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -72,7 +72,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mpgemm import (
-    H100_SMS, _cdiv, _ptr, _sm_count, _split_workspace,
+    H100_SMS, _cdiv, _ptr, _split_workspace, device_spec,
 )
 
 NEG_INF = -1e30
@@ -287,7 +287,8 @@ def _launch_flash(q, k, v, causal, window, scale):
         error = lib.flash_tf32x3_error_string
     else:
         rows = h // hkv * tq
-        splits = k4_split(rows, tk, b, hkv, _sm_count(q.get_device()))
+        splits = k4_split(rows, tk, b, hkv,
+                          device_spec(q.get_device()).sms)
         lib = _wgmma_lib()
         ws = counters = None
         if design == "split":
@@ -489,7 +490,8 @@ def _launch(q, k_pages, v_pages, block_tables, q_start, lengths, causal,
         error = lib.paged_flash_error_string
     else:
         rows = h // hkv * tq
-        splits = k5_split(rows, w, ps, b, hkv, _sm_count(q.get_device()))
+        splits = k5_split(rows, w, ps, b, hkv,
+                          device_spec(q.get_device()).sms)
         lib = _wgmma_lib()
         ws = counters = None
         args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -21,8 +21,8 @@ elements, no arithmetic), and their plain versions read A transposed.
 K1 has four designs on the card, and :func:`k1_design` picks one by a
 rule (never by trying): bf16 or int8 operands whose row strides and base
 pointers are multiples of 16 bytes (TMA's rule) run the ``wgmma`` design
-(``csrc/mpgemm_wgmma.cuh``: TMA, ``wgmma``, split-K by :func:`k1_split`
-when the output has fewer tiles than the card has SMs; built as
+(``csrc/mpgemm_wgmma.cuh``: TMA, ``wgmma``, split-K when the output has
+fewer tiles than the card has SMs; built as
 ``csrc/mpgemm_wgmma.cu`` for bf16 and ``csrc/mpgemm_wgmma_int8.cu`` for
 int8, whose MN-major operands are transposed in shared memory); f32
 operands under the same rule run ``tf32x3``, the same template built as
@@ -30,8 +30,8 @@ operands under the same rule run ``tf32x3``, the same template built as
 and three products summed on the tensor cores, unless the caller keeps
 f32 FMA arithmetic (``f32_fma``: the fp32 policy's products), when they
 run ``fma`` (``csrc/mpgemm_fma.cu``: f32 FMA on the CUDA cores, register
-tiles from a ring of ``cp.async`` stages, the tile by
-:func:`k1_fma_tile`; the same bits as the scalar loop); everything else
+tiles from a ring of ``cp.async`` stages; the same bits as the scalar
+loop); everything else
 -- odd shapes such as rows of 101 values, views off a 16-byte boundary --
 runs ``csrc/mpgemm.cu``'s scalar loops.  An int8 product sums exactly in
 int32 while K <= :data:`INT8_MAX_K`; the card path refuses a deeper one.
@@ -54,15 +54,31 @@ bf16, int8, int4 or fp8e4m3 payload and int8 A against an int8 or int4
 one, in 128 x 128 tiles with 16-byte aligned operands, run K1's template
 with a B stage that decodes the payload in shared memory
 (``csrc/mpgemm_packed_wgmma.cu``, ``_int8.cu``; split over the payload's
-K tiles by :func:`k2_split`); the rest -- f32 A, int8 A against
+K tiles); the rest -- f32 A, int8 A against
 fp8, other tile shapes -- runs ``csrc/mpgemm_packed.cu``.
 
 K3 has two designs, picked by :func:`k3_design`: bf16 A against bf16 or
 int8 tiles and int8 A against int8 tiles, 128 x 128 tiles, 16-byte aligned
 operands, run K2's template walking each column's stored tiles
 (``csrc/mpgemm_sparse_wgmma.cu``, ``_int8.cu``; split over a column's
-stored tiles by :func:`k3_split`); the rest -- f32 A, other tiles,
-misaligned views -- runs ``csrc/mpgemm_sparse.cu``.
+stored tiles); the rest -- f32 A, other tiles, misaligned views -- runs
+``csrc/mpgemm_sparse.cu``.
+
+**Plans.**  The design rules above pick the kernel from the operands; a
+:class:`~repro_torch.core.blocking.GemmPlan` decides how it runs: the tile
+rows BM, the split over K ``(splits, per)`` and the ``fma`` tile.  A launch
+takes ``plan=`` when its caller gives one, else a tuned plan from the plan
+cache (``tuning/plan_cache.py``, ``REPRO_TORCH_PLAN_CACHE``), else the
+analytic plan (``core/blocking.py::plan_gemm``), which equals the rules
+:func:`k1_wgmma_bm`, :func:`k1_split`, :func:`k2_split`, :func:`k3_split`
+and :func:`k1_fma_tile` (they live in ``core/blocking.py`` and are
+re-exported here) at every shape.  A packed or sparse B pins the plan's
+(bk, bn) to its payload tile (``_layout_plan``); a tuned plan for another
+tiling or another design is passed over.  A given or tuned plan outside
+the kernel's limits (``core/blocking.py::plan_limits``) raises: nothing
+clamps it.  Each launch's plan is resolved once and memoised by what
+decides it, until the plan cache changes; a CUDA graph keeps the plans it
+was captured with.  The simt kernels and the plain versions take no plan.
 
 ``mpgemm.launches``, ``mpgemm_grouped.launches``,
 ``mpgemm_packed.launches``, ``mpgemm_packed_grouped.launches``,
@@ -88,11 +104,20 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.blocking import (  # noqa: F401 (re-exported rules)
+    FMA_TILES, GemmPlan, check_plan, k1_fma_tile, k1_split, k1_wgmma_bk,
+    k1_wgmma_bm, k2_split, k3_split, plan_gemm,
+)
+from repro_torch.core.constants import (  # noqa: F401 (re-exported)
+    DEFAULT_HW, H100_SMS, WGMMA_BK, WGMMA_BK_F32, WGMMA_BK_INT8, WGMMA_BN,
+    WGMMA_PAYLOAD_TILE, device_spec,
+)
 from repro_torch.core.gemm_spec import (
     INT_ACTIVATIONS, LINEAR, EpilogueSpec, GemmSpec, apply_epilogue,
     get_epilogue,
 )
 from repro_torch.kernels import _build
+from repro_torch.tuning import plan_cache as _plan_cache
 from repro_torch.packing.layout import PackedOperand
 from repro_torch.packing.pack import decode_payload_tiles
 from repro_torch.sparse.layout import TileSparseOperand
@@ -175,7 +200,8 @@ def mpgemm(a: torch.Tensor, b, *,
            spec: GemmSpec = GemmSpec(),
            epilogue: EpilogueSpec = LINEAR,
            out_dtype: Optional[torch.dtype] = None,
-           f32_fma: bool = False) -> torch.Tensor:
+           f32_fma: bool = False,
+           plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """``out = tail(alpha · (op(a) @ op(b)) · scale + bias) + beta · c`` for
     a (M, K), or (K, M) under ``spec.trans_a``, and b (K, N), or (N, K)
     under ``spec.trans_b``, or a packed operand (K2), or a tile-sparse one
@@ -183,11 +209,14 @@ def mpgemm(a: torch.Tensor, b, *,
     dtype: ``out_dtype``, else ``spec.out_dtype``, else int32 for int8
     operands and ``a.dtype`` otherwise.  ``f32_fma``: f32 operands keep
     f32 FMA arithmetic (K1's ``fma`` design, the scalar loop's bits: the
-    fp32 policy's contract) rather than 3xTF32 (:func:`k1_design`)."""
+    fp32 policy's contract) rather than 3xTF32 (:func:`k1_design`).
+    ``plan``: the launch's :class:`GemmPlan` (default: tuned, else
+    analytic; the module docstring's **Plans**); it must suit the kernel
+    the operands select, or the launch raises."""
     if spec.grouped:
         raise ValueError("a grouped GemmSpec goes to mpgemm_grouped")
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
-                   f32_fma, grouped=False)
+                   f32_fma, plan, grouped=False)
 
 
 def mpgemm_grouped(a: torch.Tensor, b, *,
@@ -198,19 +227,21 @@ def mpgemm_grouped(a: torch.Tensor, b, *,
                    spec: GemmSpec = GemmSpec(grouped=True),
                    epilogue: EpilogueSpec = LINEAR,
                    out_dtype: Optional[torch.dtype] = None,
-                   f32_fma: bool = False) -> torch.Tensor:
+                   f32_fma: bool = False,
+                   plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """G GEMMs in one launch: ``out[g] = tail(alpha · (op(a[g]) @
     op(b[g])) · scale + bias[g]) + beta · c[g]`` for a (G, M, K) and b
     (G, K, N) (transposes as in :func:`mpgemm`), or a grouped packed (K2)
     or tile-sparse (K3) operand.  ``bias`` is (G, N) or a shared (N,);
     ``c`` and the extras are (G, M, N) (a row scale (G, M, 1)); ``scale``
-    is one value for every group; ``f32_fma`` as :func:`mpgemm`'s."""
+    is one value for every group; ``f32_fma`` and ``plan`` (for all G
+    groups) as :func:`mpgemm`'s."""
     return _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
-                   f32_fma, grouped=True)
+                   f32_fma, plan, grouped=True)
 
 
 def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
-            f32_fma, *, grouped):
+            f32_fma, plan, *, grouped):
     out_dtype = out_dtype or spec.out_dtype
     if isinstance(b, TileSparseOperand):
         if spec.trans_b or spec.packed:
@@ -220,7 +251,7 @@ def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
         sparse = mpgemm_sparse_grouped if grouped else mpgemm_sparse
         return sparse(a, b, c=c, bias=bias, scale=scale, extras=extras,
                       epilogue=epilogue, out_dtype=out_dtype,
-                      trans_a=spec.trans_a)
+                      trans_a=spec.trans_a, plan=plan)
     if spec.sparse:
         raise ValueError("spec.sparse needs a TileSparseOperand b")
     if isinstance(b, PackedOperand):
@@ -230,7 +261,7 @@ def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
         packed = mpgemm_packed_grouped if grouped else mpgemm_packed
         return packed(a, b, c=c, bias=bias, scale=scale, extras=extras,
                       epilogue=epilogue, out_dtype=out_dtype,
-                      trans_a=spec.trans_a)
+                      trans_a=spec.trans_a, plan=plan)
     if spec.packed:
         raise ValueError("spec.packed needs a PackedOperand b")
     _check_c(epilogue, c)
@@ -244,7 +275,7 @@ def _mpgemm(a, b, c, bias, scale, extras, spec, epilogue, out_dtype,
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm: unsupported device {a.device}")
     return _launch(a, b, c, bias, scale, extras, spec.trans_a, spec.trans_b,
-                   epilogue, out_dtype, grouped, f32_fma)
+                   epilogue, out_dtype, grouped, f32_fma, plan)
 
 
 # --- shared argument checks --------------------------------------------------
@@ -331,11 +362,6 @@ def _ptr(t):
 
 # --- K1's two designs --------------------------------------------------------
 
-# The wgmma design's tile (csrc/mpgemm_wgmma.cuh): BK deep (128 bytes of
-# K: 32 f32, 64 bf16, 128 int8), BN wide, BM 64 or 128 rows; and the SMs
-# of an H100 SXM, split-K's target.
-WGMMA_BK, WGMMA_BK_INT8, WGMMA_BK_F32, WGMMA_BN = 64, 128, 32, 128
-H100_SMS = 132
 # The deepest int8 product whose int32 sum is exact for every int8 input:
 # 128 * 128 * K < 2 ** 31.
 INT8_MAX_K = 2 ** 31 // (128 * 128) - 1
@@ -394,108 +420,6 @@ _K1_LIBS = {torch.bfloat16: "mpgemm_wgmma", torch.int8: "mpgemm_wgmma_int8",
             torch.float32: "mpgemm_wgmma_f32"}
 
 
-# The fma design's tiles (csrc/mpgemm_fma.cu), from the largest: (BM, BN)
-# -> (TM, TN, BK, stages, rate): the outputs a thread computes, the depth
-# of a stage, the stages of the ring, and the outputs an SM finishes in a
-# unit of time, relative to the 64 x 64 tile's, when it holds enough
-# blocks of the tile: the 128-row tile reuses each value over more
-# outputs, the small ones spread a small output over more SMs.  The rates
-# make k1_fma_tile pick, at Table III's and granite's training shapes,
-# the tile that ran fastest when each tile was timed at each shape on an
-# H100.
-FMA_TILES = {(128, 128): (8, 8, 16, 3, 1.3), (64, 64): (4, 4, 16, 4, 1.0),
-             (32, 32): (2, 2, 16, 4, 0.6), (16, 4): (1, 1, 128, 4, 0.2)}
-
-
-@functools.lru_cache(maxsize=4096)
-def k1_fma_tile(m: int, n: int, k: int, g: int = 1,
-                sms: int = H100_SMS) -> tuple:
-    """(BM, BN) of the ``fma`` design for an (M, N) output over K of
-    ``g`` groups, from the shape alone: 16 x 4 for M <= 16 (decode and
-    short chunks: one output a thread, so that a narrow output still
-    spreads over many SMs -- granite's router, N = 32, over 8 blocks);
-    else the tile of :data:`FMA_TILES` whose grid the ``sms`` SMs finish
-    first: the blocks an SM takes (rounded up) times a block's outputs
-    over the tile's rate, the larger tile on a tie.  No tile splits K:
-    each output is one thread's chain."""
-    if m <= 16:
-        return 16, 4
-
-    def cost(tile):
-        bm, bn = tile
-        blocks = g * _cdiv(m, bm) * _cdiv(n, bn)
-        return _cdiv(blocks, sms) * bm * bn / FMA_TILES[tile][-1]
-
-    return min(FMA_TILES, key=cost)
-
-
-def k1_wgmma_bk(dtype: torch.dtype) -> int:
-    """The wgmma design's K tile for operands of ``dtype``: 128 bytes."""
-    return {torch.int8: WGMMA_BK_INT8,
-            torch.float32: WGMMA_BK_F32}.get(dtype, WGMMA_BK)
-
-
-def k1_wgmma_bm(m: int) -> int:
-    """The wgmma design's tile rows: one consumer warpgroup (64) for M <=
-    64, else two (128)."""
-    return 64 if m <= 64 else 128
-
-
-@functools.lru_cache(maxsize=4096)
-def k1_split(m: int, n: int, k: int, g: int = 1,
-             sms: int = H100_SMS, bk: int = WGMMA_BK) -> tuple:
-    """(slices, K tiles a slice) of the wgmma design's split over K: with
-    fewer output tiles than ``sms``, K is cut into slices so that tiles x
-    slices reaches ``sms`` where K allows, every slice at least one K tile
-    (``bk`` deep: :func:`k1_wgmma_bk`) and none empty; else one slice.
-    The kernel sums the slices in slice order, so the result is the same
-    bits every run."""
-    tiles = g * _cdiv(m, k1_wgmma_bm(m)) * _cdiv(n, WGMMA_BN)
-    k_tiles = max(1, _cdiv(k, bk))
-    want = min(_cdiv(sms, tiles), k_tiles) if tiles < sms else 1
-    per = k_tiles // want            # slices of ``per``: at least ``want``
-    return _cdiv(k_tiles, per), per
-
-
-@functools.lru_cache(maxsize=4096)
-def k2_split(m: int, n: int, k: int, g: int = 1,
-             sms: int = H100_SMS) -> tuple:
-    """(slices, payload tiles a slice) of K2's wgmma design: as
-    :func:`k1_split` over 128-deep payload tiles, but the grid never
-    passes one wave of ``sms`` blocks (a K2 block holds an SM: its decoded
-    tiles take the shared memory a second block would need), so the
-    slices are as many as fit in the SMs beside the output tiles, every
-    slice whole tiles and none empty; one slice when the output tiles
-    alone fill the card."""
-    tiles = g * _cdiv(m, k1_wgmma_bm(m)) * _cdiv(n, WGMMA_BN)
-    k_tiles = max(1, _cdiv(k, 128))
-    want = max(1, min(sms // tiles, k_tiles))
-    per = _cdiv(k_tiles, want)
-    return _cdiv(k_tiles, per), per
-
-
-@functools.lru_cache(maxsize=4096)
-def k3_split(m: int, n: int, max_count: int, g: int = 1,
-             sms: int = H100_SMS) -> tuple:
-    """(slices, stored tiles a slice) of K3's wgmma design: as
-    :func:`k2_split` with ``max_count``, the most stored tiles of any
-    output column (``TileSparseLayout.max_column_tiles``), in place of the
-    K tiles -- one wave of ``sms`` blocks, every slice whole stored tiles,
-    the last slice of the longest column not empty.  A column with fewer
-    tiles leaves its later slices empty: they count themselves in with a
-    zero partial."""
-    tiles = g * _cdiv(m, k1_wgmma_bm(m)) * _cdiv(n, WGMMA_BN)
-    count = max(1, max_count)
-    want = max(1, min(sms // tiles, count))
-    per = _cdiv(count, want)
-    return _cdiv(count, per), per
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _split_buffers: dict = {}
 
 
@@ -527,10 +451,93 @@ def split_workspaces() -> list:
     return [t for pair in _split_buffers.values() for t in pair]
 
 
+# --- plans -------------------------------------------------------------------
+
+# Each launch's plan by what decides it (design, device, shape, dtypes,
+# transposes, epilogue, and for a packed or sparse B its tag and its most
+# stored tiles a column), so that a repeated launch resolves it with one
+# dict lookup.  The keys are values and hold no operand: a fresh copy of a
+# layout (``astype``) hits.  Dropped whenever the plan cache changes
+# (plan_cache.generation()), and when it reaches _PLANS_MAX shapes.
+_plans: dict = {}
+_plans_generation = -1
+_PLANS_MAX = 1 << 16
+
+
+def _resolve_plan(plan, design, a, b_dtype, m, n, k, g, trans_a, trans_b,
+                  out_dtype, epilogue, layout=None, sparse=False):
+    """The plan of one K1 (``layout`` None), K2 or K3 launch: ``plan`` when
+    given, else a tuned plan from the plan cache, else the memoised
+    analytic plan (for a packed or sparse B with (bn, bk) pinned to the
+    payload, the reference's ``_layout_plan``).  A given or tuned plan is
+    checked against the kernel's limits for this launch and raises outside
+    them; a tuned plan for another design or payload tiling is passed over
+    (counted ``dropped``).  The simt design's kernels take no plan: None,
+    with no lookup, unless one is given.  Plans are keyed with the card's
+    spec (``device_spec``); a CPU tensor, which no kernel takes, with the
+    SXM5 default."""
+    global _plans_generation
+    lay = "" if layout is None else "sparse" if sparse else "packed"
+    max_count = layout.max_column_tiles if sparse else None
+    if plan is None:
+        if design == "simt":
+            return None
+        if _plan_cache.generation() != _plans_generation:
+            _plans.clear()
+            _plans_generation = _plan_cache.generation()
+        key = (design, a.device.index, m, n, k, g, a.dtype, b_dtype,
+               out_dtype, trans_a, trans_b, epilogue.kind,
+               epilogue.activation, epilogue.beta != 0.0, lay,
+               layout.tag if layout is not None else "", max_count)
+        hit = _plans.get(key)
+        if hit is not None:
+            _plan_cache.count_lookup(hit[1])
+            return hit[0]
+    hw = device_spec(a.device.index) if a.is_cuda else DEFAULT_HW
+    launch = dict(design=design, m=m, n=n, k=k, g=g, a_dtype=a.dtype,
+                  b_dtype=b_dtype, trans_a=trans_a, trans_b=trans_b,
+                  layout=lay, sms=hw.sms,
+                  blocks=None if layout is None else (layout.bk, layout.bn),
+                  max_count=max_count)
+    if plan is not None:
+        return check_plan(plan, **launch)
+    key_kw = dict(trans_a=trans_a, trans_b=trans_b, beta=epilogue.beta,
+                  hw=hw, g=g, epilogue=epilogue.tag,
+                  design="fma" if design == "fma" else "")
+    if layout is not None:
+        key_kw["sparsity" if sparse else "layout"] = layout.tag
+    tuned = _plan_cache.lookup_plan(m, n, k, a.dtype, b_dtype, out_dtype,
+                                    **key_kw)
+    if tuned is not None and (tuned.design != design or (
+            layout is not None
+            and (tuned.bn, tuned.bk) != (layout.bn, layout.bk))):
+        _plan_cache.count_lookup("dropped")
+        tuned = None
+    if tuned is not None:
+        resolved, result = check_plan(tuned, **launch), "hit_tuned"
+    else:
+        ed = get_epilogue(epilogue.kind)
+        resolved, result = plan_gemm(
+            m, n, k, a.dtype, b_dtype, out_dtype,
+            "float32" if layout is not None and layout.per_tile_scales
+            else None, beta=epilogue.beta, hw=hw, g=g, design=design,
+            trans_a=trans_a, trans_b=trans_b, layout=lay,
+            blocks=launch["blocks"], max_count=max_count,
+            extra_mn_inputs=sum(1 for x in ed.extra_operands
+                                if x not in ed.row_operands),
+            density=layout.density if sparse else 1.0), "hit_analytic"
+        _plan_cache.note_analytic_fallback(_plan_cache.make_key(
+            m, n, k, a.dtype, b_dtype, out_dtype, **key_kw))
+    if len(_plans) >= _PLANS_MAX:
+        _plans.clear()
+    _plans[key] = (resolved, result)
+    return resolved
+
+
 # --- K1 launch ---------------------------------------------------------------
 
 def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
-            out_dtype, grouped, f32_fma=False):
+            out_dtype, grouped, f32_fma=False, plan=None):
     rank = 3 if grouped else 2
     if b.dim() != rank:
         raise ValueError(f"mpgemm: B must have rank {rank}, got "
@@ -561,8 +568,10 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
         return out
     stream = _build.current_stream(a)
     design = k1_design(a, b, f32_fma)
+    plan = _resolve_plan(plan, design, a, b.dtype, m, n, k, g, trans_a,
+                         trans_b, out_dtype, epilogue)
     if design == "fma":
-        bm, bn = k1_fma_tile(m, n, k, g, _sm_count(a.get_device()))
+        bm, bn = plan.bm, plan.bn
         lib = _fma_lib()
         rc = lib.mpgemm_fma_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), bi, ex, cp, rs, sc,
@@ -570,16 +579,9 @@ def _launch(a, b, c, bias, scale, extras, trans_a, trans_b, epilogue,
             int(trans_b), kind, act, alpha, beta, bm, bn, stream)
         error = lib.mpgemm_fma_error_string
     elif design != "simt":
-        bm = k1_wgmma_bm(m)
-        sms = _sm_count(a.get_device())
-        if design == "tf32x3":
-            # A tf32x3 block holds an SM (its split terms take the shared
-            # memory a second block would need): K2's slices, whole
-            # 128-deep folds within one wave, in stages of 32 K.
-            splits, per = k2_split(m, n, k, g, sms)
-            per *= 128 // WGMMA_BK_F32
-        else:
-            splits, per = k1_split(m, n, k, g, sms, k1_wgmma_bk(a.dtype))
+        # tf32x3: ``per`` counts 32-deep stages, whole 128-deep folds (a
+        # tf32x3 block holds an SM, so its analytic split is K2's).
+        bm, splits, per = plan.bm, plan.splits, plan.per
         partial = counters = None
         if splits > 1:
             partial, counters = _split_workspace(
@@ -664,7 +666,30 @@ def _wgmma_lib(name: str) -> ctypes.CDLL:
     error = getattr(lib, f"{name}_error_string")
     error.argtypes = [i]
     error.restype = ctypes.c_char_p
+    stages = getattr(lib, f"{name}_stages")
+    stages.argtypes = ([i, i, i] if name.startswith("mpgemm_wgmma") else
+                       [i, i]) + [ctypes.POINTER(i)]
+    stages.restype = i
     return lib
+
+
+def compiled_wgmma_stages(name: str, bm: int, *, trans_a: bool = False,
+                          trans_b: bool = False,
+                          payload: Optional[str] = None) -> tuple:
+    """(stages, shared-memory bytes) that the built wgmma library ``name``
+    reports for the instantiation a launch with ``bm`` runs -- K1's by
+    ``trans_a`` and ``trans_b``, K2's and K3's by the ``payload`` dtype:
+    its ``Cfg::kStages`` and ``Cfg::kSmemBytes``, which the planner's eq.
+    (1) (``core/blocking.py::wgmma_stages``) must equal.  (0, 0) for an
+    instantiation the library does not build."""
+    lib = _wgmma_lib(name)
+    smem = ctypes.c_int(0)
+    fn = getattr(lib, f"{name}_stages")
+    if name.startswith("mpgemm_wgmma"):
+        stages = fn(bm, int(trans_a), int(trans_b), ctypes.byref(smem))
+    else:
+        stages = fn(bm, _PAYLOAD_CODES[payload], ctypes.byref(smem))
+    return stages, smem.value if stages else 0
 
 
 # --- K2: packed B ------------------------------------------------------------
@@ -760,14 +785,16 @@ def mpgemm_packed(a: torch.Tensor, b: PackedOperand, *,
                   extras: Sequence[torch.Tensor] = (),
                   epilogue: EpilogueSpec = LINEAR,
                   out_dtype: Optional[torch.dtype] = None,
-                  trans_a: bool = False) -> torch.Tensor:
+                  trans_a: bool = False,
+                  plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """K2: ``out = tail(alpha · (op(a) @ dequant(b)) · scale + bias) +
     beta · c`` for a (M, K), or (K, M) under ``trans_a``, and a packed (K,
     N) operand.  A bf16/f32 ``a`` takes an int8, int4 or fp8e4m3 payload or
     a float payload of its own dtype; an int8 ``a`` takes an int8, int4 or
-    fp8e4m3 payload."""
+    fp8e4m3 payload.  ``plan`` as :func:`mpgemm`'s: its (bk, bn) must be
+    the payload's tile."""
     return _packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   trans_a, grouped=False)
+                   trans_a, plan, grouped=False)
 
 
 def mpgemm_packed_grouped(a: torch.Tensor, b: PackedOperand, *,
@@ -777,13 +804,14 @@ def mpgemm_packed_grouped(a: torch.Tensor, b: PackedOperand, *,
                           extras: Sequence[torch.Tensor] = (),
                           epilogue: EpilogueSpec = LINEAR,
                           out_dtype: Optional[torch.dtype] = None,
-                          trans_a: bool = False) -> torch.Tensor:
+                          trans_a: bool = False,
+                          plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """Grouped K2: :func:`mpgemm_packed` for a (G, M, K), or (G, K, M)
     under ``trans_a``, against a packed operand of G groups
     (``layout.g``), in one launch; bias (G, N) or a shared (N,), c and
     extras (G, M, N)."""
     return _packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   trans_a, grouped=True)
+                   trans_a, plan, grouped=True)
 
 
 def _a_for_kernel(a, trans_a):
@@ -792,8 +820,8 @@ def _a_for_kernel(a, trans_a):
     return a.transpose(-1, -2).contiguous() if trans_a else a
 
 
-def _packed(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, *,
-            grouped):
+def _packed(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, plan,
+            *, grouped):
     out_dtype = out_dtype or _default_out_dtype(a.dtype)
     extras = tuple(extras)
     _check_extras(epilogue, extras)
@@ -807,7 +835,7 @@ def _packed(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, *,
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm_packed: unsupported device {a.device}")
     out = _launch_packed(_a_for_kernel(a, trans_a), b, c, bias, scale, extras,
-                         epilogue, out_dtype, grouped)
+                         epilogue, out_dtype, grouped, plan)
     (mpgemm_packed_grouped if grouped else mpgemm_packed).trans_a_launches \
         += int(trans_a)
     return out
@@ -817,7 +845,7 @@ def _packed(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, *,
 _K2_WGMMA_PAIRS = {(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
                    (torch.bfloat16, "int4"), (torch.bfloat16, "fp8e4m3"),
                    (torch.int8, "int8"), (torch.int8, "int4")}
-K2_WGMMA_TILE = (128, 128)
+K2_WGMMA_TILE = WGMMA_PAYLOAD_TILE
 
 
 def k2_design(a: torch.Tensor, b: PackedOperand) -> str:
@@ -843,7 +871,7 @@ def k2_design(a: torch.Tensor, b: PackedOperand) -> str:
 
 
 def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   grouped):
+                   grouped, plan=None):
     layout = b.layout
     if layout.dtype not in _PAYLOAD_CODES:
         raise NotImplementedError(f"packed payload {layout.dtype!r}")
@@ -872,14 +900,16 @@ def _launch_packed(a, b, c, bias, scale, extras, epilogue, out_dtype,
     stream = _build.current_stream(a)
     ts = _ptr(tile_scales) if layout.per_tile_scales else None
     wgmma = k2_design(a, b) == "wgmma"
+    g, k = layout.g, layout.k
+    plan = _resolve_plan(plan, "wgmma" if wgmma else "simt", a, layout.dtype,
+                         m, n, k, g, False, False, out_dtype, epilogue,
+                         layout)
     if wgmma:
-        g, k = layout.g, layout.k
         int8 = a.dtype == torch.int8
-        bm = k1_wgmma_bm(m)
+        bm, splits = plan.bm, plan.splits
         # Slices of whole payload tiles (128 deep), in stages of 128 bytes
         # of K: two a tile for bf16 A.
-        splits, per = k2_split(m, n, k, g, _sm_count(a.get_device()))
-        per *= 128 // k1_wgmma_bk(a.dtype)
+        per = plan.per * (plan.bk // k1_wgmma_bk(a.dtype))
         partial = counters = None
         if splits > 1:
             partial, counters = _split_workspace(
@@ -1014,15 +1044,17 @@ def mpgemm_sparse(a: torch.Tensor, b: TileSparseOperand, *,
                   extras: Sequence[torch.Tensor] = (),
                   epilogue: EpilogueSpec = LINEAR,
                   out_dtype: Optional[torch.dtype] = None,
-                  trans_a: bool = False) -> torch.Tensor:
+                  trans_a: bool = False,
+                  plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """K3: ``out = tail(alpha · (op(a) @ b) · scale + bias) + beta · c``
     for a (M, K), or (K, M) under ``trans_a``, and a tile-sparse (K, N)
     operand, walking only its stored tiles: bf16 ``a`` against a bf16
     payload, f32 against f32, and an int8 payload with per-tile scales
     against int8 ``a`` (``scale`` then carries the int8 policy's sx) or
-    against bf16 or f32 ``a``."""
+    against bf16 or f32 ``a``.  ``plan`` as :func:`mpgemm_packed`'s (its
+    ``per`` counts a column's stored tiles)."""
     return _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   trans_a, grouped=False)
+                   trans_a, plan, grouped=False)
 
 
 def mpgemm_sparse_grouped(a: torch.Tensor, b: TileSparseOperand, *,
@@ -1032,17 +1064,18 @@ def mpgemm_sparse_grouped(a: torch.Tensor, b: TileSparseOperand, *,
                           extras: Sequence[torch.Tensor] = (),
                           epilogue: EpilogueSpec = LINEAR,
                           out_dtype: Optional[torch.dtype] = None,
-                          trans_a: bool = False) -> torch.Tensor:
+                          trans_a: bool = False,
+                          plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """Grouped K3: :func:`mpgemm_sparse` for a (G, M, K), or (G, K, M)
     under ``trans_a``, against a sparse operand of G groups
     (``layout.g``), in one launch; bias (G, N) or a shared (N,), c and
     extras (G, M, N)."""
     return _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   trans_a, grouped=True)
+                   trans_a, plan, grouped=True)
 
 
-def _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, *,
-            grouped):
+def _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, plan,
+            *, grouped):
     out_dtype = out_dtype or _default_out_dtype(a.dtype)
     extras = tuple(extras)
     _check_extras(epilogue, extras)
@@ -1055,7 +1088,7 @@ def _sparse(a, b, c, bias, scale, extras, epilogue, out_dtype, trans_a, *,
     if a.device.type != "cuda":
         raise ValueError(f"mpgemm_sparse: unsupported device {a.device}")
     out = _launch_sparse(_a_for_kernel(a, trans_a), b, c, bias, scale, extras,
-                         epilogue, out_dtype, grouped)
+                         epilogue, out_dtype, grouped, plan)
     (mpgemm_sparse_grouped if grouped else mpgemm_sparse).trans_a_launches \
         += int(trans_a)
     return out
@@ -1074,7 +1107,7 @@ def _check_on(name, t, shape, dtype, device):
 # (A dtype, payload) pairs of K3's wgmma design, and its tile.
 _K3_WGMMA_PAIRS = {(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
                    (torch.int8, "int8")}
-K3_WGMMA_TILE = (128, 128)
+K3_WGMMA_TILE = WGMMA_PAYLOAD_TILE
 
 
 def k3_design(a: torch.Tensor, b: TileSparseOperand) -> str:
@@ -1098,7 +1131,7 @@ def k3_design(a: torch.Tensor, b: TileSparseOperand) -> str:
 
 
 def _launch_sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
-                   grouped):
+                   grouped, plan=None):
     layout, dev = b.layout, a.device
     p_dtype = torch.int8 if layout.per_tile_scales else a.dtype
     _check_on("payload", b.payload, layout.payload_shape, p_dtype, dev)
@@ -1118,11 +1151,12 @@ def _launch_sparse(a, b, c, bias, scale, extras, epilogue, out_dtype,
     stream = _build.current_stream(a)
     ts = _ptr(b.scales) if layout.per_tile_scales else None
     wgmma = k3_design(a, b) == "wgmma"
+    g = layout.g
+    plan = _resolve_plan(plan, "wgmma" if wgmma else "simt", a, layout.dtype,
+                         m, n, layout.k, g, False, False, out_dtype, epilogue,
+                         layout, sparse=True)
     if wgmma:
-        g = layout.g
-        bm = k1_wgmma_bm(m)
-        splits, per = k3_split(m, n, layout.max_column_tiles, g,
-                               _sm_count(a.get_device()))
+        bm, splits, per = plan.bm, plan.splits, plan.per
         partial = counters = None
         if splits > 1:
             partial, counters = _split_workspace(

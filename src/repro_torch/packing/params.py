@@ -11,12 +11,14 @@ for the (E, d, f) expert stacks of ``MOE_GROUPED_LEAVES``:
     policy int8                      ->  int8 payload + per-tile scales
     pack_format int8 / int4 / fp8    ->  that codec, under any policy
 
-**Blocks.**  The reference takes (bk, bn) from its TPU block planner, which
-gives 2048 x 2048 at every phi3-mini shape: K = 3072 would pad to 4096 and
-waste a third of the weight bytes.  Until the Hopper planner is ported
-(ROADMAP A7), the port's rule is ``bk = min(128, k)``, ``bn = min(128, n)``
-(:func:`default_blocks`).  ``blocks=`` overrides it, so that a parity test
-can hand both packages the same blocks.
+**Blocks.**  The reference takes (bk, bn) from its TPU block planner, seeded
+with the serve CLI's ``m_hint``; it gives 2048 x 2048 at every phi3-mini
+shape, where K = 3072 would pad to 4096.  The Hopper planner
+(``core/blocking.py``) pins a packed operand's (bk, bn) to the payload tile
+K2's wgmma design reads, ``WGMMA_PAYLOAD_TILE`` (128 x 128) clamped to the
+extent, whatever M is (M moves only bm, which each launch's plan picks):
+:func:`default_blocks`, with no ``m_hint``.  ``blocks=`` overrides it, so
+that a parity test can hand both packages the same blocks.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from repro_torch.core.codecs import (
     CODECS, canonical_payload_dtype, get_codec,
 )
+from repro_torch.core.constants import WGMMA_PAYLOAD_TILE
 from repro_torch.core.policy import get_policy
 from repro_torch.core.quantization import QUANT_LEAVES
 from repro_torch.packing.layout import PackedOperand
@@ -35,12 +38,11 @@ from repro_torch.packing.pack import pack_operand
 # Leaves that are grouped (expert-batched) when 3-D.
 MOE_GROUPED_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
 
-BLOCK = 128
-
-
 def default_blocks(k: int, n: int) -> Tuple[int, int]:
-    """The port's packing blocks: 128 x 128 tiles, clamped to the extent."""
-    return min(BLOCK, k), min(BLOCK, n)
+    """The payload tile the Hopper planner pins for a (k, n) weight:
+    ``WGMMA_PAYLOAD_TILE``, clamped to the extent."""
+    bk, bn = WGMMA_PAYLOAD_TILE
+    return min(bk, k), min(bn, n)
 
 
 def payload_dtype(policy, pack_format: Optional[str] = None) -> str:

@@ -107,7 +107,7 @@ class TileSparseLayout:
     @functools.cached_property
     def max_column_tiles(self) -> int:
         """The most stored tiles of any output column (K3's wgmma split,
-        ``kernels/mpgemm.py::k3_split``), from the host-side ``indptr``:
+        ``core/blocking.py::k3_split``), from the host-side ``indptr``:
         computed once a layout, so that no launch reads the device copy
         or walks the tuple."""
         return max((self.indptr[c + 1] - self.indptr[c]
@@ -145,9 +145,10 @@ class TileSparseLayout:
                     if self.indptr[c] == self.indptr[c + 1])
         return self.nnz + empty
 
-    @property
+    @functools.cached_property
     def pattern_digest(self) -> str:
-        """Short content fingerprint of the sparsity pattern."""
+        """Short content fingerprint of the sparsity pattern (computed once
+        a pattern: :meth:`TileSparseOperand.astype` hands it on)."""
         h = hashlib.sha256()
         h.update(repr((self.indptr, self.indices)).encode())
         return h.hexdigest()[:8]
@@ -260,6 +261,10 @@ class TileSparseOperand:
         if self.layout.per_tile_scales or self.payload.dtype == dtype:
             return self
         layout = dataclasses.replace(self.layout, dtype=dtype_name(dtype))
+        # The pattern is the same: hand on what is computed from it (once,
+        # on this operand's layout), so that a cast a call costs no walk.
+        for name in ("max_column_tiles", "pattern_digest"):
+            vars(layout)[name] = getattr(self.layout, name)
         return TileSparseOperand(self.payload.to(dtype), None, layout,
                                  self.indptr, self.indices)
 

@@ -22,9 +22,10 @@ values.  Scores are summed on the weights' device in f64, layer by layer
 in layer order, then divided by the group's size (the reference's numpy
 mean over the stacked axis); the masks run on the host.
 
-**Blocks.**  ``blocks=(bk, bn)`` sets the lattice; by default the port's
-128 x 128 ``default_blocks`` (the reference's TPU planner is not ported,
-ROADMAP A7), clamped to each weight's extent.
+**Blocks.**  ``blocks=(bk, bn)`` sets the lattice; by default the payload
+tile the Hopper planner pins for K3's wgmma design (``core/blocking.py``),
+128 x 128 clamped to each weight's extent (``packing/params.py::
+default_blocks``; the reference's ``m_hint`` moves no Hopper block).
 """
 from __future__ import annotations
 

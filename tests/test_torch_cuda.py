@@ -2713,3 +2713,209 @@ def test_k1_fma_design_at_the_recurrent_shapes(gen, g, m, n, k):
     assert fn.fma_launches == before + 2
     assert torch.equal(got, again) and torch.equal(got, scalar)
     torch.testing.assert_close(got, mpgemm_plain(a, b), **TOL[torch.float32])
+
+
+# --- the block planner on the card (core/blocking.py, tuning/) --------------
+
+# Each wgmma library with the operand bytes of A and the payloads it builds
+# (None: K1's dense B, whose instantiations differ by the transposes).
+WGMMA_LIBRARIES = [
+    ("mpgemm_wgmma", 2, None), ("mpgemm_wgmma_int8", 1, None),
+    ("mpgemm_wgmma_f32", 4, None),
+    ("mpgemm_packed_wgmma", 2, "bfloat16"), ("mpgemm_packed_wgmma", 2, "int8"),
+    ("mpgemm_packed_wgmma", 2, "int4"), ("mpgemm_packed_wgmma", 2, "fp8e4m3"),
+    ("mpgemm_packed_wgmma_int8", 1, "int8"),
+    ("mpgemm_packed_wgmma_int8", 1, "int4"),
+    ("mpgemm_sparse_wgmma", 2, "bfloat16"), ("mpgemm_sparse_wgmma", 2, "int8"),
+    ("mpgemm_sparse_wgmma_int8", 1, "int8"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,a_bytes,payload", WGMMA_LIBRARIES)
+def test_wgmma_stages_match_the_compiled_kernel(gen, name, a_bytes, payload):
+    """The planner's eq. (1) (``wgmma_stages``, ``vmem_working_set``) is the
+    ring each compiled instantiation reports (``Cfg::kStages``,
+    ``Cfg::kSmemBytes``), at both tile rows and every transpose pair."""
+    from repro_torch.core.blocking import vmem_working_set, wgmma_stages
+    from repro_torch.core.codecs import dtype_bytes
+    from repro_torch.kernels.mpgemm import compiled_wgmma_stages
+
+    packed = payload is not None
+    b_bytes = dtype_bytes(payload) if packed else a_bytes
+    pairs = ([(False, False)] if packed else
+             [(False, False), (True, False), (False, True), (True, True)])
+    for bm in (64, 128):
+        for ta, tb in pairs:
+            want = (wgmma_stages(bm, a_bytes, b_bytes, trans_a=ta,
+                                 trans_b=tb, packed=packed),
+                    vmem_working_set(bm, 128, 128, a_bytes, b_bytes, 4,
+                                     trans_a=ta, trans_b=tb, packed=packed))
+            assert compiled_wgmma_stages(name, bm, trans_a=ta, trans_b=tb,
+                                         payload=payload) == want, (bm, ta,
+                                                                    tb)
+    assert compiled_wgmma_stages(name, 96, payload=payload) == (0, 0)
+
+
+def _plan_case(gen, case):
+    """(launch(plan=None), plain(), the analytic plan, another plan the
+    kernel takes, the plan-cache key the launch reads) of one kernel."""
+    from repro_torch.core.blocking import (
+        grouped_plan_from_2d, plan_gemm, plan_with_blocks,
+    )
+    from repro_torch.core.constants import device_spec
+    from repro_torch.core.gemm_spec import GemmSpec
+    from repro_torch.kernels import mpgemm as K
+    from repro_torch.packing.pack import pack_operand
+    from repro_torch.sparse import sparsify_magnitude
+    from repro_torch.tuning.plan_cache import make_key
+
+    hw = device_spec(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    g, fma, layout, key_kw = 1, False, "", {}
+    if case in ("k1-bf16", "k1-int8", "k1-tf32x3", "k1-fma", "k1g-bf16"):
+        m, k, n, dt = {"k1-bf16": (32, 3072, 1024, bf16),
+                       "k1-int8": (32, 2048, 512, torch.int8),
+                       "k1-tf32x3": (200, 1024, 256, f32),
+                       "k1-fma": (40, 512, 96, f32),
+                       "k1g-bf16": (16, 1024, 512, bf16)}[case]
+        g, fma = (4 if case == "k1g-bf16" else 1), case == "k1-fma"
+        lead = (g,) if g > 1 else ()
+        if dt == torch.int8:
+            a = torch.randint(-127, 127, (*lead, m, k), generator=gen,
+                              device="cuda", dtype=dt)
+            b = torch.randint(-127, 127, (*lead, k, n), generator=gen,
+                              device="cuda", dtype=dt)
+        else:
+            a = torch.randn(*lead, m, k, generator=gen, device="cuda").to(dt)
+            b = (torch.randn(*lead, k, n, generator=gen, device="cuda")
+                 * k ** -0.5).to(dt)
+        b_dtype, out = dt, (torch.int32 if dt == torch.int8 else dt)
+        fn = K.mpgemm_grouped if g > 1 else K.mpgemm
+        spec = GemmSpec(grouped=g > 1)
+        design = K.k1_design(a, b, fma)
+        if fma:
+            key_kw["design"] = "fma"
+
+        def plain():
+            return K.mpgemm_plain(a, b)
+    else:
+        m, k, n = 8, 1024, 768
+        w = torch.randn(k, n, generator=gen, device="cuda")
+        a = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+        if case == "k2-int4":
+            b = pack_operand(w, (128, 128), dtype="int4")
+            design, layout = K.k2_design(a, b), "packed"
+            key_kw["layout"] = b.layout.tag
+        else:
+            b = sparsify_magnitude(w, (128, 128), density=0.5, dtype=bf16)
+            design, layout = K.k3_design(a, b), "sparse"
+            key_kw["sparsity"] = b.layout.tag
+        b_dtype, out, fn, spec = b.layout.dtype, bf16, K.mpgemm, GemmSpec()
+
+        def plain():
+            return (K.mpgemm_packed_plain if layout == "packed"
+                    else K.mpgemm_sparse_plain)(a, b)
+    assert design == ("fma" if fma else "tf32x3" if case == "k1-tf32x3"
+                      else "wgmma")
+    max_count = b.layout.max_column_tiles if layout == "sparse" else None
+    kw = dict(hw=hw, design=design, layout=layout, max_count=max_count)
+    analytic = plan_gemm(m, n, k, a.dtype, b_dtype, out, g=g, **kw)
+    if fma:
+        other = plan_with_blocks(m, n, k, 32, 32, 16, a.dtype, b_dtype, out,
+                                 g=g, **kw)
+    else:
+        bm = 192 - analytic.bm          # the other of 64 and 128
+        splits, per = {"k1-bf16": (4, 12), "k1-int8": (2, 8),
+                       "k1-tf32x3": (1, 32), "k1g-bf16": (2, 8),
+                       "k2-int4": (2, 4),
+                       "k3-bf16": (2, -(-max_count // 2)) if max_count
+                       else (1, 1)}[case]
+        other = plan_with_blocks(m, n, k, bm, analytic.bn, analytic.bk,
+                                 a.dtype, b_dtype, out, g=g, splits=splits,
+                                 per=per, **kw)
+    other = grouped_plan_from_2d(other, g)
+    key = make_key(m, n, k, a.dtype, b_dtype, out, hw=hw, g=g, **key_kw)
+
+    def launch(plan=None):
+        return fn(a, b, spec=spec, out_dtype=out, f32_fma=fma, plan=plan)
+    return launch, plain, analytic, other, key
+
+
+PLAN_CASES = ["k1-bf16", "k1-int8", "k1-tf32x3", "k1-fma", "k1g-bf16",
+              "k2-int4", "k3-bf16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_launch_without_a_plan_is_the_analytic_plan(gen, case):
+    """``mpgemm`` without ``plan=`` (the empty default cache: the memoised
+    analytic plan) gives the bits of the same launch with the analytic
+    plan passed in."""
+    from repro_torch.tuning import plan_cache as pc
+    pc.set_plan_cache(pc.PlanCache(None))
+    try:
+        launch, _, analytic, _, _ = _plan_case(gen, case)
+        got = launch()
+        torch.cuda.synchronize()
+        assert torch.equal(got, launch(analytic))
+    finally:
+        pc.reset_plan_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_tuned_plan_launches_and_holds_the_plain_version(gen, case):
+    """A plan with the other tile rows or another split (the fma design:
+    another tile) launches, given or from the cache (a ``hit_tuned``
+    lookup, the same bits), and holds the plain version within the
+    gates; the fma design's tiles keep its bits."""
+    from repro_torch.tuning import plan_cache as pc
+    cache = pc.PlanCache(None)
+    pc.set_plan_cache(cache)
+    try:
+        launch, plain, analytic, other, key = _plan_case(gen, case)
+        assert (other.bm, other.bn, other.split) != (
+            analytic.bm, analytic.bn, analytic.split)
+        given = launch(other)
+        cache.put(key, other)
+        hits = pc.lookup_counts()["hit_tuned"]
+        cached = launch()
+        torch.cuda.synchronize()
+        assert pc.lookup_counts()["hit_tuned"] == hits + 1
+        assert torch.equal(given, cached)
+        want = plain()
+        if want.dtype == torch.int32 or case == "k1-fma":
+            assert torch.equal(given, want if case != "k1-fma"
+                               else launch(analytic))
+        torch.testing.assert_close(given.float(), want.float(),
+                                   **TOL.get(want.dtype, dict(atol=0,
+                                                              rtol=0)))
+    finally:
+        pc.reset_plan_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_outside_the_kernel_limits_raises(gen, case):
+    """A plan the kernel does not take -- bm 96, a slice left empty, a
+    ring of other stages -- raises at launch, given or cached: nothing
+    clamps it or falls back."""
+    import dataclasses
+    from repro_torch.tuning import plan_cache as pc
+    cache = pc.PlanCache(None)
+    pc.set_plan_cache(cache)
+    try:
+        launch, _, analytic, _, key = _plan_case(gen, case)
+        total = analytic.splits * analytic.per
+        for bad in (dataclasses.replace(analytic, bm=96),
+                    dataclasses.replace(analytic, splits=total + 1, per=1),
+                    dataclasses.replace(analytic,
+                                        stages=analytic.stages + 1)):
+            with pytest.raises(ValueError, match="outside the kernel"):
+                launch(bad)
+            cache.put(key, bad)
+            with pytest.raises(ValueError, match="outside the kernel"):
+                launch()
+    finally:
+        pc.reset_plan_cache()
