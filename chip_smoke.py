@@ -2501,9 +2501,10 @@ TRACE_KERNELS = (("mpgemm_sparse", "K3"),
 
 
 def _profile_decode_step(torch, step, label, step_ms,
-                         what="one two-row decode step"):
+                         what="one two-row decode step", kinds_out=None):
     """One two-row decode step (``step()``; ``what`` names another step)
-    under ``torch.profiler``: the
+    under ``torch.profiler`` (``kinds_out``, a dict, receives the device's
+    (count, ms) by kind): the
     device's busy time (the union of its kernels' and copies' spans)
     against the traced step's span (from the step's first host op to its
     last device op) and against ``step_ms``, the same step's time untraced
@@ -2584,6 +2585,8 @@ def _profile_decode_step(torch, step, label, step_ms,
           f"{(hi - t0) / 1e3:.3f} ms")
     print(f"[profile:{label}] device ops by kind (count, ms): " + ", ".join(
         f"{k} {n} {ms:.3f}" for k, (n, ms) in sorted(kinds.items())))
+    if kinds_out is not None:
+        kinds_out.update(kinds)
     top = sorted(names.items(), key=lambda kv: -kv[1][1])[:8]
     print(f"[profile:{label}] the device's longest ops (count, ms): " +
           "; ".join(f"{name[:90]} {n} {ms:.3f}" for name, (n, ms) in top))
@@ -4833,8 +4836,8 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     ``trans_b`` for a (k, n) weight; a tied head's dx reads the (V, d)
     embedding as it is) and a dW launch (``trans_a``) for every GEMM whose
     input and weight need them, plus the recompute of z for a gated
-    SwiGLU GEMM; the head GEMM once per loss chunk, which the loss always
-    rematerialises.  Attention's backward is torch ops (no K4); a
+    SwiGLU GEMM; the head GEMM a loss chunk of 512 tokens, which the loss
+    always rematerialises (forward twice, dx, dW).  Attention's backward is torch ops (no K4); a
     recurrence's scan is torch ops (its per-chunk remat reruns no
     kernel).  K7 never runs: the weights are dense.  Under bf16 and int8
     the wgmma design runs every bf16 and int8 K1 launch (``k1_wgmma``,
@@ -4855,10 +4858,11 @@ def _want_train_launches(cfg, remat=True, seq=128, policy="bf16"):
     per = {key: sum(_TRAIN_LAYER[kind][key] for kind in cfg.pattern)
            for key in _TRAIN_LAYER["dense"]}
     want = dict(k2=0, k2g=0, k3=0, k3g=0, k5=0, k6=0, k7=0)
+    # The head a loss chunk: forward, its remat, dx and dW.
     want["k1"] = (r * per["fwd"] + per["dx"] + per["dw"] + per["z"]
-                  + 2 * chunks + 2)
-    want["k1_ta"] = per["dw"] + 1
-    want["k1_tb"] = per["dx"] + (2 * chunks if tied else 1)
+                  + 4 * chunks)
+    want["k1_ta"] = per["dw"] + chunks
+    want["k1_tb"] = per["dx"] + (2 if tied else 1) * chunks
     want["k1g"] = r * per["g"] + per["gdx"] + per["gdw"] + per["gz"]
     want["k1g_ta"], want["k1g_tb"] = per["gdw"], per["gdx"]
     want["k4"] = r * per["k4"]
@@ -5086,15 +5090,15 @@ def _deterministic_algorithms(torch):
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
 
-def _train_eager(torch, model, steps):
-    """The training CLI's run (seed 0, batch 4 x seq 128, lr 1e-3,
-    ``steps`` steps from a fresh state) through ``Trainer(cuda_graphs=
-    False)``, the eager loop -> (trainer, params, opt)."""
+def _train_eager(torch, model, steps, batch=4, seq=128):
+    """The training CLI's run (seed 0, batch 4 x seq 128 unless given, lr
+    1e-3, ``steps`` steps from a fresh state) through ``Trainer(
+    cuda_graphs=False)``, the eager loop -> (trainer, params, opt)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    trainer = Trainer(model, ShapeConfig("cli", 128, 4, "train"),
+    trainer = Trainer(model, ShapeConfig("cli", seq, batch, "train"),
                       TrainerConfig(steps=steps, opt=AdamWConfig(lr=1e-3)),
                       seed=0, cuda_graphs=False)
     params, opt = trainer.run()
@@ -5728,6 +5732,443 @@ def _plan_tag(plan):
     return (f"{plan.bm}x{plan.bn}x{plan.bk} s{plan.splits}x{plan.per}")
 
 
+# ----------------------------------------------------------------- phase 8c
+
+def _static_bytes(tree):
+    """Bytes of every tensor of a parameter tree (int8 ``q`` and f32
+    ``scale`` of static int8 weights included)."""
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)
+               if hasattr(t, "element_size"))
+
+
+def _dequantized(torch, tree):
+    """The dense twin of a static int8 tree: every ``{"q", "scale"}`` dict
+    as ``dequantize_tensor(., bf16)``, every other leaf shared."""
+    from repro_torch.core.quantization import dequantize_tensor, is_quantized
+    if is_quantized(tree):
+        return dequantize_tensor(tree, torch.bfloat16)
+    if isinstance(tree, dict):
+        return {k: _dequantized(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_dequantized(torch, v) for v in tree]
+    return tree
+
+
+def _serve_requests(torch, model, params, label):
+    """phase_serve's four requests through a fresh captured continuous
+    engine, the counts set to 0 just before and read just after -> (tokens,
+    engine, launch counts)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, model.cfg.vocab, (int(rng.integers(4, 33)),))
+               .astype(np.int32) for _ in range(4)]
+    eng = ServeEngine(model, params, max_len=64, max_batch=2, page_size=16)
+    finite = _finite_samples(torch, eng)
+    _reset_counters()
+    out = eng.generate([Request(uid=i, prompt=p, max_new_tokens=16)
+                        for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    counts = _read_counters()
+    if (sorted(out) != [0, 1, 2, 3] or not all(out.values())
+            or not all(finite) or not eng.graphs):
+        raise AssertionError(f"{label}: served {sorted(out)}, finite "
+                             f"{finite}, graphs {len(eng.graphs)}")
+    return out, eng, counts
+
+
+def _check_serve_counts(label, cfg, counts, n_steps, pack=False,
+                        sparse=False):
+    """A served run's counts against ``_want_launches`` (no K6: loaded
+    before the counts were set to 0), every bf16 / int8 K1, K2, K3 launch
+    on its wgmma design (the f32 MoE routers on the fma design) and every
+    K5 launch on its split or wgmma design."""
+    want, per_step = _want_launches(cfg, pack, n_steps, sparse=sparse)
+    want["k6"] = 0
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got}, want {want}")
+    routers = cfg.n_layers if cfg.family == "moe" else 0
+    _check_wgmma(label, {
+        "k1": counts["k1_wgmma"], "k1g": counts["k1g_wgmma"],
+        "k2": counts["k2_wgmma"], "k2g": counts["k2g_wgmma"],
+        "k3": counts["k3_wgmma"], "k3g": counts["k3g_wgmma"],
+        "k5": counts["k5_wgmma"] + counts["k5_split"]}, dict(
+        k1=(per_step["k1"] - routers) * n_steps, k1g=want["k1g"],
+        k2=want["k2"], k2g=want["k2g"], k3=want["k3"], k3g=want["k3g"],
+        k5=want["k5"]))
+    if counts["k1_fma"] != routers * n_steps:
+        raise AssertionError(f"{label}: {counts['k1_fma']} K1 launches on "
+                             f"the fma design, want {routers * n_steps}")
+
+
+# Static int8 storage (``core.quantization.quantize_params`` over the bf16
+# weights), served at full width and depth under the bf16 policy.
+STATIC_INT8_PATHS = {
+    "phi3-static-int8": dict(arch="phi3-mini-3.8b"),
+    "granite-static-int8": dict(arch="granite-moe-1b-a400m"),
+}
+
+
+def phase_static_int8(torch, *, label, arch):
+    """Serve 4 requests from static int8 weights (``quantize_params`` over
+    the bf16 weights ``LM.init`` gives, one scale per layer group as the
+    reference's stacked leaves have; ``mp_dot`` dequantizes each weight to
+    bf16 before K1) and from their dense twin (the same dequantized values
+    stored bf16), each on the captured continuous engine: exact launch
+    counts, every K1 launch on the wgmma design but the f32 routers', the
+    same tokens; one replayed two-row decode step's logits bit-equal
+    between the two; weight bytes, the median captured decode step of both,
+    and a replayed step of each timed and traced, the dequantize's share
+    read off their difference."""
+    from repro_torch.configs import base as cb
+    from repro_torch.core.quantization import quantize_params
+    from repro_torch.models.transformer import build_model
+
+    tag = f"static-int8:{label}"
+    model = build_model(cb.get(arch), policy="bf16", device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    dense_gb = _static_bytes(params) / 1e9
+    t0 = time.perf_counter()
+    static = model.load_params(quantize_params(params, cfg=model.cfg))
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    del params
+    twin = _dequantized(torch, static)
+    gc.collect()
+    torch.cuda.empty_cache()
+    static_gb = _static_bytes(static) / 1e9
+    print(f"[{tag}] {model.cfg.name}, {model.cfg.n_layers} layers, bf16 "
+          f"policy: static int8 weights {static_gb:.3f} GB (bf16 weights "
+          f"{dense_gb:.3f} GB), quantize_params {t_quant:.3f} s")
+    runs = {}
+    for what, p in (("static int8", static), ("dense twin", twin)):
+        out, eng, counts = _serve_requests(torch, model, p, tag)
+        n_steps = len(eng.step_telemetry)
+        _check_serve_counts(f"{tag}:{what}", model.cfg, counts, n_steps)
+        decode = [s.wall_s for s in eng.step_telemetry if s.phase == "decode"]
+        runs[what] = dict(out=out, decode_ms=1e3 * float(np.median(decode)))
+        print(f"[{tag}] {what}: {n_steps} steps, median captured decode "
+              f"step {runs[what]['decode_ms']:.2f} ms; launches K1 "
+              f"{counts['k1']} (wgmma {counts['k1_wgmma']}, fma "
+              f"{counts['k1_fma']}), grouped K1 {counts['k1g']}, K5 "
+              f"{counts['k5']}; tokens sha1 "
+              f"{_sha1(*(np.asarray(out[u]) for u in sorted(out)))}")
+        del eng
+    if runs["static int8"]["out"] != runs["dense twin"]["out"]:
+        raise AssertionError(f"{tag}: the static int8 tokens differ from "
+                             f"the dense twin's")
+    steps, logits = {}, {}
+    for what, p in (("static int8", static), ("dense twin", twin)):
+        replay = _captured_step(torch, model, p, _decode_args(torch, model))
+        logits[what] = replay().clone()
+        steps[what] = replay
+    torch.cuda.synchronize()
+    if not torch.equal(logits["static int8"], logits["dense twin"]):
+        diff = (logits["static int8"].float()
+                - logits["dense twin"].float()).abs().max().item()
+        raise AssertionError(f"{tag}: replayed logits differ from the "
+                             f"dense twin's by {diff}")
+    print(f"[{tag}] one replayed two-row decode step: logits bit-equal to "
+          f"the dense twin's; served tokens identical")
+    timed = {}
+    for what, replay in steps.items():
+        _, done = _decode_step_times(torch, replay)
+        kinds = {}
+        busy, idle = _profile_decode_step(
+            torch, replay, f"{tag}:{what}", done,
+            what=f"one replayed two-row decode step ({what})",
+            kinds_out=kinds)
+        timed[what] = dict(done=done, busy=busy, kinds=kinds)
+    s, d = timed["static int8"], timed["dense twin"]
+    torch_ms = {w: t["kinds"].get("torch", (0, 0.0)) for w, t in timed.items()}
+    extra = s["done"] - d["done"]
+    print(f"[{tag}] the dequantize in a replayed step: {extra:.3f} ms of "
+          f"{s['done']:.3f} (share {extra / s['done']:.3f}; dense twin "
+          f"{d['done']:.3f} ms); torch ops {torch_ms['static int8'][0]} in "
+          f"{torch_ms['static int8'][1]:.3f} ms against "
+          f"{torch_ms['dense twin'][0]} in {torch_ms['dense twin'][1]:.3f} "
+          f"ms (+{torch_ms['static int8'][1] - torch_ms['dense twin'][1]:.3f}"
+          f" ms, {torch_ms['static int8'][0] - torch_ms['dense twin'][0]} "
+          f"ops)")
+    return dict(static_gb=static_gb, dense_gb=dense_gb,
+                decode_ms=runs["static int8"]["decode_ms"],
+                twin_decode_ms=runs["dense twin"]["decode_ms"],
+                step_ms=s["done"], twin_step_ms=d["done"])
+
+
+# Training at long sequences: batch 1, 2 layers, 3 steps.  phi3-mini at
+# seq 16384 takes the chunked backward, h2o-danube3-4b (window 4096) at
+# seq 12288 > 2 x 4096 the banded one (``backward_form``).
+LONG_TRAIN_PATHS = {
+    "phi3-seq16384": dict(arch="phi3-mini-3.8b", seq=16384, form="chunked"),
+    "danube3-seq12288": dict(arch="h2o-danube3-4b", seq=12288,
+                             form="banded"),
+}
+LONG_TRAIN_LAYERS = 2
+LONG_TRAIN_STEPS = 3
+# The backward forms held to the dense backward: one layer's attention at
+# full width, seq 4096.
+LONG_FORM_SEQ = 4096
+
+
+def _long_form_vs_dense(torch, label, cfg):
+    """One layer's attention at ``LONG_FORM_SEQ`` (the config's heads,
+    window and head width, bf16, seed 5): dq, dk and dv of the form
+    ``backward_form`` picks against the dense backward's, within bf16's
+    bound of the largest |grad|; each backward timed, its peak printed."""
+    from repro_torch.models import attention as A
+
+    t, window = LONG_FORM_SEQ, cfg.window
+    form = A.backward_form(t, t, causal=True, window=window)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(1, cfg.n_heads, t, cfg.head_dim, generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn(1, cfg.n_kv_heads, t, cfg.head_dim, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    do = torch.randn_like(q)
+    ts = [a.requires_grad_(True) for a in (q, k, v)]
+    grads, report = {}, {}
+    for what, fn in ((form, lambda: A.attention_core(
+            *ts, causal=True, window=window)),
+                     ("dense", lambda: A.dense_attention(
+                         *ts, causal=True, window=window))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        grads[what] = torch.autograd.grad(fn(), ts, do)
+        torch.cuda.synchronize()
+        report[what] = (1e3 * (time.perf_counter() - t0),
+                        (torch.cuda.max_memory_allocated() - base) / 1e9)
+    errs = []
+    for name, g, w in zip("qkv", grads[form], grads["dense"]):
+        err = (g.float() - w.float()).abs().max().item()
+        bound = TOL["bfloat16"]["atol"] * w.float().abs().max().item()
+        errs.append(err / max(bound, 1e-30))
+        if not err <= bound:
+            raise AssertionError(f"{label}: d{name} of the {form} backward "
+                                 f"is {err:.3e} from the dense one's "
+                                 f"(bound {bound:.3e})")
+    print(f"[long-train:{label}] one layer's attention at seq {t} (H "
+          f"{cfg.n_heads}:{cfg.n_kv_heads}, D {cfg.head_dim}, window "
+          f"{window}): the {form} backward's dq, dk, dv within "
+          f"{max(errs):.3f} of bf16's bound of the dense one's; forward + "
+          f"backward {report[form][0]:.2f} ms, peak {report[form][1]:.2f} "
+          f"GB against dense {report['dense'][0]:.2f} ms, "
+          f"{report['dense'][1]:.2f} GB")
+    return form
+
+
+def phase_long_train(torch, *, label, arch, seq, form):
+    """Train ``LONG_TRAIN_STEPS`` steps of batch 1 x ``seq`` at
+    ``LONG_TRAIN_LAYERS`` layers through ``launch.train.main`` (the step
+    captured after the first), then the same run on the eager loop: finite
+    losses, exact launch counts (``_want_train_launches`` at this seq),
+    the captured run bit-equal to the eager one, step times and peak
+    memory; before it, the form's backward against the dense one
+    (``_long_form_vs_dense``)."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.attention import backward_form
+
+    full = cb.get(arch)
+    cfg = dataclasses.replace(full, n_layers=LONG_TRAIN_LAYERS,
+                              block_pattern=full.block_pattern[
+                                  :LONG_TRAIN_LAYERS])
+    picked = backward_form(seq, seq, causal=True, window=cfg.window)
+    if picked != form:
+        raise AssertionError(f"long-train:{label}: backward form {picked}, "
+                             f"want {form}")
+    _long_form_vs_dense(torch, label, cfg)
+    steps = LONG_TRAIN_STEPS
+    argv = ["--arch", arch, "--policy", "bf16", "--batch", "1", "--seq",
+            str(seq), "--seed", "0", "--layers", str(LONG_TRAIN_LAYERS),
+            "--steps", str(steps)]
+    runs, counts = {}, {}
+    for what in ("captured", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counters()
+        if what == "captured":
+            trainer, params, opt = train_cli.main(argv)
+            model = trainer.model
+        else:
+            trainer, params, opt = _train_eager(torch, model, steps,
+                                                batch=1, seq=seq)
+        torch.cuda.synchronize()
+        counts[what] = _read_counters()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        runs[what] = _run_record(trainer, params, opt, host=True)
+        log = runs[what]["log"]
+        times = [1e3 * r["time_s"] for r in log]
+        print(f"[long-train:{label}] {cfg.name} at {LONG_TRAIN_LAYERS} "
+              f"layers, bf16, batch 1 x seq {seq}, {form} attention "
+              f"backward, {what}: losses "
+              f"{[round(r['loss'], 5) for r in log]}, step times (ms) "
+              f"{[round(t, 2) for t in times]}, median of steps 2.. "
+              f"{float(np.median(times[1:])):.2f} ms = "
+              f"{seq / float(np.median(times[1:])) * 1e3:.1f} tokens/s; "
+              f"peak {peak:.2f} GB allocated")
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                   for r in log) or len(log) != steps:
+            raise AssertionError(f"long-train:{label}: bad metrics {log}")
+        if what == "captured" and (trainer.graph is None
+                                   or trainer.graph.replays != steps - 1):
+            raise AssertionError(f"long-train:{label}: want one capture "
+                                 f"and {steps - 1} replays")
+        del trainer, params, opt
+    want = {key: v * steps for key, v in _want_train_launches(
+        model.cfg, seq=seq).items() if key in counts["captured"]}
+    got = {k: counts["captured"][k] for k in want}
+    print(f"[long-train:{label}] launches over {steps} steps: K1 "
+          f"{got['k1']} (wgmma {got['k1_wgmma']}), K4 {got['k4']} (wgmma "
+          f"{got['k4_wgmma']})")
+    if got != want or counts["eager"] != counts["captured"]:
+        raise AssertionError(f"long-train:{label}: launch counts {got} "
+                             f"(eager {counts['eager']}), want {want}")
+    _check_same_run(f"long-{label}", "captured run vs eager run",
+                    _train_distance(torch, runs["captured"], runs["eager"]))
+    del runs, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# Loads through a disk pack cache: a packed and a sparse path of phase 7.
+PACK_CACHE_PATHS = {
+    "phi3-int4": dict(arch="phi3-mini-3.8b", n_layers=16,
+                      init=dict(pack=True, pack_format="int4")),
+    "granite-sparse-int8": dict(arch="granite-moe-1b-a400m", n_layers=12,
+                                policy="int8",
+                                init=dict(sparsity=0.5,
+                                          sparsity_method="nm")),
+}
+
+
+def phase_pack_cache(torch, *, label, arch, n_layers, init, policy="bf16"):
+    """Load the model twice in one process through ``LM.init`` with a
+    ``PackedWeightCache`` on a temporary directory as the process's cache:
+    the first load (a fresh instance) misses every packed or sparse weight
+    and packs each with K6, the second (a new instance on the same
+    directory) hits every one off disk and launches no K6; payloads and
+    scales byte-equal; both served (4 requests, captured) with the same
+    tokens and the served kernels' counts, and one replayed decode step's
+    logits bit-equal.  Cold and warm load seconds and the key digest's
+    seconds a GB."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import base as cb
+    from repro_torch.models.transformer import build_model
+    from repro_torch.packing import cache as pc
+    from repro_torch.packing.layout import PackedOperand
+    from repro_torch.sparse.layout import TileSparseOperand
+
+    tag = f"pack-cache:{label}"
+    cfg = dataclasses.replace(cb.get(arch), n_layers=n_layers)
+    model = build_model(cfg, policy=policy, device="cuda")
+    directory = _ckpt_dir(8e9)
+    digest = [0.0, 0]
+    plain_digest = pc.weight_digest
+
+    def timed_digest(w):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_digest(w)
+        digest[0] += time.perf_counter() - t0
+        digest[1] += w.numel() * w.element_size()
+        return out
+
+    prev = pc.set_pack_cache(None)
+    pc.weight_digest = timed_digest
+    loads = {}
+    try:
+        for run in ("cold", "warm"):
+            cache = pc.PackedWeightCache(directory)
+            pc.set_pack_cache(cache)
+            pc.reset_lookup_counts()
+            digest[:] = [0.0, 0]
+            _reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                                **init)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            k6 = _read_counters()["k6"]
+            ops = [t for t in _operands(params)]
+            n = len(ops)
+            want = (0, n, n) if run == "cold" else (n, 0, 0)
+            got = (cache.hits, cache.misses, k6)
+            print(f"[{tag}] {run} load: {secs:.3f} s, {n} weights, hits "
+                  f"{cache.hits}, misses {cache.misses}, K6 launches {k6}; "
+                  f"lookups {pc.lookup_counts()}; key digests "
+                  f"{digest[1] / 1e9:.3f} GB in {digest[0]:.3f} s = "
+                  f"{digest[0] / max(digest[1] / 1e9, 1e-12):.3f} s a GB")
+            if got != want:
+                raise AssertionError(f"{tag}: {run} load (hits, misses, K6) "
+                                     f"{got}, want {want}")
+            loads[run] = dict(params=params, secs=secs, ops=ops,
+                              s_per_gb=digest[0] / (digest[1] / 1e9))
+    finally:
+        pc.weight_digest = plain_digest
+        pc.set_pack_cache(prev)
+        shutil.rmtree(directory, ignore_errors=True)
+    for a, b in zip(loads["cold"]["ops"], loads["warm"]["ops"]):
+        same = (a.layout == b.layout and torch.equal(
+            a.payload.view(torch.uint8), b.payload.view(torch.uint8)) and (
+            (a.scales is None and b.scales is None)
+            or torch.equal(a.scales, b.scales)))
+        if not same:
+            raise AssertionError(f"{tag}: a warm payload differs: "
+                                 f"{b.layout.describe()}")
+    print(f"[{tag}] every warm payload and scale byte-equal to the cold "
+          f"load's")
+    sparse = isinstance(loads["cold"]["ops"][0], TileSparseOperand)
+    tokens, logits = {}, {}
+    for run in ("cold", "warm"):
+        params = loads[run]["params"]
+        out, eng, counts = _serve_requests(torch, model, params, tag)
+        _check_serve_counts(f"{tag}:{run}", model.cfg, counts,
+                            len(eng.step_telemetry), pack=not sparse,
+                            sparse=sparse)
+        tokens[run] = out
+        del eng
+        logits[run] = _captured_step(torch, model, params,
+                                     _decode_args(torch, model))().clone()
+    torch.cuda.synchronize()
+    if tokens["cold"] != tokens["warm"] or not torch.equal(logits["cold"],
+                                                           logits["warm"]):
+        raise AssertionError(f"{tag}: the warm load serves other tokens or "
+                             f"logits than the cold one")
+    print(f"[{tag}] served from the warm load: tokens identical, a replayed "
+          f"decode step's logits bit-equal to the cold load's")
+    assert isinstance(loads["cold"]["ops"][0], (PackedOperand,
+                                                TileSparseOperand))
+    return dict(cold_s=loads["cold"]["secs"], warm_s=loads["warm"]["secs"],
+                digest_s_per_gb=loads["warm"]["s_per_gb"])
+
+
+def _operands(tree):
+    """Every packed or tile-sparse operand of a parameter tree, in order."""
+    from repro_torch.packing.layout import PackedOperand
+    from repro_torch.sparse.layout import TileSparseOperand
+    if isinstance(tree, (PackedOperand, TileSparseOperand)):
+        return [tree]
+    if isinstance(tree, dict):
+        return [op for v in tree.values() for op in _operands(v)]
+    if isinstance(tree, list):
+        return [op for v in tree for op in _operands(v)]
+    return []
+
+
 def phase_trace_replay(torch, timer=None):
     """The traced-replay fault's reproducer: trace one step of plain torch
     ops first (the profiler, once started, tracks the graphs made after
@@ -5880,6 +6321,19 @@ def main():
         torch.cuda.empty_cache()
     print(f"[time] train phases: {time.perf_counter() - t_phases:.1f} s")
     phase_plans(torch)
+    t_phases = time.perf_counter()
+    for label, kw in STATIC_INT8_PATHS.items():
+        phase_static_int8(torch, label=label, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, kw in LONG_TRAIN_PATHS.items():
+        phase_long_train(torch, label=label, **kw)
+    for label, kw in PACK_CACHE_PATHS.items():
+        phase_pack_cache(torch, label=label, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[time] static int8, long-sequence training and pack cache "
+          f"phases: {time.perf_counter() - t_phases:.1f} s")
 
     def row(name, source, replaces, launches, numbers, designs=None):
         """One kernel's entry; ``designs`` (or an op row's list of the

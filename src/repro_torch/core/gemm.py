@@ -11,6 +11,10 @@ versions for CPU tensors:
 
 * dense ``b`` under fp32 / bf16: both operands cast to the compute dtype,
   f32 sum (K1);
+* a static int8 ``b`` (``core/quantization.py``'s ``{"q", "scale"}``
+  dict): dequantized first, to the compute dtype, or under int8 to f32,
+  which then takes the dense int8 path below, as the reference's
+  ``_dequant_static`` does (so autograd sees a dense weight);
 * dense ``b`` under int8: both operands quantized per tensor, int32 sum,
   ``sx · sw`` in the epilogue's scale slot (K1's int8 variant); a grouped
   call quantizes the whole (G, M, K) activation buffer and the whole
@@ -73,6 +77,7 @@ from repro_torch.core.gemm_spec import (
 )
 from repro_torch.core.policy import PrecisionPolicy, get_policy, \
     quantize_per_tensor
+from repro_torch.core.quantization import dequantize_tensor, is_quantized
 from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
 from repro_torch.packing.layout import PackedOperand
 from repro_torch.packing.pack import pack_operand, unpack_operand
@@ -192,6 +197,20 @@ def _apply_quant_in(x, w, bias, extras, trans_w, epilogue, ed, policy,
     wq, sw = quantize_per_tensor(w)
     spec = GemmSpec(grouped=grouped, trans_b=trans_w, out_dtype=out_dtype)
     return gemm(xq.contiguous(), wq.contiguous(), scale=sw, spec=spec, **kw)
+
+
+def _dequant_static(w, policy: PrecisionPolicy):
+    """A static int8 ``{"q", "scale"}`` dict as a dense weight: f32 under
+    the int8 policy (quantized per call after, as any f32 weight), else the
+    compute dtype.  Any other operand is returned as it is."""
+    if not is_quantized(w):
+        return w
+    return dequantize_tensor(
+        w, torch.float32 if policy.quantized else policy.compute)
+
+
+_OPERANDS = ("a dense tensor, a PackedOperand, a TileSparseOperand or a "
+             "static int8 {'q', 'scale'} dict")
 
 
 def _bwd_policy(policy: PrecisionPolicy) -> PrecisionPolicy:
@@ -325,7 +344,9 @@ def mp_dot(
 
     ``b`` is a dense tensor, a :class:`PackedOperand` or a
     :class:`TileSparseOperand`, whose ``trans_w`` must match the one it
-    was made with (the transpose is resolved at pack / sparsify time).
+    was made with (the transpose is resolved at pack / sparsify time), or a
+    static int8 ``{"q", "scale"}`` dict (``core/quantization.py``),
+    dequantized before the GEMM.
     ``activation`` fuses an activation into the GEMM's store; ``gate``
     fuses ``act(·) · gate`` and ``residual`` fuses ``act(·) + residual``
     (both shaped like the output).  A dense weight already in the compute
@@ -336,6 +357,8 @@ def mp_dot(
     into the epilogue: quantize, GEMM and dequant in one launch, with a
     straight-through backward.  It takes no ``bias`` and no ``gate``.
     """
+    policy = get_policy(policy)
+    b = _dequant_static(b, policy)
     if isinstance(b, (PackedOperand, TileSparseOperand)):
         if b.layout.g != 1:
             raise ValueError(f"grouped {type(b).__name__}: use "
@@ -349,8 +372,8 @@ def mp_dot(
     elif isinstance(b, torch.Tensor):
         n = b.shape[0] if trans_w else b.shape[-1]
     else:
-        raise TypeError(f"mp_dot: unsupported operand {type(b).__name__}")
-    policy = get_policy(policy)
+        raise TypeError(f"mp_dot: unsupported operand {type(b).__name__}; "
+                        f"b is {_OPERANDS}")
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if bias is not None:
@@ -382,12 +405,13 @@ def mp_dot_grouped(
     """y[g, m, n] = tail(x[g, m, k] @ (b[g, n, k]ᵀ if trans_w else
     b[g, k, n]) + bias[g, n]): G independent GEMMs in one launch.
 
-    ``b`` is a dense (G, K, N) tensor or a grouped :class:`PackedOperand`
+    ``b`` is a dense (G, K, N) tensor, a grouped :class:`PackedOperand`
     or :class:`TileSparseOperand` (``layout.g == G``, ``trans_w`` as
-    made).  ``bias`` is (G, N), or one (N,) row that every group adds
-    (the reference broadcasts it to (G, N); the kernels read it with a
-    group stride of 0).  ``gate`` and
-    ``residual`` are (G, M, N).  ``group_sizes`` (G,) marks ragged groups:
+    made), or a static int8 ``{"q", "scale"}`` dict of a (G, K, N) stack,
+    dequantized before the GEMM.  ``bias`` is (G, N), or one (N,) row that
+    every group adds (the reference broadcasts it to (G, N); the kernels
+    read it with a group stride of 0).  ``gate`` and ``residual`` are (G,
+    M, N).  ``group_sizes`` (G,) marks ragged groups:
     rows ``>= group_sizes[g]`` of each output group are zero.
     ``out_dtype`` overrides the policy's output dtype (MoE keeps the
     expert GEMMs' outputs in f32).  ``quant_in`` is :func:`mp_dot`'s, per
@@ -397,6 +421,8 @@ def mp_dot_grouped(
         raise ValueError(f"mp_dot_grouped expects x of rank 3, got "
                          f"{tuple(x.shape)}")
     g = x.shape[0]
+    policy = get_policy(policy)
+    b = _dequant_static(b, policy)
     if isinstance(b, (PackedOperand, TileSparseOperand)):
         if b.layout.g != g:
             raise ValueError(f"group mismatch: x has {g}, payload "
@@ -411,8 +437,8 @@ def mp_dot_grouped(
                              f"{tuple(b.shape)}")
     else:
         raise TypeError(
-            f"mp_dot_grouped: unsupported operand {type(b).__name__}")
-    policy = get_policy(policy)
+            f"mp_dot_grouped: unsupported operand {type(b).__name__}; b is "
+            f"{_OPERANDS}")
     epilogue, extras = _build_epilogue(epilogue, activation, gate, residual,
                                        epilogue_operands, quant_in)
     extras = tuple(e.contiguous() for e in extras)

@@ -1,6 +1,9 @@
 """Attention cores (port of ``repro.models.attention``): the prefill,
-training and cross-attention dispatch :func:`attention_core` (K4 forward,
-the gradient of :func:`dense_attention` backward), one-token decode
+training and cross-attention dispatch :func:`attention_core` (K4 forward;
+backward the gradient of the form the reference's XLA dispatch picks,
+:func:`backward_form`: :func:`dense_attention`, the memory-bounded
+:func:`chunked_attention` or the sliding-window
+:func:`banded_window_attention`, all plain torch ops), one-token decode
 attention against a ring cache (:func:`decode_attention`, plain torch ops,
 as the reference has no kernel there), and paged attention for
 continuous-batching serving (K5).
@@ -12,13 +15,37 @@ o); which physical page backs them is irrelevant to masking.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import (
     NEG_INF, flash_attention, paged_flash_attention,
 )
+
+# The reference's XLA dispatch: dense attention up to this many queries.
+DENSE_MAX_T = 2048
+
+
+def _repeat_kv(k, h: int):
+    """(B, Hkv, T, D) -> (B, H, T, D), each KV head repeated for its group
+    (expand, not repeat_interleave, whose output size would be read on the
+    host).  With one query head a KV head it is still a reshape, which
+    copies a strided K or V to a contiguous one: the layout the dense form
+    has always fed its products, and so their bits."""
+    b, hkv, t, d = k.shape
+    return k[:, :, None].expand(b, hkv, h // hkv, t, d).reshape(b, h, t, d)
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` evaluated again in the backward (its intermediates not
+    kept), as the reference's ``jax.checkpoint`` of a scan body; no RNG
+    state, so that a captured training step can replay it."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def dense_attention(q, k, v, *, causal: bool = True,
@@ -29,12 +56,8 @@ def dense_attention(q, k, v, *, causal: bool = True,
     per-row valid ``lengths``, ``-1e30`` masking, an f32 softmax, ``p``
     rounded to V's dtype, f32 P·V, the result in q's dtype."""
     b, h, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    g = h // hkv
-    # Each KV head repeated for its g query heads (expand, not
-    # repeat_interleave, whose output size would be read on the host).
-    k = k[:, :, None].expand(b, hkv, g, tk, d).reshape(b, h, tk, d)
-    v = v[:, :, None].expand(b, hkv, g, tk, d).reshape(b, h, tk, d)
+    tk = k.shape[2]
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     scale = scale if scale is not None else 1.0 / d ** 0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
@@ -53,15 +76,161 @@ def dense_attention(q, k, v, *, causal: bool = True,
     return out.to(q.dtype)
 
 
+def _online_block(i, j, need_mask, qblk, kblk, vblk, m, l, acc, *, causal,
+                  scale, qc, kc, tk, offset):
+    """One (q-chunk ``i``, kv-chunk ``j``) online-softmax update of the
+    running max ``m``, sum ``l`` and f32 accumulator ``acc``.
+    ``need_mask=False`` skips the causal and tail mask (a block strictly
+    below the diagonal of equal chunks sees every key)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qblk.float(), kblk.float()) * scale
+    if need_mask:
+        dev = s.device
+        qpos = (i * qc + torch.arange(qc, device=dev)[:, None] + offset)
+        kpos = j * kc + torch.arange(kc, device=dev)[None, :]
+        mask = kpos < tk
+        if causal:
+            mask = mask & (kpos <= qpos)
+        s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(-1)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bhqk,bhkd->bhqd", p.to(vblk.dtype).float(), vblk.float())
+    return m_new, l_new, acc_new
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, scale=None,
+                      q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Online-softmax attention over q-chunks x kv-chunks (the reference's
+    XLA path for long sequences): a (q_chunk, kv_chunk) block of scores at
+    a time, each block rematerialised in the backward, so the backward
+    holds one block's scores, never (Tq, Tk).
+
+    Causal self-attention (``tq == tk``) of more than one q-chunk runs the
+    triangular schedule: q-chunk ``i`` visits only the kv chunks its last
+    query can see, and with equal chunks those strictly below the diagonal
+    skip the mask.  Cross or uneven lengths run the rectangular schedule
+    (every kv chunk).  Tails are zero-padded and masked; the causal mask
+    is right-aligned (``tk - tq``).  The reference's triangular schedule
+    visits ``j <= i``, which misses keys when ``q_chunk > kv_chunk``
+    (ROADMAP C); with ``q_chunk <= kv_chunk`` the extra chunks it visits
+    are fully masked and change no bit, so the port's equals it there.
+    """
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    qc, kc = min(q_chunk, tq), min(kv_chunk, tk)
+    qp = F.pad(q, (0, 0, 0, (-tq) % qc))
+    kp = F.pad(k, (0, 0, 0, (-tk) % kc))
+    vp = F.pad(v, (0, 0, 0, (-tk) % kc))
+    nq, nk = qp.shape[2] // qc, kp.shape[2] // kc
+    block = functools.partial(_online_block, causal=causal, scale=scale,
+                              qc=qc, kc=kc, tk=tk, offset=tk - tq)
+    triangular = causal and nq > 1 and tq == tk
+    outs = []
+    for i in range(nq):
+        qblk = qp[:, :, i * qc:(i + 1) * qc]
+        m = torch.full((b, h, qc), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, qc), device=q.device)
+        acc = torch.zeros((b, h, qc, d), device=q.device)
+        last = min(nk - 1, ((i + 1) * qc - 1) // kc) if triangular else nk - 1
+        for j in range(last + 1):
+            need_mask = not (triangular and qc == kc and j < i)
+            m, l, acc = _remat(
+                functools.partial(block, i, j, need_mask), qblk,
+                kp[:, :, j * kc:(j + 1) * kc], vp[:, :, j * kc:(j + 1) * kc],
+                m, l, acc)
+        outs.append(acc / l.clamp_min(1e-30)[..., None])
+    return torch.cat(outs, dim=2)[:, :, :tq].to(q.dtype)
+
+
+def _band_block(n, w, scale, qblk, kprev, kblk, vprev, vblk):
+    """Query block ``n`` of ``window`` rows against its predecessor's keys
+    and its own under the causal window mask (block 0 has no
+    predecessor); f32 scores, softmax, P rounded to V's dtype."""
+    k2 = torch.cat([kprev, kblk], dim=2)
+    v2 = torch.cat([vprev, vblk], dim=2)
+    s = torch.einsum("bhqd,bhkd->bhqk", qblk.float(), k2.float()) * scale
+    dev = s.device
+    qi = torch.arange(w, device=dev)[:, None] + w
+    ki = torch.arange(2 * w, device=dev)[None, :]
+    mask = (ki <= qi) & (ki > qi - w)
+    if n == 0:
+        mask = mask & (ki >= w)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v2.dtype).float(),
+                        v2.float())
+
+
+def banded_window_attention(q, k, v, *, window: int, scale=None):
+    """Causal sliding-window self-attention in O(T · 2·window) (the
+    reference's XLA path for windowed attention): queries in blocks of
+    ``window``, each against its own block and its predecessor's keys
+    (zeros, all masked, before block 0) under the exact causal + window
+    mask; the tail zero-padded.  Each block is rematerialised in the
+    backward, which holds one block's scores.  Exact at any T."""
+    b, h, t, d = q.shape
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    w = window
+    pad = (-t) % w
+    qp, kp, vp = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+    zeros = torch.zeros_like(kp[:, :, :w])
+    outs = []
+    for n in range((t + pad) // w):
+        rows, prev = slice(n * w, (n + 1) * w), slice((n - 1) * w, n * w)
+        outs.append(_remat(
+            functools.partial(_band_block, n, w, scale), qp[:, :, rows],
+            kp[:, :, prev] if n else zeros, kp[:, :, rows],
+            vp[:, :, prev] if n else zeros, vp[:, :, rows]))
+    return torch.cat(outs, dim=2)[:, :, :t].to(q.dtype)
+
+
+def backward_form(tq: int, tk: int, *, causal: bool,
+                  window: Optional[int]) -> str:
+    """The attention form whose gradient :func:`attention_core` takes: the
+    reference's XLA pick (banded when a causal window is shorter than half
+    the sequence, dense up to ``DENSE_MAX_T`` queries, chunked beyond),
+    except where that pick drops the window.  For a causal window with
+    ``DENSE_MAX_T < t <= 2 * window`` the reference runs
+    ``chunked_attention``, which takes no window (ROADMAP C); the port runs
+    the banded form, exact at any length.  A window without causality (no
+    model has one) past ``DENSE_MAX_T`` stays dense, for the same
+    reason."""
+    banded = window is not None and causal and tq == tk
+    if banded and tq > 2 * window:
+        return "banded"
+    if tq <= DENSE_MAX_T:
+        return "dense"
+    if banded:
+        return "banded"
+    return "chunked" if window is None else "dense"
+
+
+def _recompute(q, k, v, causal, window, scale):
+    form = backward_form(q.shape[2], k.shape[2], causal=causal,
+                         window=window)
+    if form == "banded":
+        return banded_window_attention(q, k, v, window=window, scale=scale)
+    if form == "chunked":
+        return chunked_attention(q, k, v, causal=causal, scale=scale)
+    return dense_attention(q, k, v, causal=causal, window=window,
+                           scale=scale)
+
+
 class _Attention(torch.autograd.Function):
-    """K4 forward, the gradient of :func:`dense_attention` backward.
+    """K4 forward; backward the gradient of the form
+    :func:`backward_form` picks.
 
     The reference has no attention-backward kernel: its flash kernel (K4)
     has no VJP, so it trains on its XLA backend, where XLA differentiates
-    ``dense_attention``.  The port keeps K4 for the forward on the card
-    and, on every device, recomputes ``dense_attention`` from the saved
-    q, k, v in the backward and differentiates it with autograd -- the
-    counterpart of the reference's XLA-computed gradient.
+    the form its ``attention_core`` picks there.  The port keeps K4 for
+    the forward on the card and, on every device, recomputes that form
+    from the saved q, k, v in the backward and differentiates it with
+    autograd -- the counterpart of the reference's XLA-computed gradient
+    (with the windowed pick repaired: :func:`backward_form`).
     """
 
     @staticmethod
@@ -78,8 +247,7 @@ class _Attention(torch.autograd.Function):
         with torch.enable_grad():
             qkv = tuple(t.detach().requires_grad_(True)
                         for t in ctx.saved_tensors)
-            out = dense_attention(*qkv, causal=causal, window=window,
-                                  scale=scale)
+            out = _recompute(*qkv, causal, window, scale)
             grads = torch.autograd.grad(out, qkv, do)
         return (*grads, None, None, None)
 
@@ -91,8 +259,9 @@ def attention_core(q, k, v, *, causal: bool = True,
     wrapper, which dispatches by device: its CUDA kernel for CUDA tensors,
     its plain version for CPU tensors (the reference picks its XLA
     algorithms on the CPU; the math is the same).  The backward is the
-    gradient of :func:`dense_attention` (:class:`_Attention` says why);
-    when autograd records nothing (serving) the K4 wrapper runs alone."""
+    gradient of the form :func:`backward_form` picks (:class:`_Attention`
+    says why); when autograd records nothing (serving) the K4 wrapper runs
+    alone."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Attention.apply(q, k, v, causal, window, scale)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),

@@ -26,7 +26,9 @@ weight is a dense tensor or, once packed (``LM.init(pack=True)`` or
 :class:`~repro_torch.packing.layout.PackedOperand`, or once sparsified
 (``LM.init(sparsity=...)`` or ``sparse.params.sparsify_params``), a
 :class:`~repro_torch.sparse.layout.TileSparseOperand` (either grouped for
-an expert stack).
+an expert stack), or, stored in static int8
+(``core.quantization.quantize_params``), the reference's ``{"q": int8,
+"scale": f32 0-d}`` dict, which ``mp_dot`` dequantizes per call.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, segment_pattern
 from repro_torch.core.codecs import dtype_name
 from repro_torch.core.policy import get_policy
+from repro_torch.core.quantization import is_quantized
 from repro_torch.models import blocks as B
 from repro_torch.models import recurrent as R
 from repro_torch.models.layers import (
@@ -198,14 +201,16 @@ class LM:
                              "weight is stored packed-dense or tile-sparse)")
         if not 0.0 <= sparsity < 1.0:
             raise ValueError(f"sparsity must be in [0, 1), got {sparsity}")
-        def prepare(tree):
+        def prepare(tree, path):
             # Pack or cast each part as it is drawn: the f32 draft of a
             # full-width model would not have to fit beside the result.
+            # ``path`` (("layers", 3), ...) names its weights in the pack
+            # cache.
             if sparsity > 0:
                 return tree
             if pack:
                 return pack_params(tree, policy=self.policy,
-                                   pack_format=pack_format)
+                                   pack_format=pack_format, prefix=path)
             return self._cast_layer(tree)
 
         def prepare_head(head):
@@ -227,11 +232,14 @@ class LM:
         distributions of :meth:`init` and no cast: training keeps f32
         weights and ``mp_dot`` casts them per call, as the reference
         does."""
-        return self._draw(generator, lambda tree: tree, lambda head: head)
+        return self._draw(generator, lambda tree, path: tree,
+                          lambda head: head)
 
     def _draw(self, generator, prepare, prepare_head) -> Dict[str, Any]:
         """The f32 draw of every parameter on the model's device, each
-        layer (and the head) passed through ``prepare`` as it is drawn."""
+        layer passed through ``prepare(layer, ("layers" | "encoder",
+        index))`` and the head through ``prepare_head`` as they are
+        drawn."""
         cfg, dev = self.cfg, self.device
         kw = dict(generator=generator, device=dev)
         params: Dict[str, Any] = {
@@ -243,11 +251,12 @@ class LM:
                 torch.randn(cfg.d_model, self.vocab_padded, **kw) * 0.02)
         if cfg.pos_embed == "learned":
             params["pos_embed"] = embed_init(POS_EMBED_ROWS, cfg.d_model, **kw)
-        params["layers"] = [prepare(_INIT[kind](cfg, **kw))
-                            for kind in cfg.pattern]
+        params["layers"] = [prepare(_INIT[kind](cfg, **kw), ("layers", i))
+                            for i, kind in enumerate(cfg.pattern)]
         if cfg.encoder_layers:
-            params["encoder"] = [prepare(B.init_dense(cfg, **kw))
-                                 for _ in range(cfg.encoder_layers)]
+            params["encoder"] = [prepare(B.init_dense(cfg, **kw),
+                                         ("encoder", i))
+                                 for i in range(cfg.encoder_layers)]
             params["enc_norm"] = B.init_norm(cfg, device=dev)
             params["enc_pos"] = embed_init(cfg.encoder_seq, cfg.d_model, **kw)
         return params
@@ -265,8 +274,8 @@ class LM:
         """Move ``params`` to the model's device and cast the dense GEMM
         weights and head to :attr:`weight_dtype` and the embedding and
         position tables to the activation dtype (both what the reference
-        casts them to per use).  Packed and sparse weights move as they
-        are."""
+        casts them to per use).  Packed and sparse weights and static int8
+        ``{"q", "scale"}`` dicts move as they are."""
         dev = self.device
 
         def to(t, dtype=None):
@@ -296,8 +305,13 @@ class LM:
     def train_params(self, params) -> Dict[str, Any]:
         """``params`` (dense tensors, e.g. from :func:`params_from_jax`)
         as f32 master parameters on the model's device: every leaf f32,
-        nothing cast to the policy's dtypes."""
+        nothing cast to the policy's dtypes.  Packed, sparse and static
+        int8 weights are refused (``TypeError``): the reference trains none
+        of them either."""
         def to(node):
+            if is_quantized(node):
+                raise TypeError("training takes dense tensors, got a static "
+                                "int8 {'q', 'scale'} weight")
             if isinstance(node, dict):
                 return {k: to(v) for k, v in node.items()}
             if isinstance(node, list):
@@ -636,7 +650,10 @@ def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
     (``jax.tree_util.tree_map(np.asarray, params)``), as CPU tensors: f32
     for dense leaves, and the port's ``PackedOperand`` / ``TileSparseOperand``
     for the reference's packed (``repro.packing.pack_params``) and sparse
-    (``repro.sparse.sparsify_params``) ones, payload bytes unchanged.
+    (``repro.sparse.sparsify_params``) ones, payload bytes unchanged, and
+    a static int8 ``{"q", "scale"}`` dict (``repro.core.quantization.
+    quantize_params``) as int8 ``q`` (a stacked leaf's sliced at the
+    layer) and the stack's one shared f32 ``scale``.
 
     The reference keeps ``stack``, one dict per unit kind with a leading
     ``n_units`` axis, and ``tail``, a list; layer ``u * len(unit) + p`` is
@@ -652,7 +669,15 @@ def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
         a = np.asarray(a) if idx is None else np.asarray(a)[idx]
         return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
 
+    def quantized(d, idx=None):
+        q = np.asarray(d["q"]) if idx is None else np.asarray(d["q"])[idx]
+        return {"q": torch.from_numpy(np.asarray(q, dtype=np.int8).copy()),
+                "scale": torch.from_numpy(np.asarray(d["scale"],
+                                                     dtype=np.float32).copy())}
+
     def tree(d, idx=None):
+        if is_quantized(d):
+            return quantized(d, idx)
         return {k: (tree(v, idx) if isinstance(v, dict) else t(v, idx))
                 for k, v in d.items()}
 
@@ -665,7 +690,9 @@ def params_from_jax(np_params, cfg: ArchConfig) -> Dict[str, Any]:
            "layers": layers}
     for name in ("head", "pos_embed", "enc_pos"):
         if name in np_params:
-            out[name] = t(np_params[name])
+            out[name] = (quantized(np_params[name])
+                         if is_quantized(np_params[name])
+                         else t(np_params[name]))
     if "encoder" in np_params:
         out["encoder"] = [tree(np_params["encoder"], i)
                           for i in range(cfg.encoder_layers)]

@@ -19,6 +19,13 @@ K2's wgmma design reads, ``WGMMA_PAYLOAD_TILE`` (128 x 128) clamped to the
 extent, whatever M is (M moves only bm, which each launch's plan picks):
 :func:`default_blocks`, with no ``m_hint``.  ``blocks=`` overrides it, so
 that a parity test can hand both packages the same blocks.
+
+**Cache.**  With a packed-weight cache (``cache=``, default the process's
+``packing/cache.py::get_pack_cache()``, which is off unless
+``REPRO_TORCH_PACK_CACHE`` names a directory) every weight goes through
+``get_or_pack`` under its path in the parameter tree (``layers/3/attn/wq``;
+``prefix`` gives the path of the subtree passed in): a hit launches no
+packer.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.core.codecs import (
 from repro_torch.core.constants import WGMMA_PAYLOAD_TILE
 from repro_torch.core.policy import get_policy
 from repro_torch.core.quantization import QUANT_LEAVES
+from repro_torch.packing.cache import PackedWeightCache, get_pack_cache
 from repro_torch.packing.layout import PackedOperand
 from repro_torch.packing.pack import pack_operand
 
@@ -61,21 +69,27 @@ def payload_dtype(policy, pack_format: Optional[str] = None) -> str:
 def pack_params(params, *, policy="bf16", pack_format: Optional[str] = None,
                 leaves: Optional[Sequence[str]] = None,
                 blocks: Optional[Callable[[int, int],
-                                          Tuple[int, int]]] = None):
+                                          Tuple[int, int]]] = None,
+                cache: Optional[PackedWeightCache] = None,
+                prefix: Tuple = ()):
     """A copy of the (nested dict / list) ``params`` with eligible 2-D float
     GEMM weights and 3-D expert stacks packed (one grouped pack launch per
     stack); ``blocks(k, n) -> (bk, bn)`` defaults to
     :func:`default_blocks`.  Run it on the f32 draw: per-tile amax over
-    bf16-rounded values gives other payload bytes."""
+    bf16-rounded values gives other payload bytes.  ``cache`` and
+    ``prefix``: the module docstring."""
     dtype = payload_dtype(policy, pack_format)
     eligible = frozenset(leaves) if leaves is not None else QUANT_LEAVES
     blocks = blocks or default_blocks
+    cache = cache if cache is not None else get_pack_cache()
 
-    def walk(node, name=None):
+    def walk(node, path):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, name) for v in node)
+            return type(node)(walk(v, path + (i,))
+                              for i, v in enumerate(node))
+        name = next((p for p in reversed(path) if isinstance(p, str)), None)
         if (name not in eligible or not isinstance(node, torch.Tensor)
                 or not node.is_floating_point()):
             return node
@@ -83,9 +97,12 @@ def pack_params(params, *, policy="bf16", pack_format: Optional[str] = None,
                                     and name in MOE_GROUPED_LEAVES):
             return node
         k, n = node.shape[-2:]
-        return pack_operand(node, blocks(k, n), dtype=dtype)
+        if cache is None:
+            return pack_operand(node, blocks(k, n), dtype=dtype)
+        return cache.get_or_pack("/".join(map(str, path)), node, blocks(k, n),
+                                 dtype=dtype)
 
-    return walk(params)
+    return walk(params, tuple(prefix))
 
 
 def packed_param_bytes(params) -> int:

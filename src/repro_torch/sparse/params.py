@@ -26,6 +26,12 @@ mean over the stacked axis); the masks run on the host.
 tile the Hopper planner pins for K3's wgmma design (``core/blocking.py``),
 128 x 128 clamped to each weight's extent (``packing/params.py::
 default_blocks``; the reference's ``m_hint`` moves no Hopper block).
+
+**Cache.**  With a packed-weight cache (``cache=``, default
+``packing/cache.py::get_pack_cache()``) each weight's payload goes through
+``get_or_build`` under its path in the tree after the pattern step, so the
+key carries the pattern's digest (the layout tag): a hit builds no
+payload and launches no packer.
 """
 from __future__ import annotations
 
@@ -33,9 +39,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import segment_pattern
 from repro_torch.core.codecs import dtype_name
-from repro_torch.core.quantization import QUANT_LEAVES
+from repro_torch.core.quantization import (
+    QUANT_LEAVES, copy_tree, group_key, layer_groups, set_leaf, tree_leaves,
+)
+from repro_torch.packing.cache import PackedWeightCache, get_pack_cache
 from repro_torch.packing.params import (
     MOE_GROUPED_LEAVES, default_blocks, payload_dtype,
 )
@@ -56,48 +64,6 @@ def nm_for_sparsity(sparsity: float) -> Tuple[int, int]:
     serve CLI derives it: the level rounds to the NEAREST multiple of
     1/4, keeping at least one tile of every four."""
     return max(1, round((1.0 - sparsity) * M_BLOCK)), M_BLOCK
-
-
-def _leaves(node, path=()):
-    """(path, tensor) for every tensor of a nested dict / list."""
-    if isinstance(node, dict):
-        for k, v in node.items():
-            yield from _leaves(v, path + (k,))
-    elif isinstance(node, (list, tuple)):
-        for i, v in enumerate(node):
-            yield from _leaves(v, path + (i,))
-    elif isinstance(node, torch.Tensor):
-        yield path, node
-
-
-def _copy(node):
-    if isinstance(node, dict):
-        return {k: _copy(v) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_copy(v) for v in node)
-    return node
-
-
-def _set(tree, path, value):
-    for key in path[:-1]:
-        tree = tree[key]
-    tree[path[-1]] = value
-
-
-def _layer_groups(n_layers: int, cfg) -> List[Tuple]:
-    """The sharing group of each entry of ``params["layers"]``."""
-    unit, n_units, _ = segment_pattern(cfg.pattern)
-    stacked = n_units * len(unit)
-    return [("stack", i % len(unit)) if i < stacked else ("tail", i)
-            for i in range(n_layers)]
-
-
-def _group_key(path, layer_groups):
-    if path[0] == "layers":
-        return ("layers", layer_groups[path[1]]) + path[2:]
-    if path[0] == "encoder":
-        return ("encoder",) + path[2:]
-    return path
 
 
 def _eligible(path, leaf) -> Optional[bool]:
@@ -138,7 +104,8 @@ def _shared_layout(members: Sequence[torch.Tensor], grouped: bool, blocks,
 def sparsify_params(params, *, cfg, density: float = 0.5,
                     method: str = "magnitude", nm: Tuple[int, int] = (2, 4),
                     policy="bf16",
-                    blocks: Optional[Tuple[int, int]] = None):
+                    blocks: Optional[Tuple[int, int]] = None,
+                    cache: Optional[PackedWeightCache] = None):
     """A copy of ``params`` with every eligible GEMM weight replaced by its
     tile-sparse operand, built on the weight's device (one K6 pack launch
     per weight on the card).
@@ -146,22 +113,24 @@ def sparsify_params(params, *, cfg, density: float = 0.5,
     ``density`` is the kept-tile fraction of the magnitude method;
     ``method="nm"`` keeps ``nm = (n_keep, m_block)`` of every ``m_block``
     k-tiles of each output column instead.  ``cfg`` (the model's
-    ``ArchConfig``) gives the sharing groups of ``params["layers"]``.
+    ``ArchConfig``) gives the sharing groups of ``params["layers"]``;
+    ``cache``: the module docstring.
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; valid: {METHODS}")
     dtype = payload_dtype(policy)
-    layer_groups = _layer_groups(len(params.get("layers", ())), cfg)
+    cache = cache if cache is not None else get_pack_cache()
+    shared = layer_groups(len(params.get("layers", ())), cfg)
     groups: Dict[Tuple, List[Tuple[Tuple, torch.Tensor]]] = {}
     kinds: Dict[Tuple, bool] = {}
-    for path, leaf in _leaves(params):
+    for path, leaf in tree_leaves(params):
         grouped = _eligible(path, leaf)
         if grouped is None:
             continue
-        key = _group_key(path, layer_groups)
+        key = group_key(path, shared)
         groups.setdefault(key, []).append((path, leaf))
         kinds[key] = grouped
-    out = _copy(params)
+    out = copy_tree(params)
     for key, members in groups.items():
         weights = [w for _, w in members]
         shapes = {tuple(w.shape) for w in weights}
@@ -172,10 +141,17 @@ def sparsify_params(params, *, cfg, density: float = 0.5,
                                 method=method, density=density, nm=nm)
         indptr = indices = None
         for path, w in members:
-            payload, scales = build_payload(w, layout)
+            if cache is None:
+                payload, scales = build_payload(w, layout)
+            else:
+                op = cache.get_or_build(
+                    "/".join(map(str, path)), w, layout,
+                    lambda: TileSparseOperand(*build_payload(w, layout),
+                                              layout))
+                payload, scales = op.payload, op.scales
             op = TileSparseOperand(payload, scales, layout, indptr, indices)
             indptr, indices = op.indptr, op.indices   # one copy per group
-            _set(out, path, op)
+            set_leaf(out, path, op)
     return out
 
 
@@ -201,10 +177,10 @@ def sparse_param_density(params, cfg) -> float:
     is none), each group of layers that shares one pattern counted once --
     the reference's one stacked leaf (``sparsify_params`` builds the same
     groups from ``cfg``, the model's ``ArchConfig``)."""
-    layer_groups = _layer_groups(len(params.get("layers", ())), cfg)
+    shared = layer_groups(len(params.get("layers", ())), cfg)
     layouts = {}
     for path, op in _sparse_leaves(params):
-        layouts.setdefault(_group_key(path, layer_groups), op.layout)
+        layouts.setdefault(group_key(path, shared), op.layout)
     ntiles = sum(lay.ntiles for lay in layouts.values())
     return (sum(lay.nnz for lay in layouts.values()) / ntiles if ntiles
             else 1.0)

@@ -2919,3 +2919,82 @@ def test_plan_outside_the_kernel_limits_raises(gen, case):
                 launch()
     finally:
         pc.reset_plan_cache()
+
+
+# --- static int8 storage, the long-sequence attention forms, the pack cache
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+def test_static_int8_mp_dot_on_k1_equals_its_dense_twin(gen, grouped):
+    """A ``{"q", "scale"}`` weight is dequantized to bf16 and multiplied on
+    K1's wgmma design: bit-equal to the same call on the dequantized
+    weight, and within bf16's bound of the plain version."""
+    from repro_torch.core.gemm import mp_dot, mp_dot_grouped
+    from repro_torch.core.quantization import (
+        dequantize_tensor, quantize_tensor,
+    )
+    from repro_torch.kernels.mpgemm import mpgemm, mpgemm_grouped
+
+    lead = (4,) if grouped else ()
+    x = torch.randn(*lead, 32, 3072, generator=gen, device="cuda").bfloat16()
+    w = quantize_tensor(torch.randn(*lead, 3072, 1024, generator=gen,
+                                    device="cuda") * 0.02)
+    op, kern = ((mp_dot_grouped, mpgemm_grouped) if grouped
+                else (mp_dot, mpgemm))
+    before = (kern.launches, kern.wgmma_launches)
+    got = op(x, w, policy="bf16")
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.wgmma_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    twin = op(x, dequantize_tensor(w, torch.bfloat16), policy="bf16")
+    assert torch.equal(got, twin)
+    want = op(x.cpu(), {k: v.cpu() for k, v in w.items()}, policy="bf16")
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,form", [(None, "chunked"),
+                                         (2048, "banded"), (1024, "banded")])
+def test_long_backward_forms_match_the_dense_backward(gen, window, form):
+    """t = 4096 on one head group (GQA 4:1, D 64, bf16): the gradients of
+    the form ``backward_form`` picks within bf16's bound of the dense
+    backward's (the largest |grad| as the scale)."""
+    from repro_torch.models import attention as A
+
+    t = 4096
+    assert A.backward_form(t, t, causal=True, window=window) == form
+    q = torch.randn(1, 4, t, 64, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(1, 1, t, 64, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    do = torch.randn(1, 4, t, 64, generator=gen, device="cuda").bfloat16()
+    ts = [a.requires_grad_(True) for a in (q, k, v)]
+    got = torch.autograd.grad(
+        A.attention_core(*ts, causal=True, window=window), ts, do)
+    want = torch.autograd.grad(
+        A.dense_attention(*ts, causal=True, window=window), ts, do)
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 1.6e-2 * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int4", "int8", "bfloat16"])
+def test_pack_cache_disk_hit_equals_a_fresh_k6_pack(gen, fmt, tmp_path):
+    from repro_torch.packing import pack as P
+    from repro_torch.packing.cache import PackedWeightCache
+
+    w = torch.randn(3072, 8192, generator=gen, device="cuda")
+    first = PackedWeightCache(tmp_path).get_or_pack("mlp/w_up", w,
+                                                    (128, 128), dtype=fmt)
+    launches = P.pack_operand.launches
+    cache = PackedWeightCache(tmp_path)
+    hit = cache.get_or_pack("mlp/w_up", w, (128, 128), dtype=fmt)
+    assert (cache.hits, P.pack_operand.launches) == (1, launches)
+    fresh = P.pack_operand(w, (128, 128), dtype=fmt)
+    for op in (first, hit):
+        assert op.payload.device.type == "cuda"
+        assert torch.equal(op.payload.view(torch.uint8),
+                           fresh.payload.view(torch.uint8))
+        assert (op.scales is None and fresh.scales is None) or torch.equal(
+            op.scales, fresh.scales)
